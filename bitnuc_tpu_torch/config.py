@@ -1,0 +1,64 @@
+"""Backend selection: the hand-written CUDA kernels or their plain twins.
+
+The counterpart of ``bitnuc_tpu/config.py``. Every kernel of the port has
+a plain PyTorch version of the same function beside it, bit-identical by
+contract:
+
+* ``auto`` (default): the kernel for CUDA tensors, the plain version for
+  CPU tensors. The choice follows the device of the tensor alone.
+* ``torch``: the plain version everywhere. It exists for comparisons.
+* ``kernel``: the kernel everywhere; a CPU tensor raises.
+
+Set it with the ``BITNUC_TORCH_BACKEND`` environment variable or, for a
+block of code, ``with bitnuc_tpu_torch.config.backend("torch"): ...``.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+
+import torch
+
+_VALID = ("auto", "torch", "kernel")
+_backend = os.environ.get("BITNUC_TORCH_BACKEND", "auto")
+if _backend not in _VALID:
+    raise ValueError(
+        f"BITNUC_TORCH_BACKEND must be one of {_VALID}, got {_backend!r}"
+    )
+
+
+def get_backend() -> str:
+    return _backend
+
+
+def set_backend(name: str) -> None:
+    global _backend
+    if name not in _VALID:
+        raise ValueError(f"backend must be one of {_VALID}, got {name!r}")
+    _backend = name
+
+
+@contextlib.contextmanager
+def backend(name: str):
+    """Temporarily select a backend: ``with config.backend("torch"): ...``."""
+    old = get_backend()
+    set_backend(name)
+    try:
+        yield
+    finally:
+        set_backend(old)
+
+
+def use_kernel(t: torch.Tensor) -> bool:
+    """True when the call on tensor ``t`` must go to the CUDA kernel.
+
+    Under ``kernel`` this is True for a CPU tensor too, and the kernel's
+    wrapper then raises: there is no silent fallback to the plain version.
+    """
+    b = get_backend()
+    if b == "kernel":
+        return True
+    if b == "torch":
+        return False
+    return t.is_cuda
