@@ -2,13 +2,22 @@
 
 It keeps the JAX package's packed layout (2-bit codes, 16 bases per 32-bit
 word, word pairs equal to the reference's u64 words) and its module names,
-and runs the packed-reads main path on an NVIDIA GPU through hand-written
-CUDA kernels (``csrc/``), each with a plain PyTorch version beside it for
-CPU tensors:
+and runs the packed-reads main path and the large-k counting and set-algebra
+path on an NVIDIA GPU through hand-written CUDA kernels (``csrc/``), each
+with a plain PyTorch version beside it for CPU tensors:
 
 * ``ops.codec.encode_reads`` — K1 ``pack``
-* ``ops.kmer.count_kmers_reads`` — K3a ``hist_keys``, K3b ``hist_words``
+* ``ops.codec.decode_reads`` (``PackedReads.to_ascii``, ``unpack_kmers``)
+  — K2 ``unpack``
+* ``ops.kmer.count_kmers_reads`` (dense, k <= 12) — K3a ``hist_keys``, K3b
+  ``hist_words``
 * ``PackedDB.distances`` / ``distances_batch`` — K4/K5 ``hdist_scan``
+* ``ops.setops.combine_counts`` (through ``ops.merge.merge_sorted``) — K7
+  ``merge``
+
+Sort-based counting for any k <= 32 (``count_kmers_sorted``,
+``count_kmers_runs``, and ``pipeline.count_fastq``/``count_fasta`` above
+k = 12) sorts with ``torch.sort``.
 
 Device words are int32 bit-views of the JAX package's uint32 words
 (``utils/bitops.py``). This package imports neither jax nor bitnuc_tpu.
@@ -27,10 +36,18 @@ from .errors import (  # noqa: F401
 )
 from .ops.analysis import base_counts_reads, gc_content_reads  # noqa: F401
 from .ops.codec import decode_reads, encode_reads  # noqa: F401
-from .ops.kmer import count_kmers_reads, spectrum, top_kmers  # noqa: F401
+from .ops.kmer import (  # noqa: F401
+    count_kmers_reads,
+    count_kmers_runs,
+    count_kmers_sorted,
+    spectrum,
+    top_kmers,
+)
 from .ops.revcomp import reverse_complement_reads  # noqa: F401
+from .ops.setops import combine_counts, combine_dicts  # noqa: F401
 from .sequence import PackedReads  # noqa: F401
 from . import io, pipeline  # noqa: F401
+from .io import read_fasta  # noqa: F401
 
 __all__ = [
     "config",
@@ -39,6 +56,11 @@ __all__ = [
     "encode_reads",
     "decode_reads",
     "count_kmers_reads",
+    "count_kmers_sorted",
+    "count_kmers_runs",
+    "combine_counts",
+    "combine_dicts",
+    "read_fasta",
     "top_kmers",
     "spectrum",
     "base_counts_reads",

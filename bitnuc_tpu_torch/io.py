@@ -1,20 +1,25 @@
-"""Persistence and FASTQ ingestion.
+"""Persistence, FASTA and FASTQ ingestion.
 
-The counterpart of the parts of ``bitnuc_tpu/io.py`` that the counting path
-needs. ``save_packed``/``load_packed`` use the JAX package's .npz keys
+The counterpart of the parts of ``bitnuc_tpu/io.py`` that the counting
+paths need. ``save_packed``/``load_packed`` use the JAX package's .npz keys
 (``words`` as uint32, ``lengths``), so either package reads the other's
 files. ``iter_fastq_batches`` frames records on the host with numpy, with
 the JAX package's byte-offset semantics (an offset is the byte just past a
 batch's last record, and ``start_offset`` resumes there), uploads each
-batch's ASCII and packs it on the device with the K1 kernel.
+batch's ASCII and packs it on the device with the K1 kernel. A ``.gz`` path
+is read through gzip; its offsets count bytes of the decompressed stream,
+as in the JAX package. ``read_fasta`` and ``_split_records_fasta`` parse
+FASTA (path, ``.gz`` path, bytes or file object).
 
-Gzip input, FASTA, prefetch threads and the native scanner are later ports.
+Prefetch threads and the native scanner are later ports.
 """
 
 from __future__ import annotations
 
+import gzip
+import io as _stdio
 import os
-from typing import Iterator, Optional, Tuple, Union
+from typing import Iterator, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -26,6 +31,10 @@ from .sequence import PackedReads
 PathLike = Union[str, os.PathLike]
 
 _STREAM_BLOCK = 4 << 20  # bytes read per file chunk
+
+# True for the bytes ACGTacgt: host-side validity, as in the JAX package
+_VALID_BASE = np.zeros(256, dtype=bool)
+_VALID_BASE[np.frombuffer(b"ACGTacgt", np.uint8)] = True
 
 
 # -- checkpoint / resume ------------------------------------------------------
@@ -41,6 +50,76 @@ def load_packed(path: PathLike, device=None) -> PackedReads:
     """Load a PackedReads batch saved by either package's save_packed."""
     with np.load(path) as z:
         return PackedReads.from_numpy(z["words"], z["lengths"], device)
+
+
+# -- FASTA --------------------------------------------------------------------
+
+
+def _open(path: PathLike):
+    """Binary reader of a file, through gzip for a ``.gz`` path."""
+    return gzip.open(path, "rb") if os.fspath(path).endswith(".gz") else open(path, "rb")
+
+
+def _read_bytes(path_or_data) -> bytes:
+    """All bytes of a path (``.gz`` decompressed), a file object, or bytes."""
+    if isinstance(path_or_data, (bytes, bytearray)):
+        return bytes(path_or_data)
+    if isinstance(path_or_data, _stdio.IOBase):
+        return path_or_data.read()
+    with _open(path_or_data) as f:
+        return f.read()
+
+
+def sniff_format(path: PathLike) -> str:
+    """'fasta' | 'fastq' from the extension, else from the first byte
+    ('>' FASTA, '@' FASTQ); .gz-transparent. Raises ValueError when neither
+    identifies the file."""
+    p = os.fspath(path)
+    low = p.lower()
+    for ext, fmt in (
+        (".fa", "fasta"), (".fasta", "fasta"), (".fna", "fasta"),
+        (".fq", "fastq"), (".fastq", "fastq"),
+    ):
+        if low.endswith(ext) or low.endswith(ext + ".gz"):
+            return fmt
+    with _open(p) as f:
+        first = f.read(1)
+    if first == b">":
+        return "fasta"
+    if first == b"@":
+        return "fastq"
+    raise ValueError(f"{p}: cannot sniff format (first byte {first!r})")
+
+
+def _split_records_fasta(data: bytes) -> Tuple[List[bytes], List[bytes]]:
+    """(names, sequences) from FASTA bytes; sequences may span lines. A
+    record starts with '>' at the start of a line only ('>' is legal inside
+    a header)."""
+    names: List[bytes] = []
+    seqs: List[bytes] = []
+    body = data[1:] if data.startswith(b">") else data
+    for chunk in body.split(b"\n>") if data else []:
+        if not chunk.strip():
+            continue
+        nl = chunk.find(b"\n")
+        if nl < 0:
+            names.append(chunk.strip())
+            seqs.append(b"")
+            continue
+        names.append(chunk[:nl].strip())
+        seqs.append(chunk[nl + 1 :].replace(b"\n", b"").replace(b"\r", b""))
+    return names, seqs
+
+
+def read_fasta(
+    path_or_data, max_len: Optional[int] = None, validate: bool = True, device=None
+) -> Tuple[List[bytes], PackedReads]:
+    """Parse FASTA (path, .gz path, bytes, or file object) -> (names,
+    reads packed on ``device``)."""
+    names, seqs = _split_records_fasta(_read_bytes(path_or_data))
+    return names, PackedReads.from_ascii(
+        seqs, max_len=max_len, validate=validate, device=device
+    )
 
 
 # -- FASTQ framing ------------------------------------------------------------
@@ -65,10 +144,11 @@ def _line_spans(arr: np.ndarray):
 def _iter_fastq_record_blocks(path: PathLike, batch_size: int, start_offset: int = 0):
     """Yield (record_bytes, end_byte_offset) chunks of exactly ``batch_size``
     FASTQ records (the trailing partial group comes last). Blank lines do
-    not advance the framing; headers are checked."""
+    not advance the framing; headers are checked. Offsets of a ``.gz`` file
+    count decompressed bytes (a seek there decompresses the prefix)."""
     carry = b""
-    abs_base = start_offset  # file offset of data[0]
-    with open(path, "rb") as f:
+    abs_base = start_offset  # stream offset of data[0]
+    with _open(path) as f:
         if start_offset:
             f.seek(start_offset)
         while True:

@@ -1,17 +1,25 @@
 """Launch bookkeeping shared by the kernel wrappers.
 
 The wrappers themselves live beside their plain PyTorch versions in
-``ops/codec.py`` (``pack``), ``ops/kmer.py`` (``hist_keys``,
-``hist_words``) and ``ops/hamming.py`` (``hdist_scan``). Each adds one to
-its entry in ``LAUNCHES`` where it launches its kernel, and nowhere else,
-so a run can show that its main path went through the kernels.
+``ops/codec.py`` (``pack``, ``unpack``), ``ops/kmer.py`` (``hist_keys``,
+``hist_words``), ``ops/hamming.py`` (``hdist_scan``) and ``ops/merge.py``
+(``merge``). Each adds one to its entry in ``LAUNCHES`` where it launches
+its kernel, and nowhere else, so a run can show that its main path went
+through the kernels.
 """
 
 from __future__ import annotations
 
 import torch
 
-LAUNCHES = {"pack": 0, "hist_keys": 0, "hist_words": 0, "hdist_scan": 0}
+LAUNCHES = {
+    "pack": 0,
+    "hist_keys": 0,
+    "hist_words": 0,
+    "hdist_scan": 0,
+    "unpack": 0,
+    "merge": 0,
+}
 
 
 def reset_launches() -> None:

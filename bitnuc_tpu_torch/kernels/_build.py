@@ -39,6 +39,8 @@ _SIGNATURES = {
     "bn_hist_keys": (_P, _I64, _INT, _P, _P),
     "bn_hist_words": (_P, _P, _I64, _I64, _INT, _P, _P),
     "bn_hdist_scan": (_P, _P, _I64, _I64, _I64, _INT, _P, _P),
+    "bn_unpack": (_P, _P, _I64, _I64, _I64, _P, _P),
+    "bn_merge": (_P, _P, _P, _INT, _INT, _I64, _I64, _P),
 }
 _ERROR_STRING = "bn_error_string"  # const char* (int code)
 

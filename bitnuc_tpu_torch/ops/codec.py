@@ -2,8 +2,9 @@
 
 The counterpart of ``bitnuc_tpu/ops/codec.py``. ``encode_reads`` runs the
 hand-written K1 kernel (``csrc/pack.cu``) on CUDA tensors and its plain
-PyTorch version, ``encode_reads_torch``, on CPU tensors (see ``config``).
-``decode_reads`` is plain PyTorch on every device.
+PyTorch version, ``encode_reads_torch``, on CPU tensors (see ``config``);
+``decode_reads`` does the same with K2 (``csrc/unpack.cu``) and
+``decode_reads_torch``.
 
 Semantics, shared by both encode paths: words [..., W] (int32 bit-views,
 W even, W * 16 >= L) hold each read's bases LSB-first and are zero past
@@ -94,11 +95,11 @@ def encode_reads(
     return words.reshape(lead + words.shape[-1:]), first_bad.reshape(lead)
 
 
-def decode_reads(
+def decode_reads_torch(
     words: torch.Tensor, lengths: torch.Tensor, max_len: Optional[int] = None
 ) -> torch.Tensor:
-    """[..., W] words -> [..., max_len] uint8 ASCII, zero past each length
-    and past word capacity (plain PyTorch; the K2 kernel is a later port)."""
+    """Plain version of K2: [..., W] words -> [..., max_len] uint8 ASCII,
+    zero past each length and past the words' capacity 16 * W."""
     W = words.shape[-1]
     L = W * bitops.BASES_PER_WORD if max_len is None else int(max_len)
     codes = bitops.unpack_words(words)[..., :L]
@@ -109,6 +110,44 @@ def decode_reads(
     pos = torch.arange(L, dtype=torch.int32, device=words.device)
     keep = pos < lengths.to(torch.int32)[..., None]
     return torch.where(keep, out, torch.zeros((), dtype=torch.uint8, device=out.device))
+
+
+def decode_reads_kernel(
+    words: torch.Tensor, lengths: torch.Tensor, max_len: Optional[int] = None
+) -> torch.Tensor:
+    """K2 on the card: [B, W] int32 + [B] int32 -> [B, max_len] uint8.
+    Raises on anything but contiguous CUDA tensors."""
+    kernels.require(words, "unpack words", torch.int32, 2)
+    kernels.require(lengths, "unpack lengths", torch.int32, 1)
+    B, W = words.shape
+    if lengths.shape[0] != B or lengths.device != words.device:
+        raise ValueError("unpack: lengths must be [B] on the device of the words")
+    L = W * bitops.BASES_PER_WORD if max_len is None else int(max_len)
+    if L < 0:
+        raise ValueError(f"unpack: max_len must be >= 0, got {L}")
+    out = torch.empty((B, L), dtype=torch.uint8, device=words.device)
+    code = _build.library().bn_unpack(
+        words.data_ptr(), lengths.data_ptr(), B, W, L, out.data_ptr(),
+        kernels.stream_handle(words.device),
+    )
+    _build.check(code, "unpack")
+    kernels.LAUNCHES["unpack"] += 1
+    return out
+
+
+def decode_reads(
+    words: torch.Tensor, lengths: torch.Tensor, max_len: Optional[int] = None
+) -> torch.Tensor:
+    """Backend-dispatching batched decode: [..., W] words + [...] lengths
+    -> [..., max_len] uint8 ASCII (max_len defaults to 16 * W), zero past
+    each length and past the words' capacity."""
+    if not config.use_kernel(words):
+        return decode_reads_torch(words, lengths, max_len)
+    lead = words.shape[:-1]
+    flat = words.reshape(-1, words.shape[-1]).contiguous()
+    lens = lengths.to(torch.int32).reshape(-1).contiguous()
+    out = decode_reads_kernel(flat, lens, max_len)
+    return out.reshape(lead + out.shape[-1:])
 
 
 def validity_mask(ascii_u8: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,9 @@
-"""K-mer extraction and dense counting on packed reads.
+"""K-mer extraction and counting on packed reads.
 
-The counterpart of the dense part of ``bitnuc_tpu/ops/kmer.py``. Window p of
-a read has the key sum_j code[p+j] << 2j (as_2bit of the window), split
-into lo = bits [0, 32) and hi = bits [32, 64) as int32 bit-views.
+The counterpart of the dense and sort-based parts of
+``bitnuc_tpu/ops/kmer.py``. Window p of a read has the key
+sum_j code[p+j] << 2j (as_2bit of the window), split into lo = bits [0, 32)
+and hi = bits [32, 64) as int32 bit-views.
 
 Counting for k <= MAX_DENSE_K goes to a dense [4^k] int32 histogram through
 one of two hand-written kernels (``csrc/histogram.cu``):
@@ -13,8 +14,16 @@ one of two hand-written kernels (``csrc/histogram.cu``):
   keys, N-skip masks); invalid windows carry the sentinel 4^k.
 
 Each has its plain PyTorch version beside it, used for CPU tensors (see
-``config``). The sort-based engines for k > 12 (``sorted``, ``runs``) are a
-later port.
+``config``).
+
+Any k <= 32 also counts by sorting (``count_kmers_sorted``, and
+``count_kmers_runs``, the run-start layout the streaming accumulator and
+the set algebra use). The JAX package's ``lax.sort`` becomes a stable
+``torch.sort`` over int64 keys that order the int32 views as unsigned
+(``bitops.u64_sort_key``): the all-ones sentinel of invalid windows must
+sort last, not first as int32 -1. Rows that tie on every sort key are
+identical or are summed, so the results equal the JAX package's bit for
+bit.
 """
 
 from __future__ import annotations
@@ -28,11 +37,7 @@ from ..kernels import _build
 from ..utils import bitops
 
 MAX_DENSE_K = 12  # 4^12 = 16.7M int32 bins = 64 MiB
-
-_LATER = (
-    "the sort-based k-mer engines (modes 'sorted' and 'runs', and 'auto' "
-    "for k > 12) are not ported yet; they are the next step of the port"
-)
+SENT = bitops.ALL_ONES  # 0xFFFFFFFF: the key word of invalid and dead rows
 
 
 def _shift_positions(x: torch.Tensor, m: int) -> torch.Tensor:
@@ -230,6 +235,230 @@ def count_kmers_dense(
     return histogram_from_keys(torch.where(valid, lo, 4**k), k)
 
 
+# -- sort-based counting, any k <= 32 ------------------------------------------
+
+
+def _run_starts(*cols: torch.Tensor) -> torch.Tensor:
+    """[N] bool over sorted rows: True at row 0 and wherever any column
+    differs from the row before."""
+    first = torch.zeros(cols[0].shape[0], dtype=torch.bool, device=cols[0].device)
+    first[:1] = True
+    for c in cols:
+        first[1:] |= c[1:] != c[:-1]
+    return first
+
+
+def _rev_cummin(x: torch.Tensor) -> torch.Tensor:
+    """out[i] = min(x[i:])."""
+    return torch.flip(torch.cummin(torch.flip(x, (0,)), 0).values, (0,))
+
+
+def _sort_u32(x: torch.Tensor) -> torch.Tensor:
+    """int32 bit-views sorted in uint32 order."""
+    return bitops.flip_sign(torch.sort(bitops.flip_sign(x)).values)
+
+
+def _sort_pairs(hi: torch.Tensor, lo: torch.Tensor):
+    """(hi, lo) pairs sorted in unsigned (hi, lo) order, without payloads."""
+    v = torch.sort(bitops.u64_sort_key(hi, lo)).values
+    return bitops.flip_sign((v >> 32).to(torch.int32)), v.to(torch.int32)
+
+
+def _add_at(x: torch.Tensor, i: torch.Tensor, v: torch.Tensor) -> None:
+    """x[i] += v in place for a 0-d index tensor, with no host sync."""
+    x.index_add_(0, i.reshape(1).to(torch.int64), v.reshape(1).to(x.dtype))
+
+
+def segment_count(hi_s: torch.Tensor, lo_s: torch.Tensor, w_s: torch.Tensor):
+    """Aggregate sorted (hi, lo) key pairs into unique keys + summed weights.
+
+    Returns (u_lo, u_hi, counts, n_unique) in the count_kmers_sorted layout;
+    the trailing segment leaves n_unique when its weight is 0 (the
+    all-invalid sentinel run: a real key's segment always weighs > 0)."""
+    N = lo_s.shape[0]
+    first = _run_starts(lo_s, hi_s)
+    seg = torch.cumsum(first, 0) - 1
+    counts = torch.zeros(N, dtype=torch.int32, device=lo_s.device)
+    counts.index_add_(0, seg, w_s.to(torch.int32))
+    # every row of a segment holds its key, so colliding writes agree
+    u_lo = torch.zeros_like(lo_s).scatter_(0, seg, lo_s)
+    u_hi = torch.zeros_like(hi_s).scatter_(0, seg, hi_s)
+    last = seg[-1]
+    n_unique = (last + 1 - (counts[last] == 0).to(torch.int64)).to(torch.int32)
+    return u_lo, u_hi, counts, n_unique
+
+
+def sorted_count_from_keys(
+    lo: torch.Tensor, hi: torch.Tensor, valid: torch.Tensor, k: int
+):
+    """Sort-count raw window keys: the body of count_kmers_sorted."""
+    n_invalid = (~valid).sum(dtype=torch.int32)
+    if k <= 15:
+        # one word with headroom (4^15 - 1 < 2^32 - 1): invalid slots take
+        # the sentinel, sort last, and their count is subtracted
+        keys_s = _sort_u32(torch.where(valid, lo, SENT).reshape(-1))
+        N = keys_s.shape[0]
+        seg = torch.cumsum(_run_starts(keys_s), 0) - 1
+        counts = torch.zeros(N, dtype=torch.int32, device=keys_s.device)
+        counts.index_add_(0, seg, torch.ones_like(keys_s))
+        u_lo = torch.zeros_like(keys_s).scatter_(0, seg, keys_s)
+        last = seg[-1]
+        has_sent = keys_s[-1] == SENT
+        _add_at(counts, last, torch.where(has_sent, -n_invalid, 0))
+        _add_at(u_lo, last, torch.where(has_sent, -u_lo[last], 0))
+        n_unique = (last + 1 - has_sent.to(torch.int64)).to(torch.int32)
+        return u_lo, torch.zeros_like(u_lo), counts, n_unique
+    # k >= 16: pair sort; the weights tell the genuine all-T key from the
+    # sentinel (equal at k = 32)
+    lo = torch.where(valid, lo, SENT).reshape(-1)
+    hi = torch.where(valid, hi, SENT).reshape(-1)
+    perm = torch.sort(bitops.u64_sort_key(hi, lo)).indices
+    return segment_count(hi[perm], lo[perm], valid.reshape(-1)[perm])
+
+
+def count_kmers_sorted(
+    words: torch.Tensor,
+    lengths: torch.Tensor,
+    k: int,
+    canonical: bool = False,
+    base_valid=None,
+):
+    """Sort-based k-mer counting for any k <= 32.
+
+    Returns (keys_lo [N], keys_hi [N], counts [N] int32, n_unique 0-d
+    int32), N = window slots: rows [0, n_unique) are the distinct k-mers
+    ascending by unsigned (hi, lo) with their counts; the tail is zero."""
+    lo, hi, valid = _window_keys(words, lengths, k, canonical, base_valid)
+    return sorted_count_from_keys(lo, hi, valid, k)
+
+
+def _run_start_counts(first: torch.Tensor) -> torch.Tensor:
+    """Run lengths at run starts (0 elsewhere) for a boundary mask over a
+    sorted array: the next boundary comes from one reverse cummin."""
+    N = first.shape[0]
+    idx = torch.arange(N, dtype=torch.int32, device=first.device)
+    nb = _rev_cummin(torch.where(first, idx, N))
+    nb_excl = torch.cat([nb[1:], nb.new_full((1,), N)])
+    return torch.where(first, nb_excl - idx, 0)
+
+
+def runs_from_keys(lo: torch.Tensor, hi: torch.Tensor, valid: torch.Tensor, k: int):
+    """Sort-count raw window keys into the run-start layout.
+
+    Returns (lo_s [N], hi_s [N], counts [N], n_unique): keys ascending by
+    unsigned (hi, lo); counts[i] is the key's multiplicity at the first row
+    of its run and 0 elsewhere; sentinel (invalid) rows sort last with
+    count 0. At k = 32 the all-T key equals the sentinel, so the invalid
+    count is subtracted from the final run instead of carried as weights."""
+    n_invalid = (~valid).sum(dtype=torch.int32)
+    if k <= 15:
+        lo_s = _sort_u32(torch.where(valid, lo, SENT).reshape(-1))
+        hi_s = torch.zeros_like(lo_s)
+        first = _run_starts(lo_s)
+        is_sent = lo_s[-1] == SENT
+    else:
+        hi_s, lo_s = _sort_pairs(
+            torch.where(valid, hi, SENT).reshape(-1),
+            torch.where(valid, lo, SENT).reshape(-1),
+        )
+        first = _run_starts(lo_s, hi_s)
+        is_sent = (lo_s[-1] == SENT) & (hi_s[-1] == SENT)
+    counts = _run_start_counts(first)
+    idx = torch.arange(counts.shape[0], dtype=torch.int32, device=counts.device)
+    last_start = torch.where(first, idx, -1).max()
+    _add_at(counts, last_start, torch.where(is_sent, -n_invalid, 0))
+    return lo_s, hi_s, counts, (counts > 0).sum(dtype=torch.int32)
+
+
+def raw_window_keys(
+    words: torch.Tensor,
+    lengths: torch.Tensor,
+    k: int,
+    canonical: bool = False,
+    base_valid=None,
+):
+    """Unsorted flat window keys (lo [N], hi [N], weight [N] int32) of a
+    packed batch: weight 1 for valid windows, 0 for invalid and padding
+    slots, whose key words are garbage. The streaming accumulator's input:
+    merge_sorted_runs pushes weight-0 rows to the sentinel."""
+    lo, hi, valid = _window_keys(words, lengths, k, canonical, base_valid)
+    return lo.reshape(-1), hi.reshape(-1), valid.to(torch.int32).reshape(-1)
+
+
+def count_kmers_runs(
+    words: torch.Tensor,
+    lengths: torch.Tensor,
+    k: int,
+    canonical: bool = False,
+    base_valid=None,
+):
+    """Sort-based counting, any k <= 32, in the run-start layout (see
+    runs_from_keys); the same key -> count content as count_kmers_sorted."""
+    lo, hi, valid = _window_keys(words, lengths, k, canonical, base_valid)
+    return runs_from_keys(lo, hi, valid, k)
+
+
+def weighted_runs_from_sorted(hi_s: torch.Tensor, lo_s: torch.Tensor, w_s: torch.Tensor):
+    """Aggregate sorted (hi, lo) keys with int32 weights into run-start
+    totals, scatter- and gather-free.
+
+    With S the exclusive prefix sum of the weights, the run starting at i
+    totals S[next boundary] - S[i]; a reverse cummin of S over boundary
+    rows finds S[next boundary] because S never decreases. Returns
+    (lo_s, hi_s, totals, n_unique); zero-weight runs total 0."""
+    first = _run_starts(lo_s, hi_s)
+    w_s = w_s.to(torch.int32)
+    incl = torch.cumsum(w_s, 0, dtype=torch.int32)
+    S = incl - w_s
+    big = 2**31 - 1
+    m = _rev_cummin(torch.where(first, S, big))
+    m_excl = torch.cat([m[1:], m.new_full((1,), big)])
+    totals = torch.where(first, torch.minimum(m_excl, incl[-1]) - S, 0)
+    return lo_s, hi_s, totals, (totals > 0).sum(dtype=torch.int32)
+
+
+def merge_sorted_runs(lo: torch.Tensor, hi: torch.Tensor, counts: torch.Tensor):
+    """Merge concatenated run-start lists into one run-start list: dead
+    (count 0) rows go to the all-ones sentinel, then sort and aggregate."""
+    counts = counts.to(torch.int32)
+    dead = counts == 0
+    lo = torch.where(dead, SENT, lo)
+    hi = torch.where(dead, SENT, hi)
+    perm = torch.sort(bitops.u64_sort_key(hi, lo), stable=True).indices
+    return weighted_runs_from_sorted(hi[perm], lo[perm], counts[perm])
+
+
+def pack_runs_front(lo: torch.Tensor, hi: torch.Tensor, counts: torch.Tensor):
+    """Live runs (count > 0) to the front ascending by (hi, lo), dead rows
+    behind them. Deadness is the primary key, so a live all-ones key (the
+    k = 32 all-T k-mer) stays inside the live prefix."""
+    counts = counts.to(torch.int32)
+    perm = bitops.lex_argsort(
+        [(counts == 0).to(torch.int32), bitops.u64_sort_key(hi, lo)]
+    )
+    return lo[perm], hi[perm], counts[perm]
+
+
+def compact_live(lo: torch.Tensor, hi: torch.Tensor, counts: torch.Tensor, n_rows: int):
+    """The first ``n_rows`` rows of: live rows (count > 0) ascending by
+    unsigned (hi, lo), then dead rows under the all-ones sentinel key. The
+    negated counts break the sentinel tie, so a live all-ones key (the
+    k = 32 all-T k-mer) stays ahead of every dead row."""
+    dead = counts <= 0
+    hi_c = torch.where(dead, SENT, hi)
+    lo_c = torch.where(dead, SENT, lo)
+    perm = bitops.lex_argsort([bitops.u64_sort_key(hi_c, lo_c), -counts])[:n_rows]
+    return lo_c[perm], hi_c[perm], counts[perm]
+
+
+def compact_runs(lo: torch.Tensor, hi: torch.Tensor, counts: torch.Tensor):
+    """Host helper: run-start layout -> numpy (keys_lo uint32, keys_hi
+    uint32, counts int32) of just the distinct k-mers, ascending."""
+    counts = counts.detach().cpu().numpy()
+    m = counts > 0
+    return bitops.words_to_u32_np(lo)[m], bitops.words_to_u32_np(hi)[m], counts[m]
+
+
 def count_kmers_reads(
     words: torch.Tensor,
     lengths: torch.Tensor,
@@ -240,16 +469,23 @@ def count_kmers_reads(
 ):
     """Count k-mers over a batch of packed reads.
 
-    mode 'auto' or 'dense' with k <= MAX_DENSE_K returns the dense [4^k]
-    int32 histogram (count_kmers_dense); canonical=True counts
+    mode 'dense' returns the [4^k] int32 histogram (count_kmers_dense,
+    k <= MAX_DENSE_K); 'sorted' the compacted (lo, hi, counts, n_unique)
+    of count_kmers_sorted; 'runs' the same content in the run-start layout
+    (count_kmers_runs). 'auto' and 'auto_layout' are dense for
+    k <= MAX_DENSE_K and runs above (the JAX package hands k = 9..12 to the
+    runs engine under 'auto_layout' on a TPU only). canonical=True counts
     min(kmer, revcomp(kmer)); base_valid [B, L] bool drops every window
-    holding an invalid base. The sort-based modes ('sorted', 'runs', and
-    'auto' for k > 12) raise NotImplementedError for now."""
-    if mode in ("sorted", "runs") or (mode == "auto" and k > MAX_DENSE_K):
-        raise NotImplementedError(_LATER)
-    if mode not in ("auto", "dense"):
-        raise ValueError(f"unknown mode {mode!r}")
-    return count_kmers_dense(words, lengths, k, canonical, base_valid)
+    holding an invalid base."""
+    if mode in ("auto", "auto_layout"):
+        mode = "runs" if k > MAX_DENSE_K else "dense"
+    if mode == "dense":
+        return count_kmers_dense(words, lengths, k, canonical, base_valid)
+    if mode == "sorted":
+        return count_kmers_sorted(words, lengths, k, canonical, base_valid)
+    if mode == "runs":
+        return count_kmers_runs(words, lengths, k, canonical, base_valid)
+    raise ValueError(f"unknown mode {mode!r}")
 
 
 def top_kmers(hist: torch.Tensor, n: int) -> Tuple[torch.Tensor, torch.Tensor]:

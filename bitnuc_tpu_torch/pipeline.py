@@ -1,15 +1,25 @@
-"""Streaming, restartable dense k-mer counting of FASTQ files.
+"""Streaming, restartable k-mer counting of FASTQ and FASTA files.
 
-The counterpart of ``bitnuc_tpu/pipeline.py::count_fastq`` for the dense
-engine (k <= 12) on one device. Each batch is packed on the device (K1) and
-counted into an int32 histogram there (K3a/K3b); ``_DenseAcc`` folds that
-partial into an int64 host histogram before any bin could pass 2^31, so
-totals are exact at any job size.
+The counterpart of ``bitnuc_tpu/pipeline.py``'s ``count_fastq`` and
+``count_fasta`` on one device. Each batch is packed on the device (K1).
+
+Accumulators:
+
+* k <= 12 (``_DenseAcc``): the batch is counted into an int32 device
+  histogram (K3a/K3b), folded into an int64 host histogram before any bin
+  could pass 2^31, so totals are exact at any job size.
+* k > 12 (``_SparseAcc``): the batch's raw window keys
+  (``ops.kmer.raw_window_keys``, no per-batch sort) wait on the device until
+  they fill the accumulator's capacity; one merge (``merge_sorted_runs`` and
+  a compaction sort) then folds them into the sorted run list. Capacity
+  doubles when the distinct keys pass 95% of it. The prefix sums are int32,
+  so a job holds at most 2^31 - 2 windows and refuses more.
 
 Checkpoints keep the JAX package's format: ``CKPT_VERSION`` 2, the same
-parameters and file fingerprint, and the int64 ``hist``. A checkpoint that
-either package wrote resumes in the other. Resume seeks to the stored byte
-offset, so no consumed record is parsed again.
+parameters and file fingerprint, and ``engine`` "dense" (the int64
+``hist``) or "sparse" (``lo`` and ``hi`` as uint32, ``counts`` as int32). A
+checkpoint that either package wrote resumes in the other. Resume seeks to
+the stored byte offset, so no consumed record is parsed again.
 """
 
 from __future__ import annotations
@@ -25,9 +35,13 @@ import torch
 from . import io as bnio
 from .errors import InvalidLength
 from .ops import kmer as kmer_ops
+from .sequence import PackedReads
+from .utils import bitops
 
 CKPT_VERSION = 2
 _FOLD_WINDOWS = 1 << 30  # fold the device int32 partial into int64 before this
+_SPARSE_MAX_WINDOWS = (1 << 31) - 2
+_SENT = kmer_ops.SENT
 
 
 def _file_fingerprint(path) -> dict:
@@ -61,10 +75,76 @@ class _DenseAcc:
             self.partial.zero_()
             self.windows = 0
 
+    def result(self):
+        self.fold()
+        return self.host
+
+
+def _merge_runs_device(acc, pending, cap):
+    """Merge the accumulator's run list with pending raw or run lists ->
+    (run-start list of ``cap`` rows, n_unique).
+
+    Two sorts: aggregation needs sorted order, and compaction
+    (``compact_live``) needs the deadness known only after it."""
+    parts = [acc, *pending]
+    lo = torch.cat([p[0] for p in parts])
+    hi = torch.cat([p[1] for p in parts])
+    ct = torch.cat([p[2].to(torch.int32) for p in parts])
+    lo_u, hi_u, tot, n_unique = kmer_ops.merge_sorted_runs(lo, hi, ct)
+    return kmer_ops.compact_live(lo_u, hi_u, tot, cap), n_unique
+
+
+class _SparseAcc:
+    """Device-resident run-list accumulator (lo, hi, counts of ``cap``
+    rows) with deferred merging and capacity doubling. Pending entries are
+    raw window keys (weight 0 on invalid slots) or sorted run lists (a
+    resumed checkpoint's state): the merge sorts whatever it is fed."""
+
+    def __init__(self, cap, device, state=None):
+        self.cap = int(cap)
+        self.state = state or (
+            torch.full((self.cap,), _SENT, dtype=torch.int32, device=device),
+            torch.full((self.cap,), _SENT, dtype=torch.int32, device=device),
+            torch.zeros(self.cap, dtype=torch.int32, device=device),
+        )
+        self.pending = []
+        self.pending_rows = 0
+
+    def add(self, lo, hi, ct):
+        self.pending.append((lo, hi, ct))
+        self.pending_rows += int(lo.shape[0])
+        if self.pending_rows >= self.cap:
+            self.flush()
+
+    def flush(self):
+        if not self.pending:
+            return
+        while True:
+            merged, n_unique = _merge_runs_device(self.state, self.pending, self.cap)
+            if int(n_unique) <= int(0.95 * self.cap):
+                self.state = merged
+                self.pending = []
+                self.pending_rows = 0
+                return
+            self.cap *= 2  # rare: merge again at twice the capacity
+            self.state = tuple(
+                torch.cat([a, a.new_full((self.cap - a.shape[0],), fill)])
+                for a, fill in zip(self.state, (_SENT, _SENT, 0))
+            )
+
+    def to_dict(self) -> dict:
+        """{packed k-mer (hi << 32 | lo): count} of the whole job."""
+        self.flush()
+        lo, hi, counts = kmer_ops.compact_runs(*self.state)
+        keys = (hi.astype(np.uint64) << np.uint64(32)) | lo.astype(np.uint64)
+        return dict(zip(keys.tolist(), counts.tolist()))
+
 
 def _load_checkpoint(checkpoint: str, params: dict):
-    """(n_batches, offset, total_windows, hist) of a checkpoint written
-    with ``params``; any mismatch raises instead of mixing counts."""
+    """(n_batches, offset, total_windows, state) of a checkpoint written
+    with ``params``: state is the int64 hist of the dense engine or the
+    (lo uint32, hi uint32, counts int32) run list of the sparse one. Any
+    mismatch raises instead of mixing counts."""
     with np.load(checkpoint, allow_pickle=False) as z:
         if int(z["version"]) != CKPT_VERSION:
             raise ValueError(
@@ -86,12 +166,31 @@ def _load_checkpoint(checkpoint: str, params: dict):
                     f"checkpoint {checkpoint!r} was written with {key}="
                     f"{got!r}, current run has {want!r} — refusing to mix"
                 )
-        return (
-            int(z["n_batches"]),
-            int(z["offset"]),
-            int(z["total_windows"]),
-            z["hist"].astype(np.int64),
+        if params["engine"] == "dense":
+            state = z["hist"].astype(np.int64)
+        else:
+            state = (
+                z["lo"].astype(np.uint32),
+                z["hi"].astype(np.uint32),
+                z["counts"].astype(np.int32),
+            )
+        return int(z["n_batches"]), int(z["offset"]), int(z["total_windows"]), state
+
+
+def _check_on_invalid(on_invalid: str) -> bool:
+    """True for "skip"; raises on anything but "raise" and "skip"."""
+    if on_invalid not in ("raise", "skip"):
+        raise ValueError(f"on_invalid must be 'raise' or 'skip', got {on_invalid!r}")
+    return on_invalid == "skip"
+
+
+def _sparse_add(acc, total_windows, words, lengths, k, canonical, base_valid):
+    if total_windows > _SPARSE_MAX_WINDOWS:
+        raise OverflowError(
+            f"sparse counts are int32-bounded at {_SPARSE_MAX_WINDOWS} windows "
+            "per job; split the input across jobs and merge the run lists"
         )
+    acc.add(*kmer_ops.raw_window_keys(words, lengths, k, canonical, base_valid))
 
 
 def count_fastq(
@@ -103,30 +202,31 @@ def count_fastq(
     validate: bool = True,
     checkpoint: Optional[str] = None,
     checkpoint_every: int = 50,
+    sparse_capacity: int = 1 << 20,
     on_invalid: str = "raise",
     on_progress=None,
     progress_every: int = 50,
     device=None,
-) -> np.ndarray:
-    """Stream a FASTQ file into a dense int64 [4^k] k-mer histogram on
+):
+    """Stream a FASTQ file (plain or ``.gz``) into k-mer counts on
     ``device`` (default: CPU), optionally crash-resumable.
 
+    Returns a dense int64 [4^k] numpy histogram for k <= 12, else a dict
+    {packed_kmer: count} (packed_kmer = hi << 32 | lo, the reference's u64).
     checkpoint: path of an .npz written every ``checkpoint_every`` batches
     (atomic rename). An existing checkpoint resumes at its stored byte
     offset after its fingerprint (file identity, k, batch_size, max_len,
     canonical, on_invalid, engine) is checked; a mismatch raises.
+    sparse_capacity: the first row capacity of the k > 12 accumulator (it
+    doubles on demand).
     on_invalid: "raise" (InvalidBase) or "skip" — drop every window holding
     an N/ambiguous base.
     on_progress: optional callable given {"batches", "reads", "bases",
-    "bases_per_sec"} every ``progress_every`` batches.
-    The sparse engine for k > 12 is a later port."""
+    "bases_per_sec"} every ``progress_every`` batches."""
     if not 1 <= k <= 32:
         raise InvalidLength(k)
-    if k > kmer_ops.MAX_DENSE_K:
-        raise NotImplementedError(kmer_ops._LATER)
-    if on_invalid not in ("raise", "skip"):
-        raise ValueError(f"on_invalid must be 'raise' or 'skip', got {on_invalid!r}")
-    skip = on_invalid == "skip"
+    skip = _check_on_invalid(on_invalid)
+    dense = k <= kmer_ops.MAX_DENSE_K
 
     params = {
         "k": k,
@@ -134,32 +234,45 @@ def count_fastq(
         "max_len": -1 if max_len is None else int(max_len),
         "canonical": int(canonical),
         "on_invalid": on_invalid,
-        "engine": "dense",
+        "engine": "dense" if dense else "sparse",
         **_file_fingerprint(path),
     }
 
     start_batches = 0
     start_offset = 0
     total_windows = 0
-    host_hist = None
+    state = None
     if checkpoint and os.path.exists(checkpoint):
-        start_batches, start_offset, total_windows, host_hist = _load_checkpoint(
+        start_batches, start_offset, total_windows, state = _load_checkpoint(
             checkpoint, params
         )
-    acc = _DenseAcc(k, device, host_hist)
+    if dense:
+        acc = _DenseAcc(k, device, state)
+    elif state is not None:
+        acc = _SparseAcc(
+            state[0].shape[0], device,
+            state=tuple(bitops.words_from_u32_np(a).to(device) for a in state),
+        )
+    else:
+        acc = _SparseAcc(sparse_capacity, device)
 
     def save(n_batches, offset):
-        acc.fold()
-        tmp = f"{checkpoint}.tmp.{os.getpid()}.npz"
-        np.savez_compressed(
-            tmp,
-            version=CKPT_VERSION,
-            n_batches=n_batches,
-            offset=offset,
-            total_windows=total_windows,
-            hist=acc.host,
+        payload = {
+            "version": CKPT_VERSION,
+            "n_batches": n_batches,
+            "offset": offset,
+            "total_windows": total_windows,
             **params,
-        )
+        }
+        if dense:
+            acc.fold()
+            payload["hist"] = acc.host
+        else:
+            acc.flush()  # the stored offset covers every pending batch
+            lo, hi, counts = (bitops.words_to_u32_np(a) for a in acc.state)
+            payload.update(lo=lo, hi=hi, counts=counts.view(np.int32))
+        tmp = f"{checkpoint}.tmp.{os.getpid()}.npz"
+        np.savez_compressed(tmp, **payload)
         os.replace(tmp, checkpoint)
 
     n_batches = start_batches
@@ -183,12 +296,17 @@ def count_fastq(
             (batch, offset), base_valid = item, None
         batch_bases = int(batch.lengths.sum())
         total_windows += batch_bases  # an upper bound of the batch's windows
-        acc.add(
-            kmer_ops.count_kmers_reads(
-                batch.words, batch.lengths, k, canonical=canonical, base_valid=base_valid
-            ),
-            batch_bases,
-        )
+        if dense:
+            acc.add(
+                kmer_ops.count_kmers_reads(
+                    batch.words, batch.lengths, k, canonical=canonical,
+                    base_valid=base_valid,
+                ),
+                batch_bases,
+            )
+        else:
+            _sparse_add(acc, total_windows, batch.words, batch.lengths, k,
+                        canonical, base_valid)
         n_batches += 1
         n_reads += len(batch)
         n_bases += batch_bases
@@ -208,5 +326,72 @@ def count_fastq(
 
     if checkpoint:
         save(n_batches, last_offset)
-    acc.fold()
-    return acc.host
+    return acc.result() if dense else acc.to_dict()
+
+
+def count_fasta(
+    path,
+    k: int,
+    canonical: bool = False,
+    on_invalid: str = "raise",
+    seg_bases: int = 1 << 24,
+    sparse_capacity: int = 1 << 20,
+    device=None,
+):
+    """Count k-mers over every contig of a FASTA file (path, .gz path, or
+    bytes) on ``device`` (default: CPU).
+
+    Each contig is counted in segments of ``seg_bases`` with a (k-1)-base
+    overlap: a segment counts exactly the windows that START in its span,
+    so the segments sum to the whole contig's count. Windows never span
+    contigs. Every segment has the same width, so every batch has one
+    shape.
+
+    Returns what count_fastq returns: an int64 [4^k] histogram for k <= 12,
+    else {packed_kmer: count}. on_invalid="skip" drops windows touching an
+    N/ambiguous base (assemblies are full of Ns); "raise" raises
+    InvalidBase."""
+    if not 1 <= k <= 32:
+        raise InvalidLength(k)
+    skip = _check_on_invalid(on_invalid)
+    seg = int(seg_bases)
+    if seg < 16:
+        raise ValueError(f"seg_bases must be >= 16, got {seg}")
+    dense = k <= kmer_ops.MAX_DENSE_K
+    acc = _DenseAcc(k, device) if dense else _SparseAcc(sparse_capacity, device)
+    _, seqs = bnio._split_records_fasta(bnio._read_bytes(path))
+    longest = max((len(c) for c in seqs), default=0)
+    seg = min(seg, longest)
+    width = seg + k - 1
+    total_windows = 0
+    for contig in seqs if longest >= k else []:
+        arr = np.frombuffer(contig, np.uint8)
+        for s in range(0, len(arr), seg):
+            # bases [s, s + seg + k - 1): the length argument restricts the
+            # window starts to [s, s + seg)
+            chunk = arr[s : s + seg + k - 1]
+            L = len(chunk)
+            if L < k:
+                continue  # shorter than a window: nothing to count
+            # a fresh buffer per segment: torch.from_numpy aliases its array
+            buf = np.zeros((1, width), np.uint8)
+            buf[0, :L] = chunk
+            lengths = np.array([L], np.int32)
+            reads = PackedReads.from_ascii(buf, lengths=lengths, validate=not skip,
+                                           device=device)
+            bv = None
+            if skip:
+                bv = bnio._VALID_BASE[buf] & (np.arange(width) < L)[None, :]
+                bv = torch.from_numpy(bv).to(device)
+            total_windows += L
+            if dense:
+                acc.add(
+                    kmer_ops.count_kmers_reads(
+                        reads.words, reads.lengths, k, canonical=canonical, base_valid=bv
+                    ),
+                    L,
+                )
+            else:
+                _sparse_add(acc, total_windows, reads.words, reads.lengths, k,
+                            canonical, bv)
+    return acc.result() if dense else acc.to_dict()

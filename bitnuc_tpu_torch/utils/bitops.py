@@ -16,7 +16,8 @@ module:
   result is masked below bit 31 anyway (``(x >> s) & 3``,
   ``& 0x55555555``) the arithmetic shift is already exact;
 * ``popcount32`` is SWAR;
-* unsigned compares flip the sign bit (``flip_sign``).
+* unsigned compares flip the sign bit (``flip_sign``), and unsigned sorts
+  go through int64 keys (``u32_sort_key``, ``u64_sort_key``).
 
 The host helpers convert between these views and the uint32/uint64 numpy
 arrays the JAX package uses.
@@ -56,6 +57,28 @@ def flip_sign(x: torch.Tensor) -> torch.Tensor:
     """Map uint32 order onto int32 order: ``a <u b`` iff
     ``flip_sign(a) < flip_sign(b)``."""
     return x ^ SIGN_BIT
+
+
+def u32_sort_key(x: torch.Tensor) -> torch.Tensor:
+    """int64 key whose signed order is the uint32 order of ``x``."""
+    return x.to(torch.int64) & 0xFFFFFFFF
+
+
+def u64_sort_key(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """One int64 key whose signed order is the unsigned lexicographic order
+    of the (hi, lo) word pairs: ((hi ^ 0x80000000) << 32) | lo."""
+    return (flip_sign(hi).to(torch.int64) << 32) | u32_sort_key(lo)
+
+
+def lex_argsort(keys) -> torch.Tensor:
+    """Stable permutation that sorts rows by ``keys`` (1-D tensors, most
+    significant first, each compared by its signed order): one stable sort
+    per key, least significant first."""
+    perm = None
+    for key in reversed(list(keys)):
+        p = torch.sort(key if perm is None else key[perm], stable=True).indices
+        perm = p if perm is None else perm[p]
+    return perm
 
 
 def ascii_to_code(ascii_u8: torch.Tensor) -> torch.Tensor:

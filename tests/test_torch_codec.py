@@ -1,6 +1,7 @@
 """bitnuc_tpu_torch codec and PackedReads against bitnuc_tpu: encode against
 encode_reads_xla and the K1 Pallas kernel in interpret mode (the plain
-version of the port's K1 runs here, on CPU tensors), decode, validity, the
+version of the port's K1 runs here, on CPU tensors), decode against
+decode_reads_xla and the K2 Pallas kernel in interpret mode, validity, the
 golden vectors, and .npz interchange. Integer outputs match exactly."""
 
 import numpy as np
@@ -12,7 +13,7 @@ import jax.numpy as jnp
 from bitnuc_tpu import io as jio
 from bitnuc_tpu.errors import InvalidBase as JInvalidBase
 from bitnuc_tpu.ops import codec as jcodec
-from bitnuc_tpu.ops.pallas import pack as jpack
+from bitnuc_tpu.ops.pallas import pack as jpack, unpack as jpallas_unpack
 from bitnuc_tpu.sequence import PackedReads as JPackedReads
 from bitnuc_tpu_torch import io as tio
 from bitnuc_tpu_torch.errors import InvalidBase
@@ -120,3 +121,59 @@ def test_packed_npz_interchange(rng, tmp_path):
     back = jio.load_packed(tmp_path / "t.npz")
     np.testing.assert_array_equal(np.asarray(back.words), np.asarray(jr.words))
     np.testing.assert_array_equal(np.asarray(back.lengths), np.asarray(jr.lengths))
+
+
+# (B, W words, lengths rule, max_len): the K2 edge shapes
+DECODE_EDGES = [
+    (1, 2, "full", 1),  # [1, 1]
+    (5, 4, "random", 33),  # [5, 33]
+    (4, 2, "zero", None),  # zero lengths
+    (6, 10, "long", 150),  # lengths past max_len (capacity 160)
+    (3, 2, "random", 48),  # max_len past the capacity 16 * W
+    (7, 4, "random", 0),
+]
+
+
+def _decode_case(rng, B, W, rule, max_len):
+    words = rng.integers(0, 2**32, size=(B, W), dtype=np.uint64).astype(np.uint32)
+    cap = 16 * W
+    L = cap if max_len is None else max_len
+    if rule == "full":
+        lens = np.full(B, min(L, cap))
+    elif rule == "random":
+        lens = rng.integers(0, min(L, cap) + 1, B)
+    elif rule == "zero":
+        lens = np.zeros(B)
+    else:
+        lens = rng.integers(L + 1, cap + 1, B)
+    return words, lens.astype(np.int32)
+
+
+@pytest.mark.parametrize("B,W,rule,max_len", DECODE_EDGES)
+def test_decode_matches_pallas_at_edges(rng, B, W, rule, max_len):
+    """The plain K2 against the Pallas kernel in interpret mode and the XLA
+    decode, batched and as the 1-D call PackedReads.__getitem__ makes."""
+    words, lens = _decode_case(rng, B, W, rule, max_len)
+    tw = torch.from_numpy(words.view(np.int32).copy())
+    got = codec.decode_reads(tw, torch.from_numpy(lens), max_len).numpy()
+    for want in (
+        jpallas_unpack.decode_reads_pallas(jnp.asarray(words), jnp.asarray(lens), max_len,
+                                           interpret=True),
+        jcodec.decode_reads_xla(jnp.asarray(words), jnp.asarray(lens), max_len),
+    ):
+        np.testing.assert_array_equal(got, np.asarray(want))
+    row = codec.decode_reads(tw[0], torch.from_numpy(lens)[0], max_len)
+    np.testing.assert_array_equal(row.numpy(), got[0])
+    assert codec.decode_reads_torch(tw, torch.from_numpy(lens), max_len).dtype == torch.uint8
+
+
+def test_decode_past_capacity_is_zero():
+    """Lengths past 16 * W decode to zeros there, as decode_reads_xla does
+    (the Pallas kernel writes 'A' for those bases instead)."""
+    words = np.array([[0x1B1B1B1B, 0xE4E4E4E4]], np.uint32)
+    lens = np.array([40], np.int32)
+    want = jcodec.decode_reads_xla(jnp.asarray(words), jnp.asarray(lens), 48)
+    got = codec.decode_reads(torch.from_numpy(words.view(np.int32).copy()),
+                             torch.from_numpy(lens), 48)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert bytes(got.numpy()[0, 32:]) == bytes(16)

@@ -1,7 +1,11 @@
 """bitnuc_tpu_torch.pipeline.count_fastq against bitnuc_tpu.pipeline on the
-same small FASTQ files: equal histograms under on_invalid 'skip' and
-'raise', crash/resume, and checkpoints that move between the packages in
-both directions. Counts match exactly."""
+same small FASTQ files, plain and .gz: equal histograms (k <= 12) and
+dicts (k > 12, the sparse engine, with and without capacity doubling)
+under on_invalid 'skip' and 'raise', crash/resume, and dense and sparse
+checkpoints that move between the packages in both directions. Counts
+match exactly."""
+
+import gzip
 
 import numpy as np
 import pytest
@@ -10,7 +14,7 @@ import torch
 from bitnuc_tpu import io as jio, pipeline as jpipeline
 from bitnuc_tpu.errors import InvalidBase as JInvalidBase
 from bitnuc_tpu_torch import io as tio, pipeline
-from bitnuc_tpu_torch.errors import InvalidBase
+from bitnuc_tpu_torch.errors import InvalidBase, InvalidLength
 from conftest import random_seq
 
 torch.set_num_threads(1)
@@ -129,7 +133,64 @@ def test_progress_hook(fastq_n):
 
 
 def test_large_k_not_ported_yet(fastq_n):
-    with pytest.raises(NotImplementedError):
-        pipeline.count_fastq(fastq_n, 21, batch_size=8, on_invalid="skip")
+    """k > 12 now runs the sparse engine and returns JAX's dict; bad
+    arguments still raise."""
+    got = pipeline.count_fastq(fastq_n, 21, batch_size=8, on_invalid="skip")
+    assert got == jpipeline.count_fastq(fastq_n, 21, batch_size=8, on_invalid="skip")
     with pytest.raises(ValueError):
         pipeline.count_fastq(fastq_n, 5, on_invalid="ignore")
+    with pytest.raises(InvalidLength):
+        pipeline.count_fastq(fastq_n, 33)
+
+
+@pytest.fixture
+def fastq_gz(tmp_path, fastq_n):
+    p = tmp_path / "ns.fq.gz"
+    p.write_bytes(gzip.compress(fastq_n.read_bytes(), compresslevel=1))
+    return p
+
+
+@pytest.mark.parametrize("k,canonical", [(13, False), (21, True), (32, True)])
+@pytest.mark.parametrize("compressed", [False, True])
+def test_count_fastq_sparse_matches_jax(fastq_n, fastq_gz, k, canonical, compressed):
+    path = fastq_gz if compressed else fastq_n
+    kw = dict(batch_size=8, canonical=canonical, on_invalid="skip")
+    want = jpipeline.count_fastq(path, k, **kw)
+    got = pipeline.count_fastq(path, k, **kw)
+    assert isinstance(got, dict) and got == want
+    # a tiny first capacity forces the accumulator to double, several times
+    assert pipeline.count_fastq(path, k, sparse_capacity=64, **kw) == want
+
+
+def test_gz_offsets_match_jax(fastq_gz):
+    want = [item[-1] for item in jio.iter_fastq_batches(
+        fastq_gz, 8, validate=False, with_offsets=True)]
+    got = [item[-1] for item in tio.iter_fastq_batches(
+        fastq_gz, 8, validate=False, with_offsets=True)]
+    assert got == want
+
+
+@pytest.mark.parametrize("writer", ["jax", "torch"])
+def test_sparse_checkpoint_moves_between_packages(fastq_n, tmp_path, monkeypatch, writer):
+    """A k = 21 checkpoint (lo/hi uint32, counts int32) written by one
+    package's crashed job resumes in the other and gives the whole job's
+    counts."""
+    ckpt = str(tmp_path / f"{writer}.npz")
+    kw = dict(batch_size=8, canonical=True, on_invalid="skip", checkpoint=ckpt,
+              checkpoint_every=2, sparse_capacity=256)
+    first, second = (jpipeline, pipeline) if writer == "jax" else (pipeline, jpipeline)
+    io_mod = jio if writer == "jax" else tio
+    monkeypatch.setattr(io_mod, "iter_fastq_batches",
+                        _crashing(io_mod.iter_fastq_batches, 3))
+    with pytest.raises(_Boom):
+        first.count_fastq(fastq_n, 21, **kw)
+    monkeypatch.undo()
+    with np.load(ckpt) as z:
+        assert int(z["n_batches"]) == 2 and str(z["engine"]) == "sparse"
+        assert z["lo"].dtype == np.uint32 and z["hi"].dtype == np.uint32
+        assert z["counts"].dtype == np.int32
+    resumed = second.count_fastq(fastq_n, 21, **kw)
+    whole = jpipeline.count_fastq(fastq_n, 21, batch_size=8, canonical=True, on_invalid="skip")
+    assert resumed == whole
+    with pytest.raises(ValueError, match="refusing to mix"):
+        pipeline.count_fastq(fastq_n, 12, **{**kw, "checkpoint": ckpt})
