@@ -14,10 +14,18 @@ with a plain PyTorch version beside it for CPU tensors:
 * ``PackedDB.distances`` / ``distances_batch`` — K4/K5 ``hdist_scan``
 * ``ops.setops.combine_counts`` (through ``ops.merge.merge_sorted``) — K7
   ``merge``
+* ``ops.align.fit_distance_span_banded`` (the fit of ``mapper.map_reads``)
+  — K8 ``fit_banded``
+* ``ops.align.sw_score`` — K9 ``sw_score``
 
 Sort-based counting for any k <= 32 (``count_kmers_sorted``,
 ``count_kmers_runs``, and ``pipeline.count_fastq``/``count_fasta`` above
-k = 12) sorts with ``torch.sort``.
+k = 12) sorts with ``torch.sort``. Short reads map with
+``mapper.MinimizerIndex.build_multi``, ``mapper.map_reads`` and
+``mapper.traceback_cigars``.
+
+Entry points that put host data on a device use the card unless their
+``device`` argument names another (``config.resolve_device``).
 
 Device words are int32 bit-views of the JAX package's uint32 words
 (``utils/bitops.py``). This package imports neither jax nor bitnuc_tpu.
@@ -46,7 +54,7 @@ from .ops.kmer import (  # noqa: F401
 from .ops.revcomp import reverse_complement_reads  # noqa: F401
 from .ops.setops import combine_counts, combine_dicts  # noqa: F401
 from .sequence import PackedReads  # noqa: F401
-from . import io, pipeline  # noqa: F401
+from . import io, mapper, pipeline  # noqa: F401
 from .io import read_fasta  # noqa: F401
 
 __all__ = [
@@ -67,6 +75,7 @@ __all__ = [
     "gc_content_reads",
     "reverse_complement_reads",
     "io",
+    "mapper",
     "pipeline",
     "NucleotideError",
     "InvalidBase",

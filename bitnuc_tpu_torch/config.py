@@ -11,6 +11,13 @@ contract:
 
 Set it with the ``BITNUC_TORCH_BACKEND`` environment variable or, for a
 block of code, ``with bitnuc_tpu_torch.config.backend("torch"): ...``.
+
+Entry points that put host data on a device (``PackedReads.from_ascii``,
+``PackedDB.load``, ``pipeline.count_fastq``, ``MinimizerIndex.build`` and
+the rest) take a ``device`` argument and use the card when it is None
+(``default_device``); without a CUDA device they raise rather than run on
+the CPU, which a caller asks for by name (``device="cpu"``). Functions
+under ``ops/`` follow the device of their input tensors.
 """
 
 from __future__ import annotations
@@ -48,6 +55,24 @@ def backend(name: str):
         yield
     finally:
         set_backend(old)
+
+
+def default_device() -> torch.device:
+    """The device of an entry point whose caller names none: the card."""
+    return torch.device("cuda")
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device`` as given, else ``default_device()``; raises when none was
+    named and no CUDA device is present."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: entry points run on the card unless the `device` "
+            "argument names another (device='cpu' runs on the CPU)"
+        )
+    return default_device()
 
 
 def use_kernel(t: torch.Tensor) -> bool:

@@ -1,0 +1,610 @@
+// K8 fit_banded and K9 sw_score: the anti-diagonal wavefronts of
+// ops/align.py, one warp per read pair.
+//
+// K8 replaces bitnuc_tpu/ops/pallas/wavefront.py::fit_distance_span_banded_pallas
+// (its pallas_call at wavefront.py:315): the fitting alignment of read a into
+// window b restricted to the band j - i in [off_lo, off_hi], returning
+// (cost, start_j, end_j) with the earliest-end, smallest-start ties of
+// ops.align.fit_distance_span_banded. K9 replaces sw_score_pallas (its
+// pallas_call at wavefront.py:482): affine-gap Smith-Waterman over all N + 1
+// lanes, (score, end_i, end_j) with max score, then the earliest diagonal,
+// then the smallest j.
+//
+// Bound on the card: integer ALU and warp shuffles. Each diagonal depends on
+// the two before it, so a read is a chain of M + N dependent steps; a step
+// is about 20 to 30 int32 operations per band cell plus a few shuffles, and
+// the inputs (a few dozen bytes per read) are read once.
+//
+// Design: one warp per read, the band in registers. Lane L holds C
+// consecutive band cells (C = ceil(K / 32), a template parameter, so the
+// arrays stay in registers) of the current and the two previous diagonals,
+// with their span origins S for K8 and the E and F planes for K9. A cell's
+// neighbours at band offsets -1, 0 and +1 are its own registers or one
+// __shfl_up_sync / __shfl_down_sync of the next lane's edge cell; the band
+// slide between diagonals (base(d) - base(d-1) in {0, 1}, base(d) -
+// base(d-2) in {0, 1, 2}) is uniform across the warp, so it selects among
+// those offsets without divergence. The warp unpacks its pair's 2-bit codes
+// into shared memory once, padded with 4 (a) and 5 (b) as ops.align._codes
+// pads them, and no [B, M + 2N] operand is ever made in device memory. The
+// per-diagonal extraction at i = m is one shuffle from the lane that holds
+// column j = d - m (K8); K9 takes a warp max and a warp min. A read stops at
+// diagonal m + n, past which no cell reaches an output. Band cells the
+// arithmetic must not see (t >= K) hold the sentinel, as out-of-band reads
+// do in ops.align._band_shift, so every band cell equals the plain
+// version's bit for bit.
+//
+// Rows wider than 32 x 32 cells (or codes too long for shared memory) take
+// the wide kernels: the same recurrence, one warp per read, but the last
+// three diagonals live in a per-warp ring in global scratch (the caller
+// allocates nwarps rings, and the warps stride over the reads), lane L
+// works cells L, L + 32, ... of a diagonal, a __syncwarp separates
+// diagonals, and the codes are read from the packed words. They are slower
+// per cell and serve inputs the register kernels cannot hold.
+#include "common.cuh"
+
+namespace {
+
+constexpr int kBig = 1 << 30;
+constexpr int kPadA = 4;
+constexpr int kPadB = 5;
+constexpr unsigned kFull = 0xFFFFFFFFu;
+constexpr int kMaxWarpsPerBlock = 8;
+constexpr int kMaxSmem = 227 * 1024;
+
+// Codes [0, 16 W) of one packed row into shared memory; `pad` at and past
+// `len`.
+__device__ __forceinline__ void unpack_row(const uint32_t* __restrict__ words,
+                                           int W, int len, uint8_t pad,
+                                           uint8_t* out, int lane) {
+  for (int x = lane; x < 16 * W; x += 32) {
+    const uint32_t w = __ldg(words + (x >> 4));
+    out[x] = x < len ? (uint8_t)((w >> (2 * (x & 15))) & 3u) : pad;
+  }
+}
+
+// Code of a at i - 1 and of b at j - 1 (the sentinels outside [0, M) and
+// [0, N), as ops.align._rev_padded and _b_shifted give them).
+__device__ __forceinline__ int code_a(const uint8_t* sa, int M, int x) {
+  return (x >= 0 && x < M) ? sa[x] : kPadA;
+}
+__device__ __forceinline__ int code_b(const uint8_t* sb, int N, int y) {
+  return (y >= 0 && y < N) ? sb[y] : kPadB;
+}
+
+// x[c + o] for a uniform offset o in {-1, 0, 1}: the lane's own register or
+// the edge cell of the lane before (l) or after (r).
+template <int C>
+__device__ __forceinline__ int at_off(const int (&x)[C], int c, int o, int l, int r) {
+  const int k = c + o;
+  return k < 0 ? l : (k >= C ? r : x[k < 0 ? 0 : (k >= C ? C - 1 : k)]);
+}
+
+template <int C>
+__global__ void fit_banded_kernel(const uint32_t* __restrict__ wa,
+                                  const int* __restrict__ la,
+                                  const uint32_t* __restrict__ wb,
+                                  const int* __restrict__ lb, int64_t B, int Wa,
+                                  int Wb, int mm, int gp, int off_lo, int K,
+                                  int smem_stride, int* __restrict__ cost,
+                                  int* __restrict__ startj,
+                                  int* __restrict__ endj) {
+  extern __shared__ uint8_t smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int64_t r = (int64_t)blockIdx.x * (blockDim.x >> 5) + warp;
+  if (r >= B) return;  // the whole warp leaves together
+  const int M = 16 * Wa, N = 16 * Wb, T = M + N;
+  uint8_t* sa = smem + warp * smem_stride;
+  uint8_t* sb = sa + M;
+  const int m = la[r], n = lb[r];
+  unpack_row(wa + r * Wa, Wa, m, kPadA, sa, lane);
+  unpack_row(wb + r * Wb, Wb, n, kPadB, sb, lane);
+  __syncwarp();
+
+  const int top = N + 1 - K > 0 ? N + 1 - K : 0;
+  auto base = [&](int d) {
+    const int v = (d + off_lo + 1) >> 1;  // floor division by 2
+    return v < 0 ? 0 : (v > top ? top : v);
+  };
+  const int t0 = lane * C;
+  int prev[C], prev2[C], sp[C], sp2[C];  // D and S of diagonals d-1, d-2
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const int t = t0 + c;
+    prev[c] = (t == 0) ? 0 : kBig;  // d = 0: D[0, 0] = 0
+    sp[c] = t < K ? t : kBig;       // S[0, j] = j
+    prev2[c] = kBig;
+    sp2[c] = t < K ? 0 : kBig;
+  }
+  int fit = (m == 0) ? 0 : kBig, ej = 0, sj = 0;
+  const int d_end = min(T, m + n);
+  int b1 = base(0), b2 = base(-1);
+  for (int d = 1; d <= d_end; ++d) {
+    const int bd = base(d);
+    const int d1 = bd - b1, d2 = bd - b2;
+    int pl = __shfl_up_sync(kFull, prev[C - 1], 1);
+    int pr = __shfl_down_sync(kFull, prev[0], 1);
+    int sl = __shfl_up_sync(kFull, sp[C - 1], 1);
+    int sr = __shfl_down_sync(kFull, sp[0], 1);
+    int ql = __shfl_up_sync(kFull, prev2[C - 1], 1);
+    int qr = __shfl_down_sync(kFull, prev2[0], 1);
+    int ul = __shfl_up_sync(kFull, sp2[C - 1], 1);
+    int ur = __shfl_down_sync(kFull, sp2[0], 1);
+    if (lane == 0) pl = sl = ql = ul = kBig;
+    if (lane == 31) pr = sr = qr = ur = kBig;
+    int nd[C], ns[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int t = t0 + c;
+      const int j = bd + t;
+      const int i = d - j;
+      // up reads band cell t + d1 of d-1, left t + d1 - 1, diag t + d2 - 1
+      // of d-2 (ops.align._band_shift with lag 0, 1, 1)
+      const int up = d1 ? at_off<C>(prev, c, 1, pl, pr) : prev[c];
+      const int s_up = d1 ? at_off<C>(sp, c, 1, sl, sr) : sp[c];
+      const int left = d1 ? prev[c] : at_off<C>(prev, c, -1, pl, pr);
+      const int s_left = d1 ? sp[c] : at_off<C>(sp, c, -1, sl, sr);
+      const int dg = d2 == 0 ? at_off<C>(prev2, c, -1, ql, qr)
+                             : (d2 == 1 ? prev2[c] : at_off<C>(prev2, c, 1, ql, qr));
+      const int s_dg = d2 == 0 ? at_off<C>(sp2, c, -1, ul, ur)
+                               : (d2 == 1 ? sp2[c] : at_off<C>(sp2, c, 1, ul, ur));
+      const int sub = code_a(sa, M, i - 1) == code_b(sb, N, j - 1) ? 0 : mm;
+      const int c_diag = dg + sub, c_up = up + gp, c_left = left + gp;
+      int D = min(min(c_diag, c_up), c_left);
+      int S = min(min(c_diag == D ? s_dg : kBig, c_up == D ? s_up : kBig),
+                  c_left == D ? s_left : kBig);
+      if (j == 0) {
+        D = d * gp;
+        S = 0;
+      }
+      if (j == d) {  // free b-prefix: D[0, j] = 0, the path enters at j
+        D = 0;
+        S = j;
+      }
+      if (j > d) D = kBig;  // i < 0: no such cell
+      if (t >= K) {
+        D = kBig;
+        S = kBig;
+      }
+      nd[c] = D;
+      ns[c] = S;
+    }
+    // the cell (i = m, j = d - m), if the band holds it
+    const int jm = d - m;
+    const int th = jm - bd;
+    if (jm >= 0 && jm <= n && th >= 0 && th < K) {
+      int v = kBig, st = kBig;
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        if (t0 + c == th) {
+          v = nd[c];
+          st = ns[c];
+        }
+      }
+      v = __shfl_sync(kFull, v, th / C);
+      st = __shfl_sync(kFull, st, th / C);
+      if (v < fit) {  // strict: the earliest diagonal (smallest end) wins
+        fit = v;
+        ej = jm;
+        sj = st;
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      prev2[c] = prev[c];
+      sp2[c] = sp[c];
+      prev[c] = nd[c];
+      sp[c] = ns[c];
+    }
+    b2 = b1;
+    b1 = bd;
+  }
+  if (lane == 0) {
+    cost[r] = fit;
+    endj[r] = ej;
+    startj[r] = fit < kBig ? min(sj, ej) : 0;
+  }
+}
+
+template <int C>
+__global__ void sw_kernel(const uint32_t* __restrict__ wa,
+                          const int* __restrict__ la,
+                          const uint32_t* __restrict__ wb,
+                          const int* __restrict__ lb, int64_t B, int Wa, int Wb,
+                          int match, int mismatch, int go, int ge,
+                          int smem_stride, int* __restrict__ score,
+                          int* __restrict__ end_i, int* __restrict__ end_j) {
+  extern __shared__ uint8_t smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int64_t r = (int64_t)blockIdx.x * (blockDim.x >> 5) + warp;
+  if (r >= B) return;
+  const int M = 16 * Wa, N = 16 * Wb, T = M + N;
+  uint8_t* sa = smem + warp * smem_stride;
+  uint8_t* sb = sa + M;
+  const int m = la[r], n = lb[r];
+  unpack_row(wa + r * Wa, Wa, m, kPadA, sa, lane);
+  unpack_row(wb + r * Wb, Wb, n, kPadB, sb, lane);
+  __syncwarp();
+
+  const int t0 = lane * C;  // lane L holds columns j = t0 .. t0 + C - 1
+  int hp[C], hp2[C], ep[C], fp[C];  // H of d-1 and d-2, E and F of d-1
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    hp[c] = 0;
+    hp2[c] = 0;
+    ep[c] = -kBig;
+    fp[c] = -kBig;
+  }
+  int best = 0, bi = 0, bj = 0;
+  const int d_end = min(T, m + n);
+  for (int d = 1; d <= d_end; ++d) {
+    int hl = __shfl_up_sync(kFull, hp[C - 1], 1);
+    int el = __shfl_up_sync(kFull, ep[C - 1], 1);
+    int h2l = __shfl_up_sync(kFull, hp2[C - 1], 1);
+    if (lane == 0) hl = el = h2l = -kBig;  // x[j - 1] at j = 0
+    int nh[C], ne[C], nf[C];
+    int lbest = -1, lj = N + 1;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int j = t0 + c;
+      const int i = d - j;
+      const int h_left = c ? hp[c - 1] : hl;
+      const int e_left = c ? ep[c - 1] : el;
+      const int h_diag = c ? hp2[c - 1] : h2l;
+      const int s = code_a(sa, M, i - 1) == code_b(sb, N, j - 1) ? match : mismatch;
+      int e = max(h_left + go, e_left + ge);
+      int f = max(hp[c] + go, fp[c] + ge);
+      int h = max(max(h_diag + s, 0), max(e, f));
+      if (j == 0 || j == d) {  // boundary row and column: H = 0, no gap state
+        h = 0;
+        e = -kBig;
+        f = -kBig;
+      }
+      nh[c] = h;
+      ne[c] = e;
+      nf[c] = f;
+      const bool in_range = j >= 1 && j <= n && j <= N && i >= 1 && i <= m;
+      const int hm = in_range ? h : -1;
+      if (hm > lbest) {  // columns ascend within a lane: keep the first
+        lbest = hm;
+        lj = j;
+      }
+    }
+    const int row_best = __reduce_max_sync(kFull, lbest);
+    const int row_j = __reduce_min_sync(kFull, lbest == row_best ? lj : N + 1);
+    if (row_best > best) {  // strict: the earlier diagonal wins ties
+      best = row_best;
+      bj = row_j;
+      bi = d - row_j;
+    }
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      hp2[c] = hp[c];
+      hp[c] = nh[c];
+      ep[c] = ne[c];
+      fp[c] = nf[c];
+    }
+  }
+  if (lane == 0) {
+    score[r] = best;
+    end_i[r] = bi;
+    end_j[r] = bj;
+  }
+}
+
+// Code x of a packed row of length len, `pad` outside [0, len).
+__device__ __forceinline__ int code_at(const uint32_t* __restrict__ words,
+                                       int len, int pad, int x) {
+  return (x >= 0 && x < len)
+             ? (int)((__ldg(words + (x >> 4)) >> (2 * (x & 15))) & 3u)
+             : pad;
+}
+
+// x[k], or the sentinel for a band cell outside [0, K).
+__device__ __forceinline__ int ring_at(const int* x, int k, int K) {
+  return (k >= 0 && k < K) ? x[k] : kBig;
+}
+
+// fit_banded_kernel for any K: the ring holds D then S of three diagonals,
+// 6 K ints per warp; diagonal d lives in slot d % 3.
+__global__ void fit_banded_wide_kernel(const uint32_t* __restrict__ wa,
+                                       const int* __restrict__ la,
+                                       const uint32_t* __restrict__ wb,
+                                       const int* __restrict__ lb, int64_t B,
+                                       int Wa, int Wb, int mm, int gp,
+                                       int off_lo, int K, int* __restrict__ scratch,
+                                       int64_t nwarps, int* __restrict__ cost,
+                                       int* __restrict__ startj,
+                                       int* __restrict__ endj) {
+  const int lane = threadIdx.x & 31;
+  const int64_t gw = (int64_t)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (gw >= nwarps) return;
+  int* Dr = scratch + gw * 6 * (int64_t)K;
+  int* Sr = Dr + 3 * (int64_t)K;
+  const int M = 16 * Wa, N = 16 * Wb, T = M + N;
+  const int top = N + 1 - K > 0 ? N + 1 - K : 0;
+  auto base = [&](int d) {
+    const int v = (d + off_lo + 1) >> 1;
+    return v < 0 ? 0 : (v > top ? top : v);
+  };
+  for (int64_t r = gw; r < B; r += nwarps) {
+    const uint32_t* ra = wa + r * Wa;
+    const uint32_t* rb = wb + r * Wb;
+    const int m = la[r], n = lb[r];
+    const int ma = min(m, M), nb = min(n, N);
+    for (int t = lane; t < K; t += 32) {
+      Dr[t] = (t == 0) ? 0 : kBig;  // d = 0 in slot 0
+      Sr[t] = t;
+      Dr[2 * K + t] = kBig;  // d = -1 in slot 2
+      Sr[2 * K + t] = 0;
+    }
+    __syncwarp();
+    int fit = (m == 0) ? 0 : kBig, ej = 0, sj = 0;
+    const int d_end = min(T, m + n);
+    int b1 = base(0), b2 = base(-1);
+    for (int d = 1; d <= d_end; ++d) {
+      const int bd = base(d);
+      const int d1 = bd - b1, d2 = bd - b2;
+      const int cur = d % 3, p1 = (d + 2) % 3, p2 = (d + 1) % 3;
+      const int* P = Dr + p1 * K;
+      const int* Q = Dr + p2 * K;
+      const int* SP = Sr + p1 * K;
+      const int* SQ = Sr + p2 * K;
+      int* ND = Dr + cur * K;
+      int* NS = Sr + cur * K;
+      for (int t = lane; t < K; t += 32) {
+        const int j = bd + t;
+        const int i = d - j;
+        const int up = ring_at(P, t + d1, K), s_up = ring_at(SP, t + d1, K);
+        const int left = ring_at(P, t + d1 - 1, K), s_left = ring_at(SP, t + d1 - 1, K);
+        const int dg = ring_at(Q, t + d2 - 1, K), s_dg = ring_at(SQ, t + d2 - 1, K);
+        const int sub = code_at(ra, ma, kPadA, i - 1) == code_at(rb, nb, kPadB, j - 1) ? 0 : mm;
+        const int c_diag = dg + sub, c_up = up + gp, c_left = left + gp;
+        int D = min(min(c_diag, c_up), c_left);
+        int S = min(min(c_diag == D ? s_dg : kBig, c_up == D ? s_up : kBig),
+                    c_left == D ? s_left : kBig);
+        if (j == 0) {
+          D = d * gp;
+          S = 0;
+        }
+        if (j == d) {
+          D = 0;
+          S = j;
+        }
+        if (j > d) D = kBig;
+        ND[t] = D;
+        NS[t] = S;
+      }
+      __syncwarp();
+      const int jm = d - m;
+      const int th = jm - bd;
+      if (jm >= 0 && jm <= n && th >= 0 && th < K) {
+        const int v = ND[th];
+        if (v < fit) {
+          fit = v;
+          ej = jm;
+          sj = NS[th];
+        }
+      }
+      b2 = b1;
+      b1 = bd;
+    }
+    if (lane == 0) {
+      cost[r] = fit;
+      endj[r] = ej;
+      startj[r] = fit < kBig ? min(sj, ej) : 0;
+    }
+    __syncwarp();  // every lane has read the ring before the next read fills it
+  }
+}
+
+// sw_kernel for any N: the ring holds H of three diagonals, then E and F of
+// two, 7 (N + 1) ints per warp.
+__global__ void sw_wide_kernel(const uint32_t* __restrict__ wa,
+                               const int* __restrict__ la,
+                               const uint32_t* __restrict__ wb,
+                               const int* __restrict__ lb, int64_t B, int Wa,
+                               int Wb, int match, int mismatch, int go, int ge,
+                               int* __restrict__ scratch, int64_t nwarps,
+                               int* __restrict__ score, int* __restrict__ end_i,
+                               int* __restrict__ end_j) {
+  const int lane = threadIdx.x & 31;
+  const int64_t gw = (int64_t)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (gw >= nwarps) return;
+  const int M = 16 * Wa, N = 16 * Wb, T = M + N, L = N + 1;
+  int* H = scratch + gw * 7 * (int64_t)L;  // slot d % 3
+  int* E = H + 3 * (int64_t)L;              // slot d % 2
+  int* F = E + 2 * (int64_t)L;
+  for (int64_t r = gw; r < B; r += nwarps) {
+    const uint32_t* ra = wa + r * Wa;
+    const uint32_t* rb = wb + r * Wb;
+    const int m = la[r], n = lb[r];
+    const int ma = min(m, M), nb = min(n, N);
+    for (int j = lane; j < L; j += 32) {
+      H[j] = 0;          // d = 0
+      H[2 * L + j] = 0;  // d = -1
+      E[j] = -kBig;
+      F[j] = -kBig;
+    }
+    __syncwarp();
+    int best = 0, bi = 0, bj = 0;
+    const int d_end = min(T, m + n);
+    for (int d = 1; d <= d_end; ++d) {
+      const int* hp = H + ((d + 2) % 3) * L;
+      const int* hp2 = H + ((d + 1) % 3) * L;
+      const int* ep = E + ((d + 1) & 1) * L;
+      const int* fp = F + ((d + 1) & 1) * L;
+      int* nh = H + (d % 3) * L;
+      int* ne = E + (d & 1) * L;
+      int* nf = F + (d & 1) * L;
+      int lbest = -1, lj = N + 1;
+      for (int j = lane; j < L; j += 32) {
+        const int i = d - j;
+        const int h_left = j ? hp[j - 1] : -kBig;
+        const int e_left = j ? ep[j - 1] : -kBig;
+        const int h_diag = j ? hp2[j - 1] : -kBig;
+        const int s = code_at(ra, ma, kPadA, i - 1) == code_at(rb, nb, kPadB, j - 1)
+                          ? match : mismatch;
+        int e = max(h_left + go, e_left + ge);
+        int f = max(hp[j] + go, fp[j] + ge);
+        int h = max(max(h_diag + s, 0), max(e, f));
+        if (j == 0 || j == d) {
+          h = 0;
+          e = -kBig;
+          f = -kBig;
+        }
+        nh[j] = h;
+        ne[j] = e;
+        nf[j] = f;
+        const bool in_range = j >= 1 && j <= n && i >= 1 && i <= m;
+        const int hm = in_range ? h : -1;
+        if (hm > lbest) {  // columns ascend within a lane: keep the first
+          lbest = hm;
+          lj = j;
+        }
+      }
+      const int row_best = __reduce_max_sync(kFull, lbest);
+      const int row_j = __reduce_min_sync(kFull, lbest == row_best ? lj : N + 1);
+      if (row_best > best) {
+        best = row_best;
+        bj = row_j;
+        bi = d - row_j;
+      }
+      __syncwarp();  // diagonal d is whole before d + 1 reads it
+    }
+    if (lane == 0) {
+      score[r] = best;
+      end_i[r] = bi;
+      end_j[r] = bj;
+    }
+    __syncwarp();
+  }
+}
+
+// Warps per block and the dynamic shared memory of a launch: each warp
+// holds its pair's M + N codes (rounded up to 4 bytes).
+bool launch_shape(int Wa, int Wb, int* stride, int* warps, size_t* smem) {
+  *stride = (16 * (Wa + Wb) + 3) & ~3;
+  if (*stride > kMaxSmem) return false;
+  *warps = kMaxWarpsPerBlock;
+  while (*warps > 1 && *warps * *stride > 48 * 1024) --*warps;
+  *smem = (size_t)*warps * *stride;
+  return true;
+}
+
+template <typename Kern>
+int run(Kern kernel, int64_t B, int warps, size_t smem, cudaStream_t s,
+        const void* const* args) {
+  if (smem > 48 * 1024) {
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem);
+  }
+  const unsigned blocks = (unsigned)((B + warps - 1) / warps);
+  return (int)cudaLaunchKernel((const void*)kernel, dim3(blocks),
+                               dim3(32 * warps), const_cast<void**>(args), smem, s);
+}
+
+// The cells per lane a launch uses: the smallest instantiated C with
+// 32 C >= lanes, or 0 when there is none.
+int cells_per_lane(int lanes) {
+  static const int kC[] = {1, 2, 3, 4, 5, 6, 8, 12, 16, 24, 32};
+  for (int c : kC) {
+    if (32 * c >= lanes) return c;
+  }
+  return 0;
+}
+
+#define BN_CELL_CASES(X) \
+  X(1) X(2) X(3) X(4) X(5) X(6) X(8) X(12) X(16) X(24) X(32)
+
+}  // namespace
+
+// words_a [B, Wa], words_b [B, Wb] uint32; lens_a, lens_b, the three
+// outputs [B] int32; K band lanes, K < 16 Wb + 1. nwarps == 0 runs the
+// register kernel (K <= 1024, codes within shared memory); nwarps > 0 runs
+// the wide kernel with nwarps warps and scratch of nwarps * 6 K ints.
+extern "C" int bn_fit_banded(const void* words_a, const void* lens_a,
+                             const void* words_b, const void* lens_b, int64_t B,
+                             int Wa, int Wb, int mismatch, int gap, int off_lo,
+                             int K, void* scratch, int64_t nwarps, void* cost,
+                             void* startj, void* endj, void* stream) {
+  if (B < 0 || Wa < 0 || Wb < 1 || K < 2 || K >= 16 * Wb + 1 || nwarps < 0 ||
+      (nwarps > 0 && scratch == nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (B == 0) return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  int code = (int)cudaErrorInvalidValue;
+  if (nwarps > 0) {
+    const void* args[] = {&words_a, &lens_a, &words_b, &lens_b, &B,   &Wa,
+                          &Wb,      &mismatch, &gap,  &off_lo, &K,  &scratch,
+                          &nwarps,  &cost,   &startj,  &endj};
+    code = run(fit_banded_wide_kernel, nwarps, kMaxWarpsPerBlock, 0, s, args);
+  } else {
+    int stride = 0, warps = 0;
+    size_t smem = 0;
+    const int C = cells_per_lane(K);
+    if (C == 0 || !launch_shape(Wa, Wb, &stride, &warps, &smem)) {
+      return (int)cudaErrorInvalidValue;
+    }
+    const void* args[] = {&words_a, &lens_a, &words_b, &lens_b, &B,  &Wa,
+                          &Wb,      &mismatch, &gap,  &off_lo, &K,  &stride,
+                          &cost,    &startj,  &endj};
+    switch (C) {
+#define BN_FIT_CASE(c) \
+  case c:              \
+    code = run(fit_banded_kernel<c>, B, warps, smem, s, args); \
+    break;
+      BN_CELL_CASES(BN_FIT_CASE)
+#undef BN_FIT_CASE
+    }
+  }
+  const int last = (int)cudaGetLastError();  // also clears a failed launch
+  return code != 0 ? code : last;
+}
+
+// words_a [B, Wa], words_b [B, Wb] uint32; lens_a, lens_b, the three
+// outputs [B] int32; all 16 Wb + 1 lanes. nwarps == 0 runs the register
+// kernel (16 Wb + 1 <= 1024, codes within shared memory); nwarps > 0 runs
+// the wide kernel with nwarps warps and scratch of nwarps * 7 (16 Wb + 1)
+// ints.
+extern "C" int bn_sw_score(const void* words_a, const void* lens_a,
+                           const void* words_b, const void* lens_b, int64_t B,
+                           int Wa, int Wb, int match, int mismatch,
+                           int gap_open, int gap_extend, void* scratch,
+                           int64_t nwarps, void* score, void* end_i, void* end_j,
+                           void* stream) {
+  if (B < 0 || Wa < 0 || Wb < 0 || nwarps < 0 || (nwarps > 0 && scratch == nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (B == 0) return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  int code = (int)cudaErrorInvalidValue;
+  if (nwarps > 0) {
+    const void* args[] = {&words_a,  &lens_a,     &words_b, &lens_b, &B,
+                          &Wa,       &Wb,         &match,   &mismatch,
+                          &gap_open, &gap_extend, &scratch, &nwarps, &score,
+                          &end_i,    &end_j};
+    code = run(sw_wide_kernel, nwarps, kMaxWarpsPerBlock, 0, s, args);
+  } else {
+    int stride = 0, warps = 0;
+    size_t smem = 0;
+    const int C = cells_per_lane(16 * Wb + 1);
+    if (C == 0 || !launch_shape(Wa, Wb, &stride, &warps, &smem)) {
+      return (int)cudaErrorInvalidValue;
+    }
+    const void* args[] = {&words_a, &lens_a,   &words_b,  &lens_b, &B,
+                          &Wa,      &Wb,       &match,    &mismatch,
+                          &gap_open, &gap_extend, &stride, &score,
+                          &end_i,   &end_j};
+    switch (C) {
+#define BN_SW_CASE(c) \
+  case c:             \
+    code = run(sw_kernel<c>, B, warps, smem, s, args); \
+    break;
+      BN_CELL_CASES(BN_SW_CASE)
+#undef BN_SW_CASE
+    }
+  }
+  const int last = (int)cudaGetLastError();  // also clears a failed launch
+  return code != 0 ? code : last;
+}

@@ -16,6 +16,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from . import config
 from .ops import hamming
 from .utils import bitops
 
@@ -37,7 +38,9 @@ class PackedDB:
 
     @classmethod
     def from_numpy(cls, words_wm_u32: np.ndarray, n_bases: int, device=None) -> "PackedDB":
-        """From host uint32 word-major words [W, D] (the JAX layout)."""
+        """From host uint32 word-major words [W, D] (the JAX layout), on
+        ``device`` (default: the card, see ``config.resolve_device``)."""
+        device = config.resolve_device(device)
         return cls(
             words_wm=bitops.words_from_u32_np(words_wm_u32).to(device),
             n_bases=int(n_bases),

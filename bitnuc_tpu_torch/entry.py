@@ -13,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import config
 from .database import PackedDB
 from .ops import analysis, codec, kmer, revcomp
 from .utils import bitops
@@ -54,8 +55,10 @@ def forward(ascii_u8: torch.Tensor, lengths: torch.Tensor, db: PackedDB) -> dict
 
 
 def entry(device=None, **sizes):
-    """(forward, args): the step and its example inputs on ``device``.
-    The database's n_bases is min(lengths[0], 16 W), as in the JAX step."""
+    """(forward, args): the step and its example inputs on ``device``
+    (default: the card, see ``config.resolve_device``). The database's
+    n_bases is min(lengths[0], 16 W), as in the JAX step."""
+    device = config.resolve_device(device)
     ascii_np, lengths_np, db_np = example_batch(**sizes)
     n_bases = min(int(lengths_np[0]), 16 * db_np.shape[1])
     db = PackedDB.from_numpy(db_np.T, n_bases, device)

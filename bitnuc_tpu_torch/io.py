@@ -24,6 +24,7 @@ from typing import Iterator, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from . import config
 from .errors import InvalidBase
 from .ops import codec
 from .sequence import PackedReads
@@ -47,7 +48,8 @@ def save_packed(path: PathLike, reads: PackedReads) -> None:
 
 
 def load_packed(path: PathLike, device=None) -> PackedReads:
-    """Load a PackedReads batch saved by either package's save_packed."""
+    """Load a PackedReads batch saved by either package's save_packed, on
+    ``device`` (default: the card)."""
     with np.load(path) as z:
         return PackedReads.from_numpy(z["words"], z["lengths"], device)
 
@@ -115,7 +117,7 @@ def read_fasta(
     path_or_data, max_len: Optional[int] = None, validate: bool = True, device=None
 ) -> Tuple[List[bytes], PackedReads]:
     """Parse FASTA (path, .gz path, bytes, or file object) -> (names,
-    reads packed on ``device``)."""
+    reads packed on ``device``, default the card)."""
     names, seqs = _split_records_fasta(_read_bytes(path_or_data))
     return names, PackedReads.from_ascii(
         seqs, max_len=max_len, validate=validate, device=device
@@ -222,7 +224,9 @@ def iter_fastq_batches(
     ``count_kmers_reads(base_valid=...)``) and then the byte offset just past
     the batch's last record (``with_offsets``); feeding that offset back as
     ``start_offset`` resumes framing at the same record boundary.
-    validate=True raises InvalidBase on the first invalid in-range base."""
+    validate=True raises InvalidBase on the first invalid in-range base.
+    ``device`` defaults to the card (``config.resolve_device``)."""
+    device = config.resolve_device(device)
     for data, end in _iter_fastq_record_blocks(path, batch_size, start_offset):
         ascii_arr, lens = fastq_to_batch(data, max_len)
         if not len(lens):

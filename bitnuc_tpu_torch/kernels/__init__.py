@@ -2,8 +2,8 @@
 
 The wrappers themselves live beside their plain PyTorch versions in
 ``ops/codec.py`` (``pack``, ``unpack``), ``ops/kmer.py`` (``hist_keys``,
-``hist_words``), ``ops/hamming.py`` (``hdist_scan``) and ``ops/merge.py``
-(``merge``). Each adds one to its entry in ``LAUNCHES`` where it launches
+``hist_words``), ``ops/hamming.py`` (``hdist_scan``), ``ops/merge.py``
+(``merge``) and ``ops/align.py`` (``fit_banded``, ``sw_score``). Each adds one to its entry in ``LAUNCHES`` where it launches
 its kernel, and nowhere else, so a run can show that its main path went
 through the kernels.
 """
@@ -19,6 +19,8 @@ LAUNCHES = {
     "hdist_scan": 0,
     "unpack": 0,
     "merge": 0,
+    "fit_banded": 0,
+    "sw_score": 0,
 }
 
 

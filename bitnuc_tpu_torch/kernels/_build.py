@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels.
 
-All of ``bitnuc_tpu_torch/csrc/*.cu`` compiles with ``nvcc`` into one shared
-library with a plain C interface, loaded with ``ctypes``. The build runs at
-first use, keyed by a hash of the sources and flags, into
+Each of ``bitnuc_tpu_torch/csrc/*.cu`` compiles with its own ``nvcc``, all
+started together, and the objects link into one shared library with a
+plain C interface, loaded with ``ctypes``. The build runs at first use,
+keyed by a hash of the sources and flags, into
 ``bitnuc_tpu_torch/_build/`` (listed in ``.gitignore``); later calls in the
 same checkout reuse the library. Nothing here runs at import time, so the
 package imports on machines with no CUDA toolkit.
@@ -27,7 +28,7 @@ BUILD_DIR = _PKG / "_build"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
@@ -41,6 +42,8 @@ _SIGNATURES = {
     "bn_hdist_scan": (_P, _P, _I64, _I64, _I64, _INT, _P, _P),
     "bn_unpack": (_P, _P, _I64, _I64, _I64, _P, _P),
     "bn_merge": (_P, _P, _P, _INT, _INT, _I64, _I64, _P),
+    "bn_fit_banded": (_P, _P, _P, _P, _I64) + (_INT,) * 6 + (_P, _I64, _P, _P, _P, _P),
+    "bn_sw_score": (_P, _P, _P, _P, _I64) + (_INT,) * 6 + (_P, _I64, _P, _P, _P, _P),
 }
 _ERROR_STRING = "bn_error_string"  # const char* (int code)
 
@@ -72,15 +75,35 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{h.hexdigest()[:16]}.{os.getpid()}"
+    nvcc = _nvcc()
+    objs, procs = [], []
+    for src in sorted(CSRC.glob("*.cu")):  # one nvcc per source, in parallel
+        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+        objs.append(obj)
+        procs.append((src, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )))
+    failed = []
+    for src, proc in procs:
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"{src.name} ({proc.returncode}):\n{log}")
     tmp = out.with_suffix(f".tmp{os.getpid()}.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp)]
-    cmd += [str(s) for s in sorted(CSRC.glob("*.cu"))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, out)  # atomic: a concurrent builder sees all or nothing
+    try:
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                               *map(str, objs)], capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
+            )
+        os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     return out
 
 

@@ -1,0 +1,52 @@
+"""Seconds to build the kernel library from nothing, two ways: one nvcc over
+every source (compiled one after another) and ``_build.build()`` (one nvcc
+per source, all started together, then a link). Both build into fresh
+temporary directories, so neither reuses the other's output.
+
+    python -m bitnuc_tpu_torch.kernels.build_time
+
+Prints one JSON object: {"serial_s": ..., "parallel_s": ..., "sources": N}.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+from . import _build
+
+
+def serial_build(out_dir: Path) -> float:
+    """The whole library from one nvcc invocation; returns seconds."""
+    srcs = [str(s) for s in sorted(_build.CSRC.glob("*.cu"))]
+    t = time.perf_counter()
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
+                    str(out_dir / "serial.so"), *srcs], check=True, capture_output=True)
+    return time.perf_counter() - t
+
+
+def parallel_build(out_dir: Path) -> float:
+    """``_build.build()`` into ``out_dir``; returns seconds."""
+    saved = _build.BUILD_DIR
+    _build.BUILD_DIR = out_dir
+    try:
+        t = time.perf_counter()
+        _build.build()
+        return time.perf_counter() - t
+    finally:
+        _build.BUILD_DIR = saved
+
+
+def main() -> None:
+    with tempfile.TemporaryDirectory() as a, tempfile.TemporaryDirectory() as b:
+        serial = serial_build(Path(a))
+        parallel = parallel_build(Path(b))
+    print(json.dumps({"serial_s": serial, "parallel_s": parallel,
+                      "sources": len(list(_build.CSRC.glob("*.cu")))}))
+
+
+if __name__ == "__main__":
+    main()

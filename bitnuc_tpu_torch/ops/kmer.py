@@ -40,11 +40,19 @@ MAX_DENSE_K = 12  # 4^12 = 16.7M int32 bins = 64 MiB
 SENT = bitops.ALL_ONES  # 0xFFFFFFFF: the key word of invalid and dead rows
 
 
-def _shift_positions(x: torch.Tensor, m: int) -> torch.Tensor:
-    """out[..., p] = x[..., p+m], zero-filled at the tail. m is static."""
+def _shift_tail(x: torch.Tensor, m: int, fill) -> torch.Tensor:
+    """out[..., p] = x[..., p+m], ``fill`` past the end. m is static."""
     if m == 0:
         return x
-    return torch.nn.functional.pad(x[..., m:], (0, m))
+    out = torch.full_like(x, fill)
+    if m < x.shape[-1]:  # else the whole row shifted out (w >= L)
+        out[..., : x.shape[-1] - m] = x[..., m:]
+    return out
+
+
+def _shift_positions(x: torch.Tensor, m: int) -> torch.Tensor:
+    """out[..., p] = x[..., p+m], zero-filled at the tail."""
+    return _shift_tail(x, m, 0)
 
 
 def _keys_u32(codes: torch.Tensor, k: int) -> torch.Tensor:
@@ -486,6 +494,133 @@ def count_kmers_reads(
     if mode == "runs":
         return count_kmers_runs(words, lengths, k, canonical, base_valid)
     raise ValueError(f"unknown mode {mode!r}")
+
+
+# -- minimizers (the mapper's seeds) -----------------------------------------
+#
+# Keys are int32 views; the sentinel 0xFFFFFFFF reads as -1, so every key
+# comparison below is made on flip_sign'ed words, where signed order is the
+# uint32 order and the sentinel is the largest key (at k = 16 the all-T key
+# equals it, as in the JAX package).
+
+
+_POS_FILL = 2**30  # position fill past the end of a row, as in the JAX package
+
+
+def _argmin_doubling(cols, w: int, fills):
+    """Sliding lexicographic min of the tuple ``cols`` (signed order, the
+    last column a position) over each w-window, by log-step doubling."""
+
+    def combine(a, b):
+        take2 = torch.zeros_like(a[0], dtype=torch.bool)
+        tie = torch.ones_like(take2)
+        for x, y in zip(a, b):
+            take2 = take2 | (tie & (y < x))
+            tie = tie & (y == x)
+        return tuple(torch.where(take2, y, x) for x, y in zip(a, b))
+
+    def shifted(c, m):
+        return tuple(_shift_tail(x, m, f) for x, f in zip(c, fills))
+
+    pows = {1: tuple(cols)}
+    m = 1
+    while 2 * m <= w:
+        pows[2 * m] = combine(pows[m], shifted(pows[m], m))
+        m *= 2
+    return combine(pows[m], shifted(pows[m], w - m))
+
+
+def _positions(shape, device) -> torch.Tensor:
+    L = shape[-1]
+    return torch.arange(L, dtype=torch.int32, device=device).expand(shape).contiguous()
+
+
+def _sliding_argmin(keys: torch.Tensor, w: int, fill) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(min value, GLOBAL position of the leftmost min) over each w-window
+    of int32-view keys compared as unsigned; ``fill`` past the row end."""
+    if w < 1:
+        raise ValueError(f"w must be >= 1, got {w}")
+    f = bitops.flip_sign
+    v, p = _argmin_doubling(
+        (f(keys), _positions(keys.shape, keys.device)), w,
+        (fill ^ bitops.SIGN_BIT, _POS_FILL),
+    )
+    return f(v), p
+
+
+def _sliding_argmin2(hi: torch.Tensor, lo: torch.Tensor, w: int, fill):
+    """(min hi, min lo, GLOBAL position of the leftmost min) per w-window
+    under unsigned lexicographic (hi, lo, pos) order."""
+    if w < 1:
+        raise ValueError(f"w must be >= 1, got {w}")
+    f = bitops.flip_sign
+    ff = fill ^ bitops.SIGN_BIT
+    h, l, p = _argmin_doubling(
+        (f(hi), f(lo), _positions(hi.shape, hi.device)), w, (ff, ff, _POS_FILL)
+    )
+    return f(h), f(l), p
+
+
+def minimizer_positions(
+    words: torch.Tensor,
+    lengths: torch.Tensor,
+    k: int,
+    w: int,
+    canonical: bool = False,
+    base_valid=None,
+):
+    """(w,k)-minimizers with positions, k <= 16: (vals [..., L], positions
+    [..., L] int32, valid [..., L] bool). Window p covers the k-mers at
+    p..p+w-1 and is valid iff p + k + w - 1 <= length and some k-mer in
+    it is valid; vals is the sentinel and positions -1 elsewhere.
+    base_valid masks k-mers touching an invalid base out of selection."""
+    if not 1 <= k <= 16:
+        raise ValueError(f"minimizer keys are one word (1 <= k <= 16), got {k}")
+    lo, _, valid_k = _window_keys(words, lengths, k, canonical, base_valid)
+    keys = torch.where(valid_k, lo, SENT)
+    vals, pos = _sliding_argmin(keys, w, SENT)
+    L = keys.shape[-1]
+    p_idx = torch.arange(L, dtype=torch.int32, device=keys.device)
+    valid = p_idx <= (lengths.to(torch.int32)[..., None] - (k + w - 1))
+    valid = valid & (vals != SENT)
+    return torch.where(valid, vals, SENT), torch.where(valid, pos, -1), valid
+
+
+def minimizer_positions64(
+    words: torch.Tensor,
+    lengths: torch.Tensor,
+    k: int,
+    w: int,
+    canonical: bool = False,
+    base_valid=None,
+):
+    """minimizer_positions with (lo, hi) pair keys, k <= 31 (the all-T
+    32-mer equals the sentinel pair): (lo, hi, positions, valid)."""
+    if not 1 <= k <= 31:
+        raise ValueError(f"minimizer keys must leave sentinel headroom (1 <= k <= 31), got {k}")
+    lo, hi, valid_k = _window_keys(words, lengths, k, canonical, base_valid)
+    lo = torch.where(valid_k, lo, SENT)
+    hi = torch.where(valid_k, hi, SENT)
+    hi_m, lo_m, pos = _sliding_argmin2(hi, lo, w, SENT)
+    L = lo.shape[-1]
+    p_idx = torch.arange(L, dtype=torch.int32, device=lo.device)
+    valid = p_idx <= (lengths.to(torch.int32)[..., None] - (k + w - 1))
+    valid = valid & ((hi_m != SENT) | (lo_m != SENT))
+    return (
+        torch.where(valid, lo_m, SENT),
+        torch.where(valid, hi_m, SENT),
+        torch.where(valid, pos, -1),
+        valid,
+    )
+
+
+def minimizer_sketch_mask(positions: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """True where a valid window's minimizer position differs from the
+    previous window's: one selected window per minimizer occurrence."""
+    prev = torch.cat(
+        [torch.full_like(positions[..., :1], -2), positions[..., :-1]], dim=-1
+    )
+    return valid & (positions != prev)
 
 
 def top_kmers(hist: torch.Tensor, n: int) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -32,7 +32,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from . import io as bnio
+from . import config, io as bnio
 from .errors import InvalidLength
 from .ops import kmer as kmer_ops
 from .sequence import PackedReads
@@ -209,7 +209,8 @@ def count_fastq(
     device=None,
 ):
     """Stream a FASTQ file (plain or ``.gz``) into k-mer counts on
-    ``device`` (default: CPU), optionally crash-resumable.
+    ``device`` (default: the card, see ``config.resolve_device``),
+    optionally crash-resumable.
 
     Returns a dense int64 [4^k] numpy histogram for k <= 12, else a dict
     {packed_kmer: count} (packed_kmer = hi << 32 | lo, the reference's u64).
@@ -226,6 +227,7 @@ def count_fastq(
     if not 1 <= k <= 32:
         raise InvalidLength(k)
     skip = _check_on_invalid(on_invalid)
+    device = config.resolve_device(device)
     dense = k <= kmer_ops.MAX_DENSE_K
 
     params = {
@@ -339,7 +341,7 @@ def count_fasta(
     device=None,
 ):
     """Count k-mers over every contig of a FASTA file (path, .gz path, or
-    bytes) on ``device`` (default: CPU).
+    bytes) on ``device`` (default: the card, see ``config.resolve_device``).
 
     Each contig is counted in segments of ``seg_bases`` with a (k-1)-base
     overlap: a segment counts exactly the windows that START in its span,
@@ -354,6 +356,7 @@ def count_fasta(
     if not 1 <= k <= 32:
         raise InvalidLength(k)
     skip = _check_on_invalid(on_invalid)
+    device = config.resolve_device(device)
     seg = int(seg_bases)
     if seg < 16:
         raise ValueError(f"seg_bases must be >= 16, got {seg}")

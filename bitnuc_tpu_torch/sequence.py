@@ -15,6 +15,7 @@ from typing import List, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from . import config
 from .errors import InvalidBase
 from .utils import bitops
 
@@ -37,11 +38,13 @@ class PackedReads:
         validate: bool = True,
         device=None,
     ) -> "PackedReads":
-        """Pack host ASCII on ``device`` (default: CPU). ``seqs`` is a list of
-        bytes-like reads or a rectangular uint8 array [batch, L] with
-        ``lengths``; an array is copied before upload.
+        """Pack host ASCII on ``device`` (default: the card, see
+        ``config.resolve_device``). ``seqs`` is a list of bytes-like reads or
+        a rectangular uint8 array [batch, L] with ``lengths``; an array is
+        copied before upload.
 
         Raises InvalidBase on the first invalid byte when validate=True."""
+        device = config.resolve_device(device)
         ascii_arr, lens = _rectangularize(seqs, lengths, max_len)
         ascii_t = torch.from_numpy(ascii_arr).to(device)
         lens_t = torch.from_numpy(lens).to(device)
@@ -58,7 +61,9 @@ class PackedReads:
 
     @classmethod
     def from_numpy(cls, words_u32: np.ndarray, lengths: np.ndarray, device=None) -> "PackedReads":
-        """From host uint32 words [batch, W] (the JAX package's layout)."""
+        """From host uint32 words [batch, W] (the JAX package's layout), on
+        ``device`` (default: the card)."""
+        device = config.resolve_device(device)
         words = bitops.words_from_u32_np(words_u32).to(device)
         lens = torch.from_numpy(np.asarray(lengths, dtype=np.int32).copy()).to(device)
         return cls(words=words, lengths=lens)

@@ -34,9 +34,18 @@ Phases, each of which must pass:
    against combine_dicts, the plain backend, a resumed run, host oracles
    on a read subset and a contig slice, the spectrum's coverage peak, and
    a host decode of the keys.
+7. Short-read mapping of phase 6's genome and reads at the CLI defaults
+   (k = 15, w = 10, max_occ = 8): MinimizerIndex.build_multi of the FASTA's
+   contigs, map_reads in batches of 262,144 (K8 fit_banded),
+   traceback_cigars, and a local rescoring of the first batch with
+   ops.align.sw_score (K9). K8 and K9 against their plain versions at the
+   first batch's shapes and at edge shapes; one batch against the plain
+   backend; checks against the reads' true starts and strands, Hamming
+   distances and planted exact reads, on the CIGARs, and against a host
+   full-DP fit of 256 reads.
 
 The launch counters are set to 0 just before each main path (phases 4 and
-5 under the default backend, and phase 6) and read just after it; every
+5 under the default backend, phase 6 and phase 7) and read just after it; every
 kernel of that path must have launched there. The last lines printed are a
 JSON object of per-kernel
 results, the card's name and power limit from nvidia-smi, and the final
@@ -75,6 +84,31 @@ LARGE_K = 21
 SUB_RATE, N_RATE = 0.001, 0.0005
 CONTIG_ORACLE_BP = 200_000
 MERGE_ROWS = 8_388_608  # per list: the set-algebra shape of K7
+MAP_K, MAP_W, MAP_OCC, MAP_MIN_SEEDS = 15, 10, 8, 2  # bitnuc-tpu map's defaults
+SW_WINDOW = 224  # K9's rescoring window: the read plus 37 bp on each side
+ORACLE_PAIRS = 256
+
+# The least time the card could take (bound_ms): the larger of the bytes a
+# kernel must move (inputs read once, outputs written once) over the HBM
+# rate and its operations over the rate of their unit. NVIDIA H100 SXM at its
+# 1.98 GHz boost clock: 3.35 TB/s; 132 SMs x 64 int32 results per clock
+# (add, compare, min, select, shift, logic) and 16 population counts per
+# clock (NVIDIA's CUDA documentation, arithmetic instruction throughput for
+# compute capability 9.0).
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+POPC_PER_S = 132 * 16 * 1.98e9
+# int32 operations of the recurrence of one DP cell, boundaries and the
+# per-diagonal extraction left out: K8 the code compare and substitution
+# select, 3 candidate sums and 2 mins for D, 3 tie compares, 3 selects and
+# 2 mins for the span origin S; K9 the code compare and score select, 2
+# sums and a max each for E and F, a sum and 3 maxima for H. The cells are
+# those the inputs need: K8 the band's cells inside each read's matrix, K9
+# the m x n cells of each pair. K7 as a linear merge: per output row 3 key
+# compares, 2 operations to combine them into one order and the pointer step.
+FIT_OPS_PER_CELL = 15
+SW_OPS_PER_CELL = 12
+MERGE_OPS_PER_ROW = 6
 
 FAILURES = []
 
@@ -95,6 +129,24 @@ def nvidia_smi_line() -> str:
     except (OSError, subprocess.TimeoutExpired) as e:
         return f"nvidia-smi unavailable: {e}"
     return out.stdout.strip().splitlines()[0] if out.stdout.strip() else out.stderr.strip()
+
+
+def band_cells(torch, lens_a, lens_b, off_lo: int, off_hi: int, M: int, N: int) -> int:
+    """Cells of the fit's band that lie inside each read's matrix (0 <= i <=
+    m, 0 <= j <= n), summed over the batch: on diagonal d the band holds j in
+    [base(d), base(d) + K) (ops.align._band_geometry), the matrix j in
+    [max(0, d - m), min(n, d)]."""
+    from bitnuc_tpu_torch.ops import align
+
+    K, base = align._band_geometry(off_lo, off_hi, N)
+    m = torch.clamp(lens_a.long(), max=M)
+    n = torch.clamp(lens_b.long(), max=N)
+    total = torch.zeros((), dtype=torch.int64, device=m.device)
+    for d in range(1, int((m + n).max()) + 1 if m.numel() else 1):
+        lo = torch.clamp(d - m, min=base(d))
+        hi = torch.clamp(n, max=min(d, base(d) + K - 1))
+        total += torch.clamp(hi - lo + 1, min=0).sum()
+    return int(total)
 
 
 class Timer:
@@ -170,9 +222,11 @@ def make_genome(rng) -> np.ndarray:
     return g
 
 
-def sample_reads(rng, genome: np.ndarray, n: int, L: int) -> np.ndarray:
+def sample_reads(rng, genome: np.ndarray, n: int, L: int):
     """n reads of L bases from uniform positions on both strands, with
-    SUB_RATE substitutions and N_RATE Ns (ASCII [n, L])."""
+    SUB_RATE substitutions and N_RATE Ns: (ASCII [n, L], each read's true
+    forward start [n], and True where it was drawn from the reverse
+    strand [n])."""
     comp = np.arange(256, dtype=np.uint8)
     comp[np.frombuffer(b"ACGT", np.uint8)] = np.frombuffer(b"TGCA", np.uint8)
     starts = rng.integers(0, len(genome) - L + 1, n)
@@ -187,7 +241,7 @@ def sample_reads(rng, genome: np.ndarray, n: int, L: int) -> np.ndarray:
     pos = pos[flat[pos] != ord("N")]
     flat[pos] = acgt[(code[flat[pos]] + rng.integers(1, 4, pos.size)) % 4]
     flat[rng.integers(0, flat.size, rng.binomial(flat.size, N_RATE))] = ord("N")
-    return reads
+    return reads, starts, rev
 
 
 def table_to_lists(table: dict, torch, device):
@@ -237,9 +291,10 @@ def oracle_counts(seqs: np.ndarray, k: int) -> dict:
 LARGE_K_LAUNCHES = {}
 
 
-def large_k_phase(args, torch, dev, timer, tmp, results) -> None:
+def large_k_phase(args, torch, dev, timer, tmp, results):
     """Phase 6: k = 21 counts of reads and genome, set algebra (K7), decode
-    of the reads' error k-mers (K2), and the checks of all of it."""
+    of the reads' error k-mers (K2), and the checks of all of it. Returns
+    (FASTA path, genome, reads, true starts, reverse flags) for phase 7."""
     from bitnuc_tpu_torch import config, io as bnio, kernels, pipeline
     from bitnuc_tpu_torch.ops import codec, kmer, merge, setops
 
@@ -248,7 +303,7 @@ def large_k_phase(args, torch, dev, timer, tmp, results) -> None:
     rng = np.random.default_rng(args.seed + 1)
     t = time.perf_counter()
     genome = make_genome(rng)
-    reads = sample_reads(rng, genome, FASTQ_READS, READ_LEN)
+    reads, true_starts, true_rev = sample_reads(rng, genome, FASTQ_READS, READ_LEN)
     fa, fa_slice = os.path.join(tmp, "genome.fa.gz"), os.path.join(tmp, "slice.fa")
     fq, fq_small = os.path.join(tmp, "reads.fq.gz"), os.path.join(tmp, "subset21.fq")
     write_fasta(fa, b"chr1 random", genome)
@@ -410,6 +465,249 @@ def large_k_phase(args, torch, dev, timer, tmp, results) -> None:
     got = pipeline.count_fasta(fa_slice, k, canonical=True, on_invalid="skip", device=dev)
     check(f"count_fasta of the first {CONTIG_ORACLE_BP} bp == host dict oracle", got == want,
           f"{len(want)} distinct k-mers")
+    return fa, genome, reads, true_starts, true_rev
+
+
+MAP_LAUNCHES = {}
+
+
+def random_pairs(torch, gen, dev, B, Wa, Wb):
+    """B (read, window) pairs of packed words [B, Wa], [B, Wb] with int32
+    lengths: a's prefix planted in b with substitutions; random lengths
+    with empty and full sides in the first rows."""
+    from bitnuc_tpu_torch.utils import bitops
+
+    M, N = 16 * Wa, 16 * Wb
+    a = torch.randint(0, 4, (B, M), device=dev, generator=gen, dtype=torch.int32)
+    b = torch.randint(0, 4, (B, N), device=dev, generator=gen, dtype=torch.int32)
+    n = min(M, N)
+    off = (N - n) // 2
+    b[:, off : off + n] = a[:, :n]
+    if N:
+        hits = torch.rand((B, N), device=dev, generator=gen) < 0.02
+        b = torch.where(hits, (b + 1) % 4, b)
+    la = torch.randint(0, M + 1, (B,), device=dev, generator=gen, dtype=torch.int32)
+    lb = torch.randint(0, N + 1, (B,), device=dev, generator=gen, dtype=torch.int32)
+    la[:3] = torch.tensor([0, M, M], dtype=torch.int32)
+    lb[:3] = torch.tensor([N, 0, N], dtype=torch.int32)
+    return bitops.pack_codes(a), la, bitops.pack_codes(b), lb
+
+
+def ascii_codes(x: np.ndarray) -> np.ndarray:
+    """The packer's arithmetic ASCII -> 2-bit map (N packs as A)."""
+    x = x.astype(np.int32)
+    return ((x >> 1) ^ (x >> 2)) & 3
+
+
+def fit_oracle(a: np.ndarray, b: np.ndarray, mismatch: int = 1, gap: int = 1):
+    """Host full-DP fitting alignment of codes a into b: (cost, start, end)
+    with the earliest end and, among optimal paths to it, the smallest
+    start. Rows go one at a time; the left moves of a row are one
+    lexicographic running min over (cost - j * gap, start)."""
+    m, n = len(a), len(b)
+    j = np.arange(n + 1, dtype=np.int64)
+    D = np.zeros(n + 1, np.int64)  # row 0: free b-prefix, the path enters at j
+    S = j.copy()
+    shift = 1 << 21  # start < 2^21: (value, start) pairs order as one int64
+    for i in range(1, m + 1):
+        sub = np.where(b == a[i - 1], 0, mismatch)
+        diag = D[:-1] + sub
+        up = D[1:] + gap
+        X = np.minimum(diag, up)
+        SX = np.minimum(np.where(diag == X, S[:-1], 1 << 40), np.where(up == X, S[1:], 1 << 40))
+        X = np.concatenate([[i * gap], X])
+        SX = np.concatenate([[0], SX])
+        run = np.minimum.accumulate((X - j * gap) * shift + SX)
+        D = (run // shift) + j * gap
+        S = run % shift
+    end = int(np.argmin(D))
+    cost = int(D[end])
+    return cost, min(int(S[end]), end), end
+
+
+def mapping_phase(args, torch, dev, timer, results, fa, genome, reads, true_starts, true_rev,
+                  compare, timed):
+    """Phase 7: short-read mapping of phase 6's genome and reads at the CLI
+    defaults, K8 and K9 against their plain versions, and the checks."""
+    from bitnuc_tpu_torch import config, io as bnio, kernels, mapper
+    from bitnuc_tpu_torch.ops import align
+    from bitnuc_tpu_torch.sequence import PackedReads
+
+    ph = results["phases"]
+    print(f"phase 7: short-read mapping (k = {MAP_K}, w = {MAP_W}, max_occ = {MAP_OCC}, "
+          f"{len(reads)} reads x {reads.shape[1]} bp)", flush=True)
+    _, contigs = bnio._split_records_fasta(bnio._read_bytes(fa))
+    n_reads = reads.shape[0]
+    lens_np = np.full(n_reads, reads.shape[1], np.int32)
+
+    # -- the path, with the counters set to 0 just before it ---------------
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    index = mapper.MinimizerIndex.build_multi(contigs, k=MAP_K, w=MAP_W, max_occ=MAP_OCC,
+                                              device=dev)
+    torch.cuda.synchronize()
+    ph["map_index_build_s"] = time.perf_counter() - t0
+    packed = PackedReads.from_ascii(reads, lengths=lens_np, validate=False, device=dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    res = mapper.map_reads(index, packed, min_seeds=MAP_MIN_SEEDS)
+    torch.cuda.synchronize()
+    ph["map_reads_s"] = time.perf_counter() - t1
+    t2 = time.perf_counter()
+    tb = mapper.traceback_cigars(index, packed, res)
+    torch.cuda.synchronize()
+    ph["map_traceback_cigars_s"] = time.perf_counter() - t2
+    # local rescoring of the first batch: each read in forward orientation
+    # against a SW_WINDOW-bp window around its mapped start (K9)
+    nb = min(mapper.MAP_BATCH, n_reads)
+    fwd_ascii = reads[:nb].copy()
+    minus = res["strand"][:nb] == b"-"
+    comp = np.arange(256, dtype=np.uint8)
+    comp[np.frombuffer(b"ACGT", np.uint8)] = np.frombuffer(b"TGCA", np.uint8)
+    fwd_ascii[minus] = comp[fwd_ascii[minus, ::-1]]
+    w0 = np.clip(res["ref_start"][:nb].astype(np.int64) - (SW_WINDOW - reads.shape[1]) // 2,
+                 0, len(genome) - SW_WINDOW)
+    win_ascii = np.lib.stride_tricks.sliding_window_view(genome, SW_WINDOW)[w0]
+    t3 = time.perf_counter()
+    sw_a = PackedReads.from_ascii(fwd_ascii, lengths=lens_np[:nb], validate=False, device=dev)
+    sw_b = PackedReads.from_ascii(win_ascii, validate=False, device=dev)
+    sw = align.sw_score(sw_a.words, sw_a.lengths, sw_b.words, sw_b.lengths)
+    torch.cuda.synchronize()
+    ph["map_sw_rescore_s"] = time.perf_counter() - t3
+    MAP_LAUNCHES.update(kernels.LAUNCHES)
+    print(f"  launches {MAP_LAUNCHES}", flush=True)
+    for name in ("pack", "fit_banded", "sw_score"):
+        check(f"{name} launched on the mapping path", MAP_LAUNCHES[name] > 0,
+              f"{MAP_LAUNCHES[name]} launches")
+    ph["map_index_keys"] = len(index)
+    e2e = ph["map_reads_s"] + ph["map_traceback_cigars_s"]
+    ph["map_reads_per_s"] = n_reads / ph["map_reads_s"]
+    ph["map_e2e_reads_per_s"] = n_reads / e2e
+    print(f"  index build {ph['map_index_build_s']:.2f} s ({len(index)} keys); map_reads "
+          f"{ph['map_reads_s']:.2f} s ({ph['map_reads_per_s']:.0f} reads/s); traceback + "
+          f"CIGARs {ph['map_traceback_cigars_s']:.2f} s; map + CIGARs "
+          f"{ph['map_e2e_reads_per_s']:.0f} reads/s end to end; SW rescoring of {nb} pairs "
+          f"{ph['map_sw_rescore_s']:.2f} s", flush=True)
+
+    # -- where a batch's time goes -----------------------------------------
+    words_b, lens_b = packed.words[:nb], packed.lengths[:nb]
+    ph["map_seed_join_vote_ms"] = timer(
+        lambda: mapper._seed_vote(words_b, lens_b, index, mapper.BIN_BITS, mapper.PAD), 2)
+    _, _, q_words, ws, win, wlen, off_lo, off_hi = mapper._fit_operands(
+        words_b, lens_b, index, mapper.BIN_BITS, mapper.PAD)
+    t = time.perf_counter()
+    strings = align.cigars(tb["ops"])
+    ph["map_cigar_strings_s"] = time.perf_counter() - t
+    print(f"  per batch of {nb}: seeding + join + vote {ph['map_seed_join_vote_ms']:.1f} ms; "
+          f"CIGAR strings of all reads {ph['map_cigar_strings_s']:.2f} s", flush=True)
+    check("CIGAR strings are stable", [c if m else None for c, m in zip(strings, res["mapped"])]
+          == tb["cigar"])
+    del strings
+
+    # -- K8 and K9 against their plain versions -------------------------------
+    M, N = 16 * q_words.shape[1], 16 * win.shape[1]
+    K, _ = align._band_geometry(off_lo, off_hi, N)
+    label = f"[{nb}] M={M} N={N} K={K}"
+    fit_args = (q_words.contiguous(), lens_b, win.contiguous(), wlen, 1, 1, off_lo, off_hi)
+    got = align.fit_distance_span_banded_kernel(*fit_args)
+    compare("fit_banded", label, got, align.fit_distance_span_banded_torch(*fit_args))
+    cells = band_cells(torch, lens_b, wlen, off_lo, off_hi, M, N)
+    timed("fit_banded", label, lambda: align.fit_distance_span_banded_kernel(*fit_args),
+          lambda: align.fit_distance_span_banded_torch(*fit_args), reps=5, plain_reps=2,
+          main=True, nbytes=4 * nb * (q_words.shape[1] + win.shape[1]) + 8 * nb + 12 * nb,
+          ops_ms=cells * FIT_OPS_PER_CELL / INT32_OPS_PER_S * 1e3)
+    ph["fit_banded_cells"] = cells
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed + 7)
+    for B, Wa, Wb, band, costs in ((40, 4, 8, (0, 0), (1, 1)), (33, 2, 40, (-300, 700), (3, 2)),
+                                   (17, 0, 4, (-4, 4), (1, 1)), (300, 10, 15, (-8, 52), (3, 2)),
+                                   (5, 10, 15, (off_lo, off_hi), (1, 1)),
+                                   (9, 8, 100, (-1100, 1100), (1, 1))):  # K 1102: wide
+        pa = random_pairs(torch, gen, dev, B, Wa, Wb)
+        compare("fit_banded", f"[{B}] Wa={Wa} Wb={Wb} band={band} costs={costs}",
+                align.fit_distance_span_banded_kernel(*pa, *costs, *band),
+                align.fit_distance_span_banded_torch(*pa, *costs, *band))
+
+    sw_args = (sw_a.words, sw_a.lengths, sw_b.words, sw_b.lengths, 2, -3, -5, -2)
+    Ma, Nb = 16 * sw_a.words.shape[1], 16 * sw_b.words.shape[1]
+    label = f"[{nb}] M={Ma} N={Nb}"
+    compare("sw_score", label, align.sw_score_kernel(*sw_args), align.sw_score_torch(*sw_args))
+    cells = int((torch.clamp(sw_a.lengths.long(), max=Ma)
+                 * torch.clamp(sw_b.lengths.long(), max=Nb)).sum())
+    ph["sw_score_cells"] = cells
+    timed("sw_score", label, lambda: align.sw_score_kernel(*sw_args),
+          lambda: align.sw_score_torch(*sw_args), reps=5, plain_reps=2, main=True,
+          nbytes=4 * nb * (sw_a.words.shape[1] + sw_b.words.shape[1]) + 8 * nb + 12 * nb,
+          ops_ms=cells * SW_OPS_PER_CELL / INT32_OPS_PER_S * 1e3)
+    for B, Wa, Wb in ((20, 6, 0), (20, 0, 6), (7, 2, 62), (50, 4, 4), (6, 3, 80)):  # 1281: wide
+        pa = random_pairs(torch, gen, dev, B, Wa, Wb)
+        for params in ((2, -3, -5, -2), (1, -1, -2, -1)):
+            compare("sw_score", f"[{B}] Wa={Wa} Wb={Wb} params={params}",
+                    align.sw_score_kernel(*pa, *params), align.sw_score_torch(*pa, *params))
+
+    # -- one batch under the plain backend ------------------------------------
+    first = PackedReads(words=words_b, lengths=lens_b)
+    res_k = {f: v[:nb] for f, v in res.items()}
+    with config.backend("torch"):
+        res_p = mapper.map_reads(index, first)
+        tb_p = mapper.traceback_cigars(index, first, res_p)
+    check("one batch under backend('torch') == default backend, every field",
+          all(np.array_equal(res_k[f], res_p[f]) for f in res_k))
+    check("... and every CIGAR", tb_p["cigar"] == tb["cigar"][:nb]
+          and np.array_equal(tb_p["tb_cost"], tb["tb_cost"][:nb]))
+    del res_p, tb_p
+
+    # -- checks against the truth -------------------------------------------
+    L = reads.shape[1]
+    span = np.lib.stride_tricks.sliding_window_view(genome, L)[true_starts]
+    clean_span = (span != ord("N")).all(1)
+    strand_ok = (res["strand"] == b"-") == true_rev
+    placed = res["mapped"] & strand_ok & (res["ref_start"] == true_starts)
+    frac = placed[clean_span].mean()
+    ph["map_placed_fraction"] = float(frac)
+    check("reads with an N-free true span: >= 99% mapped on the true strand at the true start",
+          frac >= 0.99, f"{frac * 100:.3f}% of {int(clean_span.sum())}")
+    # Hamming distance of the read, in its mapped orientation, to its window
+    codes = ascii_codes(reads)
+    oriented = np.where(true_rev[:, None], 3 - codes[:, ::-1], codes)
+    ham = (oriented != ascii_codes(span)).sum(1)
+    sel = clean_span & placed
+    cost = res["cost"]
+    check("cost <= Hamming distance to the true window", bool((cost[sel] <= ham[sel]).all()),
+          f"{int(sel.sum())} reads")
+    eq = (cost[sel] == ham[sel]).mean()
+    ph["map_cost_equals_hamming_fraction"] = float(eq)
+    check("cost == Hamming distance for >= 99% of them", eq >= 0.99, f"{eq * 100:.3f}%")
+    exact = (reads[:nb] == np.where(true_rev[:nb, None], comp[span[:nb, ::-1]], span[:nb])).all(1)
+    sw_s = sw[0].cpu().numpy()
+    check("planted reads with no substitution or N score 300 in sw_score",
+          bool((sw_s[exact & placed[:nb]] == 2 * L).all()), f"{int((exact & placed[:nb]).sum())}"
+          " reads")
+
+    # -- checks on the CIGARs ----------------------------------------------
+    mapped = res["mapped"]
+    check("tb_cost == cost for every mapped read",
+          bool((tb["tb_cost"][mapped] == cost[mapped]).all()), f"{int(mapped.sum())} reads")
+    ops = tb["ops"][mapped]
+    q_use = np.isin(ops, (align.OP_EQ, align.OP_X, align.OP_INS)).sum(1)
+    r_use = np.isin(ops, (align.OP_EQ, align.OP_X, align.OP_DEL)).sum(1)
+    check("query-consuming ops (=, X, I) sum to the read length",
+          bool((q_use == lens_np[mapped]).all()))
+    check("reference-consuming ops (=, X, D) sum to ref_end - ref_start",
+          bool((r_use == (res["ref_end"] - res["ref_start"])[mapped]).all()))
+
+    # -- a host oracle: full-DP fits of ORACLE_PAIRS reads into their windows -
+    rows = np.flatnonzero(clean_span[:nb] & placed[:nb])[:ORACLE_PAIRS]
+    qa = align._codes(q_words[rows], lens_b[rows], 4).cpu().numpy()
+    wb_ = align._codes(win[rows], wlen[rows], 5).cpu().numpy()
+    wl, ws_h = wlen[rows].cpu().numpy(), ws[rows].cpu().numpy().astype(np.int64)
+    got_f = [(int(cost[r]), int(res["ref_start"][r]), int(res["ref_end"][r])) for r in rows]
+    want_f = []
+    for i, r in enumerate(rows):
+        c, s0, e0 = fit_oracle(qa[i, : lens_np[r]], wb_[i, : wl[i]])
+        want_f.append((c, int(ws_h[i] * 16 + s0), int(ws_h[i] * 16 + e0)))
+    check(f"{len(rows)} fits == host full-DP oracle (cost, start, end)", got_f == want_f)
 
 
 def main() -> int:
@@ -465,12 +763,27 @@ def main() -> int:
         errs[name] = max(errs[name], d)
         return check(f"{name} {label} == plain", d == 0, f"max |diff| {d}")
 
-    def timed(name, label, kern, plain, reps=5, plain_reps=3, main=False):
-        """Time a kernel and its plain version; ``main`` marks the shape
-        that the summary line reports for the kernel."""
+    def timed(name, label, kern, plain, reps=5, plain_reps=3, main=False, nbytes=0,
+              ops_ms=0.0, library=None):
+        """Time a kernel and its plain version. ``main`` marks the shape
+        that the summary line reports for the kernel; there the bound comes
+        from the bytes it must move (``nbytes``) and its operations' least
+        time (``ops_ms``), and ``library`` is the one PyTorch call that
+        computes the same function, where there is one (timed, never used
+        by the port)."""
         ms, pms = timer(kern, reps), timer(plain, plain_reps)
-        timings[name].append({"shape": label, "ms": ms, "plain_ms": pms, "main": main})
-        print(f"    {name} {label}: kernel {ms:.4f} ms, plain {pms:.4f} ms", flush=True)
+        row = {"shape": label, "ms": ms, "plain_ms": pms, "main": main}
+        extra = ""
+        if main:
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            row.update(bound_ms=max(bytes_ms, ops_ms),
+                       bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                       library_ms=timer(library, reps) if library else None)
+            extra = f", bound {row['bound_ms']:.4f} ms ({row['bound_by']})"
+            if library:
+                extra += f", library call {row['library_ms']:.4f} ms"
+        timings[name].append(row)
+        print(f"    {name} {label}: kernel {ms:.4f} ms, plain {pms:.4f} ms{extra}", flush=True)
 
     # -- 2. kernels against their plain versions ----------------------------
     print("phase 2: kernels against plain versions", flush=True)
@@ -488,9 +801,12 @@ def main() -> int:
         a, ln = (ascii_b, lens_b) if B == READS else reads(B, L, 0.05)
         compare("pack", f"[{B},{L}]", codec.encode_reads_kernel(a, ln),
                 codec.encode_reads_torch(a, ln))
+    W_b = bitops.n_words_for(READ_LEN)
     timed("pack", f"[{READS},{READ_LEN}]",
           lambda: codec.encode_reads_kernel(ascii_b, lens_b),
-          lambda: codec.encode_reads_torch(ascii_b, lens_b), main=True)
+          lambda: codec.encode_reads_torch(ascii_b, lens_b), main=True,
+          nbytes=READS * READ_LEN + 4 * READS * (W_b + 2),
+          ops_ms=8 * READS * READ_LEN / INT32_OPS_PER_S * 1e3)
 
     words_b, _ = codec.encode_reads_kernel(ascii_b, lens_b)
     valid_b = codec.validity_mask(ascii_b, lens_b)
@@ -508,7 +824,9 @@ def main() -> int:
                     timed("hist_keys", label,
                           lambda: kmer.histogram_from_keys_kernel(keys, k),
                           lambda: kmer.histogram_from_keys_torch(keys, k),
-                          main=k == STREAM_K)
+                          main=k == STREAM_K, nbytes=4 * keys.numel() + 4 * 4**k,
+                          ops_ms=2 * keys.numel() / INT32_OPS_PER_S * 1e3,
+                          library=lambda: torch.bincount(keys, minlength=4**k + 1))
                 del lo, v, keys
     print(f"    ({n_windows} windows of k = 8 in the batch)", flush=True)
 
@@ -525,7 +843,9 @@ def main() -> int:
             timed("hist_words", label,
                   lambda: kmer.histogram_from_words_kernel(w, ln, k),
                   lambda: kmer.histogram_from_words_torch(w, ln, k),
-                  main=k == entry.K and w is words_b)
+                  main=k == entry.K and w is words_b,
+                  nbytes=4 * w.numel() + 4 * ln.numel() + 4 * 4**k,
+                  ops_ms=6 * 16 * w.numel() / INT32_OPS_PER_S * 1e3)
 
     # K2: the flagship batch, long reads, and edge shapes (lengths past
     # max_len, max_len past the capacity 16 * W, zero and negative lengths)
@@ -536,7 +856,9 @@ def main() -> int:
         compare("unpack", label, codec.decode_reads_kernel(w, ln, ml),
                 codec.decode_reads_torch(w, ln, ml))
         timed("unpack", label, lambda: codec.decode_reads_kernel(w, ln, ml),
-              lambda: codec.decode_reads_torch(w, ln, ml), main=w is words_b)
+              lambda: codec.decode_reads_torch(w, ln, ml), main=w is words_b,
+              nbytes=4 * w.numel() + 4 * ln.numel() + ln.numel() * (ml or 16 * w.shape[1]),
+              ops_ms=4 * ln.numel() * (ml or 16 * w.shape[1]) / INT32_OPS_PER_S * 1e3)
     for B, W, ml in ((1, 2, 1), (5, 4, 33), (4, 2, None), (3, 2, 48), (6, 10, 150), (7, 4, 0)):
         w = torch.randint(-(2**31), 2**31 - 1, (B, W), device=dev, generator=gen,
                           dtype=torch.int32)
@@ -561,10 +883,14 @@ def main() -> int:
             compare("hdist_scan", label, hamming.hdist_scan_kernel(q, db, nb),
                     hamming.hdist_scan_torch(q, db, nb))
             if nb in (512, 150):
+                n_w = -(-nb // 16)  # words a distance reads per entry
                 timed("hdist_scan", label,
                       lambda: hamming.hdist_scan_kernel(q, db, nb),
                       lambda: hamming.hdist_scan_torch(q, db, nb),
-                      main=Q == 1 and nb == DB_BASES)
+                      main=Q == 1 and nb == DB_BASES,
+                      nbytes=4 * n_w * DB_ENTRIES + 4 * Q * n_w + 4 * Q * DB_ENTRIES,
+                      ops_ms=(Q * DB_ENTRIES * n_w / POPC_PER_S
+                              + 4 * Q * DB_ENTRIES * n_w / INT32_OPS_PER_S) * 1e3)
         for Q, d in ((3, db), (64, db_small), (3, db_small)):
             q = q64[:Q].contiguous()
             compare("hdist_scan", f"Q={Q} D={d.shape[1]} n_bases={nb}",
@@ -612,7 +938,9 @@ def main() -> int:
     compare("merge", label, merge.merge_sorted_kernel(a, b, 3, (0,)),
             merge.merge_sorted_torch(a, b, 3, (0,)))
     timed("merge", label, lambda: merge.merge_sorted_kernel(a, b, 3, (0,)),
-          lambda: merge.merge_sorted_torch(a, b, 3, (0,)), main=True)
+          lambda: merge.merge_sorted_torch(a, b, 3, (0,)), main=True,
+          nbytes=2 * MERGE_ROWS * 4 * 4 + merge.next_pow2(2 * MERGE_ROWS) * 4 * 4,
+          ops_ms=MERGE_OPS_PER_ROW * 2 * MERGE_ROWS / INT32_OPS_PER_S * 1e3)
     del a, b
     torch.cuda.synchronize()
 
@@ -742,11 +1070,15 @@ def main() -> int:
               f"{len(want)} distinct k-mers, {time.perf_counter() - t:.1f} s")
         del seqs, hist_k, hist_p, hist_r, hist_s, got, want
 
-        large_k_phase(args, torch, dev, timer, tmp, results)
+        fa, genome, reads_g, true_starts, true_rev = large_k_phase(
+            args, torch, dev, timer, tmp, results)
+        mapping_phase(args, torch, dev, timer, results, fa, genome, reads_g, true_starts,
+                      true_rev, compare, timed)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
     launches.update({name: LARGE_K_LAUNCHES[name] for name in ("unpack", "merge")})
+    launches.update({name: MAP_LAUNCHES[name] for name in ("fit_banded", "sw_score")})
 
     # -- report ------------------------------------------------------------
     # kernel -> (source, TPU kernel's def, its pallas_call)
@@ -766,13 +1098,21 @@ def main() -> int:
                    "bitnuc_tpu/ops/pallas/unpack.py:83"),
         "merge": ("bitnuc_tpu_torch/csrc/merge.cu", "bitnuc_tpu/ops/pallas/merge.py:141",
                   "bitnuc_tpu/ops/pallas/merge.py:121"),
+        "fit_banded": ("bitnuc_tpu_torch/csrc/wavefront.cu",
+                       "bitnuc_tpu/ops/pallas/wavefront.py:255",
+                       "bitnuc_tpu/ops/pallas/wavefront.py:315"),
+        "sw_score": ("bitnuc_tpu_torch/csrc/wavefront.cu",
+                     "bitnuc_tpu/ops/pallas/wavefront.py:444",
+                     "bitnuc_tpu/ops/pallas/wavefront.py:482"),
     }
     lines = []
     for name, (src, replaces, call) in sources.items():
         head = next(t for t in timings[name] if t["main"])
         item = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
                 "pallas_call": call, "launches": launches[name], "max_abs_err": errs[name],
-                "ms": head["ms"], "plain_ms": head["plain_ms"], "shape": head["shape"]}
+                "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+                "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+                "shape": head["shape"]}
         if name == "hdist_scan":
             item["also_replaces"] = "bitnuc_tpu/ops/pallas/hamming.py:115"
         lines.append(item)

@@ -22,6 +22,7 @@ from bitnuc_tpu_torch.sequence import PackedReads
 from bitnuc_tpu_torch.utils.bitops import words_to_u32_np
 
 torch.set_num_threads(1)
+CPU = torch.device("cpu")
 
 CASES = [(1, 1), (3, 50), (17, 33), (4, 160), (2, 1000)]
 
@@ -83,29 +84,29 @@ def test_validity_and_kmer_packing(rng):
 
 
 def test_goldens():
-    r = PackedReads.from_ascii([b"ACGT"])
+    r = PackedReads.from_ascii([b"ACGT"], device=CPU)
     assert int(r.to_u64()[0, 0]) == 0b11100100
-    g = PackedReads.from_u64(np.array([[71620941647064936]], np.uint64), [28])
+    g = PackedReads.from_u64(np.array([[71620941647064936]], np.uint64), [28], device=CPU)
     assert g.to_ascii() == [b"AGGCTTGAGGCCCATTCTCTGATCGTTT"]
     assert g[0] == b"AGGCTTGAGGCCCATTCTCTGATCGTTT"
 
 
 def test_roundtrip_and_invalid_base(rng):
     seqs = [bytes(rng.choice(np.frombuffer(b"ACGTacgt", np.uint8), n)) for n in (1, 31, 32, 33, 100, 1000)]
-    r = PackedReads.from_ascii(seqs)
+    r = PackedReads.from_ascii(seqs, device=CPU)
     assert r.to_ascii() == [s.upper() for s in seqs]
     assert len(r) == 6 and r.n_words == 64 and r.max_bases == 1024
     bad = [b"ACGT", b"ACNT", b"AXGT"]
     with pytest.raises(JInvalidBase) as je:
         JPackedReads.from_ascii(bad)
     with pytest.raises(InvalidBase) as te:
-        PackedReads.from_ascii(bad)
+        PackedReads.from_ascii(bad, device=CPU)
     assert te.value.base == je.value.base == ord("N")
 
 
 def test_from_ascii_copies_array(rng):
     a = rng.choice(np.frombuffer(b"ACGT", np.uint8), size=(3, 20))
-    r = PackedReads.from_ascii(a)
+    r = PackedReads.from_ascii(a, device=CPU)
     want = r.to_ascii()
     a[:] = ord("A")
     assert r.to_ascii() == want
@@ -115,9 +116,9 @@ def test_packed_npz_interchange(rng, tmp_path):
     seqs = [bytes(rng.choice(np.frombuffer(b"ACGT", np.uint8), int(n))) for n in rng.integers(1, 90, 7)]
     jr = JPackedReads.from_ascii(seqs)
     jio.save_packed(tmp_path / "j.npz", jr)
-    tr = tio.load_packed(tmp_path / "j.npz")
+    tr = tio.load_packed(tmp_path / "j.npz", device=CPU)
     assert tr.to_ascii() == seqs
-    tio.save_packed(tmp_path / "t.npz", PackedReads.from_ascii(seqs))
+    tio.save_packed(tmp_path / "t.npz", PackedReads.from_ascii(seqs, device=CPU))
     back = jio.load_packed(tmp_path / "t.npz")
     np.testing.assert_array_equal(np.asarray(back.words), np.asarray(jr.words))
     np.testing.assert_array_equal(np.asarray(back.lengths), np.asarray(jr.lengths))

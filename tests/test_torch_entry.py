@@ -18,11 +18,12 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 import __graft_entry__  # noqa: E402
-from bitnuc_tpu_torch import config, entry, kernels
+from bitnuc_tpu_torch import PackedDB, PackedReads, config, entry, kernels, mapper, pipeline
 from bitnuc_tpu_torch.ops import codec, hamming, kmer
 from bitnuc_tpu_torch.utils.bitops import words_to_u32_np
 
 torch.set_num_threads(1)
+CPU = torch.device("cpu")
 
 PORT = ROOT / "bitnuc_tpu_torch"
 
@@ -30,7 +31,7 @@ PORT = ROOT / "bitnuc_tpu_torch"
 def test_flagship_step_matches_jax():
     fn, args = __graft_entry__.entry()
     want = jax.jit(fn)(*args)
-    tfn, targs = entry.entry()
+    tfn, targs = entry.entry(device=CPU)
     got = tfn(*targs)
     assert set(got) == set(want)
     for key, value in want.items():
@@ -42,7 +43,8 @@ def test_flagship_step_matches_jax():
 
 def test_import_leaves_jax_out():
     code = (
-        "import sys, bitnuc_tpu_torch, bitnuc_tpu_torch.entry, bitnuc_tpu_torch.pipeline; "
+        "import sys, bitnuc_tpu_torch, bitnuc_tpu_torch.entry, bitnuc_tpu_torch.pipeline, "
+        "bitnuc_tpu_torch.mapper; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'bitnuc_tpu.'))"
         " or m == 'bitnuc_tpu']; assert not bad, bad"
     )
@@ -74,8 +76,26 @@ def test_kernel_backend_refuses_cpu_tensors():
         config.set_backend("xla")
 
 
+@pytest.mark.parametrize("call", [
+    lambda: PackedReads.from_ascii([b"ACGT"]),
+    lambda: PackedReads.from_numpy(np.zeros((1, 2), np.uint32), [4]),
+    lambda: PackedDB.from_numpy(np.zeros((2, 3), np.uint32), 20),
+    lambda: entry.entry(batch=2, read_len=8, db_size=4),
+    lambda: pipeline.count_fasta(b">x\nACGTACGT\n", 4),
+    lambda: mapper.MinimizerIndex.build(b"ACGT" * 20),
+    lambda: mapper.MinimizerIndex.build_multi([b"ACGT" * 20, b"TTGCA" * 9]),
+], ids=["from_ascii", "from_numpy", "PackedDB", "entry", "count_fasta", "index_build",
+        "index_build_multi"])
+def test_entry_points_default_to_the_card(monkeypatch, call):
+    """With no CUDA device and no ``device`` argument an entry point raises
+    an error that names the argument; it does not run on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="`device` argument"):
+        call()
+
+
 def test_launch_counters_untouched_by_plain_paths():
     kernels.reset_launches()
-    tfn, targs = entry.entry(batch=4, read_len=40, db_size=8)
+    tfn, targs = entry.entry(device=CPU, batch=4, read_len=40, db_size=8)
     tfn(*targs)
     assert all(n == 0 for n in kernels.LAUNCHES.values())

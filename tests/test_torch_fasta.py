@@ -16,6 +16,7 @@ from bitnuc_tpu_torch import io as tio, pipeline
 from bitnuc_tpu_torch.errors import InvalidBase
 
 torch.set_num_threads(1)
+CPU = torch.device("cpu")
 
 
 def _fasta_bytes(seed, with_n=True):
@@ -47,14 +48,15 @@ def fasta(request, tmp_path):
 def test_count_fasta_skip_matches_jax(fasta, k, canonical):
     kw = dict(canonical=canonical, on_invalid="skip", seg_bases=50)
     want = jpipeline.count_fasta(fasta, k, **kw)
-    got = pipeline.count_fasta(fasta, k, **kw)
+    got = pipeline.count_fasta(fasta, k, device=CPU, **kw)
     if k <= 12:
         assert got.dtype == np.int64
         np.testing.assert_array_equal(got, want)
     else:
         assert got == want and len(got) > 0
     # the segment width does not change the counts
-    whole = pipeline.count_fasta(fasta, k, canonical=canonical, on_invalid="skip")
+    whole = pipeline.count_fasta(fasta, k, canonical=canonical, on_invalid="skip",
+                                  device=CPU)
     if k <= 12:
         np.testing.assert_array_equal(whole, got)
     else:
@@ -65,7 +67,7 @@ def test_count_fasta_raise_and_bytes(tmp_path):
     clean = _fasta_bytes(4, with_n=False)
     for k in (5, 17):
         want = jpipeline.count_fasta(clean, k, seg_bases=64)
-        got = pipeline.count_fasta(clean, k, seg_bases=64, sparse_capacity=64)
+        got = pipeline.count_fasta(clean, k, seg_bases=64, sparse_capacity=64, device=CPU)
         if k <= 12:
             np.testing.assert_array_equal(got, want)
         else:
@@ -74,16 +76,16 @@ def test_count_fasta_raise_and_bytes(tmp_path):
     with pytest.raises(JInvalidBase) as je:
         jpipeline.count_fasta(dirty, 21)
     with pytest.raises(InvalidBase) as te:
-        pipeline.count_fasta(dirty, 21)
+        pipeline.count_fasta(dirty, 21, device=CPU)
     assert te.value.base == je.value.base == ord("N")
-    assert pipeline.count_fasta(b">x\nACG\n", 21) == {}
-    assert not pipeline.count_fasta(b"", 4).any()
+    assert pipeline.count_fasta(b">x\nACG\n", 21, device=CPU) == {}
+    assert not pipeline.count_fasta(b"", 4, device=CPU).any()
     with pytest.raises(ValueError):
-        pipeline.count_fasta(clean, 21, seg_bases=8)
+        pipeline.count_fasta(clean, 21, seg_bases=8, device=CPU)
 
 
 def test_read_fasta_matches_jax(fasta):
-    names, reads = tio.read_fasta(fasta, validate=False)
+    names, reads = tio.read_fasta(fasta, validate=False, device=CPU)
     jnames, jreads = jio.read_fasta(str(fasta), validate=False)
     assert names == jnames
     got = reads.to_ascii()

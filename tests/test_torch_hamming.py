@@ -18,6 +18,7 @@ from bitnuc_tpu_torch.ops import hamming
 from bitnuc_tpu_torch.utils.bitops import words_from_u32_np
 
 torch.set_num_threads(1)
+CPU = torch.device("cpu")
 
 
 @pytest.mark.parametrize("D,W,nb", [(100, 32, 512), (5000, 4, 50), (1, 2, 7)])
@@ -85,7 +86,7 @@ def test_packed_db_npz_both_ways(rng, tmp_path):
     qs = rng.integers(0, 2**32, size=(3, W), dtype=np.uint32)
     jdb = JPackedDB(words_wm=jnp.asarray(db.T.copy()), n_bases=nb)
     jdb.save(tmp_path / "j.npz")
-    tdb = PackedDB.load(tmp_path / "j.npz")
+    tdb = PackedDB.load(tmp_path / "j.npz", device=CPU)
     assert tdb.n_bases == nb and len(tdb) == D and tdb.n_words == W
     want_d, want_i = jdb.search(jnp.asarray(qs[0]), 7)
     got_d, got_i = tdb.search(words_from_u32_np(qs[0]), 7)
@@ -102,6 +103,6 @@ def test_packed_db_npz_both_ways(rng, tmp_path):
     assert back.n_bases == nb
     u64 = jbitops.words_u32_to_u64_np(db)
     np.testing.assert_array_equal(
-        PackedDB.from_u64(u64, nb).distances(words_from_u32_np(qs[1])).numpy(),
+        PackedDB.from_u64(u64, nb, device=CPU).distances(words_from_u32_np(qs[1])).numpy(),
         np.asarray(jdb.distances(jnp.asarray(qs[1]))),
     )

@@ -12,7 +12,8 @@ import pytest
 import torch
 
 from bitnuc_tpu_torch import config, entry, kernels
-from bitnuc_tpu_torch.ops import codec, hamming, kmer, merge
+from bitnuc_tpu_torch.ops import align, codec, hamming, kmer, merge
+from bitnuc_tpu_torch.utils import bitops
 
 torch.set_num_threads(1)
 
@@ -118,3 +119,95 @@ def test_merge_kernel_matches_plain(cuda, na, nb, n_keys, n_pay, dups):
     want = merge.merge_sorted_torch(a, b, n_keys, pad)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+def _pairs(seed, B, Wa, Wb):
+    """B (read, window) pairs as packed words [B, Wa], [B, Wb] with int32
+    lengths: a's prefix planted in b at a random offset with three
+    substitutions; lengths random, with 0 and full rows at the start."""
+    rng = np.random.default_rng(seed)
+    M, N = 16 * Wa, 16 * Wb
+    a = rng.integers(0, 4, (B, M))
+    b = rng.integers(0, 4, (B, N))
+    n = min(M, N)
+    for r in range(B):
+        off = int(rng.integers(0, N - n + 1))
+        b[r, off : off + n] = a[r, :n]
+        if N:
+            b[r, rng.integers(0, N, 3)] = rng.integers(0, 4, 3)
+    la = rng.integers(0, M + 1, B)
+    lb = rng.integers(0, N + 1, B)
+    la[:3], lb[:3] = [0, M, M], [N, 0, N]
+    return (bitops.pack_codes(torch.from_numpy(a)), torch.from_numpy(la.astype(np.int32)),
+            bitops.pack_codes(torch.from_numpy(b)), torch.from_numpy(lb.astype(np.int32)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("costs", [(1, 1), (3, 2)])
+@pytest.mark.parametrize("B,Wa,Wb,band", [
+    (300, 10, 15, (-32, 124)),  # the mapper's shape and effective band (K = 80)
+    (64, 10, 15, (-8, 52)),     # (-8, 40) widened to K = 32
+    (40, 4, 8, (0, 0)),         # the narrowest band, K = 2
+    (33, 2, 40, (-300, 700)),   # K = 502: 16 cells per lane
+    (17, 0, 4, (-4, 4)),        # an empty read side
+    (9, 6, 2, (-1, 3)),
+    (9, 8, 100, (-1100, 1100)),  # K = 1102 > 1024: the wide kernel
+    (40, 10, 80, (-1030, 1030)),  # K = 1032
+])
+def test_fit_banded_kernel_matches_plain(cuda, B, Wa, Wb, band, costs):
+    wa, la, wb, lb = (x.to(cuda) for x in _pairs(B + Wb, B, Wa, Wb))
+    got = align.fit_distance_span_banded_kernel(wa, la, wb, lb, *costs, *band)
+    want = align.fit_distance_span_banded_torch(wa, la, wb, lb, *costs, *band)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    before = kernels.LAUNCHES["fit_banded"]
+    align.fit_distance_span_banded(wa, la, wb, lb, *costs, *band)
+    assert kernels.LAUNCHES["fit_banded"] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("params", [(2, -3, -5, -2), (1, -1, -2, -1)])
+@pytest.mark.parametrize("B,Wa,Wb", [
+    (300, 10, 14),  # a 150-bp read against a 224-bp window
+    (20, 6, 0),     # empty b side
+    (20, 0, 6),     # empty a side
+    (7, 2, 62),     # N + 1 = 993 lanes: 32 cells per lane
+    (50, 4, 4),
+    (6, 3, 80),     # N + 1 = 1281 lanes > 1024: the wide kernel
+    (12, 10, 100),  # N + 1 = 1601
+])
+def test_sw_kernel_matches_plain(cuda, B, Wa, Wb, params):
+    wa, la, wb, lb = (x.to(cuda) for x in _pairs(B + Wa, B, Wa, Wb))
+    got = align.sw_score_kernel(wa, la, wb, lb, *params)
+    want = align.sw_score_torch(wa, la, wb, lb, *params)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    before = kernels.LAUNCHES["sw_score"]
+    align.sw_score(wa, la, wb, lb, *params)
+    assert kernels.LAUNCHES["sw_score"] == before + 1
+
+
+@pytest.mark.cuda
+def test_wide_kernels_stride_over_pairs(cuda, monkeypatch):
+    """Fewer warps than pairs: each warp of the wide kernels reuses its ring
+    for several pairs."""
+    monkeypatch.setattr(align, "_WIDE_WARPS", 3)
+    wa, la, wb, lb = (x.to(cuda) for x in _pairs(11, 20, 6, 70))
+    for g, w in zip(align.fit_distance_span_banded_kernel(wa, la, wb, lb, 1, 1, -1030, 1030),
+                    align.fit_distance_span_banded_torch(wa, la, wb, lb, 1, 1, -1030, 1030)):
+        assert torch.equal(g, w)
+    for g, w in zip(align.sw_score_kernel(wa, la, wb, lb), align.sw_score_torch(wa, la, wb, lb)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_wavefront_kernels_refuse_costs_out_of_range(cuda):
+    """Costs the int32 sentinel arithmetic cannot hold raise, on the card,
+    before any launch."""
+    wa, la, wb, lb = (x.to(cuda) for x in _pairs(5, 4, 2, 4))
+    before = dict(kernels.LAUNCHES)
+    with pytest.raises(ValueError, match="costs"):
+        align.fit_distance_span_banded_kernel(wa, la, wb, lb, -1, 1, -8, 8)
+    with pytest.raises(ValueError, match="scores"):
+        align.sw_score_kernel(wa, la, wb, lb, 2**28, -3, -5, -2)
+    assert dict(kernels.LAUNCHES) == before

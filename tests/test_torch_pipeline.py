@@ -18,6 +18,7 @@ from bitnuc_tpu_torch.errors import InvalidBase, InvalidLength
 from conftest import random_seq
 
 torch.set_num_threads(1)
+CPU = torch.device("cpu")
 
 
 @pytest.fixture
@@ -45,6 +46,12 @@ def fastq_clean(tmp_path, rng):
     return p
 
 
+def _on_cpu(mod):
+    """The port's entry points take the CPU by name; the JAX package's
+    run on its own default."""
+    return {"device": CPU} if mod is pipeline else {}
+
+
 class _Boom(RuntimeError):
     pass
 
@@ -63,19 +70,19 @@ def _crashing(real_iter, after):
 def test_count_fastq_skip_matches_jax(fastq_n, k, canonical):
     kw = dict(batch_size=8, canonical=canonical, on_invalid="skip")
     want = jpipeline.count_fastq(fastq_n, k, **kw)
-    got = pipeline.count_fastq(fastq_n, k, **kw)
+    got = pipeline.count_fastq(fastq_n, k, device=CPU, **kw)
     assert got.dtype == np.int64
     np.testing.assert_array_equal(got, want)
 
 
 def test_count_fastq_raise_matches_jax(fastq_clean, fastq_n):
     want = jpipeline.count_fastq(fastq_clean, 4, batch_size=7, max_len=64)
-    got = pipeline.count_fastq(fastq_clean, 4, batch_size=7, max_len=64)
+    got = pipeline.count_fastq(fastq_clean, 4, batch_size=7, max_len=64, device=CPU)
     np.testing.assert_array_equal(got, want)
     with pytest.raises(JInvalidBase) as je:
         jpipeline.count_fastq(fastq_n, 4, batch_size=8)
     with pytest.raises(InvalidBase) as te:
-        pipeline.count_fastq(fastq_n, 4, batch_size=8)
+        pipeline.count_fastq(fastq_n, 4, batch_size=8, device=CPU)
     assert te.value.base == je.value.base
 
 
@@ -83,22 +90,24 @@ def test_batch_offsets_match_jax(fastq_n):
     want = [item[-1] for item in jio.iter_fastq_batches(
         fastq_n, 8, validate=False, with_offsets=True)]
     got = [item[-1] for item in tio.iter_fastq_batches(
-        fastq_n, 8, validate=False, with_offsets=True)]
+        fastq_n, 8, validate=False, with_offsets=True, device=CPU)]
     assert got == want
-    resumed = list(tio.iter_fastq_batches(fastq_n, 8, validate=False, start_offset=got[1]))
-    first = list(tio.iter_fastq_batches(fastq_n, 8, validate=False))
+    resumed = list(tio.iter_fastq_batches(fastq_n, 8, validate=False, start_offset=got[1],
+                                         device=CPU))
+    first = list(tio.iter_fastq_batches(fastq_n, 8, validate=False, device=CPU))
     assert [r.to_ascii() for r in resumed] == [r.to_ascii() for r in first[2:]]
 
 
 def test_crash_resume(fastq_n, tmp_path, monkeypatch):
     ckpt = str(tmp_path / "t.npz")
-    kw = dict(batch_size=8, on_invalid="skip", checkpoint=ckpt, checkpoint_every=1)
+    kw = dict(batch_size=8, on_invalid="skip", checkpoint=ckpt, checkpoint_every=1, device=CPU)
     monkeypatch.setattr(tio, "iter_fastq_batches", _crashing(tio.iter_fastq_batches, 3))
     with pytest.raises(_Boom):
         pipeline.count_fastq(fastq_n, 5, **kw)
     monkeypatch.undo()
     got = pipeline.count_fastq(fastq_n, 5, **kw)
-    np.testing.assert_array_equal(got, pipeline.count_fastq(fastq_n, 5, batch_size=8, on_invalid="skip"))
+    np.testing.assert_array_equal(got, pipeline.count_fastq(fastq_n, 5, batch_size=8, on_invalid="skip",
+                                                       device=CPU))
     with pytest.raises(ValueError, match="batch_size"):
         pipeline.count_fastq(fastq_n, 5, **{**kw, "batch_size": 16})
 
@@ -115,18 +124,18 @@ def test_checkpoint_moves_between_packages(fastq_n, tmp_path, monkeypatch, write
     monkeypatch.setattr(io_mod, "iter_fastq_batches",
                         _crashing(io_mod.iter_fastq_batches, 3))
     with pytest.raises(_Boom):
-        first.count_fastq(fastq_n, 6, **kw)
+        first.count_fastq(fastq_n, 6, **kw, **_on_cpu(first))
     monkeypatch.undo()
     with np.load(ckpt) as z:
         assert int(z["n_batches"]) == 2
-    resumed = second.count_fastq(fastq_n, 6, **kw)
+    resumed = second.count_fastq(fastq_n, 6, **kw, **_on_cpu(second))
     whole = jpipeline.count_fastq(fastq_n, 6, batch_size=8, canonical=True, on_invalid="skip")
     np.testing.assert_array_equal(resumed, whole)
 
 
 def test_progress_hook(fastq_n):
     events = []
-    pipeline.count_fastq(fastq_n, 5, batch_size=8, on_invalid="skip",
+    pipeline.count_fastq(fastq_n, 5, batch_size=8, on_invalid="skip", device=CPU,
                          on_progress=events.append, progress_every=2)
     assert [e["batches"] for e in events] == [2, 4, 6]  # 45 reads, 6 batches
     assert all(e["bases_per_sec"] > 0 for e in events)
@@ -135,12 +144,12 @@ def test_progress_hook(fastq_n):
 def test_large_k_not_ported_yet(fastq_n):
     """k > 12 now runs the sparse engine and returns JAX's dict; bad
     arguments still raise."""
-    got = pipeline.count_fastq(fastq_n, 21, batch_size=8, on_invalid="skip")
+    got = pipeline.count_fastq(fastq_n, 21, batch_size=8, on_invalid="skip", device=CPU)
     assert got == jpipeline.count_fastq(fastq_n, 21, batch_size=8, on_invalid="skip")
     with pytest.raises(ValueError):
-        pipeline.count_fastq(fastq_n, 5, on_invalid="ignore")
+        pipeline.count_fastq(fastq_n, 5, on_invalid="ignore", device=CPU)
     with pytest.raises(InvalidLength):
-        pipeline.count_fastq(fastq_n, 33)
+        pipeline.count_fastq(fastq_n, 33, device=CPU)
 
 
 @pytest.fixture
@@ -156,17 +165,17 @@ def test_count_fastq_sparse_matches_jax(fastq_n, fastq_gz, k, canonical, compres
     path = fastq_gz if compressed else fastq_n
     kw = dict(batch_size=8, canonical=canonical, on_invalid="skip")
     want = jpipeline.count_fastq(path, k, **kw)
-    got = pipeline.count_fastq(path, k, **kw)
+    got = pipeline.count_fastq(path, k, device=CPU, **kw)
     assert isinstance(got, dict) and got == want
     # a tiny first capacity forces the accumulator to double, several times
-    assert pipeline.count_fastq(path, k, sparse_capacity=64, **kw) == want
+    assert pipeline.count_fastq(path, k, sparse_capacity=64, device=CPU, **kw) == want
 
 
 def test_gz_offsets_match_jax(fastq_gz):
     want = [item[-1] for item in jio.iter_fastq_batches(
         fastq_gz, 8, validate=False, with_offsets=True)]
     got = [item[-1] for item in tio.iter_fastq_batches(
-        fastq_gz, 8, validate=False, with_offsets=True)]
+        fastq_gz, 8, validate=False, with_offsets=True, device=CPU)]
     assert got == want
 
 
@@ -183,14 +192,14 @@ def test_sparse_checkpoint_moves_between_packages(fastq_n, tmp_path, monkeypatch
     monkeypatch.setattr(io_mod, "iter_fastq_batches",
                         _crashing(io_mod.iter_fastq_batches, 3))
     with pytest.raises(_Boom):
-        first.count_fastq(fastq_n, 21, **kw)
+        first.count_fastq(fastq_n, 21, **kw, **_on_cpu(first))
     monkeypatch.undo()
     with np.load(ckpt) as z:
         assert int(z["n_batches"]) == 2 and str(z["engine"]) == "sparse"
         assert z["lo"].dtype == np.uint32 and z["hi"].dtype == np.uint32
         assert z["counts"].dtype == np.int32
-    resumed = second.count_fastq(fastq_n, 21, **kw)
+    resumed = second.count_fastq(fastq_n, 21, **kw, **_on_cpu(second))
     whole = jpipeline.count_fastq(fastq_n, 21, batch_size=8, canonical=True, on_invalid="skip")
     assert resumed == whole
     with pytest.raises(ValueError, match="refusing to mix"):
-        pipeline.count_fastq(fastq_n, 12, **{**kw, "checkpoint": ckpt})
+        pipeline.count_fastq(fastq_n, 12, device=CPU, **{**kw, "checkpoint": ckpt})
