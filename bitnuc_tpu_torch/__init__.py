@@ -11,18 +11,22 @@ with a plain PyTorch version beside it for CPU tensors:
   — K2 ``unpack``
 * ``ops.kmer.count_kmers_reads`` (dense, k <= 12) — K3a ``hist_keys``, K3b
   ``hist_words``
-* ``PackedDB.distances`` / ``distances_batch`` — K4/K5 ``hdist_scan``
+* ``PackedDB.distances`` / ``distances_batch`` — K4 ``hdist_scan``, K5
+  ``hdist_scan_batch`` (one kernel), and from ``database.TC_MIN_Q``
+  queries on K6 ``tc_scan`` (int8 tensor cores)
 * ``ops.setops.combine_counts`` (through ``ops.merge.merge_sorted``) — K7
   ``merge``
 * ``ops.align.fit_distance_span_banded`` (the fit of ``mapper.map_reads``)
   — K8 ``fit_banded``
 * ``ops.align.sw_score`` — K9 ``sw_score``
+* ``ops.orf.longest_orf`` — K10 ``orf_scan``, twice (one per strand)
 
 Sort-based counting for any k <= 32 (``count_kmers_sorted``,
 ``count_kmers_runs``, and ``pipeline.count_fastq``/``count_fasta`` above
 k = 12) sorts with ``torch.sort``. Short reads map with
 ``mapper.MinimizerIndex.build_multi``, ``mapper.map_reads`` and
-``mapper.traceback_cigars``.
+``mapper.traceback_cigars``. ``ops.split`` slices packed reads and
+``ops.orf.translate_reads`` translates them.
 
 Entry points that put host data on a device use the card unless their
 ``device`` argument names another (``config.resolve_device``).
@@ -55,6 +59,7 @@ from .ops.revcomp import reverse_complement_reads  # noqa: F401
 from .ops.setops import combine_counts, combine_dicts  # noqa: F401
 from .sequence import PackedReads  # noqa: F401
 from . import io, mapper, pipeline  # noqa: F401
+from .ops import orf, split  # noqa: F401
 from .io import read_fasta  # noqa: F401
 
 __all__ = [

@@ -40,6 +40,11 @@
 // works cells L, L + 32, ... of a diagonal, a __syncwarp separates
 // diagonals, and the codes are read from the packed words. They are slower
 // per cell and serve inputs the register kernels cannot hold.
+//
+// Costs and scores are any int32 values. Every sum and product of a cell
+// wraps modulo 2^32 (wadd, wmul: unsigned arithmetic cast back), as the
+// plain versions' int32 tensors and the JAX package's int32 arrays do;
+// signed overflow would be undefined in C++.
 #include "common.cuh"
 
 namespace {
@@ -50,6 +55,14 @@ constexpr int kPadB = 5;
 constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr int kMaxWarpsPerBlock = 8;
 constexpr int kMaxSmem = 227 * 1024;
+
+// a + b and a * b modulo 2^32, as int32 tensors compute them.
+__device__ __forceinline__ int wadd(int a, int b) {
+  return (int)((uint32_t)a + (uint32_t)b);
+}
+__device__ __forceinline__ int wmul(int a, int b) {
+  return (int)((uint32_t)a * (uint32_t)b);
+}
 
 // Codes [0, 16 W) of one packed row into shared memory; `pad` at and past
 // `len`.
@@ -148,12 +161,12 @@ __global__ void fit_banded_kernel(const uint32_t* __restrict__ wa,
       const int s_dg = d2 == 0 ? at_off<C>(sp2, c, -1, ul, ur)
                                : (d2 == 1 ? sp2[c] : at_off<C>(sp2, c, 1, ul, ur));
       const int sub = code_a(sa, M, i - 1) == code_b(sb, N, j - 1) ? 0 : mm;
-      const int c_diag = dg + sub, c_up = up + gp, c_left = left + gp;
+      const int c_diag = wadd(dg, sub), c_up = wadd(up, gp), c_left = wadd(left, gp);
       int D = min(min(c_diag, c_up), c_left);
       int S = min(min(c_diag == D ? s_dg : kBig, c_up == D ? s_up : kBig),
                   c_left == D ? s_left : kBig);
       if (j == 0) {
-        D = d * gp;
+        D = wmul(d, gp);
         S = 0;
       }
       if (j == d) {  // free b-prefix: D[0, j] = 0, the path enters at j
@@ -251,9 +264,9 @@ __global__ void sw_kernel(const uint32_t* __restrict__ wa,
       const int e_left = c ? ep[c - 1] : el;
       const int h_diag = c ? hp2[c - 1] : h2l;
       const int s = code_a(sa, M, i - 1) == code_b(sb, N, j - 1) ? match : mismatch;
-      int e = max(h_left + go, e_left + ge);
-      int f = max(hp[c] + go, fp[c] + ge);
-      int h = max(max(h_diag + s, 0), max(e, f));
+      int e = max(wadd(h_left, go), wadd(e_left, ge));
+      int f = max(wadd(hp[c], go), wadd(fp[c], ge));
+      int h = max(max(wadd(h_diag, s), 0), max(e, f));
       if (j == 0 || j == d) {  // boundary row and column: H = 0, no gap state
         h = 0;
         e = -kBig;
@@ -358,12 +371,12 @@ __global__ void fit_banded_wide_kernel(const uint32_t* __restrict__ wa,
         const int left = ring_at(P, t + d1 - 1, K), s_left = ring_at(SP, t + d1 - 1, K);
         const int dg = ring_at(Q, t + d2 - 1, K), s_dg = ring_at(SQ, t + d2 - 1, K);
         const int sub = code_at(ra, ma, kPadA, i - 1) == code_at(rb, nb, kPadB, j - 1) ? 0 : mm;
-        const int c_diag = dg + sub, c_up = up + gp, c_left = left + gp;
+        const int c_diag = wadd(dg, sub), c_up = wadd(up, gp), c_left = wadd(left, gp);
         int D = min(min(c_diag, c_up), c_left);
         int S = min(min(c_diag == D ? s_dg : kBig, c_up == D ? s_up : kBig),
                     c_left == D ? s_left : kBig);
         if (j == 0) {
-          D = d * gp;
+          D = wmul(d, gp);
           S = 0;
         }
         if (j == d) {
@@ -444,9 +457,9 @@ __global__ void sw_wide_kernel(const uint32_t* __restrict__ wa,
         const int h_diag = j ? hp2[j - 1] : -kBig;
         const int s = code_at(ra, ma, kPadA, i - 1) == code_at(rb, nb, kPadB, j - 1)
                           ? match : mismatch;
-        int e = max(h_left + go, e_left + ge);
-        int f = max(hp[j] + go, fp[j] + ge);
-        int h = max(max(h_diag + s, 0), max(e, f));
+        int e = max(wadd(h_left, go), wadd(e_left, ge));
+        int f = max(wadd(hp[j], go), wadd(fp[j], ge));
+        int h = max(max(wadd(h_diag, s), 0), max(e, f));
         if (j == 0 || j == d) {
           h = 0;
           e = -kBig;

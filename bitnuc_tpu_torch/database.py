@@ -17,8 +17,18 @@ import numpy as np
 import torch
 
 from . import config
+from . import io as bnio
 from .ops import hamming
 from .utils import bitops
+
+# distances_batch runs K6 (the tensor cores) from this many queries on, and
+# K5 below it. chip_smoke.py's sweep over 4,194,304 entries on an NVIDIA
+# H100 80GB HBM3 at a 700.00 W power limit, K5 / K6 in ms at Q = 32, 64,
+# 128, 256, 512: 512 bases (W = 32) 1.418 / 3.444, 2.740 / 3.376, 5.557 /
+# 4.023, 10.826 / 6.444, 21.780 / 12.775; 150 bases (W = 10) 0.518 /
+# 1.382, 1.027 / 1.599, 2.002 / 1.814, 4.084 / 3.463, 8.047 / 5.734. K6
+# pads Q to tiles of 128, so the crossover is 128 at both widths.
+TC_MIN_Q = 128
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,6 +55,27 @@ class PackedDB:
             words_wm=bitops.words_from_u32_np(words_wm_u32).to(device),
             n_bases=int(n_bases),
         )
+
+    @classmethod
+    def from_fastq(cls, path, n_bases: int, batch_size: int = 8192, validate: bool = True,
+                   device=None) -> "PackedDB":
+        """Stream a FASTQ file (plain or ``.gz``) into the word-major layout
+        on ``device`` (default: the card). Entries are truncated or
+        zero-padded to exactly n_bases; validate=True raises InvalidBase on
+        the first invalid base."""
+        device = config.resolve_device(device)
+        W = bitops.n_words_for(n_bases)
+        slabs = []
+        for batch in bnio.iter_fastq_batches(path, batch_size, max_len=int(n_bases),
+                                             validate=validate, device=device):
+            w = batch.words
+            if w.shape[1] < W:
+                w = torch.nn.functional.pad(w, (0, W - w.shape[1]))
+            slabs.append(w[:, :W].t())
+        if not slabs:
+            return cls(words_wm=torch.zeros((W, 0), dtype=torch.int32, device=device),
+                       n_bases=int(n_bases))
+        return cls(words_wm=torch.cat(slabs, 1).contiguous(), n_bases=int(n_bases))
 
     @classmethod
     def from_u64(cls, words_u64: np.ndarray, n_bases: int, device=None) -> "PackedDB":
@@ -89,8 +120,10 @@ class PackedDB:
         return hamming.topk_smallest(self.distances(query), k)
 
     def distances_batch(self, queries: torch.Tensor) -> torch.Tensor:
-        """All-pairs distances [Q, D] for a packed query batch [Q, W] (K5;
-        the tensor-core variant, K6, is a later port)."""
+        """All-pairs distances [Q, D] for a packed query batch [Q, W]: K6 on
+        the tensor cores from TC_MIN_Q queries on, K5 below."""
+        if queries.shape[0] >= TC_MIN_Q:
+            return hamming.hdist_scan_tc(queries, self.words_wm, self.n_bases)
         return hamming.hdist_scan(queries, self.words_wm, self.n_bases)
 
     def search_batch(self, queries: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -2,10 +2,12 @@
 
 The wrappers themselves live beside their plain PyTorch versions in
 ``ops/codec.py`` (``pack``, ``unpack``), ``ops/kmer.py`` (``hist_keys``,
-``hist_words``), ``ops/hamming.py`` (``hdist_scan``), ``ops/merge.py``
-(``merge``) and ``ops/align.py`` (``fit_banded``, ``sw_score``). Each adds one to its entry in ``LAUNCHES`` where it launches
-its kernel, and nowhere else, so a run can show that its main path went
-through the kernels.
+``hist_words``), ``ops/hamming.py`` (``hdist_scan`` for one query and
+``hdist_scan_batch`` for more, one kernel; ``tc_scan``), ``ops/merge.py``
+(``merge``), ``ops/align.py`` (``fit_banded``, ``sw_score``) and
+``ops/orf.py`` (``orf_scan``). Each adds one to its entry in ``LAUNCHES``
+where it launches its kernel, and nowhere else, so a run can show that its
+main path went through the kernels.
 """
 
 from __future__ import annotations
@@ -21,6 +23,9 @@ LAUNCHES = {
     "merge": 0,
     "fit_banded": 0,
     "sw_score": 0,
+    "hdist_scan_batch": 0,
+    "tc_scan": 0,
+    "orf_scan": 0,
 }
 
 

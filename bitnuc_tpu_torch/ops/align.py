@@ -7,8 +7,10 @@ not depend on each other, so the loop runs over d = 1..M+N and updates a
 whole diagonal of lanes j per step. Reads are [B, W] packed words (int32
 views) with [B] lengths; codes past a length become the sentinels 4 (for
 ``a``) and 5 (for ``b``), which never match anything. Costs and scores are
-int32, with the sentinel ``_BIG = 2^30`` so that BIG plus any step cost
-stays below 2^31.
+int32, with the sentinel ``_BIG = 2^30``. Costs and scores may be any
+int32 values: every sum wraps modulo 2^32, as the JAX package's int32
+arithmetic does, and so do the kernels' (``_i32`` wraps the boundary
+products d * gap, which are Python ints here).
 
 Two functions have hand-written kernels (``csrc/wavefront.cu``), each
 beside its plain version here and picked by the device of the words (see
@@ -49,6 +51,11 @@ MAX_REGISTER_LANES = 1024
 _MAX_SMEM_CODES = 227 * 1024
 _WIDE_WARPS = 4096
 _WIDE_SCRATCH_BYTES = 1 << 28
+
+
+def _i32(x: int) -> int:
+    """A Python int wrapped to int32, as an int32 product wraps."""
+    return (int(x) + 2**31) % 2**32 - 2**31
 
 
 def _codes(words: torch.Tensor, lengths: torch.Tensor, pad: int) -> torch.Tensor:
@@ -124,8 +131,8 @@ def _distance_wavefront(words_a, lens_a, words_b, lens_b, mismatch, gap,
             torch.minimum(prev + gap, _shift1(prev, _BIG) + gap),
             _shift1(prev2, _BIG) + sub,
         )
-        diag = torch.where(pos == 0, d * gap, diag)
-        diag = torch.where(pos == d, 0 if ends_free_b else d * gap, diag)
+        diag = torch.where(pos == 0, _i32(d * gap), diag)
+        diag = torch.where(pos == d, 0 if ends_free_b else _i32(d * gap), diag)
         if ends_free_b:
             jm = d - m
             at = (pos == jm) & (jm >= 0) & (pos <= n)
@@ -203,7 +210,7 @@ def fit_distance_span(words_a, lens_a, words_b, lens_b, mismatch=1, gap=1):
             _shift1(prev2, _BIG) + sub, prev + gap, _shift1(prev, _BIG) + gap,
             _shift1(s_prev2, _BIG), s_prev, _shift1(s_prev, _BIG),
         )
-        diag = torch.where(pos == 0, d * gap, diag)
+        diag = torch.where(pos == 0, _i32(d * gap), diag)
         S = torch.where(pos == 0, 0, S)
         diag = torch.where(pos == d, 0, diag)  # free b-prefix: D[0, j] = 0
         S = torch.where(pos == d, pos, S)  # a path entering at (0, j): S = j
@@ -292,7 +299,7 @@ def fit_distance_span_banded_torch(words_a, lens_a, words_b, lens_b, mismatch=1,
             _band_shift(s_prev, d1, 0, K, _BIG),
             _band_shift(s_prev, d1, 1, K, _BIG),
         )
-        diag = torch.where(jj == 0, d * gap, diag)
+        diag = torch.where(jj == 0, _i32(d * gap), diag)
         S = torch.where(jj == 0, 0, S)
         diag = torch.where(jj == d, 0, diag)  # free b-prefix: D[0, j] = 0
         S = torch.where(jj == d, jj, S)
@@ -337,16 +344,14 @@ def fit_distance_span_banded_kernel(words_a, lens_a, words_b, lens_b, mismatch=1
                                     off_lo: int = -16, off_hi: int = 96):
     """K8 on the card (``csrc/wavefront.cu``): contiguous int32 CUDA words
     [B, Wa] and [B, Wb] with int32 lengths [B]. Needs K < N + 1 (the
-    dispatcher sends wider bands to fit_distance_span) and costs with
-    0 <= mismatch, gap and (M+N+1) * max(mismatch, gap) < 2^30. Bands of
-    K > 1024 cells run the wide kernel (see ``_wide_scratch``)."""
+    dispatcher sends wider bands to fit_distance_span); costs are any int32
+    values, wrapping as the plain version's do. Bands of K > 1024 cells run
+    the wide kernel (see ``_wide_scratch``)."""
     B, M, N = _check_pairs("fit_banded", words_a, lens_a, words_b, lens_b)
     K, _ = _band_geometry(off_lo, off_hi, N)
     mismatch, gap = int(mismatch), int(gap)
     if K >= N + 1:
         raise ValueError(f"fit_banded: needs K < N + 1 (K = {K}, N = {N})")
-    if min(mismatch, gap) < 0 or (M + N + 1) * max(mismatch, gap, 1) >= _BIG:
-        raise ValueError(f"fit_banded: costs ({mismatch}, {gap}) out of range for M + N = {M + N}")
     dev = words_a.device
     cost, startj, endj = (torch.empty(B, dtype=torch.int32, device=dev) for _ in range(3))
     scratch, nwarps = _wide_scratch(B, K, 6, words_a.shape[1], words_b.shape[1], dev)
@@ -459,9 +464,9 @@ def _wavefront_tb_codes(a, lens_a, b, lens_b, mismatch, gap, ends_free_b: bool, 
         diag = torch.minimum(torch.minimum(cand_diag, cand_up), cand_left)
         dirv = ((diag == cand_diag).to(torch.int32) + 2 * (diag == cand_up)
                 + 4 * (diag == cand_left) + 8 * is_eq)
-        diag = torch.where(pos == 0, d * gap, diag)
+        diag = torch.where(pos == 0, _i32(d * gap), diag)
         dirv = torch.where(pos == 0, 2, dirv)
-        diag = torch.where(pos == d, 0 if ends_free_b else d * gap, diag)
+        diag = torch.where(pos == d, 0 if ends_free_b else _i32(d * gap), diag)
         dirv = torch.where(pos == d, 0 if ends_free_b else 4, dirv)
         if ends_free_b:
             jm = d - m
@@ -516,9 +521,9 @@ def _wavefront_tb_codes_banded(a, lens_a, b, lens_b, mismatch, gap, ends_free_b:
         diag = torch.minimum(torch.minimum(cand_diag, cand_up), cand_left)
         dirv = ((diag == cand_diag).to(torch.int32) + 2 * (diag == cand_up)
                 + 4 * (diag == cand_left) + 8 * is_eq)
-        diag = torch.where(jj == 0, d * gap, diag)
+        diag = torch.where(jj == 0, _i32(d * gap), diag)
         dirv = torch.where(jj == 0, 2, dirv)
-        diag = torch.where(jj == d, 0 if ends_free_b else d * gap, diag)
+        diag = torch.where(jj == d, 0 if ends_free_b else _i32(d * gap), diag)
         dirv = torch.where(jj == d, 0 if ends_free_b else 4, dirv)
         diag = torch.where(jj > d, _BIG, diag)  # i < 0: no such cell
         if ends_free_b:
@@ -691,12 +696,10 @@ def sw_score_torch(words_a, lens_a, words_b, lens_b, match=2, mismatch=-3,
 def sw_score_kernel(words_a, lens_a, words_b, lens_b, match=2, mismatch=-3,
                     gap_open=-5, gap_extend=-2):
     """K9 on the card (``csrc/wavefront.cu``): contiguous int32 CUDA words
-    [B, Wa] and [B, Wb] with int32 lengths [B]. Rows of N + 1 > 1024 lanes
-    run the wide kernel (see ``_wide_scratch``)."""
+    [B, Wa] and [B, Wb] with int32 lengths [B] and any int32 scores. Rows
+    of N + 1 > 1024 lanes run the wide kernel (see ``_wide_scratch``)."""
     B, M, N = _check_pairs("sw_score", words_a, lens_a, words_b, lens_b)
     params = [int(x) for x in (match, mismatch, gap_open, gap_extend)]
-    if max(abs(x) for x in params) * (M + N + 1) >= _BIG:
-        raise ValueError(f"sw_score: scores {params} out of range for M + N = {M + N}")
     dev = words_a.device
     score, end_i, end_j = (torch.empty(B, dtype=torch.int32, device=dev) for _ in range(3))
     scratch, nwarps = _wide_scratch(B, N + 1, 7, words_a.shape[1], words_b.shape[1], dev)

@@ -6,7 +6,9 @@ length, popcount, sum over words.
 
 The database scan over a word-major [W, D] database (``PackedDB``) runs
 the hand-written K4/K5 kernel (``csrc/hamming.cu``) on CUDA tensors and its
-plain version ``hdist_scan_torch`` on CPU tensors. The row-major helpers
+plain version ``hdist_scan_torch`` on CPU tensors; for many queries K6
+(``csrc/tcscan.cu``, plain version ``hdist_scan_tc_torch``) computes the
+same distances as an int8 tensor-core product of +-1 bit planes. The row-major helpers
 (``hdist_words``, ``hdist_one_to_many``, ``hdist_many_to_many``) are plain
 PyTorch, as their JAX counterparts are plain XLA.
 
@@ -29,6 +31,11 @@ from ..utils import bitops
 
 TOPK_CHUNK = 512  # columns per stage-1 chunk of topk_smallest_batch
 _BIG = 2**30  # sentinel distance of the top-k tail
+
+
+def _clamp_nb(n_bases, W: int) -> int:
+    """n_bases clamped to [0, 16 W]: bases past the words count as none."""
+    return max(min(int(n_bases), 16 * W), 0)
 
 
 def _n_bases_tensor(n_bases, device) -> torch.Tensor:
@@ -84,7 +91,9 @@ def hdist_scan_torch(queries: torch.Tensor, db_wm: torch.Tensor, n_bases: int) -
 
 
 def hdist_scan_kernel(queries: torch.Tensor, db_wm: torch.Tensor, n_bases: int) -> torch.Tensor:
-    """K4/K5 on the card (``csrc/hamming.cu``); K4 is the Q = 1 case."""
+    """K4/K5 on the card (``csrc/hamming.cu``). K4 is the Q = 1 case and
+    counts under ``hdist_scan``; K5, any other Q, under
+    ``hdist_scan_batch``."""
     kernels.require(queries, "hdist_scan queries", torch.int32, 2)
     kernels.require(db_wm, "hdist_scan db", torch.int32, 2)
     _check_scan(queries, db_wm)
@@ -92,14 +101,14 @@ def hdist_scan_kernel(queries: torch.Tensor, db_wm: torch.Tensor, n_bases: int) 
         raise ValueError("hdist_scan: queries and db must be on one device")
     Q, W = queries.shape
     D = db_wm.shape[1]
-    nb = max(min(int(n_bases), 16 * W), 0)
+    nb = _clamp_nb(n_bases, W)
     out = torch.empty((Q, D), dtype=torch.int32, device=db_wm.device)
     code = _build.library().bn_hdist_scan(
         queries.data_ptr(), db_wm.data_ptr(), Q, W, D, nb, out.data_ptr(),
         kernels.stream_handle(db_wm.device),
     )
     _build.check(code, "hdist_scan")
-    kernels.LAUNCHES["hdist_scan"] += 1
+    kernels.LAUNCHES["hdist_scan" if Q == 1 else "hdist_scan_batch"] += 1
     return out
 
 
@@ -110,6 +119,110 @@ def hdist_scan(queries: torch.Tensor, db_wm: torch.Tensor, n_bases: int) -> torc
             queries.to(torch.int32).contiguous(), db_wm.contiguous(), n_bases
         )
     return hdist_scan_torch(queries, db_wm, n_bases)
+
+
+# -- K6: the same scan on the tensor cores ---------------------------------------
+#
+# With x0, x1 the +-1 codes of a base's two bits and x01 = x0 * x1, two
+# bases match iff 1 + x0q x0d + x1q x1d + x01q x01d = 4, and it is 0
+# otherwise. So over the first nb bases, S = sum (x0q x0d + x1q x1d +
+# x01q x01d) = 4 matches - nb, and the distance is (3 nb - S) / 4: one
+# int8 matrix product [Q, 48W] x [48W, D] with an int32 sum. The query
+# planes are zero past nb, so the database side needs no mask.
+#
+# Plane order (both sides): the words in pairs p (an odd W gets a zero
+# word), then the group g (x0, x1, x01), then the pair's 32 bases: column
+# 96 p + 32 g + j holds base 32 p + j. A step of 32 columns is then one
+# group of one word pair, which is what a k-step of the kernel's
+# mma.sync.m16n8k32 reads.
+
+TC_CHUNK = 65536  # database entries per product of the plain version
+
+
+def _planes(codes: torch.Tensor, valid=None) -> torch.Tensor:
+    """[R, 16W] codes -> [R, 96 ceil(W / 2)] int8 planes in the order
+    above; zero where ``valid`` [16W] is False."""
+    R, L = codes.shape
+    P = -(-L // 32)
+    codes = torch.nn.functional.pad(codes, (0, 32 * P - L))
+    b0, b1 = codes & 1, (codes >> 1) & 1
+    planes = torch.stack([2 * b0 - 1, 2 * b1 - 1, 1 - 2 * (b0 ^ b1)], 1)  # [R, 3, 32P]
+    if valid is not None:
+        planes = planes * torch.nn.functional.pad(valid, (0, 32 * P - L)).to(planes.dtype)
+    planes = planes.reshape(R, 3, P, 32).transpose(1, 2)  # [R, P, 3, 32]
+    return planes.reshape(R, 96 * P).to(torch.int8)
+
+
+def query_planes(queries: torch.Tensor, n_bases) -> torch.Tensor:
+    """[Q, W] packed queries -> [Q, 96 ceil(W / 2)] int8 +-1 planes of
+    their first n_bases bases, zero past them."""
+    W = queries.shape[1]
+    pos = torch.arange(16 * W, device=queries.device)
+    return _planes(bitops.unpack_words(queries), pos < _clamp_nb(n_bases, W))
+
+
+def hdist_scan_tc_torch(queries: torch.Tensor, db_wm: torch.Tensor, n_bases) -> torch.Tensor:
+    """Plain version of K6: the plane identity with float32 products (exact:
+    every term is 0 or +-1 and |S| <= 48W < 2^24), TC_CHUNK database
+    entries at a time. Equal to hdist_scan_torch and hdist_many_to_many."""
+    _check_scan(queries, db_wm)
+    W, D = db_wm.shape
+    nb = _clamp_nb(n_bases, W)
+    qp = query_planes(queries, nb).to(torch.float32)
+    out = torch.empty((queries.shape[0], D), dtype=torch.int32, device=db_wm.device)
+    for d0 in range(0, D, TC_CHUNK):
+        dp = _planes(bitops.unpack_words(db_wm[:, d0 : d0 + TC_CHUNK].t()))
+        s = qp @ dp.to(torch.float32).t()
+        out[:, d0 : d0 + TC_CHUNK] = torch.div(3 * nb - s.to(torch.int32), 4,
+                                               rounding_mode="floor")
+    return out
+
+
+def _a_fragments(planes: torch.Tensor) -> torch.Tensor:
+    """Query planes [Q, 32S] int8 -> the A operands of mma.sync.m16n8k32 in
+    the order the kernel loads them: [ceil(Q / 128) * 8 row tiles, S k-steps,
+    32 lanes, 4 registers] of 4 int8 each, so a warp loads one tile's
+    operand of one k-step as 32 x 16 contiguous bytes. Lane 4g + c holds
+    registers (row g, k 4c..4c+3), (row g + 8, same k), (row g, k 16 + 4c..),
+    (row g + 8, k 16 + 4c..); rows past Q are zero."""
+    Q, K = planes.shape
+    S = K // 32
+    T = -(-Q // 128) * 8
+    a = torch.nn.functional.pad(planes, (0, 0, 0, 16 * T - Q))
+    a = a.reshape(T, 2, 8, S, 2, 4, 4)  # tile, row half, g, step, k half, c, byte
+    a = a.permute(0, 3, 2, 5, 4, 1, 6)  # tile, step, g, c, k half, row half, byte
+    return a.contiguous().view(torch.int32)
+
+
+def hdist_scan_tc_kernel(queries: torch.Tensor, db_wm: torch.Tensor, n_bases: int) -> torch.Tensor:
+    """K6 on the card (``csrc/tcscan.cu``): [Q, W] x [W, D] int32 words ->
+    [Q, D] int32, int8 tensor-core products of the plane identity."""
+    kernels.require(queries, "tc_scan queries", torch.int32, 2)
+    kernels.require(db_wm, "tc_scan db", torch.int32, 2)
+    _check_scan(queries, db_wm)
+    if queries.device != db_wm.device:
+        raise ValueError("tc_scan: queries and db must be on one device")
+    Q, W = queries.shape
+    D = db_wm.shape[1]
+    nb = _clamp_nb(n_bases, W)
+    frags = _a_fragments(query_planes(queries, nb))
+    out = torch.empty((Q, D), dtype=torch.int32, device=db_wm.device)
+    code = _build.library().bn_tc_scan(
+        frags.data_ptr(), db_wm.data_ptr(), Q, W, D, nb, out.data_ptr(),
+        kernels.stream_handle(db_wm.device),
+    )
+    _build.check(code, "tc_scan")
+    kernels.LAUNCHES["tc_scan"] += 1
+    return out
+
+
+def hdist_scan_tc(queries: torch.Tensor, db_wm: torch.Tensor, n_bases: int) -> torch.Tensor:
+    """Backend-dispatching K6: [Q, W] x [W, D] -> [Q, D] int32."""
+    if config.use_kernel(db_wm):
+        return hdist_scan_tc_kernel(
+            queries.to(torch.int32).contiguous(), db_wm.contiguous(), n_bases
+        )
+    return hdist_scan_tc_torch(queries, db_wm, n_bases)
 
 
 # -- top-k ------------------------------------------------------------------------

@@ -11,10 +11,13 @@ Phases, each of which must pass:
 1. Device: the card's name and power limit, and the kernel build (all of
    bitnuc_tpu_torch/csrc/*.cu with nvcc, timed).
 2. Every kernel against its plain PyTorch version on the card, bit for bit:
-   K1 pack, K2 unpack, K3a hist_keys, K3b hist_words, K4/K5 hdist_scan and
-   K7 merge at the main paths' shapes and at edge shapes, each timed with
-   CUDA events (median of several runs, L2 flushed before each) beside its
-   plain version.
+   K1 pack, K2 unpack, K3a hist_keys, K3b hist_words, K4 hdist_scan and K5
+   hdist_scan_batch (one kernel), K6 tc_scan, K7 merge and K10 orf_scan at
+   the main paths' shapes and at edge shapes, each timed with CUDA events
+   (median of several runs, L2 flushed before each) beside its plain
+   version. K6 also against K5 on the full database at Q = 32 to 512, at
+   512-base and 150-base entries (the sweep behind database.TC_MIN_Q), and
+   beside torch._int_mm.
 3. The golden vectors of the reference crate.
 4. The flagship step (bitnuc_tpu_torch.entry) on 262,144 reads x 150 bp
    against a 4,194,304-entry database, under the default backend (kernels)
@@ -43,9 +46,16 @@ Phases, each of which must pass:
    backend; checks against the reads' true starts and strands, Hamming
    distances and planted exact reads, on the CIGARs, and against a host
    full-DP fit of 256 reads.
+8. Many-query search and ORF calling: PackedDB.search_batch of 256 queries
+   (K6) and of 8 (K5) against phase 2's database, PackedDB.from_fastq of a
+   100,000-read FASTQ, ops.orf.longest_orf (K10) over phase 6's reads in
+   batches of 262,144 and over its genome cut into 50 contigs of 100,000
+   bp, and the --translate steps on the first batch. Checked against the
+   plain backend, a host Hamming oracle, host-packed words, a host
+   six-frame ORF oracle and a host codon table.
 
 The launch counters are set to 0 just before each main path (phases 4 and
-5 under the default backend, phase 6 and phase 7) and read just after it; every
+5 under the default backend, phases 6, 7 and 8) and read just after it; every
 kernel of that path must have launched there. The last lines printed are a
 JSON object of per-kernel
 results, the card's name and power limit from nvidia-smi, and the final
@@ -109,6 +119,20 @@ POPC_PER_S = 132 * 16 * 1.98e9
 FIT_OPS_PER_CELL = 15
 SW_OPS_PER_CELL = 12
 MERGE_OPS_PER_ROW = 6
+# K6 runs on the int8 tensor cores: 1,979 dense TOP/s on an H100 SXM
+# (NVIDIA's H100 data sheet, int8 without sparsity). K10 counted as the
+# function needs it, a SWAR pass over each packed word a read covers (16
+# bases): one-hot masks of A, G and T from the two bit planes (8), the next
+# bases' masks by funnel shifts from the following word (5), the stop mask
+# T & (A1 & (A2 | G2) | G1 & A2) and the start mask A & T1 & G2 (7), and
+# per frame its start and stop bits, the first start and last stop, the
+# candidate length and its compare with the carried best (3 x 8), and the
+# three frames' next-stop carry (3): 47, taken as 48 per word.
+INT8_TC_OPS_PER_S = 1.979e15
+ORF_OPS_PER_WORD = 48
+TC_SWEEP_Q = (32, 64, 128, 256, 512)
+SEARCH_QUERIES = 256  # phase 8's query file, and K6's reported shape
+TC_SLICE = 262_144  # database entries K6's plain version is compared on
 
 FAILURES = []
 
@@ -710,6 +734,266 @@ def mapping_phase(args, torch, dev, timer, results, fa, genome, reads, true_star
     check(f"{len(rows)} fits == host full-DP oracle (cost, start, end)", got_f == want_f)
 
 
+SEARCH_TOPK = 10
+LITERAL_QUERIES = 8  # bitnuc-tpu search with a few sequences on the command line
+QUERY_SUB_RATE = 0.05
+FASTQ_DB_READS = 100_000
+ORF_BATCH = 262_144
+N_CONTIGS, CONTIG_BP = 50, 100_000
+ORF_ORACLE_READS = 2_000
+SEARCH_ORF_LAUNCHES = {}
+_STOP_CODONS = (b"TAA", b"TAG", b"TGA")
+_RC_TABLE = bytes.maketrans(b"ACGT", b"TGCA")
+# the standard genetic code as a 64-letter string in TCAG order
+_TCAG, _AA64 = "TCAG", "FFLLSSSSYY**CC*WLLLLPPPPHHQQRRRRIIIMTTTTNNKKSSRRVVVVAAAADDEEGGGG"
+
+
+def packed_bases(ascii_rows: np.ndarray) -> np.ndarray:
+    """ASCII as the packer reads it: every byte outside ACGT (N) packs as A."""
+    return np.frombuffer(b"ACGT", np.uint8)[ascii_codes(ascii_rows)]
+
+
+def orf_oracle(seq: bytes):
+    """(length, start, end, is_rc, stopped) of the longest ORF over six
+    frames by a naive scan, with ops.orf's rules."""
+    def one_strand(s):
+        best = (0, 0, False)
+        for p in range(len(s) - 2):
+            if s[p : p + 3] != b"ATG":
+                continue
+            q = p
+            while q + 3 <= len(s) and s[q : q + 3] not in _STOP_CODONS:
+                q += 3
+            stopped = q + 3 <= len(s)
+            if q - p > best[0]:
+                best = (q - p, p, stopped)
+        return best
+
+    lf, sf, stf = one_strand(seq)
+    lr, sr, str_ = one_strand(seq[::-1].translate(_RC_TABLE))
+    if lr > lf:
+        return lr, len(seq) - sr - lr, len(seq) - sr, True, str_
+    return lf, sf, sf + lf, False, stf
+
+
+def translate_host(seq: bytes) -> bytes:
+    return "".join(_AA64[_TCAG.index(chr(seq[p])) * 16 + _TCAG.index(chr(seq[p + 1])) * 4
+                         + _TCAG.index(chr(seq[p + 2]))]
+                   for p in range(0, len(seq) - 2, 3)).encode()
+
+
+def hamming_host(db_host: np.ndarray, q: np.ndarray) -> np.ndarray:
+    """Distances [D] of one query's 512 bases to every entry of a host
+    uint32 word-major database."""
+    dist = np.zeros(db_host.shape[1], np.int64)
+    for w in range(db_host.shape[0]):
+        x = db_host[w] ^ q[w]
+        x = (x | (x >> np.uint32(1))) & np.uint32(0x55555555)
+        x = x - ((x >> np.uint32(1)) & np.uint32(0x55555555))
+        x = (x & np.uint32(0x33333333)) + ((x >> np.uint32(2)) & np.uint32(0x33333333))
+        x = (x + (x >> np.uint32(4))) & np.uint32(0x0F0F0F0F)
+        dist += (x * np.uint32(0x01010101)) >> np.uint32(24)
+    return dist
+
+
+def search_orf_path(torch, dev, tmp, db_wm, queries, reads, contigs, times):
+    """Phase 8's path through the entry points a user calls; returns its
+    outputs on the host and adds host-clock seconds to ``times``."""
+    from bitnuc_tpu_torch.database import PackedDB
+    from bitnuc_tpu_torch.ops import orf, revcomp, split
+    from bitnuc_tpu_torch.sequence import PackedReads
+    from bitnuc_tpu_torch.utils import bitops
+
+    def clock(key, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        times[key] = times.get(key, 0.0) + time.perf_counter() - t
+        return r
+
+    out = {}
+    db = PackedDB(words_wm=db_wm, n_bases=DB_BASES)
+    d, i = clock("search_batch_s", lambda: db.search_batch(queries, SEARCH_TOPK))
+    out["search_d"], out["search_i"] = d.cpu().numpy(), i.cpu().numpy()
+    d, i = clock("search_literal_s", lambda: db.search_batch(queries[:LITERAL_QUERIES],
+                                                             SEARCH_TOPK))
+    out["literal_d"], out["literal_i"] = d.cpu().numpy(), i.cpu().numpy()
+    fq_db = clock("from_fastq_s", lambda: PackedDB.from_fastq(
+        os.path.join(tmp, "db.fq"), DB_BASES, device=dev))
+    out["fastq_db_words"] = bitops.words_to_u32_np(fq_db.words_wm)
+    del fq_db
+
+    def orf_rows(key, rows):
+        pr = PackedReads.from_ascii(rows, validate=False, device=dev)
+        res = clock(key, lambda: orf.longest_orf(pr.words, pr.lengths))
+        return pr, res
+
+    fields = ("orf_len", "orf_start", "orf_end", "orf_rc", "orf_stopped")
+    parts = []
+    for b0 in range(0, len(reads), ORF_BATCH):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        pr, res = orf_rows("longest_orf_reads_device_s", reads[b0 : b0 + ORF_BATCH])
+        parts.append([x.cpu().numpy() for x in res])
+        times["longest_orf_reads_s"] = times.get("longest_orf_reads_s", 0.0) + (
+            time.perf_counter() - t)
+        if b0 == 0:  # --translate: each ORF sliced from its own strand
+            def translate(pr=pr, res=res):
+                ln, s, e, isrc, _ = res
+                rc = revcomp.reverse_complement_reads(pr.words, pr.lengths)
+                w = torch.where(isrc[:, None], rc, pr.words)
+                start = torch.where(isrc, pr.lengths - e, s)
+                ow, olen = split.slice_reads(w, pr.lengths, start, ln)
+                return orf.translate_reads(ow, olen)
+            aa, n_aa = clock("translate_s", translate)
+            out["aa"], out["n_aa"] = aa.cpu().numpy(), n_aa.cpu().numpy()
+    for f, k in enumerate(fields):
+        out[k] = np.concatenate([p[f] for p in parts])
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    _, res = orf_rows("longest_orf_contigs_device_s", contigs)
+    for f, k in enumerate(fields):
+        out["contig_" + k] = res[f].cpu().numpy()
+    times["longest_orf_contigs_s"] = time.perf_counter() - t
+    return out
+
+
+def search_orf_phase(args, torch, dev, timer, results, tmp, db_wm, genome, reads):
+    """Phase 8: many-query search (K6, and K5 for a few queries), a database
+    built from FASTQ, and ORF calling on reads and contigs (K10), with the
+    checks."""
+    from bitnuc_tpu_torch import config, kernels
+    from bitnuc_tpu_torch.database import PackedDB, TC_MIN_Q
+    from bitnuc_tpu_torch.ops import hamming, orf, revcomp
+    from bitnuc_tpu_torch.sequence import PackedReads
+    from bitnuc_tpu_torch.utils import bitops
+
+    ph = results["phases"]
+    rng = np.random.default_rng(args.seed + 8)
+    D = db_wm.shape[1]
+    print(f"phase 8: many-query search ({SEARCH_QUERIES} queries, top {SEARCH_TOPK}, against "
+          f"{D} x {DB_BASES} bases; TC_MIN_Q = {TC_MIN_Q}), from_fastq, ORFs", flush=True)
+    # queries: database entries with QUERY_SUB_RATE of their bases changed
+    src = rng.integers(0, D, SEARCH_QUERIES)
+    q_host = bitops.words_to_u32_np(db_wm[:, torch.from_numpy(src).to(dev)].t())
+    sub = (rng.random((SEARCH_QUERIES, DB_BASES)) < QUERY_SUB_RATE) * rng.integers(
+        1, 4, (SEARCH_QUERIES, DB_BASES))
+    shifts = (2 * np.arange(16, dtype=np.uint64))
+    flips = (sub.reshape(SEARCH_QUERIES, -1, 16).astype(np.uint64) << shifts).sum(-1)
+    q_host = q_host ^ flips.astype(np.uint32)
+    queries = bitops.words_from_u32_np(q_host).to(dev)
+    fq_seqs = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, (FASTQ_DB_READS, DB_BASES))]
+    write_fastq(os.path.join(tmp, "db.fq"), fq_seqs)
+    contigs = genome[: N_CONTIGS * CONTIG_BP].reshape(N_CONTIGS, CONTIG_BP)
+
+    # -- the path, with the counters set to 0 just before it ---------------
+    times = {}
+    kernels.reset_launches()
+    out = search_orf_path(torch, dev, tmp, db_wm, queries, reads, contigs, times)
+    SEARCH_ORF_LAUNCHES.update(kernels.LAUNCHES)
+    print(f"  launches {SEARCH_ORF_LAUNCHES}", flush=True)
+    n_batches = -(-len(reads) // ORF_BATCH)
+    for name in ("pack", "tc_scan", "hdist_scan_batch", "orf_scan"):
+        check(f"{name} launched on the search and ORF path", SEARCH_ORF_LAUNCHES[name] > 0,
+              f"{SEARCH_ORF_LAUNCHES[name]} launches")
+    check("longest_orf launched K10 twice a batch", SEARCH_ORF_LAUNCHES["orf_scan"]
+          == 2 * (n_batches + 1), f"{n_batches} read batches and one contig batch")
+    ph.update({f"search_orf_{k}": v for k, v in times.items()})
+    ph["search_batch_ms"] = timer(lambda: PackedDB(db_wm, DB_BASES).search_batch(
+        queries, SEARCH_TOPK), 3)
+    ph["search_queries_per_s"] = SEARCH_QUERIES / ph["search_batch_ms"] * 1e3
+    # where the time of a search and of an ORF batch goes
+    dists = PackedDB(db_wm, DB_BASES).distances_batch(queries)
+    first = PackedReads.from_ascii(reads[:ORF_BATCH], validate=False, device=dev)
+    stages = {
+        "search: distances_batch (K6)": lambda: PackedDB(db_wm, DB_BASES).distances_batch(
+            queries),
+        "search: top-k of [256, D]": lambda: hamming.topk_batch_dispatch(dists, SEARCH_TOPK),
+        "ORF batch: longest_orf": lambda: orf.longest_orf(first.words, first.lengths),
+        "ORF batch: reverse complement": lambda: revcomp.reverse_complement_reads(
+            first.words, first.lengths),
+        "ORF batch: one strand (K10)": lambda: orf._best_orf_one_strand(first.words,
+                                                                       first.lengths),
+    }
+    ph["search_orf_stages_ms"] = {}
+    for label, fn in stages.items():
+        ph["search_orf_stages_ms"][label] = timer(fn, 3)
+        print(f"    stage {label}: {ph['search_orf_stages_ms'][label]:.3f} ms", flush=True)
+    del dists, first
+    ph["longest_orf_reads_per_s"] = len(reads) / times["longest_orf_reads_s"]
+    ph["longest_orf_read_bases_per_s"] = reads.size / times["longest_orf_reads_s"]
+    ph["longest_orf_contig_bases_per_s"] = contigs.size / times["longest_orf_contigs_s"]
+    print(f"  search_batch of {SEARCH_QUERIES}: {ph['search_batch_ms']:.3f} ms warm "
+          f"({ph['search_queries_per_s']:.0f} queries/s; first call "
+          f"{times['search_batch_s']:.3f} s), {LITERAL_QUERIES} queries "
+          f"{times['search_literal_s']:.3f} s; from_fastq of {FASTQ_DB_READS} x {DB_BASES} "
+          f"{times['from_fastq_s']:.2f} s; longest_orf of {len(reads)} reads "
+          f"{times['longest_orf_reads_s']:.2f} s with upload and pack "
+          f"({ph['longest_orf_reads_per_s']:.0f} reads/s, "
+          f"{ph['longest_orf_read_bases_per_s'] / 1e6:.1f} Mbases/s; longest_orf alone "
+          f"{times['longest_orf_reads_device_s']:.3f} s), of {N_CONTIGS} x {CONTIG_BP} bp "
+          f"contigs {times['longest_orf_contigs_s']:.3f} s "
+          f"({ph['longest_orf_contig_bases_per_s'] / 1e6:.1f} Mbases/s); --translate of the "
+          f"first batch {times['translate_s']:.3f} s", flush=True)
+
+    # -- checks ---------------------------------------------------------------
+    with config.backend("torch"):
+        plain = search_orf_path(torch, dev, tmp, db_wm, queries, reads, contigs, {})
+    check("phase 8 under backend('torch') == default backend, every output",
+          all(np.array_equal(out[k], plain[k]) for k in out), f"{len(out)} outputs")
+    del plain
+    check("every query's nearest entry is the entry it was made from",
+          bool((out["search_i"][:, 0] == src).all()))
+    check(f"the first {LITERAL_QUERIES} queries: K5 run == K6 run",
+          np.array_equal(out["literal_d"], out["search_d"][:LITERAL_QUERIES])
+          and np.array_equal(out["literal_i"], out["search_i"][:LITERAL_QUERIES]))
+    db_host = bitops.words_to_u32_np(db_wm)
+    t = time.perf_counter()
+    ok = True
+    for r in range(LITERAL_QUERIES):
+        dist = hamming_host(db_host, q_host[r])
+        top = np.argsort(dist, kind="stable")[:SEARCH_TOPK]
+        ok &= np.array_equal(out["search_i"][r], top) and np.array_equal(
+            out["search_d"][r], dist[top])
+    check(f"{LITERAL_QUERIES} queries' top {SEARCH_TOPK} over all {D} entries == host numpy "
+          "Hamming oracle", bool(ok), f"{time.perf_counter() - t:.1f} s")
+    del db_host
+    codes = ascii_codes(fq_seqs).astype(np.uint64).reshape(FASTQ_DB_READS, -1, 16)
+    host_words = (codes << shifts).sum(-1).astype(np.uint32)
+    want = bitops.words_to_u32_np(PackedDB.from_numpy(host_words.T.copy(), DB_BASES,
+                                                      device=dev).words_wm)
+    got = out["fastq_db_words"]
+    detail = f"shape {got.shape} against {want.shape}"
+    if got.shape == want.shape and not np.array_equal(got, want):
+        bad_w, bad_e = np.nonzero(got != want)
+        detail += (f"; {len(np.unique(bad_e))} entries differ, first word {bad_w[0]} of entry "
+                   f"{bad_e[0]}: {got[bad_w[0], bad_e[0]]:#010x} against "
+                   f"{want[bad_w[0], bad_e[0]]:#010x}")
+    check("from_fastq == from_numpy of the host-packed words", np.array_equal(got, want), detail)
+    del want, got, host_words, codes
+    t = time.perf_counter()
+    host_reads = packed_bases(reads[:ORF_ORACLE_READS])
+    got = list(zip(*(out[k][:ORF_ORACLE_READS] for k in (
+        "orf_len", "orf_start", "orf_end", "orf_rc", "orf_stopped"))))
+    want = [orf_oracle(bytes(r)) for r in host_reads]
+    check(f"longest_orf of {ORF_ORACLE_READS} reads == host six-frame oracle",
+          [tuple(int(x) for x in g) for g in got] == [tuple(int(x) for x in w) for w in want])
+    prot_ok = True
+    for i, (ln, s, e, isrc, _) in enumerate(want):
+        seq = bytes(host_reads[i])
+        span = seq[::-1].translate(_RC_TABLE)[len(seq) - e : len(seq) - s] if isrc else seq[s:e]
+        prot_ok &= out["aa"][i, : out["n_aa"][i]].tobytes() == translate_host(span)
+        prot_ok &= int(out["n_aa"][i]) == ln // 3
+    check(f"translated ORFs of {ORF_ORACLE_READS} reads == host codon table", bool(prot_ok))
+    contig = packed_bases(contigs[:1])[0]
+    got = tuple(int(out["contig_" + k][0]) for k in (
+        "orf_len", "orf_start", "orf_end", "orf_rc", "orf_stopped"))
+    want = tuple(int(x) for x in orf_oracle(bytes(contig)))
+    check(f"longest_orf of a {CONTIG_BP}-bp contig == host six-frame oracle", got == want,
+          f"{got}; oracles {time.perf_counter() - t:.1f} s")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the full results here as JSON")
@@ -725,8 +1009,9 @@ def main() -> int:
     try:
         import bitnuc_tpu_torch as bnt
         from bitnuc_tpu_torch import config, entry, kernels, pipeline
+        from bitnuc_tpu_torch.database import TC_MIN_Q
         from bitnuc_tpu_torch.kernels import _build
-        from bitnuc_tpu_torch.ops import codec, hamming, kmer, merge, setops
+        from bitnuc_tpu_torch.ops import codec, hamming, kmer, merge, orf, setops
         from bitnuc_tpu_torch.utils import bitops
     except ImportError as e:
         print(f"chip_smoke: cannot import bitnuc_tpu_torch ({e}); run from a checkout",
@@ -873,29 +1158,122 @@ def main() -> int:
     W_db = DB_BASES // 16
     db = torch.randint(-(2**31), 2**31 - 1, (W_db, DB_ENTRIES), device=dev,
                        generator=gen, dtype=torch.int32)
-    q64 = torch.randint(-(2**31), 2**31 - 1, (64, W_db), device=dev,
-                        generator=gen, dtype=torch.int32)
+    q_max = torch.randint(-(2**31), 2**31 - 1, (max(TC_SWEEP_Q), W_db), device=dev,
+                          generator=gen, dtype=torch.int32)
     db_small = db[:, :1000].contiguous()
+
+    def scan_bounds(Q, nb):
+        """K4/K5's bytes, and the busier of its two units: a popcount and
+        four int32 operations per (query, word, entry)."""
+        n_w = -(-nb // 16)  # words a distance reads per entry
+        return dict(nbytes=4 * n_w * DB_ENTRIES + 4 * Q * n_w + 4 * Q * DB_ENTRIES,
+                    ops_ms=max(Q * DB_ENTRIES * n_w / POPC_PER_S,
+                               4 * Q * DB_ENTRIES * n_w / INT32_OPS_PER_S) * 1e3)
+
+    # K4 (Q = 1) and K5 (Q > 1): one kernel, counted and reported apart
     for nb in (512, 150, 7):
         for Q in (1, 64):
-            q = q64[:Q].contiguous()
+            name = "hdist_scan" if Q == 1 else "hdist_scan_batch"
+            q = q_max[:Q].contiguous()
             label = f"Q={Q} D={DB_ENTRIES} n_bases={nb}"
-            compare("hdist_scan", label, hamming.hdist_scan_kernel(q, db, nb),
+            compare(name, label, hamming.hdist_scan_kernel(q, db, nb),
                     hamming.hdist_scan_torch(q, db, nb))
             if nb in (512, 150):
-                n_w = -(-nb // 16)  # words a distance reads per entry
-                timed("hdist_scan", label,
-                      lambda: hamming.hdist_scan_kernel(q, db, nb),
+                timed(name, label, lambda: hamming.hdist_scan_kernel(q, db, nb),
                       lambda: hamming.hdist_scan_torch(q, db, nb),
-                      main=Q == 1 and nb == DB_BASES,
-                      nbytes=4 * n_w * DB_ENTRIES + 4 * Q * n_w + 4 * Q * DB_ENTRIES,
-                      ops_ms=(Q * DB_ENTRIES * n_w / POPC_PER_S
-                              + 4 * Q * DB_ENTRIES * n_w / INT32_OPS_PER_S) * 1e3)
+                      main=nb == DB_BASES, **scan_bounds(Q, nb))
         for Q, d in ((3, db), (64, db_small), (3, db_small)):
-            q = q64[:Q].contiguous()
-            compare("hdist_scan", f"Q={Q} D={d.shape[1]} n_bases={nb}",
+            q = q_max[:Q].contiguous()
+            compare("hdist_scan_batch", f"Q={Q} D={d.shape[1]} n_bases={nb}",
                     hamming.hdist_scan_kernel(q, d, nb), hamming.hdist_scan_torch(q, d, nb))
-    del db, q64, db_small, long_ascii, long_words
+
+    # K6 against K5 on the full database at each swept Q, at 512-base
+    # entries and at 150-base ones (W = 10, a read set): this feeds
+    # database.TC_MIN_Q. Then K6 against its plain version on a slice, and
+    # at edge shapes; timed beside torch._int_mm of the same planes at
+    # phase 8's Q
+    sweep = {}
+    for nb in (DB_BASES, READ_LEN):
+        d = db[: bitops.n_words_for(nb)].contiguous() if nb < DB_BASES else db
+        sweep[nb] = {}
+        for Q in TC_SWEEP_Q:
+            q = q_max[:Q, : d.shape[0]].contiguous()
+            compare("tc_scan", f"Q={Q} D={DB_ENTRIES} n_bases={nb} against K5",
+                    hamming.hdist_scan_tc_kernel(q, d, nb), hamming.hdist_scan_kernel(q, d, nb))
+            k5 = timer(lambda: hamming.hdist_scan_kernel(q, d, nb))
+            k6 = timer(lambda: hamming.hdist_scan_tc_kernel(q, d, nb))
+            sweep[nb][Q] = {"k5_ms": k5, "k6_ms": k6}
+            print(f"    sweep Q={Q} D={DB_ENTRIES} n_bases={nb}: K5 {k5:.4f} ms, K6 {k6:.4f} ms",
+                  flush=True)
+        faster = [Q for Q in TC_SWEEP_Q if sweep[nb][Q]["k6_ms"] < sweep[nb][Q]["k5_ms"]]
+        print(f"    n_bases={nb}: K6 faster at Q = {faster} (TC_MIN_Q = {TC_MIN_Q})", flush=True)
+        del d
+    results["phases"]["tc_sweep_ms"] = sweep
+    check("K6 beats K5 at Q = 512", sweep[DB_BASES][512]["k6_ms"] < sweep[DB_BASES][512]["k5_ms"],
+          f"{sweep[DB_BASES][512]['k6_ms']:.3f} against {sweep[DB_BASES][512]['k5_ms']:.3f} ms")
+    q = q_max[:SEARCH_QUERIES].contiguous()
+    d_slice = db[:, :TC_SLICE].contiguous()
+    compare("tc_scan", f"Q={SEARCH_QUERIES} D={TC_SLICE}", hamming.hdist_scan_tc_kernel(q, d_slice, 512),
+            hamming.hdist_scan_tc_torch(q, d_slice, 512))
+    del d_slice
+    for Q in (1, 130):
+        for W in (1, 9, 33):
+            dw = torch.randint(-(2**31), 2**31 - 1, (W, 5000), device=dev, generator=gen,
+                               dtype=torch.int32)
+            qw = torch.randint(-(2**31), 2**31 - 1, (Q, W), device=dev, generator=gen,
+                               dtype=torch.int32)
+            for nb in (0, 137, 16 * W):
+                got = hamming.hdist_scan_tc_kernel(qw, dw, nb)
+                compare("tc_scan", f"Q={Q} W={W} D=5000 n_bases={nb}", got,
+                        hamming.hdist_scan_tc_torch(qw, dw, nb))
+                compare("tc_scan", f"Q={Q} W={W} D=5000 n_bases={nb} against K5", got,
+                        hamming.hdist_scan_kernel(qw, dw, nb))
+    lib_planes = torch.empty((DB_ENTRIES, 48 * W_db), dtype=torch.int8, device=dev)
+    for d0 in range(0, DB_ENTRIES, TC_SLICE):  # the library call's operand, made untimed
+        lib_planes[d0 : d0 + TC_SLICE] = hamming._planes(
+            bitops.unpack_words(db[:, d0 : d0 + TC_SLICE].t()))
+    lib_q = hamming.query_planes(q, 512)
+    compare("tc_scan", f"torch._int_mm core Q={SEARCH_QUERIES} (affine step applied)",
+            torch.div(3 * 512 - torch._int_mm(lib_q, lib_planes.t()), 4, rounding_mode="floor"),
+            hamming.hdist_scan_tc_kernel(q, db, 512))
+    timed("tc_scan", f"Q={SEARCH_QUERIES} D={DB_ENTRIES} n_bases=512",
+          lambda: hamming.hdist_scan_tc_kernel(q, db, 512),
+          lambda: hamming.hdist_scan_tc_torch(q, db, 512), reps=5, plain_reps=1, main=True,
+          nbytes=4 * W_db * DB_ENTRIES + SEARCH_QUERIES * 48 * W_db + 4 * SEARCH_QUERIES * DB_ENTRIES,
+          ops_ms=2 * SEARCH_QUERIES * DB_ENTRIES * 48 * W_db / INT8_TC_OPS_PER_S * 1e3,
+          library=lambda: torch._int_mm(lib_q, lib_planes.t()))
+    del q_max, db_small, lib_planes, lib_q
+
+    # K10: the phase-8 batch shape, and edge shapes: W = 1, lengths 0, 1,
+    # 2, 16 W and not multiples of 3, no ATG, all stops, nested starts
+    # sharing a stop, and rows of 100,000 bp (past the TPU's 32,767)
+    orf_w = codec.encode_reads_kernel(*reads(READS, READ_LEN, 0.0))[0]
+    orf_l = torch.randint(0, READ_LEN + 1, (READS,), device=dev, generator=gen, dtype=torch.int32)
+    orf_cases = [(f"[{READS},{READ_LEN}]", orf_w, orf_l)]
+    for label, seqs in (("W=1 edge lengths", [b"", b"A", b"AT", b"ATG", b"ATGT", b"ATGTAA",
+                                              b"ATGAAAAAAAAAAAAA", b"TTTATGATGAAATGAA"]),
+                        ("W=2 motifs", [b"TTTATGATGAAATGAAAATAG", b"TAATAGTGA" * 3,
+                                        b"CCCCCCCCCCCCCCCCCCCCCC", b"ATG" * 10 + b"TA",
+                                        b"ATGC" * 8])):
+        pr = bnt.PackedReads.from_ascii(seqs, device=dev)
+        w = pr.words[:, :1].contiguous() if label.startswith("W=1") else pr.words
+        orf_cases.append((label, w, pr.lengths))
+    long_orf_ascii, _ = reads(64, 100_000, 0.0)
+    long_orf_lens = torch.randint(99_000, 100_001, (64,), device=dev, generator=gen,
+                                  dtype=torch.int32)
+    long_orf_lens[:2] = 100_000
+    orf_cases.append(("[64,100000]", codec.encode_reads_kernel(long_orf_ascii, long_orf_lens)[0],
+                      long_orf_lens))
+    for label, w, ln in orf_cases:
+        compare("orf_scan", label, orf.best_orf_one_strand_kernel(w, ln),
+                orf.best_orf_one_strand_torch(w, ln))
+    covered = int(torch.div(torch.clamp(orf_l.long(), 0, 16 * orf_w.shape[1]) + 15, 16,
+                            rounding_mode="floor").sum())  # words the reads cover
+    timed("orf_scan", orf_cases[0][0], lambda: orf.best_orf_one_strand_kernel(orf_w, orf_l),
+          lambda: orf.best_orf_one_strand_torch(orf_w, orf_l), main=True,
+          nbytes=4 * orf_w.numel() + 4 * READS + 9 * READS,
+          ops_ms=ORF_OPS_PER_WORD * covered / INT32_OPS_PER_S * 1e3)
+    del orf_cases, orf_w, orf_l, long_orf_ascii, long_orf_lens, long_ascii, long_words
 
     # K7: sorted lists with 1..3 key words and 0..2 payloads; small, empty,
     # heavily duplicated (around the sign bit and the all-ones word) and
@@ -1074,11 +1452,14 @@ def main() -> int:
             args, torch, dev, timer, tmp, results)
         mapping_phase(args, torch, dev, timer, results, fa, genome, reads_g, true_starts,
                       true_rev, compare, timed)
+        search_orf_phase(args, torch, dev, timer, results, tmp, db, genome, reads_g)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
     launches.update({name: LARGE_K_LAUNCHES[name] for name in ("unpack", "merge")})
     launches.update({name: MAP_LAUNCHES[name] for name in ("fit_banded", "sw_score")})
+    launches.update({name: SEARCH_ORF_LAUNCHES[name]
+                     for name in ("hdist_scan_batch", "tc_scan", "orf_scan")})
 
     # -- report ------------------------------------------------------------
     # kernel -> (source, TPU kernel's def, its pallas_call)
@@ -1094,6 +1475,11 @@ def main() -> int:
         "hdist_scan": ("bitnuc_tpu_torch/csrc/hamming.cu",
                        "bitnuc_tpu/ops/pallas/hamming.py:46",
                        "bitnuc_tpu/ops/pallas/hamming.py:72"),
+        "hdist_scan_batch": ("bitnuc_tpu_torch/csrc/hamming.cu",
+                             "bitnuc_tpu/ops/pallas/hamming.py:115",
+                             "bitnuc_tpu/ops/pallas/hamming.py:151"),
+        "tc_scan": ("bitnuc_tpu_torch/csrc/tcscan.cu", "bitnuc_tpu/ops/pallas/hamming.py:243",
+                    "bitnuc_tpu/ops/pallas/hamming.py:268"),
         "unpack": ("bitnuc_tpu_torch/csrc/unpack.cu", "bitnuc_tpu/ops/pallas/unpack.py:61",
                    "bitnuc_tpu/ops/pallas/unpack.py:83"),
         "merge": ("bitnuc_tpu_torch/csrc/merge.cu", "bitnuc_tpu/ops/pallas/merge.py:141",
@@ -1104,6 +1490,8 @@ def main() -> int:
         "sw_score": ("bitnuc_tpu_torch/csrc/wavefront.cu",
                      "bitnuc_tpu/ops/pallas/wavefront.py:444",
                      "bitnuc_tpu/ops/pallas/wavefront.py:482"),
+        "orf_scan": ("bitnuc_tpu_torch/csrc/orf.cu", "bitnuc_tpu/ops/pallas/orfscan.py:93",
+                     "bitnuc_tpu/ops/pallas/orfscan.py:117"),
     }
     lines = []
     for name, (src, replaces, call) in sources.items():
@@ -1113,8 +1501,6 @@ def main() -> int:
                 "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
                 "bound_by": head["bound_by"], "library_ms": head["library_ms"],
                 "shape": head["shape"]}
-        if name == "hdist_scan":
-            item["also_replaces"] = "bitnuc_tpu/ops/pallas/hamming.py:115"
         lines.append(item)
     results["kernels"] = lines
     results["timings"] = timings

@@ -177,6 +177,23 @@ def test_sw_score_matches_jax_and_pallas(pairs, params):
                                        *params, interpret=True))
 
 
+@pytest.mark.parametrize("mm,gap", [(-1, 1), (2**29, 3), (5, -2), (3, 2**29)])
+def test_banded_fit_any_int32_costs_matches_jax(pairs, mm, gap):
+    """Negative costs and costs whose sums pass 2^31 wrap in int32 on both
+    sides; the boundary products d * gap wrap too (the last case)."""
+    ja, (wa, la), jb, (wb, lb) = pairs
+    want = jalign.fit_distance_span_banded(ja.words, ja.lengths, jb.words, jb.lengths,
+                                           mm, gap, off_lo=-32, off_hi=124)
+    _all_eq(align.fit_distance_span_banded_torch(wa, la, wb, lb, mm, gap, -32, 124), want)
+
+
+@pytest.mark.parametrize("params", [(2**28, -3, -5, -2), (2, -3, -2**29, -2**29)])
+def test_sw_score_any_int32_scores_matches_jax(pairs, params):
+    ja, (wa, la), jb, (wb, lb) = pairs
+    want = jalign.sw_score(ja.words, ja.lengths, jb.words, jb.lengths, *params)
+    _all_eq(align.sw_score_torch(wa, la, wb, lb, *params), want)
+
+
 @pytest.mark.parametrize("lanes,Wa,Wb,wide", [
     (80, 10, 15, False),     # the mapper's K8 band
     (1024, 10, 63, False),   # the widest row the registers hold

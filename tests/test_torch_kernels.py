@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from bitnuc_tpu_torch import config, entry, kernels
-from bitnuc_tpu_torch.ops import align, codec, hamming, kmer, merge
+from bitnuc_tpu_torch.ops import align, codec, hamming, kmer, merge, orf
 from bitnuc_tpu_torch.utils import bitops
 
 torch.set_num_threads(1)
@@ -201,13 +201,95 @@ def test_wide_kernels_stride_over_pairs(cuda, monkeypatch):
 
 
 @pytest.mark.cuda
-def test_wavefront_kernels_refuse_costs_out_of_range(cuda):
-    """Costs the int32 sentinel arithmetic cannot hold raise, on the card,
-    before any launch."""
-    wa, la, wb, lb = (x.to(cuda) for x in _pairs(5, 4, 2, 4))
-    before = dict(kernels.LAUNCHES)
-    with pytest.raises(ValueError, match="costs"):
-        align.fit_distance_span_banded_kernel(wa, la, wb, lb, -1, 1, -8, 8)
-    with pytest.raises(ValueError, match="scores"):
-        align.sw_score_kernel(wa, la, wb, lb, 2**28, -3, -5, -2)
-    assert dict(kernels.LAUNCHES) == before
+@pytest.mark.parametrize("costs", [(-1, 1), (2**29, 3), (5, -2), (3, 2**29)])
+@pytest.mark.parametrize("band,Wb", [((-8, 8), 4), ((-1100, 1100), 100)])  # register, wide
+def test_fit_banded_kernel_any_int32_costs(cuda, costs, band, Wb):
+    """Negative costs and sums past 2^31 wrap as the plain version's int32
+    tensors do, in the register and in the wide kernel."""
+    wa, la, wb, lb = (x.to(cuda) for x in _pairs(5 + Wb, 9, 6, Wb))
+    got = align.fit_distance_span_banded_kernel(wa, la, wb, lb, *costs, *band)
+    want = align.fit_distance_span_banded_torch(wa, la, wb, lb, *costs, *band)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("params", [(2**28, -3, -5, -2), (2, -3, -2**29, -2**29)])
+@pytest.mark.parametrize("Wb", [4, 80])  # register, wide (N + 1 = 1281)
+def test_sw_kernel_any_int32_scores(cuda, params, Wb):
+    wa, la, wb, lb = (x.to(cuda) for x in _pairs(6 + Wb, 9, 3, Wb))
+    got = align.sw_score_kernel(wa, la, wb, lb, *params)
+    want = align.sw_score_torch(wa, la, wb, lb, *params)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q", [1, 130])
+@pytest.mark.parametrize("W", [1, 9, 33])
+@pytest.mark.parametrize("nb_of", ["zero", "137", "all"])
+@pytest.mark.parametrize("D", [1000, 1001])
+def test_tc_scan_kernel_matches_plain(cuda, Q, W, nb_of, D):
+    """K6 at ragged Q and D (not multiples of the 128 x 128 block; an odd D
+    leaves odd rows without 8-byte alignment), odd W and n_bases of 0, 137
+    (clamped at W = 1) and 16 W: equal to its plain version and to K4/K5."""
+    nb = {"zero": 0, "137": 137, "all": 16 * W}[nb_of]
+    g = torch.Generator().manual_seed(Q + W)
+    db = torch.randint(-(2**31), 2**31 - 1, (W, D), generator=g, dtype=torch.int32).to(cuda)
+    q = torch.randint(-(2**31), 2**31 - 1, (Q, W), generator=g, dtype=torch.int32).to(cuda)
+    got = hamming.hdist_scan_tc_kernel(q, db, nb)
+    assert torch.equal(got, hamming.hdist_scan_tc_torch(q, db, nb))
+    assert torch.equal(got, hamming.hdist_scan_kernel(q, db, nb))
+
+
+@pytest.mark.cuda
+def test_distances_batch_routes_by_tc_min_q(cuda):
+    from bitnuc_tpu_torch import database
+
+    g = torch.Generator().manual_seed(9)
+    db = database.PackedDB(
+        torch.randint(-(2**31), 2**31 - 1, (32, 3000), generator=g, dtype=torch.int32).to(cuda),
+        512)
+    for Q, name in ((database.TC_MIN_Q, "tc_scan"), (database.TC_MIN_Q - 1, "hdist_scan_batch"),
+                    (512, "tc_scan")):
+        q = torch.randint(-(2**31), 2**31 - 1, (Q, 32), generator=g, dtype=torch.int32).to(cuda)
+        before = dict(kernels.LAUNCHES)
+        got = db.distances_batch(q)
+        assert kernels.LAUNCHES[name] == before[name] + 1
+        assert torch.equal(got, hamming.hdist_scan_torch(q, db.words_wm, 512))
+
+
+def _orf_reads(seed, B, W, lengths=None):
+    """B reads of W words, codes weighted towards A and T (ATG- and
+    stop-rich); without given lengths, the first rows are planted edges."""
+    rng = np.random.default_rng(seed)
+    L = 16 * W
+    codes = rng.choice(4, (B, L), p=[0.35, 0.1, 0.2, 0.35])
+    lens = rng.integers(0, L + 1, B) if lengths is None else np.asarray(lengths)
+    plants = [b"TTTATGATGAAATGAAAATAG", b"TAATAGTGA" * 4, b"CCCCCCCCCCCC", b"ATGAAAAA"]
+    for r, s in enumerate(plants[: B // 2] if lengths is None else []):
+        s = s[:L]
+        codes[r, : len(s)] = [b"ACGT".index(c) for c in s]
+        lens[r] = len(s)
+    return (bitops.pack_codes(torch.from_numpy(codes)),
+            torch.from_numpy(lens.astype(np.int32)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,W,lengths", [
+    (9, 1, [0, 1, 2, 3, 4, 5, 14, 15, 16]),  # lengths 0, 1, 2 and 16 W
+    (300, 10, None),                          # 150-bp rows
+    (40, 32, None),                           # a whole 512-base chunk
+    (20, 33, None),                           # two chunks
+    (6, 40, [640, 639, 638, 637, 600, 0]),
+    (3, 6250, [100_000, 99_999, 65_536]),     # past the TPU's 32,767 bound
+])
+def test_orf_scan_kernel_matches_plain(cuda, B, W, lengths):
+    words, lens = (x.to(cuda) for x in _orf_reads(B + W, B, W, lengths))
+    got = orf.best_orf_one_strand_kernel(words, lens)
+    want = orf.best_orf_one_strand_torch(words, lens)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    before = kernels.LAUNCHES["orf_scan"]
+    orf.longest_orf(words, lens)
+    assert kernels.LAUNCHES["orf_scan"] == before + 2
