@@ -36,6 +36,31 @@
 // (3 nb - S) >> 2 straight from the accumulators, two neighbouring entries
 // a store, with a streaming hint. wgmma, TMA and a persistent schedule are
 // later work.
+//
+// K6 tc_search: the same main loop with a top-k epilogue, for the many-query
+// search (PackedDB.search_batch): for every query the k smallest keys
+// dist << 32 | index, so the [Q, D] matrix is never written (4.3 GB at
+// Q = 256, D = 4,194,304) nor read back as int64 keys. Bound on the card:
+// the tensor cores, as tc_scan; its output is [Q, G, k] int64 candidates.
+// A grid of n_qtiles x G blocks; each block walks a contiguous range of
+// 128-entry tiles, so its per-row lists live across many tiles. Shared
+// memory (dynamic, past 48 KB) holds, beside the operand stage, each of the
+// block's 128 rows' sorted list of up to k <= kSearchMax keys, its
+// limit (a sum, derived from the k-th key's distance; INT_MIN until the
+// list is full) and a buffer of candidates. After a tile's sums, the warps
+// offer their sums in two halves of their column tiles (a row then gets at
+// most 64 candidates a half): a sum above its row's limit is appended to
+// the row's buffer through an atomicAdd on its count, as (dist << 8 | entry
+// in the tile). If any sum was offered (__syncthreads_or), one thread a row
+// then inserts the candidates whose key is below the list's k-th key into
+// the sorted list, dropping the largest key of a full list, and sets the
+// limit; keys are unique, so the order is exact whatever order the lanes
+// offered them in. Random entries sit near 3/4 of n_bases, so after a
+// row's first tile few sums pass: most tiles' epilogue is one int32 compare
+// a sum and a barrier a half. Entries past D and rows past Q never enter a
+// list.
+#include <climits>
+
 #include "common.cuh"
 
 namespace {
@@ -97,19 +122,17 @@ __device__ __forceinline__ void load_pair(const int4* __restrict__ ablk, int S,
   y = (d < D && w0 + 1 < W) ? __ldg(db + (int64_t)(w0 + 1) * D + d) : 0u;
 }
 
-__global__ void __launch_bounds__(kThreads)
-tc_scan_kernel(const int4* __restrict__ afrag, const uint32_t* __restrict__ db,
-               int64_t Q, int W, int64_t D, int nb, int64_t n_qtiles,
-               int32_t* __restrict__ out) {
-  __shared__ Stage sm;
+// K6's main loop, shared by tc_scan and tc_search: the sums S of the
+// block's 128 queries (A operands at ablk) against entries [d0, d0 + 128),
+// into acc as mma.sync's C fragments (warp (wq, wd): row tile wq * 4 + i,
+// entries wd * 32 + j * 8 + 2 tid (+1), rows gid and gid + 8). Every word
+// pair starts with a barrier, so a call may follow any use of sm.
+__device__ __forceinline__ void tile_sums(Stage& sm, const int4* __restrict__ ablk, int S, int P,
+                                          const uint32_t* __restrict__ db, int W, int64_t D,
+                                          int64_t d0, int (&acc)[4][4][4]) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gid = lane >> 2, tid = lane & 3;
   const int wq = warp >> 2, wd = warp & 3;
-  const int64_t qt = blockIdx.x % n_qtiles;
-  const int64_t d0 = (blockIdx.x / n_qtiles) * kTileD;
-  const int P = (W + 1) / 2, S = kSteps * P;
-  const int4* ablk = afrag + qt * kRowTiles * (int64_t)S * 32;
-  int acc[4][4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -156,6 +179,22 @@ tc_scan_kernel(const int4* __restrict__ afrag, const uint32_t* __restrict__ db,
       }
     }
   }
+}
+
+__global__ void __launch_bounds__(kThreads)
+tc_scan_kernel(const int4* __restrict__ afrag, const uint32_t* __restrict__ db,
+               int64_t Q, int W, int64_t D, int nb, int64_t n_qtiles,
+               int32_t* __restrict__ out) {
+  __shared__ Stage sm;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tid = lane & 3;
+  const int wq = warp >> 2, wd = warp & 3;
+  const int64_t qt = blockIdx.x % n_qtiles;
+  const int64_t d0 = (blockIdx.x / n_qtiles) * kTileD;
+  const int P = (W + 1) / 2, S = kSteps * P;
+  const int4* ablk = afrag + qt * kRowTiles * (int64_t)S * 32;
+  int acc[4][4][4];
+  tile_sums(sm, ablk, S, P, db, W, D, d0, acc);
 
   // registers 0, 1 (and 2, 3) of a tile hold neighbouring entries dc and
   // dc + 1 of one row: one 8-byte store where the row keeps them aligned
@@ -184,6 +223,122 @@ tc_scan_kernel(const int4* __restrict__ afrag, const uint32_t* __restrict__ db,
   }
 }
 
+constexpr int kSearchMax = 32;   // ops.hamming.SEARCH_TOPK_MAX
+constexpr int kCandSlots = 64;   // a row's candidates in one half of a tile
+
+// tc_search's per-row state; the lists, [kTileQ][k | 1] keys (an odd
+// stride: the merge's threads, one a row, then hit distinct banks), follow
+// it.
+struct SearchState {
+  int lim[kTileQ];                    // offer a sum above it: see tc_search_kernel
+  int cnt[kTileQ];                    // keys in the list
+  int ncand[kTileQ];                  // candidates in the buffer
+  uint32_t cand[kTileQ][kCandSlots + 1];  // dist << 8 | entry in the tile (odd stride)
+};
+
+__device__ __forceinline__ long long cand_key(uint32_t c, int64_t d0) {
+  return ((long long)(c >> 8) << 32) | (long long)(d0 + (c & 0xFFu));
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
+tc_search_kernel(const int4* __restrict__ afrag, const uint32_t* __restrict__ db,
+                 int64_t Q, int W, int64_t D, int nb, int k, int64_t n_qtiles, int64_t G,
+                 int64_t per_block, long long* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  Stage& sm = *reinterpret_cast<Stage*>(smem);
+  SearchState& st = *reinterpret_cast<SearchState*>(smem + sizeof(Stage));
+  long long* lists = reinterpret_cast<long long*>(smem + sizeof(Stage) + sizeof(SearchState));
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tid = lane & 3;
+  const int wq = warp >> 2, wd = warp & 3;
+  const int64_t qt = blockIdx.x % n_qtiles, g = blockIdx.x / n_qtiles;
+  const int64_t n_dtiles = (D + kTileD - 1) / kTileD;
+  const int64_t t_end = (g + 1) * per_block < n_dtiles ? (g + 1) * per_block : n_dtiles;
+  const int P = (W + 1) / 2, S = kSteps * P;
+  const int4* ablk = afrag + qt * kRowTiles * (int64_t)S * 32;
+  const int three_nb = 3 * nb;
+  const int ks = k | 1;
+  for (int r = threadIdx.x; r < kTileQ; r += kThreads) {
+    st.lim[r] = INT_MIN;
+    st.cnt[r] = 0;
+    st.ncand[r] = 0;
+  }
+  __syncthreads();
+
+  int acc[4][4][4];
+  for (int64_t t = g * per_block; t < t_end; ++t) {
+    const int64_t d0 = t * kTileD;
+    tile_sums(sm, ablk, S, P, db, W, D, d0, acc);
+#pragma unroll
+    for (int part = 0; part < 2; ++part) {
+      // offer: every warp compares the sums of its column tiles 2 part and
+      // 2 part + 1 (64 entries a row in all) with its rows' limits. A full
+      // list's limit is 3 nb - 4 (dist_k + 1), dist_k the distance of its
+      // k-th key: a sum above it is a distance <= dist_k, which may tie
+      // dist_k at a lower index. The merge tests the exact key.
+      bool offered = false;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int rh = 0; rh < 2; ++rh) {
+          const int row = (wq * 4 + i) * 16 + gid + 8 * rh;
+          if (qt * kTileQ + row >= Q) continue;
+          const int lim = st.lim[row];
+#pragma unroll
+          for (int jj = 0; jj < 2; ++jj) {
+            const int j = 2 * part + jj;
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              const int col = wd * 32 + j * 8 + 2 * tid + c;
+              const int sum = acc[i][j][2 * rh + c];
+              if (sum > lim && d0 + col < D) {
+                const int at = atomicAdd(&st.ncand[row], 1);
+                st.cand[row][at] = ((uint32_t)((three_nb - sum) >> 2) << 8) | (uint32_t)col;
+                offered = true;
+              }
+            }
+          }
+        }
+      }
+      // merge, only where a sum was offered: one thread a row inserts its
+      // candidates whose key is below the list's k-th into the sorted list
+      if (__syncthreads_or(offered)) {
+        if (threadIdx.x < kTileQ && st.ncand[threadIdx.x] > 0) {
+          const int row = threadIdx.x, n = st.ncand[row];
+          long long* L = lists + row * ks;
+          int m = st.cnt[row];
+          long long th = m == k ? L[k - 1] : LLONG_MAX;
+          for (int c = 0; c < n; ++c) {
+            const long long key = cand_key(st.cand[row][c], d0);
+            if (key >= th) continue;
+            int pos = m < k ? m : k - 1;  // a full list drops its largest key
+            while (pos > 0 && L[pos - 1] > key) {
+              L[pos] = L[pos - 1];
+              --pos;
+            }
+            L[pos] = key;
+            if (m < k) ++m;
+            if (m == k) th = L[k - 1];
+          }
+          st.cnt[row] = m;
+          st.lim[row] = m == k ? three_nb - 4 * ((int)(th >> 32) + 1) : INT_MIN;
+          st.ncand[row] = 0;
+        }
+        __syncthreads();
+      }
+    }
+  }
+
+  // each query's list, padded with INT64_MAX, at out[q][g][0..k)
+  for (int row = warp; row < kTileQ; row += kThreads / 32) {
+    const int64_t q = qt * kTileQ + row;
+    if (q >= Q) continue;
+    long long* o = out + (q * G + g) * k;
+    const int m = st.cnt[row];
+    for (int s = lane; s < k; s += 32) o[s] = s < m ? lists[row * ks + s] : LLONG_MAX;
+  }
+}
+
 }  // namespace
 
 // afrag: the A operands of the query planes (ops.hamming._a_fragments),
@@ -201,5 +356,33 @@ extern "C" int bn_tc_scan(const void* afrag, const void* db, int64_t Q, int64_t 
   tc_scan_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
       (const int4*)afrag, (const uint32_t*)db, Q, (int)W, D, nb, n_qtiles,
       (int32_t*)out);
+  return (int)cudaGetLastError();
+}
+
+// afrag as for bn_tc_scan; db [W, D] uint32 word-major; out [Q, G, k] int64:
+// block g's k smallest keys dist << 32 | index of each query, ascending,
+// padded with INT64_MAX. Block g walks tiles [g per_block, (g + 1)
+// per_block) of 128 entries; G per_block must cover D. 1 <= k <= 32.
+extern "C" int bn_tc_search(const void* afrag, const void* db, int64_t Q, int64_t W,
+                            int64_t D, int nb, int k, int64_t G, int64_t per_block, void* out,
+                            void* stream) {
+  if (Q < 0 || W < 0 || D < 0 || D > 0x7FFFFFFF || nb < 0 || nb > 16 * W || W >= (1 << 19) ||
+      k < 1 || k > kSearchMax) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (Q == 0 || D == 0) return (int)cudaGetLastError();
+  const int64_t n_qtiles = (Q + kTileQ - 1) / kTileQ;
+  const int64_t n_dtiles = (D + kTileD - 1) / kTileD;
+  if (G < 1 || per_block < 1 || G * per_block < n_dtiles) return (int)cudaErrorInvalidValue;
+  const int64_t blocks = n_qtiles * G;
+  if (blocks > 0x7FFFFFFF) return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      sizeof(Stage) + sizeof(SearchState) + (size_t)kTileQ * (k | 1) * sizeof(long long);
+  cudaError_t err = cudaFuncSetAttribute(tc_search_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  tc_search_kernel<<<(unsigned)blocks, kThreads, smem, (cudaStream_t)stream>>>(
+      (const int4*)afrag, (const uint32_t*)db, Q, (int)W, D, nb, k, n_qtiles, G, per_block,
+      (long long*)out);
   return (int)cudaGetLastError();
 }

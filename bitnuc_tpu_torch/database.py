@@ -30,6 +30,19 @@ from .utils import bitops
 # pads Q to tiles of 128, so the crossover is 128 at both widths.
 TC_MIN_Q = 128
 
+# search_batch runs the fused search (K6 with its top-k epilogue, the
+# tc_search kernel) for k <= hamming.SEARCH_TOPK_MAX from this many queries
+# on; below it, and above that k, distances_batch and then
+# topk_batch_dispatch. Both routes are exact. chip_smoke.py's sweep over
+# 4,194,304 entries, k = 10, on an NVIDIA H100 80GB HBM3 at a 700.00 W power
+# limit, two-step / fused in ms at Q = 1, 8, 32, 64, 128, 256, 512: 512
+# bases 0.901 / 4.006, 5.153 / 3.955, 15.900 / 4.186, 30.706 / 4.524,
+# 58.890 / 3.942, 115.905 / 7.602, 239.315 / 13.551; 150 bases 0.762 /
+# 1.612, 4.697 / 1.699, 14.907 / 1.853, 28.876 / 2.005, 56.713 / 2.020,
+# 111.746 / 3.407, 230.823 / 6.668. The fused route computes a whole
+# 128-query tile, so one query stays on K4 and its top-k.
+SEARCH_TC_MIN_Q = 8
+
 
 @dataclasses.dataclass(frozen=True)
 class PackedDB:
@@ -115,8 +128,12 @@ class PackedDB:
         """Per-entry Hamming distances [D] for one packed query [W] (K4)."""
         return hamming.hdist_scan(query.reshape(1, -1), self.words_wm, self.n_bases)[0]
 
-    def search(self, query: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Exact top-k nearest entries: (distances [k], indices [k])."""
+    def search(self, query: torch.Tensor, k: int, mesh=None,
+               axis: str = "data") -> Tuple[torch.Tensor, torch.Tensor]:
+        """Exact top-k nearest entries: (distances [k], indices [k]). A
+        ``mesh`` (the JAX package's column-sharded scan) raises
+        NotImplementedError."""
+        config.require_no_mesh(mesh, "PackedDB.search")
         return hamming.topk_smallest(self.distances(query), k)
 
     def distances_batch(self, queries: torch.Tensor) -> torch.Tensor:
@@ -126,6 +143,15 @@ class PackedDB:
             return hamming.hdist_scan_tc(queries, self.words_wm, self.n_bases)
         return hamming.hdist_scan(queries, self.words_wm, self.n_bases)
 
-    def search_batch(self, queries: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Per-query exact top-k: (distances [Q, k], indices [Q, k])."""
-        return hamming.topk_batch_dispatch(self.distances_batch(queries), k)
+    def search_batch(self, queries: torch.Tensor, k: int, mesh=None,
+                     axis: str = "data") -> Tuple[torch.Tensor, torch.Tensor]:
+        """Per-query exact top-k: (distances [Q, k], indices [Q, k]),
+        ascending, ties by lowest index. From SEARCH_TC_MIN_Q queries on and
+        for k <= hamming.SEARCH_TOPK_MAX the fused search (tc_search) keeps
+        each query's k nearest entries in the kernel and never builds the
+        [Q, D] matrix; otherwise distances_batch, then
+        topk_batch_dispatch. A ``mesh`` raises NotImplementedError."""
+        config.require_no_mesh(mesh, "PackedDB.search_batch")
+        if 0 < k <= hamming.SEARCH_TOPK_MAX and queries.shape[0] >= SEARCH_TC_MIN_Q:
+            return hamming.hdist_search_tc(queries, self.words_wm, self.n_bases, k)
+        return hamming.topk_batch_dispatch(self.distances_batch(queries), k, self.n_bases)

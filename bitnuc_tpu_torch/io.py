@@ -11,11 +11,16 @@ is read through gzip; its offsets count bytes of the decompressed stream,
 as in the JAX package. ``read_fasta`` and ``_split_records_fasta`` parse
 FASTA (path, ``.gz`` path, bytes or file object).
 
-Prefetch threads and the native scanner are later ports.
+``prefetch > 0`` runs the host side of ``iter_fastq_batches`` (reading,
+gzip, framing, the numpy rectangle) on a producer thread that keeps up to
+``prefetch`` batches ready (``_prefetched``, the JAX package's contract).
+The upload and K1 stay on the consumer's thread, so every device call runs
+on that thread's current stream. The native scanner is a later port.
 """
 
 from __future__ import annotations
 
+import contextlib
 import gzip
 import io as _stdio
 import os
@@ -207,11 +212,71 @@ def fastq_to_batch(data: bytes, max_len: Optional[int] = None) -> Tuple[np.ndarr
     return ascii_arr, seq_lens
 
 
+def _host_batches(path: PathLike, batch_size: int, max_len: Optional[int], start_offset: int):
+    """The host side of iter_fastq_batches: (ascii uint8 [B, L], lengths
+    int32 [B], end offset) of each non-empty batch."""
+    for data, end in _iter_fastq_record_blocks(path, batch_size, start_offset):
+        ascii_arr, lens = fastq_to_batch(data, max_len)
+        if len(lens):
+            yield ascii_arr, lens, end
+
+
+def _prefetched(gen: Iterator, depth: int) -> Iterator:
+    """Drain ``gen`` on a daemon thread into a queue of ``depth`` items.
+    Keeps the order; an exception raised in ``gen`` re-raises at the
+    consumer's next pull. A consumer that stops early (break, exception,
+    GeneratorExit) stops the worker, which closes ``gen`` (and its file),
+    and waits for it to end."""
+    import queue
+    import threading
+
+    q: "queue.Queue" = queue.Queue(maxsize=depth)
+    stop = threading.Event()
+    done = object()
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def worker():
+        try:
+            try:
+                for item in gen:
+                    if not put(item):
+                        return
+                put(done)
+            except BaseException as e:  # handed to the consumer
+                put(e)
+        finally:
+            gen.close()
+
+    t = threading.Thread(target=worker, name="fastq-prefetch", daemon=True)
+    t.start()
+    try:
+        while True:
+            item = q.get()
+            if item is done:
+                return
+            if isinstance(item, BaseException):
+                raise item
+            yield item
+    finally:
+        stop.set()
+        t.join()
+
+
 def iter_fastq_batches(
     path: PathLike,
     batch_size: int,
     max_len: Optional[int] = None,
     validate: bool = True,
+    staged: Optional[bool] = None,
+    prefetch: int = 0,
     with_validity: bool = False,
     with_offsets: bool = False,
     start_offset: int = 0,
@@ -225,24 +290,35 @@ def iter_fastq_batches(
     the batch's last record (``with_offsets``); feeding that offset back as
     ``start_offset`` resumes framing at the same record boundary.
     validate=True raises InvalidBase on the first invalid in-range base.
+    ``staged`` selects the JAX package's native scanner, which this package
+    does not have: None and False take the numpy framing, True raises
+    RuntimeError as the JAX package does without its native library.
+    ``prefetch > 0`` frames up to that many batches ahead on a producer
+    thread; the upload and K1 run on the caller's thread.
     ``device`` defaults to the card (``config.resolve_device``)."""
+    if staged:
+        raise RuntimeError(
+            "staged=True needs the native FASTQ scanner, which bitnuc_tpu_torch does not "
+            "have; use staged=None or False for the numpy framing"
+        )
     device = config.resolve_device(device)
-    for data, end in _iter_fastq_record_blocks(path, batch_size, start_offset):
-        ascii_arr, lens = fastq_to_batch(data, max_len)
-        if not len(lens):
-            continue
-        ascii_t = torch.from_numpy(ascii_arr).to(device)
-        lens_t = torch.from_numpy(lens).to(device)
-        words, first_bad = codec.encode_reads(ascii_t, lens_t)
-        if validate:
-            fb = first_bad.cpu().numpy()
-            bad = np.flatnonzero(fb >= 0)
-            if bad.size:
-                r = int(bad[0])
-                raise InvalidBase(int(ascii_arr[r, fb[r]]))
-        item = (PackedReads(words=words, lengths=lens_t),)
-        if with_validity:
-            item += (codec.validity_mask(ascii_t, lens_t),)
-        if with_offsets:
-            item += (end,)
-        yield item[0] if len(item) == 1 else item
+    source = _host_batches(path, batch_size, max_len, start_offset)
+    if prefetch > 0:
+        source = _prefetched(source, prefetch)
+    with contextlib.closing(source):  # an early stop ends the worker and the file
+        for ascii_arr, lens, end in source:
+            ascii_t = torch.from_numpy(ascii_arr).to(device)
+            lens_t = torch.from_numpy(lens).to(device)
+            words, first_bad = codec.encode_reads(ascii_t, lens_t)
+            if validate:
+                fb = first_bad.cpu().numpy()
+                bad = np.flatnonzero(fb >= 0)
+                if bad.size:
+                    r = int(bad[0])
+                    raise InvalidBase(int(ascii_arr[r, fb[r]]))
+            item = (PackedReads(words=words, lengths=lens_t),)
+            if with_validity:
+                item += (codec.validity_mask(ascii_t, lens_t),)
+            if with_offsets:
+                item += (end,)
+            yield item[0] if len(item) == 1 else item

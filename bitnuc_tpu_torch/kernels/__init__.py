@@ -3,7 +3,8 @@
 The wrappers themselves live beside their plain PyTorch versions in
 ``ops/codec.py`` (``pack``, ``unpack``), ``ops/kmer.py`` (``hist_keys``,
 ``hist_words``), ``ops/hamming.py`` (``hdist_scan`` for one query and
-``hdist_scan_batch`` for more, one kernel; ``tc_scan``), ``ops/merge.py``
+``hdist_scan_batch`` for more, one kernel; ``tc_scan``, and ``tc_search``,
+its search form with a per-block top-k), ``ops/merge.py``
 (``merge``), ``ops/align.py`` (``fit_banded``, ``sw_score``) and
 ``ops/orf.py`` (``orf_scan``). Each adds one to its entry in ``LAUNCHES``
 where it launches its kernel, and nowhere else, so a run can show that its
@@ -25,6 +26,7 @@ LAUNCHES = {
     "sw_score": 0,
     "hdist_scan_batch": 0,
     "tc_scan": 0,
+    "tc_search": 0,
     "orf_scan": 0,
 }
 

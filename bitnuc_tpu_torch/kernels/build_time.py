@@ -4,14 +4,18 @@ per source, all started together, then a link). Both build into fresh
 temporary directories, so neither reuses the other's output.
 
     python -m bitnuc_tpu_torch.kernels.build_time
+    python -m bitnuc_tpu_torch.kernels.build_time --ptxas
 
 Prints one JSON object: {"serial_s": ..., "parallel_s": ..., "sources": N}.
+With ``--ptxas`` it prints instead, for each source, what ``nvcc -Xptxas -v``
+says of each kernel: registers, shared memory, spills.
 """
 
 from __future__ import annotations
 
 import json
 import subprocess
+import sys
 import tempfile
 import time
 from pathlib import Path
@@ -40,7 +44,24 @@ def parallel_build(out_dir: Path) -> float:
         _build.BUILD_DIR = saved
 
 
+def ptxas_report(out_dir: Path) -> dict:
+    """{source: the ptxas lines of its kernels} from ``-Xptxas -v``."""
+    report = {}
+    for src in sorted(_build.CSRC.glob("*.cu")):
+        proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
+                               str(out_dir / f"{src.stem}.o"), str(src)],
+                              check=True, capture_output=True, text=True)
+        report[src.name] = [ln.strip() for ln in (proc.stdout + proc.stderr).splitlines()
+                            if "ptxas info" in ln and ("Compiling" not in ln or "entry" in ln)
+                            or "spill" in ln]
+    return report
+
+
 def main() -> None:
+    if "--ptxas" in sys.argv[1:]:
+        with tempfile.TemporaryDirectory() as d:
+            print(json.dumps(ptxas_report(Path(d)), indent=1))
+        return
     with tempfile.TemporaryDirectory() as a, tempfile.TemporaryDirectory() as b:
         serial = serial_build(Path(a))
         parallel = parallel_build(Path(b))

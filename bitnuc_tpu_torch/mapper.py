@@ -449,11 +449,7 @@ def map_reads(
       cost      int32 — fitting-alignment cost of the whole read
       support   int32 — seed votes on the winning diagonal bin
     Unmapped rows carry the attempt's numbers and should be ignored."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "map_reads: the mesh path waits for the distributed tier (ROADMAP §1, "
-            "'The distributed tier')"
-        )
+    config.require_no_mesh(mesh, "map_reads")
     dev = index.device
     B = int(reads.words.shape[0])
     parts = []

@@ -8,7 +8,10 @@ The database scan over a word-major [W, D] database (``PackedDB``) runs
 the hand-written K4/K5 kernel (``csrc/hamming.cu``) on CUDA tensors and its
 plain version ``hdist_scan_torch`` on CPU tensors; for many queries K6
 (``csrc/tcscan.cu``, plain version ``hdist_scan_tc_torch``) computes the
-same distances as an int8 tensor-core product of +-1 bit planes. The row-major helpers
+same distances as an int8 tensor-core product of +-1 bit planes, and its
+search form (``hdist_search_tc``, plain version ``hdist_search_tc_torch``)
+keeps each query's k nearest entries in the kernel, so a many-query search
+never builds the [Q, D] matrix. The row-major helpers
 (``hdist_words``, ``hdist_one_to_many``, ``hdist_many_to_many``) are plain
 PyTorch, as their JAX counterparts are plain XLA.
 
@@ -275,14 +278,114 @@ def topk_smallest_batch(
     return _unpack_keys(top, k)
 
 
-def topk_batch_dispatch(d: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def topk_batch_dispatch(d: torch.Tensor, k: int, n_bases=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-row top-k of a [Q, D] distance matrix.
 
     The JAX package chooses here between a one-pass extractor whose u32
-    keys bound (value bits + index bits) and a per-row loop. The int64 keys
-    of this port hold any int32 value beside a 32-bit index, so the one
+    keys must hold (value bits + index bits), which it checks against a
+    concrete ``n_bases``, and a per-row loop. The int64 keys of this port
+    hold any int32 value beside a 32-bit index, so no such test is needed:
+    ``n_bases`` is accepted for JAX's signature and not read, and the one
     path serves every input."""
     return topk_smallest_batch(d, k)
+
+
+# -- K6 with a top-k epilogue: the many-query search ------------------------------
+#
+# tc_search runs K6's main loop over a contiguous range of 128-entry tiles a
+# block and keeps, for each of the block's 128 queries, the k smallest keys
+# dist << 32 | index seen so far in shared memory (the keys of
+# _packed_keys). The blocks' lists, [Q, G, k] int64 padded with INT64_MAX,
+# are merged by one torch.topk (stage two).
+
+SEARCH_TOPK_MAX = 32  # largest k of the fused search: the per-row lists share shared memory
+SEARCH_BLOCKS_PER_SM = 2  # fused-search blocks per SM: one wave of two resident a SM
+_TILE = 128  # queries and entries of a K6 block tile
+
+
+def _search_grid(Q: int, D: int, n_sm: int) -> Tuple[int, int]:
+    """(G, tiles a block) of the fused search: G blocks along D for each
+    128-query tile, each walking a contiguous range of 128-entry tiles, so
+    that about SEARCH_BLOCKS_PER_SM blocks run a SM."""
+    n_qtiles, n_dtiles = -(-Q // _TILE), -(-D // _TILE)
+    want = max(1, -(-SEARCH_BLOCKS_PER_SM * n_sm // n_qtiles))
+    per_block = -(-n_dtiles // min(want, n_dtiles))
+    return -(-n_dtiles // per_block), per_block
+
+
+def _merge_candidates(cand: torch.Tensor, k: int, D: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Stage two: the k smallest of each row's candidate keys [Q, ...]."""
+    top = torch.topk(cand.reshape(cand.shape[0], -1), min(k, D), dim=-1, largest=False,
+                     sorted=True).values
+    return _unpack_keys(top, k)
+
+
+def _check_search_k(k: int) -> None:
+    if not 1 <= k <= SEARCH_TOPK_MAX:
+        raise ValueError(f"tc_search: k must be in [1, {SEARCH_TOPK_MAX}], got {k}")
+
+
+def hdist_search_tc_torch(queries: torch.Tensor, db_wm: torch.Tensor, n_bases,
+                          k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the fused search: hdist_scan_tc_torch on TC_CHUNK
+    entries at a time, the k smallest keys of each chunk, then the k
+    smallest of those. Equal to topk_smallest_batch of the whole matrix,
+    which it never holds: (distances [Q, k], indices [Q, k]) int32,
+    ascending, ties by lowest index, tail (2^30, -1) past D."""
+    _check_scan(queries, db_wm)
+    D = db_wm.shape[1]
+    parts = [torch.zeros((queries.shape[0], 0), dtype=torch.int64, device=db_wm.device)]
+    for d0 in range(0, D, TC_CHUNK):
+        keys = _packed_keys(hdist_scan_tc_torch(queries, db_wm[:, d0 : d0 + TC_CHUNK], n_bases))
+        parts.append(torch.topk(keys + d0, min(k, keys.shape[1]), dim=-1, largest=False).values)
+    return _merge_candidates(torch.cat(parts, 1), k, D)
+
+
+def tc_search_candidates(queries: torch.Tensor, db_wm: torch.Tensor, n_bases: int,
+                         k: int) -> torch.Tensor:
+    """The fused search kernel on the card (``csrc/tcscan.cu``,
+    ``bn_tc_search``): [Q, W] x [W, D] int32 words -> each block's k
+    smallest keys of each query, [Q, G, k] int64 padded with INT64_MAX."""
+    _check_search_k(k)
+    kernels.require(queries, "tc_search queries", torch.int32, 2)
+    kernels.require(db_wm, "tc_search db", torch.int32, 2)
+    _check_scan(queries, db_wm)
+    if queries.device != db_wm.device:
+        raise ValueError("tc_search: queries and db must be on one device")
+    Q, W = queries.shape
+    D = db_wm.shape[1]
+    nb = _clamp_nb(n_bases, W)
+    frags = _a_fragments(query_planes(queries, nb))
+    n_sm = torch.cuda.get_device_properties(db_wm.device).multi_processor_count
+    G, per_block = _search_grid(Q, D, n_sm)
+    cand = torch.empty((Q, G, k), dtype=torch.int64, device=db_wm.device)
+    code = _build.library().bn_tc_search(
+        frags.data_ptr(), db_wm.data_ptr(), Q, W, D, nb, k, G, per_block, cand.data_ptr(),
+        kernels.stream_handle(db_wm.device),
+    )
+    _build.check(code, "tc_search")
+    kernels.LAUNCHES["tc_search"] += 1
+    return cand
+
+
+def hdist_search_tc_kernel(queries: torch.Tensor, db_wm: torch.Tensor, n_bases: int,
+                           k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The fused search on the card: tc_search, then stage two."""
+    Q, D = queries.shape[0], db_wm.shape[1]
+    if Q == 0 or D == 0:
+        return _unpack_keys(torch.zeros((Q, 0), dtype=torch.int64, device=db_wm.device), k)
+    return _merge_candidates(tc_search_candidates(queries, db_wm, n_bases, k), k, D)
+
+
+def hdist_search_tc(queries: torch.Tensor, db_wm: torch.Tensor, n_bases: int,
+                    k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Backend-dispatching fused search: the k nearest entries of each
+    query, 1 <= k <= SEARCH_TOPK_MAX on the card."""
+    if config.use_kernel(db_wm):
+        return hdist_search_tc_kernel(
+            queries.to(torch.int32).contiguous(), db_wm.contiguous(), n_bases, k
+        )
+    return hdist_search_tc_torch(queries, db_wm, n_bases, k)
 
 
 def hdist_topk(query: torch.Tensor, database: torch.Tensor, n_bases, k: int):

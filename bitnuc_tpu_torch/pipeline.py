@@ -24,6 +24,7 @@ the stored byte offset, so no consumed record is parsed again.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import os
 import time
@@ -200,8 +201,11 @@ def count_fastq(
     max_len: Optional[int] = None,
     canonical: bool = False,
     validate: bool = True,
+    mesh=None,
+    axis: str = "data",
     checkpoint: Optional[str] = None,
     checkpoint_every: int = 50,
+    prefetch: int = 2,
     sparse_capacity: int = 1 << 20,
     on_invalid: str = "raise",
     on_progress=None,
@@ -218,6 +222,10 @@ def count_fastq(
     (atomic rename). An existing checkpoint resumes at its stored byte
     offset after its fingerprint (file identity, k, batch_size, max_len,
     canonical, on_invalid, engine) is checked; a mismatch raises.
+    mesh, axis: the JAX package's sharded job; a mesh raises
+    NotImplementedError here.
+    prefetch: batches framed ahead on a producer thread
+    (``io.iter_fastq_batches``); 0 frames on the caller's thread.
     sparse_capacity: the first row capacity of the k > 12 accumulator (it
     doubles on demand).
     on_invalid: "raise" (InvalidBase) or "skip" — drop every window holding
@@ -226,6 +234,7 @@ def count_fastq(
     "bases_per_sec"} every ``progress_every`` batches."""
     if not 1 <= k <= 32:
         raise InvalidLength(k)
+    config.require_no_mesh(mesh, "count_fastq")
     skip = _check_on_invalid(on_invalid)
     device = config.resolve_device(device)
     dense = k <= kmer_ops.MAX_DENSE_K
@@ -282,49 +291,55 @@ def count_fastq(
     n_bases = 0
     last_offset = start_offset
     t0 = time.perf_counter()
-    for item in bnio.iter_fastq_batches(
+    batches = bnio.iter_fastq_batches(
         path,
         batch_size,
         max_len=max_len,
         validate=validate and not skip,
+        prefetch=prefetch,
         with_validity=skip,
         with_offsets=True,
         start_offset=start_offset,
         device=device,
-    ):
-        if skip:
-            batch, base_valid, offset = item
-        else:
-            (batch, offset), base_valid = item, None
-        batch_bases = int(batch.lengths.sum())
-        total_windows += batch_bases  # an upper bound of the batch's windows
-        if dense:
-            acc.add(
-                kmer_ops.count_kmers_reads(
-                    batch.words, batch.lengths, k, canonical=canonical,
-                    base_valid=base_valid,
-                ),
-                batch_bases,
-            )
-        else:
-            _sparse_add(acc, total_windows, batch.words, batch.lengths, k,
-                        canonical, base_valid)
-        n_batches += 1
-        n_reads += len(batch)
-        n_bases += batch_bases
-        if checkpoint and (n_batches - start_batches) % checkpoint_every == 0:
-            save(n_batches, offset)
-        if on_progress and (n_batches - start_batches) % progress_every == 0:
-            dt = max(time.perf_counter() - t0, 1e-9)
-            on_progress(
-                {
-                    "batches": n_batches,
-                    "reads": n_reads,
-                    "bases": n_bases,
-                    "bases_per_sec": n_bases / dt,
-                }
-            )
-        last_offset = offset
+    )
+    # a raise in the loop (on_progress, a checkpoint, a bad base) ends the
+    # producer thread and closes the file before it propagates; a stored
+    # offset is that of a batch consumed here, not of one framed ahead
+    with contextlib.closing(batches):
+        for item in batches:
+            if skip:
+                batch, base_valid, offset = item
+            else:
+                (batch, offset), base_valid = item, None
+            batch_bases = int(batch.lengths.sum())
+            total_windows += batch_bases  # an upper bound of the batch's windows
+            if dense:
+                acc.add(
+                    kmer_ops.count_kmers_reads(
+                        batch.words, batch.lengths, k, canonical=canonical,
+                        base_valid=base_valid,
+                    ),
+                    batch_bases,
+                )
+            else:
+                _sparse_add(acc, total_windows, batch.words, batch.lengths, k,
+                            canonical, base_valid)
+            n_batches += 1
+            n_reads += len(batch)
+            n_bases += batch_bases
+            if checkpoint and (n_batches - start_batches) % checkpoint_every == 0:
+                save(n_batches, offset)
+            if on_progress and (n_batches - start_batches) % progress_every == 0:
+                dt = max(time.perf_counter() - t0, 1e-9)
+                on_progress(
+                    {
+                        "batches": n_batches,
+                        "reads": n_reads,
+                        "bases": n_bases,
+                        "bases_per_sec": n_bases / dt,
+                    }
+                )
+            last_offset = offset
 
     if checkpoint:
         save(n_batches, last_offset)
@@ -338,6 +353,8 @@ def count_fasta(
     on_invalid: str = "raise",
     seg_bases: int = 1 << 24,
     sparse_capacity: int = 1 << 20,
+    mesh=None,
+    axis: str = "data",
     device=None,
 ):
     """Count k-mers over every contig of a FASTA file (path, .gz path, or
@@ -352,9 +369,11 @@ def count_fasta(
     Returns what count_fastq returns: an int64 [4^k] histogram for k <= 12,
     else {packed_kmer: count}. on_invalid="skip" drops windows touching an
     N/ambiguous base (assemblies are full of Ns); "raise" raises
-    InvalidBase."""
+    InvalidBase. A ``mesh`` raises NotImplementedError (the JAX package's
+    sharded job)."""
     if not 1 <= k <= 32:
         raise InvalidLength(k)
+    config.require_no_mesh(mesh, "count_fasta")
     skip = _check_on_invalid(on_invalid)
     device = config.resolve_device(device)
     seg = int(seg_bases)

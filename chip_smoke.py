@@ -17,7 +17,12 @@ Phases, each of which must pass:
    (median of several runs, L2 flushed before each) beside its plain
    version. K6 also against K5 on the full database at Q = 32 to 512, at
    512-base and 150-base entries (the sweep behind database.TC_MIN_Q), and
-   beside torch._int_mm.
+   beside torch._int_mm. tc_search, K6's search form with a per-block
+   top-k, against its plain version, against tc_scan + top-k on the full
+   database at k = 1, 10 and SEARCH_TOPK_MAX, at edge shapes and on a
+   database of one repeated entry, beside torch._int_mm + the top-k, and
+   both search_batch routes swept at Q = 1 to 512 (the sweep behind
+   database.SEARCH_TC_MIN_Q).
 3. The golden vectors of the reference crate.
 4. The flagship step (bitnuc_tpu_torch.entry) on 262,144 reads x 150 bp
    against a 4,194,304-entry database, under the default backend (kernels)
@@ -26,7 +31,8 @@ Phases, each of which must pass:
    reads x 150 bp, 0.5% N, N-skip) with pipeline.count_fastq: equal to the
    plain run, a run interrupted after its first checkpoint and resumed
    equals an uninterrupted one, and a 10,000-read subset equals a host
-   dict oracle.
+   dict oracle. Timed at prefetch 2 (the default: framing on a producer
+   thread) and 0, with equal histograms.
 6. The large-k path: a 5,000,000-bp random genome (10 runs of 100 N) as
    80-column FASTA and 1,000,000 reads x 150 bp drawn from both strands
    (0.1% substitutions, 0.05% N) as FASTQ, both gzip level 1. Canonical
@@ -47,7 +53,8 @@ Phases, each of which must pass:
    distances and planted exact reads, on the CIGARs, and against a host
    full-DP fit of 256 reads.
 8. Many-query search and ORF calling: PackedDB.search_batch of 256 queries
-   (K6) and of 8 (K5) against phase 2's database, PackedDB.from_fastq of a
+   (tc_search) and of 8, distances_batch (K6 tc_scan at 256, K5 at 8) with
+   topk_batch_dispatch, against phase 2's database, PackedDB.from_fastq of a
    100,000-read FASTQ, ops.orf.longest_orf (K10) over phase 6's reads in
    batches of 262,144 and over its genome cut into 50 contigs of 100,000
    bp, and the --translate steps on the first batch. Checked against the
@@ -131,6 +138,7 @@ MERGE_OPS_PER_ROW = 6
 INT8_TC_OPS_PER_S = 1.979e15
 ORF_OPS_PER_WORD = 48
 TC_SWEEP_Q = (32, 64, 128, 256, 512)
+SEARCH_SWEEP_Q = (1, 8, 32, 64, 128, 256, 512)  # search_batch's two routes
 SEARCH_QUERIES = 256  # phase 8's query file, and K6's reported shape
 TC_SLICE = 262_144  # database entries K6's plain version is compared on
 
@@ -800,7 +808,7 @@ def search_orf_path(torch, dev, tmp, db_wm, queries, reads, contigs, times):
     """Phase 8's path through the entry points a user calls; returns its
     outputs on the host and adds host-clock seconds to ``times``."""
     from bitnuc_tpu_torch.database import PackedDB
-    from bitnuc_tpu_torch.ops import orf, revcomp, split
+    from bitnuc_tpu_torch.ops import hamming, orf, revcomp, split
     from bitnuc_tpu_torch.sequence import PackedReads
     from bitnuc_tpu_torch.utils import bitops
 
@@ -819,6 +827,13 @@ def search_orf_path(torch, dev, tmp, db_wm, queries, reads, contigs, times):
     d, i = clock("search_literal_s", lambda: db.search_batch(queries[:LITERAL_QUERIES],
                                                              SEARCH_TOPK))
     out["literal_d"], out["literal_i"] = d.cpu().numpy(), i.cpu().numpy()
+    # the public all-pairs call and its top-k: K6 (tc_scan) at 256 queries,
+    # K5 at 8
+    d, i = clock("distances_topk_s", lambda: hamming.topk_batch_dispatch(
+        db.distances_batch(queries), SEARCH_TOPK, DB_BASES))
+    out["two_step_d"], out["two_step_i"] = d.cpu().numpy(), i.cpu().numpy()
+    out["literal_dists"] = clock("distances_literal_s", lambda: db.distances_batch(
+        queries[:LITERAL_QUERIES])).cpu().numpy()
     fq_db = clock("from_fastq_s", lambda: PackedDB.from_fastq(
         os.path.join(tmp, "db.fq"), DB_BASES, device=dev))
     out["fastq_db_words"] = bitops.words_to_u32_np(fq_db.words_wm)
@@ -864,7 +879,7 @@ def search_orf_phase(args, torch, dev, timer, results, tmp, db_wm, genome, reads
     built from FASTQ, and ORF calling on reads and contigs (K10), with the
     checks."""
     from bitnuc_tpu_torch import config, kernels
-    from bitnuc_tpu_torch.database import PackedDB, TC_MIN_Q
+    from bitnuc_tpu_torch.database import PackedDB, SEARCH_TC_MIN_Q, TC_MIN_Q
     from bitnuc_tpu_torch.ops import hamming, orf, revcomp
     from bitnuc_tpu_torch.sequence import PackedReads
     from bitnuc_tpu_torch.utils import bitops
@@ -873,7 +888,8 @@ def search_orf_phase(args, torch, dev, timer, results, tmp, db_wm, genome, reads
     rng = np.random.default_rng(args.seed + 8)
     D = db_wm.shape[1]
     print(f"phase 8: many-query search ({SEARCH_QUERIES} queries, top {SEARCH_TOPK}, against "
-          f"{D} x {DB_BASES} bases; TC_MIN_Q = {TC_MIN_Q}), from_fastq, ORFs", flush=True)
+          f"{D} x {DB_BASES} bases; TC_MIN_Q = {TC_MIN_Q}, SEARCH_TC_MIN_Q = {SEARCH_TC_MIN_Q}), "
+          "from_fastq, ORFs", flush=True)
     # queries: database entries with QUERY_SUB_RATE of their bases changed
     src = rng.integers(0, D, SEARCH_QUERIES)
     q_host = bitops.words_to_u32_np(db_wm[:, torch.from_numpy(src).to(dev)].t())
@@ -894,7 +910,7 @@ def search_orf_phase(args, torch, dev, timer, results, tmp, db_wm, genome, reads
     SEARCH_ORF_LAUNCHES.update(kernels.LAUNCHES)
     print(f"  launches {SEARCH_ORF_LAUNCHES}", flush=True)
     n_batches = -(-len(reads) // ORF_BATCH)
-    for name in ("pack", "tc_scan", "hdist_scan_batch", "orf_scan"):
+    for name in ("pack", "tc_search", "tc_scan", "hdist_scan_batch", "orf_scan"):
         check(f"{name} launched on the search and ORF path", SEARCH_ORF_LAUNCHES[name] > 0,
               f"{SEARCH_ORF_LAUNCHES[name]} launches")
     check("longest_orf launched K10 twice a batch", SEARCH_ORF_LAUNCHES["orf_scan"]
@@ -903,13 +919,25 @@ def search_orf_phase(args, torch, dev, timer, results, tmp, db_wm, genome, reads
     ph["search_batch_ms"] = timer(lambda: PackedDB(db_wm, DB_BASES).search_batch(
         queries, SEARCH_TOPK), 3)
     ph["search_queries_per_s"] = SEARCH_QUERIES / ph["search_batch_ms"] * 1e3
-    # where the time of a search and of an ORF batch goes
+    ph["search_two_step_ms"] = timer(lambda: hamming.topk_batch_dispatch(
+        PackedDB(db_wm, DB_BASES).distances_batch(queries), SEARCH_TOPK, DB_BASES), 3)
+    check(f"fused search_batch of {SEARCH_QUERIES} at least 5x faster than distances_batch + "
+          "topk_batch_dispatch", ph["search_two_step_ms"] >= 5 * ph["search_batch_ms"],
+          f"{ph['search_batch_ms']:.3f} against {ph['search_two_step_ms']:.3f} ms")
+    # where the time of a search and of an ORF batch goes: the fused route's
+    # two stages, then the two-step route's as the yardstick
+    cand = hamming.tc_search_candidates(queries, db_wm, DB_BASES, SEARCH_TOPK)
     dists = PackedDB(db_wm, DB_BASES).distances_batch(queries)
     first = PackedReads.from_ascii(reads[:ORF_BATCH], validate=False, device=dev)
     stages = {
+        "search: fused K6 top-k (tc_search)": lambda: hamming.tc_search_candidates(
+            queries, db_wm, DB_BASES, SEARCH_TOPK),
+        "search: candidate merge (stage two)": lambda: hamming._merge_candidates(
+            cand, SEARCH_TOPK, D),
         "search: distances_batch (K6)": lambda: PackedDB(db_wm, DB_BASES).distances_batch(
             queries),
-        "search: top-k of [256, D]": lambda: hamming.topk_batch_dispatch(dists, SEARCH_TOPK),
+        "search: top-k of [256, D]": lambda: hamming.topk_batch_dispatch(dists, SEARCH_TOPK,
+                                                                         DB_BASES),
         "ORF batch: longest_orf": lambda: orf.longest_orf(first.words, first.lengths),
         "ORF batch: reverse complement": lambda: revcomp.reverse_complement_reads(
             first.words, first.lengths),
@@ -920,12 +948,13 @@ def search_orf_phase(args, torch, dev, timer, results, tmp, db_wm, genome, reads
     for label, fn in stages.items():
         ph["search_orf_stages_ms"][label] = timer(fn, 3)
         print(f"    stage {label}: {ph['search_orf_stages_ms'][label]:.3f} ms", flush=True)
-    del dists, first
+    del dists, first, cand
     ph["longest_orf_reads_per_s"] = len(reads) / times["longest_orf_reads_s"]
     ph["longest_orf_read_bases_per_s"] = reads.size / times["longest_orf_reads_s"]
     ph["longest_orf_contig_bases_per_s"] = contigs.size / times["longest_orf_contigs_s"]
     print(f"  search_batch of {SEARCH_QUERIES}: {ph['search_batch_ms']:.3f} ms warm "
-          f"({ph['search_queries_per_s']:.0f} queries/s; first call "
+          f"({ph['search_queries_per_s']:.0f} queries/s; two-step route "
+          f"{ph['search_two_step_ms']:.3f} ms; first call "
           f"{times['search_batch_s']:.3f} s), {LITERAL_QUERIES} queries "
           f"{times['search_literal_s']:.3f} s; from_fastq of {FASTQ_DB_READS} x {DB_BASES} "
           f"{times['from_fastq_s']:.2f} s; longest_orf of {len(reads)} reads "
@@ -945,9 +974,13 @@ def search_orf_phase(args, torch, dev, timer, results, tmp, db_wm, genome, reads
     del plain
     check("every query's nearest entry is the entry it was made from",
           bool((out["search_i"][:, 0] == src).all()))
-    check(f"the first {LITERAL_QUERIES} queries: K5 run == K6 run",
+    check(f"the first {LITERAL_QUERIES} queries: search_batch of {LITERAL_QUERIES} == of "
+          f"{SEARCH_QUERIES}",
           np.array_equal(out["literal_d"], out["search_d"][:LITERAL_QUERIES])
           and np.array_equal(out["literal_i"], out["search_i"][:LITERAL_QUERIES]))
+    check("fused search_batch == distances_batch + topk_batch_dispatch",
+          np.array_equal(out["two_step_d"], out["search_d"])
+          and np.array_equal(out["two_step_i"], out["search_i"]))
     db_host = bitops.words_to_u32_np(db_wm)
     t = time.perf_counter()
     ok = True
@@ -955,9 +988,9 @@ def search_orf_phase(args, torch, dev, timer, results, tmp, db_wm, genome, reads
         dist = hamming_host(db_host, q_host[r])
         top = np.argsort(dist, kind="stable")[:SEARCH_TOPK]
         ok &= np.array_equal(out["search_i"][r], top) and np.array_equal(
-            out["search_d"][r], dist[top])
-    check(f"{LITERAL_QUERIES} queries' top {SEARCH_TOPK} over all {D} entries == host numpy "
-          "Hamming oracle", bool(ok), f"{time.perf_counter() - t:.1f} s")
+            out["search_d"][r], dist[top]) and np.array_equal(out["literal_dists"][r], dist)
+    check(f"{LITERAL_QUERIES} queries' top {SEARCH_TOPK} and distances_batch rows over all {D} "
+          "entries == host numpy Hamming oracle", bool(ok), f"{time.perf_counter() - t:.1f} s")
     del db_host
     codes = ascii_codes(fq_seqs).astype(np.uint64).reshape(FASTQ_DB_READS, -1, 16)
     host_words = (codes << shifts).sum(-1).astype(np.uint32)
@@ -1009,7 +1042,7 @@ def main() -> int:
     try:
         import bitnuc_tpu_torch as bnt
         from bitnuc_tpu_torch import config, entry, kernels, pipeline
-        from bitnuc_tpu_torch.database import TC_MIN_Q
+        from bitnuc_tpu_torch.database import PackedDB, SEARCH_TC_MIN_Q, TC_MIN_Q
         from bitnuc_tpu_torch.kernels import _build
         from bitnuc_tpu_torch.ops import codec, hamming, kmer, merge, orf, setops
         from bitnuc_tpu_torch.utils import bitops
@@ -1242,7 +1275,84 @@ def main() -> int:
           nbytes=4 * W_db * DB_ENTRIES + SEARCH_QUERIES * 48 * W_db + 4 * SEARCH_QUERIES * DB_ENTRIES,
           ops_ms=2 * SEARCH_QUERIES * DB_ENTRIES * 48 * W_db / INT8_TC_OPS_PER_S * 1e3,
           library=lambda: torch._int_mm(lib_q, lib_planes.t()))
-    del q_max, db_small, lib_planes, lib_q
+
+    # tc_search: K6's main loop with a per-block top-k. Against its plain
+    # version on the slice, against tc_scan + topk_batch_dispatch on the
+    # whole database, at edge shapes, on a database of one repeated entry
+    # (every distance ties), and timed beside the library composition:
+    # torch._int_mm of the same planes, the affine step, the top-k
+    kmax = hamming.SEARCH_TOPK_MAX
+    d_slice = db[:, :TC_SLICE].contiguous()
+    compare("tc_search", f"Q={SEARCH_QUERIES} D={TC_SLICE} k={SEARCH_TOPK}",
+            hamming.hdist_search_tc_kernel(q, d_slice, 512, SEARCH_TOPK),
+            hamming.hdist_search_tc_torch(q, d_slice, 512, SEARCH_TOPK))
+    del d_slice
+    for k in (1, SEARCH_TOPK, kmax):
+        compare("tc_search", f"Q={SEARCH_QUERIES} D={DB_ENTRIES} k={k} against tc_scan + top-k",
+                hamming.hdist_search_tc_kernel(q, db, 512, k),
+                hamming.topk_batch_dispatch(hamming.hdist_scan_tc_kernel(q, db, 512), k, 512))
+    for Q in (1, 130):
+        for W in (1, 9, 33):
+            for D in (5, 5000):
+                dw = torch.randint(-(2**31), 2**31 - 1, (W, D), device=dev, generator=gen,
+                                   dtype=torch.int32)
+                qw = torch.randint(-(2**31), 2**31 - 1, (Q, W), device=dev, generator=gen,
+                                   dtype=torch.int32)
+                cases = [(nb, k) for nb in (0, 137, 16 * W) for k in (1, SEARCH_TOPK, kmax)]
+                compare("tc_search", f"Q={Q} W={W} D={D}, n_bases 0, 137, 16W x k 1, "
+                        f"{SEARCH_TOPK}, {kmax}",
+                        [hamming.hdist_search_tc_kernel(qw, dw, nb, k) for nb, k in cases],
+                        [hamming.hdist_search_tc_torch(qw, dw, nb, k) for nb, k in cases])
+    for D in (130, 300_000):  # one repeated entry: entries 0..k-1 win every row
+        rep_db = db[:, :1].expand(W_db, D).contiguous()
+        got = hamming.hdist_search_tc_kernel(q_max[:130].contiguous(), rep_db, 512, SEARCH_TOPK)
+        compare("tc_search", f"ties: Q=130 D={D} one repeated entry", got,
+                hamming.hdist_search_tc_torch(q_max[:130].contiguous(), rep_db, 512, SEARCH_TOPK))
+        check(f"tc_search ties at D={D} go to the lowest indices",
+              bool((got[1] == torch.arange(SEARCH_TOPK, device=dev)).all()))
+    del rep_db
+
+    def search_library():
+        s_lib = torch._int_mm(lib_q, lib_planes.t())
+        return hamming.topk_batch_dispatch(torch.div(3 * 512 - s_lib, 4, rounding_mode="floor"),
+                                           SEARCH_TOPK, 512)
+
+    compare("tc_search", f"torch._int_mm + top-k Q={SEARCH_QUERIES} k={SEARCH_TOPK}",
+            search_library(), hamming.hdist_search_tc_kernel(q, db, 512, SEARCH_TOPK))
+    timed("tc_search", f"Q={SEARCH_QUERIES} D={DB_ENTRIES} n_bases=512 k={SEARCH_TOPK}",
+          lambda: hamming.hdist_search_tc_kernel(q, db, 512, SEARCH_TOPK),
+          lambda: hamming.hdist_search_tc_torch(q, db, 512, SEARCH_TOPK), reps=5, plain_reps=1,
+          main=True,
+          nbytes=4 * W_db * DB_ENTRIES + SEARCH_QUERIES * 48 * W_db + 8 * SEARCH_QUERIES * SEARCH_TOPK,
+          ops_ms=2 * SEARCH_QUERIES * DB_ENTRIES * 48 * W_db / INT8_TC_OPS_PER_S * 1e3,
+          library=search_library)
+    del lib_planes, lib_q
+
+    # search_batch's two routes at each swept Q, k = 10: tc_search against
+    # distances_batch + topk_batch_dispatch, at 512- and 150-base entries.
+    # This feeds database.SEARCH_TC_MIN_Q.
+    search_sweep = {}
+    for nb in (DB_BASES, READ_LEN):
+        d = db[: bitops.n_words_for(nb)].contiguous() if nb < DB_BASES else db
+        pdb = PackedDB(d, nb)
+        search_sweep[nb] = {}
+        for Q in SEARCH_SWEEP_Q:
+            qq = q_max[:Q, : d.shape[0]].contiguous()
+            fused = lambda: hamming.hdist_search_tc_kernel(qq, d, nb, SEARCH_TOPK)
+            two_step = lambda: hamming.topk_batch_dispatch(pdb.distances_batch(qq), SEARCH_TOPK, nb)
+            compare("tc_search", f"Q={Q} n_bases={nb} k={SEARCH_TOPK} against the two-step route",
+                    fused(), two_step())
+            t2, tf = timer(two_step, 3), timer(fused, 3)
+            search_sweep[nb][Q] = {"two_step_ms": t2, "fused_ms": tf}
+            print(f"    search sweep Q={Q} D={DB_ENTRIES} n_bases={nb}: two-step {t2:.4f} ms, "
+                  f"fused {tf:.4f} ms", flush=True)
+        faster = [Q for Q in SEARCH_SWEEP_Q
+                  if search_sweep[nb][Q]["fused_ms"] < search_sweep[nb][Q]["two_step_ms"]]
+        print(f"    n_bases={nb}: fused faster at Q = {faster} (SEARCH_TC_MIN_Q = "
+              f"{SEARCH_TC_MIN_Q})", flush=True)
+        del d, pdb
+    results["phases"]["search_sweep_ms"] = search_sweep
+    del q_max, db_small
 
     # K10: the phase-8 batch shape, and edge shapes: W = 1, lengths 0, 1,
     # 2, 16 W and not multiples of 3, no ATG, all stops, nested starts
@@ -1315,11 +1425,25 @@ def main() -> int:
     label = f"n_keys=3 payloads=1 {MERGE_ROWS}+{MERGE_ROWS}"
     compare("merge", label, merge.merge_sorted_kernel(a, b, 3, (0,)),
             merge.merge_sorted_torch(a, b, 3, (0,)))
+    # the library call: a stable torch.sort of the concatenated keys and a
+    # gather of every column. The lists' third key word is their source (0
+    # for a, 1 for b), so the stable sort of the (hi, lo) word pair, made
+    # here untimed as one int64 key, orders the rows as the three words do.
+    key_cat = torch.cat([bitops.u64_sort_key(a[0], a[1]), bitops.u64_sort_key(b[0], b[1])])
+    cols_cat = [torch.cat([x, y]) for x, y in zip(a, b)]
+
+    def merge_library():
+        perm = torch.sort(key_cat, stable=True).indices
+        return tuple(c[perm] for c in cols_cat)
+
+    compare("merge", f"{label}: torch.sort(stable) of the concatenation + gather",
+            merge_library(), merge.merge_sorted_kernel(a, b, 3, (0,)))
     timed("merge", label, lambda: merge.merge_sorted_kernel(a, b, 3, (0,)),
           lambda: merge.merge_sorted_torch(a, b, 3, (0,)), main=True,
           nbytes=2 * MERGE_ROWS * 4 * 4 + merge.next_pow2(2 * MERGE_ROWS) * 4 * 4,
-          ops_ms=MERGE_OPS_PER_ROW * 2 * MERGE_ROWS / INT32_OPS_PER_S * 1e3)
-    del a, b
+          ops_ms=MERGE_OPS_PER_ROW * 2 * MERGE_ROWS / INT32_OPS_PER_S * 1e3,
+          library=merge_library)
+    del a, b, key_cat, cols_cat
     torch.cuda.synchronize()
 
     # -- 3. goldens ----------------------------------------------------------
@@ -1406,14 +1530,28 @@ def main() -> int:
         del out_k, out_p, ascii_e, lens_e, db_e, words_e
 
         print("phase 5: streaming count", flush=True)
-        t = time.perf_counter()
-        for _ in bnt.io.iter_fastq_batches(fq, FASTQ_BATCH, validate=False, with_validity=True,
-                                           with_offsets=True, device=dev):
-            pass
-        torch.cuda.synchronize()
-        results["phases"]["ingest_only_s"] = time.perf_counter() - t
-        print(f"  framing + upload + K1 alone: {results['phases']['ingest_only_s']:.2f} s "
-              f"of the count's {count_s:.2f} s", flush=True)
+        for depth in (0, 2):
+            t = time.perf_counter()
+            for _ in bnt.io.iter_fastq_batches(fq, FASTQ_BATCH, validate=False, prefetch=depth,
+                                               with_validity=True, with_offsets=True, device=dev):
+                pass
+            torch.cuda.synchronize()
+            results["phases"][f"ingest_only_prefetch{depth}_s"] = time.perf_counter() - t
+        # the count at both depths, in turns (the main path's run was at 2)
+        hists = {}
+        for depth in (0, 2, 0, 2):
+            t = time.perf_counter()
+            hists[depth] = pipeline.count_fastq(fq, STREAM_K, prefetch=depth, **count_kw)
+            results["phases"].setdefault(f"count_prefetch{depth}_s", []).append(
+                time.perf_counter() - t)
+        print(f"  framing + upload + K1 alone: {results['phases']['ingest_only_prefetch0_s']:.2f} s "
+              f"at prefetch 0, {results['phases']['ingest_only_prefetch2_s']:.2f} s at 2; count "
+              f"at prefetch 0 {results['phases']['count_prefetch0_s']} s, at 2 "
+              f"{results['phases']['count_prefetch2_s']} s (main path, first: {count_s:.2f} s)",
+              flush=True)
+        check("count_fastq prefetch=0 == prefetch=2 == main path",
+              np.array_equal(hists[0], hist_k) and np.array_equal(hists[2], hist_k))
+        del hists
         with config.backend("torch"):
             t = time.perf_counter()
             hist_p = pipeline.count_fastq(fq, STREAM_K, **count_kw)
@@ -1459,7 +1597,7 @@ def main() -> int:
     launches.update({name: LARGE_K_LAUNCHES[name] for name in ("unpack", "merge")})
     launches.update({name: MAP_LAUNCHES[name] for name in ("fit_banded", "sw_score")})
     launches.update({name: SEARCH_ORF_LAUNCHES[name]
-                     for name in ("hdist_scan_batch", "tc_scan", "orf_scan")})
+                     for name in ("hdist_scan_batch", "tc_scan", "tc_search", "orf_scan")})
 
     # -- report ------------------------------------------------------------
     # kernel -> (source, TPU kernel's def, its pallas_call)
@@ -1480,6 +1618,8 @@ def main() -> int:
                              "bitnuc_tpu/ops/pallas/hamming.py:151"),
         "tc_scan": ("bitnuc_tpu_torch/csrc/tcscan.cu", "bitnuc_tpu/ops/pallas/hamming.py:243",
                     "bitnuc_tpu/ops/pallas/hamming.py:268"),
+        "tc_search": ("bitnuc_tpu_torch/csrc/tcscan.cu", "bitnuc_tpu/ops/pallas/hamming.py:243",
+                      "bitnuc_tpu/ops/pallas/hamming.py:268"),
         "unpack": ("bitnuc_tpu_torch/csrc/unpack.cu", "bitnuc_tpu/ops/pallas/unpack.py:61",
                    "bitnuc_tpu/ops/pallas/unpack.py:83"),
         "merge": ("bitnuc_tpu_torch/csrc/merge.cu", "bitnuc_tpu/ops/pallas/merge.py:141",

@@ -259,6 +259,65 @@ def test_distances_batch_routes_by_tc_min_q(cuda):
         assert torch.equal(got, hamming.hdist_scan_torch(q, db.words_wm, 512))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q", [1, 130])
+@pytest.mark.parametrize("W", [1, 9, 33])
+@pytest.mark.parametrize("nb_of", ["zero", "137", "all"])
+@pytest.mark.parametrize("D,k", [(5, 10), (5000, 1), (5000, 10), (5000, hamming.SEARCH_TOPK_MAX)])
+def test_tc_search_kernel_matches_plain(cuda, Q, W, nb_of, D, k):
+    """The fused search at ragged Q and D, k past D, k = 1 and the largest
+    k: equal to its plain version and to the top-k of K6's matrix."""
+    nb = {"zero": 0, "137": 137, "all": 16 * W}[nb_of]
+    g = torch.Generator().manual_seed(Q + W + D + k)
+    db = torch.randint(-(2**31), 2**31 - 1, (W, D), generator=g, dtype=torch.int32).to(cuda)
+    q = torch.randint(-(2**31), 2**31 - 1, (Q, W), generator=g, dtype=torch.int32).to(cuda)
+    got = hamming.hdist_search_tc_kernel(q, db, nb, k)
+    for want in (hamming.hdist_search_tc_torch(q, db, nb, k),
+                 hamming.topk_smallest_batch(hamming.hdist_scan_tc_kernel(q, db, nb), k)):
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q,D,k", [(130, 130, 10), (5, 300_000, 32), (130, 300_000, 7)])
+def test_tc_search_ties_go_to_the_lowest_index(cuda, Q, D, k):
+    """A database of one repeated entry: every distance ties, across
+    blocks, tiles and lanes, so each query's list is entries 0..k-1 (a
+    block of D = 130 holds fewer than k entries; D = 300,000 walks several
+    tiles a block)."""
+    g = torch.Generator().manual_seed(D)
+    entry = torch.randint(-(2**31), 2**31 - 1, (32, 1), generator=g, dtype=torch.int32)
+    db = entry.expand(32, D).contiguous().to(cuda)
+    q = torch.randint(-(2**31), 2**31 - 1, (Q, 32), generator=g, dtype=torch.int32).to(cuda)
+    d, i = hamming.hdist_search_tc_kernel(q, db, 500, k)
+    assert torch.equal(i, torch.arange(k, dtype=torch.int32, device=cuda).expand(Q, k))
+    assert torch.equal(d, hamming.hdist_scan_kernel(q, db[:, :1].contiguous(), 500).expand(Q, k))
+    wd, wi = hamming.hdist_search_tc_torch(q, db, 500, k)
+    assert torch.equal(d, wd) and torch.equal(i, wi)
+
+
+@pytest.mark.cuda
+def test_search_batch_routes_by_q_and_k(cuda):
+    """search_batch takes tc_search from SEARCH_TC_MIN_Q queries on for
+    k <= SEARCH_TOPK_MAX, else the two-step route; both give the same."""
+    from bitnuc_tpu_torch import database
+
+    g = torch.Generator().manual_seed(11)
+    db = database.PackedDB(
+        torch.randint(-(2**31), 2**31 - 1, (32, 3000), generator=g, dtype=torch.int32).to(cuda),
+        512)
+    cases = [(database.SEARCH_TC_MIN_Q, 10, True), (256, hamming.SEARCH_TOPK_MAX, True),
+             (256, hamming.SEARCH_TOPK_MAX + 1, False)]
+    if database.SEARCH_TC_MIN_Q > 1:
+        cases.append((database.SEARCH_TC_MIN_Q - 1, 10, False))
+    for Q, k, fused in cases:
+        q = torch.randint(-(2**31), 2**31 - 1, (Q, 32), generator=g, dtype=torch.int32).to(cuda)
+        before = kernels.LAUNCHES["tc_search"]
+        got = db.search_batch(q, k)
+        assert kernels.LAUNCHES["tc_search"] == before + int(fused)
+        want = hamming.topk_batch_dispatch(db.distances_batch(q), k, 512)
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
 def _orf_reads(seed, B, W, lengths=None):
     """B reads of W words, codes weighted towards A and T (ATG- and
     stop-rich); without given lengths, the first rows are planted edges."""
