@@ -44,13 +44,25 @@ _SIGNATURES = {
     "bn_merge": (_P, _P, _P, _INT, _INT, _I64, _I64, _P),
     "bn_fit_banded": (_P, _P, _P, _P, _I64) + (_INT,) * 6 + (_P, _I64, _P, _P, _P, _P),
     "bn_sw_score": (_P, _P, _P, _P, _I64) + (_INT,) * 6 + (_P, _I64, _P, _P, _P, _P),
-    "bn_tc_scan": (_P, _P, _I64, _I64, _I64, _INT, _P, _P),
-    "bn_tc_search": (_P, _P, _I64, _I64, _I64, _INT, _INT, _I64, _I64, _P, _P),
+    "bn_tc_scan": (_P, _P, _I64, _I64, _I64, _INT, _INT, _I64, _I64, _P, _P),
+    "bn_tc_search": (_P, _P, _I64, _I64, _I64, _INT, _INT, _INT, _I64, _I64, _P, _P),
+    "bn_tc_blocks_per_sm": (_INT, _INT, _INT, _P),
     "bn_orf_scan": (_P, _P, _I64, _INT, _P, _P, _P, _P),
 }
 _ERROR_STRING = "bn_error_string"  # const char* (int code)
 
 _lib = None
+# source name -> ptxas's report of its kernels (registers, shared memory,
+# spills, warnings), from the last build in this process
+PTXAS = {}
+
+
+def ptxas_lines(log: str) -> list:
+    """The lines of an ``nvcc -Xptxas -v`` log that describe kernels:
+    registers and shared memory, spills, and warnings."""
+    return [ln.strip() for ln in log.splitlines()
+            if "ptxas info" in ln and ("Compiling" not in ln or "entry" in ln)
+            or "spill" in ln or "warning" in ln]
 
 
 def _sources():
@@ -85,12 +97,13 @@ def build() -> Path:
         obj = BUILD_DIR / f"{src.stem}.{tag}.o"
         objs.append(obj)
         procs.append((src, subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", str(obj), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )))
     failed = []
     for src, proc in procs:
         log = proc.communicate()[0]
+        PTXAS[src.name] = ptxas_lines(log)
         if proc.returncode != 0:
             failed.append(f"{src.name} ({proc.returncode}):\n{log}")
     tmp = out.with_suffix(f".tmp{os.getpid()}.so")

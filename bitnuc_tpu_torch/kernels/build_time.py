@@ -8,7 +8,7 @@ temporary directories, so neither reuses the other's output.
 
 Prints one JSON object: {"serial_s": ..., "parallel_s": ..., "sources": N}.
 With ``--ptxas`` it prints instead, for each source, what ``nvcc -Xptxas -v``
-says of each kernel: registers, shared memory, spills.
+says of each kernel: registers, shared memory, spills, warnings.
 """
 
 from __future__ import annotations
@@ -51,9 +51,7 @@ def ptxas_report(out_dir: Path) -> dict:
         proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
                                str(out_dir / f"{src.stem}.o"), str(src)],
                               check=True, capture_output=True, text=True)
-        report[src.name] = [ln.strip() for ln in (proc.stdout + proc.stderr).splitlines()
-                            if "ptxas info" in ln and ("Compiling" not in ln or "entry" in ln)
-                            or "spill" in ln]
+        report[src.name] = _build.ptxas_lines(proc.stdout + proc.stderr)
     return report
 
 

@@ -24,6 +24,7 @@ tail is (2^30, -1).
 
 from __future__ import annotations
 
+import ctypes
 from typing import Tuple
 
 import torch
@@ -137,7 +138,8 @@ def hdist_scan(queries: torch.Tensor, db_wm: torch.Tensor, n_bases: int) -> torc
 # word), then the group g (x0, x1, x01), then the pair's 32 bases: column
 # 96 p + 32 g + j holds base 32 p + j. A step of 32 columns is then one
 # group of one word pair, which is what a k-step of the kernel's
-# mma.sync.m16n8k32 reads.
+# wgmma.m64nNk32 reads: the database entries are its M rows (expanded in
+# registers), the queries its N columns (read from shared memory).
 
 TC_CHUNK = 65536  # database entries per product of the plain version
 
@@ -181,38 +183,86 @@ def hdist_scan_tc_torch(queries: torch.Tensor, db_wm: torch.Tensor, n_bases) -> 
     return out
 
 
-def _a_fragments(planes: torch.Tensor) -> torch.Tensor:
-    """Query planes [Q, 32S] int8 -> the A operands of mma.sync.m16n8k32 in
-    the order the kernel loads them: [ceil(Q / 128) * 8 row tiles, S k-steps,
-    32 lanes, 4 registers] of 4 int8 each, so a warp loads one tile's
-    operand of one k-step as 32 x 16 contiguous bytes. Lane 4g + c holds
-    registers (row g, k 4c..4c+3), (row g + 8, same k), (row g, k 16 + 4c..),
-    (row g + 8, k 16 + 4c..); rows past Q are zero."""
+TC_TILE_N = (8, 32, 64, 128, 256)  # the kernel's query-tile widths
+B_LBO = 128  # bytes between the two 16-byte k halves of a group of 8 query rows
+B_SBO = 256  # bytes between groups of 8 query rows
+_TILE_M = 128  # database entries of a K6 block tile
+
+
+def _tile_n(Q: int) -> int:
+    """The kernel's query-tile width for Q queries: the smallest of
+    TC_TILE_N that covers Q, else 256 (and ceil(Q / 256) tiles)."""
+    return next((n for n in TC_TILE_N if n >= Q), TC_TILE_N[-1])
+
+
+def _b_stages(planes: torch.Tensor, N: int) -> torch.Tensor:
+    """Query planes [Q, 96P] int8 -> the shared-memory image of K6's B
+    operand, one contiguous stage for each (query tile, word pair): [ceil(Q /
+    N), P, 3 k-steps, N / 8, 2, 8, 16] int8. A k-step's tile is K-major core
+    matrices of 8 query rows x 16 bytes, without swizzle: byte (n, j) at
+    (n // 8) B_SBO + (j // 16) B_LBO + (n % 8) 16 + j % 16. Rows past Q are
+    zero."""
     Q, K = planes.shape
-    S = K // 32
-    T = -(-Q // 128) * 8
-    a = torch.nn.functional.pad(planes, (0, 0, 0, 16 * T - Q))
-    a = a.reshape(T, 2, 8, S, 2, 4, 4)  # tile, row half, g, step, k half, c, byte
-    a = a.permute(0, 3, 2, 5, 4, 1, 6)  # tile, step, g, c, k half, row half, byte
-    return a.contiguous().view(torch.int32)
+    P = K // 96
+    n_qt = max(1, -(-Q // N))
+    b = torch.nn.functional.pad(planes, (0, 0, 0, n_qt * N - Q))
+    b = b.reshape(n_qt, N // 8, 8, P, 3, 2, 16)  # tile, row group, row, pair, step, k half, byte
+    return b.permute(0, 3, 4, 1, 5, 2, 6).contiguous()
+
+
+_OCCUPANCY = {}
+
+
+def _blocks_per_sm(N: int, search: bool, k: int = 1) -> int:
+    """Blocks of the K6 kernel at tile width N that fit an SM, as the card
+    reports it (``bn_tc_blocks_per_sm``)."""
+    key = (N, bool(search), k if search else 1)
+    if key not in _OCCUPANCY:
+        n = ctypes.c_int(0)
+        code = _build.library().bn_tc_blocks_per_sm(N, int(search), key[2], ctypes.addressof(n))
+        _build.check(code, "tc_blocks_per_sm")
+        _OCCUPANCY[key] = max(1, n.value)
+    return _OCCUPANCY[key]
+
+
+def _tile_grid(n_qt: int, D: int, n_sm: int, blocks_per_sm: int) -> Tuple[int, int]:
+    """K6's persistent schedule: (G, tiles a block). Each of the n_qt query
+    tiles gets G blocks, block g walking the contiguous 128-entry tiles [g
+    per_block, (g + 1) per_block), so that about one wave of blocks_per_sm
+    blocks an SM runs and none is empty."""
+    n_mt = max(1, -(-D // _TILE_M))
+    want = max(1, -(-blocks_per_sm * n_sm // n_qt))
+    per_block = -(-n_mt // min(want, n_mt))
+    return -(-n_mt // per_block), per_block
+
+
+def _k6_launch(queries: torch.Tensor, db_wm: torch.Tensor, n_bases: int, what: str,
+               k: int = 1):
+    """What both K6 entry points need: (B stages, nb, N, G, per_block)."""
+    kernels.require(queries, f"{what} queries", torch.int32, 2)
+    kernels.require(db_wm, f"{what} db", torch.int32, 2)
+    _check_scan(queries, db_wm)
+    if queries.device != db_wm.device:
+        raise ValueError(f"{what}: queries and db must be on one device")
+    Q, W = queries.shape
+    nb = _clamp_nb(n_bases, W)
+    N = _tile_n(Q)
+    stages = _b_stages(query_planes(queries, nb), N)
+    n_sm = torch.cuda.get_device_properties(db_wm.device).multi_processor_count
+    G, per_block = _tile_grid(stages.shape[0], db_wm.shape[1], n_sm,
+                              _blocks_per_sm(N, what == "tc_search", k))
+    return stages, nb, N, G, per_block
 
 
 def hdist_scan_tc_kernel(queries: torch.Tensor, db_wm: torch.Tensor, n_bases: int) -> torch.Tensor:
     """K6 on the card (``csrc/tcscan.cu``): [Q, W] x [W, D] int32 words ->
     [Q, D] int32, int8 tensor-core products of the plane identity."""
-    kernels.require(queries, "tc_scan queries", torch.int32, 2)
-    kernels.require(db_wm, "tc_scan db", torch.int32, 2)
-    _check_scan(queries, db_wm)
-    if queries.device != db_wm.device:
-        raise ValueError("tc_scan: queries and db must be on one device")
-    Q, W = queries.shape
-    D = db_wm.shape[1]
-    nb = _clamp_nb(n_bases, W)
-    frags = _a_fragments(query_planes(queries, nb))
+    stages, nb, N, G, per_block = _k6_launch(queries, db_wm, n_bases, "tc_scan")
+    Q, D = queries.shape[0], db_wm.shape[1]
     out = torch.empty((Q, D), dtype=torch.int32, device=db_wm.device)
     code = _build.library().bn_tc_scan(
-        frags.data_ptr(), db_wm.data_ptr(), Q, W, D, nb, out.data_ptr(),
-        kernels.stream_handle(db_wm.device),
+        stages.data_ptr(), db_wm.data_ptr(), Q, queries.shape[1], D, nb, N, G, per_block,
+        out.data_ptr(), kernels.stream_handle(db_wm.device),
     )
     _build.check(code, "tc_scan")
     kernels.LAUNCHES["tc_scan"] += 1
@@ -293,24 +343,12 @@ def topk_batch_dispatch(d: torch.Tensor, k: int, n_bases=None) -> Tuple[torch.Te
 # -- K6 with a top-k epilogue: the many-query search ------------------------------
 #
 # tc_search runs K6's main loop over a contiguous range of 128-entry tiles a
-# block and keeps, for each of the block's 128 queries, the k smallest keys
+# block and keeps, for each query of the block's tile, the k smallest keys
 # dist << 32 | index seen so far in shared memory (the keys of
 # _packed_keys). The blocks' lists, [Q, G, k] int64 padded with INT64_MAX,
 # are merged by one torch.topk (stage two).
 
-SEARCH_TOPK_MAX = 32  # largest k of the fused search: the per-row lists share shared memory
-SEARCH_BLOCKS_PER_SM = 2  # fused-search blocks per SM: one wave of two resident a SM
-_TILE = 128  # queries and entries of a K6 block tile
-
-
-def _search_grid(Q: int, D: int, n_sm: int) -> Tuple[int, int]:
-    """(G, tiles a block) of the fused search: G blocks along D for each
-    128-query tile, each walking a contiguous range of 128-entry tiles, so
-    that about SEARCH_BLOCKS_PER_SM blocks run a SM."""
-    n_qtiles, n_dtiles = -(-Q // _TILE), -(-D // _TILE)
-    want = max(1, -(-SEARCH_BLOCKS_PER_SM * n_sm // n_qtiles))
-    per_block = -(-n_dtiles // min(want, n_dtiles))
-    return -(-n_dtiles // per_block), per_block
+SEARCH_TOPK_MAX = 32  # largest k of the fused search: the per-query lists share shared memory
 
 
 def _merge_candidates(cand: torch.Tensor, k: int, D: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -347,21 +385,12 @@ def tc_search_candidates(queries: torch.Tensor, db_wm: torch.Tensor, n_bases: in
     ``bn_tc_search``): [Q, W] x [W, D] int32 words -> each block's k
     smallest keys of each query, [Q, G, k] int64 padded with INT64_MAX."""
     _check_search_k(k)
-    kernels.require(queries, "tc_search queries", torch.int32, 2)
-    kernels.require(db_wm, "tc_search db", torch.int32, 2)
-    _check_scan(queries, db_wm)
-    if queries.device != db_wm.device:
-        raise ValueError("tc_search: queries and db must be on one device")
+    stages, nb, N, G, per_block = _k6_launch(queries, db_wm, n_bases, "tc_search", k)
     Q, W = queries.shape
-    D = db_wm.shape[1]
-    nb = _clamp_nb(n_bases, W)
-    frags = _a_fragments(query_planes(queries, nb))
-    n_sm = torch.cuda.get_device_properties(db_wm.device).multi_processor_count
-    G, per_block = _search_grid(Q, D, n_sm)
     cand = torch.empty((Q, G, k), dtype=torch.int64, device=db_wm.device)
     code = _build.library().bn_tc_search(
-        frags.data_ptr(), db_wm.data_ptr(), Q, W, D, nb, k, G, per_block, cand.data_ptr(),
-        kernels.stream_handle(db_wm.device),
+        stages.data_ptr(), db_wm.data_ptr(), Q, W, db_wm.shape[1], nb, k, N, G, per_block,
+        cand.data_ptr(), kernels.stream_handle(db_wm.device),
     )
     _build.check(code, "tc_search")
     kernels.LAUNCHES["tc_search"] += 1

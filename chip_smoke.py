@@ -15,7 +15,7 @@ Phases, each of which must pass:
    hdist_scan_batch (one kernel), K6 tc_scan, K7 merge and K10 orf_scan at
    the main paths' shapes and at edge shapes, each timed with CUDA events
    (median of several runs, L2 flushed before each) beside its plain
-   version. K6 also against K5 on the full database at Q = 32 to 512, at
+   version. K6 also against K5 on the full database at Q = 1 to 512, at
    512-base and 150-base entries (the sweep behind database.TC_MIN_Q), and
    beside torch._int_mm. tc_search, K6's search form with a per-block
    top-k, against its plain version, against tc_scan + top-k on the full
@@ -137,7 +137,7 @@ MERGE_OPS_PER_ROW = 6
 # three frames' next-stop carry (3): 47, taken as 48 per word.
 INT8_TC_OPS_PER_S = 1.979e15
 ORF_OPS_PER_WORD = 48
-TC_SWEEP_Q = (32, 64, 128, 256, 512)
+TC_SWEEP_Q = (1, 8, 16, 32, 64, 128, 256, 512)
 SEARCH_SWEEP_Q = (1, 8, 32, 64, 128, 256, 512)  # search_batch's two routes
 SEARCH_QUERIES = 256  # phase 8's query file, and K6's reported shape
 TC_SLICE = 262_144  # database entries K6's plain version is compared on
@@ -827,8 +827,8 @@ def search_orf_path(torch, dev, tmp, db_wm, queries, reads, contigs, times):
     d, i = clock("search_literal_s", lambda: db.search_batch(queries[:LITERAL_QUERIES],
                                                              SEARCH_TOPK))
     out["literal_d"], out["literal_i"] = d.cpu().numpy(), i.cpu().numpy()
-    # the public all-pairs call and its top-k: K6 (tc_scan) at 256 queries,
-    # K5 at 8
+    # the public all-pairs call and its top-k: K6 (tc_scan) at 256 queries;
+    # at 8, K5 below database.TC_MIN_Q, else K6
     d, i = clock("distances_topk_s", lambda: hamming.topk_batch_dispatch(
         db.distances_batch(queries), SEARCH_TOPK, DB_BASES))
     out["two_step_d"], out["two_step_i"] = d.cpu().numpy(), i.cpu().numpy()
@@ -910,7 +910,10 @@ def search_orf_phase(args, torch, dev, timer, results, tmp, db_wm, genome, reads
     SEARCH_ORF_LAUNCHES.update(kernels.LAUNCHES)
     print(f"  launches {SEARCH_ORF_LAUNCHES}", flush=True)
     n_batches = -(-len(reads) // ORF_BATCH)
-    for name in ("pack", "tc_search", "tc_scan", "hdist_scan_batch", "orf_scan"):
+    path_kernels = ["pack", "tc_search", "tc_scan", "orf_scan"]
+    if LITERAL_QUERIES < TC_MIN_Q:
+        path_kernels.append("hdist_scan_batch")
+    for name in path_kernels:
         check(f"{name} launched on the search and ORF path", SEARCH_ORF_LAUNCHES[name] > 0,
               f"{SEARCH_ORF_LAUNCHES[name]} launches")
     check("longest_orf launched K10 twice a batch", SEARCH_ORF_LAUNCHES["orf_scan"]
@@ -1068,6 +1071,10 @@ def main() -> int:
     _build.library()
     build_s = time.perf_counter() - t
     print(f"  built {os.path.relpath(lib_path)} in {build_s:.1f} s", flush=True)
+    # K6's registers, shared memory and spills (nvcc -Xptxas -v of this build)
+    for line in _build.PTXAS.get("tcscan.cu", ["(library reused: no ptxas report)"]):
+        print(f"  ptxas tcscan.cu: {line}", flush=True)
+    results["phases"]["ptxas_tcscan"] = _build.PTXAS.get("tcscan.cu")
     results["phases"]["build_s"] = build_s
 
     timer = Timer(torch)
@@ -1249,8 +1256,8 @@ def main() -> int:
     compare("tc_scan", f"Q={SEARCH_QUERIES} D={TC_SLICE}", hamming.hdist_scan_tc_kernel(q, d_slice, 512),
             hamming.hdist_scan_tc_torch(q, d_slice, 512))
     del d_slice
-    for Q in (1, 130):
-        for W in (1, 9, 33):
+    for Q in (1, 9, 130, 257):  # each query-tile width and the walk past 256
+        for W in (1, 9, 33, 64):
             dw = torch.randint(-(2**31), 2**31 - 1, (W, 5000), device=dev, generator=gen,
                                dtype=torch.int32)
             qw = torch.randint(-(2**31), 2**31 - 1, (Q, W), device=dev, generator=gen,
@@ -1291,8 +1298,8 @@ def main() -> int:
         compare("tc_search", f"Q={SEARCH_QUERIES} D={DB_ENTRIES} k={k} against tc_scan + top-k",
                 hamming.hdist_search_tc_kernel(q, db, 512, k),
                 hamming.topk_batch_dispatch(hamming.hdist_scan_tc_kernel(q, db, 512), k, 512))
-    for Q in (1, 130):
-        for W in (1, 9, 33):
+    for Q in (1, 9, 130, 257):
+        for W in (1, 9, 33, 64):
             for D in (5, 5000):
                 dw = torch.randint(-(2**31), 2**31 - 1, (W, D), device=dev, generator=gen,
                                    dtype=torch.int32)

@@ -1,7 +1,7 @@
 """bitnuc_tpu_torch's many-query search against bitnuc_tpu: the plain
 version of K6 (the +-1 bit-plane product) against the TPU's bit-plane
 kernel in interpret mode and against hdist_many_to_many, the kernel's
-operand layout, PackedDB.distances_batch and search_batch on both sides of
+B-operand layout, PackedDB.distances_batch and search_batch on both sides of
 TC_MIN_Q, and PackedDB.from_fastq against the JAX package's. Distances,
 indices and words are equal bit for bit."""
 
@@ -69,26 +69,36 @@ def test_tc_plain_chunks_the_database(monkeypatch):
                                   hamming.hdist_scan_torch(qs, db, 50).numpy())
 
 
-@pytest.mark.parametrize("Q,W", [(1, 1), (130, 9), (16, 32)])
-def test_a_fragments_follow_the_mma_layout(Q, W):
-    """Reading the A operands back with mma.sync.m16n8k32's fragment map
-    (lane 4g + c: rows g and g + 8, bytes 4c..4c+3 and 16 + 4c..) gives
-    the query planes, zero rows past Q."""
-    rng = np.random.default_rng(Q)
+@pytest.mark.parametrize("Q", [1, 8, 130, 300])
+@pytest.mark.parametrize("W", [1, 9, 32, 33])
+def test_b_stages_follow_the_descriptor_layout(Q, W):
+    """Reading K6's B stages back through the shared-memory descriptor's
+    map (K-major core matrices of 8 rows x 16 bytes, no swizzle; B_LBO
+    between the k halves, B_SBO between groups of 8 rows) gives the query
+    planes, zero rows past Q, one contiguous stage a (query tile, pair)."""
+    rng = np.random.default_rng(Q + W)
     planes = hamming.query_planes(words_from_u32_np(_words(rng, Q, W)), 16 * W - 3)
-    S = planes.shape[1] // 32
-    frags = hamming._a_fragments(planes).view(torch.int8).reshape(-1, S, 32, 4, 4).numpy()
-    T = frags.shape[0]
-    A = np.zeros((16 * T, 32 * S), np.int8)
-    for lane in range(32):
-        g, c = lane // 4, lane % 4
-        for reg, (dr, dk) in enumerate(((0, 0), (8, 0), (0, 16), (8, 16))):
-            for byte in range(4):
-                A.reshape(T, 16, S, 32)[:, g + dr, :, dk + 4 * c + byte] = \
-                    frags[:, :, lane, reg, byte]
-    assert T % 8 == 0 and 16 * T >= Q
-    np.testing.assert_array_equal(A[:Q], planes.numpy())
-    assert not A[Q:].any()
+    N = hamming._tile_n(Q)
+    P = -(-W // 2)
+    n_qt = -(-Q // N)
+    stages = hamming._b_stages(planes, N)
+    assert stages.is_contiguous() and stages.numel() == n_qt * P * 3 * N * 32
+    flat = stages.reshape(n_qt, P, 3, N * 32).numpy()
+    n, j = np.meshgrid(np.arange(N), np.arange(32), indexing="ij")
+    at = (n // 8) * hamming.B_SBO + (j // 16) * hamming.B_LBO + (n % 8) * 16 + j % 16
+    B = np.zeros((n_qt * N, 96 * P), np.int8)
+    for qt in range(n_qt):
+        for p in range(P):
+            for g in range(3):
+                B[qt * N : qt * N + N, 96 * p + 32 * g : 96 * p + 32 * g + 32] = flat[qt, p, g][at]
+    np.testing.assert_array_equal(B[:Q], planes.numpy())
+    assert not B[Q:].any()
+
+
+@pytest.mark.parametrize("Q,N", [(0, 8), (1, 8), (8, 8), (9, 32), (33, 64), (100, 128),
+                                 (129, 256), (256, 256), (257, 256), (512, 256)])
+def test_tile_n_is_the_smallest_template_that_covers_q(Q, N):
+    assert hamming._tile_n(Q) == N
 
 
 @pytest.mark.parametrize("Q", [3, database.TC_MIN_Q - 1, database.TC_MIN_Q, database.TC_MIN_Q + 5])

@@ -224,22 +224,45 @@ def test_sw_kernel_any_int32_scores(cuda, params, Wb):
         assert torch.equal(g, w)
 
 
+# Q covers each query-tile width of K6 (8, 32, 64, 128, 256) and the walk
+# over tiles of 256 past it; W = 64 takes the ring of B stages around more
+# than once a tile.
+K6_Q = [1, 7, 8, 9, 64, 130, 256, 257, 512]
+K6_W = [1, 9, 32, 33, 64]
+
+
+def _k6_inputs(seed, Q, W, D):
+    g = torch.Generator().manual_seed(seed)
+    db = torch.randint(-(2**31), 2**31 - 1, (W, D), generator=g, dtype=torch.int32)
+    q = torch.randint(-(2**31), 2**31 - 1, (Q, W), generator=g, dtype=torch.int32)
+    return q, db
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("Q", [1, 130])
-@pytest.mark.parametrize("W", [1, 9, 33])
-@pytest.mark.parametrize("nb_of", ["zero", "137", "all"])
-@pytest.mark.parametrize("D", [1000, 1001])
-def test_tc_scan_kernel_matches_plain(cuda, Q, W, nb_of, D):
-    """K6 at ragged Q and D (not multiples of the 128 x 128 block; an odd D
-    leaves odd rows without 8-byte alignment), odd W and n_bases of 0, 137
-    (clamped at W = 1) and 16 W: equal to its plain version and to K4/K5."""
-    nb = {"zero": 0, "137": 137, "all": 16 * W}[nb_of]
-    g = torch.Generator().manual_seed(Q + W)
-    db = torch.randint(-(2**31), 2**31 - 1, (W, D), generator=g, dtype=torch.int32).to(cuda)
-    q = torch.randint(-(2**31), 2**31 - 1, (Q, W), generator=g, dtype=torch.int32).to(cuda)
-    got = hamming.hdist_scan_tc_kernel(q, db, nb)
-    assert torch.equal(got, hamming.hdist_scan_tc_torch(q, db, nb))
-    assert torch.equal(got, hamming.hdist_scan_kernel(q, db, nb))
+@pytest.mark.parametrize("Q", K6_Q)
+@pytest.mark.parametrize("W", K6_W)
+def test_tc_scan_kernel_matches_plain(cuda, Q, W):
+    """K6 at ragged D (5; 1000 and 1001, not multiples of the 128-entry
+    tile), n_bases of 0, 137 (clamped at W = 1) and 16 W: equal to its
+    plain version and to K4/K5."""
+    for D in (5, 1000, 1001):
+        q, db = (x.to(cuda) for x in _k6_inputs(Q + W + D, Q, W, D))
+        for nb in (0, 137, 16 * W):
+            got = hamming.hdist_scan_tc_kernel(q, db, nb)
+            assert torch.equal(got, hamming.hdist_scan_tc_torch(q, db, nb)), (D, nb)
+            assert torch.equal(got, hamming.hdist_scan_kernel(q, db, nb)), (D, nb)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q", [9, 257])
+@pytest.mark.parametrize("W", [9, 32])
+def test_tc_scan_kernel_over_many_tiles_a_block(cuda, Q, W):
+    """D = 300,000: every block walks several 128-entry tiles."""
+    q, db = (x.to(cuda) for x in _k6_inputs(Q * W, Q, W, 300_000))
+    for nb in (137, 16 * W):
+        got = hamming.hdist_scan_tc_kernel(q, db, nb)
+        assert torch.equal(got, hamming.hdist_scan_kernel(q, db, nb))
+        assert torch.equal(got, hamming.hdist_scan_tc_torch(q, db, nb))
 
 
 @pytest.mark.cuda
@@ -260,25 +283,49 @@ def test_distances_batch_routes_by_tc_min_q(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("Q", [1, 130])
-@pytest.mark.parametrize("W", [1, 9, 33])
-@pytest.mark.parametrize("nb_of", ["zero", "137", "all"])
-@pytest.mark.parametrize("D,k", [(5, 10), (5000, 1), (5000, 10), (5000, hamming.SEARCH_TOPK_MAX)])
-def test_tc_search_kernel_matches_plain(cuda, Q, W, nb_of, D, k):
-    """The fused search at ragged Q and D, k past D, k = 1 and the largest
-    k: equal to its plain version and to the top-k of K6's matrix."""
-    nb = {"zero": 0, "137": 137, "all": 16 * W}[nb_of]
-    g = torch.Generator().manual_seed(Q + W + D + k)
-    db = torch.randint(-(2**31), 2**31 - 1, (W, D), generator=g, dtype=torch.int32).to(cuda)
-    q = torch.randint(-(2**31), 2**31 - 1, (Q, W), generator=g, dtype=torch.int32).to(cuda)
-    got = hamming.hdist_search_tc_kernel(q, db, nb, k)
-    for want in (hamming.hdist_search_tc_torch(q, db, nb, k),
-                 hamming.topk_smallest_batch(hamming.hdist_scan_tc_kernel(q, db, nb), k)):
-        assert all(torch.equal(x, y) for x, y in zip(got, want))
+@pytest.mark.parametrize("Q", K6_Q)
+@pytest.mark.parametrize("W", K6_W)
+def test_tc_search_kernel_matches_plain(cuda, Q, W):
+    """The fused search at ragged D (5: k past D), n_bases 0, 137 and 16 W,
+    k = 1, 10 and the largest: equal to its plain version and to the top-k
+    of K6's and of K5's matrix."""
+    for D in (5, 1001):
+        q, db = (x.to(cuda) for x in _k6_inputs(Q + W + D + 1, Q, W, D))
+        for nb in (0, 137, 16 * W):
+            for k in (1, 10, hamming.SEARCH_TOPK_MAX):
+                got = hamming.hdist_search_tc_kernel(q, db, nb, k)
+                for want in (hamming.hdist_search_tc_torch(q, db, nb, k),
+                             hamming.topk_smallest_batch(hamming.hdist_scan_tc_kernel(q, db, nb), k),
+                             hamming.topk_smallest_batch(hamming.hdist_scan_kernel(q, db, nb), k)):
+                    assert all(torch.equal(x, y) for x, y in zip(got, want)), (D, nb, k)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("Q,D,k", [(130, 130, 10), (5, 300_000, 32), (130, 300_000, 7)])
+@pytest.mark.parametrize("Q", [8, 257])
+@pytest.mark.parametrize("D", [1000, 300_000])
+def test_tc_search_kernel_over_many_tiles_a_block(cuda, Q, D):
+    q, db = (x.to(cuda) for x in _k6_inputs(Q + D, Q, 32, D))
+    for k in (1, 10, hamming.SEARCH_TOPK_MAX):
+        got = hamming.hdist_search_tc_kernel(q, db, 512, k)
+        want = hamming.topk_smallest_batch(hamming.hdist_scan_kernel(q, db, 512), k)
+        assert all(torch.equal(x, y) for x, y in zip(got, want)), k
+
+
+@pytest.mark.cuda
+def test_k6_launches_once_at_q8(cuda):
+    """A call at Q = 8 launches its kernel once and no other counted
+    kernel: the B stages are laid out by PyTorch."""
+    q, db = (x.to(cuda) for x in _k6_inputs(8, 8, 32, 3000))
+    for name, call in (("tc_scan", lambda: hamming.hdist_scan_tc_kernel(q, db, 512)),
+                       ("tc_search", lambda: hamming.hdist_search_tc_kernel(q, db, 512, 10))):
+        kernels.reset_launches()
+        call()
+        assert kernels.LAUNCHES == {n: int(n == name) for n in kernels.LAUNCHES}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q,D,k", [(130, 130, 10), (5, 300_000, 32), (130, 300_000, 7),
+                                   (257, 300_000, 32), (8, 130, 10)])
 def test_tc_search_ties_go_to_the_lowest_index(cuda, Q, D, k):
     """A database of one repeated entry: every distance ties, across
     blocks, tiles and lanes, so each query's list is entries 0..k-1 (a

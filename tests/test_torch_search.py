@@ -103,15 +103,20 @@ def test_search_batch_routes_by_q_and_k(Q, k, route, monkeypatch):
         jnp.asarray(qs), k))
 
 
-def test_search_grid_covers_the_database():
-    """G blocks of `per_block` tiles cover every 128-entry tile and leave no
-    block empty; about SEARCH_BLOCKS_PER_SM blocks an SM at Q = 256."""
-    for Q, D, n_sm in ((256, 4_194_304, 132), (1, 5, 132), (130, 300_000, 132), (512, 128, 7)):
-        G, per_block = hamming._search_grid(Q, D, n_sm)
-        n_dtiles = -(-D // 128)
-        assert G * per_block >= n_dtiles > (G - 1) * per_block
-    G, _ = hamming._search_grid(256, 4_194_304, 132)
-    assert 2 * G == pytest.approx(hamming.SEARCH_BLOCKS_PER_SM * 132, abs=2)
+@pytest.mark.parametrize("n_qt,D,n_sm,bps", [(1, 4_194_304, 132, 1), (1, 5, 132, 1),
+                                            (2, 300_000, 132, 1), (3, 128, 7, 2),
+                                            (1, 4_194_304, 132, 2), (2, 1001, 132, 3)])
+def test_search_grid_covers_the_database(n_qt, D, n_sm, bps):
+    """K6's persistent schedule (tc_scan and tc_search): G blocks of
+    `per_block` 128-entry tiles for each query tile cover every tile and
+    leave no block empty, and the n_qt G blocks are at most one wave of
+    bps blocks an SM, a full wave where the database has the tiles."""
+    G, per_block = hamming._tile_grid(n_qt, D, n_sm, bps)
+    n_mt = -(-D // 128)
+    assert G * per_block >= n_mt > (G - 1) * per_block
+    assert n_qt * G <= max(n_qt, bps * n_sm + n_qt - 1)
+    if n_mt >= 4 * bps * n_sm:
+        assert n_qt * G >= bps * n_sm * 0.97
 
 
 def test_kernel_wrapper_takes_cuda_tensors_only():
