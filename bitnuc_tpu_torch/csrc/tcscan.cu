@@ -43,7 +43,7 @@
 // so no consumer waits on a load from device memory.
 //
 // A block is two consumer warpgroups (64 entries each, 128 a block tile)
-// and a producer warp, which keeps a ring of up to four pair stages in
+// and a producer warp, which keeps a ring of up to eight pair stages in
 // flight (full/empty mbarriers; every consumer warp releases a stage once
 // its wgmma group on it is complete). At N = 256 the 128 accumulators a
 // thread do not fit the 168 registers that 384 threads get at launch, so
@@ -53,12 +53,12 @@
 // group, and then expands pair p + 1's stage into the second of two A
 // register sets while the tensor cores work on pair p. Blocks are
 // persistent: the grid is about one wave (the occupancy the card reports,
-// bn_tc_blocks_per_sm) for each tile of
-// queries, and block g walks a contiguous range of 128-entry tiles, so its
-// stores (tc_scan) and its lists (tc_search) outlast one tile. tc_scan
-// writes (3 nb - S) >> 2 straight from the accumulators with a streaming
-// hint: a register's lanes cover 8 neighbouring entries of 4 queries, whole
-// 32-byte sectors.
+// bn_tc_blocks_per_sm) for each tile of queries, and block g walks a
+// contiguous range of 128-entry tiles. tc_scan writes (3 nb - S) >> 2
+// straight from the accumulators with a streaming hint (a register's lanes
+// cover 8 neighbouring entries of 4 queries, whole 32-byte sectors); its
+// two warpgroups share no barrier, so one's stores overlap the other's
+// products.
 //
 // tc_search keeps, for each query of the block's tile of N, the k smallest
 // keys dist << 32 | index seen so far in shared memory, so the [Q, D]
@@ -94,9 +94,7 @@ constexpr int kTileM = 128;                // entries of a block tile, 64 a warp
 constexpr int kSteps = 3;                  // k-steps of one word pair
 constexpr int kLBO = 128;                  // bytes between the two k halves of a row group
 constexpr int kSBO = 256;                  // bytes between groups of 8 rows
-// A stage is refilled (from L2 and device memory, about 1 to 2 us) while the
-// consumers work through the stages before it, so the ring is as deep as
-// shared memory allows, up to kMaxStages.
+// the ring is as deep as shared memory allows, up to kMaxStages
 constexpr int kMaxStages = 8;
 constexpr int kBarBytes = 2 * kMaxStages * 8;  // the ring's mbarriers, before the ring
 constexpr size_t kSmemMax = 232448;        // shared memory a block may use
@@ -347,10 +345,9 @@ __device__ __forceinline__ void ring_next(Ring& ring) {
   }
 }
 
-// the stage d pairs before the ring's current one
-__device__ __forceinline__ int ring_back(const Ring& ring, int d) {
-  const int s = ring.slot - d;
-  return s < 0 ? s + ring.n : s;
+// the stage before the ring's current one
+__device__ __forceinline__ int ring_prev(const Ring& ring) {
+  return ring.slot == 0 ? ring.n - 1 : ring.slot - 1;
 }
 
 // Wait for the ring's current stage and expand its database words into A
@@ -369,7 +366,6 @@ __device__ __forceinline__ void expand_stage(uint32_t (&A)[2][kSteps][4], const 
 // One word pair p of a consumer, its stage waited for and expanded into A
 // set S: issue its three k-steps and commit, wait for pair p - 1's group and
 // release its stage, then expand pair p + 1 into the set p - 1 used.
-// (Three sets, two groups in flight while expanding, measured no faster.)
 template <int N, int S>
 __device__ __forceinline__ void pair_step(int (&acc)[N / 2], uint32_t (&A)[2][kSteps][4],
                                           Ring& ring, int p, int P, int row, int sh, int lane) {
@@ -381,7 +377,7 @@ __device__ __forceinline__ void pair_step(int (&acc)[N / 2], uint32_t (&A)[2][kS
   }
   wg_commit();
   wg_wait<1>();
-  if (p > 0 && lane == 0) mbar_arrive(&ring.empty[ring_back(ring, 1)]);
+  if (p > 0 && lane == 0) mbar_arrive(&ring.empty[ring_prev(ring)]);
   ring_next(ring);
   if (p + 1 < P) expand_stage<N, S ^ 1>(A, ring, row, sh);
 }
@@ -498,7 +494,7 @@ k6_kernel(const int8_t* __restrict__ bplanes, const uint32_t* __restrict__ db, i
       if (p + 1 < P) pair_step<N, 1>(acc, A, ring, p + 1, P, row, sh, lane);
     }
     wg_wait<0>();
-    if (P > 0 && lane == 0) mbar_arrive(&ring.empty[ring_back(ring, 1)]);  // the last pair's stage
+    if (P > 0 && lane == 0) mbar_arrive(&ring.empty[ring_prev(ring)]);  // the last pair's stage
     fence_regs(acc);
 
     const int64_t e0 = t * kTileM + row, e1 = e0 + 8;
@@ -593,12 +589,12 @@ k6_kernel(const int8_t* __restrict__ bplanes, const uint32_t* __restrict__ db, i
   }
 }
 
-// Shared memory of one block and the ring's stage count (2 to kMaxStages):
+// Shared memory of one block and the ring's stage count (up to kMaxStages):
 // the deepest ring that leaves room for two blocks an SM below N = 128.
 size_t k6_smem(int N, bool search, int k, int* n_stages) {
   const size_t stage = (size_t)kSteps * N * 32 + 2 * kTileM * 4;  // Stage<N>::kBytes
   const size_t fixed = kBarBytes + (search ? search_bytes(N, k) : 0);
-  const size_t budget = kSmemMax / (N < 128 ? 2 : 1) - 1024;
+  const size_t budget = kSmemMax / (N < 128 ? 2 : 1) - 1024;  // less the 1 KB CUDA reserves a block
   size_t s = fixed < budget ? (budget - fixed) / stage : 0;
   if (s > kMaxStages) s = kMaxStages;
   *n_stages = (int)s;
@@ -625,6 +621,8 @@ template <int N, bool kSearch>
 cudaError_t run(const Args& a, cudaStream_t stream, int* blocks_per_sm) {
   int n_stages = 0;
   const size_t smem = k6_smem(N, kSearch, a.k, &n_stages);
+  // a consumer holds two stages (one in flight, one expanded); a third lets
+  // the producer run ahead
   if (n_stages < 3) return cudaErrorInvalidValue;
   auto fn = k6_kernel<N, kSearch>;
   cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

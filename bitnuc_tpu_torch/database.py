@@ -23,12 +23,15 @@ from .utils import bitops
 
 # distances_batch runs K6 (the tensor cores) from this many queries on, and
 # K5 below it. chip_smoke.py's sweep over 4,194,304 entries on an NVIDIA
-# H100 80GB HBM3 at a 700.00 W power limit, K5 / K6 in ms at Q = 32, 64,
-# 128, 256, 512: 512 bases (W = 32) 1.418 / 3.444, 2.740 / 3.376, 5.557 /
-# 4.023, 10.826 / 6.444, 21.780 / 12.775; 150 bases (W = 10) 0.518 /
-# 1.382, 1.027 / 1.599, 2.002 / 1.814, 4.084 / 3.463, 8.047 / 5.734. K6
-# pads Q to tiles of 128, so the crossover is 128 at both widths.
-TC_MIN_Q = 128
+# H100 80GB HBM3 at a 700.00 W power limit, K5 / K6 in ms at Q = 1, 8, 16,
+# 32, 64, 128, 256, 512: 512 bases (W = 32) 0.199 / 1.320, 0.678 / 1.243,
+# 0.695 / 1.381, 1.388 / 1.363, 2.740 / 2.053, 5.397 / 2.699, 10.834 /
+# 4.102, 21.799 / 8.638; 150 bases (W = 10) 0.081 / 0.774, 0.247 / 0.854,
+# 0.266 / 0.776, 0.510 / 0.938, 1.011 / 1.117, 2.013 / 1.855, 4.103 /
+# 2.791, 8.263 / 5.181. K6 sizes its query tile to Q (8 to 256), so the
+# crossover is 32 to 64 at 512 bases and 64 to 128 at 150; 64 favours the
+# long entries that many-query search uses.
+TC_MIN_Q = 64
 
 # search_batch runs the fused search (K6 with its top-k epilogue, the
 # tc_search kernel) for k <= hamming.SEARCH_TOPK_MAX from this many queries
@@ -36,11 +39,11 @@ TC_MIN_Q = 128
 # topk_batch_dispatch. Both routes are exact. chip_smoke.py's sweep over
 # 4,194,304 entries, k = 10, on an NVIDIA H100 80GB HBM3 at a 700.00 W power
 # limit, two-step / fused in ms at Q = 1, 8, 32, 64, 128, 256, 512: 512
-# bases 0.901 / 4.006, 5.153 / 3.955, 15.900 / 4.186, 30.706 / 4.524,
-# 58.890 / 3.942, 115.905 / 7.602, 239.315 / 13.551; 150 bases 0.762 /
-# 1.612, 4.697 / 1.699, 14.907 / 1.853, 28.876 / 2.005, 56.713 / 2.020,
-# 111.746 / 3.407, 230.823 / 6.668. The fused route computes a whole
-# 128-query tile, so one query stays on K4 and its top-k.
+# bases 0.904 / 1.612, 5.071 / 1.426, 15.968 / 2.123, 30.739 / 1.938,
+# 58.019 / 3.357, 113.558 / 4.785, 234.638 / 9.409; 150 bases 0.761 /
+# 0.895, 4.634 / 1.109, 14.945 / 1.392, 28.887 / 1.390, 56.851 / 2.459,
+# 111.428 / 3.622, 230.302 / 6.246. One query stays on K4 and its top-k:
+# the fused route expands the whole database whatever Q is.
 SEARCH_TC_MIN_Q = 8
 
 

@@ -827,8 +827,8 @@ def search_orf_path(torch, dev, tmp, db_wm, queries, reads, contigs, times):
     d, i = clock("search_literal_s", lambda: db.search_batch(queries[:LITERAL_QUERIES],
                                                              SEARCH_TOPK))
     out["literal_d"], out["literal_i"] = d.cpu().numpy(), i.cpu().numpy()
-    # the public all-pairs call and its top-k: K6 (tc_scan) at 256 queries;
-    # at 8, K5 below database.TC_MIN_Q, else K6
+    # the public all-pairs call and its top-k: K6 (tc_scan) at 256 queries,
+    # K5 at 8
     d, i = clock("distances_topk_s", lambda: hamming.topk_batch_dispatch(
         db.distances_batch(queries), SEARCH_TOPK, DB_BASES))
     out["two_step_d"], out["two_step_i"] = d.cpu().numpy(), i.cpu().numpy()
@@ -910,10 +910,7 @@ def search_orf_phase(args, torch, dev, timer, results, tmp, db_wm, genome, reads
     SEARCH_ORF_LAUNCHES.update(kernels.LAUNCHES)
     print(f"  launches {SEARCH_ORF_LAUNCHES}", flush=True)
     n_batches = -(-len(reads) // ORF_BATCH)
-    path_kernels = ["pack", "tc_search", "tc_scan", "orf_scan"]
-    if LITERAL_QUERIES < TC_MIN_Q:
-        path_kernels.append("hdist_scan_batch")
-    for name in path_kernels:
+    for name in ("pack", "tc_search", "tc_scan", "hdist_scan_batch", "orf_scan"):
         check(f"{name} launched on the search and ORF path", SEARCH_ORF_LAUNCHES[name] > 0,
               f"{SEARCH_ORF_LAUNCHES[name]} launches")
     check("longest_orf launched K10 twice a batch", SEARCH_ORF_LAUNCHES["orf_scan"]
