@@ -12,7 +12,7 @@ with a plain PyTorch version beside it for CPU tensors:
 * ``ops.kmer.count_kmers_reads`` (dense, k <= 12) — K3a ``hist_keys``, K3b
   ``hist_words``
 * ``PackedDB.distances`` / ``distances_batch`` — K4 ``hdist_scan``, K5
-  ``hdist_scan_batch`` (one kernel), and from ``database.TC_MIN_Q``
+  ``hdist_scan_batch`` (one kernel), and from ``database.tc_min_q(W)``
   queries on K6 ``tc_scan`` (int8 tensor cores)
 * ``ops.setops.combine_counts`` (through ``ops.merge.merge_sorted``) — K7
   ``merge``

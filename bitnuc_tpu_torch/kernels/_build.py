@@ -52,17 +52,6 @@ _SIGNATURES = {
 _ERROR_STRING = "bn_error_string"  # const char* (int code)
 
 _lib = None
-# source name -> ptxas's report of its kernels (registers, shared memory,
-# spills, warnings), from the last build in this process
-PTXAS = {}
-
-
-def ptxas_lines(log: str) -> list:
-    """The lines of an ``nvcc -Xptxas -v`` log that describe kernels:
-    registers and shared memory, spills, and warnings."""
-    return [ln.strip() for ln in log.splitlines()
-            if "ptxas info" in ln and ("Compiling" not in ln or "entry" in ln)
-            or "spill" in ln or "warning" in ln]
 
 
 def _sources():
@@ -97,13 +86,12 @@ def build() -> Path:
         obj = BUILD_DIR / f"{src.stem}.{tag}.o"
         objs.append(obj)
         procs.append((src, subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", str(obj), str(src)],
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )))
     failed = []
     for src, proc in procs:
         log = proc.communicate()[0]
-        PTXAS[src.name] = ptxas_lines(log)
         if proc.returncode != 0:
             failed.append(f"{src.name} ({proc.returncode}):\n{log}")
     tmp = out.with_suffix(f".tmp{os.getpid()}.so")

@@ -44,14 +44,19 @@ def parallel_build(out_dir: Path) -> float:
         _build.BUILD_DIR = saved
 
 
-def ptxas_report(out_dir: Path) -> dict:
-    """{source: the ptxas lines of its kernels} from ``-Xptxas -v``."""
+def ptxas_report(out_dir: Path, names=None) -> dict:
+    """{source: the ptxas lines of its kernels} from ``-Xptxas -v``, for
+    every source or for those ``names`` (such as ``("tcscan.cu",)``)."""
     report = {}
     for src in sorted(_build.CSRC.glob("*.cu")):
+        if names is not None and src.name not in names:
+            continue
         proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
                                str(out_dir / f"{src.stem}.o"), str(src)],
                               check=True, capture_output=True, text=True)
-        report[src.name] = _build.ptxas_lines(proc.stdout + proc.stderr)
+        report[src.name] = [ln.strip() for ln in (proc.stdout + proc.stderr).splitlines()
+                            if "ptxas info" in ln and ("Compiling" not in ln or "entry" in ln)
+                            or "spill" in ln or "warning" in ln]
     return report
 
 

@@ -5,6 +5,12 @@ Run from the root of a checkout, on a machine with a CUDA card, nvcc and
 PyTorch built for CUDA:
 
     python3 chip_smoke.py [--out results.json] [--seed 0]
+    python3 chip_smoke.py --k6-against DIR [--out results.json]
+
+The second form runs no phase: it times K6 (tc_scan and tc_search) of this
+checkout beside those of another checkout in DIR (for example a git archive
+of an earlier commit, unpacked), in turns DIR, this, this, DIR, on one card
+(see k6_against).
 
 Phases, each of which must pass:
 
@@ -16,7 +22,7 @@ Phases, each of which must pass:
    the main paths' shapes and at edge shapes, each timed with CUDA events
    (median of several runs, L2 flushed before each) beside its plain
    version. K6 also against K5 on the full database at Q = 1 to 512, at
-   512-base and 150-base entries (the sweep behind database.TC_MIN_Q), and
+   512-base and 150-base entries (the sweep behind database.tc_min_q), and
    beside torch._int_mm. tc_search, K6's search form with a per-block
    top-k, against its plain version, against tc_scan + top-k on the full
    database at k = 1, 10 and SEARCH_TOPK_MAX, at edge shapes and on a
@@ -84,6 +90,7 @@ import sys
 import tempfile
 import time
 import traceback
+from pathlib import Path
 
 import numpy as np
 
@@ -879,7 +886,7 @@ def search_orf_phase(args, torch, dev, timer, results, tmp, db_wm, genome, reads
     built from FASTQ, and ORF calling on reads and contigs (K10), with the
     checks."""
     from bitnuc_tpu_torch import config, kernels
-    from bitnuc_tpu_torch.database import PackedDB, SEARCH_TC_MIN_Q, TC_MIN_Q
+    from bitnuc_tpu_torch.database import PackedDB, SEARCH_TC_MIN_Q, tc_min_q
     from bitnuc_tpu_torch.ops import hamming, orf, revcomp
     from bitnuc_tpu_torch.sequence import PackedReads
     from bitnuc_tpu_torch.utils import bitops
@@ -888,7 +895,8 @@ def search_orf_phase(args, torch, dev, timer, results, tmp, db_wm, genome, reads
     rng = np.random.default_rng(args.seed + 8)
     D = db_wm.shape[1]
     print(f"phase 8: many-query search ({SEARCH_QUERIES} queries, top {SEARCH_TOPK}, against "
-          f"{D} x {DB_BASES} bases; TC_MIN_Q = {TC_MIN_Q}, SEARCH_TC_MIN_Q = {SEARCH_TC_MIN_Q}), "
+          f"{D} x {DB_BASES} bases; tc_min_q = {tc_min_q(db_wm.shape[0])}, "
+          f"SEARCH_TC_MIN_Q = {SEARCH_TC_MIN_Q}), "
           "from_fastq, ORFs", flush=True)
     # queries: database entries with QUERY_SUB_RATE of their bases changed
     src = rng.integers(0, D, SEARCH_QUERIES)
@@ -1027,10 +1035,91 @@ def search_orf_phase(args, torch, dev, timer, results, tmp, db_wm, genome, reads
           f"{got}; oracles {time.perf_counter() - t:.1f} s")
 
 
+def int_mm_planes(torch, db):
+    """The +-1 planes [D, 48W] int8 of a word-major database [W, D]: the
+    operand of torch._int_mm, K6's library call, made in slices, untimed."""
+    from bitnuc_tpu_torch.ops import hamming
+    from bitnuc_tpu_torch.utils import bitops
+
+    planes = torch.empty((db.shape[1], 48 * db.shape[0]), dtype=torch.int8, device=db.device)
+    for d0 in range(0, db.shape[1], TC_SLICE):
+        planes[d0 : d0 + TC_SLICE] = hamming._planes(
+            bitops.unpack_words(db[:, d0 : d0 + TC_SLICE].t()))
+    return planes
+
+
+def k6_against(args, torch, dev) -> int:
+    """K6 of this checkout beside another's (``--k6-against DIR``): tc_scan,
+    and tc_search at k = SEARCH_TOPK, at Q = SEARCH_QUERIES and 8 against
+    DB_ENTRIES random entries of DB_BASES bases, each timed in turns DIR,
+    this, this, DIR; torch._int_mm of the same planes at Q = SEARCH_QUERIES
+    as the yardstick. DIR's bitnuc_tpu_torch is loaded as ``bnt_other`` and
+    builds its own kernels. Both trees' outputs are checked against this
+    checkout's K5 and its top-k. Prints a line a timing, the card's name and
+    power limit, and last one JSON object; returns 1 if a check failed."""
+    import importlib
+    import importlib.util
+
+    from bitnuc_tpu_torch.ops import hamming
+
+    pkg = os.path.join(os.path.abspath(args.k6_against), "bitnuc_tpu_torch")
+    spec = importlib.util.spec_from_file_location(
+        "bnt_other", os.path.join(pkg, "__init__.py"), submodule_search_locations=[pkg])
+    sys.modules["bnt_other"] = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sys.modules["bnt_other"])
+    trees = {"other": importlib.import_module("bnt_other.ops.hamming"), "this": hamming}
+    if "jax" in sys.modules:
+        print("chip_smoke: jax was imported", file=sys.stderr)
+        return 1
+    timer = Timer(torch)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed)
+    W = DB_BASES // 16
+    db = torch.randint(-(2**31), 2**31 - 1, (W, DB_ENTRIES), device=dev, generator=gen,
+                       dtype=torch.int32)
+    q_max = torch.randint(-(2**31), 2**31 - 1, (SEARCH_QUERIES, W), device=dev, generator=gen,
+                          dtype=torch.int32)
+    res = {"times_ms": {}, "checks": {}}
+    for Q in (SEARCH_QUERIES, 8):
+        q = q_max[:Q].contiguous()
+        want = hamming.hdist_scan_kernel(q, db, DB_BASES)
+        want_top = hamming.topk_batch_dispatch(want, SEARCH_TOPK)
+        for name, h in trees.items():
+            got = h.hdist_search_tc_kernel(q, db, DB_BASES, SEARCH_TOPK)
+            res["checks"][f"{name} Q={Q}"] = check(
+                f"K6 of {name} at Q={Q} == K5 and its top-k",
+                torch.equal(h.hdist_scan_tc_kernel(q, db, DB_BASES), want)
+                and all(torch.equal(x, y) for x, y in zip(got, want_top)))
+        del want
+        for kern in ("tc_scan", "tc_search"):
+            for name in ("other", "this", "this", "other"):
+                h = trees[name]
+                fn = ((lambda: h.hdist_scan_tc_kernel(q, db, DB_BASES)) if kern == "tc_scan"
+                      else (lambda: h.hdist_search_tc_kernel(q, db, DB_BASES, SEARCH_TOPK)))
+                ms = timer(fn)
+                res["times_ms"].setdefault(f"{kern} Q={Q} {name}", []).append(ms)
+                print(f"  {kern} Q={Q} {name}: {ms:.4f} ms", flush=True)
+    lib_q, lib_planes = hamming.query_planes(q_max, DB_BASES), int_mm_planes(torch, db)
+    ms = timer(lambda: torch._int_mm(lib_q, lib_planes.t()))
+    res["times_ms"][f"torch._int_mm Q={SEARCH_QUERIES}"] = [ms]
+    print(f"  torch._int_mm Q={SEARCH_QUERIES}: {ms:.4f} ms", flush=True)
+    smi = nvidia_smi_line()
+    res.update(ok=not FAILURES, device=torch.cuda.get_device_name(0), nvidia_smi=smi)
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(res, f, indent=1)
+    print(smi)
+    print(json.dumps(res))
+    return 0 if res["ok"] else 1
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the full results here as JSON")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--k6-against", metavar="DIR",
+                    help="only time K6 beside another checkout's (see k6_against)")
     args = ap.parse_args()
 
     import torch
@@ -1042,8 +1131,8 @@ def main() -> int:
     try:
         import bitnuc_tpu_torch as bnt
         from bitnuc_tpu_torch import config, entry, kernels, pipeline
-        from bitnuc_tpu_torch.database import PackedDB, SEARCH_TC_MIN_Q, TC_MIN_Q
-        from bitnuc_tpu_torch.kernels import _build
+        from bitnuc_tpu_torch.database import PackedDB, SEARCH_TC_MIN_Q, tc_min_q
+        from bitnuc_tpu_torch.kernels import _build, build_time
         from bitnuc_tpu_torch.ops import codec, hamming, kmer, merge, orf, setops
         from bitnuc_tpu_torch.utils import bitops
     except ImportError as e:
@@ -1055,6 +1144,8 @@ def main() -> int:
         return 1
 
     dev = torch.device("cuda")
+    if args.k6_against:
+        return k6_against(args, torch, dev)
     results = {"kernels": {}, "phases": {}}
     t_all = time.perf_counter()
 
@@ -1068,10 +1159,12 @@ def main() -> int:
     _build.library()
     build_s = time.perf_counter() - t
     print(f"  built {os.path.relpath(lib_path)} in {build_s:.1f} s", flush=True)
-    # K6's registers, shared memory and spills (nvcc -Xptxas -v of this build)
-    for line in _build.PTXAS.get("tcscan.cu", ["(library reused: no ptxas report)"]):
+    # K6's registers, shared memory and spills: nvcc -Xptxas -v of tcscan.cu
+    with tempfile.TemporaryDirectory() as d:
+        ptxas = build_time.ptxas_report(Path(d), ("tcscan.cu",))["tcscan.cu"]
+    for line in ptxas:
         print(f"  ptxas tcscan.cu: {line}", flush=True)
-    results["phases"]["ptxas_tcscan"] = _build.PTXAS.get("tcscan.cu")
+    results["phases"]["ptxas_tcscan"] = ptxas
     results["phases"]["build_s"] = build_s
 
     timer = Timer(torch)
@@ -1226,7 +1319,7 @@ def main() -> int:
 
     # K6 against K5 on the full database at each swept Q, at 512-base
     # entries and at 150-base ones (W = 10, a read set): this feeds
-    # database.TC_MIN_Q. Then K6 against its plain version on a slice, and
+    # database.tc_min_q. Then K6 against its plain version on a slice, and
     # at edge shapes; timed beside torch._int_mm of the same planes at
     # phase 8's Q
     sweep = {}
@@ -1243,7 +1336,8 @@ def main() -> int:
             print(f"    sweep Q={Q} D={DB_ENTRIES} n_bases={nb}: K5 {k5:.4f} ms, K6 {k6:.4f} ms",
                   flush=True)
         faster = [Q for Q in TC_SWEEP_Q if sweep[nb][Q]["k6_ms"] < sweep[nb][Q]["k5_ms"]]
-        print(f"    n_bases={nb}: K6 faster at Q = {faster} (TC_MIN_Q = {TC_MIN_Q})", flush=True)
+        print(f"    n_bases={nb}: K6 faster at Q = {faster} (tc_min_q = "
+              f"{tc_min_q(d.shape[0])})", flush=True)
         del d
     results["phases"]["tc_sweep_ms"] = sweep
     check("K6 beats K5 at Q = 512", sweep[DB_BASES][512]["k6_ms"] < sweep[DB_BASES][512]["k5_ms"],
@@ -1265,10 +1359,7 @@ def main() -> int:
                         hamming.hdist_scan_tc_torch(qw, dw, nb))
                 compare("tc_scan", f"Q={Q} W={W} D=5000 n_bases={nb} against K5", got,
                         hamming.hdist_scan_kernel(qw, dw, nb))
-    lib_planes = torch.empty((DB_ENTRIES, 48 * W_db), dtype=torch.int8, device=dev)
-    for d0 in range(0, DB_ENTRIES, TC_SLICE):  # the library call's operand, made untimed
-        lib_planes[d0 : d0 + TC_SLICE] = hamming._planes(
-            bitops.unpack_words(db[:, d0 : d0 + TC_SLICE].t()))
+    lib_planes = int_mm_planes(torch, db)
     lib_q = hamming.query_planes(q, 512)
     compare("tc_scan", f"torch._int_mm core Q={SEARCH_QUERIES} (affine step applied)",
             torch.div(3 * 512 - torch._int_mm(lib_q, lib_planes.t()), 4, rounding_mode="floor"),

@@ -2,7 +2,7 @@
 version of K6 (the +-1 bit-plane product) against the TPU's bit-plane
 kernel in interpret mode and against hdist_many_to_many, the kernel's
 B-operand layout, PackedDB.distances_batch and search_batch on both sides of
-TC_MIN_Q, and PackedDB.from_fastq against the JAX package's. Distances,
+tc_min_q, and PackedDB.from_fastq against the JAX package's. Distances,
 indices and words are equal bit for bit."""
 
 import numpy as np
@@ -69,16 +69,19 @@ def test_tc_plain_chunks_the_database(monkeypatch):
                                   hamming.hdist_scan_torch(qs, db, 50).numpy())
 
 
-@pytest.mark.parametrize("Q", [1, 8, 130, 300])
+@pytest.mark.parametrize("Q,N", [(1, 8), (8, 8), (9, 32), (33, 64), (100, 128), (130, 256),
+                                 (257, 256), (300, 256)])
 @pytest.mark.parametrize("W", [1, 9, 32, 33])
-def test_b_stages_follow_the_descriptor_layout(Q, W):
-    """Reading K6's B stages back through the shared-memory descriptor's
-    map (K-major core matrices of 8 rows x 16 bytes, no swizzle; B_LBO
-    between the k halves, B_SBO between groups of 8 rows) gives the query
-    planes, zero rows past Q, one contiguous stage a (query tile, pair)."""
+def test_b_stages_follow_the_descriptor_layout(Q, N, W):
+    """The query tile is the smallest template width N that covers Q (256
+    and several tiles past it). Reading K6's B stages back through the
+    shared-memory descriptor's map (K-major core matrices of 8 rows x 16
+    bytes, no swizzle; B_LBO between the k halves, B_SBO between groups of 8
+    rows) gives the query planes, zero rows past Q, one contiguous stage a
+    (query tile, pair)."""
     rng = np.random.default_rng(Q + W)
     planes = hamming.query_planes(words_from_u32_np(_words(rng, Q, W)), 16 * W - 3)
-    N = hamming._tile_n(Q)
+    assert hamming._tile_n(Q) == N
     P = -(-W // 2)
     n_qt = -(-Q // N)
     stages = hamming._b_stages(planes, N)
@@ -95,13 +98,8 @@ def test_b_stages_follow_the_descriptor_layout(Q, W):
     assert not B[Q:].any()
 
 
-@pytest.mark.parametrize("Q,N", [(0, 8), (1, 8), (8, 8), (9, 32), (33, 64), (100, 128),
-                                 (129, 256), (256, 256), (257, 256), (512, 256)])
-def test_tile_n_is_the_smallest_template_that_covers_q(Q, N):
-    assert hamming._tile_n(Q) == N
-
-
-@pytest.mark.parametrize("Q", [3, database.TC_MIN_Q - 1, database.TC_MIN_Q, database.TC_MIN_Q + 5])
+@pytest.mark.parametrize("Q", [3, database.tc_min_q(6) - 1, database.tc_min_q(6),
+                               database.tc_min_q(6) + 5])
 def test_distances_and_search_batch_both_sides_of_tc_min_q(Q):
     rng = np.random.default_rng(Q)
     D, nb = 500, 90

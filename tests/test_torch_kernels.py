@@ -238,31 +238,36 @@ def _k6_inputs(seed, Q, W, D):
     return q, db
 
 
+NB_OF = {"zero": lambda W: 0, "137": lambda W: 137, "all": lambda W: 16 * W}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("Q", K6_Q)
 @pytest.mark.parametrize("W", K6_W)
-def test_tc_scan_kernel_matches_plain(cuda, Q, W):
+@pytest.mark.parametrize("nb_of", list(NB_OF))
+@pytest.mark.parametrize("D", [5, 1000, 1001])
+def test_tc_scan_kernel_matches_plain(cuda, Q, W, nb_of, D):
     """K6 at ragged D (5; 1000 and 1001, not multiples of the 128-entry
     tile), n_bases of 0, 137 (clamped at W = 1) and 16 W: equal to its
     plain version and to K4/K5."""
-    for D in (5, 1000, 1001):
-        q, db = (x.to(cuda) for x in _k6_inputs(Q + W + D, Q, W, D))
-        for nb in (0, 137, 16 * W):
-            got = hamming.hdist_scan_tc_kernel(q, db, nb)
-            assert torch.equal(got, hamming.hdist_scan_tc_torch(q, db, nb)), (D, nb)
-            assert torch.equal(got, hamming.hdist_scan_kernel(q, db, nb)), (D, nb)
+    nb = NB_OF[nb_of](W)
+    q, db = (x.to(cuda) for x in _k6_inputs(Q + W + D, Q, W, D))
+    got = hamming.hdist_scan_tc_kernel(q, db, nb)
+    assert torch.equal(got, hamming.hdist_scan_tc_torch(q, db, nb))
+    assert torch.equal(got, hamming.hdist_scan_kernel(q, db, nb))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("Q", [9, 257])
 @pytest.mark.parametrize("W", [9, 32])
-def test_tc_scan_kernel_over_many_tiles_a_block(cuda, Q, W):
+@pytest.mark.parametrize("nb_of", ["137", "all"])
+def test_tc_scan_kernel_over_many_tiles_a_block(cuda, Q, W, nb_of):
     """D = 300,000: every block walks several 128-entry tiles."""
+    nb = NB_OF[nb_of](W)
     q, db = (x.to(cuda) for x in _k6_inputs(Q * W, Q, W, 300_000))
-    for nb in (137, 16 * W):
-        got = hamming.hdist_scan_tc_kernel(q, db, nb)
-        assert torch.equal(got, hamming.hdist_scan_kernel(q, db, nb))
-        assert torch.equal(got, hamming.hdist_scan_tc_torch(q, db, nb))
+    got = hamming.hdist_scan_tc_kernel(q, db, nb)
+    assert torch.equal(got, hamming.hdist_scan_kernel(q, db, nb))
+    assert torch.equal(got, hamming.hdist_scan_tc_torch(q, db, nb))
 
 
 @pytest.mark.cuda
@@ -273,8 +278,8 @@ def test_distances_batch_routes_by_tc_min_q(cuda):
     db = database.PackedDB(
         torch.randint(-(2**31), 2**31 - 1, (32, 3000), generator=g, dtype=torch.int32).to(cuda),
         512)
-    for Q, name in ((database.TC_MIN_Q, "tc_scan"), (database.TC_MIN_Q - 1, "hdist_scan_batch"),
-                    (512, "tc_scan")):
+    t = database.tc_min_q(32)
+    for Q, name in ((t, "tc_scan"), (t - 1, "hdist_scan_batch"), (512, "tc_scan")):
         q = torch.randint(-(2**31), 2**31 - 1, (Q, 32), generator=g, dtype=torch.int32).to(cuda)
         before = dict(kernels.LAUNCHES)
         got = db.distances_batch(q)
@@ -285,30 +290,31 @@ def test_distances_batch_routes_by_tc_min_q(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("Q", K6_Q)
 @pytest.mark.parametrize("W", K6_W)
-def test_tc_search_kernel_matches_plain(cuda, Q, W):
+@pytest.mark.parametrize("nb_of", list(NB_OF))
+@pytest.mark.parametrize("D", [5, 1001])
+@pytest.mark.parametrize("k", [1, 10, hamming.SEARCH_TOPK_MAX])
+def test_tc_search_kernel_matches_plain(cuda, Q, W, nb_of, D, k):
     """The fused search at ragged D (5: k past D), n_bases 0, 137 and 16 W,
     k = 1, 10 and the largest: equal to its plain version and to the top-k
     of K6's and of K5's matrix."""
-    for D in (5, 1001):
-        q, db = (x.to(cuda) for x in _k6_inputs(Q + W + D + 1, Q, W, D))
-        for nb in (0, 137, 16 * W):
-            for k in (1, 10, hamming.SEARCH_TOPK_MAX):
-                got = hamming.hdist_search_tc_kernel(q, db, nb, k)
-                for want in (hamming.hdist_search_tc_torch(q, db, nb, k),
-                             hamming.topk_smallest_batch(hamming.hdist_scan_tc_kernel(q, db, nb), k),
-                             hamming.topk_smallest_batch(hamming.hdist_scan_kernel(q, db, nb), k)):
-                    assert all(torch.equal(x, y) for x, y in zip(got, want)), (D, nb, k)
+    nb = NB_OF[nb_of](W)
+    q, db = (x.to(cuda) for x in _k6_inputs(Q + W + D + 1, Q, W, D))
+    got = hamming.hdist_search_tc_kernel(q, db, nb, k)
+    for want in (hamming.hdist_search_tc_torch(q, db, nb, k),
+                 hamming.topk_smallest_batch(hamming.hdist_scan_tc_kernel(q, db, nb), k),
+                 hamming.topk_smallest_batch(hamming.hdist_scan_kernel(q, db, nb), k)):
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("Q", [8, 257])
 @pytest.mark.parametrize("D", [1000, 300_000])
-def test_tc_search_kernel_over_many_tiles_a_block(cuda, Q, D):
+@pytest.mark.parametrize("k", [1, 10, hamming.SEARCH_TOPK_MAX])
+def test_tc_search_kernel_over_many_tiles_a_block(cuda, Q, D, k):
     q, db = (x.to(cuda) for x in _k6_inputs(Q + D, Q, 32, D))
-    for k in (1, 10, hamming.SEARCH_TOPK_MAX):
-        got = hamming.hdist_search_tc_kernel(q, db, 512, k)
-        want = hamming.topk_smallest_batch(hamming.hdist_scan_kernel(q, db, 512), k)
-        assert all(torch.equal(x, y) for x, y in zip(got, want)), k
+    got = hamming.hdist_search_tc_kernel(q, db, 512, k)
+    want = hamming.topk_smallest_batch(hamming.hdist_scan_kernel(q, db, 512), k)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
 
 
 @pytest.mark.cuda
