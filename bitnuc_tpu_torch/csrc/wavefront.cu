@@ -1,5 +1,5 @@
-// K8 fit_banded and K9 sw_score: the anti-diagonal wavefronts of
-// ops/align.py, one warp per read pair.
+// K8 fit_banded, an anti-diagonal wavefront, and K9 sw_score, a row
+// pipeline: the dynamic programs of ops/align.py, one warp per read pair.
 //
 // K8 replaces bitnuc_tpu/ops/pallas/wavefront.py::fit_distance_span_banded_pallas
 // (its pallas_call at wavefront.py:315): the fitting alignment of read a into
@@ -10,28 +10,53 @@
 // lanes, (score, end_i, end_j) with max score, then the earliest diagonal,
 // then the smallest j.
 //
-// Bound on the card: integer ALU and warp shuffles. Each diagonal depends on
-// the two before it, so a read is a chain of M + N dependent steps; a step
-// is about 20 to 30 int32 operations per band cell plus a few shuffles, and
-// the inputs (a few dozen bytes per read) are read once.
+// Bound on the card: integer ALU and warp shuffles. A read is a chain of
+// dependent steps of about 15 to 30 int32 operations per cell plus a few
+// shuffles, and the inputs (a few dozen bytes per read) are read once.
 //
-// Design: one warp per read, the band in registers. Lane L holds C
-// consecutive band cells (C = ceil(K / 32), a template parameter, so the
-// arrays stay in registers) of the current and the two previous diagonals,
-// with their span origins S for K8 and the E and F planes for K9. A cell's
-// neighbours at band offsets -1, 0 and +1 are its own registers or one
-// __shfl_up_sync / __shfl_down_sync of the next lane's edge cell; the band
-// slide between diagonals (base(d) - base(d-1) in {0, 1}, base(d) -
+// Common to both: one warp per read pair, cells in registers, lane L
+// holding C consecutive cells (C a template parameter, the smallest of
+// BN_CELL_CASES with 32 C >= the row's cells, so the arrays stay in
+// registers). The warp unpacks its pair's 2-bit codes into shared memory
+// once, padded with 4 (a) and 5 (b) as ops.align._codes pads them, and no
+// [B, M + 2N] operand is ever made in device memory.
+//
+// K8, anti-diagonals: lane L holds band cells t = L C .. L C + C - 1 of
+// the current and the two previous diagonals, with their span origins S.
+// A cell's neighbours at band offsets -1, 0 and +1 are its own registers or
+// one __shfl_up_sync / __shfl_down_sync of the next lane's edge cell; the
+// band slide between diagonals (base(d) - base(d-1) in {0, 1}, base(d) -
 // base(d-2) in {0, 1, 2}) is uniform across the warp, so it selects among
-// those offsets without divergence. The warp unpacks its pair's 2-bit codes
-// into shared memory once, padded with 4 (a) and 5 (b) as ops.align._codes
-// pads them, and no [B, M + 2N] operand is ever made in device memory. The
-// per-diagonal extraction at i = m is one shuffle from the lane that holds
-// column j = d - m (K8); K9 takes a warp max and a warp min. A read stops at
-// diagonal m + n, past which no cell reaches an output. Band cells the
+// those offsets without divergence. The per-diagonal extraction at i = m
+// is one shuffle from the lane that holds column j = d - m. A read stops
+// at diagonal m + n, past which no cell reaches an output. Band cells the
 // arithmetic must not see (t >= K) hold the sentinel, as out-of-band reads
 // do in ops.align._band_shift, so every band cell equals the plain
 // version's bit for bit.
+//
+// K9, a row pipeline: lane L holds columns j = L C .. L C + C - 1 of the
+// full row (N + 1 columns), and the warp sweeps the rows of a with lane L
+// working row i = s - L at step s, so no lane computes a cell outside the
+// matrix (an anti-diagonal sweep of all 32 C lanes, as K8 does, would: at
+// M 160, N 224 it spends 95,744 lane-cells a pair on 33,600 cells; the
+// rows spend 178 steps x 256). A lane keeps the previous row's H and F of
+// its columns, its C codes of b, and one E running across its columns; a
+// step reads one code of a from shared memory. At the start of step s,
+// one __shfl_up_sync each carries H[i][L C - 1] and E[i][L C - 1] from lane
+// L - 1 (made at step s - 1) into column L C's h_left and e_left; the
+// h_left received one step earlier is its h_diag. Lane 0's column -1 is
+// -kBig, as _shift1 fills, and column 0 and row 0 are the boundary (H = 0,
+// no gap state). Each cell runs the plain version's operations in its
+// order, so the cells equal it bit for bit. A cell counts iff 1 <= i <= m,
+// 1 <= j <= min(n, N) and i + j <= M + N (the plain version's last
+// diagonal); the warp stops after step min(m, M + N - 1) + (lane of column
+// min(n, N)). The plain version keeps the first strictly greater diagonal
+// maximum and its smallest j: over counted cells with h > 0, the
+// lexicographic best (largest h, smallest i + j, smallest j). Each lane
+// finds its row's largest h and first column holding it, folds that into
+// its own (score, i + j, j) by that order, and at the end the warp takes
+// one __reduce_max_sync of the score and __reduce_min_sync of i + j and j
+// among the lanes that hold it; (0, 0, 0) when no cell is positive.
 //
 // Rows wider than 32 x 32 cells (or codes too long for shared memory) take
 // the wide kernels: the same recurrence, one warp per read, but the last
@@ -45,6 +70,8 @@
 // wraps modulo 2^32 (wadd, wmul: unsigned arithmetic cast back), as the
 // plain versions' int32 tensors and the JAX package's int32 arrays do;
 // signed overflow would be undefined in C++.
+#include <climits>
+
 #include "common.cuh"
 
 namespace {
@@ -239,68 +266,75 @@ __global__ void sw_kernel(const uint32_t* __restrict__ wa,
   __syncwarp();
 
   const int t0 = lane * C;  // lane L holds columns j = t0 .. t0 + C - 1
-  int hp[C], hp2[C], ep[C], fp[C];  // H of d-1 and d-2, E and F of d-1
+  int hp[C], fp[C], cb[C];  // H and F of the lane's last row, b's codes
 #pragma unroll
   for (int c = 0; c < C; ++c) {
-    hp[c] = 0;
-    hp2[c] = 0;
-    ep[c] = -kBig;
+    hp[c] = 0;  // row 0: H = 0, no gap state
     fp[c] = -kBig;
+    cb[c] = code_b(sb, N, t0 + c - 1);
   }
-  int best = 0, bi = 0, bj = 0;
-  const int d_end = min(T, m + n);
-  for (int d = 1; d <= d_end; ++d) {
-    int hl = __shfl_up_sync(kFull, hp[C - 1], 1);
-    int el = __shfl_up_sync(kFull, ep[C - 1], 1);
-    int h2l = __shfl_up_sync(kFull, hp2[C - 1], 1);
-    if (lane == 0) hl = el = h2l = -kBig;  // x[j - 1] at j = 0
-    int nh[C], ne[C], nf[C];
-    int lbest = -1, lj = N + 1;
+  // Every cell in range lies in rows 1 .. rows and columns 1 .. jn; lane L
+  // works row s - L at step s, so the lane of column jn ends the pair.
+  const int rows = min(m, T - 1), jn = min(n, N);
+  const int steps = (rows > 0 && jn > 0) ? rows + jn / C : 0;
+  int hlast = 0, elast = -kBig;  // H and E of column t0 + C - 1, last row
+  int hdiag = 0;                 // H[i - 1][t0 - 1] for the next row i
+  int best = 0, bd = 0, bj = 0;  // the lane's best: score, then i + j, j
+  for (int s = 1; s <= steps; ++s) {
+    // H[i][t0 - 1] and E[i][t0 - 1], which lane L - 1 made at step s - 1
+    int hl = __shfl_up_sync(kFull, hlast, 1);
+    int el = __shfl_up_sync(kFull, elast, 1);
+    if (lane == 0) hl = el = -kBig;  // x[j - 1] at j = 0
+    const int i = s - lane;
+    if (i >= 1 && i <= rows) {
+      const int ca = code_a(sa, M, i - 1);
+      const int cl = min(jn, T - i) - t0;  // columns c <= cl are in range
+      int h_left = hl, e_left = el, h_diag = hdiag, rbest = 0;
 #pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const int j = t0 + c;
-      const int i = d - j;
-      const int h_left = c ? hp[c - 1] : hl;
-      const int e_left = c ? ep[c - 1] : el;
-      const int h_diag = c ? hp2[c - 1] : h2l;
-      const int s = code_a(sa, M, i - 1) == code_b(sb, N, j - 1) ? match : mismatch;
-      int e = max(wadd(h_left, go), wadd(e_left, ge));
-      int f = max(wadd(hp[c], go), wadd(fp[c], ge));
-      int h = max(max(wadd(h_diag, s), 0), max(e, f));
-      if (j == 0 || j == d) {  // boundary row and column: H = 0, no gap state
-        h = 0;
-        e = -kBig;
-        f = -kBig;
+      for (int c = 0; c < C; ++c) {
+        const int sc = ca == cb[c] ? match : mismatch;
+        int e = max(wadd(h_left, go), wadd(e_left, ge));
+        int f = max(wadd(hp[c], go), wadd(fp[c], ge));
+        int h = max(max(wadd(h_diag, sc), 0), max(e, f));
+        if (c == 0 && lane == 0) {  // column 0: H = 0, no gap state
+          h = 0;
+          e = -kBig;
+          f = -kBig;
+        }
+        h_diag = hp[c];
+        hp[c] = h;
+        fp[c] = f;
+        h_left = h;
+        e_left = e;
+        if (c <= cl) rbest = max(rbest, h);
       }
-      nh[c] = h;
-      ne[c] = e;
-      nf[c] = f;
-      const bool in_range = j >= 1 && j <= n && j <= N && i >= 1 && i <= m;
-      const int hm = in_range ? h : -1;
-      if (hm > lbest) {  // columns ascend within a lane: keep the first
-        lbest = hm;
-        lj = j;
-      }
-    }
-    const int row_best = __reduce_max_sync(kFull, lbest);
-    const int row_j = __reduce_min_sync(kFull, lbest == row_best ? lj : N + 1);
-    if (row_best > best) {  // strict: the earlier diagonal wins ties
-      best = row_best;
-      bj = row_j;
-      bi = d - row_j;
-    }
+      hlast = h_left;
+      elast = e_left;
+      if (rbest > 0 && rbest >= best) {
+        int rj = 0;  // the row's first column holding rbest
 #pragma unroll
-    for (int c = 0; c < C; ++c) {
-      hp2[c] = hp[c];
-      hp[c] = nh[c];
-      ep[c] = ne[c];
-      fp[c] = nf[c];
+        for (int c = C - 1; c >= 0; --c) {
+          if (c <= cl && hp[c] == rbest) rj = t0 + c;
+        }
+        const int rd = i + rj;
+        if (rbest > best || rd < bd || (rd == bd && rj < bj)) {
+          best = rbest;
+          bd = rd;
+          bj = rj;
+        }
+      }
     }
+    hdiag = hl;
   }
+  // the largest score, then the smallest i + j, then the smallest j; no
+  // positive cell leaves every lane at (0, 0, 0)
+  const int top = __reduce_max_sync(kFull, best);
+  const int td = __reduce_min_sync(kFull, best == top ? bd : INT_MAX);
+  const int tj = __reduce_min_sync(kFull, best == top && bd == td ? bj : INT_MAX);
   if (lane == 0) {
-    score[r] = best;
-    end_i[r] = bi;
-    end_j[r] = bj;
+    score[r] = top;
+    end_i[r] = td - tj;
+    end_j[r] = tj;
   }
 }
 

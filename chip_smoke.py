@@ -15,7 +15,8 @@ of an earlier commit, unpacked), in turns DIR, this, this, DIR, on one card
 Phases, each of which must pass:
 
 1. Device: the card's name and power limit, and the kernel build (all of
-   bitnuc_tpu_torch/csrc/*.cu with nvcc, timed).
+   bitnuc_tpu_torch/csrc/*.cu with nvcc, timed); the registers, shared
+   memory and spills of tcscan.cu (K6) and wavefront.cu (K8, K9).
 2. Every kernel against its plain PyTorch version on the card, bit for bit:
    K1 pack, K2 unpack, K3a hist_keys, K3b hist_words, K4 hdist_scan and K5
    hdist_scan_batch (one kernel), K6 tc_scan, K7 merge and K10 orf_scan at
@@ -54,7 +55,8 @@ Phases, each of which must pass:
    contigs, map_reads in batches of 262,144 (K8 fit_banded),
    traceback_cigars, and a local rescoring of the first batch with
    ops.align.sw_score (K9). K8 and K9 against their plain versions at the
-   first batch's shapes and at edge shapes; one batch against the plain
+   first batch's shapes and at edge shapes (for K9 also tie-heavy rows and
+   one cell a lane); one batch against the plain
    backend; checks against the reads' true starts and strands, Hamming
    distances and planted exact reads, on the CIGARs, and against a host
    full-DP fit of 256 reads.
@@ -510,21 +512,29 @@ def large_k_phase(args, torch, dev, timer, tmp, results):
 MAP_LAUNCHES = {}
 
 
-def random_pairs(torch, gen, dev, B, Wa, Wb):
+def random_pairs(torch, gen, dev, B, Wa, Wb, ties=False):
     """B (read, window) pairs of packed words [B, Wa], [B, Wb] with int32
-    lengths: a's prefix planted in b with substitutions; random lengths
-    with empty and full sides in the first rows."""
+    lengths: a's prefix planted in b with substitutions, or with ties=True
+    low-entropy rows (runs of one base, period-2 and period-3 repeats) where
+    many cells share the best score; random lengths with empty and full
+    sides in the first rows."""
     from bitnuc_tpu_torch.utils import bitops
 
     M, N = 16 * Wa, 16 * Wb
-    a = torch.randint(0, 4, (B, M), device=dev, generator=gen, dtype=torch.int32)
-    b = torch.randint(0, 4, (B, N), device=dev, generator=gen, dtype=torch.int32)
-    n = min(M, N)
-    off = (N - n) // 2
-    b[:, off : off + n] = a[:, :n]
-    if N:
-        hits = torch.rand((B, N), device=dev, generator=gen) < 0.02
-        b = torch.where(hits, (b + 1) % 4, b)
+    if ties:
+        period = torch.randint(1, 4, (B, 1), device=dev, generator=gen, dtype=torch.int32)
+        phase = torch.randint(0, 3, (B, 1), device=dev, generator=gen, dtype=torch.int32)
+        a = torch.arange(M, device=dev, dtype=torch.int32)[None, :] % period
+        b = (torch.arange(N, device=dev, dtype=torch.int32)[None, :] + phase) % period
+    else:
+        a = torch.randint(0, 4, (B, M), device=dev, generator=gen, dtype=torch.int32)
+        b = torch.randint(0, 4, (B, N), device=dev, generator=gen, dtype=torch.int32)
+        n = min(M, N)
+        off = (N - n) // 2
+        b[:, off : off + n] = a[:, :n]
+        if N:
+            hits = torch.rand((B, N), device=dev, generator=gen) < 0.02
+            b = torch.where(hits, (b + 1) % 4, b)
     la = torch.randint(0, M + 1, (B,), device=dev, generator=gen, dtype=torch.int32)
     lb = torch.randint(0, N + 1, (B,), device=dev, generator=gen, dtype=torch.int32)
     la[:3] = torch.tensor([0, M, M], dtype=torch.int32)
@@ -679,10 +689,13 @@ def mapping_phase(args, torch, dev, timer, results, fa, genome, reads, true_star
           lambda: align.sw_score_torch(*sw_args), reps=5, plain_reps=2, main=True,
           nbytes=4 * nb * (sw_a.words.shape[1] + sw_b.words.shape[1]) + 8 * nb + 12 * nb,
           ops_ms=cells * SW_OPS_PER_CELL / INT32_OPS_PER_S * 1e3)
-    for B, Wa, Wb in ((20, 6, 0), (20, 0, 6), (7, 2, 62), (50, 4, 4), (6, 3, 80)):  # 1281: wide
-        pa = random_pairs(torch, gen, dev, B, Wa, Wb)
+    for B, Wa, Wb, ties in ((20, 6, 0, False), (20, 0, 6, False), (7, 2, 62, False),
+                            (50, 4, 4, False), (6, 3, 80, False),  # 1281 lanes: wide
+                            (40, 2, 1, False),  # N + 1 = 17 lanes, one cell a lane
+                            (300, 10, 14, True), (40, 2, 1, True)):  # tie-heavy
+        pa = random_pairs(torch, gen, dev, B, Wa, Wb, ties)
         for params in ((2, -3, -5, -2), (1, -1, -2, -1)):
-            compare("sw_score", f"[{B}] Wa={Wa} Wb={Wb} params={params}",
+            compare("sw_score", f"[{B}] Wa={Wa} Wb={Wb} ties={ties} params={params}",
                     align.sw_score_kernel(*pa, *params), align.sw_score_torch(*pa, *params))
 
     # -- one batch under the plain backend ------------------------------------
@@ -1159,12 +1172,14 @@ def main() -> int:
     _build.library()
     build_s = time.perf_counter() - t
     print(f"  built {os.path.relpath(lib_path)} in {build_s:.1f} s", flush=True)
-    # K6's registers, shared memory and spills: nvcc -Xptxas -v of tcscan.cu
+    # K6's and K8/K9's registers, shared memory and spills: nvcc -Xptxas -v
+    # of tcscan.cu and wavefront.cu
     with tempfile.TemporaryDirectory() as d:
-        ptxas = build_time.ptxas_report(Path(d), ("tcscan.cu",))["tcscan.cu"]
-    for line in ptxas:
-        print(f"  ptxas tcscan.cu: {line}", flush=True)
-    results["phases"]["ptxas_tcscan"] = ptxas
+        ptxas = build_time.ptxas_report(Path(d), ("tcscan.cu", "wavefront.cu"))
+    for src, lines in sorted(ptxas.items()):
+        for line in lines:
+            print(f"  ptxas {src}: {line}", flush=True)
+        results["phases"][f"ptxas_{Path(src).stem}"] = lines
     results["phases"]["build_s"] = build_s
 
     timer = Timer(torch)

@@ -194,6 +194,102 @@ def test_sw_score_any_int32_scores_matches_jax(pairs, params):
     _all_eq(align.sw_score_torch(wa, la, wb, lb, *params), want)
 
 
+def _sw_oracle(codes_a, lens_a, codes_b, lens_b, match, mismatch, gap_open, gap_extend):
+    """Full-matrix Gotoh in numpy, row by row and column by column over the
+    batch, int32 sums wrapping: (score, end_i, end_j) of the lexicographic
+    best cell (largest h, smallest i + j, smallest j) among cells with h > 0
+    and 1 <= i <= m, 1 <= j <= min(n, N), i + j <= M + N; (0, 0, 0) when
+    there is none. Codes at and past min(length, width) are sentinels."""
+    B, M = codes_a.shape
+    N = codes_b.shape[1]
+    big = np.int32(-(2**30))
+    match, mismatch, go, ge = (np.int32(x) for x in (match, mismatch, gap_open, gap_extend))
+    cols = np.arange(N)
+    b = np.where(cols < np.minimum(lens_b, N)[:, None], codes_b, 5)
+    h_prev = np.zeros((B, N + 1), np.int32)  # row 0
+    f_prev = np.full((B, N + 1), big, np.int32)
+    best = np.zeros(B, np.int32)
+    bd = np.zeros(B, np.int64)
+    bj = np.zeros(B, np.int64)
+    for i in range(1, min(int(lens_a.max(initial=0)), M + N - 1) + 1):
+        a = codes_a[:, i - 1] if i <= M else np.full(B, 4)
+        a = np.where(i <= lens_a, a, 4)
+        h = np.zeros((B, N + 1), np.int32)  # column 0: H = 0, no gap state
+        f = np.full((B, N + 1), big, np.int32)
+        e = np.full(B, big, np.int32)
+        for j in range(1, N + 1):
+            s = np.where(a == b[:, j - 1], match, mismatch)
+            e = np.maximum(h[:, j - 1] + go, e + ge)
+            f[:, j] = np.maximum(h_prev[:, j] + go, f_prev[:, j] + ge)
+            h[:, j] = np.maximum(np.maximum(h_prev[:, j - 1] + s, 0), np.maximum(e, f[:, j]))
+            hj = h[:, j]
+            live = (i <= lens_a) & (j <= lens_b) & (i + j <= M + N) & (hj > 0)
+            better = (hj > best) | ((hj == best) & ((i + j < bd) | ((i + j == bd) & (j < bj))))
+            up = live & better
+            best = np.where(up, hj, best)
+            bd = np.where(up, i + j, bd)
+            bj = np.where(up, j, bj)
+        h_prev, f_prev = h, f
+    return best, (bd - bj).astype(np.int32), bj.astype(np.int32)
+
+
+def _codes_of(seqs, width):
+    lut = np.zeros(256, np.int32)
+    lut[np.frombuffer(b"ACGT", np.uint8)] = np.arange(4)
+    out = np.zeros((len(seqs), width), np.int32)
+    for r, s in enumerate(seqs):
+        s = np.frombuffer(s[:width], np.uint8)
+        out[r, : len(s)] = lut[s]
+    return out
+
+
+def _tie_seqs(seed, n=24, max_a=32, max_b=64):
+    """Low-entropy pairs where many cells share the best score: runs of
+    one base, period-2 and period-3 repeats, a repeat inside a run."""
+    rng = np.random.default_rng(seed)
+    units = [b"A", b"C", b"AC", b"CA", b"ACG", b"GTT", b"AAC"]
+    seqs_a, seqs_b = [], []
+    for _ in range(n):
+        ua, ub = (units[int(rng.integers(0, len(units)))] for _ in range(2))
+        a = (ua * max_a)[: int(rng.integers(0, max_a + 1))]
+        b = (ub * max_b)[: int(rng.integers(0, max_b + 1))]
+        if rng.random() < 0.3:
+            k = int(rng.integers(0, len(b) + 1))
+            b = b[:k] + a[: int(rng.integers(0, len(a) + 1))] + b[k:]
+        seqs_a.append(a)
+        seqs_b.append(b[:max_b])
+    return seqs_a, seqs_b
+
+
+@pytest.mark.parametrize("params", [(2, -3, -5, -2), (1, -1, -2, -1), (2**28, -3, -5, -2),
+                                    (2, -3, -2**29, -2**29), (3, 1, 2, 1)])
+@pytest.mark.parametrize("kind", ["planted", "ties", "past"])
+def test_sw_score_tie_rule_matches_full_matrix_oracle(kind, params):
+    """The tie rule the row-pipelined K9 relies on: the diagonal-by-diagonal
+    sweep (first strictly greater diagonal maximum, smallest j within it)
+    equals the lexicographic best (largest h, smallest i + j, smallest j)
+    of a row-by-row full matrix, in the port's plain version and in JAX.
+    "past" gives lengths past both widths, where only cells with
+    i + j <= M + N count; positive mismatch and gap scores (the last
+    params) make cells past either length outscore those in range."""
+    if kind == "ties":
+        seqs_a, seqs_b = _tie_seqs(51)
+    else:
+        seqs_a, seqs_b = _pair_seqs(52, n=20, max_a=28, lead=16, tail=10)
+    ja, (wa, la) = _packed(seqs_a, 32)
+    jb, (wb, lb) = _packed(seqs_b, 64)
+    M, N = 16 * wa.shape[1], 16 * wb.shape[1]
+    if kind == "past":
+        rng = np.random.default_rng(53)
+        la = torch.from_numpy(rng.integers(M, M + N + 9, len(seqs_a)).astype(np.int32))
+        lb = torch.from_numpy(rng.integers(N // 2, N + 9, len(seqs_b)).astype(np.int32))
+    want = _sw_oracle(_codes_of(seqs_a, M), la.numpy(), _codes_of(seqs_b, N), lb.numpy(),
+                      *params)
+    _all_eq(align.sw_score_torch(wa, la, wb, lb, *params), want)
+    _all_eq(jalign.sw_score(ja.words, jnp.asarray(la.numpy()), jb.words,
+                            jnp.asarray(lb.numpy()), *params), want)
+
+
 @pytest.mark.parametrize("lanes,Wa,Wb,wide", [
     (80, 10, 15, False),     # the mapper's K8 band
     (1024, 10, 63, False),   # the widest row the registers hold

@@ -165,19 +165,53 @@ def test_fit_banded_kernel_matches_plain(cuda, B, Wa, Wb, band, costs):
     assert kernels.LAUNCHES["fit_banded"] == before + 1
 
 
+def _sw_pairs(seed, B, Wa, Wb, kind):
+    """_pairs, or with each side's lengths at most a quarter of its width
+    ("short"), or low-entropy rows with many tied scores ("ties": runs of
+    one base and period-2 and period-3 repeats on both sides), or a's
+    lengths past 16 Wa and b's past 16 Wb ("past")."""
+    wa, la, wb, lb = _pairs(seed, B, Wa, Wb)
+    rng = np.random.default_rng(seed + 1)
+    M, N = 16 * Wa, 16 * Wb
+    if kind == "short":
+        la = torch.from_numpy(rng.integers(0, M // 4 + 1, B).astype(np.int32))
+        lb = torch.from_numpy(rng.integers(0, N // 4 + 1, B).astype(np.int32))
+    elif kind == "ties":
+        period = rng.integers(1, 4, (B, 1))
+        a = np.arange(M)[None, :] % period
+        b = (np.arange(N)[None, :] + rng.integers(0, 3, (B, 1))) % period
+        wa = bitops.pack_codes(torch.from_numpy(np.ascontiguousarray(a)))
+        wb = bitops.pack_codes(torch.from_numpy(np.ascontiguousarray(b)))
+    elif kind == "past":
+        la = torch.from_numpy(rng.integers(M, M + N + 9, B).astype(np.int32))
+        lb = torch.from_numpy(rng.integers(N // 2, N + 9, B).astype(np.int32))
+    return wa, la, wb, lb
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["planted", "short", "ties", "past"])
 @pytest.mark.parametrize("params", [(2, -3, -5, -2), (1, -1, -2, -1)])
 @pytest.mark.parametrize("B,Wa,Wb", [
     (300, 10, 14),  # a 150-bp read against a 224-bp window
     (20, 6, 0),     # empty b side
     (20, 0, 6),     # empty a side
+    (40, 2, 1),     # N + 1 = 17 lanes: 1 cell per lane
+    (30, 3, 2),     # 2 cells per lane
+    (30, 5, 9),     # 5
+    (30, 8, 11),    # 6
+    (30, 4, 20),    # 12
+    (20, 9, 30),    # 16
+    (12, 6, 40),    # 24
     (7, 2, 62),     # N + 1 = 993 lanes: 32 cells per lane
     (50, 4, 4),
     (6, 3, 80),     # N + 1 = 1281 lanes > 1024: the wide kernel
     (12, 10, 100),  # N + 1 = 1601
 ])
-def test_sw_kernel_matches_plain(cuda, B, Wa, Wb, params):
-    wa, la, wb, lb = (x.to(cuda) for x in _pairs(B + Wa, B, Wa, Wb))
+def test_sw_kernel_matches_plain(cuda, B, Wa, Wb, params, kind):
+    """Every cells-per-lane template of the row-pipelined kernel and the
+    wide kernel; pairs that end early, tie-heavy rows, and lengths past the
+    widths, where only cells with i + j <= 16 (Wa + Wb) count."""
+    wa, la, wb, lb = (x.to(cuda) for x in _sw_pairs(B + Wa, B, Wa, Wb, kind))
     got = align.sw_score_kernel(wa, la, wb, lb, *params)
     want = align.sw_score_torch(wa, la, wb, lb, *params)
     for g, w in zip(got, want):
@@ -214,10 +248,15 @@ def test_fit_banded_kernel_any_int32_costs(cuda, costs, band, Wb):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("params", [(2**28, -3, -5, -2), (2, -3, -2**29, -2**29)])
+@pytest.mark.parametrize("params", [(2**28, -3, -5, -2), (2, -3, -2**29, -2**29),
+                                    (3, 1, 2, 1)])
+@pytest.mark.parametrize("kind", ["planted", "past"])
 @pytest.mark.parametrize("Wb", [4, 80])  # register, wide (N + 1 = 1281)
-def test_sw_kernel_any_int32_scores(cuda, params, Wb):
-    wa, la, wb, lb = (x.to(cuda) for x in _pairs(6 + Wb, 9, 3, Wb))
+def test_sw_kernel_any_int32_scores(cuda, params, kind, Wb):
+    """Sums past 2^31 wrap as int32 tensors do; positive mismatch and gap
+    scores make cells past either length (or past i + j = 16 (Wa + Wb))
+    outscore those in range, so only the range rule keeps them out."""
+    wa, la, wb, lb = (x.to(cuda) for x in _sw_pairs(6 + Wb, 9, 3, Wb, kind))
     got = align.sw_score_kernel(wa, la, wb, lb, *params)
     want = align.sw_score_torch(wa, la, wb, lb, *params)
     for g, w in zip(got, want):
