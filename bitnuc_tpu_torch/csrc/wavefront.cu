@@ -293,9 +293,9 @@ __global__ void sw_kernel(const uint32_t* __restrict__ wa,
 #pragma unroll
       for (int c = 0; c < C; ++c) {
         const int sc = ca == cb[c] ? match : mismatch;
-        int e = __viaddmax_s32(h_left, go, wadd(e_left, ge));
-        int f = __viaddmax_s32(hp[c], go, wadd(fp[c], ge));
-        int h = __vimax3_s32_relu(wadd(h_diag, sc), e, f);
+        int e = max(wadd(h_left, go), wadd(e_left, ge));
+        int f = max(wadd(hp[c], go), wadd(fp[c], ge));
+        int h = max(max(wadd(h_diag, sc), 0), max(e, f));
         if (c == 0 && lane == 0) {  // column 0: H = 0, no gap state
           h = 0;
           e = -kBig;
