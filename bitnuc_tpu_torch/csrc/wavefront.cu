@@ -37,26 +37,25 @@
 // K9, a row pipeline: lane L holds columns j = L C .. L C + C - 1 of the
 // full row (N + 1 columns), and the warp sweeps the rows of a with lane L
 // working row i = s - L at step s, so no lane computes a cell outside the
-// matrix (an anti-diagonal sweep of all 32 C lanes, as K8 does, would: at
-// M 160, N 224 it spends 95,744 lane-cells a pair on 33,600 cells; the
-// rows spend 178 steps x 256). A lane keeps the previous row's H and F of
-// its columns, its C codes of b, and one E running across its columns; a
-// step reads one code of a from shared memory. At the start of step s,
-// one __shfl_up_sync each carries H[i][L C - 1] and E[i][L C - 1] from lane
-// L - 1 (made at step s - 1) into column L C's h_left and e_left; the
-// h_left received one step earlier is its h_diag. Lane 0's column -1 is
+// matrix, as a sweep of anti-diagonals over all 32 C lanes would (at M 160,
+// N 224: 374 diagonals against 178 steps). A lane keeps the previous row's H
+// and F of its columns, its C codes of b, and one E running across its
+// columns; a step reads one code of a from shared memory. At the start of
+// step s, one __shfl_up_sync each carries H[i][L C - 1] and E[i][L C - 1]
+// from lane L - 1 (made at step s - 1) into column L C's h_left and e_left;
+// the h_left received one step earlier is its h_diag. Lane 0's column -1 is
 // -kBig, as _shift1 fills, and column 0 and row 0 are the boundary (H = 0,
-// no gap state). Each cell runs the plain version's operations in its
-// order, so the cells equal it bit for bit. A cell counts iff 1 <= i <= m,
-// 1 <= j <= min(n, N) and i + j <= M + N (the plain version's last
-// diagonal); the warp stops after step min(m, M + N - 1) + (lane of column
-// min(n, N)). The plain version keeps the first strictly greater diagonal
-// maximum and its smallest j: over counted cells with h > 0, the
-// lexicographic best (largest h, smallest i + j, smallest j). Each lane
-// finds its row's largest h and first column holding it, folds that into
-// its own (score, i + j, j) by that order, and at the end the warp takes
-// one __reduce_max_sync of the score and __reduce_min_sync of i + j and j
-// among the lanes that hold it; (0, 0, 0) when no cell is positive.
+// no gap state). Each cell runs the plain version's operations in its order,
+// so the cells equal it bit for bit. A cell counts iff 1 <= i <= m, 1 <= j
+// <= min(n, N) and i + j <= M + N (the plain version's last diagonal); the
+// warp stops after step min(m, M + N - 1) + (lane of column min(n, N)). The
+// plain version keeps the first strictly greater diagonal maximum and its
+// smallest j: over counted cells with h > 0, the lexicographic best (largest
+// h, smallest i + j, smallest j). Each lane finds its row's largest h and
+// first column holding it, folds that into its own (score, i + j, j) by that
+// order, and at the end the warp takes one __reduce_max_sync of the score
+// and __reduce_min_sync of i + j and j among the lanes that hold it; (0, 0,
+// 0) when no cell is positive.
 //
 // Rows wider than 32 x 32 cells (or codes too long for shared memory) take
 // the wide kernels: the same recurrence, one warp per read, but the last
