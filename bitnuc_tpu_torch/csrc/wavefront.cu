@@ -118,6 +118,147 @@ __device__ __forceinline__ int at_off(const int (&x)[C], int c, int o, int l, in
   return k < 0 ? l : (k >= C ? r : x[k < 0 ? 0 : (k >= C ? C - 1 : k)]);
 }
 
+// The band slides of a diagonal against the two before it, (d1, d2) =
+// (base(d) - base(d - 1), base(d) - base(d - 2)): (0, 0), (1, 1), (0, 1),
+// or read at run time (the generic body).
+enum Slide { kSlide00, kSlide11, kSlide01, kSlideAny };
+
+// What every diagonal of one read shares. Cells c >= live of a lane have
+// t >= K.
+struct FitRead {
+  const uint8_t* sa;
+  const uint8_t* sb;
+  int M, N, m, n, mm, gp, K, t0, live, lane;
+};
+
+// Diagonal d of fit_banded_kernel<C>: the lane's band cells from (p, ps) of
+// d - 1 and (q, qs) of d - 2, written over (q, qs), then the extraction of
+// the cell (i = m, j = d - m). SLIDE fixes d1 and d2 at compile time, so
+// the body shuffles only the neighbours it reads; FIX applies the boundary
+// fixes j == 0, j == d and j > d. kSlideAny reads d1 and d2 and applies
+// every fix: today's body for any diagonal.
+template <int C, int SLIDE, bool FIX>
+__device__ __forceinline__ void fit_diagonal(const FitRead& f, int d, int bd, int d1,
+                                             int d2, const int (&p)[C],
+                                             const int (&ps)[C], int (&q)[C],
+                                             int (&qs)[C], int& fit, int& ej, int& sj) {
+  constexpr bool kAny = SLIDE == kSlideAny;
+  // the edge cells of the lanes before (l) and after (r): d - 1 at offset -1
+  // (left, d1 = 0) and +1 (up, d1 = 1); d - 2 at -1 (diag, d2 = 0) and +1
+  // (d2 = 2)
+  int pl = kBig, pr = kBig, sl = kBig, sr = kBig;
+  int ql = kBig, qr = kBig, ul = kBig, ur = kBig;
+  if constexpr (SLIDE != kSlide11) {
+    pl = __shfl_up_sync(kFull, p[C - 1], 1);
+    sl = __shfl_up_sync(kFull, ps[C - 1], 1);
+  }
+  if constexpr (kAny || SLIDE == kSlide11) {
+    pr = __shfl_down_sync(kFull, p[0], 1);
+    sr = __shfl_down_sync(kFull, ps[0], 1);
+  }
+  if constexpr (kAny || SLIDE == kSlide00) {
+    ql = __shfl_up_sync(kFull, q[C - 1], 1);
+    ul = __shfl_up_sync(kFull, qs[C - 1], 1);
+  }
+  if constexpr (kAny) {
+    qr = __shfl_down_sync(kFull, q[0], 1);
+    ur = __shfl_down_sync(kFull, qs[0], 1);
+  }
+  if (f.lane == 0) pl = sl = ql = ul = kBig;
+  if (f.lane == 31) pr = sr = qr = ur = kBig;
+  int nd[C], ns[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const int t = f.t0 + c;
+    const int j = bd + t;
+    const int i = d - j;
+    // up reads band cell t + d1 of d-1, left t + d1 - 1, diag t + d2 - 1
+    // of d-2 (ops.align._band_shift with lag 0, 1, 1)
+    int up, s_up, left, s_left, dg, s_dg;
+    if constexpr (kAny) {
+      up = d1 ? at_off<C>(p, c, 1, pl, pr) : p[c];
+      s_up = d1 ? at_off<C>(ps, c, 1, sl, sr) : ps[c];
+      left = d1 ? p[c] : at_off<C>(p, c, -1, pl, pr);
+      s_left = d1 ? ps[c] : at_off<C>(ps, c, -1, sl, sr);
+      dg = d2 == 0 ? at_off<C>(q, c, -1, ql, qr)
+                   : (d2 == 1 ? q[c] : at_off<C>(q, c, 1, ql, qr));
+      s_dg = d2 == 0 ? at_off<C>(qs, c, -1, ul, ur)
+                     : (d2 == 1 ? qs[c] : at_off<C>(qs, c, 1, ul, ur));
+    } else {
+      constexpr int o1 = SLIDE == kSlide11 ? 1 : 0;  // d1
+      constexpr int o2 = SLIDE == kSlide00 ? 0 : 1;  // d2
+      up = at_off<C>(p, c, o1, pl, pr);
+      s_up = at_off<C>(ps, c, o1, sl, sr);
+      left = at_off<C>(p, c, o1 - 1, pl, pr);
+      s_left = at_off<C>(ps, c, o1 - 1, sl, sr);
+      dg = at_off<C>(q, c, o2 - 1, ql, qr);
+      s_dg = at_off<C>(qs, c, o2 - 1, ul, ur);
+    }
+    const int sub = code_a(f.sa, f.M, i - 1) == code_b(f.sb, f.N, j - 1) ? 0 : f.mm;
+    const int c_diag = wadd(dg, sub), c_up = wadd(up, f.gp), c_left = wadd(left, f.gp);
+    int D = min(min(c_diag, c_up), c_left);
+    int S = min(min(c_diag == D ? s_dg : kBig, c_up == D ? s_up : kBig),
+                c_left == D ? s_left : kBig);
+    if constexpr (kAny || FIX) {
+      if (j == 0) {
+        D = wmul(d, f.gp);
+        S = 0;
+      }
+      if (j == d) {  // free b-prefix: D[0, j] = 0, the path enters at j
+        D = 0;
+        S = j;
+      }
+      if (j > d) D = kBig;  // i < 0: no such cell
+    }
+    if (c >= f.live) {  // t >= K
+      D = kBig;
+      S = kBig;
+    }
+    nd[c] = D;
+    ns[c] = S;
+  }
+  // the cell (i = m, j = d - m), if the band holds it
+  const int jm = d - f.m;
+  const int th = jm - bd;
+  if (jm >= 0 && jm <= f.n && th >= 0 && th < f.K) {
+    int v = kBig, st = kBig;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      if (f.t0 + c == th) {
+        v = nd[c];
+        st = ns[c];
+      }
+    }
+    v = __shfl_sync(kFull, v, th / C);
+    st = __shfl_sync(kFull, st, th / C);
+    if (v < fit) {  // strict: the earliest diagonal (smallest end) wins
+      fit = v;
+      ej = jm;
+      sj = st;
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    q[c] = nd[c];
+    qs[c] = ns[c];
+  }
+}
+
+// `pairs` pairs of diagonals from d on, the first of each with slide SA at
+// base bd, the second with SB at the same base; bd grows by `step` a pair.
+// The two diagonals swap the roles of (p, ps) and (q, qs), so the arrays
+// hold d - 1 and d - 2 again after each pair and nothing is copied.
+template <int C, int SA, int SB, bool FIX>
+__device__ __forceinline__ void fit_pairs(const FitRead& f, int& d, int pairs, int bd,
+                                          int step, int (&p)[C], int (&ps)[C],
+                                          int (&q)[C], int (&qs)[C], int& fit, int& ej,
+                                          int& sj) {
+  for (int k = 0; k < pairs; ++k, d += 2, bd += step) {
+    fit_diagonal<C, SA, FIX>(f, d, bd, 0, 0, p, ps, q, qs, fit, ej, sj);
+    fit_diagonal<C, SB, FIX>(f, d + 1, bd, 0, 0, q, qs, p, ps, fit, ej, sj);
+  }
+}
+
 template <int C>
 __global__ void fit_banded_kernel(const uint32_t* __restrict__ wa,
                                   const int* __restrict__ la,
@@ -145,97 +286,66 @@ __global__ void fit_banded_kernel(const uint32_t* __restrict__ wa,
     return v < 0 ? 0 : (v > top ? top : v);
   };
   const int t0 = lane * C;
-  int prev[C], prev2[C], sp[C], sp2[C];  // D and S of diagonals d-1, d-2
+  const FitRead f{sa, sb, M, N, m, n, mm, gp, K, t0, K - t0, lane};
+  int p[C], ps[C], q[C], qs[C];  // D and S of diagonals d-1, d-2
 #pragma unroll
   for (int c = 0; c < C; ++c) {
     const int t = t0 + c;
-    prev[c] = (t == 0) ? 0 : kBig;  // d = 0: D[0, 0] = 0
-    sp[c] = t < K ? t : kBig;       // S[0, j] = j
-    prev2[c] = kBig;
-    sp2[c] = t < K ? 0 : kBig;
+    p[c] = (t == 0) ? 0 : kBig;  // d = 0: D[0, 0] = 0
+    ps[c] = t < K ? t : kBig;    // S[0, j] = j
+    q[c] = kBig;
+    qs[c] = t < K ? 0 : kBig;
   }
   int fit = (m == 0) ? 0 : kBig, ej = 0, sj = 0;
   const int d_end = min(T, m + n);
-  int b1 = base(0), b2 = base(-1);
-  for (int d = 1; d <= d_end; ++d) {
-    const int bd = base(d);
-    const int d1 = bd - b1, d2 = bd - b2;
-    int pl = __shfl_up_sync(kFull, prev[C - 1], 1);
-    int pr = __shfl_down_sync(kFull, prev[0], 1);
-    int sl = __shfl_up_sync(kFull, sp[C - 1], 1);
-    int sr = __shfl_down_sync(kFull, sp[0], 1);
-    int ql = __shfl_up_sync(kFull, prev2[C - 1], 1);
-    int qr = __shfl_down_sync(kFull, prev2[0], 1);
-    int ul = __shfl_up_sync(kFull, sp2[C - 1], 1);
-    int ur = __shfl_down_sync(kFull, sp2[0], 1);
-    if (lane == 0) pl = sl = ql = ul = kBig;
-    if (lane == 31) pr = sr = qr = ur = kBig;
-    int nd[C], ns[C];
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const int t = t0 + c;
-      const int j = bd + t;
-      const int i = d - j;
-      // up reads band cell t + d1 of d-1, left t + d1 - 1, diag t + d2 - 1
-      // of d-2 (ops.align._band_shift with lag 0, 1, 1)
-      const int up = d1 ? at_off<C>(prev, c, 1, pl, pr) : prev[c];
-      const int s_up = d1 ? at_off<C>(sp, c, 1, sl, sr) : sp[c];
-      const int left = d1 ? prev[c] : at_off<C>(prev, c, -1, pl, pr);
-      const int s_left = d1 ? sp[c] : at_off<C>(sp, c, -1, sl, sr);
-      const int dg = d2 == 0 ? at_off<C>(prev2, c, -1, ql, qr)
-                             : (d2 == 1 ? prev2[c] : at_off<C>(prev2, c, 1, ql, qr));
-      const int s_dg = d2 == 0 ? at_off<C>(sp2, c, -1, ul, ur)
-                               : (d2 == 1 ? sp2[c] : at_off<C>(sp2, c, 1, ul, ur));
-      const int sub = code_a(sa, M, i - 1) == code_b(sb, N, j - 1) ? 0 : mm;
-      const int c_diag = wadd(dg, sub), c_up = wadd(up, gp), c_left = wadd(left, gp);
-      int D = min(min(c_diag, c_up), c_left);
-      int S = min(min(c_diag == D ? s_dg : kBig, c_up == D ? s_up : kBig),
-                  c_left == D ? s_left : kBig);
-      if (j == 0) {
-        D = wmul(d, gp);
-        S = 0;
-      }
-      if (j == d) {  // free b-prefix: D[0, j] = 0, the path enters at j
-        D = 0;
-        S = j;
-      }
-      if (j > d) D = kBig;  // i < 0: no such cell
-      if (t >= K) {
-        D = kBig;
-        S = kBig;
-      }
-      nd[c] = D;
-      ns[c] = S;
+  // The runs (see the header): base(d) = 0 up to p1, alternating slides up
+  // to p2, top after; boundary fixes up to fix_end.
+  const int p1 = -off_lo, p2 = 2 * top - off_lo;
+  int fix_end = max(p1, min(p2, 2 * K - 1 + off_lo));
+  if (N > p2) fix_end = max(fix_end, N);
+  int d = 1;
+  while (d <= d_end) {
+    const bool fix = d <= fix_end;
+    const bool alt = d > p1 && d <= p2;
+    int hi = fix ? min(d_end, fix_end) : d_end;
+    if (d <= p1) {
+      hi = min(hi, p1);
+    } else if (alt) {
+      hi = min(hi, p2);
     }
-    // the cell (i = m, j = d - m), if the band holds it
-    const int jm = d - m;
-    const int th = jm - bd;
-    if (jm >= 0 && jm <= n && th >= 0 && th < K) {
-      int v = kBig, st = kBig;
+    int pairs = (hi - d + 1) >> 1;
+    // a run of alternating slides pairs (1, 1) with (0, 1); the closed
+    // forms need off_lo <= 0, as ops.align._band_geometry asserts
+    if ((alt && ((d + off_lo) & 1) == 0) || off_lo > 0) pairs = 0;
+    if (pairs == 0) {  // a seam: one diagonal of the generic body
+      const int bd = base(d);
+      fit_diagonal<C, kSlideAny, true>(f, d, bd, bd - base(d - 1), bd - base(d - 2), p,
+                                       ps, q, qs, fit, ej, sj);
 #pragma unroll
       for (int c = 0; c < C; ++c) {
-        if (t0 + c == th) {
-          v = nd[c];
-          st = ns[c];
-        }
+        const int x = p[c], y = ps[c];
+        p[c] = q[c];
+        ps[c] = qs[c];
+        q[c] = x;
+        qs[c] = y;
       }
-      v = __shfl_sync(kFull, v, th / C);
-      st = __shfl_sync(kFull, st, th / C);
-      if (v < fit) {  // strict: the earliest diagonal (smallest end) wins
-        fit = v;
-        ej = jm;
-        sj = st;
+      ++d;
+    } else if (alt) {
+      const int bd = (d + off_lo + 1) >> 1;
+      if (fix) {
+        fit_pairs<C, kSlide11, kSlide01, true>(f, d, pairs, bd, 1, p, ps, q, qs, fit, ej, sj);
+      } else {
+        fit_pairs<C, kSlide11, kSlide01, false>(f, d, pairs, bd, 1, p, ps, q, qs, fit, ej, sj);
+      }
+    } else {
+      const int bd = d <= p1 ? 0 : top;
+      if (fix) {
+        fit_pairs<C, kSlide00, kSlide00, true>(f, d, pairs, bd, 0, p, ps, q, qs, fit, ej, sj);
+      } else {
+        fit_pairs<C, kSlide00, kSlide00, false>(f, d, pairs, bd, 0, p, ps, q, qs, fit, ej,
+                                                sj);
       }
     }
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      prev2[c] = prev[c];
-      sp2[c] = sp[c];
-      prev[c] = nd[c];
-      sp[c] = ns[c];
-    }
-    b2 = b1;
-    b1 = bd;
   }
   if (lane == 0) {
     cost[r] = fit;

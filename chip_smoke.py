@@ -669,12 +669,15 @@ def mapping_phase(args, torch, dev, timer, results, fa, genome, reads, true_star
     ph["fit_banded_cells"] = cells
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed + 7)
-    for B, Wa, Wb, band, costs in ((40, 4, 8, (0, 0), (1, 1)), (33, 2, 40, (-300, 700), (3, 2)),
-                                   (17, 0, 4, (-4, 4), (1, 1)), (300, 10, 15, (-8, 52), (3, 2)),
-                                   (5, 10, 15, (off_lo, off_hi), (1, 1)),
-                                   (9, 8, 100, (-1100, 1100), (1, 1))):  # K 1102: wide
-        pa = random_pairs(torch, gen, dev, B, Wa, Wb)
-        compare("fit_banded", f"[{B}] Wa={Wa} Wb={Wb} band={band} costs={costs}",
+    for B, Wa, Wb, band, costs, ties in (
+            (40, 4, 8, (0, 0), (1, 1), False), (33, 2, 40, (-300, 700), (3, 2), False),
+            (17, 0, 4, (-4, 4), (1, 1), False), (300, 10, 15, (-8, 52), (3, 2), False),
+            (5, 10, 15, (off_lo, off_hi), (1, 1), False),
+            (300, 10, 15, (-33, 125), (1, 1), False),  # odd off_lo: the runs' parities flip
+            (300, 10, 15, (off_lo, off_hi), (1, 1), True),  # tie-heavy
+            (9, 8, 100, (-1100, 1100), (1, 1), False)):  # K 1102: wide
+        pa = random_pairs(torch, gen, dev, B, Wa, Wb, ties)
+        compare("fit_banded", f"[{B}] Wa={Wa} Wb={Wb} band={band} costs={costs} ties={ties}",
                 align.fit_distance_span_banded_kernel(*pa, *costs, *band),
                 align.fit_distance_span_banded_torch(*pa, *costs, *band))
 

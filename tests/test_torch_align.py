@@ -134,10 +134,13 @@ def test_band_geometry_and_shift_match_jax():
 
 
 @pytest.mark.parametrize("mm,gap", WEIGHTS)
-@pytest.mark.parametrize("band", [(-32, 124), (-8, 52), (-200, 200)])
+@pytest.mark.parametrize("band", [(-32, 124), (-8, 52), (-200, 200), (-33, 125), (0, 60),
+                                  (-16, 300)])
 def test_banded_fit_matches_jax(pairs, band, mm, gap):
     """The mapper's effective band (K = 80), (-8, 40) widened by _band_k8
-    (K = 32), and a band wider than the window (the unbanded fit runs)."""
+    (K = 32), a band wider than the window (the unbanded fit runs), an odd
+    off_lo, off_lo = 0 (no diagonal has base 0), and K = N = 160 (top = 1:
+    the band slides on two diagonals only)."""
     ja, (wa, la), jb, (wb, lb) = pairs
     lo, hi = band
     want = jalign.fit_distance_span_banded(ja.words, ja.lengths, jb.words, jb.lengths,
@@ -145,6 +148,32 @@ def test_banded_fit_matches_jax(pairs, band, mm, gap):
     _all_eq(align.fit_distance_span_banded(wa, la, wb, lb, mm, gap, lo, hi), want)
     if align._band_geometry(lo, hi, 160)[0] < 161:
         _all_eq(align.fit_distance_span_banded_torch(wa, la, wb, lb, mm, gap, lo, hi), want)
+
+
+def _tie_seqs(seed, n=24, max_a=90, max_b=160):
+    """Low-entropy pairs with many tied paths: both sides repeat one period
+    of 1 to 3 bases with random phases and lengths (some empty)."""
+    rng = np.random.default_rng(seed)
+    seqs_a, seqs_b = [], []
+    for _ in range(n):
+        unit = bytes(np.frombuffer(b"ACGT", np.uint8)[rng.permutation(4)[: rng.integers(1, 4)]])
+        rep = unit * (max_b // len(unit) + 2)
+        pa, pb = rng.integers(0, len(unit), 2)
+        seqs_a.append(rep[pa : pa + int(rng.integers(0, max_a + 1))])
+        seqs_b.append(rep[pb : pb + int(rng.integers(0, max_b + 1))])
+    return seqs_a, seqs_b
+
+
+@pytest.mark.parametrize("mm,gap", WEIGHTS)
+def test_banded_fit_ties_match_jax(mm, gap):
+    """Tie-heavy rows at the mapper's effective band: the earliest end and
+    smallest start among many equal costs."""
+    a, b = _tie_seqs(51)
+    ja, (wa, la) = _packed(a, 96)
+    jb, (wb, lb) = _packed(b, 160)
+    want = jalign.fit_distance_span_banded(ja.words, ja.lengths, jb.words, jb.lengths,
+                                           mm, gap, off_lo=-32, off_hi=124)
+    _all_eq(align.fit_distance_span_banded_torch(wa, la, wb, lb, mm, gap, -32, 124), want)
 
 
 @pytest.mark.parametrize("mm,gap", WEIGHTS)

@@ -143,10 +143,18 @@ def _pairs(seed, B, Wa, Wb):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["planted", "short", "ties"])
 @pytest.mark.parametrize("costs", [(1, 1), (3, 2)])
 @pytest.mark.parametrize("B,Wa,Wb,band", [
-    (300, 10, 15, (-32, 124)),  # the mapper's shape and effective band (K = 80)
+    # the mapper's shape and effective band (K = 80): runs 1-32 (base 0),
+    # 33-127 (alternating slides, row-0 fixes), 128-354 (no fixes), 355-390
+    (300, 10, 15, (-32, 124)),
+    (300, 10, 15, (-33, 125)),  # odd off_lo: the runs' parities flip
+    (64, 10, 15, (0, 60)),      # off_lo = 0: no diagonal with base 0
     (64, 10, 15, (-8, 52)),     # (-8, 40) widened to K = 32
+    (40, 10, 10, (-16, 250)),   # the fixes end inside the top range (N > 2 top - off_lo)
+    (30, 1, 4, (-90, 10)),      # base 0 and every fix over the whole read
+    (20, 10, 10, (-16, 300)),   # K = N: top = 1, two alternating diagonals
     (40, 4, 8, (0, 0)),         # the narrowest band, K = 2
     (33, 2, 40, (-300, 700)),   # K = 502: 16 cells per lane
     (17, 0, 4, (-4, 4)),        # an empty read side
@@ -154,8 +162,11 @@ def _pairs(seed, B, Wa, Wb):
     (9, 8, 100, (-1100, 1100)),  # K = 1102 > 1024: the wide kernel
     (40, 10, 80, (-1030, 1030)),  # K = 1032
 ])
-def test_fit_banded_kernel_matches_plain(cuda, B, Wa, Wb, band, costs):
-    wa, la, wb, lb = (x.to(cuda) for x in _pairs(B + Wb, B, Wa, Wb))
+def test_fit_banded_kernel_matches_plain(cuda, B, Wa, Wb, band, costs, kind):
+    """Every run of the register kernel's diagonal loop and the seams
+    between them: reads whose m + n ends inside each run (random lengths,
+    0 on either side, and short reads), and tie-heavy rows."""
+    wa, la, wb, lb = (x.to(cuda) for x in _sw_pairs(B + Wb, B, Wa, Wb, kind))
     got = align.fit_distance_span_banded_kernel(wa, la, wb, lb, *costs, *band)
     want = align.fit_distance_span_banded_torch(wa, la, wb, lb, *costs, *band)
     for g, w in zip(got, want):
