@@ -22,17 +22,42 @@
 // [B, M + 2N] operand is ever made in device memory.
 //
 // K8, anti-diagonals: lane L holds band cells t = L C .. L C + C - 1 of
-// the current and the two previous diagonals, with their span origins S.
-// A cell's neighbours at band offsets -1, 0 and +1 are its own registers or
-// one __shfl_up_sync / __shfl_down_sync of the next lane's edge cell; the
-// band slide between diagonals (base(d) - base(d-1) in {0, 1}, base(d) -
-// base(d-2) in {0, 1, 2}) is uniform across the warp, so it selects among
-// those offsets without divergence. The per-diagonal extraction at i = m
-// is one shuffle from the lane that holds column j = d - m. A read stops
-// at diagonal m + n, past which no cell reaches an output. Band cells the
-// arithmetic must not see (t >= K) hold the sentinel, as out-of-band reads
-// do in ops.align._band_shift, so every band cell equals the plain
-// version's bit for bit.
+// the current and the two previous diagonals, with their span origins S,
+// and each cell's codes of a at i - 1 and of b at j - 1. A cell's
+// neighbours at band offsets -1, 0 and +1 are its own registers or one
+// __shfl_up_sync / __shfl_down_sync of the next lane's edge cell, as the
+// band slides (d1, d2) = (base(d) - base(d - 1), base(d) - base(d - 2))
+// select them. The per-diagonal extraction at i = m is one shuffle from the
+// lane that holds column j = d - m. A read stops at diagonal m + n, past
+// which no cell reaches an output. Band cells the arithmetic must not see
+// (t >= K) hold the sentinel, as out-of-band reads do in
+// ops.align._band_shift, so every band cell equals the plain version's bit
+// for bit.
+//
+// The slides and the boundary fixes are uniform across the warp and follow
+// closed forms (off_lo <= 0 and top = N + 1 - K >= 1), so the diagonal loop
+// runs in runs whose body takes them as template parameters:
+//   d <= -off_lo:                  base 0, (d1, d2) = (0, 0);
+//   -off_lo < d <= 2 top - off_lo: d2 = 1 and d1 = (d + off_lo) & 1, so
+//                                  (1, 1) and (0, 1) alternate, two
+//                                  diagonals a step;
+//   d > 2 top - off_lo:            base top, (0, 0).
+// A diagonal needs the fixes (j == 0, j == d, j > d) only while base(d) = 0
+// or d - base(d) < K. d - base(d) never decreases, so they end at the fix
+// prefix's last diagonal: the largest of -off_lo, 2 K - 1 + off_lo (in the
+// alternating range) and N (in the top range); past it the bodies drop
+// them, and keep the sentinel. A diagonal that a run cannot pair (the odd
+// end of a run, or a run starting on (0, 1)) is a seam and goes through the
+// generic body, which reads d1 and d2 at run time and applies every fix.
+// At the mapper's band (-32, 124), N 240: 1-32 base 0 with fixes, 33-126
+// alternating with row-0 fixes, seams 127 and 128, 129-354 alternating and
+// 355-390 at top without fixes. A pair swaps the roles of the registers of
+// d - 1 and d - 2, so nothing is copied between diagonals. The codes slide
+// with the band: a diagonal with d1 = 1 shifts b's by one cell, one with
+// d1 = 0 shifts a's, and each lane reads from shared memory the one code
+// that enters its cells (the generic body reads all of them). At C = 32
+// (K > 768) the state fills the register file, and the cells read their
+// codes from shared memory instead.
 //
 // K9, a row pipeline: lane L holds columns j = L C .. L C + C - 1 of the
 // full row (N + 1 columns), and the warp sweeps the rows of a with lane L
@@ -136,13 +161,38 @@ struct FitRead {
 // the cell (i = m, j = d - m). SLIDE fixes d1 and d2 at compile time, so
 // the body shuffles only the neighbours it reads; FIX applies the boundary
 // fixes j == 0, j == d and j > d. kSlideAny reads d1 and d2 and applies
-// every fix: today's body for any diagonal.
+// every fix: the body of any diagonal. (ca, cb) hold each cell's codes of
+// a at i - 1 and of b at j - 1, those of d - 1 on entry and of d on exit.
 template <int C, int SLIDE, bool FIX>
 __device__ __forceinline__ void fit_diagonal(const FitRead& f, int d, int bd, int d1,
                                              int d2, const int (&p)[C],
                                              const int (&ps)[C], int (&q)[C],
-                                             int (&qs)[C], int& fit, int& ej, int& sj) {
+                                             int (&qs)[C], int (&ca)[C], int (&cb)[C],
+                                             int& fit, int& ej, int& sj) {
   constexpr bool kAny = SLIDE == kSlideAny;
+  // Codes in registers take 2 C of them; at C = 32 (K > 768) the state
+  // fills the register file, and the cells read shared memory instead.
+  constexpr bool kRegCodes = C < 32;
+  // A diagonal with d1 = 1 moves every cell's j up by one and keeps i, so
+  // b's codes slide down a cell; one with d1 = 0 moves every i up by one
+  // and keeps j, so a's codes slide up a cell. Each lane reads the one code
+  // that enters its cells; the generic body reads them all.
+  if constexpr (!kRegCodes) {
+  } else if constexpr (kAny) {
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      ca[c] = code_a(f.sa, f.M, d - bd - f.t0 - c - 1);
+      cb[c] = code_b(f.sb, f.N, bd + f.t0 + c - 1);
+    }
+  } else if constexpr (SLIDE == kSlide11) {
+#pragma unroll
+    for (int c = 0; c < C - 1; ++c) cb[c] = cb[c + 1];
+    cb[C - 1] = code_b(f.sb, f.N, bd + f.t0 + C - 2);
+  } else {
+#pragma unroll
+    for (int c = C - 1; c > 0; --c) ca[c] = ca[c - 1];
+    ca[0] = code_a(f.sa, f.M, d - bd - f.t0 - 1);
+  }
   // the edge cells of the lanes before (l) and after (r): d - 1 at offset -1
   // (left, d1 = 0) and +1 (up, d1 = 1); d - 2 at -1 (diag, d2 = 0) and +1
   // (d2 = 2)
@@ -194,7 +244,9 @@ __device__ __forceinline__ void fit_diagonal(const FitRead& f, int d, int bd, in
       dg = at_off<C>(q, c, o2 - 1, ql, qr);
       s_dg = at_off<C>(qs, c, o2 - 1, ul, ur);
     }
-    const int sub = code_a(f.sa, f.M, i - 1) == code_b(f.sb, f.N, j - 1) ? 0 : f.mm;
+    const bool same = kRegCodes ? ca[c] == cb[c]
+                                : code_a(f.sa, f.M, i - 1) == code_b(f.sb, f.N, j - 1);
+    const int sub = same ? 0 : f.mm;
     const int c_diag = wadd(dg, sub), c_up = wadd(up, f.gp), c_left = wadd(left, f.gp);
     int D = min(min(c_diag, c_up), c_left);
     int S = min(min(c_diag == D ? s_dg : kBig, c_up == D ? s_up : kBig),
@@ -251,11 +303,11 @@ __device__ __forceinline__ void fit_diagonal(const FitRead& f, int d, int bd, in
 template <int C, int SA, int SB, bool FIX>
 __device__ __forceinline__ void fit_pairs(const FitRead& f, int& d, int pairs, int bd,
                                           int step, int (&p)[C], int (&ps)[C],
-                                          int (&q)[C], int (&qs)[C], int& fit, int& ej,
-                                          int& sj) {
+                                          int (&q)[C], int (&qs)[C], int (&ca)[C],
+                                          int (&cb)[C], int& fit, int& ej, int& sj) {
   for (int k = 0; k < pairs; ++k, d += 2, bd += step) {
-    fit_diagonal<C, SA, FIX>(f, d, bd, 0, 0, p, ps, q, qs, fit, ej, sj);
-    fit_diagonal<C, SB, FIX>(f, d + 1, bd, 0, 0, q, qs, p, ps, fit, ej, sj);
+    fit_diagonal<C, SA, FIX>(f, d, bd, 0, 0, p, ps, q, qs, ca, cb, fit, ej, sj);
+    fit_diagonal<C, SB, FIX>(f, d + 1, bd, 0, 0, q, qs, p, ps, ca, cb, fit, ej, sj);
   }
 }
 
@@ -288,6 +340,7 @@ __global__ void fit_banded_kernel(const uint32_t* __restrict__ wa,
   const int t0 = lane * C;
   const FitRead f{sa, sb, M, N, m, n, mm, gp, K, t0, K - t0, lane};
   int p[C], ps[C], q[C], qs[C];  // D and S of diagonals d-1, d-2
+  int ca[C], cb[C];              // codes of a at i - 1, b at j - 1
 #pragma unroll
   for (int c = 0; c < C; ++c) {
     const int t = t0 + c;
@@ -295,6 +348,8 @@ __global__ void fit_banded_kernel(const uint32_t* __restrict__ wa,
     ps[c] = t < K ? t : kBig;    // S[0, j] = j
     q[c] = kBig;
     qs[c] = t < K ? 0 : kBig;
+    ca[c] = code_a(sa, M, -t - 1);  // d = 0, base 0: i = -t, j = t
+    cb[c] = code_b(sb, N, t - 1);
   }
   int fit = (m == 0) ? 0 : kBig, ej = 0, sj = 0;
   const int d_end = min(T, m + n);
@@ -320,7 +375,7 @@ __global__ void fit_banded_kernel(const uint32_t* __restrict__ wa,
     if (pairs == 0) {  // a seam: one diagonal of the generic body
       const int bd = base(d);
       fit_diagonal<C, kSlideAny, true>(f, d, bd, bd - base(d - 1), bd - base(d - 2), p,
-                                       ps, q, qs, fit, ej, sj);
+                                       ps, q, qs, ca, cb, fit, ej, sj);
 #pragma unroll
       for (int c = 0; c < C; ++c) {
         const int x = p[c], y = ps[c];
@@ -333,17 +388,20 @@ __global__ void fit_banded_kernel(const uint32_t* __restrict__ wa,
     } else if (alt) {
       const int bd = (d + off_lo + 1) >> 1;
       if (fix) {
-        fit_pairs<C, kSlide11, kSlide01, true>(f, d, pairs, bd, 1, p, ps, q, qs, fit, ej, sj);
+        fit_pairs<C, kSlide11, kSlide01, true>(f, d, pairs, bd, 1, p, ps, q, qs, ca, cb,
+                                               fit, ej, sj);
       } else {
-        fit_pairs<C, kSlide11, kSlide01, false>(f, d, pairs, bd, 1, p, ps, q, qs, fit, ej, sj);
+        fit_pairs<C, kSlide11, kSlide01, false>(f, d, pairs, bd, 1, p, ps, q, qs, ca, cb,
+                                                fit, ej, sj);
       }
     } else {
       const int bd = d <= p1 ? 0 : top;
       if (fix) {
-        fit_pairs<C, kSlide00, kSlide00, true>(f, d, pairs, bd, 0, p, ps, q, qs, fit, ej, sj);
+        fit_pairs<C, kSlide00, kSlide00, true>(f, d, pairs, bd, 0, p, ps, q, qs, ca, cb,
+                                               fit, ej, sj);
       } else {
-        fit_pairs<C, kSlide00, kSlide00, false>(f, d, pairs, bd, 0, p, ps, q, qs, fit, ej,
-                                                sj);
+        fit_pairs<C, kSlide00, kSlide00, false>(f, d, pairs, bd, 0, p, ps, q, qs, ca, cb,
+                                                fit, ej, sj);
       }
     }
   }

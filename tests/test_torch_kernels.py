@@ -157,6 +157,8 @@ def _pairs(seed, B, Wa, Wb):
     (20, 10, 10, (-16, 300)),   # K = N: top = 1, two alternating diagonals
     (40, 4, 8, (0, 0)),         # the narrowest band, K = 2
     (33, 2, 40, (-300, 700)),   # K = 502: 16 cells per lane
+    (9, 4, 50, (-500, 700)),    # K = 602: 24
+    (9, 4, 70, (-700, 900)),    # K = 802: 32, codes read from shared memory
     (17, 0, 4, (-4, 4)),        # an empty read side
     (9, 6, 2, (-1, 3)),
     (9, 8, 100, (-1100, 1100)),  # K = 1102 > 1024: the wide kernel
