@@ -163,7 +163,7 @@ struct FitRead {
 // fixes j == 0, j == d and j > d. kSlideAny reads d1 and d2 and applies
 // every fix: the body of any diagonal. (ca, cb) hold each cell's codes of
 // a at i - 1 and of b at j - 1, those of d - 1 on entry and of d on exit.
-template <int C, int SLIDE, bool FIX>
+template <int C, Slide SLIDE, bool FIX>
 __device__ __forceinline__ void fit_diagonal(const FitRead& f, int d, int bd, int d1,
                                              int d2, const int (&p)[C],
                                              const int (&ps)[C], int (&q)[C],
@@ -177,18 +177,17 @@ __device__ __forceinline__ void fit_diagonal(const FitRead& f, int d, int bd, in
   // b's codes slide down a cell; one with d1 = 0 moves every i up by one
   // and keeps j, so a's codes slide up a cell. Each lane reads the one code
   // that enters its cells; the generic body reads them all.
-  if constexpr (!kRegCodes) {
-  } else if constexpr (kAny) {
+  if constexpr (kRegCodes && kAny) {
 #pragma unroll
     for (int c = 0; c < C; ++c) {
       ca[c] = code_a(f.sa, f.M, d - bd - f.t0 - c - 1);
       cb[c] = code_b(f.sb, f.N, bd + f.t0 + c - 1);
     }
-  } else if constexpr (SLIDE == kSlide11) {
+  } else if constexpr (kRegCodes && SLIDE == kSlide11) {
 #pragma unroll
     for (int c = 0; c < C - 1; ++c) cb[c] = cb[c + 1];
     cb[C - 1] = code_b(f.sb, f.N, bd + f.t0 + C - 2);
-  } else {
+  } else if constexpr (kRegCodes) {
 #pragma unroll
     for (int c = C - 1; c > 0; --c) ca[c] = ca[c - 1];
     ca[0] = code_a(f.sa, f.M, d - bd - f.t0 - 1);
@@ -300,7 +299,7 @@ __device__ __forceinline__ void fit_diagonal(const FitRead& f, int d, int bd, in
 // base bd, the second with SB at the same base; bd grows by `step` a pair.
 // The two diagonals swap the roles of (p, ps) and (q, qs), so the arrays
 // hold d - 1 and d - 2 again after each pair and nothing is copied.
-template <int C, int SA, int SB, bool FIX>
+template <int C, Slide SA, Slide SB, bool FIX>
 __device__ __forceinline__ void fit_pairs(const FitRead& f, int& d, int pairs, int bd,
                                           int step, int (&p)[C], int (&ps)[C],
                                           int (&q)[C], int (&qs)[C], int (&ca)[C],
