@@ -16,11 +16,13 @@ Phases, each of which must pass:
 
 1. Device: the card's name and power limit, and the kernel build (all of
    bitnuc_tpu_torch/csrc/*.cu with nvcc, timed); the registers, shared
-   memory and spills of tcscan.cu (K6) and wavefront.cu (K8, K9).
+   memory and spills of histogram.cu (K3a, K3b), tcscan.cu (K6) and
+   wavefront.cu (K8, K9).
 2. Every kernel against its plain PyTorch version on the card, bit for bit:
    K1 pack, K2 unpack, K3a hist_keys, K3b hist_words, K4 hdist_scan and K5
    hdist_scan_batch (one kernel), K6 tc_scan, K7 merge and K10 orf_scan at
-   the main paths' shapes and at edge shapes, each timed with CUDA events
+   the main paths' shapes and at edge shapes (K3a also on poly-A keys and
+   at k = 11), each timed with CUDA events
    (median of several runs, L2 flushed before each) beside its plain
    version. K6 also against K5 on the full database at Q = 1 to 512, at
    512-base and 150-base entries (the sweep behind database.tc_min_q), and
@@ -1175,10 +1177,10 @@ def main() -> int:
     _build.library()
     build_s = time.perf_counter() - t
     print(f"  built {os.path.relpath(lib_path)} in {build_s:.1f} s", flush=True)
-    # K6's and K8/K9's registers, shared memory and spills: nvcc -Xptxas -v
-    # of tcscan.cu and wavefront.cu
+    # K3a's, K6's and K8/K9's registers, shared memory and spills: nvcc
+    # -Xptxas -v of histogram.cu, tcscan.cu and wavefront.cu
     with tempfile.TemporaryDirectory() as d:
-        ptxas = build_time.ptxas_report(Path(d), ("tcscan.cu", "wavefront.cu"))
+        ptxas = build_time.ptxas_report(Path(d), ("histogram.cu", "tcscan.cu", "wavefront.cu"))
     for src, lines in sorted(ptxas.items()):
         for line in lines:
             print(f"  ptxas {src}: {line}", flush=True)
@@ -1205,14 +1207,13 @@ def main() -> int:
         computes the same function, where there is one (timed, never used
         by the port)."""
         ms, pms = timer(kern, reps), timer(plain, plain_reps)
-        row = {"shape": label, "ms": ms, "plain_ms": pms, "main": main}
-        extra = ""
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        row = {"shape": label, "ms": ms, "plain_ms": pms, "main": main,
+               "bound_ms": max(bytes_ms, ops_ms),
+               "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+        extra = f", bound {row['bound_ms']:.4f} ms ({row['bound_by']})" if row["bound_ms"] else ""
         if main:
-            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-            row.update(bound_ms=max(bytes_ms, ops_ms),
-                       bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                       library_ms=timer(library, reps) if library else None)
-            extra = f", bound {row['bound_ms']:.4f} ms ({row['bound_by']})"
+            row["library_ms"] = timer(library, reps) if library else None
             if library:
                 extra += f", library call {row['library_ms']:.4f} ms"
         timings[name].append(row)
@@ -1241,6 +1242,14 @@ def main() -> int:
           nbytes=READS * READ_LEN + 4 * READS * (W_b + 2),
           ops_ms=8 * READS * READ_LEN / INT32_OPS_PER_S * 1e3)
 
+    def time_hist_keys(label, keys, k, main=False):
+        timed("hist_keys", label,
+              lambda: kmer.histogram_from_keys_kernel(keys, k),
+              lambda: kmer.histogram_from_keys_torch(keys, k),
+              main=main, nbytes=4 * keys.numel() + 4 * 4**k,
+              ops_ms=2 * keys.numel() / INT32_OPS_PER_S * 1e3,
+              library=lambda: torch.bincount(keys, minlength=4**k + 1))
+
     words_b, _ = codec.encode_reads_kernel(ascii_b, lens_b)
     valid_b = codec.validity_mask(ascii_b, lens_b)
     n_windows = int(torch.clamp(lens_b.long() - 7, min=0).sum())
@@ -1254,14 +1263,48 @@ def main() -> int:
                 compare("hist_keys", label, kmer.histogram_from_keys_kernel(keys, k),
                         kmer.histogram_from_keys_torch(keys, k))
                 if canonical and nskip:
-                    timed("hist_keys", label,
-                          lambda: kmer.histogram_from_keys_kernel(keys, k),
-                          lambda: kmer.histogram_from_keys_torch(keys, k),
-                          main=k == STREAM_K, nbytes=4 * keys.numel() + 4 * 4**k,
-                          ops_ms=2 * keys.numel() / INT32_OPS_PER_S * 1e3,
-                          library=lambda: torch.bincount(keys, minlength=4**k + 1))
+                    if k == STREAM_K:
+                        keys_c = keys
+                    else:
+                        time_hist_keys(label, keys, k)
                 del lo, v, keys
     print(f"    ({n_windows} windows of k = 8 in the batch)", flush=True)
+
+    # K3a at the main paths' shapes: (a) a batch of the streaming count
+    # (FASTQ_BATCH x READ_LEN uppercase ACGT, N at 1/200, k = 12 canonical
+    # N-skip), the main row; (b) the flagship step's canonical k = 8 launch
+    # (READS x READ_LEN, no N); (c) the batch above at k = 12; (d) (c)'s keys
+    # masked to k = 11 (16 MiB of bins against 64 MiB), sentinels kept; (e)
+    # poly-A: (a)'s and (b)'s valid keys all 0
+    def full_reads(B, n_rate):
+        a = acgt[torch.randint(0, 4, (B, READ_LEN), device=dev, generator=gen)]
+        a[torch.rand((B, READ_LEN), device=dev, generator=gen) < n_rate] = ord("N")
+        ln = torch.full((B,), READ_LEN, dtype=torch.int32, device=dev)
+        w, _ = codec.encode_reads_kernel(a, ln)
+        return w, ln, codec.validity_mask(a, ln)
+
+    w, ln, ok = full_reads(FASTQ_BATCH, 1 / 200)
+    lo, _, v = kmer._window_keys(w, ln, STREAM_K, True, ok)
+    keys_a = torch.where(v, lo, 4**STREAM_K).reshape(-1).contiguous()
+    w, ln, _ = full_reads(READS, 0.0)
+    lo, _, v = kmer._window_keys(w, ln, entry.K, True)
+    keys_b = torch.where(v, lo, 4**entry.K).reshape(-1).contiguous()
+    del w, ln, ok, lo, v
+    keys_d = torch.where(keys_c < 4**STREAM_K, keys_c & (4**11 - 1), 4**11)
+    for label, keys, k in (
+        ("(a) count batch", keys_a, STREAM_K),
+        ("(b) flagship canonical", keys_b, entry.K),
+        ("(c) reads of 1..150 bp", keys_c, STREAM_K),
+        ("(d) (c) at k = 11", keys_d, 11),
+        ("(e) poly-A count batch", keys_a.clamp(max=4**STREAM_K) & 4**STREAM_K, STREAM_K),
+        ("(e) poly-A flagship", keys_b.clamp(max=4**entry.K) & 4**entry.K, entry.K),
+    ):
+        label = (f"{label} k={k} N={keys.numel()} "
+                 f"valid={int(((keys >= 0) & (keys < 4**k)).sum())}")
+        compare("hist_keys", label, kmer.histogram_from_keys_kernel(keys, k),
+                kmer.histogram_from_keys_torch(keys, k))
+        time_hist_keys(label, keys, k, main=keys is keys_a)
+    del keys_a, keys_b, keys_c, keys_d, keys
 
     long_ascii, _ = reads(64, 16_384, 0.0)
     long_lens = torch.full((64,), 16_384, dtype=torch.int32, device=dev)
