@@ -37,7 +37,8 @@ _INT = ctypes.c_int
 # name -> argtypes of each C entry point (all return int: a cudaError_t)
 _SIGNATURES = {
     "bn_pack": (_P, _P, _I64, _I64, _I64, _P, _P, _P),
-    "bn_hist_keys": (_P, _I64, _INT, _P, _P),
+    "bn_hist_keys_scratch": (_I64, _INT, _P),
+    "bn_hist_keys": (_P, _I64, _INT, _P, _P, _P),
     "bn_hist_words": (_P, _P, _I64, _I64, _INT, _P, _P),
     "bn_hdist_scan": (_P, _P, _I64, _I64, _I64, _INT, _P, _P),
     "bn_unpack": (_P, _P, _I64, _I64, _I64, _P, _P),

@@ -28,6 +28,7 @@ bit.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Tuple
 
 import torch
@@ -157,12 +158,18 @@ def histogram_from_keys_torch(keys: torch.Tensor, k: int) -> torch.Tensor:
 
 
 def histogram_from_keys_kernel(keys: torch.Tensor, k: int) -> torch.Tensor:
-    """K3a on the card (``csrc/histogram.cu``)."""
+    """K3a on the card (``csrc/histogram.cu``), with the scratch its slice
+    passes need at k >= 8 (bytes as the library reports them)."""
     _check_dense_k(k)
     kernels.require(keys, "hist_keys keys", torch.int32, 1)
     hist = torch.zeros(4**k, dtype=torch.int32, device=keys.device)
-    code = _build.library().bn_hist_keys(
-        keys.data_ptr(), keys.numel(), k, hist.data_ptr(),
+    lib = _build.library()
+    nbytes = ctypes.c_int64()
+    _build.check(lib.bn_hist_keys_scratch(keys.numel(), k, ctypes.byref(nbytes)),
+                 "hist_keys scratch")
+    scratch = torch.empty(nbytes.value, dtype=torch.uint8, device=keys.device)
+    code = lib.bn_hist_keys(
+        keys.data_ptr(), keys.numel(), k, hist.data_ptr(), scratch.data_ptr(),
         kernels.stream_handle(keys.device),
     )
     _build.check(code, "hist_keys")

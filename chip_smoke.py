@@ -87,6 +87,7 @@ import argparse
 import gzip
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -214,6 +215,23 @@ class Timer:
             end.synchronize()
             times.append(start.elapsed_time(end))
         return statistics.median(times)
+
+
+def device_ms_by_kernel(torch, fn) -> dict:
+    """{kernel: device ms} of one warm call of fn, from torch.profiler's
+    CUDA activity; names shortened to the function's."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_time_total:
+            name = e.key.replace("(anonymous namespace)::", "").removeprefix("void ")
+            name = re.split(r"[<( ]", name)[0].split("::")[-1]
+            out[name] = out.get(name, 0.0) + e.device_time_total / 1e3
+    return out
 
 
 def max_abs_diff(a, b) -> int:
@@ -1304,6 +1322,12 @@ def main() -> int:
         compare("hist_keys", label, kmer.histogram_from_keys_kernel(keys, k),
                 kmer.histogram_from_keys_torch(keys, k))
         time_hist_keys(label, keys, k, main=keys is keys_a)
+        if keys is keys_a or keys is keys_b:
+            passes = device_ms_by_kernel(torch, lambda: kmer.histogram_from_keys_kernel(keys, k))
+            results["phases"].setdefault("hist_keys_passes_ms", {})[label] = passes
+            print("      device ms a kernel (one warm call, torch.profiler): "
+                  + (", ".join(f"{n} {ms:.4f}" for n, ms in passes.items()) or "not measured"),
+                  flush=True)
     del keys_a, keys_b, keys_c, keys_d, keys
 
     long_ascii, _ = reads(64, 16_384, 0.0)

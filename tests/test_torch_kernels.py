@@ -55,6 +55,51 @@ def test_histogram_kernels_match_plain(cuda, k):
                        kmer.histogram_from_words_torch(words, lens, k))
 
 
+_SLICE_BINS = 1 << 14  # csrc/histogram.cu: kSliceBits, the bins of a slice
+_CHUNK_KEYS = 1 << 17  # csrc/histogram.cu: kChunkKeys, the most keys a chunk
+
+
+def _edge_keys(kind, k, seed):
+    rng = np.random.default_rng(seed)
+    nb = 4**k
+    n = 100_003
+    if kind == "uniform":  # the sentinel 4^k among them
+        keys = rng.integers(0, nb + 1, n)
+    elif kind == "poly_a":
+        keys = np.zeros(n)
+    elif kind == "sentinel":
+        keys = np.full(n, nb)
+    elif kind == "out_of_range":  # negative keys and keys above 4^k mixed in
+        keys = rng.integers(0, nb, n)
+        keys[::3] = rng.integers(-(2**31), 0, len(keys[::3]))
+        keys[1::3] = rng.integers(nb + 1, 2**31, len(keys[1::3]))
+        keys[:4] = [-1, nb + 1, -(2**31), 2**31 - 1]
+    elif kind == "slice_edges":  # only the first and last bin of each slice
+        first = np.arange(0, nb, _SLICE_BINS)
+        edges = np.concatenate([first, first + min(nb, _SLICE_BINS) - 1])
+        keys = rng.choice(edges, n)
+    elif kind == "empty":
+        keys = np.zeros(0)
+    elif kind == "one":
+        keys = np.array([nb - 1])
+    elif kind == "ragged":  # N not a multiple of the chunk
+        keys = rng.integers(0, nb, 5 * _CHUNK_KEYS + 1)
+    elif kind == "multi_chunk":  # the last slice holds more than 2 chunks
+        last = rng.integers(nb - min(nb, _SLICE_BINS), nb, 2 * _CHUNK_KEYS + 77)
+        keys = rng.permutation(np.concatenate([last, rng.integers(0, nb + 1, 5000)]))
+    return torch.from_numpy(np.asarray(keys, dtype=np.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [7, 8, 9, 10, 12])
+@pytest.mark.parametrize("kind", ["uniform", "poly_a", "sentinel", "out_of_range",
+                                  "slice_edges", "empty", "one", "ragged", "multi_chunk"])
+def test_hist_keys_kernel_edges(cuda, k, kind):
+    keys = _edge_keys(kind, k, k).to(cuda)
+    assert torch.equal(kmer.histogram_from_keys_kernel(keys, k),
+                       kmer.histogram_from_keys_torch(keys, k))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("Q,nb", [(1, 512), (3, 150), (64, 7)])
 def test_hdist_scan_kernel_matches_plain(cuda, Q, nb):

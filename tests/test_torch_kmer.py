@@ -46,14 +46,21 @@ def test_count_kmers_reads_matches_jax(rng, k, variant):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
-@pytest.mark.parametrize("k", [2, 5])
-def test_histogram_from_keys_plain_matches_pallas(rng, k):
+@pytest.mark.parametrize("k", [2, 5, 8, 10])  # 10: the Pallas kernel's largest k
+@pytest.mark.parametrize("kind", ["uniform", "poly_a", "out_of_range"])
+def test_histogram_from_keys_plain_matches_pallas(rng, k, kind):
     keys = rng.integers(0, 4**k + 1, size=3000).astype(np.int32)  # 4^k = sentinel
     keys[:50] = 4**k
+    if kind == "poly_a":  # every valid key 0
+        keys[keys < 4**k] = 0
+    elif kind == "out_of_range":  # negative keys and keys above 4^k, not counted
+        keys[50:1050:2] = rng.integers(-(2**31), 0, size=500)
+        keys[51:1051:2] = rng.integers(4**k + 1, 2**31, size=500)
+        keys[1051:1055] = [-1, 4**k + 1, -(2**31), 2**31 - 1]
     want = np.asarray(jhist.histogram_from_keys(jnp.asarray(keys), k, interpret=True))
     got = kmer.histogram_from_keys_torch(torch.from_numpy(keys), k)
     np.testing.assert_array_equal(got.numpy(), want)
-    assert int(got.sum()) == int((keys < 4**k).sum())
+    assert int(got.sum()) == int(((keys >= 0) & (keys < 4**k)).sum())
 
 
 @pytest.mark.parametrize("B,L,k", [(3, 40, 4), (1, 16, 1), (2, 33, 8)])
