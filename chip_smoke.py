@@ -1218,10 +1218,10 @@ def main() -> int:
 
     def timed(name, label, kern, plain, reps=5, plain_reps=3, main=False, nbytes=0,
               ops_ms=0.0, library=None):
-        """Time a kernel and its plain version. ``main`` marks the shape
-        that the summary line reports for the kernel; there the bound comes
-        from the bytes it must move (``nbytes``) and its operations' least
-        time (``ops_ms``), and ``library`` is the one PyTorch call that
+        """Time a kernel and its plain version. The bound comes from the
+        bytes it must move (``nbytes``) and its operations' least time
+        (``ops_ms``). ``main`` marks the shape that the summary line reports
+        for the kernel; there ``library`` is the one PyTorch call that
         computes the same function, where there is one (timed, never used
         by the port)."""
         ms, pms = timer(kern, reps), timer(plain, plain_reps)
