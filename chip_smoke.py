@@ -16,13 +16,13 @@ Phases, each of which must pass:
 
 1. Device: the card's name and power limit, and the kernel build (all of
    bitnuc_tpu_torch/csrc/*.cu with nvcc, timed); the registers, shared
-   memory and spills of histogram.cu (K3a, K3b), tcscan.cu (K6) and
-   wavefront.cu (K8, K9).
+   memory and spills of histogram.cu (K3a, K3b), tcscan.cu (K6), merge.cu
+   (K7) and wavefront.cu (K8, K9).
 2. Every kernel against its plain PyTorch version on the card, bit for bit:
    K1 pack, K2 unpack, K3a hist_keys, K3b hist_words, K4 hdist_scan and K5
    hdist_scan_batch (one kernel), K6 tc_scan, K7 merge and K10 orf_scan at
    the main paths' shapes and at edge shapes (K3a also on poly-A keys and
-   at k = 11), each timed with CUDA events
+   at k = 11; K7 also lopsided and all ties), each timed with CUDA events
    (median of several runs, L2 flushed before each) beside its plain
    version. K6 also against K5 on the full database at Q = 1 to 512, at
    512-base and 150-base entries (the sweep behind database.tc_min_q), and
@@ -232,6 +232,16 @@ def device_ms_by_kernel(torch, fn) -> dict:
             name = re.split(r"[<( ]", name)[0].split("::")[-1]
             out[name] = out.get(name, 0.0) + e.device_time_total / 1e3
     return out
+
+
+def print_passes(torch, results, name, label, fn) -> None:
+    """Print and record the device ms of each kernel of one warm call of fn
+    (``device_ms_by_kernel``) under phases[name + "_passes_ms"][label]."""
+    passes = device_ms_by_kernel(torch, fn)
+    results["phases"].setdefault(f"{name}_passes_ms", {})[label] = passes
+    print("      device ms a kernel (one warm call, torch.profiler): "
+          + (", ".join(f"{n} {ms:.4f}" for n, ms in passes.items()) or "not measured"),
+          flush=True)
 
 
 def max_abs_diff(a, b) -> int:
@@ -463,6 +473,8 @@ def large_k_phase(args, torch, dev, timer, tmp, results):
         ms = timer(fn, 3)
         ph["large_k_setop_stages_ms"][label] = ms
         print(f"    combine stage {label}: {ms:.3f} ms ({hi_s.numel()} merged rows)", flush=True)
+        if label == "merge (K7)":
+            print_passes(torch, results, "large_k_merge", label, fn)
     del combined, a, b, sa, sb, hi_s, lo_s, ct_s
 
     t = time.perf_counter()
@@ -1195,10 +1207,11 @@ def main() -> int:
     _build.library()
     build_s = time.perf_counter() - t
     print(f"  built {os.path.relpath(lib_path)} in {build_s:.1f} s", flush=True)
-    # K3a's, K6's and K8/K9's registers, shared memory and spills: nvcc
-    # -Xptxas -v of histogram.cu, tcscan.cu and wavefront.cu
+    # K3a's, K6's, K7's and K8/K9's registers, shared memory and spills:
+    # nvcc -Xptxas -v of histogram.cu, tcscan.cu, merge.cu and wavefront.cu
     with tempfile.TemporaryDirectory() as d:
-        ptxas = build_time.ptxas_report(Path(d), ("histogram.cu", "tcscan.cu", "wavefront.cu"))
+        ptxas = build_time.ptxas_report(
+            Path(d), ("histogram.cu", "tcscan.cu", "merge.cu", "wavefront.cu"))
     for src, lines in sorted(ptxas.items()):
         for line in lines:
             print(f"  ptxas {src}: {line}", flush=True)
@@ -1323,11 +1336,7 @@ def main() -> int:
                 kmer.histogram_from_keys_torch(keys, k))
         time_hist_keys(label, keys, k, main=keys is keys_a)
         if keys is keys_a or keys is keys_b:
-            passes = device_ms_by_kernel(torch, lambda: kmer.histogram_from_keys_kernel(keys, k))
-            results["phases"].setdefault("hist_keys_passes_ms", {})[label] = passes
-            print("      device ms a kernel (one warm call, torch.profiler): "
-                  + (", ".join(f"{n} {ms:.4f}" for n, ms in passes.items()) or "not measured"),
-                  flush=True)
+            print_passes(torch, results, "hist_keys", label, lambda: kmer.histogram_from_keys_kernel(keys, k))
     del keys_a, keys_b, keys_c, keys_d, keys
 
     long_ascii, _ = reads(64, 16_384, 0.0)
@@ -1600,11 +1609,40 @@ def main() -> int:
                 compare("merge", f"n_keys={n_keys} payloads={n_pay} {na}+{nb} dups={int(dups)}",
                         merge.merge_sorted_kernel(a, b, n_keys, pad),
                         merge.merge_sorted_torch(a, b, n_keys, pad))
+
+    def time_merge(label, a, b, main=False, library=None):
+        na, nb = int(a[0].numel()), int(b[0].numel())
+        label = f"{label} n_keys=3 payloads=1 {na}+{nb}"
+        compare("merge", label, merge.merge_sorted_kernel(a, b, 3, (0,)),
+                merge.merge_sorted_torch(a, b, 3, (0,)))
+        timed("merge", label, lambda: merge.merge_sorted_kernel(a, b, 3, (0,)),
+              lambda: merge.merge_sorted_torch(a, b, 3, (0,)), main=main,
+              nbytes=(na + nb) * 4 * 4 + merge.next_pow2(na + nb) * 4 * 4,
+              ops_ms=MERGE_OPS_PER_ROW * (na + nb) / INT32_OPS_PER_S * 1e3,
+              library=library)
+        return label
+
+    # K7 at combine_counts' shapes (hi, lo, source; count): (m) two lists of
+    # MERGE_ROWS, the main row; (s) phase 6's set operation, 7,700,000 +
+    # 5,000,000 rows and 4,077,216 of padding; (l) a lopsided merge, whole
+    # tiles from one list; (t) all ties, every key word equal and the
+    # payload the global row index, so the output's payload is 0, 1, 2, ...
+    for label, na, nb in (("(s) set operation", 7_700_000, 5_000_000),
+                          ("(l) lopsided", MERGE_ROWS, 65_536)):
+        time_merge(label, sorted_cols(na, 3, 1, False, src=0),
+                   sorted_cols(nb, 3, 1, False, src=1))
+    tie_key = (123, -(2**31), 1)
+    a = [torch.full((MERGE_ROWS,), x, dtype=torch.int32, device=dev) for x in tie_key]
+    b = [torch.full((MERGE_ROWS,), x, dtype=torch.int32, device=dev) for x in tie_key]
+    a.append(torch.arange(MERGE_ROWS, dtype=torch.int32, device=dev))
+    b.append(torch.arange(MERGE_ROWS, 2 * MERGE_ROWS, dtype=torch.int32, device=dev))
+    time_merge("(t) all ties", a, b)
+    order = merge.merge_sorted_kernel(a, b, 3, (0,))[3]
+    check("merge (t): all ties keep the stable order (payload == row index)",
+          torch.equal(order, torch.arange(2 * MERGE_ROWS, dtype=torch.int32, device=dev)))
+    del order
     a = sorted_cols(MERGE_ROWS, 3, 1, False, src=0)
     b = sorted_cols(MERGE_ROWS, 3, 1, False, src=1)
-    label = f"n_keys=3 payloads=1 {MERGE_ROWS}+{MERGE_ROWS}"
-    compare("merge", label, merge.merge_sorted_kernel(a, b, 3, (0,)),
-            merge.merge_sorted_torch(a, b, 3, (0,)))
     # the library call: a stable torch.sort of the concatenated keys and a
     # gather of every column. The lists' third key word is their source (0
     # for a, 1 for b), so the stable sort of the (hi, lo) word pair, made
@@ -1616,13 +1654,10 @@ def main() -> int:
         perm = torch.sort(key_cat, stable=True).indices
         return tuple(c[perm] for c in cols_cat)
 
+    label = time_merge("(m) main", a, b, main=True, library=merge_library)
     compare("merge", f"{label}: torch.sort(stable) of the concatenation + gather",
             merge_library(), merge.merge_sorted_kernel(a, b, 3, (0,)))
-    timed("merge", label, lambda: merge.merge_sorted_kernel(a, b, 3, (0,)),
-          lambda: merge.merge_sorted_torch(a, b, 3, (0,)), main=True,
-          nbytes=2 * MERGE_ROWS * 4 * 4 + merge.next_pow2(2 * MERGE_ROWS) * 4 * 4,
-          ops_ms=MERGE_OPS_PER_ROW * 2 * MERGE_ROWS / INT32_OPS_PER_S * 1e3,
-          library=merge_library)
+    print_passes(torch, results, "merge", label, lambda: merge.merge_sorted_kernel(a, b, 3, (0,)))
     del a, b, key_cat, cols_cat
     torch.cuda.synchronize()
 
