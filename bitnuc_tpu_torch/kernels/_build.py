@@ -42,7 +42,9 @@ _SIGNATURES = {
     "bn_hist_words": (_P, _P, _I64, _I64, _INT, _P, _P),
     "bn_hdist_scan": (_P, _P, _I64, _I64, _I64, _INT, _P, _P),
     "bn_unpack": (_P, _P, _I64, _I64, _I64, _P, _P),
-    "bn_merge": (_P, _P, _P, _INT, _INT, _I64, _I64, _P),
+    "bn_merge_tile": (_P,),
+    "bn_merge_scratch": (_I64, _I64, _P),
+    "bn_merge": (_P, _P, _P, _INT, _INT, _I64, _I64, _P, _P),
     "bn_fit_banded": (_P, _P, _P, _P, _I64) + (_INT,) * 6 + (_P, _I64, _P, _P, _P, _P),
     "bn_sw_score": (_P, _P, _P, _P, _I64) + (_INT,) * 6 + (_P, _I64, _P, _P, _P, _P),
     "bn_tc_scan": (_P, _P, _I64, _I64, _I64, _INT, _INT, _I64, _I64, _P, _P),

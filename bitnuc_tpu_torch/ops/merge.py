@@ -14,10 +14,11 @@ all-ones word). The JAX package's bitonic merge equals this up to the order
 of rows whose full keys tie, and places its padding among rows whose keys
 are all-ones.
 
-``merge_sorted_kernel`` runs the hand-written kernel (``csrc/merge.cu``)
-on CUDA tensors; ``merge_sorted_torch`` is its plain version, a stable
-``torch.sort`` over the unsigned keys. ``merge_sorted`` picks one by the
-device of the first column (see ``config``).
+``merge_sorted_kernel`` runs the hand-written kernel (``csrc/merge.cu``, a
+merge path: the output cut into tiles of ``tile_rows()`` rows, each merged
+in shared memory) on CUDA tensors; ``merge_sorted_torch`` is its plain
+version, a stable ``torch.sort`` over the unsigned keys. ``merge_sorted``
+picks one by the device of the first column (see ``config``).
 """
 
 from __future__ import annotations
@@ -94,6 +95,14 @@ def merge_sorted_torch(
     return tuple(outs)
 
 
+def tile_rows() -> int:
+    """Output rows that one block of the kernel merges (card only: asks the
+    built library)."""
+    rows = ctypes.c_int64()
+    _build.check(_build.library().bn_merge_tile(ctypes.byref(rows)), "merge tile")
+    return rows.value
+
+
 def merge_sorted_kernel(
     a: Sequence[torch.Tensor],
     b: Sequence[torch.Tensor],
@@ -101,7 +110,8 @@ def merge_sorted_kernel(
     pad_val: Optional[Sequence[int]] = None,
 ) -> Tuple[torch.Tensor, ...]:
     """K7 on the card (``csrc/merge.cu``): contiguous 1-D int32 CUDA
-    columns, at most MAX_COLUMNS of them."""
+    columns, at most MAX_COLUMNS of them, with the scratch of its tiles'
+    splits (bytes as the library reports them)."""
     na, nb = _check_args(a, b, n_keys)
     if len(a) > MAX_COLUMNS:
         raise ValueError(f"merge: at most {MAX_COLUMNS} columns, got {len(a)}")
@@ -113,13 +123,17 @@ def merge_sorted_kernel(
     n = next_pow2(max(na + nb, 1))
     outs = [torch.empty(n, dtype=torch.int32, device=x.device) for x in a]
     _pad_rows(outs, na + nb, n_keys, pad_val)
+    lib = _build.library()
+    nbytes = ctypes.c_int64()
+    _build.check(lib.bn_merge_scratch(na, nb, ctypes.byref(nbytes)), "merge scratch")
+    scratch = torch.empty(nbytes.value, dtype=torch.uint8, device=a[0].device)
     ptrs = ctypes.c_void_p * MAX_COLUMNS
     a_p = ptrs(*[x.data_ptr() for x in a])
     b_p = ptrs(*[y.data_ptr() for y in b])
     o_p = ptrs(*[o.data_ptr() for o in outs])
-    code = _build.library().bn_merge(
+    code = lib.bn_merge(
         ctypes.addressof(a_p), ctypes.addressof(b_p), ctypes.addressof(o_p),
-        len(a), n_keys, na, nb, kernels.stream_handle(a[0].device),
+        len(a), n_keys, na, nb, scratch.data_ptr(), kernels.stream_handle(a[0].device),
     )
     _build.check(code, "merge")
     kernels.LAUNCHES["merge"] += 1

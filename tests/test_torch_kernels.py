@@ -166,6 +166,61 @@ def test_merge_kernel_matches_plain(cuda, na, nb, n_keys, n_pay, dups):
         assert torch.equal(g, w)
 
 
+_EDGE_POOL = np.array([0, 1, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFE, 0xFFFFFFFF], np.uint32)
+
+
+def _edge_lists(kind, tile, n_keys, n_pay, rng):
+    """Two sorted lists for K7's edge cases, sized from the kernel's tile.
+    Payload 0 is the row's index in concat(a, b), so a stable merge leaves
+    it equal to the order numpy's stable lexsort gives."""
+    sizes = {"tile_minus_1": (tile // 3, tile - 1 - tile // 3),
+             "tile": (tile // 2 + 5, tile - tile // 2 - 5),
+             "tile_plus_1": (tile - 1, 2), "tiles": (3 * tile + 17, 2 * tile - 250),
+             "straddle": (tile, tile), "all_equal": (2 * tile + 3, tile + 5),
+             "a_empty": (0, tile + 9), "b_empty": (tile + 9, 0), "both_empty": (0, 0),
+             "one_then_many": (1, 100_000), "many_then_one": (100_000, 1),
+             "sign_bits": (3000, 2000)}
+    na, nb = sizes[kind]
+
+    def keys(n):
+        if kind == "all_equal":
+            return [np.full(n, 0x80000000, np.uint32) for _ in range(n_keys)]
+        if kind == "straddle":  # the run of 7s covers output rows tile -+ 128
+            runs = [tile // 2 - 64, 128, n - tile // 2 - 64]
+            word = np.repeat(np.array([1, 7, 9], np.uint32), runs)
+            return [word] + [np.zeros(n, np.uint32) for _ in range(n_keys - 1)]
+        return [rng.choice(_EDGE_POOL, n) for _ in range(n_keys)]
+
+    lists = []
+    for start, n in ((0, na), (na, nb)):
+        ks = keys(n)
+        order = np.lexsort(tuple(reversed(ks)))
+        cols = [k[order] for k in ks] + [np.arange(start, start + n, dtype=np.uint32)]
+        cols += [rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)
+                 for _ in range(n_pay - 1)]
+        lists.append([torch.from_numpy(c.view(np.int32).copy()) for c in cols])
+    return lists
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_keys,n_pay", [(1, 1), (2, 1), (3, 1), (3, 5)])
+@pytest.mark.parametrize("kind", ["tile_minus_1", "tile", "tile_plus_1", "tiles", "straddle",
+                                  "all_equal", "a_empty", "b_empty", "both_empty",
+                                  "one_then_many", "many_then_one", "sign_bits"])
+def test_merge_kernel_edges(cuda, kind, n_keys, n_pay):
+    a, b = _edge_lists(kind, merge.tile_rows(), n_keys, n_pay, np.random.default_rng(n_keys))
+    a, b = [c.to(cuda) for c in a], [c.to(cuda) for c in b]
+    pad = tuple(range(n_pay))
+    got = merge.merge_sorted_kernel(a, b, n_keys, pad)
+    want = merge.merge_sorted_torch(a, b, n_keys, pad)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    n = a[0].numel() + b[0].numel()
+    cat = [torch.cat([x, y]).cpu().numpy().view(np.uint32) for x, y in zip(a, b)]
+    order = np.lexsort(tuple(reversed(cat[:n_keys])))
+    assert np.array_equal(got[n_keys][:n].cpu().numpy(), order)
+
+
 def _pairs(seed, B, Wa, Wb):
     """B (read, window) pairs as packed words [B, Wa], [B, Wb] with int32
     lengths: a's prefix planted in b at a random offset with three

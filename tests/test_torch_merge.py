@@ -136,3 +136,34 @@ def test_merge_rejects_bad_columns():
         merge.merge_sorted([x, x, x, x], [x, x, x, x], 4)
     with pytest.raises(TypeError):
         merge.merge_sorted([x.long()], [x.long()], 1)
+
+
+_POOL = np.array([0, 1, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFF], np.uint32)
+
+
+@pytest.mark.parametrize("n_keys", [1, 2, 3])
+@pytest.mark.parametrize("kind", ["all_equal", "few_valued"])
+def test_merge_plain_keeps_stable_tie_order(kind, n_keys):
+    """merge_sorted_torch (the kernel's yardstick on the card) is the stable
+    sort of concat(a, b): with payload = row index in the concatenation,
+    the payload column comes out as numpy's stable lexsort order."""
+    rng = np.random.default_rng(31 + n_keys)
+    na, nb = 1500, 1001
+
+    def side(start, n):
+        if kind == "all_equal":
+            ks = [np.full(n, 0x80000000, np.uint32) for _ in range(n_keys)]
+        else:
+            ks = [rng.choice(_POOL, n) for _ in range(n_keys)]
+        order = np.lexsort(tuple(reversed(ks)))
+        return [k[order] for k in ks] + [np.arange(start, start + n, dtype=np.int32)]
+
+    a, b = side(0, na), side(na, nb)
+    got = merge.merge_sorted_torch([_t(x) for x in a], [_t(y) for y in b], n_keys, (-7,))
+    cat = [np.concatenate([x, y]) for x, y in zip(a, b)]
+    order = np.lexsort(tuple(reversed(cat[:n_keys])))
+    np.testing.assert_array_equal(got[n_keys][: na + nb].numpy(), order)
+    for i in range(n_keys):
+        np.testing.assert_array_equal(got[i][: na + nb].numpy().view(np.uint32), cat[i][order])
+        assert np.all(got[i][na + nb :].numpy().view(np.uint32) == SENT)
+    assert np.all(got[n_keys][na + nb :].numpy() == -7)
