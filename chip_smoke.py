@@ -1337,8 +1337,97 @@ def main() -> int:
                 kmer.histogram_from_keys_torch(keys, k))
         time_hist_keys(label, keys, k, main=keys is keys_a)
         if keys is keys_a or keys is keys_b:
-            print_passes(torch, results, "hist_keys", label, lambda: kmer.histogram_from_keys_kernel(keys, k))
+            print_passes(torch, results, "hist_keys", label,
+                         lambda: kmer.histogram_from_keys_kernel(keys, k))
     del keys_a, keys_b, keys_c, keys_d, keys
+
+    # K7: sorted lists with 1..3 key words and 0..2 payloads; small, empty,
+    # heavily duplicated (around the sign bit and the all-ones word) and
+    # the set-algebra shape
+    pool = torch.tensor([0, 1, 2, 2**31 - 1, -(2**31), -1], dtype=torch.int32, device=dev)
+
+    def sorted_cols(n, n_keys, n_pay, dups, src=None):
+        if src is not None:  # combine_counts' rows: k = 21 (hi, lo), source
+            ks = [torch.randint(0, 1 << 10, (n,), device=dev, generator=gen, dtype=torch.int32),
+                  torch.randint(-(2**31), 2**31 - 1, (n,), device=dev, generator=gen,
+                                dtype=torch.int32),
+                  torch.full((n,), src, dtype=torch.int32, device=dev)]
+        elif dups:
+            ks = [pool[torch.randint(0, 6, (n,), device=dev, generator=gen)]
+                  for _ in range(n_keys)]
+        else:
+            ks = [torch.randint(-(2**31), 2**31 - 1, (n,), device=dev, generator=gen,
+                                dtype=torch.int32) for _ in range(n_keys)]
+        sort_keys = ([bitops.u64_sort_key(ks[0], ks[1])] + [bitops.u32_sort_key(x) for x in ks[2:]]
+                     if n_keys >= 2 else [bitops.u32_sort_key(ks[0])])
+        perm = bitops.lex_argsort(sort_keys)
+        cols = [x[perm] for x in ks]
+        cols += [torch.randint(1, 50, (n,), device=dev, generator=gen, dtype=torch.int32)
+                 for _ in range(n_pay)]
+        return cols
+
+    for n_keys in (1, 2, 3):
+        for n_pay in (0, 1, 2):
+            for na, nb, dups in ((300, 200, False), (0, 5000, False), (5000, 0, True),
+                                 (100_000, 70_000, True)):
+                a = sorted_cols(na, n_keys, n_pay, dups)
+                b = sorted_cols(nb, n_keys, n_pay, dups)
+                pad = tuple(range(n_pay)) or None
+                compare("merge", f"n_keys={n_keys} payloads={n_pay} {na}+{nb} dups={int(dups)}",
+                        merge.merge_sorted_kernel(a, b, n_keys, pad),
+                        merge.merge_sorted_torch(a, b, n_keys, pad))
+
+    def time_merge(label, a, b, main=False, library=None, passes=False):
+        na, nb = int(a[0].numel()), int(b[0].numel())
+        label = f"{label} n_keys=3 payloads=1 {na}+{nb}"
+        compare("merge", label, merge.merge_sorted_kernel(a, b, 3, (0,)),
+                merge.merge_sorted_torch(a, b, 3, (0,)))
+        timed("merge", label, lambda: merge.merge_sorted_kernel(a, b, 3, (0,)),
+              lambda: merge.merge_sorted_torch(a, b, 3, (0,)), main=main,
+              nbytes=(na + nb) * 4 * 4 + merge.next_pow2(na + nb) * 4 * 4,
+              ops_ms=MERGE_OPS_PER_ROW * (na + nb) / INT32_OPS_PER_S * 1e3,
+              library=library)
+        if passes:
+            print_passes(torch, results, "merge", label,
+                         lambda: merge.merge_sorted_kernel(a, b, 3, (0,)))
+        return label
+
+    # K7 at combine_counts' shapes (hi, lo, source; count): (m) two lists of
+    # MERGE_ROWS, the main row; (s) phase 6's set operation, 7,700,000 +
+    # 5,000,000 rows and 4,077,216 of padding; (l) a lopsided merge, whole
+    # tiles from one list; (t) all ties, every key word equal and the
+    # payload the global row index, so the output's payload is 0, 1, 2, ...
+    for label, na, nb in (("(s) set operation", 7_700_000, 5_000_000),
+                          ("(l) lopsided", MERGE_ROWS, 65_536)):
+        time_merge(label, sorted_cols(na, 3, 1, False, src=0),
+                   sorted_cols(nb, 3, 1, False, src=1), passes=na + nb == 12_700_000)
+    tie_key = (123, -(2**31), 1)
+    a = [torch.full((MERGE_ROWS,), x, dtype=torch.int32, device=dev) for x in tie_key]
+    b = [torch.full((MERGE_ROWS,), x, dtype=torch.int32, device=dev) for x in tie_key]
+    a.append(torch.arange(MERGE_ROWS, dtype=torch.int32, device=dev))
+    b.append(torch.arange(MERGE_ROWS, 2 * MERGE_ROWS, dtype=torch.int32, device=dev))
+    time_merge("(t) all ties", a, b)
+    order = merge.merge_sorted_kernel(a, b, 3, (0,))[3]
+    check("merge (t): all ties keep the stable order (payload == row index)",
+          torch.equal(order, torch.arange(2 * MERGE_ROWS, dtype=torch.int32, device=dev)))
+    del order
+    a = sorted_cols(MERGE_ROWS, 3, 1, False, src=0)
+    b = sorted_cols(MERGE_ROWS, 3, 1, False, src=1)
+    # the library call: a stable torch.sort of the concatenated keys and a
+    # gather of every column. The lists' third key word is their source (0
+    # for a, 1 for b), so the stable sort of the (hi, lo) word pair, made
+    # here untimed as one int64 key, orders the rows as the three words do.
+    key_cat = torch.cat([bitops.u64_sort_key(a[0], a[1]), bitops.u64_sort_key(b[0], b[1])])
+    cols_cat = [torch.cat([x, y]) for x, y in zip(a, b)]
+
+    def merge_library():
+        perm = torch.sort(key_cat, stable=True).indices
+        return tuple(c[perm] for c in cols_cat)
+
+    label = time_merge("(m) main", a, b, main=True, library=merge_library, passes=True)
+    compare("merge", f"{label}: torch.sort(stable) of the concatenation + gather",
+            merge_library(), merge.merge_sorted_kernel(a, b, 3, (0,)))
+    del a, b, key_cat, cols_cat
 
     long_ascii, _ = reads(64, 16_384, 0.0)
     long_lens = torch.full((64,), 16_384, dtype=torch.int32, device=dev)
@@ -1575,91 +1664,6 @@ def main() -> int:
           ops_ms=ORF_OPS_PER_WORD * covered / INT32_OPS_PER_S * 1e3)
     del orf_cases, orf_w, orf_l, long_orf_ascii, long_orf_lens, long_ascii, long_words
 
-    # K7: sorted lists with 1..3 key words and 0..2 payloads; small, empty,
-    # heavily duplicated (around the sign bit and the all-ones word) and
-    # the set-algebra shape
-    pool = torch.tensor([0, 1, 2, 2**31 - 1, -(2**31), -1], dtype=torch.int32, device=dev)
-
-    def sorted_cols(n, n_keys, n_pay, dups, src=None):
-        if src is not None:  # combine_counts' rows: k = 21 (hi, lo), source
-            ks = [torch.randint(0, 1 << 10, (n,), device=dev, generator=gen, dtype=torch.int32),
-                  torch.randint(-(2**31), 2**31 - 1, (n,), device=dev, generator=gen,
-                                dtype=torch.int32),
-                  torch.full((n,), src, dtype=torch.int32, device=dev)]
-        elif dups:
-            ks = [pool[torch.randint(0, 6, (n,), device=dev, generator=gen)]
-                  for _ in range(n_keys)]
-        else:
-            ks = [torch.randint(-(2**31), 2**31 - 1, (n,), device=dev, generator=gen,
-                                dtype=torch.int32) for _ in range(n_keys)]
-        sort_keys = ([bitops.u64_sort_key(ks[0], ks[1])] + [bitops.u32_sort_key(x) for x in ks[2:]]
-                     if n_keys >= 2 else [bitops.u32_sort_key(ks[0])])
-        perm = bitops.lex_argsort(sort_keys)
-        cols = [x[perm] for x in ks]
-        cols += [torch.randint(1, 50, (n,), device=dev, generator=gen, dtype=torch.int32)
-                 for _ in range(n_pay)]
-        return cols
-
-    for n_keys in (1, 2, 3):
-        for n_pay in (0, 1, 2):
-            for na, nb, dups in ((300, 200, False), (0, 5000, False), (5000, 0, True),
-                                 (100_000, 70_000, True)):
-                a = sorted_cols(na, n_keys, n_pay, dups)
-                b = sorted_cols(nb, n_keys, n_pay, dups)
-                pad = tuple(range(n_pay)) or None
-                compare("merge", f"n_keys={n_keys} payloads={n_pay} {na}+{nb} dups={int(dups)}",
-                        merge.merge_sorted_kernel(a, b, n_keys, pad),
-                        merge.merge_sorted_torch(a, b, n_keys, pad))
-
-    def time_merge(label, a, b, main=False, library=None):
-        na, nb = int(a[0].numel()), int(b[0].numel())
-        label = f"{label} n_keys=3 payloads=1 {na}+{nb}"
-        compare("merge", label, merge.merge_sorted_kernel(a, b, 3, (0,)),
-                merge.merge_sorted_torch(a, b, 3, (0,)))
-        timed("merge", label, lambda: merge.merge_sorted_kernel(a, b, 3, (0,)),
-              lambda: merge.merge_sorted_torch(a, b, 3, (0,)), main=main,
-              nbytes=(na + nb) * 4 * 4 + merge.next_pow2(na + nb) * 4 * 4,
-              ops_ms=MERGE_OPS_PER_ROW * (na + nb) / INT32_OPS_PER_S * 1e3,
-              library=library)
-        return label
-
-    # K7 at combine_counts' shapes (hi, lo, source; count): (m) two lists of
-    # MERGE_ROWS, the main row; (s) phase 6's set operation, 7,700,000 +
-    # 5,000,000 rows and 4,077,216 of padding; (l) a lopsided merge, whole
-    # tiles from one list; (t) all ties, every key word equal and the
-    # payload the global row index, so the output's payload is 0, 1, 2, ...
-    for label, na, nb in (("(s) set operation", 7_700_000, 5_000_000),
-                          ("(l) lopsided", MERGE_ROWS, 65_536)):
-        time_merge(label, sorted_cols(na, 3, 1, False, src=0),
-                   sorted_cols(nb, 3, 1, False, src=1))
-    tie_key = (123, -(2**31), 1)
-    a = [torch.full((MERGE_ROWS,), x, dtype=torch.int32, device=dev) for x in tie_key]
-    b = [torch.full((MERGE_ROWS,), x, dtype=torch.int32, device=dev) for x in tie_key]
-    a.append(torch.arange(MERGE_ROWS, dtype=torch.int32, device=dev))
-    b.append(torch.arange(MERGE_ROWS, 2 * MERGE_ROWS, dtype=torch.int32, device=dev))
-    time_merge("(t) all ties", a, b)
-    order = merge.merge_sorted_kernel(a, b, 3, (0,))[3]
-    check("merge (t): all ties keep the stable order (payload == row index)",
-          torch.equal(order, torch.arange(2 * MERGE_ROWS, dtype=torch.int32, device=dev)))
-    del order
-    a = sorted_cols(MERGE_ROWS, 3, 1, False, src=0)
-    b = sorted_cols(MERGE_ROWS, 3, 1, False, src=1)
-    # the library call: a stable torch.sort of the concatenated keys and a
-    # gather of every column. The lists' third key word is their source (0
-    # for a, 1 for b), so the stable sort of the (hi, lo) word pair, made
-    # here untimed as one int64 key, orders the rows as the three words do.
-    key_cat = torch.cat([bitops.u64_sort_key(a[0], a[1]), bitops.u64_sort_key(b[0], b[1])])
-    cols_cat = [torch.cat([x, y]) for x, y in zip(a, b)]
-
-    def merge_library():
-        perm = torch.sort(key_cat, stable=True).indices
-        return tuple(c[perm] for c in cols_cat)
-
-    label = time_merge("(m) main", a, b, main=True, library=merge_library)
-    compare("merge", f"{label}: torch.sort(stable) of the concatenation + gather",
-            merge_library(), merge.merge_sorted_kernel(a, b, 3, (0,)))
-    print_passes(torch, results, "merge", label, lambda: merge.merge_sorted_kernel(a, b, 3, (0,)))
-    del a, b, key_cat, cols_cat
     torch.cuda.synchronize()
 
     # -- 3. goldens ----------------------------------------------------------
