@@ -222,7 +222,6 @@ def device_ms_by_kernel(torch, fn) -> dict:
     CUDA activity; names shortened to the function's."""
     fn()
     torch.cuda.synchronize()
-    torch.cuda.empty_cache()  # room on the card for the profiler's own buffers
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
