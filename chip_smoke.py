@@ -6,27 +6,30 @@ PyTorch built for CUDA:
 
     python3 chip_smoke.py [--out results.json] [--seed 0]
     python3 chip_smoke.py --k6-against DIR [--out results.json]
+    python3 chip_smoke.py --orf-against DIR [--out results.json]
 
-The second form runs no phase: it times K6 (tc_scan and tc_search) of this
-checkout beside those of another checkout in DIR (for example a git archive
-of an earlier commit, unpacked), in turns DIR, this, this, DIR, on one card
-(see k6_against).
+The second and third forms run no phase: they time K6 (tc_scan and
+tc_search), or K10 (orf_scan) and longest_orf, of this checkout beside
+those of another checkout in DIR (for example a git archive of an earlier
+commit, unpacked), in turns DIR, this, this, DIR, on one card (see
+k6_against and orf_against).
 
 Phases, each of which must pass:
 
 1. Device: the card's name and power limit, and the kernel build (all of
    bitnuc_tpu_torch/csrc/*.cu with nvcc, timed); the registers, shared
    memory and spills of histogram.cu (K3a, K3b), tcscan.cu (K6), merge.cu
-   (K7) and wavefront.cu (K8, K9).
+   (K7), wavefront.cu (K8, K9) and orf.cu (K10).
 2. Every kernel against its plain PyTorch version on the card, bit for bit:
    K1 pack, K2 unpack, K3a hist_keys, K3b hist_words, K4 hdist_scan and K5
    hdist_scan_batch (one kernel), K6 tc_scan, K7 merge and K10 orf_scan at
    the main paths' shapes and at edge shapes (K3a also on poly-A keys and
-   at k = 11; K7 also lopsided and all ties), each timed with CUDA events
-   (median of several runs, L2 flushed before each) beside its plain
-   version. K6 also against K5 on the full database at Q = 1 to 512, at
-   512-base and 150-base entries (the sweep behind database.tc_min_q), and
-   beside torch._int_mm. tc_search, K6's search form with a per-block
+   at k = 11; K7 also lopsided and all ties; K10 also at phase 8's batch
+   on both strands, phase 8's contigs and rows of 100,000 bp), each timed
+   with CUDA events (median of several runs, L2 flushed before each) beside
+   its plain version. K6 also against K5 on the full database at Q = 1 to
+   512, at 512-base and 150-base entries (the sweep behind
+   database.tc_min_q), and beside torch._int_mm. tc_search, K6's search form with a per-block
    top-k, against its plain version, against tc_scan + top-k on the full
    database at k = 1, 10 and SEARCH_TOPK_MAX, at edge shapes and on a
    database of one repeated entry, beside torch._int_mm + the top-k, and
@@ -146,9 +149,13 @@ MERGE_OPS_PER_ROW = 6
 # T & (A1 & (A2 | G2) | G1 & A2) and the start mask A & T1 & G2 (7), and
 # per frame its start and stop bits, the first start and last stop, the
 # candidate length and its compare with the carried best (3 x 8), and the
-# three frames' next-stop carry (3): 47, taken as 48 per word.
+# three frames' next-stop carry (3): 47, taken as 48 per word. Both strands
+# (six frames) from the forward words add, per reverse-complement word, its
+# source index and clamp (3), the complement, bit reversal and 2-bit swap
+# (6), the funnel shift by the length's offset and the valid mask (2): 11.
 INT8_TC_OPS_PER_S = 1.979e15
 ORF_OPS_PER_WORD = 48
+ORF_TWO_STRAND_OPS_PER_WORD = 2 * ORF_OPS_PER_WORD + 11
 TC_SWEEP_Q = (1, 8, 16, 32, 64, 128, 256, 512)
 SEARCH_SWEEP_Q = (1, 8, 32, 64, 128, 256, 512)  # search_batch's two routes
 SEARCH_QUERIES = 256  # phase 8's query file, and K6's reported shape
@@ -1096,25 +1103,46 @@ def int_mm_planes(torch, db):
     return planes
 
 
+def load_other_tree(path: str):
+    """The ``bitnuc_tpu_torch`` of the checkout in ``path``, imported as the
+    package ``bnt_other``; it builds its own kernels at first use."""
+    import importlib.util
+
+    pkg = os.path.join(os.path.abspath(path), "bitnuc_tpu_torch")
+    spec = importlib.util.spec_from_file_location(
+        "bnt_other", os.path.join(pkg, "__init__.py"), submodule_search_locations=[pkg])
+    sys.modules["bnt_other"] = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sys.modules["bnt_other"])
+    return sys.modules["bnt_other"]
+
+
+def finish_against(args, torch, res) -> int:
+    """The end of an ``--*-against`` run: the card's name and power limit,
+    then ``res`` as one JSON line (and in ``--out``); 1 if a check failed."""
+    smi = nvidia_smi_line()
+    res.update(ok=not FAILURES, device=torch.cuda.get_device_name(0), nvidia_smi=smi)
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(res, f, indent=1)
+    print(smi)
+    print(json.dumps(res))
+    return 0 if res["ok"] else 1
+
+
 def k6_against(args, torch, dev) -> int:
     """K6 of this checkout beside another's (``--k6-against DIR``): tc_scan,
     and tc_search at k = SEARCH_TOPK, at Q = SEARCH_QUERIES and 8 against
     DB_ENTRIES random entries of DB_BASES bases, each timed in turns DIR,
     this, this, DIR; torch._int_mm of the same planes at Q = SEARCH_QUERIES
-    as the yardstick. DIR's bitnuc_tpu_torch is loaded as ``bnt_other`` and
-    builds its own kernels. Both trees' outputs are checked against this
+    as the yardstick. Both trees' outputs are checked against this
     checkout's K5 and its top-k. Prints a line a timing, the card's name and
     power limit, and last one JSON object; returns 1 if a check failed."""
     import importlib
-    import importlib.util
 
     from bitnuc_tpu_torch.ops import hamming
 
-    pkg = os.path.join(os.path.abspath(args.k6_against), "bitnuc_tpu_torch")
-    spec = importlib.util.spec_from_file_location(
-        "bnt_other", os.path.join(pkg, "__init__.py"), submodule_search_locations=[pkg])
-    sys.modules["bnt_other"] = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(sys.modules["bnt_other"])
+    load_other_tree(args.k6_against)
     trees = {"other": importlib.import_module("bnt_other.ops.hamming"), "this": hamming}
     if "jax" in sys.modules:
         print("chip_smoke: jax was imported", file=sys.stderr)
@@ -1151,15 +1179,124 @@ def k6_against(args, torch, dev) -> int:
     ms = timer(lambda: torch._int_mm(lib_q, lib_planes.t()))
     res["times_ms"][f"torch._int_mm Q={SEARCH_QUERIES}"] = [ms]
     print(f"  torch._int_mm Q={SEARCH_QUERIES}: {ms:.4f} ms", flush=True)
-    smi = nvidia_smi_line()
-    res.update(ok=not FAILURES, device=torch.cuda.get_device_name(0), nvidia_smi=smi)
-    if args.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-        with open(args.out, "w") as f:
-            json.dump(res, f, indent=1)
-    print(smi)
-    print(json.dumps(res))
-    return 0 if res["ok"] else 1
+    return finish_against(args, torch, res)
+
+
+def orf_shapes(torch, dev, seed: int) -> dict:
+    """{label: (words, lengths)} of K10's timed shapes, made from ``seed``:
+    (r) the kernel table's row, 262,144 random reads of 0..150 bp; (b)
+    phase 8's read batch, 262,144 x 150 bp, scanned on both strands as
+    longest_orf scans it; (c) phase 8's contigs, phase 6's genome (the same
+    seed) cut into N_CONTIGS x CONTIG_BP; (l) 64 rows of 99,000..100,000 bp."""
+    from bitnuc_tpu_torch.ops import codec
+    from bitnuc_tpu_torch.sequence import PackedReads
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 10)
+    acgt = torch.tensor(list(b"ACGT"), dtype=torch.uint8, device=dev)
+
+    def rows(B, L, lens):
+        a = acgt[torch.randint(0, 4, (B, L), device=dev, generator=gen)]
+        return codec.encode_reads(a, lens)[0], lens
+
+    def lens(B, lo, hi):
+        return torch.randint(lo, hi + 1, (B,), device=dev, generator=gen, dtype=torch.int32)
+
+    genome = make_genome(np.random.default_rng(seed + 1))
+    contigs = PackedReads.from_ascii(genome[: N_CONTIGS * CONTIG_BP].reshape(
+        N_CONTIGS, CONTIG_BP), validate=False, device=dev)
+    long_lens = lens(64, 99_000, 100_000)
+    long_lens[:2] = 100_000
+    return {
+        f"(r) [{READS},{READ_LEN}]": rows(READS, READ_LEN, lens(READS, 0, READ_LEN)),
+        f"(b) [{ORF_BATCH},{READ_LEN}] both strands": rows(
+            ORF_BATCH, READ_LEN, lens(ORF_BATCH, READ_LEN, READ_LEN)),
+        f"(c) [{N_CONTIGS},{CONTIG_BP}]": (contigs.words, contigs.lengths),
+        "(l) [64,100000]": rows(64, 100_000, long_lens),
+    }
+
+
+def orf_both(label: str) -> bool:
+    """Whether an orf_shapes row is scanned on both strands."""
+    return label.startswith("(b)")
+
+
+def orf_bound(torch, words, lengths, strands: int):
+    """(bytes, least ms of the operations) of K10 on ``strands`` strands:
+    the words and lengths read once, (length, start, stopped) written once
+    a strand; ORF_OPS_PER_WORD (ORF_TWO_STRAND_OPS_PER_WORD) a word the
+    reads cover."""
+    covered = int(torch.div(torch.clamp(lengths.long(), 0, 16 * words.shape[1]) + 15, 16,
+                            rounding_mode="floor").sum())
+    ops = ORF_OPS_PER_WORD if strands == 1 else ORF_TWO_STRAND_OPS_PER_WORD
+    B = words.shape[0]
+    return 4 * words.numel() + 4 * B + 9 * strands * B, ops * covered / INT32_OPS_PER_S * 1e3
+
+
+def orf_strands(torch, o):
+    """A tree's K10 on both strands as its longest_orf runs it, (length,
+    start, stopped) each [2, B], forward then reverse: the reverse
+    complement and two one-strand launches."""
+    import importlib
+
+    rc = importlib.import_module(o.__name__.rsplit(".", 1)[0] + ".revcomp")
+
+    def both(w, n):
+        fwd = o.best_orf_one_strand_kernel(w, n)
+        rev = o.best_orf_one_strand_kernel(rc.reverse_complement_reads(w, n), n)
+        return tuple(torch.stack(p) for p in zip(fwd, rev))
+    return both
+
+
+def orf_strands_torch(torch, w, n):
+    """The plain version of ``orf_strands``."""
+    from bitnuc_tpu_torch.ops import orf, revcomp
+
+    fwd = orf.best_orf_one_strand_torch(w, n)
+    rev = orf.best_orf_one_strand_torch(revcomp.reverse_complement_reads(w, n), n)
+    return tuple(torch.stack(p) for p in zip(fwd, rev))
+
+
+def orf_against(args, torch, dev) -> int:
+    """K10 of this checkout beside another's (``--orf-against DIR``): at each
+    of ``orf_shapes``' rows one strand, or both as longest_orf scans them,
+    and longest_orf of (b)'s batch, each timed in turns DIR, this, this,
+    DIR. Both trees' outputs are checked against this checkout's plain
+    versions. Prints a line a timing, the card's name and power limit, and
+    last one JSON object; returns 1 if a check failed."""
+    import importlib
+
+    from bitnuc_tpu_torch.ops import orf
+
+    load_other_tree(args.orf_against)
+    trees = {"other": importlib.import_module("bnt_other.ops.orf"), "this": orf}
+    if "jax" in sys.modules:
+        print("chip_smoke: jax was imported", file=sys.stderr)
+        return 1
+    timer = Timer(torch)
+    res = {"times_ms": {}, "checks": {}, "bound_ms": {}}
+    for label, (w, n) in orf_shapes(torch, dev, args.seed).items():
+        both = orf_both(label)
+        want = orf_strands_torch(torch, w, n) if both else orf.best_orf_one_strand_torch(w, n)
+        fns = {name: orf_strands(torch, o) if both else o.best_orf_one_strand_kernel
+               for name, o in trees.items()}
+        for name, fn in fns.items():
+            res["checks"][f"{name} {label}"] = check(
+                f"K10 of {name} at {label} == plain", max_abs_diff(fn(w, n), want) == 0)
+        nbytes, ops_ms = orf_bound(torch, w, n, 2 if both else 1)
+        res["bound_ms"][label] = max(nbytes / HBM_BYTES_PER_S * 1e3, ops_ms)
+        rows = {label: fns}
+        if both:
+            rows["(b) longest_orf"] = {name: o.longest_orf for name, o in trees.items()}
+            got = {name: fn(w, n) for name, fn in rows["(b) longest_orf"].items()}
+            res["checks"]["longest_orf"] = check(
+                "longest_orf of other == of this", max_abs_diff(got["other"], got["this"]) == 0)
+        for row, fns in rows.items():
+            for name in ("other", "this", "this", "other"):
+                ms = timer(lambda: fns[name](w, n))
+                res["times_ms"].setdefault(f"{row} {name}", []).append(ms)
+                print(f"  {row} {name}: {ms:.4f} ms", flush=True)
+    return finish_against(args, torch, res)
 
 
 def main() -> int:
@@ -1168,6 +1305,8 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--k6-against", metavar="DIR",
                     help="only time K6 beside another checkout's (see k6_against)")
+    ap.add_argument("--orf-against", metavar="DIR",
+                    help="only time K10 beside another checkout's (see orf_against)")
     args = ap.parse_args()
 
     import torch
@@ -1194,6 +1333,8 @@ def main() -> int:
     dev = torch.device("cuda")
     if args.k6_against:
         return k6_against(args, torch, dev)
+    if args.orf_against:
+        return orf_against(args, torch, dev)
     results = {"kernels": {}, "phases": {}}
     t_all = time.perf_counter()
 
@@ -1207,11 +1348,12 @@ def main() -> int:
     _build.library()
     build_s = time.perf_counter() - t
     print(f"  built {os.path.relpath(lib_path)} in {build_s:.1f} s", flush=True)
-    # K3a's, K6's, K7's and K8/K9's registers, shared memory and spills:
-    # nvcc -Xptxas -v of histogram.cu, tcscan.cu, merge.cu and wavefront.cu
+    # K3a's, K6's, K7's, K8/K9's and K10's registers, shared memory and
+    # spills: nvcc -Xptxas -v of histogram.cu, tcscan.cu, merge.cu,
+    # wavefront.cu and orf.cu
     with tempfile.TemporaryDirectory() as d:
         ptxas = build_time.ptxas_report(
-            Path(d), ("histogram.cu", "tcscan.cu", "merge.cu", "wavefront.cu"))
+            Path(d), ("histogram.cu", "tcscan.cu", "merge.cu", "wavefront.cu", "orf.cu"))
     for src, lines in sorted(ptxas.items()):
         for line in lines:
             print(f"  ptxas {src}: {line}", flush=True)
@@ -1632,12 +1774,12 @@ def main() -> int:
     results["phases"]["search_sweep_ms"] = search_sweep
     del q_max, db_small
 
-    # K10: the phase-8 batch shape, and edge shapes: W = 1, lengths 0, 1,
-    # 2, 16 W and not multiples of 3, no ATG, all stops, nested starts
-    # sharing a stop, and rows of 100,000 bp (past the TPU's 32,767)
-    orf_w = codec.encode_reads_kernel(*reads(READS, READ_LEN, 0.0))[0]
-    orf_l = torch.randint(0, READ_LEN + 1, (READS,), device=dev, generator=gen, dtype=torch.int32)
-    orf_cases = [(f"[{READS},{READ_LEN}]", orf_w, orf_l)]
+    # K10: its timed shapes (orf_shapes: (r) the table's row, (b) phase 8's
+    # batch on both strands, (c) phase 8's contigs, (l) rows of 100,000 bp,
+    # past the TPU's 32,767), and edge shapes: W = 1, lengths 0, 1, 2, 16 W
+    # and not multiples of 3, no ATG, all stops, nested starts sharing a stop
+    orf_rows = orf_shapes(torch, dev, args.seed)
+    orf_cases = [(label, w, n) for label, (w, n) in orf_rows.items() if not orf_both(label)]
     for label, seqs in (("W=1 edge lengths", [b"", b"A", b"AT", b"ATG", b"ATGT", b"ATGTAA",
                                               b"ATGAAAAAAAAAAAAA", b"TTTATGATGAAATGAA"]),
                         ("W=2 motifs", [b"TTTATGATGAAATGAAAATAG", b"TAATAGTGA" * 3,
@@ -1646,22 +1788,21 @@ def main() -> int:
         pr = bnt.PackedReads.from_ascii(seqs, device=dev)
         w = pr.words[:, :1].contiguous() if label.startswith("W=1") else pr.words
         orf_cases.append((label, w, pr.lengths))
-    long_orf_ascii, _ = reads(64, 100_000, 0.0)
-    long_orf_lens = torch.randint(99_000, 100_001, (64,), device=dev, generator=gen,
-                                  dtype=torch.int32)
-    long_orf_lens[:2] = 100_000
-    orf_cases.append(("[64,100000]", codec.encode_reads_kernel(long_orf_ascii, long_orf_lens)[0],
-                      long_orf_lens))
     for label, w, ln in orf_cases:
         compare("orf_scan", label, orf.best_orf_one_strand_kernel(w, ln),
                 orf.best_orf_one_strand_torch(w, ln))
-    covered = int(torch.div(torch.clamp(orf_l.long(), 0, 16 * orf_w.shape[1]) + 15, 16,
-                            rounding_mode="floor").sum())  # words the reads cover
-    timed("orf_scan", orf_cases[0][0], lambda: orf.best_orf_one_strand_kernel(orf_w, orf_l),
-          lambda: orf.best_orf_one_strand_torch(orf_w, orf_l), main=True,
-          nbytes=4 * orf_w.numel() + 4 * READS + 9 * READS,
-          ops_ms=ORF_OPS_PER_WORD * covered / INT32_OPS_PER_S * 1e3)
-    del orf_cases, orf_w, orf_l, long_orf_ascii, long_orf_lens, long_ascii, long_words
+    both_strands = orf_strands(torch, orf)
+    for label, (w, ln) in orf_rows.items():
+        both = orf_both(label)
+        if both:
+            compare("orf_scan", label, both_strands(w, ln), orf_strands_torch(torch, w, ln))
+        kern = both_strands if both else orf.best_orf_one_strand_kernel
+        plain = (lambda w, n: orf_strands_torch(torch, w, n)) if both else \
+            orf.best_orf_one_strand_torch
+        nbytes, ops_ms = orf_bound(torch, w, ln, 2 if both else 1)
+        timed("orf_scan", label, lambda: kern(w, ln), lambda: plain(w, ln),
+              main=label.startswith("(r)"), nbytes=nbytes, ops_ms=ops_ms)
+    del orf_cases, orf_rows, long_ascii, long_words
 
     torch.cuda.synchronize()
 
