@@ -523,33 +523,58 @@ def test_search_batch_routes_by_q_and_k(cuda):
         assert all(torch.equal(x, y) for x, y in zip(got, want))
 
 
-def _orf_reads(seed, B, W, lengths=None):
+def _orf_reads(seed, B, W, lengths=None, motifs=None):
     """B reads of W words, codes weighted towards A and T (ATG- and
-    stop-rich); without given lengths, the first rows are planted edges."""
+    stop-rich), or drawn from ``motifs`` (codons joined at random); without
+    given lengths, the first rows are planted edges."""
     rng = np.random.default_rng(seed)
     L = 16 * W
     codes = rng.choice(4, (B, L), p=[0.35, 0.1, 0.2, 0.35])
+    if motifs is not None:
+        pool = np.array([["ACGT".index(c) for c in m] for m in motifs])
+        codes = pool[rng.integers(0, len(pool), (B, -(-L // 3)))].reshape(B, -1)[:, :L]
     lens = rng.integers(0, L + 1, B) if lengths is None else np.asarray(lengths)
     plants = [b"TTTATGATGAAATGAAAATAG", b"TAATAGTGA" * 4, b"CCCCCCCCCCCC", b"ATGAAAAA"]
     for r, s in enumerate(plants[: B // 2] if lengths is None else []):
         s = s[:L]
         codes[r, : len(s)] = [b"ACGT".index(c) for c in s]
         lens[r] = len(s)
-    return (bitops.pack_codes(torch.from_numpy(codes)),
+    return (bitops.pack_codes(torch.from_numpy(np.ascontiguousarray(codes))),
             torch.from_numpy(lens.astype(np.int32)))
 
 
+def _edge_lengths(W):
+    """0, 16 W - 1, 16 W, 16 W + 5 (bases past the words read as A) and a
+    few inside the row."""
+    return [0, 16 * W - 1, 16 * W, 16 * W + 5, 16 * W - 16, 16 * W - 17, 3, 2]
+
+
+# the reverse strand's motifs read forward: CAT (ATG), TTA, CTA, TCA (stops)
+_RC_MOTIFS = ("CAT", "TTA", "CTA", "TCA", "GCC")
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,W,lengths", [
-    (9, 1, [0, 1, 2, 3, 4, 5, 14, 15, 16]),  # lengths 0, 1, 2 and 16 W
-    (300, 10, None),                          # 150-bp rows
-    (40, 32, None),                           # a whole 512-base chunk
-    (20, 33, None),                           # two chunks
-    (6, 40, [640, 639, 638, 637, 600, 0]),
-    (3, 6250, [100_000, 99_999, 65_536]),     # past the TPU's 32,767 bound
+@pytest.mark.parametrize("B,W,lengths,motifs", [
+    (9, 1, [0, 1, 2, 3, 4, 5, 14, 15, 16], None),  # lengths 0, 1, 2 and 16 W
+    (300, 10, None, None),                          # 150-bp rows
+    (600, 16, None, None),                          # the widest row a thread takes
+    (8, 16, _edge_lengths(16), None),
+    (40, 17, None, None),                           # the narrowest row a block takes
+    (8, 17, _edge_lengths(17), None),
+    (40, 32, None, None),
+    (20, 33, None, None),
+    (6, 40, [640, 639, 638, 637, 600, 0], None),
+    (8, 512, _edge_lengths(512), None),             # one warp's round of 512 words
+    (8, 513, _edge_lengths(513), None),             # its seam
+    (4, 4097, [16 * 4097, 16 * 4097 - 1, 65_536, 16 * 4097 + 5], None),  # a block's round
+    (3, 6250, [100_000, 99_999, 65_536], None),     # past the TPU's 32,767 bound
+    (200, 10, None, _RC_MOTIFS),                    # reverse-strand motifs
+    (8, 10, _edge_lengths(10), _RC_MOTIFS),
+    (8, 600, _edge_lengths(600), _RC_MOTIFS),
+    (40, 10, None, ("ATG", "TAA", "TAG", "TGA")),   # ATG- and stop-dense
 ])
-def test_orf_scan_kernel_matches_plain(cuda, B, W, lengths):
-    words, lens = (x.to(cuda) for x in _orf_reads(B + W, B, W, lengths))
+def test_orf_scan_kernel_matches_plain(cuda, B, W, lengths, motifs):
+    words, lens = (x.to(cuda) for x in _orf_reads(B + W, B, W, lengths, motifs))
     got = orf.best_orf_one_strand_kernel(words, lens)
     want = orf.best_orf_one_strand_torch(words, lens)
     for g, w in zip(got, want):

@@ -131,3 +131,78 @@ def test_orf_translate_steps_match_jax():
     got = orf.translate_reads(tw, tlen)
     for g, x in zip(got, want):
         _eq(g, x)
+
+
+# A numpy model of csrc/orf.cu's SWAR codon masks: bit 2t of a mask is
+# base t of a word; words are uint32 and the next word's low bases come in
+# by a funnel shift.
+_EVEN = np.uint32(0x55555555)
+_FRAME = np.array([0x41041041, 0x04104104, 0x10410410], np.uint32)  # t mod 3 = 0, 1, 2
+
+
+def _is_a(w):
+    return ~(w | (w >> np.uint32(1))) & _EVEN
+
+
+def _is_g(w):
+    return ~w & (w >> np.uint32(1)) & _EVEN
+
+
+def _is_t(w):
+    return w & (w >> np.uint32(1)) & _EVEN
+
+
+def _funnel(w, nx, s):
+    return ((w.astype(np.uint64) | (nx.astype(np.uint64) << np.uint64(32)))
+            >> np.uint64(s)).astype(np.uint32)
+
+
+def _swar_codons(w, nx):
+    """(stop, start) masks: stop = T & (A1 & (A2 | G2) | G1 & A2), start =
+    A & T1 & G2, where 1 and 2 are the bases after."""
+    w1, w2 = _funnel(w, nx, 2), _funnel(w, nx, 4)
+    a1, g1, a2, g2 = _is_a(w1), _is_g(w1), _is_a(w2), _is_g(w2)
+    return _is_t(w) & ((a1 & (a2 | g2)) | (g1 & a2)), _is_a(w) & _is_t(w1) & g2
+
+
+def test_swar_masks_match_codon_table():
+    """Every codon at every base offset t of a word (the last two spilling
+    into the next word) and every word index mod 3: the stop and start
+    masks hold bit 2t exactly for TAA, TAG, TGA and ATG; the frame mask of
+    t mod 3 holds it; the first stop of each frame, relabelled for the word
+    before (the kernel's rotation), lands in absolute frame (16 j + t) mod 3
+    at position 16 j + t."""
+    codon, t, jm = np.meshgrid(np.arange(64), np.arange(16), np.arange(3), indexing="ij")
+    codon, t, jm = codon.ravel(), t.ravel(), jm.ravel()
+    codes = np.ones((codon.size, 32), np.uint64)  # C around the codon: no other codon forms
+    for k, shift in enumerate((4, 2, 0)):
+        codes[np.arange(codon.size), t + k] = (codon >> shift) & 3
+    packed = (codes.reshape(-1, 2, 16) << (2 * np.arange(16, dtype=np.uint64))).sum(-1)
+    w, nx = packed[:, 0].astype(np.uint32), packed[:, 1].astype(np.uint32)
+    stop, start = _swar_codons(w, nx)
+    bit = np.uint32(1) << (2 * t).astype(np.uint32)
+    is_stop = np.isin(codon, [0b110000, 0b110010, 0b111000])  # TAA, TAG, TGA
+    np.testing.assert_array_equal(stop, np.where(is_stop, bit, 0))
+    np.testing.assert_array_equal(start, np.where(codon == 0b001110, bit, 0))  # ATG
+    np.testing.assert_array_equal(_FRAME[t % 3] & bit, bit)
+    np.testing.assert_array_equal(_FRAME[(t + 1) % 3] & bit, 0)
+    # fold: each frame's first stop, then word j - 1's labels (r -> r - 1)
+    j = 3 + jm
+    p = 16 * j + t
+    first = np.where((stop[:, None] & _FRAME) != 0, p[:, None], -1)  # [n, 3] by t mod 3
+    relabelled = first[:, [2, 0, 1]]
+    absolute = (j[:, None] - 1 + np.arange(3)) % 3
+    hit = relabelled >= 0
+    np.testing.assert_array_equal(hit.sum(1), is_stop)
+    np.testing.assert_array_equal(absolute[hit], p[is_stop] % 3)
+    np.testing.assert_array_equal(relabelled[hit], p[is_stop])
+
+
+def test_reverse_complement_word_by_bit_reversal():
+    """The kernel's reverse-complement word, the 2-bit pairs of the bit
+    reversal of ~w swapped, equals ops.revcomp.revcomp_word."""
+    w = np.random.default_rng(5).integers(0, 2**32, 4096, dtype=np.uint64).astype(np.uint32)
+    rev = np.array([int(f"{int(x):032b}"[::-1], 2) for x in ~w], np.uint32)
+    want = ((rev >> np.uint32(1)) & _EVEN) | ((rev & _EVEN) << np.uint32(1))
+    got = revcomp.revcomp_word(words_from_u32_np(w))
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
