@@ -19,7 +19,7 @@ with a plain PyTorch version beside it for CPU tensors:
 * ``ops.align.fit_distance_span_banded`` (the fit of ``mapper.map_reads``)
   — K8 ``fit_banded``
 * ``ops.align.sw_score`` — K9 ``sw_score``
-* ``ops.orf.longest_orf`` — K10 ``orf_scan``, twice (one per strand)
+* ``ops.orf.longest_orf`` — K10 ``orf_scan``, once for both strands
 
 Sort-based counting for any k <= 32 (``count_kmers_sorted``,
 ``count_kmers_runs``, and ``pipeline.count_fastq``/``count_fasta`` above

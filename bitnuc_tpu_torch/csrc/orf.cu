@@ -1,25 +1,31 @@
-// K10 orf_scan: the longest ATG..stop open reading frame on one strand of
-// each packed read, (length, start, stopped), as ops.orf's
-// best_orf_one_strand_torch computes it.
+// K10 orf_scan: the longest ATG..stop open reading frame of each packed
+// read, (length, start, stopped), on the forward strand and, in the same
+// launch, on its reverse complement, as ops.orf's best_orf_one_strand_torch
+// and best_orf_two_strands_torch compute them.
 //
 // Replaces bitnuc_tpu/ops/pallas/orfscan.py::best_orf_one_strand_pallas
 // (orfscan.py:93, its pallas_call at orfscan.py:117). The TPU kernel takes
-// unpacked 2-bit codes [B, L] and finds each position's next stop in frame
-// with a stride-3 doubling scan of lane rolls; its L <= 32767 bound serves a
-// multiply-shift division by 3. This kernel takes the packed words, so no
-// [B, L] byte plane is made, and takes rows of any length.
+// unpacked 2-bit codes [B, L] of one strand and finds each position's next
+// stop in frame with a stride-3 doubling scan of lane rolls; its L <= 32767
+// bound serves a multiply-shift division by 3. This kernel takes the packed
+// words, so no [B, L] byte plane and no reverse complement are made on the
+// device, and takes rows of any length.
 //
 // Rules (ops.orf): codon(p) = c[p] 16 + c[p+1] 4 + c[p+2], bases past 16 W
 // read as A, and a codon counts only if p + 3 <= len. An ORF at an ATG at p
 // runs to the next stop in frame at or after p (TAA, TAG, TGA; the stop is
 // excluded), or, open, to p + 3 floor((len - p) / 3). The longest wins, then
 // the smallest start; stopped is the winner's flag. A stop at p >= 2^30
-// counts as none, as the plain version's 2^30 sentinel has it.
+// counts as none, as the plain version's 2^30 sentinel has it. The reverse
+// strand is the scan of ops.revcomp.reverse_complement_reads(words, len),
+// its words built here from the forward ones by the same formula (Reverse).
 //
-// Bound on the card: the words are read once (a quarter byte a base) and
-// three values a read written, so bytes bound it at the main path's 150-bp
-// rows; the work is about 48 int32 operations a word (chip_smoke.py's
-// ORF_OPS_PER_WORD: the SWAR masks, each frame's first stop, the carries).
+// Bound on the card: bytes at the main path's 150-bp rows, the words read
+// once (a quarter byte a base) and three values a read and strand written;
+// beside them about 48 int32 operations a word and strand for the SWAR pass
+// (chip_smoke.py's ORF_OPS_PER_WORD: masks, first stops, carries) and 11
+// more a word to build the reverse strand's, 107 a word for six frames
+// (ORF_TWO_STRAND_OPS_PER_WORD), which bound both strands at 150 bp.
 //
 // Design: SWAR on whole words. The two bit planes of a word and the next
 // word's low bases (a funnel shift) give one-hot masks of A, G and T at bit
@@ -35,12 +41,13 @@
 // then the smallest start, and carries its flag.
 //
 // Row-length split. Rows of W <= 16 words (the read batches): one thread a
-// row, 256 rows a block staged in shared memory with coalesced loads; no
-// shuffles. Longer rows: one block a row, 16 words a lane, rounds of 512
-// words a warp taken from the row's end; a first pass finds each lane's
-// first stop per frame, a suffix-min over the lanes and warps above (and
-// the rounds above) gives each lane what follows its segment, and a second
-// pass over the lane's masks, kept in registers, resolves its ATGs.
+// row and both strands, 256 rows a block staged in shared memory with
+// coalesced loads; no shuffles. Longer rows: one block a row and strand, 16
+// words a lane, rounds of 512 words a warp taken from the row's end; a first
+// pass finds each lane's first stop per frame, a suffix-min over the lanes
+// and warps above (and the rounds above) gives each lane what follows its
+// segment, and a second pass over the lane's masks, kept in registers,
+// resolves its ATGs.
 #include "common.cuh"
 
 namespace {
@@ -131,6 +138,43 @@ struct Forward {
   __device__ __forceinline__ unsigned operator()(int j) { return j < W ? row[j] : 0u; }
 };
 
+// Reverse-complement all 16 bases of a word (ops.revcomp.revcomp_word): the
+// bit reversal of ~w with each 2-bit pair swapped back.
+__device__ __forceinline__ unsigned rc_word(unsigned w) {
+  const unsigned r = __brev(~w);
+  return ((r >> 1) & kEven) | ((r & kEven) << 1);
+}
+
+// The reverse strand's words, as ops.revcomp.reverse_complement_reads makes
+// them from the forward row: the row's reverse-complement words R(s) =
+// rc_word(row[W - 1 - s]), shifted down by 16 W - n bases (ws words and bs
+// bits, floor) and masked past n. R(s) is 0 from s = W on; lengths past 16 W
+// give s < 0, where the gather wraps (R(s + W)) and, below -W, fills all
+// ones. Called for j, j - 1, ... in turn from jtop, it keeps R(j + ws + 1)
+// from the last call.
+struct Reverse {
+  const uint32_t* row;
+  int W, n, ws, bs;
+  unsigned hi;
+  __device__ Reverse(const uint32_t* row_, int W_, int n_, int jtop) : row(row_), W(W_), n(n_) {
+    const int shift = 16 * W - n;
+    ws = shift >> 4;
+    bs = 2 * (shift & 15);
+    hi = src(jtop + 1 + ws);
+  }
+  __device__ __forceinline__ unsigned src(int s) const {
+    if (s >= W) return 0u;
+    if (s < -W) return kFull;
+    return rc_word(row[s < 0 ? -1 - s : W - 1 - s]);
+  }
+  __device__ __forceinline__ unsigned operator()(int j) {
+    const unsigned lo = src(j + ws);
+    const unsigned w = j < W ? __funnelshift_r(lo, hi, bs) & bn::base_mask(n - 16 * j) : 0u;
+    hi = lo;
+    return w;
+  }
+};
+
 // Positions below pend hold codons of the read; stops count below send.
 __device__ __forceinline__ void row_ends(int W, int n, int& pend, int& send) {
   const int64_t pe = min((int64_t)16 * W, (int64_t)n - 2);
@@ -168,7 +212,7 @@ __device__ __forceinline__ void write_key(unsigned long long key, int64_t i, int
 // in memory, staged in shared memory at an odd stride (no bank conflicts).
 __global__ void __launch_bounds__(kShortRows)
     orf_short_kernel(const uint32_t* __restrict__ words, const int* __restrict__ lens,
-                     int64_t B, int W, int* __restrict__ best_out,
+                     int64_t B, int W, int strands, int* __restrict__ best_out,
                      int* __restrict__ start_out, bool* __restrict__ stopped_out) {
   __shared__ uint32_t sm[kShortRows * (kShortW + 1)];
   const int stride = W | 1;
@@ -191,8 +235,11 @@ __global__ void __launch_bounds__(kShortRows)
   __syncthreads();
   const int r = threadIdx.x;
   if (r >= rows) return;
-  const unsigned long long key = scan_row<Forward>(sm + r * stride, W, lens[r0 + r]);
-  write_key(key, r0 + r, best_out, start_out, stopped_out);
+  const uint32_t* row = sm + r * stride;
+  const int n = lens[r0 + r];
+  write_key(scan_row<Forward>(row, W, n), r0 + r, best_out, start_out, stopped_out);
+  if (strands == 2)
+    write_key(scan_row<Reverse>(row, W, n), B + r0 + r, best_out, start_out, stopped_out);
 }
 
 // The first stop of each absolute frame (position mod 3) among a segment's
@@ -305,28 +352,32 @@ __global__ void __launch_bounds__(32 * kLongWarps)
                     int64_t B, int W, int* __restrict__ best_out,
                     int* __restrict__ start_out, bool* __restrict__ stopped_out) {
   const int64_t r = blockIdx.x;
-  const unsigned long long key = scan_long_row<Forward>(words + r * W, W, lens[r]);
-  if (threadIdx.x == 0) write_key(key, r, best_out, start_out, stopped_out);
+  const uint32_t* row = words + r * W;
+  const unsigned long long key = blockIdx.y == 0 ? scan_long_row<Forward>(row, W, lens[r])
+                                                 : scan_long_row<Reverse>(row, W, lens[r]);
+  if (threadIdx.x == 0) write_key(key, blockIdx.y * B + r, best_out, start_out, stopped_out);
 }
 
 }  // namespace
 
-// words [B, W] uint32, lens [B] int32 -> best [B] int32, start [B] int32,
-// stopped [B] bool.
-extern "C" int bn_orf_scan(const void* words, const void* lens, int64_t B, int W, void* best,
-                           void* start, void* stopped, void* stream) {
-  if (B < 0 || W < 0) return (int)cudaErrorInvalidValue;
+// words [B, W] uint32, lens [B] int32 -> best [strands, B] int32, start
+// [strands, B] int32, stopped [strands, B] bool: the forward strand, then
+// (strands = 2) the reverse complement's.
+extern "C" int bn_orf_scan(const void* words, const void* lens, int64_t B, int W, int strands,
+                           void* best, void* start, void* stopped, void* stream) {
+  if (B < 0 || W < 0 || strands < 1 || strands > 2) return (int)cudaErrorInvalidValue;
   if (B == 0) return (int)cudaGetLastError();
   const auto s = (cudaStream_t)stream;
   if (W <= kShortW) {
     const unsigned blocks = (unsigned)((B + kShortRows - 1) / kShortRows);
     orf_short_kernel<<<blocks, kShortRows, 0, s>>>((const uint32_t*)words, (const int*)lens, B,
-                                                   W, (int*)best, (int*)start, (bool*)stopped);
+                                                   W, strands, (int*)best, (int*)start,
+                                                   (bool*)stopped);
   } else {
     const int warps = min(kLongWarps, (W + 32 * kSeg - 1) / (32 * kSeg));
-    orf_long_kernel<<<(unsigned)B, 32 * warps, 0, s>>>((const uint32_t*)words, (const int*)lens,
-                                                       B, W, (int*)best, (int*)start,
-                                                       (bool*)stopped);
+    orf_long_kernel<<<dim3((unsigned)B, strands), 32 * warps, 0, s>>>(
+        (const uint32_t*)words, (const int*)lens, B, W, (int*)best, (int*)start,
+        (bool*)stopped);
   }
   return (int)cudaGetLastError();
 }

@@ -5,14 +5,16 @@ The counterpart of ``bitnuc_tpu/ops/orf.py``. An ORF starts at ATG and runs
 in frame to the first stop codon (TAA, TAG, TGA; the stop is not part of
 the span); with no stop in frame it stays open and runs to the last whole
 codon. A codon counts only when it lies wholly inside the read. The reverse
-strand reuses the one-strand scan on ``reverse_complement_reads`` and maps
-its coordinates back to the forward strand.
+strand is the one-strand scan of ``reverse_complement_reads``, its
+coordinates mapped back to the forward strand.
 
-The one-strand scan has a hand-written kernel, K10 ``orf_scan``
-(``csrc/orf.cu``), run on CUDA words; its plain version
-``best_orf_one_strand_torch`` is the JAX package's XLA path: one reverse
-``cummin`` over a [B, L3/3, 3] view of the stop positions gives each
-position the next stop in its frame. Neither keeps the TPU kernel's
+The scan has a hand-written kernel, K10 ``orf_scan`` (``csrc/orf.cu``), run
+on CUDA words: one launch scans one strand, or both, the reverse
+complement's words made in the kernel from the forward ones. Its plain
+version ``best_orf_one_strand_torch`` is the JAX package's XLA path: one
+reverse ``cummin`` over a [B, L3/3, 3] view of the stop positions gives
+each position the next stop in its frame; ``best_orf_two_strands_torch``
+runs it on the words and on their reverse complement. Neither keeps the TPU kernel's
 L <= 32767 bound, which exists for its multiply-shift division by 3.
 ``translate_reads`` looks codons up in a 64-entry table (the JAX package
 contracts a one-hot instead, a rule of the TPU: no gathers).
@@ -104,9 +106,21 @@ def best_orf_one_strand_torch(words: torch.Tensor, lengths: torch.Tensor):
     return best, torch.where(best > 0, start, 0), stopped
 
 
-def best_orf_one_strand_kernel(words: torch.Tensor, lengths: torch.Tensor):
-    """K10 on the card (``csrc/orf.cu``): contiguous int32 CUDA words [B, W]
-    and int32 lengths [B]; rows of any length below 2^31 bases."""
+def best_orf_two_strands_torch(words: torch.Tensor, lengths: torch.Tensor):
+    """Plain version of K10 on both strands: (length, start, stopped), each
+    [2, B], of ``best_orf_one_strand_torch`` on the words (row 0) and on
+    ``reverse_complement_reads(words, lengths)`` (row 1, in the reverse
+    strand's own coordinates)."""
+    lengths = lengths.to(torch.int32)
+    both = torch.cat([words, revcomp.reverse_complement_reads(words, lengths)])
+    out = best_orf_one_strand_torch(both, torch.cat([lengths, lengths]))
+    return tuple(x.reshape(2, words.shape[0]) for x in out)
+
+
+def _orf_scan_kernel(words: torch.Tensor, lengths: torch.Tensor, strands: int):
+    """K10 on the card (``csrc/orf.cu``), one launch: (length, start,
+    stopped), each [strands, B], of the forward strand and, at strands = 2,
+    the reverse complement's, built in the kernel from the same words."""
     kernels.require(words, "orf_scan words", torch.int32, 2)
     kernels.require(lengths, "orf_scan lengths", torch.int32, 1)
     B, W = words.shape
@@ -115,11 +129,11 @@ def best_orf_one_strand_kernel(words: torch.Tensor, lengths: torch.Tensor):
     if 16 * W >= 2**31:
         raise ValueError(f"orf_scan: rows of {16 * W} bases pass int32 positions")
     dev = words.device
-    best = torch.empty(B, dtype=torch.int32, device=dev)
-    start = torch.empty(B, dtype=torch.int32, device=dev)
-    stopped = torch.empty(B, dtype=torch.bool, device=dev)
+    best = torch.empty((strands, B), dtype=torch.int32, device=dev)
+    start = torch.empty((strands, B), dtype=torch.int32, device=dev)
+    stopped = torch.empty((strands, B), dtype=torch.bool, device=dev)
     code = _build.library().bn_orf_scan(
-        words.data_ptr(), lengths.data_ptr(), B, W, best.data_ptr(), start.data_ptr(),
+        words.data_ptr(), lengths.data_ptr(), B, W, strands, best.data_ptr(), start.data_ptr(),
         stopped.data_ptr(), kernels.stream_handle(dev),
     )
     _build.check(code, "orf_scan")
@@ -127,12 +141,26 @@ def best_orf_one_strand_kernel(words: torch.Tensor, lengths: torch.Tensor):
     return best, start, stopped
 
 
-def _best_orf_one_strand(words: torch.Tensor, lengths: torch.Tensor):
-    """(length, start, stopped) of one strand; K10 on CUDA words (see
-    ``config``)."""
+def best_orf_one_strand_kernel(words: torch.Tensor, lengths: torch.Tensor):
+    """K10 on one strand: contiguous int32 CUDA words [B, W] and int32
+    lengths [B]; rows of any length below 2^31 bases."""
+    return tuple(x[0] for x in _orf_scan_kernel(words, lengths, 1))
+
+
+def best_orf_two_strands_kernel(words: torch.Tensor, lengths: torch.Tensor):
+    """K10 on both strands in one launch, as ``best_orf_two_strands_torch``:
+    the reverse strand's words are made in the kernel, so no reverse
+    complement is made on the device."""
+    return _orf_scan_kernel(words, lengths, 2)
+
+
+def _best_orf_two_strands(words: torch.Tensor, lengths: torch.Tensor):
+    """(length, start, stopped) [2, B] of both strands; K10 on CUDA words
+    (see ``config``)."""
     if config.use_kernel(words):
-        return best_orf_one_strand_kernel(words.contiguous(), lengths.to(torch.int32).contiguous())
-    return best_orf_one_strand_torch(words, lengths)
+        return best_orf_two_strands_kernel(words.contiguous(),
+                                           lengths.to(torch.int32).contiguous())
+    return best_orf_two_strands_torch(words, lengths)
 
 
 def translate_reads(words: torch.Tensor, lengths: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -164,9 +192,7 @@ def longest_orf(words: torch.Tensor, lengths: torch.Tensor):
     whether the ORF ends at a stop rather than the read's end. Ties go to
     the forward strand, then to the smallest start on that strand."""
     lengths = lengths.to(torch.int32)
-    rc = revcomp.reverse_complement_reads(words, lengths)
-    len_f, start_f, stop_f = _best_orf_one_strand(words, lengths)
-    len_r, start_r, stop_r = _best_orf_one_strand(rc, lengths)
+    (len_f, len_r), (start_f, start_r), (stop_f, stop_r) = _best_orf_two_strands(words, lengths)
     use_rc = len_r > len_f  # strict: the forward strand wins ties
     length = torch.where(use_rc, len_r, len_f)
     stopped = torch.where(use_rc, stop_r, stop_f)

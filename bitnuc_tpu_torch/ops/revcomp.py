@@ -41,10 +41,15 @@ def reverse_complement_reads(words: torch.Tensor, lengths: torch.Tensor) -> torc
     src = (idx + word_shift).to(torch.int64)
     shape = torch.broadcast_shapes(src.shape, words.shape)
     src = src.expand(shape)
-    cur = torch.gather(rc, -1, torch.clamp(src, 0, W - 1))
-    cur = torch.where(src < W, cur, 0)
-    nxt = torch.gather(rc, -1, torch.clamp(src + 1, 0, W - 1))
-    nxt = torch.where(src + 1 < W, nxt, 0)
+
+    def take(s):
+        # word s of rc as the JAX package gathers it (lengths past 16W give
+        # s < 0): 0 from W on, s + W for -W <= s < 0 (a wrapped index),
+        # all ones below -W (the gather's fill value)
+        got = torch.gather(rc, -1, torch.clamp(torch.where(s < 0, s + W, s), 0, W - 1))
+        return torch.where(s >= W, 0, torch.where(s < -W, -1, got))
+
+    cur, nxt = take(src), take(src + 1)
     lo = bitops.srl(cur, bit_shift)
     hi = torch.where(bit_shift == 0, 0, nxt << (32 - bit_shift))
     return (lo | hi) & bitops.word_valid_mask(W, lengths)

@@ -942,7 +942,7 @@ def search_orf_phase(args, torch, dev, timer, results, tmp, db_wm, genome, reads
     checks."""
     from bitnuc_tpu_torch import config, kernels
     from bitnuc_tpu_torch.database import PackedDB, SEARCH_TC_MIN_Q, tc_min_q
-    from bitnuc_tpu_torch.ops import hamming, orf, revcomp
+    from bitnuc_tpu_torch.ops import hamming, orf
     from bitnuc_tpu_torch.sequence import PackedReads
     from bitnuc_tpu_torch.utils import bitops
 
@@ -976,8 +976,8 @@ def search_orf_phase(args, torch, dev, timer, results, tmp, db_wm, genome, reads
     for name in ("pack", "tc_search", "tc_scan", "hdist_scan_batch", "orf_scan"):
         check(f"{name} launched on the search and ORF path", SEARCH_ORF_LAUNCHES[name] > 0,
               f"{SEARCH_ORF_LAUNCHES[name]} launches")
-    check("longest_orf launched K10 twice a batch", SEARCH_ORF_LAUNCHES["orf_scan"]
-          == 2 * (n_batches + 1), f"{n_batches} read batches and one contig batch")
+    check("longest_orf launched K10 once a batch", SEARCH_ORF_LAUNCHES["orf_scan"]
+          == n_batches + 1, f"{n_batches} read batches and one contig batch")
     ph.update({f"search_orf_{k}": v for k, v in times.items()})
     ph["search_batch_ms"] = timer(lambda: PackedDB(db_wm, DB_BASES).search_batch(
         queries, SEARCH_TOPK), 3)
@@ -1002,10 +1002,8 @@ def search_orf_phase(args, torch, dev, timer, results, tmp, db_wm, genome, reads
         "search: top-k of [256, D]": lambda: hamming.topk_batch_dispatch(dists, SEARCH_TOPK,
                                                                          DB_BASES),
         "ORF batch: longest_orf": lambda: orf.longest_orf(first.words, first.lengths),
-        "ORF batch: reverse complement": lambda: revcomp.reverse_complement_reads(
-            first.words, first.lengths),
-        "ORF batch: one strand (K10)": lambda: orf._best_orf_one_strand(first.words,
-                                                                       first.lengths),
+        "ORF batch: both strands (K10)": lambda: orf._best_orf_two_strands(first.words,
+                                                                          first.lengths),
     }
     ph["search_orf_stages_ms"] = {}
     for label, fn in stages.items():
@@ -1209,7 +1207,7 @@ def orf_shapes(torch, dev, seed: int) -> dict:
     long_lens[:2] = 100_000
     return {
         f"(r) [{READS},{READ_LEN}]": rows(READS, READ_LEN, lens(READS, 0, READ_LEN)),
-        f"(b) [{ORF_BATCH},{READ_LEN}] both strands": rows(
+        f"(b) [{ORF_BATCH},{READ_LEN}] full length": rows(
             ORF_BATCH, READ_LEN, lens(ORF_BATCH, READ_LEN, READ_LEN)),
         f"(c) [{N_CONTIGS},{CONTIG_BP}]": (contigs.words, contigs.lengths),
         "(l) [64,100000]": rows(64, 100_000, long_lens),
@@ -1235,10 +1233,13 @@ def orf_bound(torch, words, lengths, strands: int):
 
 def orf_strands(torch, o):
     """A tree's K10 on both strands as its longest_orf runs it, (length,
-    start, stopped) each [2, B], forward then reverse: the reverse
+    start, stopped) each [2, B], forward then reverse: one launch of
+    best_orf_two_strands_kernel, or, in a tree from before it, the reverse
     complement and two one-strand launches."""
     import importlib
 
+    if hasattr(o, "best_orf_two_strands_kernel"):
+        return o.best_orf_two_strands_kernel
     rc = importlib.import_module(o.__name__.rsplit(".", 1)[0] + ".revcomp")
 
     def both(w, n):
@@ -1246,15 +1247,6 @@ def orf_strands(torch, o):
         rev = o.best_orf_one_strand_kernel(rc.reverse_complement_reads(w, n), n)
         return tuple(torch.stack(p) for p in zip(fwd, rev))
     return both
-
-
-def orf_strands_torch(torch, w, n):
-    """The plain version of ``orf_strands``."""
-    from bitnuc_tpu_torch.ops import orf, revcomp
-
-    fwd = orf.best_orf_one_strand_torch(w, n)
-    rev = orf.best_orf_one_strand_torch(revcomp.reverse_complement_reads(w, n), n)
-    return tuple(torch.stack(p) for p in zip(fwd, rev))
 
 
 def orf_against(args, torch, dev) -> int:
@@ -1277,7 +1269,7 @@ def orf_against(args, torch, dev) -> int:
     res = {"times_ms": {}, "checks": {}, "bound_ms": {}}
     for label, (w, n) in orf_shapes(torch, dev, args.seed).items():
         both = orf_both(label)
-        want = orf_strands_torch(torch, w, n) if both else orf.best_orf_one_strand_torch(w, n)
+        want = (orf.best_orf_two_strands_torch if both else orf.best_orf_one_strand_torch)(w, n)
         fns = {name: orf_strands(torch, o) if both else o.best_orf_one_strand_kernel
                for name, o in trees.items()}
         for name, fn in fns.items():
@@ -1285,15 +1277,15 @@ def orf_against(args, torch, dev) -> int:
                 f"K10 of {name} at {label} == plain", max_abs_diff(fn(w, n), want) == 0)
         nbytes, ops_ms = orf_bound(torch, w, n, 2 if both else 1)
         res["bound_ms"][label] = max(nbytes / HBM_BYTES_PER_S * 1e3, ops_ms)
-        rows = {label: fns}
+        rows = {label + (", both strands" if both else ", one strand"): fns}
         if both:
             rows["(b) longest_orf"] = {name: o.longest_orf for name, o in trees.items()}
             got = {name: fn(w, n) for name, fn in rows["(b) longest_orf"].items()}
             res["checks"]["longest_orf"] = check(
                 "longest_orf of other == of this", max_abs_diff(got["other"], got["this"]) == 0)
-        for row, fns in rows.items():
+        for row, row_fns in rows.items():
             for name in ("other", "this", "this", "other"):
-                ms = timer(lambda: fns[name](w, n))
+                ms = timer(lambda: row_fns[name](w, n))
                 res["times_ms"].setdefault(f"{row} {name}", []).append(ms)
                 print(f"  {row} {name}: {ms:.4f} ms", flush=True)
     return finish_against(args, torch, res)
@@ -1779,29 +1771,35 @@ def main() -> int:
     # past the TPU's 32,767), and edge shapes: W = 1, lengths 0, 1, 2, 16 W
     # and not multiples of 3, no ATG, all stops, nested starts sharing a stop
     orf_rows = orf_shapes(torch, dev, args.seed)
-    orf_cases = [(label, w, n) for label, (w, n) in orf_rows.items() if not orf_both(label)]
+    orf_cases = [(label, w, n) for label, (w, n) in orf_rows.items()]
     for label, seqs in (("W=1 edge lengths", [b"", b"A", b"AT", b"ATG", b"ATGT", b"ATGTAA",
                                               b"ATGAAAAAAAAAAAAA", b"TTTATGATGAAATGAA"]),
                         ("W=2 motifs", [b"TTTATGATGAAATGAAAATAG", b"TAATAGTGA" * 3,
                                         b"CCCCCCCCCCCCCCCCCCCCCC", b"ATG" * 10 + b"TA",
-                                        b"ATGC" * 8])):
+                                        b"ATGC" * 8]),
+                        ("W=10 reverse motifs", [b"CAT" * 50, b"TTA" * 50, b"CATCTATCA" * 16,
+                                                 b"TTACATGCC" * 16 + b"CA", b"TCA" * 49])):
         pr = bnt.PackedReads.from_ascii(seqs, device=dev)
         w = pr.words[:, :1].contiguous() if label.startswith("W=1") else pr.words
         orf_cases.append((label, w, pr.lengths))
+    # lengths past 16 W: bases there read as A, and the reverse strand's
+    # source words wrap (16 W < n <= 32 W) or fill (below)
+    for label, w, ln in orf_cases[-3:] + [orf_cases[0]]:
+        past = 16 * w.shape[1] + torch.arange(1, len(ln) + 1, device=dev, dtype=torch.int32) * 7
+        orf_cases.append((label + ", n past 16 W", w, past))
     for label, w, ln in orf_cases:
-        compare("orf_scan", label, orf.best_orf_one_strand_kernel(w, ln),
+        compare("orf_scan", label + ", one strand", orf.best_orf_one_strand_kernel(w, ln),
                 orf.best_orf_one_strand_torch(w, ln))
-    both_strands = orf_strands(torch, orf)
+        compare("orf_scan", label + ", both strands", orf.best_orf_two_strands_kernel(w, ln),
+                orf.best_orf_two_strands_torch(w, ln))
     for label, (w, ln) in orf_rows.items():
         both = orf_both(label)
-        if both:
-            compare("orf_scan", label, both_strands(w, ln), orf_strands_torch(torch, w, ln))
-        kern = both_strands if both else orf.best_orf_one_strand_kernel
-        plain = (lambda w, n: orf_strands_torch(torch, w, n)) if both else \
-            orf.best_orf_one_strand_torch
+        kern, plain = ((orf.best_orf_two_strands_kernel, orf.best_orf_two_strands_torch) if both
+                       else (orf.best_orf_one_strand_kernel, orf.best_orf_one_strand_torch))
         nbytes, ops_ms = orf_bound(torch, w, ln, 2 if both else 1)
-        timed("orf_scan", label, lambda: kern(w, ln), lambda: plain(w, ln),
-              main=label.startswith("(r)"), nbytes=nbytes, ops_ms=ops_ms)
+        timed("orf_scan", label + (", both strands" if both else ", one strand"),
+              lambda: kern(w, ln), lambda: plain(w, ln), main=label.startswith("(r)"),
+              nbytes=nbytes, ops_ms=ops_ms)
     del orf_cases, orf_rows, long_ascii, long_words
 
     torch.cuda.synchronize()

@@ -53,3 +53,15 @@ def test_revcomp_word_high_bits(rng):
     want = np.asarray(jrevcomp.revcomp_word(jnp.asarray(x)))
     got = revcomp.revcomp_word(words_from_u32_np(x))
     np.testing.assert_array_equal(words_to_u32_np(got), want)
+
+
+@pytest.mark.parametrize("W", [1, 3, 10])
+def test_reverse_complement_past_the_words(rng, W):
+    """Lengths past 16 W, where the JAX package's gather wraps a negative
+    source word (16 W < n <= 32 W) and fills all ones below -W."""
+    w = rng.integers(0, 2**32, size=(48, W), dtype=np.uint32)
+    lens = (16 * W + np.arange(1, 49) * (W + 1)).astype(np.int32)
+    lens[-1] = 2**31 - 1
+    want = np.asarray(jrevcomp.reverse_complement_reads(jnp.asarray(w), jnp.asarray(lens)))
+    got = revcomp.reverse_complement_reads(words_from_u32_np(w), torch.from_numpy(lens))
+    np.testing.assert_array_equal(words_to_u32_np(got), want)

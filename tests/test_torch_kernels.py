@@ -572,13 +572,23 @@ _RC_MOTIFS = ("CAT", "TTA", "CTA", "TCA", "GCC")
     (8, 10, _edge_lengths(10), _RC_MOTIFS),
     (8, 600, _edge_lengths(600), _RC_MOTIFS),
     (40, 10, None, ("ATG", "TAA", "TAG", "TGA")),   # ATG- and stop-dense
+    (6, 2, [33, 40, 48, 64, 100, 2**31 - 1], None),  # 16 W < n: the reverse gather wraps
+    (4, 20, [321, 330, 700, 2**31 - 1], None),
 ])
-def test_orf_scan_kernel_matches_plain(cuda, B, W, lengths, motifs):
+@pytest.mark.parametrize("strands", ["one", "two"])
+def test_orf_scan_kernel_matches_plain(cuda, B, W, lengths, motifs, strands, monkeypatch):
     words, lens = (x.to(cuda) for x in _orf_reads(B + W, B, W, lengths, motifs))
-    got = orf.best_orf_one_strand_kernel(words, lens)
-    want = orf.best_orf_one_strand_torch(words, lens)
-    for g, w in zip(got, want):
+    kern, plain = {"one": (orf.best_orf_one_strand_kernel, orf.best_orf_one_strand_torch),
+                   "two": (orf.best_orf_two_strands_kernel, orf.best_orf_two_strands_torch)}[strands]
+    before = kernels.LAUNCHES["orf_scan"]
+    got = kern(words, lens)
+    assert kernels.LAUNCHES["orf_scan"] == before + 1
+    for g, w in zip(got, plain(words, lens)):
         assert torch.equal(g, w)
+    # longest_orf: one launch, and no reverse complement made on the device
+    def no_revcomp(*args):
+        raise AssertionError("longest_orf made a reverse complement")
+    monkeypatch.setattr(orf.revcomp, "reverse_complement_reads", no_revcomp)
     before = kernels.LAUNCHES["orf_scan"]
     orf.longest_orf(words, lens)
-    assert kernels.LAUNCHES["orf_scan"] == before + 2
+    assert kernels.LAUNCHES["orf_scan"] == before + 1

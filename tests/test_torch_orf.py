@@ -19,6 +19,7 @@ from bitnuc_tpu.ops import split as jsplit
 from bitnuc_tpu.ops.pallas.orfscan import best_orf_one_strand_pallas
 from bitnuc_tpu.sequence import PackedReads as JPackedReads
 from bitnuc_tpu.utils import bitops as jbitops
+from bitnuc_tpu_torch import config
 from bitnuc_tpu_torch.ops import orf, revcomp, split
 from bitnuc_tpu_torch.utils.bitops import words_from_u32_np
 
@@ -206,3 +207,39 @@ def test_reverse_complement_word_by_bit_reversal():
     want = ((rev >> np.uint32(1)) & _EVEN) | ((rev & _EVEN) << np.uint32(1))
     got = revcomp.revcomp_word(words_from_u32_np(w))
     np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
+
+
+def _past_the_words(seqs):
+    """Rows whose lengths pass 16 W (bases there read as A), 16 W - 1 and
+    ragged: the reverse complement's clamped source words."""
+    jr, w, n = _pack(seqs)
+    W = w.shape[1]
+    n = n.clone()
+    n[0::3] = 16 * W + torch.arange(1, len(n[0::3]) + 1, dtype=torch.int32) % 40
+    n[1::3] = 16 * W - 1
+    return w, n
+
+
+@pytest.mark.parametrize("name", list(READ_SETS) + ["past_words"])
+def test_plain_two_strands_match_jax(name):
+    """best_orf_two_strands_torch == JAX's one-strand scan (XLA path) of the
+    words and of JAX's reverse_complement_reads."""
+    if name == "past_words":
+        w, n = _past_the_words(READ_SETS["at_rich"])
+    else:
+        _, w, n = _pack(READ_SETS[name])
+    jw, jn = jnp.asarray(w.numpy().view(np.uint32)), jnp.asarray(n.numpy())
+    jrc = jrevcomp.reverse_complement_reads(jw, jn)
+    got = orf.best_orf_two_strands_torch(w, n)
+    for strand, words in enumerate((jw, jrc)):
+        want = _jax_xla(jorf._best_orf_one_strand, words, jn)
+        for g, x, what in zip(got, want, ("length", "start", "stopped")):
+            _eq(g[strand], x, f"strand {strand} {what}")
+
+
+def test_longest_orf_kernel_backend_refuses_cpu_words():
+    """Under the kernel backend a CPU tensor raises: no silent fallback to
+    the plain version."""
+    _, w, n = _pack(PLANTED)
+    with config.backend("kernel"), pytest.raises(ValueError, match="CUDA"):
+        orf.longest_orf(w, n)
