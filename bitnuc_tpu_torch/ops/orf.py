@@ -14,8 +14,9 @@ complement's words made in the kernel from the forward ones. Its plain
 version ``best_orf_one_strand_torch`` is the JAX package's XLA path: one
 reverse ``cummin`` over a [B, L3/3, 3] view of the stop positions gives
 each position the next stop in its frame; ``best_orf_two_strands_torch``
-runs it on the words and on their reverse complement. Neither keeps the TPU kernel's
-L <= 32767 bound, which exists for its multiply-shift division by 3.
+runs it on the words and on their reverse complement. Neither keeps the
+TPU kernel's L <= 32767 bound, which exists for its multiply-shift
+division by 3.
 ``translate_reads`` looks codons up in a 64-entry table (the JAX package
 contracts a one-hot instead, a rule of the TPU: no gathers).
 """

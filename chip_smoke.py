@@ -1253,9 +1253,10 @@ def orf_against(args, torch, dev) -> int:
     """K10 of this checkout beside another's (``--orf-against DIR``): at each
     of ``orf_shapes``' rows one strand, or both as longest_orf scans them,
     and longest_orf of (b)'s batch, each timed in turns DIR, this, this,
-    DIR. Both trees' outputs are checked against this checkout's plain
-    versions. Prints a line a timing, the card's name and power limit, and
-    last one JSON object; returns 1 if a check failed."""
+    DIR, then the device time of each kernel of one longest_orf call of
+    each tree. Both trees' outputs are checked against this checkout's
+    plain versions. Prints a line a timing, the card's name and power
+    limit, and last one JSON object; returns 1 if a check failed."""
     import importlib
 
     from bitnuc_tpu_torch.ops import orf
@@ -1288,6 +1289,13 @@ def orf_against(args, torch, dev) -> int:
                 ms = timer(lambda: row_fns[name](w, n))
                 res["times_ms"].setdefault(f"{row} {name}", []).append(ms)
                 print(f"  {row} {name}: {ms:.4f} ms", flush=True)
+        if both:  # where longest_orf's time goes: device ms a kernel
+            for name, o in trees.items():
+                passes = device_ms_by_kernel(torch, lambda: o.longest_orf(w, n))
+                res.setdefault("longest_orf_passes_ms", {})[name] = passes
+                print(f"  (b) longest_orf {name}, device ms a kernel (torch.profiler): "
+                      + (", ".join(f"{k} {v:.4f}" for k, v in passes.items())
+                         or "not measured"), flush=True)
     return finish_against(args, torch, res)
 
 
