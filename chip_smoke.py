@@ -29,12 +29,12 @@ Phases, each of which must pass:
    with CUDA events (median of several runs, L2 flushed before each) beside
    its plain version. K6 also against K5 on the full database at Q = 1 to
    512, at 512-base and 150-base entries (the sweep behind
-   database.tc_min_q), and beside torch._int_mm. tc_search, K6's search form with a per-block
-   top-k, against its plain version, against tc_scan + top-k on the full
-   database at k = 1, 10 and SEARCH_TOPK_MAX, at edge shapes and on a
-   database of one repeated entry, beside torch._int_mm + the top-k, and
-   both search_batch routes swept at Q = 1 to 512 (the sweep behind
-   database.SEARCH_TC_MIN_Q).
+   database.tc_min_q), and beside torch._int_mm. tc_search, K6's search
+   form with a per-block top-k, against its plain version, against tc_scan
+   + top-k on the full database at k = 1, 10 and SEARCH_TOPK_MAX, at edge
+   shapes and on a database of one repeated entry, beside torch._int_mm +
+   the top-k, and both search_batch routes swept at Q = 1 to 512 (the
+   sweep behind database.SEARCH_TC_MIN_Q).
 3. The golden vectors of the reference crate.
 4. The flagship step (bitnuc_tpu_torch.entry) on 262,144 reads x 150 bp
    against a 4,194,304-entry database, under the default backend (kernels)
