@@ -22,10 +22,13 @@
 //
 // Bound on the card: bytes at the main path's 150-bp rows, the words read
 // once (a quarter byte a base) and three values a read and strand written;
-// beside them about 48 int32 operations a word and strand for the SWAR pass
-// (chip_smoke.py's ORF_OPS_PER_WORD: masks, first stops, carries) and 11
-// more a word to build the reverse strand's, 107 a word for six frames
-// (ORF_TWO_STRAND_OPS_PER_WORD), which bound both strands at 150 bp.
+// beside them the operations of a SWAR pass over each word a read covers
+// (chip_smoke.py): 48 a word for one strand (ORF_OPS_PER_WORD: one-hot
+// masks, funnel shifts, codon masks, first stops, carries) and 83 for six
+// frames (ORF_TWO_STRAND_OPS_PER_WORD: the one-hots and shifts once, a C
+// mask, each strand's codon masks, frames and carries), which bound both
+// strands at 150 bp. Building the reverse strand's words is this design's
+// own cost and is not counted.
 //
 // Design: SWAR on whole words. The two bit planes of a word and the next
 // word's low bases (a funnel shift) give one-hot masks of A, G and T at bit
@@ -40,14 +43,15 @@
 // | ((2^31 - 1 - start) << 1) | stopped, whose max keeps the longest ORF,
 // then the smallest start, and carries its flag.
 //
-// Row-length split. Rows of W <= 16 words (the read batches): one thread a
-// row and both strands, 256 rows a block staged in shared memory with
-// coalesced loads; no shuffles. Longer rows: one block a row and strand, 16
-// words a lane, rounds of 512 words a warp taken from the row's end; a first
-// pass finds each lane's first stop per frame, a suffix-min over the lanes
-// and warps above (and the rounds above) gives each lane what follows its
-// segment, and a second pass over the lane's masks, kept in registers,
-// resolves its ATGs.
+// Row-length split. Rows of W <= 128 words (reads up to 2,048 bp): one
+// thread a row and both strands, the block's rows staged in shared memory
+// with coalesced loads, as many rows a block (256, 128, 64 or 32) as fit
+// 4,352 staged words at an odd stride; no shuffles. Longer rows: one
+// block a row and strand, 16 words a lane, rounds of 512 words a warp taken
+// from the row's end; a first pass finds each lane's first stop per frame,
+// a suffix-min over the lanes and warps above (and the rounds above) gives
+// each lane what follows its segment, and a second pass over the lane's
+// masks, kept in registers, resolves its ATGs.
 #include "common.cuh"
 
 namespace {
@@ -55,8 +59,8 @@ namespace {
 constexpr int kBig = 1 << 30;
 constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr unsigned kEven = 0x55555555u;  // bit 2t of a mask: base t of the word
-constexpr int kShortW = 16;              // rows up to this many words: a thread a row
-constexpr int kShortRows = 256;          // rows (threads) a block of short rows
+constexpr int kShortW = 128;             // rows up to this many words: a thread a row
+constexpr int kShortWords = 256 * 17;    // staged words a block of short rows: 256 of 16
 constexpr int kSeg = 16;                 // words a lane of a long row
 constexpr int kLongWarps = 8;            // most warps a long row's block
 
@@ -208,21 +212,23 @@ __device__ __forceinline__ void write_key(unsigned long long key, int64_t i, int
   stopped_out[i] = len > 0 && (key & 1ull);
 }
 
-// Rows of W <= kShortW words: a thread a row; the block's rows, contiguous
-// in memory, staged in shared memory at an odd stride (no bank conflicts).
-__global__ void __launch_bounds__(kShortRows)
+// Rows of W <= kShortW words: a thread a row; the block's kRows rows,
+// contiguous in memory, staged in shared memory at an odd stride (no bank
+// conflicts), kRows (W | 1) <= kShortWords.
+template <int kRows>
+__global__ void __launch_bounds__(kRows)
     orf_short_kernel(const uint32_t* __restrict__ words, const int* __restrict__ lens,
                      int64_t B, int W, int strands, int* __restrict__ best_out,
                      int* __restrict__ start_out, bool* __restrict__ stopped_out) {
-  __shared__ uint32_t sm[kShortRows * (kShortW + 1)];
+  __shared__ uint32_t sm[kShortWords];
   const int stride = W | 1;
-  const int64_t r0 = (int64_t)blockIdx.x * kShortRows;
-  const int rows = (int)min((int64_t)kShortRows, B - r0);
-  if (W > 0) {  // thread i copies words i, i + 256, ...: (row, column) stepped
+  const int64_t r0 = (int64_t)blockIdx.x * kRows;
+  const int rows = (int)min((int64_t)kRows, B - r0);
+  if (W > 0) {  // thread i copies words i, i + kRows, ...: (row, column) stepped
     const uint32_t* src = words + r0 * W;
-    const int dq = kShortRows / W, dm = kShortRows - dq * W;
+    const int dq = kRows / W, dm = kRows - dq * W;
     int rr = threadIdx.x / W, c = threadIdx.x - rr * W;
-    for (int i = threadIdx.x; i < rows * W; i += kShortRows) {
+    for (int i = threadIdx.x; i < rows * W; i += kRows) {
       sm[rr * stride + c] = __ldg(src + i);
       rr += dq;
       c += dm;
@@ -368,11 +374,19 @@ extern "C" int bn_orf_scan(const void* words, const void* lens, int64_t B, int W
   if (B < 0 || W < 0 || strands < 1 || strands > 2) return (int)cudaErrorInvalidValue;
   if (B == 0) return (int)cudaGetLastError();
   const auto s = (cudaStream_t)stream;
-  if (W <= kShortW) {
-    const unsigned blocks = (unsigned)((B + kShortRows - 1) / kShortRows);
-    orf_short_kernel<<<blocks, kShortRows, 0, s>>>((const uint32_t*)words, (const int*)lens, B,
-                                                   W, strands, (int*)best, (int*)start,
-                                                   (bool*)stopped);
+  if (W <= kShortW) {  // as many rows a block as fit kShortWords, at least 32
+    const int stride = W | 1;
+    const int rows = 256 * stride <= kShortWords   ? 256
+                     : 128 * stride <= kShortWords ? 128
+                     : 64 * stride <= kShortWords  ? 64
+                                                   : 32;
+    const unsigned blocks = (unsigned)((B + rows - 1) / rows);
+    auto kernel = rows == 256   ? &orf_short_kernel<256>
+                  : rows == 128 ? &orf_short_kernel<128>
+                  : rows == 64  ? &orf_short_kernel<64>
+                                : &orf_short_kernel<32>;
+    kernel<<<blocks, rows, 0, s>>>((const uint32_t*)words, (const int*)lens, B, W, strands,
+                                   (int*)best, (int*)start, (bool*)stopped);
   } else {
     const int warps = min(kLongWarps, (W + 32 * kSeg - 1) / (32 * kSeg));
     orf_long_kernel<<<dim3((unsigned)B, strands), 32 * warps, 0, s>>>(

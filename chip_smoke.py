@@ -24,8 +24,9 @@ Phases, each of which must pass:
    K1 pack, K2 unpack, K3a hist_keys, K3b hist_words, K4 hdist_scan and K5
    hdist_scan_batch (one kernel), K6 tc_scan, K7 merge and K10 orf_scan at
    the main paths' shapes and at edge shapes (K3a also on poly-A keys and
-   at k = 11; K7 also lopsided and all ties; K10 also at phase 8's batch
-   on both strands, phase 8's contigs and rows of 100,000 bp), each timed
+   at k = 11; K7 also lopsided and all ties; K10 at phase 8's batch on
+   both strands, and on one strand at the table's row, phase 8's contigs,
+   rows of 100,000 bp and reads of 300, 1,000 and 4,000 bp), each timed
    with CUDA events (median of several runs, L2 flushed before each) beside
    its plain version. K6 also against K5 on the full database at Q = 1 to
    512, at 512-base and 150-base entries (the sweep behind
@@ -150,12 +151,14 @@ MERGE_OPS_PER_ROW = 6
 # per frame its start and stop bits, the first start and last stop, the
 # candidate length and its compare with the carried best (3 x 8), and the
 # three frames' next-stop carry (3): 47, taken as 48 per word. Both strands
-# (six frames) from the forward words add, per reverse-complement word, its
-# source index and clamp (3), the complement, bit reversal and 2-bit swap
-# (6), the funnel shift by the length's offset and the valid mask (2): 11.
+# (six frames) decode each word once: the one-hot masks and shifts (13) are
+# shared, a C mask (2) serves the reverse strand's motifs read forward (CAT
+# for its starts; TTA, CTA, TCA for its stops), and each strand has its own
+# codon masks, frames and carries (2 x 34): 83 per word. How a design makes
+# the reverse strand (here, by building its words) is its own cost.
 INT8_TC_OPS_PER_S = 1.979e15
 ORF_OPS_PER_WORD = 48
-ORF_TWO_STRAND_OPS_PER_WORD = 2 * ORF_OPS_PER_WORD + 11
+ORF_TWO_STRAND_OPS_PER_WORD = 8 + 5 + 2 + 2 * (7 + 3 * 8 + 3)
 TC_SWEEP_Q = (1, 8, 16, 32, 64, 128, 256, 512)
 SEARCH_SWEEP_Q = (1, 8, 32, 64, 128, 256, 512)  # search_batch's two routes
 SEARCH_QUERIES = 256  # phase 8's query file, and K6's reported shape
@@ -1185,7 +1188,10 @@ def orf_shapes(torch, dev, seed: int) -> dict:
     (r) the kernel table's row, 262,144 random reads of 0..150 bp; (b)
     phase 8's read batch, 262,144 x 150 bp, scanned on both strands as
     longest_orf scans it; (c) phase 8's contigs, phase 6's genome (the same
-    seed) cut into N_CONTIGS x CONTIG_BP; (l) 64 rows of 99,000..100,000 bp."""
+    seed) cut into N_CONTIGS x CONTIG_BP; (l) 64 rows of 99,000..100,000 bp;
+    mid-length reads, one strand: (s) 262,144 x 300 bp (W = 19) and (k)
+    65,536 x 1,000 bp (W = 63), a thread a row, and (g) 16,384 x 4,000 bp
+    (W = 250), a block a row."""
     from bitnuc_tpu_torch.ops import codec
     from bitnuc_tpu_torch.sequence import PackedReads
 
@@ -1211,6 +1217,8 @@ def orf_shapes(torch, dev, seed: int) -> dict:
             ORF_BATCH, READ_LEN, lens(ORF_BATCH, READ_LEN, READ_LEN)),
         f"(c) [{N_CONTIGS},{CONTIG_BP}]": (contigs.words, contigs.lengths),
         "(l) [64,100000]": rows(64, 100_000, long_lens),
+        **{f"({key}) [{B},{L}]": rows(B, L, lens(B, L, L))
+           for key, B, L in (("s", READS, 300), ("k", 65_536, 1_000), ("g", 16_384, 4_000))},
     }
 
 
@@ -1775,8 +1783,9 @@ def main() -> int:
     del q_max, db_small
 
     # K10: its timed shapes (orf_shapes: (r) the table's row, (b) phase 8's
-    # batch on both strands, (c) phase 8's contigs, (l) rows of 100,000 bp,
-    # past the TPU's 32,767), and edge shapes: W = 1, lengths 0, 1, 2, 16 W
+    # batch on both strands, the main row, as longest_orf launches it; (c)
+    # phase 8's contigs, (l) rows of 100,000 bp, past the TPU's 32,767; (s),
+    # (k), (g) reads of 300, 1,000 and 4,000 bp), and edge shapes: W = 1, lengths 0, 1, 2, 16 W
     # and not multiples of 3, no ATG, all stops, nested starts sharing a stop
     orf_rows = orf_shapes(torch, dev, args.seed)
     orf_cases = [(label, w, n) for label, (w, n) in orf_rows.items()]
@@ -1806,7 +1815,7 @@ def main() -> int:
                        else (orf.best_orf_one_strand_kernel, orf.best_orf_one_strand_torch))
         nbytes, ops_ms = orf_bound(torch, w, ln, 2 if both else 1)
         timed("orf_scan", label + (", both strands" if both else ", one strand"),
-              lambda: kern(w, ln), lambda: plain(w, ln), main=label.startswith("(r)"),
+              lambda: kern(w, ln), lambda: plain(w, ln), main=both,
               nbytes=nbytes, ops_ms=ops_ms)
     del orf_cases, orf_rows, long_ascii, long_words
 

@@ -557,13 +557,22 @@ _RC_MOTIFS = ("CAT", "TTA", "CTA", "TCA", "GCC")
 @pytest.mark.parametrize("B,W,lengths,motifs", [
     (9, 1, [0, 1, 2, 3, 4, 5, 14, 15, 16], None),  # lengths 0, 1, 2 and 16 W
     (300, 10, None, None),                          # 150-bp rows
-    (600, 16, None, None),                          # the widest row a thread takes
+    (600, 16, None, None),                          # a thread a row, 256 rows a block
     (8, 16, _edge_lengths(16), None),
-    (40, 17, None, None),                           # the narrowest row a block takes
+    (40, 17, None, None),
     (8, 17, _edge_lengths(17), None),
+    (300, 18, None, None),                          # 128 rows a block
+    (300, 19, None, None),                          # 300-bp rows
     (40, 32, None, None),
     (20, 33, None, None),
+    (200, 34, None, None),                          # 64 rows a block
     (6, 40, [640, 639, 638, 637, 600, 0], None),
+    (100, 63, None, None),                          # 1-kb rows
+    (100, 68, None, None),                          # 32 rows a block
+    (70, 128, None, None),                          # the widest row a thread takes
+    (8, 128, _edge_lengths(128), None),
+    (40, 129, None, None),                          # the narrowest row a block takes
+    (8, 129, _edge_lengths(129), None),
     (8, 512, _edge_lengths(512), None),             # one warp's round of 512 words
     (8, 513, _edge_lengths(513), None),             # its seam
     (4, 4097, [16 * 4097, 16 * 4097 - 1, 65_536, 16 * 4097 + 5], None),  # a block's round
