@@ -1239,31 +1239,13 @@ def orf_bound(torch, words, lengths, strands: int):
     return 4 * words.numel() + 4 * B + 9 * strands * B, ops * covered / INT32_OPS_PER_S * 1e3
 
 
-def orf_strands(torch, o):
-    """A tree's K10 on both strands as its longest_orf runs it, (length,
-    start, stopped) each [2, B], forward then reverse: one launch of
-    best_orf_two_strands_kernel, or, in a tree from before it, the reverse
-    complement and two one-strand launches."""
-    import importlib
-
-    if hasattr(o, "best_orf_two_strands_kernel"):
-        return o.best_orf_two_strands_kernel
-    rc = importlib.import_module(o.__name__.rsplit(".", 1)[0] + ".revcomp")
-
-    def both(w, n):
-        fwd = o.best_orf_one_strand_kernel(w, n)
-        rev = o.best_orf_one_strand_kernel(rc.reverse_complement_reads(w, n), n)
-        return tuple(torch.stack(p) for p in zip(fwd, rev))
-    return both
-
-
 def orf_against(args, torch, dev) -> int:
     """K10 of this checkout beside another's (``--orf-against DIR``): at each
     of ``orf_shapes``' rows one strand, or both as longest_orf scans them,
     and longest_orf of (b)'s batch, each timed in turns DIR, this, this,
     DIR, then the device time of each kernel of one longest_orf call of
-    each tree. Both trees' outputs are checked against this checkout's
-    plain versions. Prints a line a timing, the card's name and power
+    each tree (DIR's ops.orf needs best_orf_two_strands_kernel). Both
+    trees' outputs are checked against this checkout's plain versions. Prints a line a timing, the card's name and power
     limit, and last one JSON object; returns 1 if a check failed."""
     import importlib
 
@@ -1279,7 +1261,7 @@ def orf_against(args, torch, dev) -> int:
     for label, (w, n) in orf_shapes(torch, dev, args.seed).items():
         both = orf_both(label)
         want = (orf.best_orf_two_strands_torch if both else orf.best_orf_one_strand_torch)(w, n)
-        fns = {name: orf_strands(torch, o) if both else o.best_orf_one_strand_kernel
+        fns = {name: o.best_orf_two_strands_kernel if both else o.best_orf_one_strand_kernel
                for name, o in trees.items()}
         for name, fn in fns.items():
             res["checks"][f"{name} {label}"] = check(
