@@ -7,12 +7,13 @@ PyTorch built for CUDA:
     python3 chip_smoke.py [--out results.json] [--seed 0]
     python3 chip_smoke.py --k6-against DIR [--out results.json]
     python3 chip_smoke.py --orf-against DIR [--out results.json]
+    python3 chip_smoke.py --pack-against DIR [--out results.json]
 
-The second and third forms run no phase: they time K6 (tc_scan and
-tc_search), or K10 (orf_scan) and longest_orf, of this checkout beside
+The last three forms run no phase: they time K6 (tc_scan and tc_search),
+K10 (orf_scan) and longest_orf, or K1 (pack), of this checkout beside
 those of another checkout in DIR (for example a git archive of an earlier
 commit, unpacked), in turns DIR, this, this, DIR, on one card (see
-k6_against and orf_against).
+k6_against, orf_against and pack_against).
 
 Phases, each of which must pass:
 
@@ -21,7 +22,9 @@ Phases, each of which must pass:
    memory and spills of histogram.cu (K3a, K3b), tcscan.cu (K6), merge.cu
    (K7), wavefront.cu (K8, K9) and orf.cu (K10).
 2. Every kernel against its plain PyTorch version on the card, bit for bit:
-   K1 pack, K2 unpack, K3a hist_keys, K3b hist_words, K4 hdist_scan and K5
+   K1 pack (at the flagship's batch, a count batch, 64 rows of 16,384 bp,
+   phase 6's genome as one row and a base pointer off 16-byte alignment,
+   with the device operations of one call), K2 unpack, K3a hist_keys, K3b hist_words, K4 hdist_scan and K5
    hdist_scan_batch (one kernel), K6 tc_scan, K7 merge and K10 orf_scan at
    the main paths' shapes and at edge shapes (K3a also on poly-A keys and
    at k = 11; K7 also lopsided and all ties; K10 at phase 8's batch on
@@ -1289,6 +1292,99 @@ def orf_against(args, torch, dev) -> int:
     return finish_against(args, torch, res)
 
 
+def pack_shapes(torch, dev, seed: int) -> dict:
+    """{label: (ascii, lengths)} of K1's timed shapes, made from ``seed``:
+    (b) the flagship's batch, READS reads of 1..READ_LEN bp in ACGTacgt with
+    1% N, the main row; (a) a batch of the streaming count, FASTQ_BATCH x
+    READ_LEN bp of ACGT with N at 1/200 (phase 5's 16 launches); (l) 64 rows
+    of 16,384 bp; (g) phase 6's genome (the same seed) as one row, as
+    count_fasta encodes a segment; (u) (b) from its fourth row on, a base
+    pointer 3 x READ_LEN bytes in, off 16-byte alignment."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 20)
+    acgt = torch.tensor(list(b"ACGTacgt"), dtype=torch.uint8, device=dev)
+
+    def rows(B, L, cases, n_rate, shortest):
+        a = acgt[torch.randint(0, cases, (B, L), device=dev, generator=gen)]
+        a[torch.rand((B, L), device=dev, generator=gen) < n_rate] = ord("N")
+        lens = torch.randint(shortest, L + 1, (B,), device=dev, generator=gen, dtype=torch.int32)
+        return a, lens
+
+    b = rows(READS, READ_LEN, 8, 0.01, 1)
+    genome = torch.from_numpy(make_genome(np.random.default_rng(seed + 1))).to(dev)
+    return {
+        f"(b) [{READS},{READ_LEN}]": b,
+        f"(a) [{FASTQ_BATCH},{READ_LEN}]": rows(FASTQ_BATCH, READ_LEN, 4, 1 / 200, READ_LEN),
+        "(l) [64,16384]": rows(64, 16_384, 4, 1 / 200, 16_384),
+        f"(g) [1,{GENOME_BP}]": (genome[None],
+                                 torch.full((1,), GENOME_BP, dtype=torch.int32, device=dev)),
+        f"(u) [{READS - 3},{READ_LEN}] at byte {3 * READ_LEN}": (b[0][3:], b[1][3:]),
+    }
+
+
+def pack_bound(ascii_u8, n_words: int) -> tuple:
+    """(bytes, least ms of the operations) of K1: the ASCII and the lengths
+    read once, the words and first_bad written once; 8 int32 operations a
+    base of the row."""
+    B, L = ascii_u8.shape
+    return B * L + 4 * B * (n_words + 2), 8 * B * L / INT32_OPS_PER_S * 1e3
+
+
+def device_ops(torch, fn) -> int:
+    """Device operations (kernels, fills, copies) of one warm call of fn,
+    from torch.profiler's CUDA activity; 0 where it sees none."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages() if e.device_time_total)
+
+
+def pack_against(args, torch, dev) -> int:
+    """K1 of this checkout beside another's (``--pack-against DIR``): at each
+    of ``pack_shapes``' rows, the device operations of one encode_reads_kernel
+    call of each tree and their device ms (torch.profiler, before any
+    timing), then the call timed in turns DIR, this, this, DIR. Both trees'
+    outputs are checked against this checkout's plain version. Prints a line
+    a timing, the card's name and power limit, and last one JSON object;
+    returns 1 if a check failed."""
+    import importlib
+
+    from bitnuc_tpu_torch.ops import codec
+
+    load_other_tree(args.pack_against)
+    trees = {"other": importlib.import_module("bnt_other.ops.codec"), "this": codec}
+    if "jax" in sys.modules:
+        print("chip_smoke: jax was imported", file=sys.stderr)
+        return 1
+    timer = Timer(torch)
+    res = {"times_ms": {}, "checks": {}, "bound_ms": {}, "device_ops": {}, "passes_ms": {}}
+    shapes = pack_shapes(torch, dev, args.seed)
+    for label, (a, n) in shapes.items():
+        want = codec.encode_reads_torch(a, n)
+        for name, c in trees.items():
+            res["checks"][f"{name} {label}"] = check(
+                f"K1 of {name} at {label} == plain",
+                max_abs_diff(c.encode_reads_kernel(a, n), want) == 0)
+            fn = lambda c=c: c.encode_reads_kernel(a, n)  # noqa: E731
+            res["device_ops"][f"{label} {name}"] = ops = device_ops(torch, fn)
+            res["passes_ms"][f"{label} {name}"] = passes = device_ms_by_kernel(torch, fn)
+            print(f"  {label} {name}: {ops} device operation(s) a call; device ms "
+                  + (", ".join(f"{k} {v:.4f}" for k, v in passes.items()) or "not measured"),
+                  flush=True)
+        nbytes, ops_ms = pack_bound(a, want[0].shape[1])
+        res["bound_ms"][label] = max(nbytes / HBM_BYTES_PER_S * 1e3, ops_ms)
+        del want
+    for label, (a, n) in shapes.items():
+        for name in ("other", "this", "this", "other"):
+            ms = timer(lambda: trees[name].encode_reads_kernel(a, n))
+            res["times_ms"].setdefault(f"{label} {name}", []).append(ms)
+            print(f"  {label} {name}: {ms:.4f} ms (bound {res['bound_ms'][label]:.4f})",
+                  flush=True)
+    return finish_against(args, torch, res)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the full results here as JSON")
@@ -1297,6 +1393,8 @@ def main() -> int:
                     help="only time K6 beside another checkout's (see k6_against)")
     ap.add_argument("--orf-against", metavar="DIR",
                     help="only time K10 beside another checkout's (see orf_against)")
+    ap.add_argument("--pack-against", metavar="DIR",
+                    help="only time K1 beside another checkout's (see pack_against)")
     args = ap.parse_args()
 
     import torch
@@ -1325,6 +1423,8 @@ def main() -> int:
         return k6_against(args, torch, dev)
     if args.orf_against:
         return orf_against(args, torch, dev)
+    if args.pack_against:
+        return pack_against(args, torch, dev)
     results = {"kernels": {}, "phases": {}}
     t_all = time.perf_counter()
 
@@ -1394,16 +1494,23 @@ def main() -> int:
         return a.contiguous(), lens
 
     ascii_b, lens_b = reads(READS, READ_LEN)
-    for B, L in [(READS, READ_LEN), (1, 1), (5, 33), (3, 1000)]:
-        a, ln = (ascii_b, lens_b) if B == READS else reads(B, L, 0.05)
+    for B, L in [(1, 1), (5, 33), (3, 1000)]:
+        a, ln = reads(B, L, 0.05)
         compare("pack", f"[{B},{L}]", codec.encode_reads_kernel(a, ln),
                 codec.encode_reads_torch(a, ln))
-    W_b = bitops.n_words_for(READ_LEN)
-    timed("pack", f"[{READS},{READ_LEN}]",
-          lambda: codec.encode_reads_kernel(ascii_b, lens_b),
-          lambda: codec.encode_reads_torch(ascii_b, lens_b), main=True,
-          nbytes=READS * READ_LEN + 4 * READS * (W_b + 2),
-          ops_ms=8 * READS * READ_LEN / INT32_OPS_PER_S * 1e3)
+    # K1 at its launches' shapes, (b) the main row; the launches of one call
+    # (the wrapper's count) and its device operations (torch.profiler)
+    for label, (a, ln) in pack_shapes(torch, dev, args.seed).items():
+        compare("pack", label, codec.encode_reads_kernel(a, ln), codec.encode_reads_torch(a, ln))
+        before = kernels.LAUNCHES["pack"]
+        ops = device_ops(torch, lambda: codec.encode_reads_kernel(a, ln))
+        print(f"    pack {label}: {(kernels.LAUNCHES['pack'] - before) // 2} launch(es) "
+              f"a call, {ops} device operation(s)", flush=True)
+        nbytes, ops_ms = pack_bound(a, bitops.n_words_for(a.shape[1]))
+        timed("pack", label, lambda: codec.encode_reads_kernel(a, ln),
+              lambda: codec.encode_reads_torch(a, ln), main=label.startswith("(b)"),
+              nbytes=nbytes, ops_ms=ops_ms)
+    del a, ln
 
     def time_hist_keys(label, keys, k, main=False):
         timed("hist_keys", label,
