@@ -2,84 +2,179 @@
 //
 // Replaces bitnuc_tpu/ops/pallas/pack.py::encode_reads_pallas. Same function:
 // words[b, w] holds bases [16w, 16w+16) of read b, LSB-first (A=0 C=1 G=2
-// T=3), zero past the read's length; first_bad[b] is the earliest offset
-// below the length whose byte is not in ACGTacgt, or -1. Bytes at or past a
-// read's length are never inspected.
+// T=3), zero past the read's length and past L; first_bad[b] is the earliest
+// offset below the clamped length whose byte is not in ACGTacgt, or -1.
+// Bytes at or past a read's length are never inspected. Any even W >=
+// ceil(L / 16) works, and so do L = 0 and B = 0.
 //
 // Bound on the card: memory. It reads 1 B and writes 0.25 B per base, with a
-// few integer operations per byte, far below the issue rate.
+// few integer operations per byte, below the issue rate.
 //
-// Design: one thread per output word. The thread takes its 16 ASCII bytes as
-// one 16-byte load when the row segment is 16-byte aligned (the row stride L
-// need not be a multiple of 16, so many rows are not) and as byte loads
-// otherwise. It codes four bytes at a time with ((v>>1)^(v>>2)) & 0x03030303,
-// folds the four codes of each 32-bit lane into one byte, and masks the word
-// to the length. The invalid offset is reduced per word, then per warp over
-// the lanes that share a read (__match_any_sync + __reduce_min_sync), and
-// combined per read with one atomicMin into a buffer the wrapper fills with
-// INT_MAX; the wrapper maps INT_MAX to -1. The TPU kernel's lane-local
-// bitcasts and tiled min-accumulator are Mosaic artefacts and are not kept.
+// Design. The [B, L] batch is one contiguous byte stream, whatever L mod 16
+// and the base pointer's offset. A block stages a piece of it in shared
+// memory with 16-byte loads aligned to the stream (only the head and tail
+// bytes, fewer than 16 each, are loaded singly), so each warp request is one
+// contiguous 512-byte read. Rows of up to kShortRowMax bytes are staged as
+// tiles of whole rows, up to kStageBytes a block (pack_rows_kernel); longer
+// rows are cut into segments of kSegWords words, a block each
+// (pack_segments_kernel), so that one long row spreads over the card.
+// A thread codes a word from shared memory: five 32-bit reads and
+// __funnelshift_r give its 16 bytes at any byte offset; the codes
+// ((x >> 1) ^ (x >> 2)) & 3 of four bytes fold into one byte of the word,
+// and the same codes check the four bytes' validity with no loop over bytes
+// (bad_bytes). first_bad is finished in the kernel: a tile of whole rows
+// reduces each row's minimum in shared memory and writes -1 or the offset
+// once, so an encode of short rows is one launch; a segment reduces its
+// minimum in shared memory and makes one unsigned atomicMin into first_bad,
+// which bn_pack sets to all ones first (UINT_MAX reads as -1 in int32, and
+// offsets are below 2^31). The TPU kernel's lane-local bitcasts and tiled
+// min-accumulator are Mosaic artefacts and are not kept.
 #include <climits>
 
 #include "common.cuh"
 
 namespace {
 
-__device__ __forceinline__ bool is_acgt(uint32_t byte) {
-  const uint32_t lower = byte | 0x20u;
-  return lower == 'a' || lower == 'c' || lower == 'g' || lower == 't';
+constexpr int kThreads = 256;
+constexpr int kShortRowMax = 4096;   // longer rows are cut into segments
+constexpr int kStageBytes = 16384;   // a tile of whole rows
+constexpr int kMaxTileRows = 1024;
+constexpr int kMaxTileWords = 4096;  // unless one row has more
+constexpr int kSegWords = kThreads;  // a segment: one word a thread
+// a stage's head offset (< 16) and the 20 bytes read for a word's last 16
+constexpr int kSlack = 48;
+
+// The invalid bytes of a four-byte lane v whose byte codes are c, one bit a
+// byte (bit k: byte k is not in ACGTacgt). A lower-cased byte x with code c
+// is in acgt exactly when x == "acgt"[c], the only way (x | 0x20) can be one
+// of a, c, g, t: the four codes, packed into the nibbles of a selector, pick
+// the expected bytes with one byte permute, and a byte of the difference is
+// nonzero exactly when its top bit is set in ((d & 0x7F..) + 0x7F..) | d.
+// The multiply gathers the four top bits (bytes 0..3) into bits 24..27.
+__device__ __forceinline__ uint32_t bad_bytes(uint32_t v, uint32_t c) {
+  const uint32_t t = c | (c >> 4);
+  const uint32_t sel = (t & 0xFFu) | ((t >> 8) & 0xFF00u);
+  const uint32_t d = (v | 0x20202020u) ^ __byte_perm(0x74676361u, 0u, sel);
+  const uint32_t hi = (((d & 0x7F7F7F7Fu) + 0x7F7F7F7Fu) | d) & 0x80808080u;
+  return ((hi >> 7) * 0x01020408u) >> 24;
 }
 
-__global__ void pack_kernel(const uint8_t* __restrict__ ascii,
-                            const int32_t* __restrict__ lengths, int64_t B,
-                            int64_t L, int64_t W, uint32_t* __restrict__ words,
-                            int32_t* __restrict__ first_bad) {
-  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const bool live = idx < B * W;
-  long long row = -1;  // lanes past the end form their own group
-  int bad = INT_MAX;
-  if (live) {
-    row = idx / W;
-    const int64_t base0 = 16 * (idx - row * W);
-    int64_t len = lengths[row];
-    len = len < 0 ? 0 : (len > L ? L : len);
-    const int64_t left = len - base0;
-    const int nvalid = left <= 0 ? 0 : (left >= 16 ? 16 : (int)left);
-    uint32_t word = 0;
-    if (nvalid > 0) {
-      const uint8_t* src = ascii + row * L + base0;
-      uint32_t v[4] = {0u, 0u, 0u, 0u};
-      if (base0 + 16 <= L && (reinterpret_cast<uintptr_t>(src) & 15u) == 0) {
-        const uint4 q = *reinterpret_cast<const uint4*>(src);
-        v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
-      } else {
+// The word of the 16 staged bytes at byte offset `off`, of which the first
+// n (1..16) lie below the read's length; *bad is the index in the word of
+// the first invalid one of those n, or -1.
+__device__ __forceinline__ uint32_t code_word(const uint32_t* stage, uint32_t off, int n,
+                                              int* bad) {
+  const uint32_t* p = stage + (off >> 2);
+  const uint32_t shift = 8u * (off & 3u);
+  uint32_t x[5];
 #pragma unroll
-        for (int j = 0; j < 16; ++j) {
-          if (base0 + j < L) v[j >> 2] |= (uint32_t)src[j] << (8 * (j & 3));
-        }
-      }
+  for (int j = 0; j < 5; ++j) x[j] = p[j];
+  uint32_t word = 0u, bits = 0u;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const uint32_t c = ((v[i] >> 1) ^ (v[i] >> 2)) & 0x03030303u;
-        const uint32_t p = (c | (c >> 6) | (c >> 12) | (c >> 18)) & 0xFFu;
-        word |= p << (8 * i);
-      }
-      word &= bn::base_mask(nvalid);
-      for (int j = 0; j < nvalid; ++j) {
-        if (!is_acgt((v[j >> 2] >> (8 * (j & 3))) & 0xFFu)) {
-          bad = (int)(base0 + j);
-          break;
-        }
-      }
-    }
-    words[idx] = word;
+  for (int i = 0; i < 4; ++i) {
+    const uint32_t v = __funnelshift_r(x[i], x[i + 1], shift);
+    const uint32_t c = ((v >> 1) ^ (v >> 2)) & 0x03030303u;
+    word |= ((c | (c >> 6) | (c >> 12) | (c >> 18)) & 0xFFu) << (8 * i);
+    bits |= bad_bytes(v, c) << (4 * i);
   }
-  // every lane reaches this point: the block size is a multiple of 32
-  const unsigned peers = __match_any_sync(0xFFFFFFFFu, row);
-  const int m = __reduce_min_sync(peers, bad);
-  const int leader = __ffs(peers) - 1;
-  if (live && (int)(threadIdx.x & 31) == leader && m != INT_MAX) {
-    atomicMin(first_bad + row, m);
+  bits &= 0xFFFFu >> (16 - n);
+  *bad = __ffs(bits) - 1;
+  return word & bn::base_mask(n);
+}
+
+// Copies src[0, n) into the stage at byte offset head = src mod 16 and
+// returns head: 16-byte loads of the aligned chunks, single bytes before
+// the first and after the last. The caller synchronises.
+__device__ __forceinline__ uint32_t stage_bytes(const uint8_t* __restrict__ src, int64_t n,
+                                                uint32_t* stage) {
+  const uint32_t head = (uint32_t)(reinterpret_cast<uintptr_t>(src) & 15u);
+  const int64_t lead = head ? 16 - head : 0;  // bytes before the first chunk
+  const int64_t chunks = n > lead ? (n - lead) >> 4 : 0;
+  const int64_t singles = chunks ? lead : n;  // the head bytes, or all of them
+  const int64_t tail = chunks ? lead + 16 * chunks : n;
+  uint8_t* sb = reinterpret_cast<uint8_t*>(stage) + head;
+  const uint4* g = reinterpret_cast<const uint4*>(src + lead);
+  uint4* d = reinterpret_cast<uint4*>(sb + lead);  // 16-byte aligned
+  for (int64_t k = threadIdx.x; k < chunks; k += blockDim.x) d[k] = __ldg(g + k);
+  for (int64_t j = threadIdx.x; j < singles; j += blockDim.x) sb[j] = src[j];
+  for (int64_t j = tail + threadIdx.x; j < n; j += blockDim.x) sb[j] = src[j];
+  return head;
+}
+
+// n = clamp(left, 0, 16), written with branches (see bn::base_mask).
+__device__ __forceinline__ int bases_in_word(int64_t left) {
+  if (left <= 0) return 0;
+  if (left >= 16) return 16;
+  return (int)left;
+}
+
+// A tile of `rows` whole rows a block: rows * L bytes staged, rows * W
+// words coded, a word a thread at a time, and each row's first_bad written.
+__global__ void __launch_bounds__(kThreads)
+    pack_rows_kernel(const uint8_t* __restrict__ ascii, const int32_t* __restrict__ lengths,
+                     int64_t B, int64_t L, int64_t W, int rows,
+                     uint32_t* __restrict__ words, int32_t* __restrict__ first_bad) {
+  __shared__ __align__(16) uint32_t stage[(kStageBytes + kSlack) / 4];
+  __shared__ int row_len[kMaxTileRows];
+  __shared__ int row_bad[kMaxTileRows];
+  const int64_t r0 = (int64_t)blockIdx.x * rows;
+  const int nr = (int)(B - r0 < rows ? B - r0 : rows);
+  const uint32_t head = stage_bytes(ascii + r0 * L, nr * L, stage);
+  for (int r = threadIdx.x; r < nr; r += kThreads) {
+    const int64_t len = lengths[r0 + r];
+    row_len[r] = (int)(len < 0 ? 0 : (len > L ? L : len));
+    row_bad[r] = INT_MAX;
+  }
+  __syncthreads();
+  const uint32_t w32 = (uint32_t)W, n_words = (uint32_t)nr * w32;
+  uint32_t* out = words + r0 * W;
+  for (uint32_t i = threadIdx.x; i < n_words; i += kThreads) {
+    const uint32_t r = i / w32, w = i - r * w32;
+    const int n = bases_in_word(row_len[r] - 16 * (int64_t)w);
+    uint32_t word = 0u;
+    if (n > 0) {
+      int bad;
+      word = code_word(stage, head + r * (uint32_t)L + 16u * w, n, &bad);
+      if (bad >= 0) atomicMin(&row_bad[r], 16 * (int)w + bad);
+    }
+    out[i] = word;
+  }
+  __syncthreads();
+  for (int r = threadIdx.x; r < nr; r += kThreads) {
+    first_bad[r0 + r] = row_bad[r] == INT_MAX ? -1 : row_bad[r];
+  }
+}
+
+// A segment of kSegWords words of one row a block, staged up to the row's
+// length; the segment's first invalid offset goes to first_bad[row] with
+// one unsigned atomicMin.
+__global__ void __launch_bounds__(kThreads)
+    pack_segments_kernel(const uint8_t* __restrict__ ascii,
+                         const int32_t* __restrict__ lengths, int64_t L, int64_t W,
+                         int64_t segs, uint32_t* __restrict__ words,
+                         int32_t* __restrict__ first_bad) {
+  __shared__ __align__(16) uint32_t stage[(16 * kSegWords + kSlack) / 4];
+  __shared__ int seg_bad;
+  const int64_t row = blockIdx.x / segs;
+  const int64_t w0 = (blockIdx.x - row * segs) * kSegWords;
+  const int64_t len = lengths[row];
+  const int64_t left = (len < 0 ? 0 : (len > L ? L : len)) - 16 * w0;
+  const int64_t nbytes = left <= 0 ? 0 : (left < 16 * kSegWords ? left : 16 * kSegWords);
+  if (threadIdx.x == 0) seg_bad = INT_MAX;
+  const uint32_t head = stage_bytes(ascii + row * L + 16 * w0, nbytes, stage);
+  __syncthreads();
+  const int w = threadIdx.x;
+  const int n = bases_in_word(nbytes - 16 * w);
+  int bad = -1;
+  uint32_t word = 0u;
+  if (n > 0) word = code_word(stage, head + 16u * w, n, &bad);
+  if (w0 + w < W) words[row * W + w0 + w] = word;
+  const int m = __reduce_min_sync(0xFFFFFFFFu, bad >= 0 ? 16 * w + bad : INT_MAX);
+  if ((w & 31) == 0 && m != INT_MAX) atomicMin(&seg_bad, m);
+  __syncthreads();
+  if (threadIdx.x == 0 && seg_bad != INT_MAX) {
+    atomicMin(reinterpret_cast<unsigned int*>(first_bad) + row,
+              (unsigned int)(16 * w0 + seg_bad));
   }
 }
 
@@ -88,13 +183,26 @@ __global__ void pack_kernel(const uint8_t* __restrict__ ascii,
 extern "C" int bn_pack(const void* ascii, const void* lengths, int64_t B,
                        int64_t L, int64_t W, void* words, void* first_bad,
                        void* stream) {
-  const int64_t total = B * W;
-  if (total > 0) {
-    const int threads = 256;
-    const unsigned blocks = (unsigned)((total + threads - 1) / threads);
-    pack_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        (const uint8_t*)ascii, (const int32_t*)lengths, B, L, W,
+  if (B <= 0) return (int)cudaGetLastError();
+  if (W > INT_MAX) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (L <= kShortRowMax) {
+    int64_t rows = kStageBytes / (L > 0 ? L : 1);
+    if (rows > kMaxTileRows) rows = kMaxTileRows;
+    if (W > 0 && rows * W > kMaxTileWords) rows = W >= kMaxTileWords ? 1 : kMaxTileWords / W;
+    const int64_t blocks = (B + rows - 1) / rows;
+    if (blocks > INT_MAX) return (int)cudaErrorInvalidConfiguration;
+    pack_rows_kernel<<<(unsigned)blocks, kThreads, 0, s>>>(
+        (const uint8_t*)ascii, (const int32_t*)lengths, B, L, W, (int)rows,
         (uint32_t*)words, (int32_t*)first_bad);
+  } else {
+    const int64_t segs = (W + kSegWords - 1) / kSegWords;
+    if (B * segs > INT_MAX) return (int)cudaErrorInvalidConfiguration;
+    const cudaError_t e = cudaMemsetAsync(first_bad, 0xFF, 4 * B, s);
+    if (e != cudaSuccess) return (int)e;
+    pack_segments_kernel<<<(unsigned)(B * segs), kThreads, 0, s>>>(
+        (const uint8_t*)ascii, (const int32_t*)lengths, L, W, segs, (uint32_t*)words,
+        (int32_t*)first_bad);
   }
   return (int)cudaGetLastError();
 }

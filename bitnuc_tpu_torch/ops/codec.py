@@ -61,7 +61,9 @@ def encode_reads_kernel(
     ascii_u8: torch.Tensor, lengths: torch.Tensor, n_words: Optional[int] = None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K1 on the card: [B, L] uint8 + [B] int32 -> ([B, W] int32,
-    [B] int32). Raises on anything but contiguous CUDA tensors."""
+    [B] int32). One launch; rows longer than a stage also take a fill of
+    first_bad before it (``csrc/pack.cu``). Raises on anything but
+    contiguous CUDA tensors."""
     kernels.require(ascii_u8, "pack ascii", torch.uint8, 2)
     kernels.require(lengths, "pack lengths", torch.int32, 1)
     B, L = ascii_u8.shape
@@ -69,15 +71,14 @@ def encode_reads_kernel(
         raise ValueError("pack: lengths must be [B] on the device of the reads")
     W = _n_words(L, n_words)
     words = torch.empty((B, W), dtype=torch.int32, device=ascii_u8.device)
-    first = torch.full((B,), _INT32_MAX, dtype=torch.int32, device=ascii_u8.device)
-    lib = _build.library()
-    code = lib.bn_pack(
+    first_bad = torch.empty((B,), dtype=torch.int32, device=ascii_u8.device)
+    code = _build.library().bn_pack(
         ascii_u8.data_ptr(), lengths.data_ptr(), B, L, W,
-        words.data_ptr(), first.data_ptr(), kernels.stream_handle(ascii_u8.device),
+        words.data_ptr(), first_bad.data_ptr(), kernels.stream_handle(ascii_u8.device),
     )
     _build.check(code, "pack")
     kernels.LAUNCHES["pack"] += 1
-    return words, torch.where(first == _INT32_MAX, -1, first)
+    return words, first_bad
 
 
 def encode_reads(

@@ -19,8 +19,8 @@ Phases, each of which must pass:
 
 1. Device: the card's name and power limit, and the kernel build (all of
    bitnuc_tpu_torch/csrc/*.cu with nvcc, timed); the registers, shared
-   memory and spills of histogram.cu (K3a, K3b), tcscan.cu (K6), merge.cu
-   (K7), wavefront.cu (K8, K9) and orf.cu (K10).
+   memory and spills of pack.cu (K1), histogram.cu (K3a, K3b), tcscan.cu
+   (K6), merge.cu (K7), wavefront.cu (K8, K9) and orf.cu (K10).
 2. Every kernel against its plain PyTorch version on the card, bit for bit:
    K1 pack (at the flagship's batch, a count batch, 64 rows of 16,384 bp,
    phase 6's genome as one row and a base pointer off 16-byte alignment,
@@ -1438,12 +1438,13 @@ def main() -> int:
     _build.library()
     build_s = time.perf_counter() - t
     print(f"  built {os.path.relpath(lib_path)} in {build_s:.1f} s", flush=True)
-    # K3a's, K6's, K7's, K8/K9's and K10's registers, shared memory and
-    # spills: nvcc -Xptxas -v of histogram.cu, tcscan.cu, merge.cu,
-    # wavefront.cu and orf.cu
+    # K1's, K3a's, K6's, K7's, K8/K9's and K10's registers, shared memory
+    # and spills: nvcc -Xptxas -v of pack.cu, histogram.cu, tcscan.cu,
+    # merge.cu, wavefront.cu and orf.cu
     with tempfile.TemporaryDirectory() as d:
         ptxas = build_time.ptxas_report(
-            Path(d), ("histogram.cu", "tcscan.cu", "merge.cu", "wavefront.cu", "orf.cu"))
+            Path(d),
+            ("pack.cu", "histogram.cu", "tcscan.cu", "merge.cu", "wavefront.cu", "orf.cu"))
     for src, lines in sorted(ptxas.items()):
         for line in lines:
             print(f"  ptxas {src}: {line}", flush=True)

@@ -41,6 +41,116 @@ def test_pack_kernel_matches_plain(cuda, B, L):
         assert torch.equal(got, want)
 
 
+def _pack_equal(a, lens, n_words=None):
+    got = codec.encode_reads_kernel(a, lens, n_words)
+    for g, w in zip(got, codec.encode_reads_torch(a, lens, n_words)):
+        assert torch.equal(g, w)
+
+
+def _edge_rows(device, B, L, seed):
+    """B reads of L bytes with lengths -2, 0, L and L + 7 first."""
+    a, lens = _reads_on(device, B, L, seed)
+    lens[: min(B, 4)] = torch.tensor([-2, 0, L, L + 7], dtype=torch.int32)[:B]
+    return a, lens
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", list(range(1, 34)) + [150])
+def test_pack_kernel_every_width(cuda, L):
+    a, lens = _edge_rows(cuda, 77, L, L)
+    _pack_equal(a, lens)
+    _pack_equal(a, lens, bitops.n_words_for(L) + 4)  # n_words above ceil(L / 16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [33, 150, 4097])
+def test_pack_kernel_unaligned_base(cuda, L):
+    a, lens = _edge_rows(cuda, 40, L, 3)
+    _pack_equal(a[3:], lens[3:])
+    flat = a.reshape(-1)
+    for off in range(1, 16):  # a base pointer at every offset from 16 bytes
+        _pack_equal(flat[off : off + 30 * L].view(30, L), lens[:30])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L", [(1025, 8), (1, 16), (110, 150), (219, 150), (5, 4000)])
+def test_pack_kernel_tile_edges(cuda, B, L):
+    """B on either side of a tile's rows (1,024 at L <= 16, 109 at 150)."""
+    _pack_equal(*_edge_rows(cuda, B, L, B))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L", [(3, 4096), (3, 4097), (4, 8192), (2, 16_384), (1, 1_000_000)])
+def test_pack_kernel_long_rows(cuda, B, L):
+    """Rows on both sides of the short/long split (4,096 bytes) and past it."""
+    _pack_equal(*_edge_rows(cuda, B, L, B + L))
+    a, _ = _reads_on(cuda, B, L, 7)
+    _pack_equal(a, torch.full((B,), L, dtype=torch.int32, device=cuda))
+
+
+@pytest.mark.cuda
+def test_pack_kernel_empty(cuda):
+    _pack_equal(torch.zeros((5, 0), dtype=torch.uint8, device=cuda),
+                torch.tensor([-2, 0, 0, 3, 1], dtype=torch.int32, device=cuda))
+    _pack_equal(torch.zeros((3, 0), dtype=torch.uint8, device=cuda),
+                torch.zeros(3, dtype=torch.int32, device=cuda), 4)
+    _pack_equal(torch.zeros((0, 150), dtype=torch.uint8, device=cuda),
+                torch.zeros(0, dtype=torch.int32, device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [1, 16, 150, 5000])
+def test_pack_kernel_bad_byte_placement(cuda, L):
+    """A bad byte at offset 0, at the last byte in length, and only past it."""
+    a = torch.full((4, L), ord("G"), dtype=torch.uint8, device=cuda)
+    lens = torch.full((4,), L, dtype=torch.int32, device=cuda)
+    a[0, 0] = ord("N")
+    a[1, L - 1] = ord("N")
+    if L > 1:
+        lens[2] = L - 1
+        a[2, L - 1] = ord("N")
+    _pack_equal(a, lens)
+    first_bad = codec.encode_reads_kernel(a, lens)[1].tolist()
+    assert first_bad == [0, L - 1, -1, -1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pos", range(16))
+def test_pack_kernel_every_byte_value(cuda, pos):
+    """Each of the 256 byte values at one position of a word."""
+    a = torch.tensor(list(b"ACGTacgtTGCAtgca"), dtype=torch.uint8).repeat(256, 1)
+    a[:, pos] = torch.arange(256, dtype=torch.uint8)
+    _pack_equal(a.to(cuda), torch.full((256,), 16, dtype=torch.int32, device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 21, 31, 32])
+def test_pack_kmers_kernel(cuda, k):
+    a, lens = _reads_on(cuda, 500, k, k)
+    for g, w in zip(codec.pack_kmers(a, lens), codec.encode_reads_torch(a, lens, 2)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [300, 65])
+def test_pack_is_one_launch(cuda, B, monkeypatch):
+    """An encode of short rows launches K1 once and nothing around it."""
+    a, lens = _reads_on(cuda, B, 150, B)
+    want = codec.encode_reads_torch(a, lens)
+
+    def refused(*args, **kwargs):
+        raise AssertionError("encode_reads made a fill or a select around K1")
+
+    monkeypatch.setattr(torch, "full", refused)
+    monkeypatch.setattr(torch, "where", refused)
+    before = kernels.LAUNCHES["pack"]
+    got = codec.encode_reads(a, lens)
+    assert kernels.LAUNCHES["pack"] == before + 1
+    monkeypatch.undo()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("k", [1, 7, 8, 12])
 def test_histogram_kernels_match_plain(cuda, k):
