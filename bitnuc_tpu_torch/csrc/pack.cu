@@ -12,9 +12,10 @@
 //
 // Design. The [B, L] batch is one contiguous byte stream, whatever L mod 16
 // and the base pointer's offset. A block stages a piece of it in shared
-// memory with 16-byte loads aligned to the stream (only the head and tail
-// bytes, fewer than 16 each, are loaded singly), so each warp request is one
-// contiguous 512-byte read. Rows of up to kShortRowMax bytes are staged as
+// memory with 16-byte asynchronous copies (cp.async) aligned to the stream
+// (only the head and tail bytes, fewer than 16 each, are loaded singly), so
+// each warp request is one contiguous 512-byte read and a thread has all its
+// copies in flight at once. Rows of up to kShortRowMax bytes are staged as
 // tiles of whole rows, up to kStageBytes a block (pack_rows_kernel); longer
 // rows are cut into segments of kSegWords words, a block each
 // (pack_segments_kernel), so that one long row spreads over the card.
@@ -82,9 +83,17 @@ __device__ __forceinline__ uint32_t code_word(const uint32_t* stage, uint32_t of
   return word & bn::base_mask(n);
 }
 
+// One 16-byte copy from device to shared memory that does not wait
+// (cp.async, L2 only), so a thread has all its chunks in flight at once.
+__device__ __forceinline__ void copy16_async(void* dst, const void* src) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
+
 // Copies src[0, n) into the stage at byte offset head = src mod 16 and
-// returns head: 16-byte loads of the aligned chunks, single bytes before
-// the first and after the last. The caller synchronises.
+// returns head: 16-byte asynchronous copies of the aligned chunks, single
+// bytes before the first and after the last. The caller waits for the
+// copies (stage_wait), then synchronises.
 __device__ __forceinline__ uint32_t stage_bytes(const uint8_t* __restrict__ src, int64_t n,
                                                 uint32_t* stage) {
   const uint32_t head = (uint32_t)(reinterpret_cast<uintptr_t>(src) & 15u);
@@ -95,11 +104,13 @@ __device__ __forceinline__ uint32_t stage_bytes(const uint8_t* __restrict__ src,
   uint8_t* sb = reinterpret_cast<uint8_t*>(stage) + head;
   const uint4* g = reinterpret_cast<const uint4*>(src + lead);
   uint4* d = reinterpret_cast<uint4*>(sb + lead);  // 16-byte aligned
-  for (int64_t k = threadIdx.x; k < chunks; k += blockDim.x) d[k] = __ldg(g + k);
+  for (int64_t k = threadIdx.x; k < chunks; k += blockDim.x) copy16_async(d + k, g + k);
   for (int64_t j = threadIdx.x; j < singles; j += blockDim.x) sb[j] = src[j];
   for (int64_t j = tail + threadIdx.x; j < n; j += blockDim.x) sb[j] = src[j];
   return head;
 }
+
+__device__ __forceinline__ void stage_wait() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
 
 // n = clamp(left, 0, 16), written with branches (see bn::base_mask).
 __device__ __forceinline__ int bases_in_word(int64_t left) {
@@ -125,11 +136,15 @@ __global__ void __launch_bounds__(kThreads)
     row_len[r] = (int)(len < 0 ? 0 : (len > L ? L : len));
     row_bad[r] = INT_MAX;
   }
+  stage_wait();
   __syncthreads();
+  // r = i / W as a multiply by ceil(2^32 / W): exact while i * W < 2^32,
+  // which holds where a tile has two rows or more (at most kMaxTileWords)
   const uint32_t w32 = (uint32_t)W, n_words = (uint32_t)nr * w32;
+  const uint32_t inv_w = nr > 1 && w32 > 0 ? 0xFFFFFFFFu / w32 + 1u : 0u;
   uint32_t* out = words + r0 * W;
   for (uint32_t i = threadIdx.x; i < n_words; i += kThreads) {
-    const uint32_t r = i / w32, w = i - r * w32;
+    const uint32_t r = __umulhi(i, inv_w), w = i - r * w32;
     const int n = bases_in_word(row_len[r] - 16 * (int64_t)w);
     uint32_t word = 0u;
     if (n > 0) {
@@ -162,6 +177,7 @@ __global__ void __launch_bounds__(kThreads)
   const int64_t nbytes = left <= 0 ? 0 : (left < 16 * kSegWords ? left : 16 * kSegWords);
   if (threadIdx.x == 0) seg_bad = INT_MAX;
   const uint32_t head = stage_bytes(ascii + row * L + 16 * w0, nbytes, stage);
+  stage_wait();
   __syncthreads();
   const int w = threadIdx.x;
   const int n = bases_in_word(nbytes - 16 * w);
