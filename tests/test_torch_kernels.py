@@ -73,9 +73,11 @@ def test_pack_kernel_unaligned_base(cuda, L):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,L", [(1025, 8), (1, 16), (110, 150), (219, 150), (5, 4000)])
+@pytest.mark.parametrize("B,L", [(1025, 8), (1, 16), (513, 16), (54, 150), (55, 150),
+                                 (163, 150), (5, 4000), (40_000, 150)])
 def test_pack_kernel_tile_edges(cuda, B, L):
-    """B on either side of a tile's rows (1,024 at L <= 16, 109 at 150)."""
+    """B on either side of a tile's rows (512 at L <= 16, 54 at 150, 2 at
+    4,000), and more tiles than the persistent blocks (40,000 x 150 bp)."""
     _pack_equal(*_edge_rows(cuda, B, L, B))
 
 

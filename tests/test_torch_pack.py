@@ -16,7 +16,7 @@ from bitnuc_tpu_torch.utils import bitops
 torch.set_num_threads(1)
 
 # pack.cu's constants
-SHORT_ROW_MAX, STAGE_BYTES, MAX_TILE_ROWS, MAX_TILE_WORDS, SEG_WORDS = 4096, 16384, 1024, 4096, 256
+SHORT_ROW_MAX, STAGE_BYTES, MAX_TILE_ROWS, MAX_TILE_WORDS, SEG_WORDS = 4096, 8192, 512, 4096, 256
 M32 = np.uint64(0xFFFFFFFF)
 
 
@@ -27,7 +27,7 @@ def _u64(x):
 def byte_perm(x, s):
     """__byte_perm(x, 0, s) for selector nibbles 0..3."""
     x, s = _u64(x), _u64(s)
-    out = np.zeros_like(s)
+    out = np.zeros(np.broadcast(x, s).shape, np.uint64)
     for n in range(4):
         sel = (s >> _u64(4 * n)) & _u64(7)
         out |= ((x >> (_u64(8) * sel)) & _u64(0xFF)) << _u64(8 * n)
@@ -40,19 +40,19 @@ def codes(v):
 
 
 def bad_bytes(v, c):
-    """pack.cu's bad_bytes: bit k set where byte k of v is not in ACGTacgt."""
+    """pack.cu's bad_bytes: bit 28 + k set where byte k of v is not in
+    ACGTacgt, bits below undefined."""
     v, c = _u64(v), _u64(c)
-    t = c | (c >> _u64(4))
-    sel = (t & _u64(0xFF)) | ((t >> _u64(8)) & _u64(0xFF00))
+    sel = byte_perm(c | (c >> _u64(4)), 0x0020)
     d = (v | _u64(0x20202020)) ^ byte_perm(0x74676361, sel)
     hi = ((((d & _u64(0x7F7F7F7F)) + _u64(0x7F7F7F7F)) | d) & _u64(0x80808080))
-    return (((hi >> _u64(7)) * _u64(0x01020408)) & M32) >> _u64(24)
+    return (hi * _u64(0x00204081)) & M32
 
 
 def fold(c):
-    """The four codes of a lane as one byte of the word."""
-    c = _u64(c)
-    return (c | (c >> _u64(6)) | (c >> _u64(12)) | (c >> _u64(18))) & _u64(0xFF)
+    """The four codes of a lane as one byte of the word (bits 24..31 of
+    the kernel's product)."""
+    return ((_u64(c) * _u64(0x01041040)) & M32) >> _u64(24)
 
 
 @pytest.mark.parametrize("pos", range(4))
@@ -62,7 +62,7 @@ def test_lane_validity_and_fold(pos):
     lanes[:, pos] = np.repeat(np.arange(256, dtype=np.uint8), 64)
     v = lanes.view("<u4").reshape(-1).astype(np.uint64)
     c = codes(v)
-    bad, packed = bad_bytes(v, c), fold(c)
+    bad, packed = bad_bytes(v, c) >> _u64(28), fold(c)
     t = torch.from_numpy(lanes)
     want_bad = (~bitops.ascii_is_valid(t)).numpy()
     want_codes = bitops.ascii_to_code(t).numpy()
@@ -84,7 +84,7 @@ def code_words(stage32, off, n):
         v = (((x[i + 1] << _u64(32)) | x[i]) >> shift) & M32
         c = codes(v)
         word |= fold(c) << _u64(8 * i)
-        bits |= bad_bytes(v, c) << _u64(4 * i)
+        bits |= (bad_bytes(v, c) >> _u64(28 - 4 * i)) & _u64(0xF << (4 * i))
     bits &= _u64(0xFFFF) >> (_u64(16) - n.astype(np.uint64))
     low = bits & (~bits + _u64(1))  # the lowest set bit, as __ffs finds it
     first = np.where(bits > 0, np.log2(np.maximum(low, _u64(1))), -1)
@@ -154,7 +154,7 @@ def _rows(seed, B, L, lens=None):
     (300, 150, 0, 0, None),
     (300, 150, 0, 3, None),       # a base pointer off 16-byte alignment
     (40, 16, 0, 15, None),
-    (1200, 15, 0, 1, None),       # more rows than a tile holds
+    (1200, 15, 0, 1, None),       # more rows than a tile holds (512)
     (9, 33, 2, 7, None),          # n_words above ceil(L / 16)
     (5, 20, 4096, 2, None),       # a row with more words than a tile
     (4, 1, 0, 5, [-2, 0, 1, 8]),
