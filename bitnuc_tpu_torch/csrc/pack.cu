@@ -50,6 +50,14 @@ constexpr int kSegWords = kThreads;  // a segment: one word a thread
 // a stage's head offset (< 16) and the 20 bytes read for a word's last 16
 constexpr int kSlack = 48;
 
+// prmt.b32 a, 0, sel: byte k of the result is byte (nibble k of sel) of a,
+// for nibbles 0..3 (__byte_perm would mask each nibble to three bits first).
+__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t sel) {
+  uint32_t r;
+  asm("prmt.b32 %0, %1, 0, %2;" : "=r"(r) : "r"(a), "r"(sel));
+  return r;
+}
+
 // The invalid bytes of a four-byte lane v whose byte codes are c, one bit a
 // byte in bits 28..31 (bit 28 + k: byte k is not in ACGTacgt; the bits
 // below are not defined). A lower-cased byte x with code c is in acgt
@@ -61,8 +69,8 @@ constexpr int kSlack = 48;
 // the four top bits (7, 15, 23, 31) to 28..31; its other terms sum below
 // 2^24, so they carry nothing into them.
 __device__ __forceinline__ uint32_t bad_bytes(uint32_t v, uint32_t c) {
-  const uint32_t sel = __byte_perm(c | (c >> 4), 0u, 0x0020u);
-  const uint32_t d = (v | 0x20202020u) ^ __byte_perm(0x74676361u, 0u, sel);
+  const uint32_t sel = prmt(c | (c >> 4), 0x0020u);
+  const uint32_t d = (v | 0x20202020u) ^ prmt(0x74676361u, sel);
   const uint32_t hi = (((d & 0x7F7F7F7Fu) + 0x7F7F7F7Fu) | d) & 0x80808080u;
   return hi * 0x00204081u;
 }
@@ -154,7 +162,8 @@ __device__ __forceinline__ void stage_single(uint32_t* stage, uint32_t head, Sin
 }
 
 // n = clamp(left, 0, 16), written with branches (see bn::base_mask).
-__device__ __forceinline__ int bases_in_word(int64_t left) {
+template <typename T>
+__device__ __forceinline__ int bases_in_word(T left) {
   if (left <= 0) return 0;
   if (left >= 16) return 16;
   return (int)left;
@@ -189,6 +198,7 @@ __global__ void __launch_bounds__(kThreads)
   // words, so W <= kMaxTileWords / 2); a tile of one row has r = 0
   const uint32_t w32 = (uint32_t)W;
   const uint32_t inv_w = rows > 1 && w32 > 0 ? 0xFFFFFFFFu / w32 + 1u : 0u;
+  const int l32 = (int)L;  // at most kShortRowMax
   int64_t t = blockIdx.x;
   int b = 0;
   Single single;
@@ -209,18 +219,21 @@ __global__ void __launch_bounds__(kThreads)
     const int64_t r0 = t * rows;
     const int nr = (int)(B - r0 < rows ? B - r0 : rows);
     const uint32_t n_words = (uint32_t)nr * w32;
-    uint32_t* out = words + r0 * W;
-    for (uint32_t i = threadIdx.x; i < n_words; i += kThreads) {
+    const uint32_t* st = stage[b];
+    const int* len = row_len[b];
+    uint32_t* out = words + r0 * W + threadIdx.x;
+    for (uint32_t i = threadIdx.x; i < n_words; i += kThreads, out += kThreads) {
       const uint32_t r = __umulhi(i, inv_w), w = i - r * w32;
-      const int64_t len = row_len[b][r];  // a negative length gives n = 0
-      const int n = bases_in_word((len < L ? len : L) - 16 * (int64_t)w);
+      // a negative length gives n = 0; words from kShortRowMax / 16 on are
+      // past L, and their offsets past int32
+      const int n = w < kShortRowMax / 16 ? bases_in_word(min(len[r], l32) - 16 * (int)w) : 0;
       uint32_t word = 0u;
       if (n > 0) {
         int bad;
-        word = code_word(stage[b], head + r * (uint32_t)L + 16u * w, n, &bad);
+        word = code_word(st, head + r * (uint32_t)l32 + 16u * w, n, &bad);
         if (bad >= 0) atomicMin(&row_bad[r], 16 * (int)w + bad);
       }
-      out[i] = word;
+      *out = word;
     }
     __syncthreads();
     for (int r = threadIdx.x; r < nr; r += kThreads) {
@@ -283,6 +296,8 @@ extern "C" int bn_pack(const void* ascii, const void* lengths, int64_t B,
     int64_t rows = kStageBytes / (L > 0 ? L : 1);
     if (rows > kMaxTileRows) rows = kMaxTileRows;
     if (W > 0 && rows * W > kMaxTileWords) rows = W >= kMaxTileWords ? 1 : kMaxTileWords / W;
+    // whole rounds of a word a thread where a tile has more words than threads
+    if (rows * W > kThreads && W < kThreads) rows = rows * W / kThreads * kThreads / W;
     const int64_t tiles = (B + rows - 1) / rows;
     const int64_t blocks = (int64_t)bn::sm_count() * kBlocksPerSm;
     pack_rows_kernel<<<(unsigned)(tiles < blocks ? tiles : blocks), kThreads, 0, s>>>(

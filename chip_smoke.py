@@ -1294,8 +1294,9 @@ def orf_against(args, torch, dev) -> int:
 
 def pack_shapes(torch, dev, seed: int) -> dict:
     """{label: (ascii, lengths)} of K1's timed shapes, made from ``seed``:
-    (b) the flagship's batch, READS reads of 1..READ_LEN bp in ACGTacgt with
-    1% N, the main row; (a) a batch of the streaming count, FASTQ_BATCH x
+    (b) phase 2's batch, READS reads of 1..READ_LEN bp in ACGTacgt with 1%
+    N, the main row; (f) the same at full length, as the flagship step
+    encodes its batch; (a) a batch of the streaming count, FASTQ_BATCH x
     READ_LEN bp of ACGT with N at 1/200 (phase 5's 16 launches); (l) 64 rows
     of 16,384 bp; (g) phase 6's genome (the same seed) as one row, as
     count_fasta encodes a segment; (u) (b) from its fourth row on, a base
@@ -1314,6 +1315,7 @@ def pack_shapes(torch, dev, seed: int) -> dict:
     genome = torch.from_numpy(make_genome(np.random.default_rng(seed + 1))).to(dev)
     return {
         f"(b) [{READS},{READ_LEN}]": b,
+        f"(f) [{READS},{READ_LEN}] full length": rows(READS, READ_LEN, 8, 0.01, READ_LEN),
         f"(a) [{FASTQ_BATCH},{READ_LEN}]": rows(FASTQ_BATCH, READ_LEN, 4, 1 / 200, READ_LEN),
         "(l) [64,16384]": rows(64, 16_384, 4, 1 / 200, 16_384),
         f"(g) [1,{GENOME_BP}]": (genome[None],

@@ -16,7 +16,8 @@ from bitnuc_tpu_torch.utils import bitops
 torch.set_num_threads(1)
 
 # pack.cu's constants
-SHORT_ROW_MAX, STAGE_BYTES, MAX_TILE_ROWS, MAX_TILE_WORDS, SEG_WORDS = 4096, 8192, 512, 4096, 256
+THREADS, SHORT_ROW_MAX, STAGE_BYTES, MAX_TILE_ROWS, MAX_TILE_WORDS = 256, 4096, 8192, 512, 4096
+SEG_WORDS = THREADS
 M32 = np.uint64(0xFFFFFFFF)
 
 
@@ -114,6 +115,8 @@ def model_encode(ascii, lens, W, base, seed=0):
         rows = min(STAGE_BYTES // max(L, 1), MAX_TILE_ROWS)
         if W > 0 and rows * W > MAX_TILE_WORDS:
             rows = 1 if W >= MAX_TILE_WORDS else MAX_TILE_WORDS // W
+        if rows * W > THREADS and W < THREADS:  # whole rounds of a word a thread
+            rows = rows * W // THREADS * THREADS // W
         for r0 in range(0, B, rows):
             nr = min(rows, B - r0)
             s32, head = stage(stream, base + r0 * L, nr * L, rng, STAGE_BYTES + 48)
