@@ -75,16 +75,22 @@ __device__ __forceinline__ uint32_t bad_bytes(uint32_t v, uint32_t c) {
   return hi * 0x00204081u;
 }
 
-// The word of the 16 staged bytes at byte offset `off`, of which the first
-// n (1..16) lie below the read's length; *bad is the index in the word of
-// the first invalid one of those n, or -1.
-__device__ __forceinline__ uint32_t code_word(const uint32_t* stage, uint32_t off, int n,
-                                              int* bad) {
-  const uint32_t* p = stage + (off >> 2);
-  const uint32_t shift = 8u * (off & 3u);
+// A 32-bit load from a shared-memory address.
+__device__ __forceinline__ uint32_t lds32(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.b32 %0, [%1];" : "=r"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+// The word of the 16 staged bytes at shared-memory address `addr`, of which
+// the first n (0..16) lie below the read's length; *bad is the index in the
+// word of the first invalid one of those n, or -1.
+__device__ __forceinline__ uint32_t code_word(uint32_t addr, int n, int* bad) {
+  const uint32_t p = addr & ~3u;
+  const uint32_t shift = 8u * (addr & 3u);
   uint32_t x[5];
 #pragma unroll
-  for (int j = 0; j < 5; ++j) x[j] = p[j];
+  for (int j = 0; j < 5; ++j) x[j] = lds32(p + 4u * j);
   // the four codes of a lane fold into bits 24..31 of c * (2^24 + 2^18 +
   // 2^12 + 2^6); the other terms sum below 2^24
   uint32_t word = 0u, bits = 0u;
@@ -219,20 +225,19 @@ __global__ void __launch_bounds__(kThreads)
     const int64_t r0 = t * rows;
     const int nr = (int)(B - r0 < rows ? B - r0 : rows);
     const uint32_t n_words = (uint32_t)nr * w32;
-    const uint32_t* st = stage[b];
+    const uint32_t st = (uint32_t)__cvta_generic_to_shared(stage[b]) + head;
     const int* len = row_len[b];
     uint32_t* out = words + r0 * W + threadIdx.x;
+    // no branch on n: a warp's words of short and long rows run together;
+    // a word with n = 0 reads the stage's start and codes to 0
     for (uint32_t i = threadIdx.x; i < n_words; i += kThreads, out += kThreads) {
       const uint32_t r = __umulhi(i, inv_w), w = i - r * w32;
-      // a negative length gives n = 0; words from kShortRowMax / 16 on are
-      // past L, and their offsets past int32
-      const int n = w < kShortRowMax / 16 ? bases_in_word(min(len[r], l32) - 16 * (int)w) : 0;
-      uint32_t word = 0u;
-      if (n > 0) {
-        int bad;
-        word = code_word(st, head + r * (uint32_t)l32 + 16u * w, n, &bad);
-        if (bad >= 0) atomicMin(&row_bad[r], 16 * (int)w + bad);
-      }
+      // a negative length gives n = 0, and so do words past L (w is taken
+      // below kShortRowMax / 16 so that 16 w stays in int32)
+      const int n = bases_in_word(min(len[r], l32) - 16 * (int)min(w, kShortRowMax / 16u));
+      int bad;
+      const uint32_t word = code_word(n > 0 ? st + r * (uint32_t)l32 + 16u * w : st, n, &bad);
+      if (bad >= 0) atomicMin(&row_bad[r], 16 * (int)w + bad);
       *out = word;
     }
     __syncthreads();
@@ -273,7 +278,8 @@ __global__ void __launch_bounds__(kThreads)
   const int n = bases_in_word(nbytes - 16 * w);
   int bad = -1;
   uint32_t word = 0u;
-  if (n > 0) word = code_word(stage, head + 16u * w, n, &bad);
+  const uint32_t st = (uint32_t)__cvta_generic_to_shared(stage) + head;
+  if (n > 0) word = code_word(st + 16u * w, n, &bad);
   if (w0 + w < W) words[row * W + w0 + w] = word;
   const int m = __reduce_min_sync(0xFFFFFFFFu, bad >= 0 ? 16 * w + bad : INT_MAX);
   if ((w & 31) == 0 && m != INT_MAX) atomicMin(&seg_bad, m);
