@@ -7,8 +7,11 @@
 // Bytes at or past a read's length are never inspected. Any even W >=
 // ceil(L / 16) works, and so do L = 0 and B = 0.
 //
-// Bound on the card: memory. It reads 1 B and writes 0.25 B per base, with a
-// few integer operations per byte, below the issue rate.
+// Bound on the card: bytes and operations about evenly. It reads 1 B and
+// writes 0.25 B a base, and needs some 6 to 8 int32 operations a base; at 64
+// a clock an SM those take about as long as the bytes at the HBM rate. So
+// the fold and the validity test spend few operations a byte, and a block's
+// copies run ahead of its coding.
 //
 // Design. The [B, L] batch is one contiguous byte stream, whatever L mod 16
 // and the base pointer's offset. A block stages a piece of it in shared

@@ -230,20 +230,25 @@ class Timer:
         return statistics.median(times)
 
 
-def device_ms_by_kernel(torch, fn) -> dict:
-    """{kernel: device ms} of one warm call of fn, from torch.profiler's
-    CUDA activity; names shortened to the function's."""
+def device_events(torch, fn) -> list:
+    """torch.profiler's CUDA activity of one warm call of fn, by name: the
+    entries that took device time."""
     fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    return [e for e in prof.key_averages() if e.device_time_total]
+
+
+def device_ms_by_kernel(torch, fn) -> dict:
+    """{kernel: device ms} of one warm call of fn (``device_events``);
+    names shortened to the function's."""
     out = {}
-    for e in prof.key_averages():
-        if e.device_time_total:
-            name = e.key.replace("(anonymous namespace)::", "").removeprefix("void ")
-            name = re.split(r"[<( ]", name)[0].split("::")[-1]
-            out[name] = out.get(name, 0.0) + e.device_time_total / 1e3
+    for e in device_events(torch, fn):
+        name = e.key.replace("(anonymous namespace)::", "").removeprefix("void ")
+        name = re.split(r"[<( ]", name)[0].split("::")[-1]
+        out[name] = out.get(name, 0.0) + e.device_time_total / 1e3
     return out
 
 
@@ -1333,14 +1338,9 @@ def pack_bound(ascii_u8, n_words: int) -> tuple:
 
 
 def device_ops(torch, fn) -> int:
-    """Device operations (kernels, fills, copies) of one warm call of fn,
-    from torch.profiler's CUDA activity; 0 where it sees none."""
-    fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return sum(e.count for e in prof.key_averages() if e.device_time_total)
+    """Device operations (kernels, fills, copies) of one warm call of fn
+    (``device_events``); 0 where the profiler sees none."""
+    return sum(e.count for e in device_events(torch, fn))
 
 
 def pack_against(args, torch, dev) -> int:
