@@ -7,11 +7,13 @@
 // Bytes at or past a read's length are never inspected. Any even W >=
 // ceil(L / 16) works, and so do L = 0 and B = 0.
 //
-// Bound on the card: bytes and operations about evenly. It reads 1 B and
-// writes 0.25 B a base, and needs some 6 to 8 int32 operations a base; at 64
-// a clock an SM those take about as long as the bytes at the HBM rate. So
-// the fold and the validity test spend few operations a byte, and a block's
-// copies run ahead of its coding.
+// Bound on the card: bytes. It reads 1 B and writes 0.25 B a base; its
+// SWAR coding needs about 4 int32 operations a base (a four-byte lane:
+// the codes 3, their fold into the word 2, the selector 2, two byte
+// permutes, the compare 1, the nonzero-byte test 3, the lane's bits into
+// the word's mask 1), and at 64 a clock an SM those take about 60% of the
+// bytes' time at the HBM rate. So the fold and the validity test spend few
+// operations a byte, and a block's copies run ahead of its coding.
 //
 // Design. The [B, L] batch is one contiguous byte stream, whatever L mod 16
 // and the base pointer's offset. A block stages a piece of it in shared
@@ -22,7 +24,9 @@
 // up to kShortRowMax bytes are staged as tiles of whole rows (up to
 // kStageBytes); pack_rows_kernel runs kBlocksPerSm persistent blocks an SM
 // over the tiles, with two stages a block, so the next tile's copies (its
-// bytes and row lengths) are in flight while the block codes this one.
+// bytes and row lengths) are in flight while the block codes this one
+// (on an H100, 150-bp and 300-bp reads ran 7-13% faster this way than
+// at one tile a block, and 1-kb and 4-kb reads 8% slower; PERF.md §6).
 // Longer rows are cut into segments of kSegWords words, a block each
 // (pack_segments_kernel), so that one long row spreads over the card.
 // A thread codes a word from shared memory: five 32-bit reads and
@@ -305,8 +309,9 @@ extern "C" int bn_pack(const void* ascii, const void* lengths, int64_t B,
     int64_t rows = kStageBytes / (L > 0 ? L : 1);
     if (rows > kMaxTileRows) rows = kMaxTileRows;
     if (W > 0 && rows * W > kMaxTileWords) rows = W >= kMaxTileWords ? 1 : kMaxTileWords / W;
-    // whole rounds of a word a thread where a tile has more words than threads
-    if (rows * W > kThreads && W < kThreads) rows = rows * W / kThreads * kThreads / W;
+    // whole rounds of a word a thread where a round holds two rows or more;
+    // rows of more than kThreads / 2 words fill the stage instead
+    if (rows * W > kThreads && 2 * W <= kThreads) rows = rows * W / kThreads * kThreads / W;
     const int64_t tiles = (B + rows - 1) / rows;
     const int64_t blocks = (int64_t)bn::sm_count() * kBlocksPerSm;
     pack_rows_kernel<<<(unsigned)(tiles < blocks ? tiles : blocks), kThreads, 0, s>>>(

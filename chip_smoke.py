@@ -22,9 +22,10 @@ Phases, each of which must pass:
    memory and spills of pack.cu (K1), histogram.cu (K3a, K3b), tcscan.cu
    (K6), merge.cu (K7), wavefront.cu (K8, K9) and orf.cu (K10).
 2. Every kernel against its plain PyTorch version on the card, bit for bit:
-   K1 pack (at the flagship's batch, a count batch, 64 rows of 16,384 bp,
-   phase 6's genome as one row and a base pointer off 16-byte alignment,
-   with the device operations of one call), K2 unpack, K3a hist_keys, K3b hist_words, K4 hdist_scan and K5
+   K1 pack (at the flagship's batch, a count batch, reads of 300, 1,000
+   and 4,000 bp, 64 rows of 16,384 bp, phase 6's genome as one row and a
+   base pointer off 16-byte alignment, with lengths -2, 0 and past L, and
+   the device operations of one call), K2 unpack, K3a hist_keys, K3b hist_words, K4 hdist_scan and K5
    hdist_scan_batch (one kernel), K6 tc_scan, K7 merge and K10 orf_scan at
    the main paths' shapes and at edge shapes (K3a also on poly-A keys and
    at k = 11; K7 also lopsided and all ties; K10 at phase 8's batch on
@@ -160,6 +161,15 @@ MERGE_OPS_PER_ROW = 6
 # codon masks, frames and carries (2 x 34): 83 per word. How a design makes
 # the reverse strand (here, by building its words) is its own cost.
 INT8_TC_OPS_PER_S = 1.979e15
+# K1 counted as the function needs it in SWAR form, over a four-byte lane
+# of ASCII: the codes ((x >> 1) ^ (x >> 2)) & 3 (two shifts and a
+# three-input logic op, 3), their fold into the word's byte (a multiply and
+# a shift-merge, 2), the lane's selector (a shift-or, 2) and the two byte
+# permutes that give the expected bytes (2), the compare of the lower-cased
+# bytes (a three-input logic op, 1), the nonzero-byte test (and, add,
+# or-and, 3) and the lane's bits into the word's mask (1): 14 a lane; with a
+# word's in-length mask, first bad base and store, 4 a base.
+PACK_OPS_PER_BASE = 4
 ORF_OPS_PER_WORD = 48
 ORF_TWO_STRAND_OPS_PER_WORD = 8 + 5 + 2 + 2 * (7 + 3 * 8 + 3)
 TC_SWEEP_Q = (1, 8, 16, 32, 64, 128, 256, 512)
@@ -1302,10 +1312,14 @@ def pack_shapes(torch, dev, seed: int) -> dict:
     (b) phase 2's batch, READS reads of 1..READ_LEN bp in ACGTacgt with 1%
     N, the main row; (f) the same at full length, as the flagship step
     encodes its batch; (a) a batch of the streaming count, FASTQ_BATCH x
-    READ_LEN bp of ACGT with N at 1/200 (phase 5's 16 launches); (l) 64 rows
-    of 16,384 bp; (g) phase 6's genome (the same seed) as one row, as
-    count_fasta encodes a segment; (u) (b) from its fourth row on, a base
-    pointer 3 x READ_LEN bytes in, off 16-byte alignment."""
+    READ_LEN bp of ACGT with N at 1/200 (phase 5's 16 launches); longer
+    reads as long-read and amplicon users send them, (s) 262,144 x 300 bp,
+    (k) 65,536 x 1,000 bp, (h) 16,384 x 4,000 bp; (l) 64 rows of 16,384 bp;
+    (g) phase 6's genome (the same seed) as one row, as count_fasta encodes
+    a segment; (u) (b) from its fourth row on, a base pointer 3 x READ_LEN
+    bytes in, off 16-byte alignment. Rows 3 to 5 of (b) (so 0 to 2 of (u))
+    and 0 to 2 of (l) have lengths -2, 0 and L + 7, and (g) L + 7, so the
+    comparisons cover the clamp on both of the kernel's paths."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed + 20)
     acgt = torch.tensor(list(b"ACGTacgt"), dtype=torch.uint8, device=dev)
@@ -1316,25 +1330,35 @@ def pack_shapes(torch, dev, seed: int) -> dict:
         lens = torch.randint(shortest, L + 1, (B,), device=dev, generator=gen, dtype=torch.int32)
         return a, lens
 
-    b = rows(READS, READ_LEN, 8, 0.01, 1)
+    def clamped(a_lens, first):
+        a, lens = a_lens
+        L = a.shape[1]
+        lens[first:first + 3] = torch.tensor([-2, 0, L + 7], dtype=torch.int32, device=dev)
+        return a, lens
+
+    b = clamped(rows(READS, READ_LEN, 8, 0.01, 1), 3)
     genome = torch.from_numpy(make_genome(np.random.default_rng(seed + 1))).to(dev)
     return {
         f"(b) [{READS},{READ_LEN}]": b,
         f"(f) [{READS},{READ_LEN}] full length": rows(READS, READ_LEN, 8, 0.01, READ_LEN),
         f"(a) [{FASTQ_BATCH},{READ_LEN}]": rows(FASTQ_BATCH, READ_LEN, 4, 1 / 200, READ_LEN),
-        "(l) [64,16384]": rows(64, 16_384, 4, 1 / 200, 16_384),
+        "(s) [262144,300]": rows(262_144, 300, 4, 1 / 200, 300),
+        "(k) [65536,1000]": rows(65_536, 1_000, 4, 1 / 200, 1_000),
+        "(h) [16384,4000]": rows(16_384, 4_000, 4, 1 / 200, 4_000),
+        "(l) [64,16384]": clamped(rows(64, 16_384, 4, 1 / 200, 16_384), 0),
         f"(g) [1,{GENOME_BP}]": (genome[None],
-                                 torch.full((1,), GENOME_BP, dtype=torch.int32, device=dev)),
+                                 torch.full((1,), GENOME_BP + 7, dtype=torch.int32, device=dev)),
         f"(u) [{READS - 3},{READ_LEN}] at byte {3 * READ_LEN}": (b[0][3:], b[1][3:]),
     }
 
 
 def pack_bound(ascii_u8, n_words: int) -> tuple:
     """(bytes, least ms of the operations) of K1: the ASCII and the lengths
-    read once, the words and first_bad written once; 8 int32 operations a
-    base of the row."""
+    read once, the words and first_bad written once; PACK_OPS_PER_BASE int32
+    operations a base of the row."""
     B, L = ascii_u8.shape
-    return B * L + 4 * B * (n_words + 2), 8 * B * L / INT32_OPS_PER_S * 1e3
+    return (B * L + 4 * B * (n_words + 2),
+            PACK_OPS_PER_BASE * B * L / INT32_OPS_PER_S * 1e3)
 
 
 def device_ops(torch, fn) -> int:

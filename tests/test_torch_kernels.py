@@ -74,10 +74,10 @@ def test_pack_kernel_unaligned_base(cuda, L):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,L", [(1025, 8), (1, 16), (513, 16), (51, 150), (52, 150),
-                                 (154, 150), (5, 4000), (3, 4096), (40_000, 150)])
+                                 (154, 150), (4, 4000), (5, 4000), (3, 4096), (40_000, 150)])
 def test_pack_kernel_tile_edges(cuda, B, L):
-    """B on either side of a tile's rows (512 at L <= 16, 51 at 150, 1 at
-    4,000, 2 at 4,096), and more tiles than the persistent blocks (40,000
+    """B on either side of a tile's rows (512 at L <= 16, 51 at 150, 2 at
+    4,000 and 4,096), and more tiles than the persistent blocks (40,000
     x 150 bp)."""
     _pack_equal(*_edge_rows(cuda, B, L, B))
 

@@ -115,7 +115,7 @@ def model_encode(ascii, lens, W, base, seed=0):
         rows = min(STAGE_BYTES // max(L, 1), MAX_TILE_ROWS)
         if W > 0 and rows * W > MAX_TILE_WORDS:
             rows = 1 if W >= MAX_TILE_WORDS else MAX_TILE_WORDS // W
-        if rows * W > THREADS and W < THREADS:  # whole rounds of a word a thread
+        if rows * W > THREADS and 2 * W <= THREADS:  # whole rounds of a word a thread
             rows = rows * W // THREADS * THREADS // W
         for r0 in range(0, B, rows):
             nr = min(rows, B - r0)
@@ -162,6 +162,7 @@ def _rows(seed, B, L, lens=None):
     (5, 20, 4096, 2, None),       # a row with more words than a tile
     (4, 1, 0, 5, [-2, 0, 1, 8]),
     (6, 0, 0, 0, [-2, 0, 0, 1, 5, 0]),
+    (5, 4000, 0, 4, None),        # tiles of two rows of more than 128 words
     (3, 4096, 0, 9, [4096, 4103, 4000]),  # the widest row a tile takes
     (3, 4097, 0, 6, [4097, 4104, 2000]),  # the narrowest a segment takes
     (2, 9000, 4, 11, [9000, 4097]),
