@@ -46,12 +46,16 @@
 // kChunkKeys were chosen there too: a 16,384-key scatter tile gives k = 12
 // runs of about 16 keys a bucket; chunks of 2^16 keys were no faster.
 //
-// K3b design: one thread per packed word. It loads the word and its right
-// neighbour (zero past the row) and makes the 16 window keys as the funnel
-// shift ((w >> 2j) | (next << (32 - 2j))) & mask, with j = 0 taken apart
-// since a shift by 32 is undefined. There is no word-axis padding, so the
-// TPU's short-read padding rule has no counterpart either. At k = 8..12 it
-// adds into the output with one global atomic per window.
+// K3b design: one thread per packed word, its row and column stepped with
+// the grid's stride (no division a word). It loads the word and its right
+// neighbour (zero past the row) and makes the 16 window keys by funnel
+// shifts, masked to 2k bits. There is no word-axis padding, so the TPU's
+// short-read padding rule has no counterpart either. With `canonical` each
+// key becomes min(key, revcomp(key)) in registers (canonical_key: an xor,
+// __brev, a pair swap, a shift and a min), so a canonical count is one
+// launch, as a plain one is; the TPU kernel counts plain windows only (its
+// MXU one-hots), and the JAX package makes canonical keys with XLA. At k =
+// 8..12 it adds into the output with one global atomic per window.
 #include "common.cuh"
 
 namespace {
@@ -369,35 +373,81 @@ cudaError_t hist_keys_slices(const int32_t* keys, int64_t n, int k, int32_t* his
   return cudaGetLastError();
 }
 
-template <bool kShared>
+// min(key, its reverse complement) for a key of k bases (k <= 16): the
+// complement is key ^ mask (mask = 4^k - 1), __brev reverses the 32 bits,
+// which reverses the bases and swaps the two bits of each, the pair swap
+// puts them back, and the shift by 32 - 2k brings the k bases down.
+__device__ __forceinline__ uint32_t canonical_key(uint32_t key, uint32_t mask, int rc_shift) {
+  const uint32_t b = __brev(key ^ mask);
+  const uint32_t rc = (((b >> 1) & 0x55555555u) | ((b & 0x55555555u) << 1)) >> rc_shift;
+  return min(key, rc);
+}
+
+// add(key, valid) for each of the 16 windows that start in word w (nx is
+// the next word of the row, 0 past it); window j is valid for j < nwin.
+template <bool kCanonical, typename Add>
+__device__ __forceinline__ void word_windows(uint32_t w, uint32_t nx, int nwin, int k,
+                                             Add add) {
+  const uint32_t mask = (1u << (2 * k)) - 1u;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    uint32_t key = __funnelshift_r(w, nx, 2 * j) & mask;
+    if (kCanonical) key = canonical_key(key, mask, 32 - 2 * k);
+    add(key, j < nwin);
+  }
+}
+
+// The word at flat index idx of a [B, W] batch with its row and column,
+// stepped by the grid's stride with no division in the loop (one a thread
+// to start). Rows and columns fit 32 bits with a stride to spare
+// (bn_hist_words takes B below 2^30 and W below 2^26).
+struct WordCursor {
+  int64_t idx;
+  int row, col, step_rows, step_cols;
+  __device__ WordCursor(int64_t start, int64_t stride, int W)
+      : idx(start), row((int)(start / W)), col((int)(start % W)),
+        step_rows((int)(stride / W)), step_cols((int)(stride % W)) {}
+  __device__ void advance(int64_t stride, int W) {
+    idx += stride;
+    row += step_rows;
+    col += step_cols;
+    if (col >= W) {
+      col -= W;
+      ++row;
+    }
+  }
+};
+
+// The word's windows that count (0..16) and its two words, or 0 windows.
+__device__ __forceinline__ int load_word(const uint32_t* words, const int32_t* lengths,
+                                         const WordCursor& c, int W, int k, uint32_t* w,
+                                         uint32_t* nx) {
+  const int64_t last = (int64_t)lengths[c.row] - k;  // windows p <= last
+  const int64_t p0 = 16 * (int64_t)c.col;
+  if (p0 > last) return 0;
+  *w = words[c.idx];
+  *nx = c.col + 1 < W ? words[c.idx + 1] : 0u;
+  return last - p0 >= 15 ? 16 : (int)(last - p0 + 1);
+}
+
+template <bool kShared, bool kCanonical>
 __global__ void hist_words_kernel(const uint32_t* __restrict__ words,
                                   const int32_t* __restrict__ lengths,
-                                  int64_t B, int64_t W, int k,
+                                  int64_t B, int W, int k,
                                   int32_t* __restrict__ hist) {
   extern __shared__ int32_t sh[];
   const int nbins = 1 << (2 * k);
-  const uint32_t mask = (uint32_t)nbins - 1u;
   zero_private<kShared>(sh, nbins);
   const int64_t total = B * W;
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-       idx < total; idx += stride) {
-    const int64_t row = idx / W;
-    const int64_t col = idx - row * W;
-    const int64_t last = (int64_t)lengths[row] - k;  // windows p <= last
-    const int64_t p0 = 16 * col;
-    if (p0 > last) continue;
-    const int nwin = last - p0 >= 15 ? 16 : (int)(last - p0 + 1);
-    const uint32_t w = words[idx];
-    const uint32_t nx = col + 1 < W ? words[idx + 1] : 0u;
-    count<kShared>(sh, hist, w & mask);
-#pragma unroll
-    for (int j = 1; j < 16; ++j) {
-      if (j < nwin) {
-        const uint32_t key = ((w >> (2 * j)) | (nx << (32 - 2 * j))) & mask;
-        count<kShared>(sh, hist, key);
-      }
-    }
+  for (WordCursor c((int64_t)blockIdx.x * blockDim.x + threadIdx.x, stride, W);
+       c.idx < total; c.advance(stride, W)) {
+    uint32_t w, nx;
+    const int nwin = load_word(words, lengths, c, W, k, &w, &nx);
+    if (nwin == 0) continue;
+    word_windows<kCanonical>(w, nx, nwin, k, [&](uint32_t key, bool valid) {
+      if (valid) count<kShared>(sh, hist, key);
+    });
   }
   merge_private<kShared>(sh, hist, nbins);
 }
@@ -437,14 +487,23 @@ extern "C" int bn_hist_keys(const void* keys, int64_t n, int k, void* hist, void
 }
 
 extern "C" int bn_hist_words(const void* words, const void* lengths, int64_t B,
-                             int64_t W, int k, void* hist, void* stream) {
+                             int64_t W, int k, int canonical, void* hist, void* stream) {
   if (B * W <= 0) return (int)cudaGetLastError();
+  if (B >= (1 << 30) || W >= (1 << 26)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  const auto* w = (const uint32_t*)words;
+  const auto* len = (const int32_t*)lengths;
+  auto* h = (int32_t*)hist;
   if (k <= kSmemMaxK)
-    return (int)launch_private(hist_words_kernel<true>, k, B * W, s, (const uint32_t*)words,
-                               (const int32_t*)lengths, B, W, k, (int32_t*)hist);
+    return (int)(canonical
+                     ? launch_private(hist_words_kernel<true, true>, k, B * W, s, w, len, B,
+                                      (int)W, k, h)
+                     : launch_private(hist_words_kernel<true, false>, k, B * W, s, w, len, B,
+                                      (int)W, k, h));
   const unsigned blocks = bn::grid_for(B * W, kThreads, 8);
-  hist_words_kernel<false><<<blocks, kThreads, 0, s>>>(
-      (const uint32_t*)words, (const int32_t*)lengths, B, W, k, (int32_t*)hist);
+  if (canonical)
+    hist_words_kernel<false, true><<<blocks, kThreads, 0, s>>>(w, len, B, (int)W, k, h);
+  else
+    hist_words_kernel<false, false><<<blocks, kThreads, 0, s>>>(w, len, B, (int)W, k, h);
   return (int)cudaGetLastError();
 }

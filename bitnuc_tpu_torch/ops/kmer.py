@@ -9,9 +9,9 @@ Counting for k <= MAX_DENSE_K goes to a dense [4^k] int32 histogram through
 one of two hand-written kernels (``csrc/histogram.cu``):
 
 * K3b ``hist_words`` makes the window keys in the kernel from the packed
-  words; it serves non-canonical counts with no ``base_valid``;
-* K3a ``hist_keys`` counts window keys made here in PyTorch (canonical
-  keys, N-skip masks); invalid windows carry the sentinel 4^k.
+  words, canonical or not; it serves every count with no ``base_valid``;
+* K3a ``hist_keys`` counts window keys made here in PyTorch (N-skip
+  masks); invalid windows carry the sentinel 4^k.
 
 Each has its plain PyTorch version beside it, used for CPU tensors (see
 ``config``).
@@ -188,17 +188,18 @@ def histogram_from_keys(keys: torch.Tensor, k: int) -> torch.Tensor:
 
 
 def histogram_from_words_torch(
-    words: torch.Tensor, lengths: torch.Tensor, k: int
+    words: torch.Tensor, lengths: torch.Tensor, k: int, canonical: bool = False
 ) -> torch.Tensor:
-    """Plain version of K3b: the non-canonical dense histogram of a packed
-    batch, [B, W] words + [B] lengths -> [4^k] int32."""
+    """Plain version of K3b: the dense histogram of a packed batch, [B, W]
+    words + [B] lengths -> [4^k] int32; canonical=True counts
+    min(key, revcomp(key))."""
     _check_dense_k(k)
-    lo, _, valid = _window_keys(words, lengths, k, False)
+    lo, _, valid = _window_keys(words, lengths, k, canonical)
     return histogram_from_keys_torch(torch.where(valid, lo, 4**k), k)
 
 
 def histogram_from_words_kernel(
-    words: torch.Tensor, lengths: torch.Tensor, k: int
+    words: torch.Tensor, lengths: torch.Tensor, k: int, canonical: bool = False
 ) -> torch.Tensor:
     """K3b on the card (``csrc/histogram.cu``)."""
     _check_dense_k(k)
@@ -209,7 +210,7 @@ def histogram_from_words_kernel(
         raise ValueError("hist_words: lengths must be [B] on the device of the words")
     hist = torch.zeros(4**k, dtype=torch.int32, device=words.device)
     code = _build.library().bn_hist_words(
-        words.data_ptr(), lengths.data_ptr(), B, W, k, hist.data_ptr(),
+        words.data_ptr(), lengths.data_ptr(), B, W, k, int(canonical), hist.data_ptr(),
         kernels.stream_handle(words.device),
     )
     _build.check(code, "hist_words")
@@ -218,7 +219,7 @@ def histogram_from_words_kernel(
 
 
 def histogram_from_words(
-    words: torch.Tensor, lengths: torch.Tensor, k: int
+    words: torch.Tensor, lengths: torch.Tensor, k: int, canonical: bool = False
 ) -> torch.Tensor:
     """Backend-dispatching K3b over [..., W] words."""
     if config.use_kernel(words):
@@ -227,8 +228,9 @@ def histogram_from_words(
             words.reshape(-1, W).contiguous(),
             lengths.to(torch.int32).reshape(-1).contiguous(),
             k,
+            canonical,
         )
-    return histogram_from_words_torch(words, lengths, k)
+    return histogram_from_words_torch(words, lengths, k, canonical)
 
 
 # -- counting -------------------------------------------------------------------
@@ -242,10 +244,12 @@ def count_kmers_dense(
     base_valid=None,
 ) -> torch.Tensor:
     """Dense k-mer histogram over a batch: [..., W] words -> [4^k] int32;
-    bin i counts the windows whose packed value is i. k <= MAX_DENSE_K."""
+    bin i counts the windows whose packed value is i. k <= MAX_DENSE_K.
+    Without base_valid the keys are made in K3b, canonical or not; with it
+    they are made here and counted by K3a."""
     _check_dense_k(k)
-    if not canonical and base_valid is None:
-        return histogram_from_words(words, lengths, k)
+    if base_valid is None:
+        return histogram_from_words(words, lengths, k, canonical)
     lo, _, valid = _window_keys(words, lengths, k, canonical, base_valid)
     return histogram_from_keys(torch.where(valid, lo, 4**k), k)
 

@@ -8,12 +8,14 @@ PyTorch built for CUDA:
     python3 chip_smoke.py --k6-against DIR [--out results.json]
     python3 chip_smoke.py --orf-against DIR [--out results.json]
     python3 chip_smoke.py --pack-against DIR [--out results.json]
+    python3 chip_smoke.py --hist-against DIR [--out results.json]
 
-The last three forms run no phase: they time K6 (tc_scan and tc_search),
-K10 (orf_scan) and longest_orf, or K1 (pack), of this checkout beside
-those of another checkout in DIR (for example a git archive of an earlier
-commit, unpacked), in turns DIR, this, this, DIR, on one card (see
-k6_against, orf_against and pack_against).
+The last four forms run no phase: they time K6 (tc_scan and tc_search),
+K10 (orf_scan) and longest_orf, K1 (pack), or K3b's counts and the
+flagship step, of this checkout beside those of another checkout in DIR
+(for example a git archive of an earlier commit, unpacked), in turns DIR,
+this, this, DIR, on one card (see k6_against, orf_against, pack_against
+and hist_against).
 
 Phases, each of which must pass:
 
@@ -170,6 +172,14 @@ INT8_TC_OPS_PER_S = 1.979e15
 # or-and, 3) and the lane's bits into the word's mask (1): 14 a lane; with a
 # word's in-length mask, first bad base and store, 4 a base.
 PACK_OPS_PER_BASE = 4
+# K3b counted from csrc/histogram.cu, a window at a time: the window key by
+# a funnel shift of the word and its neighbour (1) and the k-base mask (1),
+# its validity (1), the bin's address and the add (2), and the word's load
+# and window count spread over its 16 windows (1): 6. The canonical key
+# adds the complement (an xor, 1), __brev (1), the pair swap (two shifts,
+# two ands and an or, 5), the shift down by 32 - 2k (1) and the min (1): 15.
+HIST_OPS_PER_WINDOW = 6
+HIST_CANONICAL_OPS_PER_WINDOW = HIST_OPS_PER_WINDOW + 9
 ORF_OPS_PER_WORD = 48
 ORF_TWO_STRAND_OPS_PER_WORD = 8 + 5 + 2 + 2 * (7 + 3 * 8 + 3)
 TC_SWEEP_Q = (1, 8, 16, 32, 64, 128, 256, 512)
@@ -1411,6 +1421,118 @@ def pack_against(args, torch, dev) -> int:
     return finish_against(args, torch, res)
 
 
+def hist_rows(torch, dev, seed: int) -> list:
+    """[(label, words, lengths, canonical, main)] of K3b's timed rows at k =
+    8, made from ``seed``: (b) the flagship step's plain count and (c) its
+    canonical count, on its batch (READS x READ_LEN bp of ACGT, made as
+    entry.example_batch makes it), the main rows; (r) and (s) reads of 1 to
+    READ_LEN bp, plain and canonical; (p) and (q) poly-A, every window one
+    key, plain and canonical."""
+    from bitnuc_tpu_torch import entry
+    from bitnuc_tpu_torch.ops import codec
+
+    ascii_np, lens_np, _ = entry.example_batch(READS, READ_LEN, 1, seed)
+    lens = torch.from_numpy(lens_np).to(dev)
+    words, _ = codec.encode_reads(torch.from_numpy(ascii_np).to(dev), lens)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 30)
+    ragged = torch.randint(1, READ_LEN + 1, (READS,), device=dev, generator=gen,
+                           dtype=torch.int32)
+    poly_a = torch.zeros_like(words)
+    shape = f"[{READS},{words.shape[1]}]"
+    return [
+        (f"(b) flagship {shape}", words, lens, False, True),
+        (f"(c) flagship canonical {shape}", words, lens, True, True),
+        (f"(r) reads of 1..{READ_LEN} bp {shape}", words, ragged, False, False),
+        (f"(s) reads of 1..{READ_LEN} bp canonical {shape}", words, ragged, True, False),
+        (f"(p) poly-A {shape}", poly_a, lens, False, False),
+        (f"(q) poly-A canonical {shape}", poly_a, lens, True, False),
+    ]
+
+
+def hist_bound(words, lengths, k: int, canonical: bool) -> tuple:
+    """(bytes, least ms of the operations) of K3b: the words and lengths read
+    once, the [4^k] table written once; HIST_OPS_PER_WINDOW (or
+    HIST_CANONICAL_OPS_PER_WINDOW) int32 operations a counted window."""
+    W = words.shape[-1]
+    windows = int((lengths.long().clamp(max=16 * W) - k + 1).clamp(min=0).sum())
+    per = HIST_CANONICAL_OPS_PER_WINDOW if canonical else HIST_OPS_PER_WINDOW
+    return (4 * words.numel() + 4 * lengths.numel() + 4 * 4**k,
+            per * windows / INT32_OPS_PER_S * 1e3)
+
+
+def hist_against(args, torch, dev) -> int:
+    """K3b and the flagship step of this checkout beside another's
+    (``--hist-against DIR``). At each of ``hist_rows``' rows,
+    count_kmers_dense at k = 8 (K3b, or the other tree's route for canonical
+    counts): each tree's device operations and device ms by kernel of one
+    call (torch.profiler, before any timing), then the call timed in turns
+    DIR, this, this, DIR; the same for the warm flagship step (each tree's
+    entry.forward on its own inputs made from the same seed). Both trees'
+    counts are checked against this checkout's plain version and their step
+    outputs against each other. Prints a line a timing, the card's name and
+    power limit, and last one JSON object; returns 1 if a check failed."""
+    import importlib
+
+    from bitnuc_tpu_torch import entry
+    from bitnuc_tpu_torch.ops import kmer
+
+    load_other_tree(args.hist_against)
+    kmers = {"other": importlib.import_module("bnt_other.ops.kmer"), "this": kmer}
+    entries = {"other": importlib.import_module("bnt_other.entry"), "this": entry}
+    if "jax" in sys.modules:
+        print("chip_smoke: jax was imported", file=sys.stderr)
+        return 1
+    timer = Timer(torch)
+    res = {"times_ms": {}, "checks": {}, "bound_ms": {}, "device_ops": {}, "passes_ms": {}}
+
+    def profile(key, fn):
+        res["device_ops"][key] = ops = device_ops(torch, fn)
+        res["passes_ms"][key] = passes = device_ms_by_kernel(torch, fn)
+        print(f"  {key}: {ops} device operation(s) a call; device ms "
+              + (", ".join(f"{k} {v:.4f}" for k, v in passes.items()) or "not measured"),
+              flush=True)
+
+    def turns(key, fns, bound=None):
+        for name in ("other", "this", "this", "other"):
+            ms = timer(fns[name])
+            res["times_ms"].setdefault(f"{key} {name}", []).append(ms)
+            print(f"  {key} {name}: {ms:.4f} ms"
+                  + (f" (bound {bound:.4f})" if bound is not None else ""), flush=True)
+
+    rows = hist_rows(torch, dev, args.seed)
+    k = entry.K
+    for label, w, n, canonical, _ in rows:
+        want = kmer.histogram_from_words_torch(w, n, k, canonical)
+        fns = {name: (lambda m=m, c=canonical: m.count_kmers_dense(w, n, k, c))
+               for name, m in kmers.items()}
+        for name, fn in fns.items():
+            res["checks"][f"{name} {label}"] = check(
+                f"count_kmers_dense of {name} at {label} == plain", torch.equal(fn(), want))
+            profile(f"{label} {name}", fn)
+        nbytes, ops_ms = hist_bound(w, n, k, canonical)
+        res["bound_ms"][label] = max(nbytes / HBM_BYTES_PER_S * 1e3, ops_ms)
+        del want
+    steps = {}
+    for name, e in entries.items():
+        fwd, inputs = e.entry(device=dev, batch=READS, read_len=READ_LEN, db_size=DB_ENTRIES,
+                              seed=args.seed)
+        steps[name] = (lambda fwd=fwd, inputs=inputs: fwd(*inputs))
+    outs = {name: fn() for name, fn in steps.items()}
+    for key in outs["this"]:
+        res["checks"][f"step {key}"] = check(
+            f"flagship step output {key}: this == other",
+            torch.equal(outs["this"][key], outs["other"][key]))
+    del outs
+    for name, fn in steps.items():
+        profile(f"flagship step {name}", fn)
+    for label, w, n, canonical, _ in rows:
+        turns(label, {name: (lambda m=m, c=canonical: m.count_kmers_dense(w, n, k, c))
+                      for name, m in kmers.items()}, res["bound_ms"][label])
+    turns("flagship step", steps)
+    return finish_against(args, torch, res)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the full results here as JSON")
@@ -1421,6 +1543,9 @@ def main() -> int:
                     help="only time K10 beside another checkout's (see orf_against)")
     ap.add_argument("--pack-against", metavar="DIR",
                     help="only time K1 beside another checkout's (see pack_against)")
+    ap.add_argument("--hist-against", metavar="DIR",
+                    help="only time K3b and the flagship step beside another checkout's "
+                         "(see hist_against)")
     args = ap.parse_args()
 
     import torch
@@ -1451,6 +1576,8 @@ def main() -> int:
         return orf_against(args, torch, dev)
     if args.pack_against:
         return pack_against(args, torch, dev)
+    if args.hist_against:
+        return hist_against(args, torch, dev)
     results = {"kernels": {}, "phases": {}}
     t_all = time.perf_counter()
 
@@ -1569,8 +1696,8 @@ def main() -> int:
 
     # K3a at the main paths' shapes: (a) a batch of the streaming count
     # (FASTQ_BATCH x READ_LEN uppercase ACGT, N at 1/200, k = 12 canonical
-    # N-skip), the main row; (b) the flagship step's canonical k = 8 launch
-    # (READS x READ_LEN, no N); (c) the batch above at k = 12; (d) (c)'s keys
+    # N-skip), the main row; (b) an edge row, the flagship step's canonical
+    # k = 8 keys (READS x READ_LEN, no N; the step counts them in K3b); (c) the batch above at k = 12; (d) (c)'s keys
     # masked to k = 11 (16 MiB of bins against 64 MiB), sentinels kept; (e)
     # poly-A: (a)'s and (b)'s valid keys all 0
     def full_reads(B, n_rate):
@@ -1590,7 +1717,7 @@ def main() -> int:
     keys_d = torch.where(keys_c < 4**STREAM_K, keys_c & (4**11 - 1), 4**11)
     for label, keys, k in (
         ("(a) count batch", keys_a, STREAM_K),
-        ("(b) flagship canonical", keys_b, entry.K),
+        ("(b) edge: flagship canonical keys", keys_b, entry.K),
         ("(c) reads of 1..150 bp", keys_c, STREAM_K),
         ("(d) (c) at k = 11", keys_d, 11),
         ("(e) poly-A count batch", keys_a.clamp(max=4**STREAM_K) & 4**STREAM_K, STREAM_K),
@@ -1697,19 +1824,44 @@ def main() -> int:
     long_ascii, _ = reads(64, 16_384, 0.0)
     long_lens = torch.full((64,), 16_384, dtype=torch.int32, device=dev)
     long_words, _ = codec.encode_reads_kernel(long_ascii, long_lens)
-    for k in (1, 4, 8):
-        for label, w, ln in (
-            (f"k={k} [{READS},{words_b.shape[1]}]", words_b, lens_b),
-            (f"k={k} [64,{long_words.shape[1]}]", long_words, long_lens),
-        ):
-            compare("hist_words", label, kmer.histogram_from_words_kernel(w, ln, k),
-                    kmer.histogram_from_words_torch(w, ln, k))
-            timed("hist_words", label,
-                  lambda: kmer.histogram_from_words_kernel(w, ln, k),
-                  lambda: kmer.histogram_from_words_torch(w, ln, k),
-                  main=k == entry.K and w is words_b,
-                  nbytes=4 * w.numel() + 4 * ln.numel() + 4 * 4**k,
-                  ops_ms=6 * 16 * w.numel() / INT32_OPS_PER_S * 1e3)
+    # K3b at both flags: k = 1 to 12 on phase 2's reads and on 64 rows of
+    # 16,384 bp; random words with lengths -2, 0, k - 1, 16 W and 16 W + 7 and
+    # rows of ACGT repeats, poly-A and poly-T; then hist_rows, (b) and (c)
+    # the flagship's two launches, the main rows
+    edge_words = torch.randint(-(2**31), 2**31 - 1, (11, 3), device=dev, generator=gen,
+                               dtype=torch.int32)
+    edge_words[-3:] = torch.tensor([[0xE4E4E4E4 - 2**32], [0], [-1]], dtype=torch.int32)
+
+    def time_hist_words(label, w, ln, k, canonical, main=False):
+        nbytes, ops_ms = hist_bound(w, ln, k, canonical)
+        timed("hist_words", label,
+              lambda: kmer.histogram_from_words_kernel(w, ln, k, canonical),
+              lambda: kmer.histogram_from_words_torch(w, ln, k, canonical),
+              main=main, nbytes=nbytes, ops_ms=ops_ms)
+
+    for k in (1, 4, 7, 8, 9, 12):
+        edge_lens = torch.tensor([-2, 0, k - 1, 48, 55, 17, 30, 45, 55, 48, 47],
+                                 dtype=torch.int32, device=dev)
+        for canonical in (False, True):
+            for label, w, ln in (
+                (f"k={k} canonical={int(canonical)} [{READS},{words_b.shape[1]}]",
+                 words_b, lens_b),
+                (f"k={k} canonical={int(canonical)} [64,{long_words.shape[1]}]",
+                 long_words, long_lens),
+                (f"k={k} canonical={int(canonical)} edge lengths [11,3]",
+                 edge_words, edge_lens),
+            ):
+                compare("hist_words", label,
+                        kmer.histogram_from_words_kernel(w, ln, k, canonical),
+                        kmer.histogram_from_words_torch(w, ln, k, canonical))
+                if w is not edge_words:
+                    time_hist_words(label, w, ln, k, canonical)
+    for label, w, ln, canonical, main in hist_rows(torch, dev, args.seed):
+        label = f"{label} k={entry.K}"
+        compare("hist_words", label, kmer.histogram_from_words_kernel(w, ln, entry.K, canonical),
+                kmer.histogram_from_words_torch(w, ln, entry.K, canonical))
+        time_hist_words(label, w, ln, entry.K, canonical, main)
+    del w, ln, edge_words, edge_lens
 
     # K2: the flagship batch, long reads, and edge shapes (lengths past
     # max_len, max_len past the capacity 16 * W, zero and negative lengths)
@@ -1972,6 +2124,7 @@ def main() -> int:
         out_k = fwd(ascii_e, lens_e, db_e)
         torch.cuda.synchronize()
         step_s = time.perf_counter() - t
+        step_launches = dict(kernels.LAUNCHES)
         t = time.perf_counter()
         hist_k = pipeline.count_fastq(fq, STREAM_K, **count_kw)
         count_s = time.perf_counter() - t
@@ -1981,7 +2134,11 @@ def main() -> int:
         for name in ("pack", "hist_keys", "hist_words", "hdist_scan"):
             check(f"{name} launched on the main path", launches[name] > 0,
                   f"{launches[name]} launches")
-        results["phases"].update(step_kernel_s=step_s, count_kernel_s=count_s, launches=launches)
+        check("the flagship step's two k = 8 counts are two K3b launches and no K3a",
+              step_launches["hist_words"] == 2 and step_launches["hist_keys"] == 0,
+              f"step launches {step_launches}")
+        results["phases"].update(step_kernel_s=step_s, count_kernel_s=count_s, launches=launches,
+                                 step_launches=step_launches)
 
         print("phase 4: flagship step against backend('torch')", flush=True)
         with config.backend("torch"):
@@ -2007,7 +2164,7 @@ def main() -> int:
         stages = {  # where the warm step's time goes, one stage at a time
             "encode (K1)": lambda: codec.encode_reads(ascii_e, lens_e),
             "count k=8 (K3b)": lambda: kmer.count_kmers_reads(words_e, lens_e, entry.K),
-            "count k=8 canonical (keys + K3a)": lambda: kmer.count_kmers_reads(
+            "count k=8 canonical (K3b)": lambda: kmer.count_kmers_reads(
                 words_e, lens_e, entry.K, canonical=True),
             "gc_content": lambda: bnt.gc_content_reads(words_e, lens_e),
             "reverse complement": lambda: bnt.reverse_complement_reads(words_e, lens_e),
@@ -2126,13 +2283,13 @@ def main() -> int:
     }
     lines = []
     for name, (src, replaces, call) in sources.items():
-        head = next(t for t in timings[name] if t["main"])
-        item = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
+        for head in (t for t in timings[name] if t["main"]):  # K3b: (b) and (c)
+            lines.append({
+                "name": name, "route": "cuda", "source": src, "replaces": replaces,
                 "pallas_call": call, "launches": launches[name], "max_abs_err": errs[name],
                 "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
                 "bound_by": head["bound_by"], "library_ms": head["library_ms"],
-                "shape": head["shape"]}
-        lines.append(item)
+                "shape": head["shape"]})
     results["kernels"] = lines
     results["timings"] = timings
     results["device"] = {"name": torch.cuda.get_device_name(0), "nvidia_smi": smi}

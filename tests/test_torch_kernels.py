@@ -154,18 +154,46 @@ def test_pack_is_one_launch(cuda, B, monkeypatch):
         assert torch.equal(g, w)
 
 
+def _hist_words_batch(device, kind, k):
+    """(words, lengths) of K3b's cases: ``reads``, 300 encoded reads of up
+    to 150 bp; ``edges``, random words (bases past each length not zero)
+    with lengths -2, 0, k - 1, 16 W, 16 W + 7 and random, an ACGT repeat, a
+    poly-A and a poly-T row; ``poly_a`` and ``poly_t``, 300 x 10 words of one
+    base (a warp's windows all one key); ``one``, a single word, fewer
+    words than a cluster's threads."""
+    g = torch.Generator().manual_seed(k)
+    if kind == "reads":
+        a, lens = _reads_on(device, 300, 150, 2)
+        return codec.encode_reads_torch(a, lens)[0], lens
+    if kind in ("poly_a", "poly_t"):
+        words = torch.full((300, 10), 0 if kind == "poly_a" else -1, dtype=torch.int32)
+        return words.to(device), torch.full((300,), 160, dtype=torch.int32, device=device)
+    if kind == "one":
+        words = torch.randint(-(2**31), 2**31 - 1, (1, 1), generator=g, dtype=torch.int32)
+        return words.to(device), torch.tensor([16], dtype=torch.int32, device=device)
+    W = 3
+    words = torch.randint(-(2**31), 2**31 - 1, (14, W), generator=g, dtype=torch.int32)
+    words[-3:] = torch.tensor([[0xE4E4E4E4 - 2**32], [0], [-1]], dtype=torch.int32)
+    lens = [-2, 0, k - 1, 16 * W, 16 * W + 7]
+    lens += torch.randint(0, 16 * W + 1, (6,), generator=g).tolist()
+    lens += [16 * W - 3, 16 * W + 7, 16 * W]
+    return words.to(device), torch.tensor(lens, dtype=torch.int32, device=device)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [1, 7, 8, 12])
-def test_histogram_kernels_match_plain(cuda, k):
-    a, lens = _reads_on(cuda, 300, 150, 2)
-    words, _ = codec.encode_reads_torch(a, lens)
-    valid = codec.validity_mask(a, lens)
-    lo, _, v = kmer._window_keys(words, lens, k, True, valid)
-    keys = torch.where(v, lo, 4**k).reshape(-1).contiguous()
-    assert torch.equal(kmer.histogram_from_keys_kernel(keys, k),
-                       kmer.histogram_from_keys_torch(keys, k))
-    assert torch.equal(kmer.histogram_from_words_kernel(words, lens, k),
-                       kmer.histogram_from_words_torch(words, lens, k))
+@pytest.mark.parametrize("k", [1, 7, 8, 9, 12])
+@pytest.mark.parametrize("canonical", [False, True])
+@pytest.mark.parametrize("kind", ["reads", "edges", "poly_a", "poly_t", "one"])
+def test_histogram_kernels_match_plain(cuda, k, canonical, kind):
+    words, lens = _hist_words_batch(cuda, kind, k)
+    assert torch.equal(kmer.histogram_from_words_kernel(words, lens, k, canonical),
+                       kmer.histogram_from_words_torch(words, lens, k, canonical))
+    if kind == "reads" and canonical:  # K3a on the N-skip keys of the same reads
+        a, lens = _reads_on(cuda, 300, 150, 2)
+        lo, _, v = kmer._window_keys(words, lens, k, True, codec.validity_mask(a, lens))
+        keys = torch.where(v, lo, 4**k).reshape(-1).contiguous()
+        assert torch.equal(kmer.histogram_from_keys_kernel(keys, k),
+                           kmer.histogram_from_keys_torch(keys, k))
 
 
 _SLICE_BINS = 1 << 14  # csrc/histogram.cu: kSliceBits, the bins of a slice
@@ -228,8 +256,10 @@ def test_flagship_step_on_card_matches_plain(cuda):
     fwd, args = entry.entry(device=cuda, batch=300, read_len=150, db_size=5000)
     kernels.reset_launches()
     got = fwd(*args)
-    step = ("pack", "hist_keys", "hist_words", "hdist_scan")
-    assert all(kernels.LAUNCHES[name] > 0 for name in step), kernels.LAUNCHES
+    assert all(kernels.LAUNCHES[name] > 0 for name in ("pack", "hdist_scan")), kernels.LAUNCHES
+    # both k = 8 counts, plain and canonical, are one K3b launch each
+    assert kernels.LAUNCHES["hist_words"] == 2 and kernels.LAUNCHES["hist_keys"] == 0, \
+        kernels.LAUNCHES
     with config.backend("torch"):
         want = fwd(*args)
     for key in want:

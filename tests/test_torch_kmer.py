@@ -1,8 +1,11 @@
 """bitnuc_tpu_torch k-mer counting against bitnuc_tpu: count_kmers_reads
 (plain, canonical, N-skip) against the JAX dispatcher, the plain versions
 of the K3a/K3b kernels against the Pallas histograms in interpret mode,
-canonical keys at k = 16 and 32 (unsigned compare), top_kmers and
-spectrum. Every count matches exactly."""
+K3b's plain version and count_kmers_dense, canonical or not, against JAX's
+count_kmers_dense at edge lengths, a numpy model of K3b's register reverse
+complement against JAX's revcomp_key, which kernel count_kmers_dense
+routes to, canonical keys at k = 16 and 32 (unsigned compare), top_kmers
+and spectrum. Every count matches exactly."""
 
 import numpy as np
 import pytest
@@ -71,6 +74,90 @@ def test_histogram_from_words_plain_matches_pallas(rng, B, L, k):
     )
     got = kmer.histogram_from_words_torch(words_from_u32_np(w), torch.from_numpy(lens), k)
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _edge_batch(rng, W, k):
+    """[14, W] random words (bases past each length are not zero) with
+    lengths -2, 0, k - 1, 16 W, 16 W + 7 and random ones, then an ACGT
+    repeat (at k = 4, 8 and 12 its windows at even offsets are their own
+    reverse complements), poly-A and poly-T rows."""
+    lens = [-2, 0, k - 1, 16 * W, 16 * W + 7] + rng.integers(0, 16 * W + 1, 6).tolist()
+    words = rng.integers(0, 2**32, size=(len(lens) + 3, W), dtype=np.uint32)
+    words[-3], words[-2], words[-1] = 0xE4E4E4E4, 0, 0xFFFFFFFF  # ACGT..., A..., T...
+    lens += [16 * W - 3, 16 * W + 7, 16 * W]
+    return words, np.array(lens, np.int32)
+
+
+@pytest.mark.parametrize("k", [1, 4, 7, 8, 9, 12])
+@pytest.mark.parametrize("canonical", [False, True])
+def test_histogram_from_words_matches_jax_dense(rng, k, canonical):
+    """K3b's plain version and count_kmers_dense (which routes to it) equal
+    JAX's count_kmers_dense, lengths <= 0, < k and past 16 W included."""
+    words, lens = _edge_batch(rng, 3, k)
+    want = np.asarray(jkmer.count_kmers_dense(jnp.asarray(words), jnp.asarray(lens), k,
+                                              canonical=canonical))
+    tw, tl = words_from_u32_np(words), torch.from_numpy(lens)
+    for got in (kmer.histogram_from_words_torch(tw, tl, k, canonical),
+                kmer.count_kmers_dense(tw, tl, k, canonical)):
+        assert got.dtype == torch.int32 and got.shape == (4**k,)
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _brev32(x):
+    """Bit reversal of uint32 values (CUDA's __brev)."""
+    x = x.astype(np.uint32)
+    for s, m in ((1, 0x55555555), (2, 0x33333333), (4, 0x0F0F0F0F), (8, 0x00FF00FF)):
+        x = ((x >> np.uint32(s)) & np.uint32(m)) | ((x & np.uint32(m)) << np.uint32(s))
+    return (x >> np.uint32(16)) | (x << np.uint32(16))
+
+
+def _canonical_model(key, k):
+    """csrc/histogram.cu canonical_key: (rc, min(key, rc)) with rc the pair
+    swap of __brev(key ^ (4^k - 1)), shifted down by 32 - 2k."""
+    b = _brev32(key ^ np.uint32(4**k - 1))
+    m = np.uint32(0x55555555)
+    rc = (((b >> np.uint32(1)) & m) | ((b & m) << np.uint32(1))) >> np.uint32(32 - 2 * k)
+    return rc, np.minimum(key, rc)
+
+
+@pytest.mark.parametrize("k", range(1, 13))
+def test_register_revcomp_model_matches_jax(rng, k):
+    """Exhaustive for k <= 9, 200,000 random keys above."""
+    if k <= 9:
+        key = np.arange(4**k, dtype=np.uint32)
+    else:
+        key = rng.integers(0, 4**k, 200_000, dtype=np.uint32)
+    rc, canon = _canonical_model(key, k)
+    zero = jnp.zeros(key.shape, jnp.uint32)
+    want_rc, _ = jrevcomp.revcomp_key(jnp.asarray(key), zero, k)
+    want_canon, _ = jrevcomp.canonical_keys(jnp.asarray(key), zero, k)
+    np.testing.assert_array_equal(rc, np.asarray(want_rc))
+    np.testing.assert_array_equal(canon, np.asarray(want_canon))
+
+
+@pytest.mark.parametrize("canonical", [False, True])
+def test_count_kmers_dense_routes(rng, monkeypatch, canonical):
+    """Counts with no base_valid reach K3b (histogram_from_words), canonical
+    or not; counts with base_valid reach K3a (histogram_from_keys)."""
+    w, lens, valid = _reads(rng, 3, 40)
+    calls = []
+    real_words, real_keys = kmer.histogram_from_words, kmer.histogram_from_keys
+
+    def words_spy(*args):
+        calls.append(("words", args[3]))
+        return real_words(*args)
+
+    def keys_spy(*args):
+        calls.append(("keys", None))
+        return real_keys(*args)
+
+    monkeypatch.setattr(kmer, "histogram_from_words", words_spy)
+    monkeypatch.setattr(kmer, "histogram_from_keys", keys_spy)
+    tw, tl = words_from_u32_np(w), torch.from_numpy(lens)
+    kmer.count_kmers_dense(tw, tl, 8, canonical)
+    assert calls == [("words", canonical)]
+    kmer.count_kmers_dense(tw, tl, 8, canonical, base_valid=torch.from_numpy(valid))
+    assert calls == [("words", canonical), ("keys", None)]
 
 
 @pytest.mark.parametrize("k", [16, 17, 32])
