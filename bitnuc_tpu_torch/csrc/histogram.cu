@@ -453,11 +453,11 @@ __global__ void hist_words_kernel(const uint32_t* __restrict__ words,
 }
 
 // Launch `kern` with a private [4^k] table in shared memory (k <=
-// kSmemMaxK). Each instantiation serves one kernel, so the attribute is
-// set once a kernel.
-template <typename Kernel, typename... Args>
-cudaError_t launch_private(Kernel kern, int k, int64_t n_items, cudaStream_t stream,
-                           Args... args) {
+// kSmemMaxK). The kernel is a template argument, so each kernel has its own
+// instantiation and sets its attribute once (two kernels of one type would
+// share a function parameter's static).
+template <auto kern, typename... Args>
+cudaError_t launch_private(int k, int64_t n_items, cudaStream_t stream, Args... args) {
   static const cudaError_t attr = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)(sizeof(int32_t) << (2 * kSmemMaxK)));
@@ -482,8 +482,8 @@ extern "C" int bn_hist_keys(const void* keys, int64_t n, int k, void* hist, void
   if (k >= kSliceMinK)
     return (int)hist_keys_slices((const int32_t*)keys, n, k, (int32_t*)hist, (char*)scratch,
                                  (cudaStream_t)stream);
-  return (int)launch_private(hist_keys_kernel, k, n, (cudaStream_t)stream,
-                             (const int32_t*)keys, n, 1 << (2 * k), (int32_t*)hist);
+  return (int)launch_private<hist_keys_kernel>(k, n, (cudaStream_t)stream, (const int32_t*)keys,
+                                               n, 1 << (2 * k), (int32_t*)hist);
 }
 
 extern "C" int bn_hist_words(const void* words, const void* lengths, int64_t B,
@@ -496,10 +496,10 @@ extern "C" int bn_hist_words(const void* words, const void* lengths, int64_t B,
   auto* h = (int32_t*)hist;
   if (k <= kSmemMaxK)
     return (int)(canonical
-                     ? launch_private(hist_words_kernel<true, true>, k, B * W, s, w, len, B,
-                                      (int)W, k, h)
-                     : launch_private(hist_words_kernel<true, false>, k, B * W, s, w, len, B,
-                                      (int)W, k, h));
+                     ? launch_private<hist_words_kernel<true, true>>(k, B * W, s, w, len, B,
+                                                                     (int)W, k, h)
+                     : launch_private<hist_words_kernel<true, false>>(k, B * W, s, w, len, B,
+                                                                      (int)W, k, h));
   const unsigned blocks = bn::grid_for(B * W, kThreads, 8);
   if (canonical)
     hist_words_kernel<false, true><<<blocks, kThreads, 0, s>>>(w, len, B, (int)W, k, h);
