@@ -54,8 +54,25 @@
 // key becomes min(key, revcomp(key)) in registers (canonical_key: an xor,
 // __brev, a pair swap, a shift and a min), so a canonical count is one
 // launch, as a plain one is; the TPU kernel counts plain windows only (its
-// MXU one-hots), and the JAX package makes canonical keys with XLA. At k =
-// 8..12 it adds into the output with one global atomic per window.
+// MXU one-hots), and the JAX package makes canonical keys with XLA.
+// Counting: k <= 7 in private shared-memory tables (above); k = 8..12 with
+// one global atomic per window, except k = 8, the flagship's: its 256-KB
+// table does not fit one block's 227 KB of shared memory, but it fits a
+// thread-block cluster's. hist_words_cluster_kernel spreads it over a
+// cluster of 2 blocks of 128 KB (kClusterBlocks), interleaved by the key's
+// low bit so that canonical keys, which lean to small values, load the
+// blocks evenly; each window adds to its owner block's bin through
+// distributed shared memory (map_shared_rank), the lanes that share lane
+// 0's key with one atomic (warp_add_at), and each block adds its non-zero
+// bins to the output once. The grid is one cluster per 2 SMs, a block an
+// SM, persistent over the words, so the merges (clusters x 65,536 adds)
+// stay small beside the windows (37.5 M in the flagship's batch). On an
+// H100 (PERF.md) 2 blocks of 128 KB ran 2.1-3.7 times faster than 4 of 64
+// KB at one cluster per 4, 3 or 2 SMs, and the adds through distributed
+// shared memory, not the keys, take most of the time. A cluster launch the
+// card refuses returns its error; nothing falls back.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
 
 namespace {
@@ -79,6 +96,14 @@ constexpr int kScatterSmem = 4 * kScatterTile;  // tile_off and tile_bucket
 constexpr int kSliceThreads = 512;
 constexpr int kSliceItems = 8;  // offsets a thread loads at once in pass 4
 constexpr unsigned kFull = 0xFFFFFFFFu;
+
+// K3b at k = kClusterK in a cluster's distributed shared memory (see the top
+// of the file)
+constexpr int kClusterK = kSmemMaxK + 1;  // 65,536 bins, 256 KB
+constexpr int kClusterBlocks = 2;  // 128 KB of bins a block
+constexpr int kClusterThreads = 1024;
+constexpr int kSmsPerCluster = 2;  // the grid: one cluster per 2 SMs, a block an SM
+constexpr int kClusterMaxSmem = (int)(sizeof(int32_t) << (2 * kClusterK)) / 2;  // 2 blocks
 
 template <bool kShared>
 __device__ __forceinline__ void count(int32_t* sh, int32_t* hist, uint32_t key) {
@@ -126,23 +151,30 @@ __global__ void hist_keys_kernel(const int32_t* __restrict__ keys, int64_t n,
 
 // counters[id] += 1 for each lane whose id >= 0. The lanes that share lane
 // 0's id add with one atomic by lane 0, so a warp of equal ids (poly-A)
-// costs one; each other lane adds its own. With kRank, returns each lane's
+// costs one; each other lane adds its own (warp_add_at: add_to(id, n) adds
+// and returns the value before). With kRank, returns each lane's
 // rank among all the adds to counters[id] (the value before its add, plus
 // the lanes below it in lane 0's group). Every lane of the warp calls it
 // together, and it does not branch, so calls for several keys overlap.
 // (__match_any_sync would aggregate every group, but it costs more the more
 // distinct ids a warp holds, and uniform keys hold 32.)
-template <bool kRank>
-__device__ __forceinline__ int warp_add(int* counters, int id) {
+template <bool kRank, typename AddTo>
+__device__ __forceinline__ int warp_add_at(AddTo add_to, int id) {
   const int lane = threadIdx.x & 31;
   const bool in0 = id == __shfl_sync(kFull, id, 0);
   const unsigned same = __ballot_sync(kFull, in0);
   const int add = in0 ? (lane == 0 ? __popc(same) : 0) : 1;
   int old = 0;
-  if (id >= 0 && add) old = atomicAdd(counters + id, add);
+  if (id >= 0 && add) old = add_to(id, add);
   if (!kRank) return 0;
   const int base0 = __shfl_sync(kFull, old, 0);
   return in0 ? base0 + __popc(same & ((1u << lane) - 1u)) : old;
+}
+
+template <bool kRank>
+__device__ __forceinline__ int warp_add(int* counters, int id) {
+  return warp_add_at<kRank>([counters](int i, int n) { return atomicAdd(counters + i, n); },
+                            id);
 }
 
 // The bucket of the key at i, or -1 past the end or out of [0, nbins).
@@ -452,6 +484,83 @@ __global__ void hist_words_kernel(const uint32_t* __restrict__ words,
   merge_private<kShared>(sh, hist, nbins);
 }
 
+// K3b at k = kClusterK: the [4^8] table lies in the shared memory of a
+// cluster's 2^log2c blocks, interleaved by the key's low bits: key's bin is
+// key >> log2c in the block of rank key & (2^log2c - 1). Warps step over
+// the words together (warp_add_at shuffles), a word a lane; each window adds
+// to its owner's bin through distributed shared memory (map_shared_rank),
+// the lanes that share lane 0's key with one atomic. Each block then adds
+// its non-zero bins to the output once.
+template <bool kCanonical>
+__global__ void __launch_bounds__(kClusterThreads)
+hist_words_cluster_kernel(const uint32_t* __restrict__ words,
+                          const int32_t* __restrict__ lengths, int64_t B, int W, int log2c,
+                          int32_t* __restrict__ hist) {
+  namespace cg = cooperative_groups;
+  extern __shared__ int4 sh4[];
+  int32_t* sh = reinterpret_cast<int32_t*>(sh4);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int nbins = (1 << (2 * kClusterK)) >> log2c;
+  for (int i = threadIdx.x; i < nbins / 4; i += kClusterThreads) sh4[i] = make_int4(0, 0, 0, 0);
+  cluster.sync();  // every block's bins are zero before the first add
+  const int cmask = (1 << log2c) - 1;
+  auto add_to = [&](int key, int n) {
+    return atomicAdd(cluster.map_shared_rank(sh + (key >> log2c), key & cmask), n);
+  };
+  const int lane = threadIdx.x & 31;
+  const int64_t total = B * W;
+  const int64_t stride = (int64_t)gridDim.x * kClusterThreads;
+  for (WordCursor c((int64_t)blockIdx.x * kClusterThreads + threadIdx.x, stride, W);
+       c.idx - lane < total; c.advance(stride, W)) {  // the warp's first word
+    uint32_t w = 0, nx = 0;
+    const int nwin = c.idx < total ? load_word(words, lengths, c, W, kClusterK, &w, &nx) : 0;
+    word_windows<kCanonical>(w, nx, nwin, kClusterK, [&](uint32_t key, bool valid) {
+      warp_add_at<false>(add_to, valid ? (int)key : -1);
+    });
+  }
+  cluster.sync();  // every add has landed
+  const int rank = (int)cluster.block_rank();
+  for (int i = threadIdx.x; i < nbins; i += kClusterThreads) {
+    const int32_t n = sh[i];
+    if (n) atomicAdd(hist + ((i << log2c) | rank), n);
+  }
+}
+
+// Launch K3b at k = kClusterK on clusters of `cluster` blocks (a power of
+// two), one cluster per kSmsPerCluster SMs (fewer for a small batch). A
+// launch the card refuses returns its error.
+template <bool kCanonical>
+cudaError_t launch_cluster(const uint32_t* words, const int32_t* lengths, int64_t B, int W,
+                           int cluster, int32_t* hist, cudaStream_t stream) {
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(hist_words_cluster_kernel<kCanonical>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, kClusterMaxSmem);
+  if (attr != cudaSuccess) return attr;
+  int log2c = 0;
+  while ((1 << log2c) < cluster) ++log2c;
+  if (cluster < 1 || (1 << log2c) != cluster) return cudaErrorInvalidValue;
+  const int64_t per_cluster = (int64_t)cluster * kClusterThreads;
+  const int64_t want = (B * W + per_cluster - 1) / per_cluster;
+  const int most = bn::sm_count() / kSmsPerCluster;
+  const int clusters = (int)(want < most ? want : (most > 0 ? most : 1));
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(clusters * cluster));
+  cfg.blockDim = dim3(kClusterThreads);
+  cfg.dynamicSmemBytes = (sizeof(int32_t) << (2 * kClusterK)) >> log2c;
+  cfg.stream = stream;
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = (unsigned)cluster;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, hist_words_cluster_kernel<kCanonical>,
+                                             words, lengths, B, W, log2c, hist);
+  const cudaError_t last = cudaGetLastError();  // clears a refused launch's error
+  return err != cudaSuccess ? err : last;
+}
+
 // Launch `kern` with a private [4^k] table in shared memory (k <=
 // kSmemMaxK). The kernel is a template argument, so each kernel has its own
 // instantiation and sets its attribute once (two kernels of one type would
@@ -486,8 +595,12 @@ extern "C" int bn_hist_keys(const void* keys, int64_t n, int k, void* hist, void
                                                n, 1 << (2 * k), (int32_t*)hist);
 }
 
+// K3b. `cluster` is the blocks of a cluster at k = kClusterK: 0 for
+// kClusterBlocks; the tests pass others (a size the card refuses must
+// return its error).
 extern "C" int bn_hist_words(const void* words, const void* lengths, int64_t B,
-                             int64_t W, int k, int canonical, void* hist, void* stream) {
+                             int64_t W, int k, int canonical, int cluster, void* hist,
+                             void* stream) {
   if (B * W <= 0) return (int)cudaGetLastError();
   if (B >= (1 << 30) || W >= (1 << 26)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
@@ -500,6 +613,11 @@ extern "C" int bn_hist_words(const void* words, const void* lengths, int64_t B,
                                                                      (int)W, k, h)
                      : launch_private<hist_words_kernel<true, false>>(k, B * W, s, w, len, B,
                                                                       (int)W, k, h));
+  if (k == kClusterK) {
+    if (cluster == 0) cluster = kClusterBlocks;
+    return (int)(canonical ? launch_cluster<true>(w, len, B, (int)W, cluster, h, s)
+                           : launch_cluster<false>(w, len, B, (int)W, cluster, h, s));
+  }
   const unsigned blocks = bn::grid_for(B * W, kThreads, 8);
   if (canonical)
     hist_words_kernel<false, true><<<blocks, kThreads, 0, s>>>(w, len, B, (int)W, k, h);

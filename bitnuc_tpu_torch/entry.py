@@ -1,7 +1,7 @@
 """The flagship single-device step of the port.
 
 The counterpart of ``__graft_entry__.entry()``: an ASCII batch goes to packed
-words (K1), a k-mer histogram plain and canonical (K3b, K3a), GC content,
+words (K1), a k-mer histogram plain and canonical (K3b, K3b), GC content,
 reverse complements, and a Hamming top-k of the first read against a
 packed database (K4). It calls the dispatching functions, so CUDA tensors
 run the kernels and CPU tensors their plain versions, and it returns the

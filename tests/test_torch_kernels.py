@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from bitnuc_tpu_torch import config, entry, kernels
+from bitnuc_tpu_torch.kernels import _build
 from bitnuc_tpu_torch.ops import align, codec, hamming, kmer, merge, orf
 from bitnuc_tpu_torch.utils import bitops
 
@@ -194,6 +195,43 @@ def test_histogram_kernels_match_plain(cuda, k, canonical, kind):
         keys = torch.where(v, lo, 4**k).reshape(-1).contiguous()
         assert torch.equal(kmer.histogram_from_keys_kernel(keys, k),
                            kmer.histogram_from_keys_torch(keys, k))
+
+
+def _hist_words_on_clusters(words, lens, canonical, cluster):
+    """K3b at k = 8 on clusters of ``cluster`` blocks, through bn_hist_words'
+    test-only argument (the wrapper always passes 0, the default of 2)."""
+    hist = torch.zeros(4**8, dtype=torch.int32, device=words.device)
+    code = _build.library().bn_hist_words(
+        words.data_ptr(), lens.data_ptr(), words.shape[0], words.shape[1], 8, int(canonical),
+        cluster, hist.data_ptr(), kernels.stream_handle(words.device))
+    _build.check(code, "hist_words")
+    return hist
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [2, 4, 8])
+@pytest.mark.parametrize("canonical", [False, True])
+@pytest.mark.parametrize("kind", ["reads", "edges", "poly_a", "one"])
+def test_hist_words_cluster_sizes(cuda, cluster, canonical, kind):
+    """The k = 8 table interleaved over 2, 4 or 8 blocks counts the same."""
+    words, lens = _hist_words_batch(cuda, kind, 8)
+    assert torch.equal(_hist_words_on_clusters(words, lens, canonical, cluster),
+                       kmer.histogram_from_words_torch(words, lens, 8, canonical))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [1, 16])
+def test_hist_words_refused_cluster_raises(cuda, cluster):
+    """A cluster launch the card refuses raises and falls back to nothing:
+    16 blocks are past the portable 8 (the kernel does not allow more), and
+    one block would need the whole 256-KB table. The next count is right."""
+    words, lens = _hist_words_batch(cuda, "reads", 8)
+    before = kernels.LAUNCHES["hist_words"]
+    with pytest.raises(RuntimeError, match="hist_words: CUDA error"):
+        _hist_words_on_clusters(words, lens, False, cluster)
+    assert torch.equal(kmer.histogram_from_words_kernel(words, lens, 8),
+                       kmer.histogram_from_words_torch(words, lens, 8))
+    assert kernels.LAUNCHES["hist_words"] == before + 1
 
 
 _SLICE_BINS = 1 << 14  # csrc/histogram.cu: kSliceBits, the bins of a slice
