@@ -101,9 +101,8 @@ constexpr unsigned kFull = 0xFFFFFFFFu;
 // of the file)
 constexpr int kClusterK = kSmemMaxK + 1;  // 65,536 bins, 256 KB
 constexpr int kClusterBlocks = 2;  // 128 KB of bins a block
-constexpr int kClusterThreads = 1024;
-constexpr int kSmsPerCluster = 2;  // the grid: one cluster per 2 SMs, a block an SM
-constexpr int kClusterMaxSmem = (int)(sizeof(int32_t) << (2 * kClusterK)) / 2;  // 2 blocks
+constexpr int kClusterThreads = 1024;  // a block an SM (128 KB of shared memory)
+constexpr int kClusterSmem = (int)(sizeof(int32_t) << (2 * kClusterK)) / kClusterBlocks;
 
 template <bool kShared>
 __device__ __forceinline__ void count(int32_t* sh, int32_t* hist, uint32_t key) {
@@ -527,21 +526,21 @@ hist_words_cluster_kernel(const uint32_t* __restrict__ words,
 }
 
 // Launch K3b at k = kClusterK on clusters of `cluster` blocks (a power of
-// two), one cluster per kSmsPerCluster SMs (fewer for a small batch). A
-// launch the card refuses returns its error.
+// two), as many blocks as SMs (fewer for a small batch). A launch the card
+// refuses returns its error.
 template <bool kCanonical>
 cudaError_t launch_cluster(const uint32_t* words, const int32_t* lengths, int64_t B, int W,
                            int cluster, int32_t* hist, cudaStream_t stream) {
   static const cudaError_t attr =
       cudaFuncSetAttribute(hist_words_cluster_kernel<kCanonical>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, kClusterMaxSmem);
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, kClusterSmem);
   if (attr != cudaSuccess) return attr;
   int log2c = 0;
   while ((1 << log2c) < cluster) ++log2c;
   if (cluster < 1 || (1 << log2c) != cluster) return cudaErrorInvalidValue;
   const int64_t per_cluster = (int64_t)cluster * kClusterThreads;
   const int64_t want = (B * W + per_cluster - 1) / per_cluster;
-  const int most = bn::sm_count() / kSmsPerCluster;
+  const int most = bn::sm_count() / cluster;
   const int clusters = (int)(want < most ? want : (most > 0 ? most : 1));
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)(clusters * cluster));

@@ -27,7 +27,10 @@ Phases, each of which must pass:
    K1 pack (at the flagship's batch, a count batch, reads of 300, 1,000
    and 4,000 bp, 64 rows of 16,384 bp, phase 6's genome as one row and a
    base pointer off 16-byte alignment, with lengths -2, 0 and past L, and
-   the device operations of one call), K2 unpack, K3a hist_keys, K3b hist_words, K4 hdist_scan and K5
+   the device operations of one call), K2 unpack, K3a hist_keys, K3b
+   hist_words (plain and canonical at k = 1, 4, 7, 8, 9 and 12, at edge
+   lengths and on poly-A; timed at the flagship step's two k = 8 launches,
+   the main rows), K4 hdist_scan and K5
    hdist_scan_batch (one kernel), K6 tc_scan, K7 merge and K10 orf_scan at
    the main paths' shapes and at edge shapes (K3a also on poly-A keys and
    at k = 11; K7 also lopsided and all ties; K10 at phase 8's batch on
@@ -83,7 +86,9 @@ Phases, each of which must pass:
 
 The launch counters are set to 0 just before each main path (phases 4 and
 5 under the default backend, phases 6, 7 and 8) and read just after it; every
-kernel of that path must have launched there. The last lines printed are a
+kernel of that path must have launched there, and the flagship step alone
+must make two K3b launches (its plain and canonical k = 8 counts) and no K3a
+launch. The last lines printed are a
 JSON object of per-kernel
 results, the card's name and power limit from nvidia-smi, and the final
 JSON status line. The script exits non-zero, and prints no status line,
