@@ -38,8 +38,8 @@
 //      shared-memory slice; a bucket that is one chunk stores its whole
 //      slice with plain stores, one cut into several chunks adds its
 //      non-zero bins with atomics. No bin gets both.
-// In every shared-memory count the lanes that share lane 0's id add with one
-// atomic (warp_add), so a poly-A warp costs one atomic, not 32.
+// In each of these shared-memory counts the lanes that share lane 0's id add
+// with one atomic (warp_add), so a poly-A warp costs one atomic, not 32.
 // On an H100 the slices beat one global atomic a key from k = 8 on (the
 // flagship's k = 8 batch and the count's k = 12 batch both; PERF.md), so
 // kSliceMinK is the first k past the private tables. The tile sizes and
@@ -51,27 +51,26 @@
 // neighbour (zero past the row) and makes the 16 window keys by funnel
 // shifts, masked to 2k bits. There is no word-axis padding, so the TPU's
 // short-read padding rule has no counterpart either. With `canonical` each
-// key becomes min(key, revcomp(key)) in registers (canonical_key: an xor,
-// __brev, a pair swap, a shift and a min), so a canonical count is one
-// launch, as a plain one is; the TPU kernel counts plain windows only (its
-// MXU one-hots), and the JAX package makes canonical keys with XLA.
-// Counting: k <= 7 in private shared-memory tables (above); k = 8..12 with
-// one global atomic per window, except k = 8, the flagship's: its 256-KB
-// table does not fit one block's 227 KB of shared memory, but it fits a
-// thread-block cluster's. hist_words_cluster_kernel spreads it over a
-// cluster of 2 blocks of 128 KB (kClusterBlocks), interleaved by the key's
-// low bit so that canonical keys, which lean to small values, load the
-// blocks evenly; each window adds to its owner block's bin through
-// distributed shared memory (map_shared_rank), the lanes that share lane
-// 0's key with one atomic (warp_add_at), and each block adds its non-zero
-// bins to the output once. The grid is one cluster per 2 SMs, a block an
-// SM, persistent over the words, so the merges (clusters x 65,536 adds)
-// stay small beside the windows (37.5 M in the flagship's batch). On an
-// H100 (PERF.md) 2 blocks of 128 KB ran 2.1-3.7 times faster than 4 of 64
-// KB at one cluster per 4, 3 or 2 SMs, and the adds through distributed
-// shared memory, not the keys, take most of the time. A cluster launch the
-// card refuses returns its error; nothing falls back.
-#include <cooperative_groups.h>
+// key becomes min(key, revcomp(key)) in registers: the reverse complement of
+// the word and of its neighbour is made once a word (__brev of the
+// complement, then a pair swap), and each window's by a funnel shift of the
+// two and a mask. So a canonical count is one launch, as a plain one is; the
+// TPU kernel counts plain windows only (its MXU one-hots), and the JAX
+// package makes canonical keys with XLA.
+// Counting: k <= 7 in private shared-memory tables (above); k = 8, the
+// flagship's, in tables split between the two blocks of a pair: its 256-KB
+// table does not fit one block's 227 KB of shared memory, so each block of a
+// pair holds the bins of one parity of the key (128 KB, a block an SM), both
+// read the pair's words, and each counts only the keys it owns. No block
+// adds to another's table, so no thread-block cluster is needed. Parity
+// splits canonical keys, which lean to small values, evenly. The adds are
+// plain shared-memory atomics: on an H100 they take a warp's equal keys
+// (poly-A) as fast as distinct ones, and warp_add's shuffles cost more than
+// they saved. Each block adds its non-zero bins to the output once. k =
+// 9..12: one global atomic per window. On an H100 (PERF.md) the pair ran in
+// less than half the time of a 2-block cluster that adds each key to its
+// owner block through distributed shared memory, and 4-block clusters of 64
+// KB were slower still.
 
 #include "common.cuh"
 
@@ -97,83 +96,50 @@ constexpr int kSliceThreads = 512;
 constexpr int kSliceItems = 8;  // offsets a thread loads at once in pass 4
 constexpr unsigned kFull = 0xFFFFFFFFu;
 
-// K3b at k = kClusterK in a cluster's distributed shared memory (see the top
-// of the file)
-constexpr int kClusterK = kSmemMaxK + 1;  // 65,536 bins, 256 KB
-constexpr int kClusterBlocks = 2;  // 128 KB of bins a block
-constexpr int kClusterThreads = 1024;  // a block an SM (128 KB of shared memory)
-constexpr int kClusterSmem = (int)(sizeof(int32_t) << (2 * kClusterK)) / kClusterBlocks;
-
-template <bool kShared>
-__device__ __forceinline__ void count(int32_t* sh, int32_t* hist, uint32_t key) {
-  if (kShared) {
-    atomicAdd(sh + key, 1);
-  } else {
-    atomicAdd(hist + key, 1);
-  }
-}
-
-template <bool kShared>
-__device__ __forceinline__ void zero_private(int32_t* sh, int nbins) {
-  if (kShared) {
-    for (int i = threadIdx.x; i < nbins; i += blockDim.x) sh[i] = 0;
-    __syncthreads();
-  }
-}
-
-template <bool kShared>
-__device__ __forceinline__ void merge_private(const int32_t* sh, int32_t* hist,
-                                              int nbins) {
-  if (kShared) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < nbins; i += blockDim.x) {
-      const int32_t c = sh[i];
-      if (c) atomicAdd(hist + i, c);
-    }
-  }
-}
+// K3b at k = kSplitK in the two blocks of a pair (see the top of the file)
+constexpr int kSplitK = kSmemMaxK + 1;  // 65,536 bins, 256 KB
+constexpr int kSplitThreads = 1024;  // a block an SM (128 KB of shared memory)
+constexpr int kSplitSmem = (int)(sizeof(int32_t) << (2 * kSplitK)) / 2;
 
 __global__ void hist_keys_kernel(const int32_t* __restrict__ keys, int64_t n,
                                  int nbins, int32_t* __restrict__ hist) {
   extern __shared__ int32_t sh[];
-  zero_private<true>(sh, nbins);
+  for (int i = threadIdx.x; i < nbins; i += blockDim.x) sh[i] = 0;
+  __syncthreads();
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += stride) {
     const uint32_t key = (uint32_t)keys[i];  // negative keys wrap out of range
-    if (key < (uint32_t)nbins) count<true>(sh, hist, key);
+    if (key < (uint32_t)nbins) atomicAdd(sh + key, 1);
   }
-  merge_private<true>(sh, hist, nbins);
+  __syncthreads();
+  for (int i = threadIdx.x; i < nbins; i += blockDim.x) {
+    const int32_t c = sh[i];
+    if (c) atomicAdd(hist + i, c);
+  }
 }
 
 // -- K3a in slices (k >= kSliceMinK) ------------------------------------------
 
 // counters[id] += 1 for each lane whose id >= 0. The lanes that share lane
 // 0's id add with one atomic by lane 0, so a warp of equal ids (poly-A)
-// costs one; each other lane adds its own (warp_add_at: add_to(id, n) adds
-// and returns the value before). With kRank, returns each lane's
+// costs one; each other lane adds its own. With kRank, returns each lane's
 // rank among all the adds to counters[id] (the value before its add, plus
 // the lanes below it in lane 0's group). Every lane of the warp calls it
 // together, and it does not branch, so calls for several keys overlap.
 // (__match_any_sync would aggregate every group, but it costs more the more
 // distinct ids a warp holds, and uniform keys hold 32.)
-template <bool kRank, typename AddTo>
-__device__ __forceinline__ int warp_add_at(AddTo add_to, int id) {
+template <bool kRank>
+__device__ __forceinline__ int warp_add(int* counters, int id) {
   const int lane = threadIdx.x & 31;
   const bool in0 = id == __shfl_sync(kFull, id, 0);
   const unsigned same = __ballot_sync(kFull, in0);
   const int add = in0 ? (lane == 0 ? __popc(same) : 0) : 1;
   int old = 0;
-  if (id >= 0 && add) old = add_to(id, add);
+  if (id >= 0 && add) old = atomicAdd(counters + id, add);
   if (!kRank) return 0;
   const int base0 = __shfl_sync(kFull, old, 0);
   return in0 ? base0 + __popc(same & ((1u << lane) - 1u)) : old;
-}
-
-template <bool kRank>
-__device__ __forceinline__ int warp_add(int* counters, int id) {
-  return warp_add_at<kRank>([counters](int i, int n) { return atomicAdd(counters + i, n); },
-                            id);
 }
 
 // The bucket of the key at i, or -1 past the end or out of [0, nbins).
@@ -404,26 +370,33 @@ cudaError_t hist_keys_slices(const int32_t* keys, int64_t n, int k, int32_t* his
   return cudaGetLastError();
 }
 
-// min(key, its reverse complement) for a key of k bases (k <= 16): the
-// complement is key ^ mask (mask = 4^k - 1), __brev reverses the 32 bits,
-// which reverses the bases and swaps the two bits of each, the pair swap
-// puts them back, and the shift by 32 - 2k brings the k bases down.
-__device__ __forceinline__ uint32_t canonical_key(uint32_t key, uint32_t mask, int rc_shift) {
-  const uint32_t b = __brev(key ^ mask);
-  const uint32_t rc = (((b >> 1) & 0x55555555u) | ((b & 0x55555555u) << 1)) >> rc_shift;
-  return min(key, rc);
+// The reverse complement of the 16 bases of x: __brev of the complement
+// reverses the bases and swaps the two bits of each, the pair swap puts them
+// back.
+__device__ __forceinline__ uint32_t revcomp16(uint32_t x) {
+  const uint32_t b = __brev(~x);
+  return ((b >> 1) & 0x55555555u) | ((b & 0x55555555u) << 1);
 }
 
 // add(key, valid) for each of the 16 windows that start in word w (nx is
-// the next word of the row, 0 past it); window j is valid for j < nwin.
+// the next word of the row, 0 past it); window j is valid for j < nwin. With
+// kCanonical the key is min(key, revcomp(key)): the pair's reverse
+// complement rc(w):rc(nx), shifted down by 32 - 2k into hi:lo, holds window
+// j's at bit 32 - 2j (k <= 16).
 template <bool kCanonical, typename Add>
 __device__ __forceinline__ void word_windows(uint32_t w, uint32_t nx, int nwin, int k,
                                              Add add) {
   const uint32_t mask = (1u << (2 * k)) - 1u;
+  uint32_t hi = 0, lo = 0;
+  if (kCanonical) {
+    const uint32_t rw = revcomp16(w), rn = revcomp16(nx);
+    hi = rw >> (32 - 2 * k);
+    lo = __funnelshift_r(rn, rw, 32 - 2 * k);
+  }
 #pragma unroll
   for (int j = 0; j < 16; ++j) {
     uint32_t key = __funnelshift_r(w, nx, 2 * j) & mask;
-    if (kCanonical) key = canonical_key(key, mask, 32 - 2 * k);
+    if (kCanonical) key = min(key, (j == 0 ? hi : __funnelshift_r(lo, hi, 32 - 2 * j)) & mask);
     add(key, j < nwin);
   }
 }
@@ -461,118 +434,83 @@ __device__ __forceinline__ int load_word(const uint32_t* words, const int32_t* l
   return last - p0 >= 15 ? 16 : (int)(last - p0 + 1);
 }
 
-template <bool kShared, bool kCanonical>
-__global__ void hist_words_kernel(const uint32_t* __restrict__ words,
-                                  const int32_t* __restrict__ lengths,
-                                  int64_t B, int W, int k,
-                                  int32_t* __restrict__ hist) {
+// K3b. kParts = 0 (k > kSplitK): one global atomic a window. kParts = 1 (k
+// <= kSmemMaxK): each block counts into its own [4^k] table in shared
+// memory. kParts = 2 (k = kSplitK): the table is split between the two
+// blocks of a pair by the key's low bit; both read the pair's words, and
+// each counts only the keys it owns, at bin key >> 1. A block with a table
+// adds its non-zero bins to the output once.
+template <bool kCanonical, int kParts>
+__global__ void __launch_bounds__(kSplitThreads)
+hist_words_kernel(const uint32_t* __restrict__ words, const int32_t* __restrict__ lengths,
+                  int64_t B, int W, int k, int32_t* __restrict__ hist) {
+  constexpr int kGroup = kParts > 0 ? kParts : 1;  // blocks that read the same words
   extern __shared__ int32_t sh[];
-  const int nbins = 1 << (2 * k);
-  zero_private<kShared>(sh, nbins);
+  if (kParts == 2) k = kSplitK;  // known when compiled
+  const int nbins = (1 << (2 * k)) / kGroup;
+  if (kParts > 0) {
+    for (int i = threadIdx.x; i < nbins; i += blockDim.x) sh[i] = 0;
+    __syncthreads();
+  }
+  const int part = (int)blockIdx.x % kGroup;
   const int64_t total = B * W;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (WordCursor c((int64_t)blockIdx.x * blockDim.x + threadIdx.x, stride, W);
+  const int64_t stride = (int64_t)(gridDim.x / kGroup) * blockDim.x;
+  for (WordCursor c((int64_t)(blockIdx.x / kGroup) * blockDim.x + threadIdx.x, stride, W);
        c.idx < total; c.advance(stride, W)) {
     uint32_t w, nx;
     const int nwin = load_word(words, lengths, c, W, k, &w, &nx);
     if (nwin == 0) continue;
     word_windows<kCanonical>(w, nx, nwin, k, [&](uint32_t key, bool valid) {
-      if (valid) count<kShared>(sh, hist, key);
+      if (!valid) return;
+      if (kParts == 0)
+        atomicAdd(hist + key, 1);
+      else if ((int)(key % kGroup) == part)
+        atomicAdd(sh + key / kGroup, 1);
     });
   }
-  merge_private<kShared>(sh, hist, nbins);
-}
-
-// K3b at k = kClusterK: the [4^8] table lies in the shared memory of a
-// cluster's 2^log2c blocks, interleaved by the key's low bits: key's bin is
-// key >> log2c in the block of rank key & (2^log2c - 1). Warps step over
-// the words together (warp_add_at shuffles), a word a lane; each window adds
-// to its owner's bin through distributed shared memory (map_shared_rank),
-// the lanes that share lane 0's key with one atomic. Each block then adds
-// its non-zero bins to the output once.
-template <bool kCanonical>
-__global__ void __launch_bounds__(kClusterThreads)
-hist_words_cluster_kernel(const uint32_t* __restrict__ words,
-                          const int32_t* __restrict__ lengths, int64_t B, int W, int log2c,
-                          int32_t* __restrict__ hist) {
-  namespace cg = cooperative_groups;
-  extern __shared__ int4 sh4[];
-  int32_t* sh = reinterpret_cast<int32_t*>(sh4);
-  cg::cluster_group cluster = cg::this_cluster();
-  const int nbins = (1 << (2 * kClusterK)) >> log2c;
-  for (int i = threadIdx.x; i < nbins / 4; i += kClusterThreads) sh4[i] = make_int4(0, 0, 0, 0);
-  cluster.sync();  // every block's bins are zero before the first add
-  const int cmask = (1 << log2c) - 1;
-  auto add_to = [&](int key, int n) {
-    return atomicAdd(cluster.map_shared_rank(sh + (key >> log2c), key & cmask), n);
-  };
-  const int lane = threadIdx.x & 31;
-  const int64_t total = B * W;
-  const int64_t stride = (int64_t)gridDim.x * kClusterThreads;
-  for (WordCursor c((int64_t)blockIdx.x * kClusterThreads + threadIdx.x, stride, W);
-       c.idx - lane < total; c.advance(stride, W)) {  // the warp's first word
-    uint32_t w = 0, nx = 0;
-    const int nwin = c.idx < total ? load_word(words, lengths, c, W, kClusterK, &w, &nx) : 0;
-    word_windows<kCanonical>(w, nx, nwin, kClusterK, [&](uint32_t key, bool valid) {
-      warp_add_at<false>(add_to, valid ? (int)key : -1);
-    });
-  }
-  cluster.sync();  // every add has landed
-  const int rank = (int)cluster.block_rank();
-  for (int i = threadIdx.x; i < nbins; i += kClusterThreads) {
-    const int32_t n = sh[i];
-    if (n) atomicAdd(hist + ((i << log2c) | rank), n);
+  if (kParts > 0) {
+    __syncthreads();
+    for (int i = threadIdx.x; i < nbins; i += blockDim.x) {
+      const int32_t n = sh[i];
+      if (n) atomicAdd(hist + (i * kGroup + part), n);
+    }
   }
 }
 
-// Launch K3b at k = kClusterK on clusters of `cluster` blocks (a power of
-// two), as many blocks as SMs (fewer for a small batch). A launch the card
-// refuses returns its error.
-template <bool kCanonical>
-cudaError_t launch_cluster(const uint32_t* words, const int32_t* lengths, int64_t B, int W,
-                           int cluster, int32_t* hist, cudaStream_t stream) {
+// Launch `kern` on `blocks` x `threads` with `smem` bytes of dynamic shared
+// memory, of which it is allowed kMaxSmem. The kernel is a template
+// argument, so each kernel has its own instantiation and sets its attribute
+// once (two kernels of one type would share a function parameter's static).
+template <auto kern, int kMaxSmem, typename... Args>
+cudaError_t launch_shared(unsigned blocks, int threads, size_t smem, cudaStream_t stream,
+                          Args... args) {
   static const cudaError_t attr =
-      cudaFuncSetAttribute(hist_words_cluster_kernel<kCanonical>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, kClusterSmem);
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
   if (attr != cudaSuccess) return attr;
-  int log2c = 0;
-  while ((1 << log2c) < cluster) ++log2c;
-  if (cluster < 1 || (1 << log2c) != cluster) return cudaErrorInvalidValue;
-  const int64_t per_cluster = (int64_t)cluster * kClusterThreads;
-  const int64_t want = (B * W + per_cluster - 1) / per_cluster;
-  const int most = bn::sm_count() / cluster;
-  const int clusters = (int)(want < most ? want : (most > 0 ? most : 1));
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)(clusters * cluster));
-  cfg.blockDim = dim3(kClusterThreads);
-  cfg.dynamicSmemBytes = (sizeof(int32_t) << (2 * kClusterK)) >> log2c;
-  cfg.stream = stream;
-  cudaLaunchAttribute at[1];
-  at[0].id = cudaLaunchAttributeClusterDimension;
-  at[0].val.clusterDim.x = (unsigned)cluster;
-  at[0].val.clusterDim.y = 1;
-  at[0].val.clusterDim.z = 1;
-  cfg.attrs = at;
-  cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, hist_words_cluster_kernel<kCanonical>,
-                                             words, lengths, B, W, log2c, hist);
-  const cudaError_t last = cudaGetLastError();  // clears a refused launch's error
-  return err != cudaSuccess ? err : last;
+  kern<<<blocks, threads, smem, stream>>>(args...);
+  return cudaGetLastError();
 }
 
-// Launch `kern` with a private [4^k] table in shared memory (k <=
-// kSmemMaxK). The kernel is a template argument, so each kernel has its own
-// instantiation and sets its attribute once (two kernels of one type would
-// share a function parameter's static).
-template <auto kern, typename... Args>
-cudaError_t launch_private(int k, int64_t n_items, cudaStream_t stream, Args... args) {
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)(sizeof(int32_t) << (2 * kSmemMaxK)));
-  if (attr != cudaSuccess) return attr;
-  // few blocks: each merges up to 4^k bins into the output
-  const unsigned blocks = bn::grid_for(n_items, kThreads * 16, 2);
-  kern<<<blocks, kThreads, sizeof(int32_t) << (2 * k), stream>>>(args...);
+constexpr int kPrivateSmem = (int)(sizeof(int32_t) << (2 * kSmemMaxK));
+
+// Private tables: few blocks, as each merges up to 4^k bins into the output.
+unsigned private_blocks(int64_t n_items) { return bn::grid_for(n_items, kThreads * 16, 2); }
+
+template <bool kCanonical>
+cudaError_t hist_words(const uint32_t* w, const int32_t* len, int64_t B, int W, int k,
+                       int32_t* h, cudaStream_t s) {
+  if (k <= kSmemMaxK)
+    return launch_shared<hist_words_kernel<kCanonical, 1>, kPrivateSmem>(
+        private_blocks(B * W), kThreads, sizeof(int32_t) << (2 * k), s, w, len, B, W, k, h);
+  if (k == kSplitK) {  // as many pairs as a block an SM allows, fewer for a small batch
+    const unsigned most = (unsigned)bn::sm_count() / 2;
+    const unsigned want = bn::grid_for(B * W, kSplitThreads, 1);
+    const unsigned pairs = want < most ? want : (most > 0 ? most : 1);
+    return launch_shared<hist_words_kernel<kCanonical, 2>, kSplitSmem>(
+        2 * pairs, kSplitThreads, kSplitSmem, s, w, len, B, W, k, h);
+  }
+  hist_words_kernel<kCanonical, 0><<<bn::grid_for(B * W, kThreads, 8), kThreads, 0, s>>>(
+      w, len, B, W, k, h);
   return cudaGetLastError();
 }
 
@@ -590,37 +528,19 @@ extern "C" int bn_hist_keys(const void* keys, int64_t n, int k, void* hist, void
   if (k >= kSliceMinK)
     return (int)hist_keys_slices((const int32_t*)keys, n, k, (int32_t*)hist, (char*)scratch,
                                  (cudaStream_t)stream);
-  return (int)launch_private<hist_keys_kernel>(k, n, (cudaStream_t)stream, (const int32_t*)keys,
-                                               n, 1 << (2 * k), (int32_t*)hist);
+  return (int)launch_shared<hist_keys_kernel, kPrivateSmem>(
+      private_blocks(n), kThreads, sizeof(int32_t) << (2 * k), (cudaStream_t)stream,
+      (const int32_t*)keys, n, 1 << (2 * k), (int32_t*)hist);
 }
 
-// K3b. `cluster` is the blocks of a cluster at k = kClusterK: 0 for
-// kClusterBlocks; the tests pass others (a size the card refuses must
-// return its error).
 extern "C" int bn_hist_words(const void* words, const void* lengths, int64_t B,
-                             int64_t W, int k, int canonical, int cluster, void* hist,
-                             void* stream) {
+                             int64_t W, int k, int canonical, void* hist, void* stream) {
   if (B * W <= 0) return (int)cudaGetLastError();
   if (B >= (1 << 30) || W >= (1 << 26)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
   const auto* w = (const uint32_t*)words;
   const auto* len = (const int32_t*)lengths;
   auto* h = (int32_t*)hist;
-  if (k <= kSmemMaxK)
-    return (int)(canonical
-                     ? launch_private<hist_words_kernel<true, true>>(k, B * W, s, w, len, B,
-                                                                     (int)W, k, h)
-                     : launch_private<hist_words_kernel<true, false>>(k, B * W, s, w, len, B,
-                                                                      (int)W, k, h));
-  if (k == kClusterK) {
-    if (cluster == 0) cluster = kClusterBlocks;
-    return (int)(canonical ? launch_cluster<true>(w, len, B, (int)W, cluster, h, s)
-                           : launch_cluster<false>(w, len, B, (int)W, cluster, h, s));
-  }
-  const unsigned blocks = bn::grid_for(B * W, kThreads, 8);
-  if (canonical)
-    hist_words_kernel<false, true><<<blocks, kThreads, 0, s>>>(w, len, B, (int)W, k, h);
-  else
-    hist_words_kernel<false, false><<<blocks, kThreads, 0, s>>>(w, len, B, (int)W, k, h);
-  return (int)cudaGetLastError();
+  const auto s = (cudaStream_t)stream;
+  return (int)(canonical ? hist_words<true>(w, len, B, (int)W, k, h, s)
+                         : hist_words<false>(w, len, B, (int)W, k, h, s));
 }

@@ -39,7 +39,7 @@ _SIGNATURES = {
     "bn_pack": (_P, _P, _I64, _I64, _I64, _P, _P, _P),
     "bn_hist_keys_scratch": (_I64, _INT, _P),
     "bn_hist_keys": (_P, _I64, _INT, _P, _P, _P),
-    "bn_hist_words": (_P, _P, _I64, _I64, _INT, _INT, _INT, _P, _P),
+    "bn_hist_words": (_P, _P, _I64, _I64, _INT, _INT, _P, _P),
     "bn_hdist_scan": (_P, _P, _I64, _I64, _I64, _INT, _P, _P),
     "bn_unpack": (_P, _P, _I64, _I64, _I64, _P, _P),
     "bn_merge_tile": (_P,),

@@ -210,7 +210,7 @@ def histogram_from_words_kernel(
         raise ValueError("hist_words: lengths must be [B] on the device of the words")
     hist = torch.zeros(4**k, dtype=torch.int32, device=words.device)
     code = _build.library().bn_hist_words(
-        words.data_ptr(), lengths.data_ptr(), B, W, k, int(canonical), 0, hist.data_ptr(),
+        words.data_ptr(), lengths.data_ptr(), B, W, k, int(canonical), hist.data_ptr(),
         kernels.stream_handle(words.device),
     )
     _build.check(code, "hist_words")

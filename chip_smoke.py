@@ -177,14 +177,18 @@ INT8_TC_OPS_PER_S = 1.979e15
 # or-and, 3) and the lane's bits into the word's mask (1): 14 a lane; with a
 # word's in-length mask, first bad base and store, 4 a base.
 PACK_OPS_PER_BASE = 4
-# K3b counted from csrc/histogram.cu, a window at a time: the window key by
-# a funnel shift of the word and its neighbour (1) and the k-base mask (1),
-# its validity (1), the bin's address and the add (2), and the word's load
-# and window count spread over its 16 windows (1): 6. The canonical key
-# adds the complement (an xor, 1), __brev (1), the pair swap (two shifts,
-# two ands and an or, 5), the shift down by 32 - 2k (1) and the min (1): 15.
+# K3b counted a window at a time: the window key by a funnel shift of the
+# word and its neighbour (1) and the k-base mask (1), its validity (1), the
+# bin's address and the add (2), and the word's load and window count spread
+# over its 16 windows (1): 6. The canonical key, in its cheapest form: the
+# reverse complement of the word and of its neighbour once a word (__brev,
+# and the pair swap as two shifts and a three-input logic op: 4 each, the
+# complement left to the window's mask), 8 over 16 windows; then a window's
+# by a funnel shift of the two (1), the complement and mask in one logic op
+# (1), and the min (1): 3.5 more, 9.5.
 HIST_OPS_PER_WINDOW = 6
-HIST_CANONICAL_OPS_PER_WINDOW = HIST_OPS_PER_WINDOW + 9
+HIST_PRIVATE_K = 7  # K3b's largest k on private tables, timed beside k = 8
+HIST_CANONICAL_OPS_PER_WINDOW = HIST_OPS_PER_WINDOW + 3 + 8 / 16
 ORF_OPS_PER_WORD = 48
 ORF_TWO_STRAND_OPS_PER_WORD = 8 + 5 + 2 + 2 * (7 + 3 * 8 + 3)
 TC_SWEEP_Q = (1, 8, 16, 32, 64, 128, 256, 512)
@@ -288,7 +292,10 @@ def print_passes(torch, results, name, label, fn) -> None:
 
 
 def max_abs_diff(a, b) -> int:
-    """Largest |a - b| over tensors or tuples of tensors (int64 exact)."""
+    """Largest |a - b| over tensors, or tuples or dicts of them (int64 exact)."""
+    if isinstance(a, dict):
+        return max_abs_diff(list(a.values()), [b[k] for k in a]) if a.keys() == b.keys() \
+            else 2**62
     if isinstance(a, (tuple, list)):
         return max(max_abs_diff(x, y) for x, y in zip(a, b))
     if a.shape != b.shape:
@@ -1164,6 +1171,61 @@ def finish_against(args, torch, res) -> int:
     return 0 if res["ok"] else 1
 
 
+def tree_modules(path: str, *names: str) -> list:
+    """For each module ``name`` of the port, {"other": the checkout in
+    ``path``'s (``load_other_tree``), "this": this checkout's}."""
+    import importlib
+
+    load_other_tree(path)
+    return [{"other": importlib.import_module(f"bnt_other.{n}"),
+             "this": importlib.import_module(f"bitnuc_tpu_torch.{n}")} for n in names]
+
+
+def against(args, torch, rows) -> int:
+    """The body of an ``--*-against`` mode. ``rows`` is [(label, fns, want,
+    bound_ms)]: ``fns`` maps "other" and "this" to each tree's call of the
+    row, ``want`` makes the plain result both must equal (None: the two are
+    held to each other), ``bound_ms`` is the row's bound or None. Each row's
+    results are checked, then each tree's device operations and device ms
+    by kernel of one call are read (torch.profiler, before any timing);
+    then every row is timed in turns DIR, this, this, DIR. Prints a line a
+    check and a timing, the card's name and power limit, and last one JSON
+    object; returns 1 if a check failed."""
+    if "jax" in sys.modules:
+        print("chip_smoke: jax was imported", file=sys.stderr)
+        return 1
+    timer = Timer(torch)
+    res = {"times_ms": {}, "checks": {}, "bound_ms": {}, "device_ops": {}, "passes_ms": {}}
+    for label, fns, want, bound in rows:
+        got = {name: fn() for name, fn in fns.items()}
+        if want is None:
+            res["checks"][label] = check(f"{label}: this == other",
+                                         max_abs_diff(got["this"], got["other"]) == 0)
+        else:
+            ref = want()
+            for name in fns:
+                res["checks"][f"{name} {label}"] = check(
+                    f"{label} of {name} == plain", max_abs_diff(got[name], ref) == 0)
+            del ref
+        del got
+        for name, fn in fns.items():
+            key = f"{label} {name}"
+            res["device_ops"][key] = ops = device_ops(torch, fn)
+            res["passes_ms"][key] = passes = device_ms_by_kernel(torch, fn)
+            print(f"  {key}: {ops} device operation(s) a call; device ms "
+                  + (", ".join(f"{k} {v:.4f}" for k, v in passes.items()) or "not measured"),
+                  flush=True)
+        if bound is not None:
+            res["bound_ms"][label] = bound
+    for label, fns, _, bound in rows:
+        for name in ("other", "this", "this", "other"):
+            ms = timer(fns[name])
+            res["times_ms"].setdefault(f"{label} {name}", []).append(ms)
+            print(f"  {label} {name}: {ms:.4f} ms"
+                  + (f" (bound {bound:.4f})" if bound is not None else ""), flush=True)
+    return finish_against(args, torch, res)
+
+
 def k6_against(args, torch, dev) -> int:
     """K6 of this checkout beside another's (``--k6-against DIR``): tc_scan,
     and tc_search at k = SEARCH_TOPK, at Q = SEARCH_QUERIES and 8 against
@@ -1383,47 +1445,20 @@ def device_ops(torch, fn) -> int:
 
 
 def pack_against(args, torch, dev) -> int:
-    """K1 of this checkout beside another's (``--pack-against DIR``): at each
-    of ``pack_shapes``' rows, the device operations of one encode_reads_kernel
-    call of each tree and their device ms (torch.profiler, before any
-    timing), then the call timed in turns DIR, this, this, DIR. Both trees'
-    outputs are checked against this checkout's plain version. Prints a line
-    a timing, the card's name and power limit, and last one JSON object;
-    returns 1 if a check failed."""
-    import importlib
-
+    """K1 of this checkout beside another's (``--pack-against DIR``), by
+    ``against``: encode_reads_kernel at each of ``pack_shapes``' rows, held
+    to this checkout's plain version, with K1's bound."""
     from bitnuc_tpu_torch.ops import codec
 
-    load_other_tree(args.pack_against)
-    trees = {"other": importlib.import_module("bnt_other.ops.codec"), "this": codec}
-    if "jax" in sys.modules:
-        print("chip_smoke: jax was imported", file=sys.stderr)
-        return 1
-    timer = Timer(torch)
-    res = {"times_ms": {}, "checks": {}, "bound_ms": {}, "device_ops": {}, "passes_ms": {}}
-    shapes = pack_shapes(torch, dev, args.seed)
-    for label, (a, n) in shapes.items():
-        want = codec.encode_reads_torch(a, n)
-        for name, c in trees.items():
-            res["checks"][f"{name} {label}"] = check(
-                f"K1 of {name} at {label} == plain",
-                max_abs_diff(c.encode_reads_kernel(a, n), want) == 0)
-            fn = lambda c=c: c.encode_reads_kernel(a, n)  # noqa: E731
-            res["device_ops"][f"{label} {name}"] = ops = device_ops(torch, fn)
-            res["passes_ms"][f"{label} {name}"] = passes = device_ms_by_kernel(torch, fn)
-            print(f"  {label} {name}: {ops} device operation(s) a call; device ms "
-                  + (", ".join(f"{k} {v:.4f}" for k, v in passes.items()) or "not measured"),
-                  flush=True)
-        nbytes, ops_ms = pack_bound(a, want[0].shape[1])
-        res["bound_ms"][label] = max(nbytes / HBM_BYTES_PER_S * 1e3, ops_ms)
-        del want
-    for label, (a, n) in shapes.items():
-        for name in ("other", "this", "this", "other"):
-            ms = timer(lambda: trees[name].encode_reads_kernel(a, n))
-            res["times_ms"].setdefault(f"{label} {name}", []).append(ms)
-            print(f"  {label} {name}: {ms:.4f} ms (bound {res['bound_ms'][label]:.4f})",
-                  flush=True)
-    return finish_against(args, torch, res)
+    (trees,) = tree_modules(args.pack_against, "ops.codec")
+    rows = []
+    for label, (a, n) in pack_shapes(torch, dev, args.seed).items():
+        nbytes, ops_ms = pack_bound(a, codec._n_words(a.shape[1], None))
+        rows.append((label, {name: (lambda c=c, a=a, n=n: c.encode_reads_kernel(a, n))
+                             for name, c in trees.items()},
+                     lambda a=a, n=n: codec.encode_reads_torch(a, n),
+                     max(nbytes / HBM_BYTES_PER_S * 1e3, ops_ms)))
+    return against(args, torch, rows)
 
 
 def hist_rows(torch, dev, seed: int) -> list:
@@ -1468,74 +1503,34 @@ def hist_bound(words, lengths, k: int, canonical: bool) -> tuple:
 
 def hist_against(args, torch, dev) -> int:
     """K3b and the flagship step of this checkout beside another's
-    (``--hist-against DIR``). At each of ``hist_rows``' rows,
-    count_kmers_dense at k = 8 (K3b, or the other tree's route for canonical
-    counts): each tree's device operations and device ms by kernel of one
-    call (torch.profiler, before any timing), then the call timed in turns
-    DIR, this, this, DIR; the same for the warm flagship step (each tree's
-    entry.forward on its own inputs made from the same seed). Both trees'
-    counts are checked against this checkout's plain version and their step
-    outputs against each other. Prints a line a timing, the card's name and
-    power limit, and last one JSON object; returns 1 if a check failed."""
-    import importlib
-
+    (``--hist-against DIR``), by ``against``: count_kmers_dense at each of
+    ``hist_rows``' rows at k = 8 and at HIST_PRIVATE_K (K3b, or the other
+    tree's route for canonical counts), held to this checkout's plain
+    version, with K3b's bound; then the warm flagship step (each tree's entry.forward on its
+    own inputs made from the same seed), the two trees' outputs held to
+    each other."""
     from bitnuc_tpu_torch import entry
     from bitnuc_tpu_torch.ops import kmer
 
-    load_other_tree(args.hist_against)
-    kmers = {"other": importlib.import_module("bnt_other.ops.kmer"), "this": kmer}
-    entries = {"other": importlib.import_module("bnt_other.entry"), "this": entry}
-    if "jax" in sys.modules:
-        print("chip_smoke: jax was imported", file=sys.stderr)
-        return 1
-    timer = Timer(torch)
-    res = {"times_ms": {}, "checks": {}, "bound_ms": {}, "device_ops": {}, "passes_ms": {}}
-
-    def profile(key, fn):
-        res["device_ops"][key] = ops = device_ops(torch, fn)
-        res["passes_ms"][key] = passes = device_ms_by_kernel(torch, fn)
-        print(f"  {key}: {ops} device operation(s) a call; device ms "
-              + (", ".join(f"{k} {v:.4f}" for k, v in passes.items()) or "not measured"),
-              flush=True)
-
-    def turns(key, fns, bound=None):
-        for name in ("other", "this", "this", "other"):
-            ms = timer(fns[name])
-            res["times_ms"].setdefault(f"{key} {name}", []).append(ms)
-            print(f"  {key} {name}: {ms:.4f} ms"
-                  + (f" (bound {bound:.4f})" if bound is not None else ""), flush=True)
-
-    rows = hist_rows(torch, dev, args.seed)
-    k = entry.K
-    for label, w, n, canonical, _ in rows:
-        want = kmer.histogram_from_words_torch(w, n, k, canonical)
-        fns = {name: (lambda m=m, c=canonical: m.count_kmers_dense(w, n, k, c))
-               for name, m in kmers.items()}
-        for name, fn in fns.items():
-            res["checks"][f"{name} {label}"] = check(
-                f"count_kmers_dense of {name} at {label} == plain", torch.equal(fn(), want))
-            profile(f"{label} {name}", fn)
-        nbytes, ops_ms = hist_bound(w, n, k, canonical)
-        res["bound_ms"][label] = max(nbytes / HBM_BYTES_PER_S * 1e3, ops_ms)
-        del want
+    kmers, entries = tree_modules(args.hist_against, "ops.kmer", "entry")
+    rows = []
+    for k in (entry.K, HIST_PRIVATE_K):
+        for label, w, n, canonical, _ in hist_rows(torch, dev, args.seed):
+            nbytes, ops_ms = hist_bound(w, n, k, canonical)
+            rows.append(((f"k={k} " if k != entry.K else "") + label,
+                         {name: (lambda m=m, w=w, n=n, c=canonical, k=k:
+                                 m.count_kmers_dense(w, n, k, c))
+                          for name, m in kmers.items()},
+                         lambda w=w, n=n, c=canonical, k=k:
+                             kmer.histogram_from_words_torch(w, n, k, c),
+                         max(nbytes / HBM_BYTES_PER_S * 1e3, ops_ms)))
     steps = {}
     for name, e in entries.items():
         fwd, inputs = e.entry(device=dev, batch=READS, read_len=READ_LEN, db_size=DB_ENTRIES,
                               seed=args.seed)
         steps[name] = (lambda fwd=fwd, inputs=inputs: fwd(*inputs))
-    outs = {name: fn() for name, fn in steps.items()}
-    for key in outs["this"]:
-        res["checks"][f"step {key}"] = check(
-            f"flagship step output {key}: this == other",
-            torch.equal(outs["this"][key], outs["other"][key]))
-    del outs
-    for name, fn in steps.items():
-        profile(f"flagship step {name}", fn)
-    for label, w, n, canonical, _ in rows:
-        turns(label, {name: (lambda m=m, c=canonical: m.count_kmers_dense(w, n, k, c))
-                      for name, m in kmers.items()}, res["bound_ms"][label])
-    turns("flagship step", steps)
-    return finish_against(args, torch, res)
+    rows.append(("flagship step", steps, None, None))
+    return against(args, torch, rows)
 
 
 def main() -> int:

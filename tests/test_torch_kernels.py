@@ -161,7 +161,8 @@ def _hist_words_batch(device, kind, k):
     with lengths -2, 0, k - 1, 16 W, 16 W + 7 and random, an ACGT repeat, a
     poly-A and a poly-T row; ``poly_a`` and ``poly_t``, 300 x 10 words of one
     base (a warp's windows all one key); ``one``, a single word, fewer
-    words than a cluster's threads."""
+    words than a block's threads; ``strides``, 40,000 x 7 random words
+    with lengths -3 to 16 W + 8, more words than the grid's threads."""
     g = torch.Generator().manual_seed(k)
     if kind == "reads":
         a, lens = _reads_on(device, 300, 150, 2)
@@ -172,6 +173,10 @@ def _hist_words_batch(device, kind, k):
     if kind == "one":
         words = torch.randint(-(2**31), 2**31 - 1, (1, 1), generator=g, dtype=torch.int32)
         return words.to(device), torch.tensor([16], dtype=torch.int32, device=device)
+    if kind == "strides":
+        words = torch.randint(-(2**31), 2**31 - 1, (40_000, 7), generator=g, dtype=torch.int32)
+        lens = torch.randint(-3, 16 * 7 + 9, (40_000,), generator=g, dtype=torch.int32)
+        return words.to(device), lens.to(device)
     W = 3
     words = torch.randint(-(2**31), 2**31 - 1, (14, W), generator=g, dtype=torch.int32)
     words[-3:] = torch.tensor([[0xE4E4E4E4 - 2**32], [0], [-1]], dtype=torch.int32)
@@ -184,7 +189,7 @@ def _hist_words_batch(device, kind, k):
 @pytest.mark.cuda
 @pytest.mark.parametrize("k", [1, 7, 8, 9, 12])
 @pytest.mark.parametrize("canonical", [False, True])
-@pytest.mark.parametrize("kind", ["reads", "edges", "poly_a", "poly_t", "one"])
+@pytest.mark.parametrize("kind", ["reads", "edges", "poly_a", "poly_t", "one", "strides"])
 def test_histogram_kernels_match_plain(cuda, k, canonical, kind):
     words, lens = _hist_words_batch(cuda, kind, k)
     assert torch.equal(kmer.histogram_from_words_kernel(words, lens, k, canonical),
@@ -197,41 +202,20 @@ def test_histogram_kernels_match_plain(cuda, k, canonical, kind):
                            kmer.histogram_from_keys_torch(keys, k))
 
 
-def _hist_words_on_clusters(words, lens, canonical, cluster):
-    """K3b at k = 8 on clusters of ``cluster`` blocks, through bn_hist_words'
-    test-only argument (the wrapper always passes 0, the default of 2)."""
-    hist = torch.zeros(4**8, dtype=torch.int32, device=words.device)
-    code = _build.library().bn_hist_words(
-        words.data_ptr(), lens.data_ptr(), words.shape[0], words.shape[1], 8, int(canonical),
-        cluster, hist.data_ptr(), kernels.stream_handle(words.device))
-    _build.check(code, "hist_words")
-    return hist
-
-
 @pytest.mark.cuda
-@pytest.mark.parametrize("cluster", [2, 4, 8])
-@pytest.mark.parametrize("canonical", [False, True])
-@pytest.mark.parametrize("kind", ["reads", "edges", "poly_a", "one"])
-def test_hist_words_cluster_sizes(cuda, cluster, canonical, kind):
-    """The k = 8 table interleaved over 2, 4 or 8 blocks counts the same."""
-    words, lens = _hist_words_batch(cuda, kind, 8)
-    assert torch.equal(_hist_words_on_clusters(words, lens, canonical, cluster),
-                       kmer.histogram_from_words_torch(words, lens, 8, canonical))
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("cluster", [1, 16])
-def test_hist_words_refused_cluster_raises(cuda, cluster):
-    """A cluster launch the card refuses raises and falls back to nothing:
-    16 blocks are past the portable 8 (the kernel does not allow more), and
-    one block would need the whole 256-KB table. The next count is right."""
+def test_hist_words_refused_launch_raises(cuda):
+    """An error of bn_hist_words (here a batch of 2^30 rows, refused before
+    any launch) raises and falls back to nothing; the next count is right."""
     words, lens = _hist_words_batch(cuda, "reads", 8)
-    before = kernels.LAUNCHES["hist_words"]
+    hist = torch.zeros(4**8, dtype=torch.int32, device=cuda)
+    code = _build.library().bn_hist_words(
+        words.data_ptr(), lens.data_ptr(), 2**30, words.shape[1], 8, 0, hist.data_ptr(),
+        kernels.stream_handle(cuda))
     with pytest.raises(RuntimeError, match="hist_words: CUDA error"):
-        _hist_words_on_clusters(words, lens, False, cluster)
+        _build.check(code, "hist_words")
+    assert not hist.any()
     assert torch.equal(kmer.histogram_from_words_kernel(words, lens, 8),
                        kmer.histogram_from_words_torch(words, lens, 8))
-    assert kernels.LAUNCHES["hist_words"] == before + 1
 
 
 _SLICE_BINS = 1 << 14  # csrc/histogram.cu: kSliceBits, the bins of a slice

@@ -111,28 +111,54 @@ def _brev32(x):
     return (x >> np.uint32(16)) | (x << np.uint32(16))
 
 
-def _canonical_model(key, k):
-    """csrc/histogram.cu canonical_key: (rc, min(key, rc)) with rc the pair
-    swap of __brev(key ^ (4^k - 1)), shifted down by 32 - 2k."""
-    b = _brev32(key ^ np.uint32(4**k - 1))
+def _revcomp16(x):
+    """csrc/histogram.cu revcomp16: the pair swap of __brev(~x)."""
+    b = _brev32(~x.astype(np.uint32))
     m = np.uint32(0x55555555)
-    rc = (((b >> np.uint32(1)) & m) | ((b & m) << np.uint32(1))) >> np.uint32(32 - 2 * k)
-    return rc, np.minimum(key, rc)
+    return ((b >> np.uint32(1)) & m) | ((b & m) << np.uint32(1))
+
+
+def _funnelshift_r(lo, hi, s):
+    """CUDA's __funnelshift_r: the low 32 bits of hi:lo >> (s & 31)."""
+    pair = (hi.astype(np.uint64) << np.uint64(32)) | lo.astype(np.uint64)
+    return (pair >> np.uint64(s & 31)).astype(np.uint32)
+
+
+def _canonical_model(w, nx, j, k):
+    """csrc/histogram.cu word_windows with kCanonical: (key, rc, min(key,
+    rc)) of window j of the word pair nx:w, rc read from rc(w):rc(nx)
+    shifted down by 32 - 2k."""
+    mask = np.uint32(4**k - 1)
+    rw, rn = _revcomp16(w), _revcomp16(nx)
+    hi = rw >> np.uint32(32 - 2 * k)
+    lo = _funnelshift_r(rn, rw, 32 - 2 * k)
+    key = _funnelshift_r(w, nx, 2 * j) & mask
+    rc = (hi if j == 0 else _funnelshift_r(lo, hi, 32 - 2 * j)) & mask
+    return key, rc, np.minimum(key, rc)
 
 
 @pytest.mark.parametrize("k", range(1, 13))
 def test_register_revcomp_model_matches_jax(rng, k):
-    """Exhaustive for k <= 9, 200,000 random keys above."""
+    """Every window j of a word pair, each holding every key for k <= 9 and
+    200,000 random keys above, the pair's other bases random."""
     if k <= 9:
-        key = np.arange(4**k, dtype=np.uint32)
+        key = np.arange(4**k, dtype=np.uint64)
     else:
-        key = rng.integers(0, 4**k, 200_000, dtype=np.uint32)
-    rc, canon = _canonical_model(key, k)
+        key = rng.integers(0, 4**k, 200_000, dtype=np.uint64)
     zero = jnp.zeros(key.shape, jnp.uint32)
-    want_rc, _ = jrevcomp.revcomp_key(jnp.asarray(key), zero, k)
-    want_canon, _ = jrevcomp.canonical_keys(jnp.asarray(key), zero, k)
-    np.testing.assert_array_equal(rc, np.asarray(want_rc))
-    np.testing.assert_array_equal(canon, np.asarray(want_canon))
+    want_rc, _ = jrevcomp.revcomp_key(jnp.asarray(key.astype(np.uint32)), zero, k)
+    want_canon, _ = jrevcomp.canonical_keys(jnp.asarray(key.astype(np.uint32)), zero, k)
+    for j in range(16):
+        pair = rng.integers(0, 2**32, (2,) + key.shape, dtype=np.uint64)
+        pair = (pair[0] << np.uint64(32)) | pair[1]
+        field = np.uint64(4**k - 1) << np.uint64(2 * j)
+        pair = (pair & ~field) | (key << np.uint64(2 * j))
+        w = (pair & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+        nx = (pair >> np.uint64(32)).astype(np.uint32)
+        got_key, rc, canon = _canonical_model(w, nx, j, k)
+        np.testing.assert_array_equal(got_key, key.astype(np.uint32))
+        np.testing.assert_array_equal(rc, np.asarray(want_rc))
+        np.testing.assert_array_equal(canon, np.asarray(want_canon))
 
 
 @pytest.mark.parametrize("canonical", [False, True])
