@@ -40,4 +40,35 @@ __device__ __forceinline__ uint32_t base_mask(int v) {
   return 0xFFFFFFFFu >> (32 - 2 * v);
 }
 
+// prmt.b32 a, 0, sel: byte k of the result is byte (nibble k of sel) of a,
+// or 0 for nibbles 4..7, for the low four nibbles of sel (__byte_perm would
+// mask each nibble to three bits first). No nibble may have bit 3 set (the
+// sign-replicating mode).
+__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t sel) {
+  uint32_t r;
+  asm("prmt.b32 %0, %1, 0, %2;" : "=r"(r) : "r"(a), "r"(sel));
+  return r;
+}
+
+// One 16-byte copy from device to shared memory that does not wait
+// (cp.async, L2 only), so a thread has all its chunks in flight at once.
+__device__ __forceinline__ void copy16_async(void* dst, const void* src) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+// cp.async of 4 bytes, through L1.
+__device__ __forceinline__ void copy4_async(void* dst, const void* src) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void copies_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+// Waits until at most `pending` of this thread's committed groups are in flight.
+template <int pending>
+__device__ __forceinline__ void copies_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(pending) : "memory");
+}
+
 }  // namespace bn

@@ -57,14 +57,6 @@ constexpr int kSegWords = kThreads;  // a segment: one word a thread
 // a stage's head offset (< 16) and the 20 bytes read for a word's last 16
 constexpr int kSlack = 48;
 
-// prmt.b32 a, 0, sel: byte k of the result is byte (nibble k of sel) of a,
-// for nibbles 0..3 (__byte_perm would mask each nibble to three bits first).
-__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t sel) {
-  uint32_t r;
-  asm("prmt.b32 %0, %1, 0, %2;" : "=r"(r) : "r"(a), "r"(sel));
-  return r;
-}
-
 // The invalid bytes of a four-byte lane v whose byte codes are c, one bit a
 // byte in bits 28..31 (bit 28 + k: byte k is not in ACGTacgt; the bits
 // below are not defined). A lower-cased byte x with code c is in acgt
@@ -76,8 +68,8 @@ __device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t sel) {
 // the four top bits (7, 15, 23, 31) to 28..31; its other terms sum below
 // 2^24, so they carry nothing into them.
 __device__ __forceinline__ uint32_t bad_bytes(uint32_t v, uint32_t c) {
-  const uint32_t sel = prmt(c | (c >> 4), 0x0020u);
-  const uint32_t d = (v | 0x20202020u) ^ prmt(0x74676361u, sel);
+  const uint32_t sel = bn::prmt(c | (c >> 4), 0x0020u);
+  const uint32_t d = (v | 0x20202020u) ^ bn::prmt(0x74676361u, sel);
   const uint32_t hi = (((d & 0x7F7F7F7Fu) + 0x7F7F7F7Fu) | d) & 0x80808080u;
   return hi * 0x00204081u;
 }
@@ -113,27 +105,6 @@ __device__ __forceinline__ uint32_t code_word(uint32_t addr, int n, int* bad) {
   return word & bn::base_mask(n);
 }
 
-// One 16-byte copy from device to shared memory that does not wait
-// (cp.async, L2 only), so a thread has all its chunks in flight at once.
-__device__ __forceinline__ void copy16_async(void* dst, const void* src) {
-  const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
-}
-
-// cp.async of 4 bytes, through L1 (the row lengths of a tile).
-__device__ __forceinline__ void copy4_async(void* dst, const void* src) {
-  const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void copies_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-
-// Waits until at most `pending` of this thread's committed groups are in flight.
-template <int pending>
-__device__ __forceinline__ void copies_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(pending) : "memory");
-}
-
 // A byte a thread loads singly, held in a register until stage_single
 // stores it, so that its load, like the asynchronous copies, is in flight
 // while the thread does other work.
@@ -155,7 +126,7 @@ __device__ __forceinline__ uint32_t stage_issue(const uint8_t* __restrict__ src,
   const int64_t tail = lead + 16 * chunks;
   uint4* d = reinterpret_cast<uint4*>(reinterpret_cast<uint8_t*>(stage) + head + lead);
   const uint4* g = reinterpret_cast<const uint4*>(src + lead);
-  for (int64_t k = threadIdx.x; k < chunks; k += blockDim.x) copy16_async(d + k, g + k);
+  for (int64_t k = threadIdx.x; k < chunks; k += blockDim.x) bn::copy16_async(d + k, g + k);
   const int t = threadIdx.x;
   int64_t pos = -1;
   if (!chunks) {
@@ -190,7 +161,7 @@ __device__ __forceinline__ uint32_t issue_tile(const uint8_t* __restrict__ ascii
                                                uint32_t* stage, int* len, Single* single) {
   const int64_t r0 = tile * rows;
   const int nr = (int)(B - r0 < rows ? B - r0 : rows);
-  for (int r = threadIdx.x; r < nr; r += kThreads) copy4_async(len + r, lengths + r0 + r);
+  for (int r = threadIdx.x; r < nr; r += kThreads) bn::copy4_async(len + r, lengths + r0 + r);
   return stage_issue(ascii + r0 * L, nr * L, stage, single);
 }
 
@@ -216,7 +187,7 @@ __global__ void __launch_bounds__(kThreads)
   int b = 0;
   Single single;
   uint32_t head = issue_tile(ascii, lengths, B, L, rows, t, stage[b], row_len[b], &single);
-  copies_commit();
+  bn::copies_commit();
   while (t < tiles) {
     stage_single(stage[b], head, single);
     const int64_t next = t + gridDim.x;
@@ -226,8 +197,8 @@ __global__ void __launch_bounds__(kThreads)
       next_head = issue_tile(ascii, lengths, B, L, rows, next, stage[b ^ 1], row_len[b ^ 1],
                              &next_single);
     }
-    copies_commit();
-    copies_wait<1>();
+    bn::copies_commit();
+    bn::copies_wait<1>();
     __syncthreads();
     const int64_t r0 = t * rows;
     const int nr = (int)(B - r0 < rows ? B - r0 : rows);
@@ -278,8 +249,8 @@ __global__ void __launch_bounds__(kThreads)
   Single single;
   const uint32_t head = stage_issue(ascii + row * L + 16 * w0, nbytes, stage, &single);
   stage_single(stage, head, single);
-  copies_commit();
-  copies_wait<0>();
+  bn::copies_commit();
+  bn::copies_wait<0>();
   __syncthreads();
   const int w = threadIdx.x;
   const int n = bases_in_word(nbytes - 16 * w);

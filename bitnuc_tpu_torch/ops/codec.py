@@ -145,7 +145,7 @@ def decode_reads(
     if not config.use_kernel(words):
         return decode_reads_torch(words, lengths, max_len)
     lead = words.shape[:-1]
-    flat = words.reshape(-1, words.shape[-1]).contiguous()
+    flat = words.reshape(lead.numel(), words.shape[-1]).contiguous()  # W may be 0
     lens = lengths.to(torch.int32).reshape(-1).contiguous()
     out = decode_reads_kernel(flat, lens, max_len)
     return out.reshape(lead + out.shape[-1:])

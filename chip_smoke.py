@@ -9,25 +9,30 @@ PyTorch built for CUDA:
     python3 chip_smoke.py --orf-against DIR [--out results.json]
     python3 chip_smoke.py --pack-against DIR [--out results.json]
     python3 chip_smoke.py --hist-against DIR [--out results.json]
+    python3 chip_smoke.py --unpack-against DIR [--out results.json]
 
-The last four forms run no phase: they time K6 (tc_scan and tc_search),
-K10 (orf_scan) and longest_orf, K1 (pack), or K3b's counts and the
-flagship step, of this checkout beside those of another checkout in DIR
-(for example a git archive of an earlier commit, unpacked), in turns DIR,
-this, this, DIR, on one card (see k6_against, orf_against, pack_against
-and hist_against).
+The last five forms run no phase: they time K6 (tc_scan and tc_search),
+K10 (orf_scan) and longest_orf, K1 (pack), K3b's counts and the flagship
+step, or K2 (unpack), of this checkout beside those of another checkout in
+DIR (for example a git archive of an earlier commit, unpacked), in turns
+DIR, this, this, DIR, on one card (see k6_against, orf_against,
+pack_against, hist_against and unpack_against).
 
 Phases, each of which must pass:
 
 1. Device: the card's name and power limit, and the kernel build (all of
    bitnuc_tpu_torch/csrc/*.cu with nvcc, timed); the registers, shared
-   memory and spills of pack.cu (K1), histogram.cu (K3a, K3b), tcscan.cu
-   (K6), merge.cu (K7), wavefront.cu (K8, K9) and orf.cu (K10).
+   memory and spills of pack.cu (K1), unpack.cu (K2), histogram.cu (K3a,
+   K3b), tcscan.cu (K6), merge.cu (K7), wavefront.cu (K8, K9) and orf.cu
+   (K10).
 2. Every kernel against its plain PyTorch version on the card, bit for bit:
    K1 pack (at the flagship's batch, a count batch, reads of 300, 1,000
    and 4,000 bp, 64 rows of 16,384 bp, phase 6's genome as one row and a
    base pointer off 16-byte alignment, with lengths -2, 0 and past L, and
-   the device operations of one call), K2 unpack, K3a hist_keys, K3b
+   the device operations of one call), K2 unpack (at reads of 150 bp, the
+   large-k decode's k-mers, reads of 300 and 4,000 bp, 64 rows of 16,384
+   bp and words off 16-byte alignment, with lengths -2, 0 and past L, and
+   at edge shapes), K3a hist_keys, K3b
    hist_words (plain and canonical at k = 1, 4, 7, 8, 9 and 12, at edge
    lengths and on poly-A; timed at the flagship step's two k = 8 launches,
    the main rows), K4 hdist_scan and K5
@@ -195,6 +200,9 @@ TC_SWEEP_Q = (1, 8, 16, 32, 64, 128, 256, 512)
 SEARCH_SWEEP_Q = (1, 8, 32, 64, 128, 256, 512)  # search_batch's two routes
 SEARCH_QUERIES = 256  # phase 8's query file, and K6's reported shape
 TC_SLICE = 262_144  # database entries K6's plain version is compared on
+# The k-mers phase 6 decodes (reads minus genome at k = 21, seed 0), K2's
+# (k) row; phase 6 prints its own count beside it
+UNPACK_K_ROWS = 3_000_000
 
 FAILURES = []
 
@@ -460,6 +468,8 @@ def large_k_phase(args, torch, dev, timer, tmp, results):
     torch.cuda.synchronize()
     LARGE_K_LAUNCHES.update(kernels.LAUNCHES)
     print(f"  launches {LARGE_K_LAUNCHES}", flush=True)
+    print(f"  unpack_kmers decoded {n_err} k-mers (K2's (k) row in phase 2 and "
+          f"--unpack-against: {UNPACK_K_ROWS})", flush=True)
     for name in ("pack", "merge", "unpack"):
         check(f"{name} launched on the large-k path", LARGE_K_LAUNCHES[name] > 0,
               f"{LARGE_K_LAUNCHES[name]} launches")
@@ -1533,6 +1543,64 @@ def hist_against(args, torch, dev) -> int:
     return against(args, torch, rows)
 
 
+def unpack_shapes(torch, dev, seed: int) -> dict:
+    """{label: (words, lengths, max_len)} of K2's timed shapes, random words
+    made from ``seed``: (b) READS x READ_LEN bp with lengths 1..READ_LEN,
+    the main row; (k) phase 6's decode, UNPACK_K_ROWS k-mers of 2-word
+    rows at max_len 32 and length 21; full-length reads as long-read and
+    amplicon users send them, (s) 262,144 x 300 bp and (h) 16,384 x 4,000
+    bp; (l) 64 rows of 16,384 bp (segments); (u) (b) from its fourth row
+    on, its words 3 x W x 4 bytes in, off 16-byte alignment. Rows 3 to 5
+    of (b) (so 0 to 2 of (u)) have lengths -2, 0 and L + 7."""
+    from bitnuc_tpu_torch.utils import bitops
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 40)
+
+    def rows(B, L, shortest, W=None):
+        W = bitops.n_words_for(L) if W is None else W
+        words = torch.randint(-(2**31), 2**31 - 1, (B, W), device=dev, generator=gen,
+                              dtype=torch.int32)
+        lens = torch.randint(shortest, L + 1, (B,), device=dev, generator=gen, dtype=torch.int32)
+        return words, lens, L
+
+    b = rows(READS, READ_LEN, 1)
+    b[1][3:6] = torch.tensor([-2, 0, READ_LEN + 7], dtype=torch.int32, device=dev)
+    W = b[0].shape[1]
+    return {
+        f"(b) [{READS},{READ_LEN}]": b,
+        f"(k) [{UNPACK_K_ROWS},32] W=2, lengths 21": rows(UNPACK_K_ROWS, LARGE_K, LARGE_K, 2)[:2]
+        + (32,),
+        "(s) [262144,300]": rows(262_144, 300, 300),
+        "(h) [16384,4000]": rows(16_384, 4_000, 4_000),
+        "(l) [64,16384]": rows(64, 16_384, 16_384),
+        f"(u) [{READS - 3},{READ_LEN}] at byte {3 * W * 4}": (b[0][3:], b[1][3:], READ_LEN),
+    }
+
+
+def unpack_bound(words, max_len: int) -> int:
+    """Bytes K2 must move: the words and lengths read once, the [B, max_len]
+    letters written once."""
+    B, W = words.shape
+    return 4 * B * W + 4 * B + B * max_len
+
+
+def unpack_against(args, torch, dev) -> int:
+    """K2 of this checkout beside another's (``--unpack-against DIR``), by
+    ``against``: decode_reads_kernel at each of ``unpack_shapes``' rows,
+    held to this checkout's plain version, with K2's bound."""
+    from bitnuc_tpu_torch.ops import codec
+
+    (trees,) = tree_modules(args.unpack_against, "ops.codec")
+    rows = []
+    for label, (w, n, ml) in unpack_shapes(torch, dev, args.seed).items():
+        rows.append((label, {name: (lambda c=c, w=w, n=n, ml=ml: c.decode_reads_kernel(w, n, ml))
+                             for name, c in trees.items()},
+                     lambda w=w, n=n, ml=ml: codec.decode_reads_torch(w, n, ml),
+                     unpack_bound(w, ml) / HBM_BYTES_PER_S * 1e3))
+    return against(args, torch, rows)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the full results here as JSON")
@@ -1546,6 +1614,8 @@ def main() -> int:
     ap.add_argument("--hist-against", metavar="DIR",
                     help="only time K3b and the flagship step beside another checkout's "
                          "(see hist_against)")
+    ap.add_argument("--unpack-against", metavar="DIR",
+                    help="only time K2 beside another checkout's (see unpack_against)")
     args = ap.parse_args()
 
     import torch
@@ -1578,6 +1648,8 @@ def main() -> int:
         return pack_against(args, torch, dev)
     if args.hist_against:
         return hist_against(args, torch, dev)
+    if args.unpack_against:
+        return unpack_against(args, torch, dev)
     results = {"kernels": {}, "phases": {}}
     t_all = time.perf_counter()
 
@@ -1591,13 +1663,13 @@ def main() -> int:
     _build.library()
     build_s = time.perf_counter() - t
     print(f"  built {os.path.relpath(lib_path)} in {build_s:.1f} s", flush=True)
-    # K1's, K3a's, K6's, K7's, K8/K9's and K10's registers, shared memory
-    # and spills: nvcc -Xptxas -v of pack.cu, histogram.cu, tcscan.cu,
-    # merge.cu, wavefront.cu and orf.cu
+    # K1's, K2's, K3a's, K6's, K7's, K8/K9's and K10's registers, shared
+    # memory and spills: nvcc -Xptxas -v of pack.cu, unpack.cu, histogram.cu,
+    # tcscan.cu, merge.cu, wavefront.cu and orf.cu
     with tempfile.TemporaryDirectory() as d:
         ptxas = build_time.ptxas_report(
-            Path(d),
-            ("pack.cu", "histogram.cu", "tcscan.cu", "merge.cu", "wavefront.cu", "orf.cu"))
+            Path(d), ("pack.cu", "unpack.cu", "histogram.cu", "tcscan.cu", "merge.cu",
+                      "wavefront.cu", "orf.cu"))
     for src, lines in sorted(ptxas.items()):
         for line in lines:
             print(f"  ptxas {src}: {line}", flush=True)
@@ -1863,18 +1935,21 @@ def main() -> int:
         time_hist_words(label, w, ln, entry.K, canonical, main)
     del w, ln, edge_words, edge_lens
 
-    # K2: the flagship batch, long reads, and edge shapes (lengths past
-    # max_len, max_len past the capacity 16 * W, zero and negative lengths)
-    for label, w, ln, ml in (
-        (f"[{READS},{READ_LEN}]", words_b, lens_b, READ_LEN),
-        (f"[64,{long_words.shape[1] * 16}]", long_words, long_lens, None),
-    ):
+    # K2 at its launches' shapes (unpack_shapes; (b) the main row), the
+    # launches of one call (the wrapper's count) and its device operations;
+    # then edge shapes (lengths past max_len, max_len past the capacity 16 *
+    # W, zero and negative lengths)
+    for label, (w, ln, ml) in unpack_shapes(torch, dev, args.seed).items():
         compare("unpack", label, codec.decode_reads_kernel(w, ln, ml),
                 codec.decode_reads_torch(w, ln, ml))
+        before = kernels.LAUNCHES["unpack"]
+        ops = device_ops(torch, lambda: codec.decode_reads_kernel(w, ln, ml))
+        print(f"    unpack {label}: {(kernels.LAUNCHES['unpack'] - before) // 2} launch(es) "
+              f"a call, {ops} device operation(s)", flush=True)
         timed("unpack", label, lambda: codec.decode_reads_kernel(w, ln, ml),
-              lambda: codec.decode_reads_torch(w, ln, ml), main=w is words_b,
-              nbytes=4 * w.numel() + 4 * ln.numel() + ln.numel() * (ml or 16 * w.shape[1]),
-              ops_ms=4 * ln.numel() * (ml or 16 * w.shape[1]) / INT32_OPS_PER_S * 1e3)
+              lambda: codec.decode_reads_torch(w, ln, ml), main=label.startswith("(b)"),
+              nbytes=unpack_bound(w, ml))
+    del w, ln
     for B, W, ml in ((1, 2, 1), (5, 4, 33), (4, 2, None), (3, 2, 48), (6, 10, 150), (7, 4, 0)):
         w = torch.randint(-(2**31), 2**31 - 1, (B, W), device=dev, generator=gen,
                           dtype=torch.int32)

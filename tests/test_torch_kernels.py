@@ -288,19 +288,67 @@ def test_flagship_step_on_card_matches_plain(cuda):
         assert torch.equal(got[key], want[key]), key
 
 
+# (B, W, max_len) of K2's cases (csrc/unpack.cu): every residue of max_len
+# mod 16 and the timed widths at W = ceil(max_len / 16); B = 0 and B of 1,
+# below, at and above a tile's rows (48 at 150 bytes, 1,024 at 8) and many
+# tiles; rows on both sides of the tile/segment split (4,096 bytes) and a
+# row of 1,000,000; max_len below, at and past 16 W, and 0; no words
+_UNPACK_CASES = (
+    [(1, 2, 1), (5, 4, 33), (300, 10, 150), (3, 2, 48), (4, 2, None), (7, 4, 0)]
+    + [(77, -(-L // 16), L) for L in range(1, 34) if L not in (1, 33)]
+    + [(100, 10, 151), (60, 19, 300), (20, 63, 1000), (5, 250, 4000), (3, 1024, 16_384)]
+    + [(0, 10, 150), (1, 10, 150), (47, 10, 150), (48, 10, 150), (49, 10, 150),
+       (40_000, 10, 150), (1024, 1, 8), (1025, 1, 8)]
+    + [(3, 256, 4096), (3, 257, 4097), (1, 62_500, 1_000_000)]
+    + [(6, 10, 20), (9, 1000, 16), (4, 3, 48), (2, 100, 5000), (5, 0, 33)]
+)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,W,max_len", [(1, 2, 1), (5, 4, 33), (300, 10, 150),
-                                         (3, 2, 48), (4, 2, None), (7, 4, 0)])
+@pytest.mark.parametrize("B,W,max_len", _UNPACK_CASES)
 def test_unpack_kernel_matches_plain(cuda, B, W, max_len):
-    g = torch.Generator().manual_seed(4)
-    words = torch.randint(-(2**31), 2**31 - 1, (B, W), generator=g, dtype=torch.int32)
-    lens = torch.randint(-2, 16 * W + 20, (B,), generator=g, dtype=torch.int32)
-    words, lens = words.to(cuda), lens.to(cuda)
-    want = codec.decode_reads_torch(words, lens, max_len)
-    assert torch.equal(codec.decode_reads_kernel(words, lens, max_len), want)
-    before = kernels.LAUNCHES["unpack"]
-    assert torch.equal(codec.decode_reads(words[0], lens[0], max_len), want[0])
-    assert kernels.LAUNCHES["unpack"] == before + 1
+    """K2 equals its plain version with lengths -2, 0, L, L + 7 and 16 W
+    first, on the words and on views of them that start off 16-byte
+    alignment (rows 3 on, and one to three words into a flat buffer); each
+    decode, batched or a 1-D row, is one launch."""
+    g = torch.Generator().manual_seed(B + W + (max_len or 0))
+    L = 16 * W if max_len is None else max_len
+    flat = torch.randint(-(2**31), 2**31 - 1, (B * W + 3,), generator=g, dtype=torch.int32)
+    lens = torch.randint(-2, max(L, 16 * W) + 20, (B,), generator=g, dtype=torch.int32)
+    lens[:5] = torch.tensor([-2, 0, L, L + 7, 16 * W], dtype=torch.int32)[: min(B, 5)]
+    flat, lens = flat.to(cuda), lens.to(cuda)
+    views = [(flat[: B * W].view(B, W), lens)]
+    views += [(flat[off : off + B * W].view(B, W), lens) for off in (1, 2, 3)]
+    if B > 3:
+        views.append((views[0][0][3:], lens[3:]))
+    for words, ln in views:
+        want = codec.decode_reads_torch(words, ln, max_len)
+        before = kernels.LAUNCHES["unpack"]
+        assert torch.equal(codec.decode_reads(words, ln, max_len), want)
+        assert kernels.LAUNCHES["unpack"] == before + 1
+    if B:
+        words = views[0][0]
+        want = codec.decode_reads_torch(words, lens, max_len)
+        before = kernels.LAUNCHES["unpack"]
+        assert torch.equal(codec.decode_reads(words[0], lens[0], max_len), want[0])
+        assert kernels.LAUNCHES["unpack"] == before + 1
+
+
+@pytest.mark.cuda
+def test_unpack_refused_launch_raises(cuda):
+    """An error of bn_unpack (here 2^40 rows, more tiles than a grid holds,
+    refused before any launch) raises and falls back to nothing; the next
+    decode is right."""
+    words = torch.randint(-(2**31), 2**31 - 1, (4, 10), dtype=torch.int32).to(cuda)
+    lens = torch.full((4,), 150, dtype=torch.int32, device=cuda)
+    out = torch.zeros((4, 150), dtype=torch.uint8, device=cuda)
+    code = _build.library().bn_unpack(words.data_ptr(), lens.data_ptr(), 2**40, 10, 150,
+                                      out.data_ptr(), kernels.stream_handle(cuda))
+    with pytest.raises(RuntimeError, match="unpack: CUDA error"):
+        _build.check(code, "unpack")
+    assert not out.any()
+    assert torch.equal(codec.decode_reads_kernel(words, lens, 150),
+                       codec.decode_reads_torch(words, lens, 150))
 
 
 def _sorted_cols(rng, n, n_keys, n_pay, dups):
