@@ -18,37 +18,40 @@
 // 16-byte chunks aligned in device memory, consecutive threads consecutive
 // chunks, so a warp's store is one contiguous 512-byte write; only the bytes
 // before a block's first aligned chunk and after its last, fewer than 16
-// each, are stored singly. A block takes a tile of whole rows (up to
-// kTileBytes of output; rows a multiple of 16 / gcd(max_len, 16) where that
-// fits, so that every tile after the first starts aligned and has no single
-// bytes) and first stages in shared memory the tile's words, with 16-byte
-// asynchronous copies aligned to the words' own address (the words may be a
-// row-offset view, 4-byte aligned), and each row's length clamped to the
-// row's capacity, read once a row. A chunk is then made in registers from
-// the stage: the row and base of its first byte (one multiply-high by the
-// inverse of max_len), then for each row the chunk touches (one or two at
-// max_len >= 16) a funnel shift of two staged words gives the row's next 16
-// codes, masked to its valid bases (bn::base_mask) and placed at the chunk's
-// byte. The 16 codes spread into two __byte_perm selectors a pair of output
-// words, and a byte at or past its row's length gets selector 6, which picks
-// a zero byte, so letters and zeros come from one permute a word. The output
-// is never staged: written in chunks of a row (row * max_len + 16 c), it
-// would sit in shared memory at offsets aligned for no vector store. Rows
-// longer than kShortRowMax bytes are cut into segments of kSegBytes, a block
-// each, so that a long row spreads over the card. Index arithmetic inside a
-// tile is 32-bit; only a tile's base offset into the output is 64-bit. The
-// TPU kernel's u8 bitcasts and lane-local layout are Mosaic artefacts and
-// are not kept.
+// each, are stored singly. A block takes a tile of whole rows, up to
+// kTileBytes of output (on an H100, 32-KB tiles ran 9-18% faster than 8-KB
+// tiles at 150 and 300 bp, 16-KB tiles in between; PERF.md §6), with rows a
+// multiple of 16 / gcd(max_len, 16) where that fits, so that every tile
+// after the first starts aligned and has no single bytes. It first stages
+// in shared memory the tile's words, with 16-byte asynchronous copies
+// aligned to the words' own address (the words may be a row-offset view,
+// 4-byte aligned), and each row's length clamped to the row's capacity,
+// read once a row. A chunk is then made in registers from the stage: the
+// row and base of its first byte (one multiply-high by the inverse of
+// max_len), then for each row the chunk touches (one or two at max_len >=
+// 16) a funnel shift of two staged words gives the row's next 16 codes,
+// masked to its valid bases (bn::base_mask) and placed at the chunk's byte.
+// The 16 codes spread into two __byte_perm selectors a pair of output
+// words, and a byte at or past its row's length gets selector 6, which
+// picks a zero byte, so letters and zeros come from one permute a word. The
+// output is never staged: written in chunks of a row (row * max_len + 16 c),
+// it would sit in shared memory at offsets aligned for no vector store.
+// Rows longer than kShortRowMax bytes are cut into segments of kSegBytes, a
+// block each, so that a long row spreads over the card. Index arithmetic
+// inside a tile is 32-bit; only a tile's base offset into the output is
+// 64-bit. The TPU kernel's u8 bitcasts and lane-local layout are Mosaic
+// artefacts and are not kept.
 #include <climits>
+#include <numeric>
 
 #include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kTileBytes = 8192;     // output bytes a tile of whole rows holds at most
-constexpr int kMaxTileRows = 1024;
-constexpr int kMaxTileWords = 1024;  // staged words a tile
+constexpr int kTileBytes = 32768;    // output bytes a tile of whole rows holds at most
+constexpr int kMaxTileRows = 4096;
+constexpr int kMaxTileWords = 4096;  // staged words a tile
 constexpr int kShortRowMax = 4096;   // longer rows are cut into segments
 constexpr int kSegBytes = 4096;      // output bytes a segment
 constexpr uint32_t kAcgt = 0x54474341u;  // bytes 'A', 'C', 'G', 'T'
@@ -152,7 +155,10 @@ __device__ __forceinline__ void decode_tile(const uint32_t* st, const int* lim, 
     const int r = row_of((uint32_t)s, (uint32_t)L, inv);
     const int p = s - r * L;
     uint32_t letter = 0u;
-    if (p < lim[r]) letter = (kAcgt >> (8 * ((st[r * sw + (p >> 4)] >> (2 * (p & 15))) & 3u))) & 0xFFu;
+    if (p < lim[r]) {
+      const uint32_t code = (st[r * sw + (p >> 4)] >> (2 * (p & 15))) & 3u;
+      letter = (kAcgt >> (8 * code)) & 0xFFu;
+    }
     dst[s] = (uint8_t)letter;
   }
 }
@@ -207,14 +213,11 @@ __global__ void __launch_bounds__(kThreads)
   decode_tile(stage + h, &lim, 1, 0, len, 0u, out + row * L + q0);
 }
 
-int64_t gcd(int64_t a, int64_t b) { return b ? gcd(b, a % b) : a; }
-
 }  // namespace
 
 extern "C" int bn_unpack(const void* words, const void* lengths, int64_t B,
                          int64_t W, int64_t max_len, void* out, void* stream) {
   if (B <= 0 || max_len <= 0) return (int)cudaGetLastError();
-  if (W < 0) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   const int64_t cap = 16 * W < max_len ? 16 * W : max_len;  // a row's valid bases at most
   if (max_len <= kShortRowMax) {
@@ -224,7 +227,7 @@ extern "C" int bn_unpack(const void* words, const void* lengths, int64_t B,
     if (rows > kMaxTileRows) rows = kMaxTileRows;
     if (sw > 0 && rows * sw > kMaxTileWords) rows = kMaxTileWords / sw;
     // whole 16-byte chunks a tile, where a tile holds that many rows
-    const int64_t step = 16 / gcd(L, 16);
+    const int step = 16 / std::gcd(L, 16);
     if (rows >= step) rows -= rows % step;
     const int64_t tiles = (B + rows - 1) / rows;
     if (tiles > INT_MAX) return (int)cudaErrorInvalidConfiguration;

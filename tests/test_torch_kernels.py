@@ -290,15 +290,15 @@ def test_flagship_step_on_card_matches_plain(cuda):
 
 # (B, W, max_len) of K2's cases (csrc/unpack.cu): every residue of max_len
 # mod 16 and the timed widths at W = ceil(max_len / 16); B = 0 and B of 1,
-# below, at and above a tile's rows (48 at 150 bytes, 1,024 at 8) and many
+# below, at and above a tile's rows (216 at 150 bytes, 4,096 at 8) and many
 # tiles; rows on both sides of the tile/segment split (4,096 bytes) and a
 # row of 1,000,000; max_len below, at and past 16 W, and 0; no words
 _UNPACK_CASES = (
     [(1, 2, 1), (5, 4, 33), (300, 10, 150), (3, 2, 48), (4, 2, None), (7, 4, 0)]
     + [(77, -(-L // 16), L) for L in range(1, 34) if L not in (1, 33)]
     + [(100, 10, 151), (60, 19, 300), (20, 63, 1000), (5, 250, 4000), (3, 1024, 16_384)]
-    + [(0, 10, 150), (1, 10, 150), (47, 10, 150), (48, 10, 150), (49, 10, 150),
-       (40_000, 10, 150), (1024, 1, 8), (1025, 1, 8)]
+    + [(0, 10, 150), (1, 10, 150), (215, 10, 150), (216, 10, 150), (217, 10, 150),
+       (40_000, 10, 150), (4096, 1, 8), (4097, 1, 8)]
     + [(3, 256, 4096), (3, 257, 4097), (1, 62_500, 1_000_000)]
     + [(6, 10, 20), (9, 1000, 16), (4, 3, 48), (2, 100, 5000), (5, 0, 33)]
 )

@@ -23,7 +23,7 @@ from bitnuc_tpu_torch.ops import codec
 torch.set_num_threads(1)
 
 # unpack.cu's constants
-THREADS, TILE_BYTES, MAX_TILE_ROWS, MAX_TILE_WORDS = 256, 8192, 1024, 1024
+TILE_BYTES, MAX_TILE_ROWS, MAX_TILE_WORDS = 32768, 4096, 4096
 SHORT_ROW_MAX, SEG_BYTES = 4096, 4096
 ACGT = 0x54474341
 M32 = np.uint64(0xFFFFFFFF)
@@ -238,10 +238,10 @@ def test_model_every_width(L):
     (0, 10, 150),     # no rows
     (5, 4, 0),        # no bytes
     (1, 10, 150),     # one row
-    (47, 10, 150),    # below a tile's rows (48)
-    (48, 10, 150),    # at it
-    (49, 10, 150),    # above it
-    (97, 10, 150),    # a tile and a bit more past two
+    (215, 10, 150),   # below a tile's rows (216)
+    (216, 10, 150),   # at it
+    (217, 10, 150),   # above it
+    (435, 10, 150),   # a bit more than two tiles
     (3, 2, 48),       # max_len past 16 W
     (4, 3, 48),       # max_len at 16 W
     (6, 10, 20),      # max_len below 16 W: two staged words of ten a row
@@ -276,4 +276,4 @@ def test_tiles_start_aligned(L):
     assert rows * L <= TILE_BYTES and rows * sw <= MAX_TILE_WORDS
     if rows >= step:
         assert rows * L % 16 == 0
-    assert plan(1, 10, 150)[1] == 48  # the main row's tile: 7,200 bytes
+    assert plan(1, 10, 150)[1] == 216  # the main row's tile: 32,400 bytes
