@@ -132,9 +132,12 @@ def read_fasta(
 # -- FASTQ framing ------------------------------------------------------------
 
 
-def _line_spans(arr: np.ndarray):
-    """(starts, lengths) of the non-blank lines of ``arr``; a trailing '\\r'
-    is not part of a line, and a last line without '\\n' counts."""
+def _fastq_lines(arr: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """(starts, lengths) of the lines that frame FASTQ records, as the JAX
+    package's native scanner frames them (``bn_fastq_fill``): a trailing
+    '\\r' is not part of a line, a last line without '\\n' counts, and a
+    blank line is skipped only where a header is expected; elsewhere it is a
+    line of length 0 (an empty sequence or quality)."""
     if not arr.size:
         return np.zeros(0, np.int64), np.zeros(0, np.int64)
     nl = np.flatnonzero(arr == 10)
@@ -142,10 +145,70 @@ def _line_spans(arr: np.ndarray):
         nl = np.append(nl, arr.size)
     starts = np.concatenate([[0], nl[:-1] + 1]).astype(np.int64)
     lens = nl - starts
-    cr = (lens > 0) & (arr[np.minimum(nl - 1, arr.size - 1)] == 13)
-    lens = lens - cr
-    keep = lens > 0
+    lens = lens - ((lens > 0) & (arr[np.maximum(nl - 1, 0)] == 13))
+    blank = np.flatnonzero(lens == 0)
+    if not blank.size:
+        return starts, lens
+    # a blank line is dropped where the lines kept before it fill whole
+    # records; only blank lines need the walk
+    keep = np.ones(starts.size, bool)
+    dropped = 0
+    for i in blank.tolist():
+        if (i - dropped) % 4 == 0:
+            keep[i] = False
+            dropped += 1
     return starts[keep], lens[keep]
+
+
+def _rectangle(arr: np.ndarray, starts: np.ndarray, lens: np.ndarray, B: int, L: int):
+    """uint8 [B, L] holding arr[starts[r] : starts[r] + min(lens[r], L)] in
+    row r for the given rows (fewer than B leave zero rows), and the
+    clamped lengths."""
+    lens = np.minimum(lens, L).astype(np.int32)
+    out = np.zeros((B, L), np.uint8)
+    n = starts.size
+    if n and arr.size:
+        cols = np.arange(L, dtype=np.int64)
+        idx = np.minimum(starts[:, None] + cols[None, :], arr.size - 1)
+        out[:n] = np.where(cols[None, :] < lens[:, None], arr[idx], 0)
+    return out, lens
+
+
+def fastq_to_batch(data: bytes, max_len: Optional[int] = None) -> Tuple[np.ndarray, np.ndarray]:
+    """FASTQ bytes -> (ascii uint8 [B, L], lengths int32 [B]), vectorized;
+    equal to the JAX package's ``native.fastq_to_batch``.
+
+    The sequence is the second line of each record (``_fastq_lines``); a
+    trailing record cut short after its sequence still counts. L is
+    max_len, or the longest read (at least 1); longer reads are
+    truncated."""
+    arr = np.frombuffer(data, np.uint8)
+    starts, lens = _fastq_lines(arr)
+    seq_starts, seq_lens = starts[1::4], lens[1::4]
+    B = seq_starts.size
+    L = int(max_len) if max_len else max(int(seq_lens.max()) if B else 0, 1)
+    return _rectangle(arr, seq_starts, seq_lens, B, L)
+
+
+def fastq_to_batch_sq(data: bytes, max_len: Optional[int] = None):
+    """Full-record FASTQ parse, the numpy twin of the JAX package's
+    ``native.fastq_to_batch_sq``: (ascii uint8 [B, L], quals uint8 [B, L],
+    lengths int32 [B], name_off int64 [B], name_len int64 [B]).
+
+    Records are framed as in ``fastq_to_batch``. Qualities are clamped to
+    L like the sequence, and a record cut short before its quality line
+    has a zero quality row. ``name_off`` points past the '@' into
+    ``data``; ``name_len`` excludes a trailing '\\r'."""
+    arr = np.frombuffer(data, np.uint8)
+    starts, lens = _fastq_lines(arr)
+    seq_starts, seq_lens = starts[1::4], lens[1::4]
+    B = seq_starts.size
+    L = int(max_len) if max_len else max(int(seq_lens.max()) if B else 0, 1)
+    ascii_arr, seq_lens = _rectangle(arr, seq_starts, seq_lens, B, L)
+    quals, _ = _rectangle(arr, starts[3::4], lens[3::4], B, L)
+    hdr_starts, hdr_lens = starts[0::4][:B], lens[0::4][:B]
+    return (ascii_arr, quals, seq_lens, hdr_starts + 1,
+            np.maximum(hdr_lens - 1, 0).astype(np.int64))
 
 
 def _iter_fastq_record_blocks(path: PathLike, batch_size: int, start_offset: int = 0):
@@ -190,26 +253,6 @@ def _iter_fastq_record_blocks(path: PathLike, batch_size: int, start_offset: int
             abs_base += emitted  # carry[0] now sits at abs_base
     if carry.strip():
         yield carry, abs_base + len(carry)
-
-
-def fastq_to_batch(data: bytes, max_len: Optional[int] = None) -> Tuple[np.ndarray, np.ndarray]:
-    """FASTQ bytes -> (ascii uint8 [B, L], lengths int32 [B]), vectorized.
-
-    The sequence is the second non-blank line of each record (a trailing
-    record cut short after its sequence still counts). L is max_len, or the
-    longest read (at least 1); longer reads are truncated."""
-    arr = np.frombuffer(data, np.uint8)
-    starts, lens = _line_spans(arr)
-    seq_starts, seq_lens = starts[1::4], lens[1::4]
-    B = seq_starts.size
-    L = int(max_len) if max_len else max(int(seq_lens.max()) if B else 0, 1)
-    seq_lens = np.minimum(seq_lens, L).astype(np.int32)
-    if not B:
-        return np.zeros((0, L), np.uint8), seq_lens
-    cols = np.arange(L, dtype=np.int64)
-    idx = np.minimum(seq_starts[:, None] + cols[None, :], arr.size - 1)
-    ascii_arr = np.where(cols[None, :] < seq_lens[:, None], arr[idx], 0).astype(np.uint8)
-    return ascii_arr, seq_lens
 
 
 def _host_batches(path: PathLike, batch_size: int, max_len: Optional[int], start_offset: int):
