@@ -88,7 +88,7 @@ def test_goldens():
     assert int(r.to_u64()[0, 0]) == 0b11100100
     g = PackedReads.from_u64(np.array([[71620941647064936]], np.uint64), [28], device=CPU)
     assert g.to_ascii() == [b"AGGCTTGAGGCCCATTCTCTGATCGTTT"]
-    assert g[0] == b"AGGCTTGAGGCCCATTCTCTGATCGTTT"
+    assert g[0].to_vec() == b"AGGCTTGAGGCCCATTCTCTGATCGTTT"
 
 
 def test_roundtrip_and_invalid_base(rng):
