@@ -1,7 +1,6 @@
 """Persistence, FASTA and FASTQ ingestion.
 
-The counterpart of the parts of ``bitnuc_tpu/io.py`` that the counting
-paths need. ``save_packed``/``load_packed`` use the JAX package's .npz keys
+The counterpart of ``bitnuc_tpu/io.py``. ``save_packed``/``load_packed`` use the JAX package's .npz keys
 (``words`` as uint32, ``lengths``), so either package reads the other's
 files. ``iter_fastq_batches`` frames records on the host with numpy, with
 the JAX package's byte-offset semantics (an offset is the byte just past a
@@ -15,7 +14,14 @@ FASTA (path, ``.gz`` path, bytes or file object).
 gzip, framing, the numpy rectangle) on a producer thread that keeps up to
 ``prefetch`` batches ready (``_prefetched``, the JAX package's contract).
 The upload and K1 stay on the consumer's thread, so every device call runs
-on that thread's current stream. The native scanner is a later port.
+on that thread's current stream.
+
+The JAX package frames whole FASTQ buffers with its native C++ scanner
+(``bn_fastq_fill``, ``bn_fastq_fill_sq``); ``fastq_to_batch`` and
+``fastq_to_batch_sq`` here are its numpy twins, behind ``read_fastq_fast``,
+``iter_fastq_ascii_batches`` and ``iter_fastq_record_batches``.
+``read_fastq`` keeps the JAX package's strict 4-line reader, and
+``split_records_fastq_full`` its blank-line-tolerant record parser.
 """
 
 from __future__ import annotations
@@ -127,6 +133,67 @@ def read_fasta(
     return names, PackedReads.from_ascii(
         seqs, max_len=max_len, validate=validate, device=device
     )
+
+
+# -- FASTQ records --------------------------------------------------------------
+
+
+def split_records_fastq_full(data: bytes) -> Tuple[List[bytes], List[bytes], List[bytes]]:
+    """(headers with '@', sequences, quality lines) from FASTQ bytes,
+    stripped, skipping blank lines where a header is expected: the
+    record parser of the commands that re-emit records verbatim."""
+    names: List[bytes] = []
+    seqs: List[bytes] = []
+    quals: List[bytes] = []
+    f = _stdio.BytesIO(data)
+    while True:
+        h = f.readline()
+        if not h:
+            break
+        if not h.strip():
+            continue
+        names.append(h.strip())
+        seqs.append(f.readline().strip())
+        f.readline()
+        quals.append(f.readline().strip())
+    return names, seqs, quals
+
+
+def _split_records_fastq(data: bytes) -> Tuple[List[bytes], List[bytes]]:
+    """(names without '@', sequences) from FASTQ bytes of strict 4-line
+    records; ValueError on a header that does not start with '@'."""
+    lines = data.split(b"\n")
+    names: List[bytes] = []
+    seqs: List[bytes] = []
+    for i in range(len(lines) // 4):
+        h = lines[4 * i]
+        if not h.startswith(b"@"):
+            raise ValueError(f"malformed FASTQ header at record {i}: {h[:40]!r}")
+        names.append(h[1:].strip())
+        seqs.append(lines[4 * i + 1].strip())
+    return names, seqs
+
+
+def read_fastq(
+    path_or_data, max_len: Optional[int] = None, validate: bool = True, device=None
+) -> Tuple[List[bytes], PackedReads]:
+    """Parse FASTQ (path, .gz path, bytes or file object) of strict 4-line
+    records -> (names, reads packed on ``device``, default the card)."""
+    names, seqs = _split_records_fastq(_read_bytes(path_or_data))
+    return names, PackedReads.from_ascii(
+        seqs, max_len=max_len, validate=validate, device=device
+    )
+
+
+def read_fastq_fast(
+    path_or_data, max_len: Optional[int] = None, validate: bool = True, device=None
+) -> PackedReads:
+    """Name-free FASTQ ingestion: the whole buffer framed by
+    ``fastq_to_batch`` (the JAX package's native scanner's rules, which
+    differ from ``read_fastq``'s on blank lines), packed on ``device``
+    (default: the card)."""
+    ascii_arr, lens = fastq_to_batch(_read_bytes(path_or_data), max_len)
+    return PackedReads.from_ascii(ascii_arr, lengths=lens, validate=validate, device=device)
 
 
 # -- FASTQ framing ------------------------------------------------------------
@@ -255,13 +322,34 @@ def _iter_fastq_record_blocks(path: PathLike, batch_size: int, start_offset: int
         yield carry, abs_base + len(carry)
 
 
-def _host_batches(path: PathLike, batch_size: int, max_len: Optional[int], start_offset: int):
-    """The host side of iter_fastq_batches: (ascii uint8 [B, L], lengths
-    int32 [B], end offset) of each non-empty batch."""
+def iter_fastq_ascii_batches(
+    path: PathLike,
+    batch_size: int,
+    max_len: Optional[int] = None,
+    start_offset: int = 0,
+):
+    """Host-only streaming parse: (ascii uint8 [B, L], lengths int32 [B],
+    end byte offset) per batch of ``batch_size`` records, framed as
+    ``iter_fastq_batches`` frames them (its host side); no device work."""
     for data, end in _iter_fastq_record_blocks(path, batch_size, start_offset):
         ascii_arr, lens = fastq_to_batch(data, max_len)
         if len(lens):
             yield ascii_arr, lens, end
+
+
+def iter_fastq_record_batches(
+    path: PathLike,
+    batch_size: int,
+    max_len: Optional[int] = None,
+):
+    """Full-record streaming parse for the preprocessing tier: (raw bytes,
+    ascii uint8 [B, L], quals uint8 [B, L], lens int32 [B], name_off int64
+    [B], name_len int64 [B]) per batch (``fastq_to_batch_sq``); the header
+    spans index into the raw bytes, past the '@'."""
+    for data, _ in _iter_fastq_record_blocks(path, batch_size):
+        ascii_arr, quals, lens, name_off, name_len = fastq_to_batch_sq(data, max_len)
+        if len(lens):
+            yield data, ascii_arr, quals, lens, name_off, name_len
 
 
 def _prefetched(gen: Iterator, depth: int) -> Iterator:
@@ -345,7 +433,7 @@ def iter_fastq_batches(
             "have; use staged=None or False for the numpy framing"
         )
     device = config.resolve_device(device)
-    source = _host_batches(path, batch_size, max_len, start_offset)
+    source = iter_fastq_ascii_batches(path, batch_size, max_len, start_offset)
     if prefetch > 0:
         source = _prefetched(source, prefetch)
     with contextlib.closing(source):  # an early stop ends the worker and the file
