@@ -421,3 +421,29 @@ def hdist_topk(query: torch.Tensor, database: torch.Tensor, n_bases, k: int):
     """Top-k nearest rows of a row-major [D, W] database: (distances [k],
     indices [k]), ascending, ties by index."""
     return topk_smallest(hdist_one_to_many(query, database, n_bases), k)
+
+
+def hdist_topk_batch_torch(queries: torch.Tensor, database: torch.Tensor, n_bases,
+                           k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of hdist_topk_batch, the JAX package's composition:
+    hdist_many_to_many, then topk_batch_dispatch."""
+    return topk_batch_dispatch(hdist_many_to_many(queries, database, n_bases), k, n_bases)
+
+
+def hdist_topk_batch(queries: torch.Tensor, database: torch.Tensor, n_bases,
+                     k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-query top-k nearest rows of a row-major database: [Q, W] x [D,
+    W] -> (distances [Q, k], indices [Q, k]), each row ascending, ties by
+    lowest index; past D the tail is (2^30, -1).
+
+    On the card the database is transposed to word-major once and searched
+    as ``PackedDB.search_batch`` searches: the fused tc_search (K6) from
+    ``database.SEARCH_TC_MIN_Q`` queries on for k <= SEARCH_TOPK_MAX, else
+    K4/K5 (or K6 tc_scan) and the top-k. ``hdist_many_to_many`` would read
+    the whole [D, W] database once a query. n_bases is one int there."""
+    if not config.use_kernel(database):
+        return hdist_topk_batch_torch(queries, database, n_bases, k)
+    from ..database import PackedDB  # database imports this module
+
+    db = PackedDB(words_wm=database.t().contiguous(), n_bases=int(n_bases))
+    return db.search_batch(queries.to(torch.int32), k)

@@ -65,3 +65,31 @@ def test_reverse_complement_past_the_words(rng, W):
     want = np.asarray(jrevcomp.reverse_complement_reads(jnp.asarray(w), jnp.asarray(lens)))
     got = revcomp.reverse_complement_reads(words_from_u32_np(w), torch.from_numpy(lens))
     np.testing.assert_array_equal(words_to_u32_np(got), want)
+
+
+@pytest.mark.parametrize("B,L", [(6, 40), (3, 333), (2, 1000)])
+@pytest.mark.parametrize("window,step", [(1, 0), (7, 0), (10, 3), (32, 1), (100, 100), (33, 50)])
+def test_windowed_gc_matches_jax_bit_for_bit(rng, B, L, window, step):
+    """Percentages equal JAX's as float32 bits (not within a tolerance),
+    at lengths 0, 1, 16, L and past the words."""
+    w, lens = _reads(rng, B, L)
+    lens[-1] = 16 * w.shape[1] + 9
+    if window > 16 * w.shape[1]:  # both refuse a window past the row
+        with pytest.raises(AssertionError):
+            janalysis.windowed_gc(jnp.asarray(w), jnp.asarray(lens), window, step)
+        with pytest.raises(ValueError):
+            analysis.windowed_gc(words_from_u32_np(w), torch.from_numpy(lens), window, step)
+        return
+    want_p, want_v = janalysis.windowed_gc(jnp.asarray(w), jnp.asarray(lens), window, step)
+    got_p, got_v = analysis.windowed_gc(words_from_u32_np(w), torch.from_numpy(lens), window,
+                                        step)
+    np.testing.assert_array_equal(got_v.numpy(), np.asarray(want_v))
+    assert got_p.dtype == torch.float32
+    np.testing.assert_array_equal(got_p.numpy().view(np.int32),
+                                  np.asarray(want_p).view(np.int32))
+
+
+def test_windowed_gc_refuses_a_window_past_the_row(rng):
+    w, lens = _reads(rng, 2, 20)
+    with pytest.raises(ValueError):
+        analysis.windowed_gc(words_from_u32_np(w), torch.from_numpy(lens), 16 * w.shape[1] + 1)

@@ -106,3 +106,39 @@ def test_packed_db_npz_both_ways(rng, tmp_path):
         PackedDB.from_u64(u64, nb, device=CPU).distances(words_from_u32_np(qs[1])).numpy(),
         np.asarray(jdb.distances(jnp.asarray(qs[1]))),
     )
+
+
+@pytest.mark.parametrize("W,D", [(1, 7), (2, 300), (4, 1030)])
+def test_hdist_one_to_many_matches_jax(rng, W, D):
+    """Every n_bases from 0 to 16 W + 7, on random rows and on copies of
+    the query with a few bases changed."""
+    db = rng.integers(0, 2**32, size=(D, W), dtype=np.uint32)
+    q = rng.integers(0, 2**32, size=(W,), dtype=np.uint32)
+    db[: D // 2] = q ^ (rng.random((D // 2, W)) < 0.1).astype(np.uint32) * 3
+    for nb in range(0, 16 * W + 8, 3 if W > 1 else 1):
+        want = np.asarray(jham.hdist_one_to_many(jnp.asarray(q), jnp.asarray(db), nb))
+        got = hamming.hdist_one_to_many(words_from_u32_np(q), words_from_u32_np(db), nb)
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("Q,D,W,nb,k", [
+    (1, 50, 2, 32, 5), (3, 700, 4, 50, 10), (9, 513, 2, 20, 32), (20, 40, 1, 16, 64),
+    (5, 3, 2, 30, 7), (4, 100, 2, 0, 3),
+])
+def test_hdist_topk_batch_matches_jax(rng, Q, D, W, nb, k):
+    """Random rows, then ties: the database holds repeated rows, so equal
+    distances must come back by lowest index; k past D gives JAX's tail."""
+    db = rng.integers(0, 2**32, size=(D, W), dtype=np.uint32)
+    db[D // 2 :] = db[: D - D // 2]  # every distance of the upper half ties one below
+    qs = db[rng.integers(0, D, Q)] ^ (rng.random((Q, W)) < 0.2).astype(np.uint32)
+    want_d, want_i = jham.hdist_topk_batch(jnp.asarray(qs), jnp.asarray(db), nb, k)
+    got_d, got_i = hamming.hdist_topk_batch(words_from_u32_np(qs), words_from_u32_np(db), nb, k)
+    np.testing.assert_array_equal(got_d.numpy(), np.asarray(want_d))
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+    # the card's route (PackedDB.search_batch on the word-major database) on the CPU
+    db_t = PackedDB(words_wm=words_from_u32_np(db.T), n_bases=nb)
+    for d, i in (db_t.search_batch(words_from_u32_np(qs), k),
+                 hamming.hdist_topk_batch_torch(words_from_u32_np(qs), words_from_u32_np(db),
+                                                nb, k)):
+        np.testing.assert_array_equal(d.numpy(), np.asarray(want_d))
+        np.testing.assert_array_equal(i.numpy(), np.asarray(want_i))
