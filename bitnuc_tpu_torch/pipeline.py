@@ -1,7 +1,8 @@
 """Streaming, restartable k-mer counting of FASTQ and FASTA files.
 
-The counterpart of ``bitnuc_tpu/pipeline.py``'s ``count_fastq`` and
-``count_fasta`` on one device. Each batch is packed on the device (K1).
+The counterpart of ``bitnuc_tpu/pipeline.py``'s ``count_fastq``,
+``count_fasta`` and ``stats`` on one device. Each batch is packed on the
+device (K1).
 
 Accumulators:
 
@@ -417,3 +418,71 @@ def count_fasta(
                 _sparse_add(acc, total_windows, reads.words, reads.lengths, k,
                             canonical, bv)
     return acc.result() if dense else acc.to_dict()
+
+
+def stats(path, batch_size: int = 4096, validate: bool = True, device=None) -> dict:
+    """Streaming composition statistics of a FASTA or FASTQ file: {"reads",
+    "bases", "a", "c", "g", "t", "gc_pct", "min_len", "max_len",
+    "mean_len", "n50", "l50"}, the sums of ``ops.analysis.base_counts_reads``
+    over the file. FASTQ streams in ``batch_size`` batches through
+    ``io.iter_fastq_batches``; FASTA is read whole (``io.read_fasta``), one
+    row a contig. validate=True raises InvalidBase on N and other bytes
+    outside ACGTacgt. ``device`` defaults to the card."""
+    from .ops import analysis
+
+    device = config.resolve_device(device)
+    n_reads = n_bases = max_len = 0
+    counts = np.zeros(4, np.int64)
+    min_len = None
+    len_hist: dict = {}  # length -> reads; N50 comes from this at the end
+
+    def fold(reads):
+        nonlocal n_reads, n_bases, min_len, max_len
+        lens = reads.lengths.cpu().numpy()
+        if lens.size == 0:
+            return
+        bc = analysis.base_counts_reads(reads.words, reads.lengths).cpu().numpy()
+        counts[:] += bc.astype(np.int64).sum(axis=0)
+        n_reads += lens.size
+        n_bases += int(lens.sum())
+        min_len = int(lens.min()) if min_len is None else min(min_len, int(lens.min()))
+        max_len = max(max_len, int(lens.max()))
+        for u, c in zip(*np.unique(lens, return_counts=True)):
+            len_hist[int(u)] = len_hist.get(int(u), 0) + int(c)
+
+    if bnio.sniff_format(path) == "fasta":
+        fold(bnio.read_fasta(path, validate=validate, device=device)[1])
+    else:
+        for batch in bnio.iter_fastq_batches(path, batch_size, validate=validate, device=device):
+            fold(batch)
+
+    # N50: the shortest length of the fewest longest reads that cover at
+    # least half the bases; L50: how many reads that takes
+    n50 = l50 = 0
+    if n_bases:
+        half = (n_bases + 1) // 2
+        acc = 0
+        for length in sorted(len_hist, reverse=True):
+            cnt = len_hist[length]
+            if acc + length * cnt >= half:
+                n50 = length
+                l50 += -((acc - half) // length)  # ceil((half - acc) / length)
+                break
+            acc += length * cnt
+            l50 += cnt
+
+    gc = int(counts[1] + counts[2])
+    return {
+        "reads": n_reads,
+        "bases": n_bases,
+        "a": int(counts[0]),
+        "c": int(counts[1]),
+        "g": int(counts[2]),
+        "t": int(counts[3]),
+        "gc_pct": round(gc / n_bases * 100.0, 4) if n_bases else 0.0,
+        "min_len": min_len or 0,
+        "max_len": max_len,
+        "mean_len": round(n_bases / n_reads, 2) if n_reads else 0.0,
+        "n50": n50,
+        "l50": l50,
+    }

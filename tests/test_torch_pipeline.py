@@ -203,3 +203,40 @@ def test_sparse_checkpoint_moves_between_packages(fastq_n, tmp_path, monkeypatch
     assert resumed == whole
     with pytest.raises(ValueError, match="refusing to mix"):
         pipeline.count_fastq(fastq_n, 12, device=CPU, **{**kw, "checkpoint": ckpt})
+
+
+@pytest.mark.parametrize("kind", ["fastq", "fastq_gz", "fastq_crlf", "fasta", "fasta_gz"])
+@pytest.mark.parametrize("batch_size", [7, 4096])
+def test_stats_matches_jax(tmp_path, rng, kind, batch_size):
+    """Counts, lengths, gc_pct, mean_len, N50 and L50 equal JAX's on
+    ragged reads and contigs (lengths 0 and 1 among them)."""
+    lens = [int(n) for n in rng.integers(2, 300, 40)] + [1, 0, 299, 299]
+    seqs = [random_seq(rng, n) for n in lens]
+    if kind.startswith("fasta"):
+        data = b"".join(b">c%d desc\n%s\n" % (i, b"\n".join(s[j : j + 60] for j in range(0, len(s), 60)))
+                        for i, s in enumerate(seqs))
+        name = "g.fa"
+    else:
+        nl = b"\r\n" if kind == "fastq_crlf" else b"\n"
+        data = b"".join(b"@r%d%s%s%s+%s%s%s" % (i, nl, s, nl, nl, b"I" * len(s), nl)
+                        for i, s in enumerate(seqs) if s)
+        name = "r.fq"
+    p = tmp_path / (name + (".gz" if kind.endswith("gz") else ""))
+    if kind.endswith("gz"):
+        with gzip.open(p, "wb") as f:
+            f.write(data)
+    else:
+        p.write_bytes(data)
+    got = pipeline.stats(p, batch_size, True, device=CPU)
+    assert got == jpipeline.stats(p, batch_size, True)
+    assert got["bases"] == sum(len(s) for s in seqs)
+
+
+def test_stats_validate(fastq_n):
+    with pytest.raises(InvalidBase):
+        pipeline.stats(fastq_n, device=CPU)
+    with pytest.raises(JInvalidBase):
+        jpipeline.stats(fastq_n)
+    got = pipeline.stats(fastq_n, validate=False, device=CPU)
+    assert got == jpipeline.stats(fastq_n, validate=False)
+    assert got["n50"] > 0 and got["l50"] > 0
