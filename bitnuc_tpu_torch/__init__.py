@@ -1,5 +1,13 @@
 """bitnuc_tpu_torch — the PyTorch and CUDA port of bitnuc_tpu.
 
+API tiers, as in the JAX package (the reference's layering,
+src/lib.rs:210-220):
+
+* host functional API (``api``, numpy): as_2bit, from_2bit, encode,
+  decode, hdist, hdist_scalar, split_packed, count_kmers
+* host sequence type: ``PackedSequence`` (get/slice/to_vec/gc_content/...)
+* device batch tier: ``PackedReads``, ``PackedDB`` and ``ops``
+
 It keeps the JAX package's packed layout (2-bit codes, 16 bases per 32-bit
 word, word pairs equal to the reference's u64 words) and its module names,
 and runs the packed-reads main path and the large-k counting and set-algebra
@@ -21,9 +29,12 @@ with a plain PyTorch version beside it for CPU tensors:
 * ``ops.align.sw_score`` — K9 ``sw_score``
 * ``ops.orf.longest_orf`` — K10 ``orf_scan``, once for both strands
 
-Sort-based counting for any k <= 32 (``count_kmers_sorted``,
-``count_kmers_runs``, and ``pipeline.count_fastq``/``count_fasta`` above
-k = 12) sorts with ``torch.sort``. Short reads map with
+``hdist_search_batch`` searches as ``PackedDB.search_batch`` does (K4/K5,
+or K6's ``tc_search``). ``ops.merge_pairs.merge_pairs`` merges read pairs
+in plain PyTorch (the JAX package has no kernel there). Sort-based
+counting for any k <= 32 (``count_kmers_sorted``, ``count_kmers_runs``,
+and ``pipeline.count_fastq``/``count_fasta`` above k = 12) sorts with
+``torch.sort``. Short reads map with
 ``mapper.MinimizerIndex.build_multi``, ``mapper.map_reads`` and
 ``mapper.traceback_cigars``. ``ops.split`` slices packed reads and
 ``ops.orf.translate_reads`` translates them.
@@ -36,6 +47,18 @@ Device words are int32 bit-views of the JAX package's uint32 words
 """
 
 from . import config  # noqa: F401
+from .api import (  # noqa: F401
+    as_2bit,
+    count_kmers,
+    decode,
+    encode,
+    encode_alloc,
+    from_2bit,
+    from_2bit_alloc,
+    hdist,
+    hdist_scalar,
+    split_packed,
+)
 from .database import PackedDB  # noqa: F401
 from .errors import (  # noqa: F401
     IndexOutOfBounds,
@@ -46,23 +69,43 @@ from .errors import (  # noqa: F401
     SequenceTooLong,
     Unsupported,
 )
-from .ops.analysis import base_counts_reads, gc_content_reads  # noqa: F401
+from .ops.analysis import base_counts_reads, gc_content_reads, windowed_gc  # noqa: F401
 from .ops.codec import decode_reads, encode_reads  # noqa: F401
+from .ops.hamming import (  # noqa: F401
+    hdist_many_to_many,
+    hdist_one_to_many,
+    hdist_topk as hdist_search,
+    hdist_topk_batch as hdist_search_batch,
+)
 from .ops.kmer import (  # noqa: F401
     count_kmers_reads,
     count_kmers_runs,
     count_kmers_sorted,
+    minimizer_positions,
     spectrum,
     top_kmers,
 )
 from .ops.revcomp import reverse_complement_reads  # noqa: F401
 from .ops.setops import combine_counts, combine_dicts  # noqa: F401
-from .sequence import PackedReads  # noqa: F401
+from .sequence import PackedReads, PackedSequence, stack_sequences  # noqa: F401
 from . import io, mapper, pipeline  # noqa: F401
 from .ops import orf, split  # noqa: F401
 from .io import read_fasta  # noqa: F401
+from .mapper import MinimizerIndex, map_reads  # noqa: F401
 
 __all__ = [
+    "as_2bit",
+    "from_2bit",
+    "from_2bit_alloc",
+    "encode",
+    "encode_alloc",
+    "decode",
+    "hdist",
+    "hdist_scalar",
+    "split_packed",
+    "count_kmers",
+    "PackedSequence",
+    "stack_sequences",
     "config",
     "PackedDB",
     "PackedReads",
@@ -76,12 +119,20 @@ __all__ = [
     "read_fasta",
     "top_kmers",
     "spectrum",
+    "minimizer_positions",
+    "hdist_search",
+    "hdist_search_batch",
+    "hdist_one_to_many",
+    "hdist_many_to_many",
     "base_counts_reads",
     "gc_content_reads",
+    "windowed_gc",
     "reverse_complement_reads",
     "io",
     "mapper",
     "pipeline",
+    "MinimizerIndex",
+    "map_reads",
     "NucleotideError",
     "InvalidBase",
     "SequenceTooLong",

@@ -736,6 +736,61 @@ def test_search_batch_routes_by_q_and_k(cuda):
         assert all(torch.equal(x, y) for x, y in zip(got, want))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 10, hamming.SEARCH_TOPK_MAX, hamming.SEARCH_TOPK_MAX + 1])
+@pytest.mark.parametrize("dq", [-1, 0, 120])
+@pytest.mark.parametrize("W,D,nb", [(32, 3000, 512), (10, 1001, 150), (2, 40, 20)])
+def test_hdist_topk_batch_card_route_matches_plain(cuda, k, dq, W, D, nb):
+    """hdist_topk_batch on the card (the word-major route of search_batch:
+    K4/K5 or K6 and the top-k below SEARCH_TC_MIN_Q queries, tc_search from
+    it on for k <= SEARCH_TOPK_MAX) against its plain composition on the
+    same rows, with half the database repeated so distances tie."""
+    from bitnuc_tpu_torch import database
+
+    Q = max(database.SEARCH_TC_MIN_Q + dq, 1)
+    g = torch.Generator().manual_seed(W * 1000 + Q)
+    db = torch.randint(-(2**31), 2**31 - 1, (D, W), generator=g, dtype=torch.int32)
+    db[D // 2 :] = db[: D - D // 2]
+    q = db[torch.randint(0, D, (Q,), generator=g)] ^ torch.randint(
+        0, 4, (Q, W), generator=g, dtype=torch.int32)
+    want = hamming.hdist_topk_batch_torch(q, db, nb, k)
+    before = kernels.LAUNCHES["tc_search"]
+    got = hamming.hdist_topk_batch(q.to(cuda), db.to(cuda), nb, k)
+    fused = Q >= database.SEARCH_TC_MIN_Q and k <= hamming.SEARCH_TOPK_MAX
+    assert kernels.LAUNCHES["tc_search"] == before + int(fused)
+    assert all(torch.equal(x.cpu(), y) for x, y in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scan", ["packed", "codes"])
+@pytest.mark.parametrize("W1,W2", [(10, 10), (10, 4), (4, 10), (20, 20)])
+def test_merge_pairs_on_the_card_matches_the_cpu(cuda, scan, W1, W2):
+    """merge_pairs (plain PyTorch, no kernel) on CUDA tensors equals the same
+    call on the CPU, output for output, on planted overlaps and random
+    pairs."""
+    from bitnuc_tpu_torch.ops import merge_pairs, revcomp
+
+    g = torch.Generator().manual_seed(W1 * 100 + W2)
+    B = 300
+    frag = torch.randint(0, 4, (B, 16 * (W1 + W2)), generator=g, dtype=torch.int32)
+    lens1 = torch.randint(0, 16 * W1 + 1, (B,), generator=g, dtype=torch.int32)
+    lens2 = torch.randint(0, 16 * W2 + 1, (B,), generator=g, dtype=torch.int32)
+    w1 = bitops.pack_codes(frag[:, : 16 * W1])
+    # R2 as sequenced: the reverse complement of the fragment's tail, which
+    # starts inside R1 for about half the rows
+    start = torch.clamp(lens1 - torch.randint(0, 60, (B,), generator=g, dtype=torch.int32), min=0)
+    idx = torch.clamp(start[:, None] + torch.arange(16 * W2), max=frag.shape[1] - 1)
+    tail = bitops.pack_codes(torch.gather(frag, 1, idx.long()))
+    w2 = revcomp.reverse_complement_reads(tail, lens2)
+    w2[1::2] = torch.randint(-(2**31), 2**31 - 1, (B // 2, W2), generator=g, dtype=torch.int32)
+    for mo, frac in ((10, 0.1), (1, 0.0), (25, 0.3)):
+        want = merge_pairs.merge_pairs(w1, lens1, w2, lens2, mo, frac, scan)
+        got = merge_pairs.merge_pairs(w1.to(cuda), lens1.to(cuda), w2.to(cuda), lens2.to(cuda),
+                                      mo, frac, scan)
+        assert all(torch.equal(x.cpu(), y) for x, y in zip(got, want))
+        assert bool(want[2].any())
+
+
 def _orf_reads(seed, B, W, lengths=None, motifs=None):
     """B reads of W words, codes weighted towards A and T (ATG- and
     stop-rich), or drawn from ``motifs`` (codons joined at random); without

@@ -17,10 +17,10 @@ import torch
 import jax.numpy as jnp
 
 from bitnuc_tpu import database as jdatabase, io as jio, pipeline as jpipeline
-from bitnuc_tpu.ops import hamming as jham
+from bitnuc_tpu.ops import analysis as janalysis, hamming as jham, merge_pairs as jmerge_pairs
 from bitnuc_tpu_torch import database, io as tio, pipeline
 from bitnuc_tpu_torch.errors import InvalidBase
-from bitnuc_tpu_torch.ops import hamming
+from bitnuc_tpu_torch.ops import analysis, hamming, merge_pairs
 from bitnuc_tpu_torch.utils.bitops import words_from_u32_np
 from conftest import random_seq
 
@@ -33,7 +33,19 @@ PAIRS = {
     "search": (database.PackedDB.search, jdatabase.PackedDB.search),
     "search_batch": (database.PackedDB.search_batch, jdatabase.PackedDB.search_batch),
     "topk_batch_dispatch": (hamming.topk_batch_dispatch, jham.topk_batch_dispatch),
+    "read_fastq": (tio.read_fastq, jio.read_fastq),
+    "read_fastq_fast": (tio.read_fastq_fast, jio.read_fastq_fast),
+    "iter_fastq_ascii_batches": (tio.iter_fastq_ascii_batches, jio.iter_fastq_ascii_batches),
+    "iter_fastq_record_batches": (tio.iter_fastq_record_batches, jio.iter_fastq_record_batches),
+    "stats": (pipeline.stats, jpipeline.stats),
+    "merge_pairs": (merge_pairs.merge_pairs, jmerge_pairs.merge_pairs),
+    "windowed_gc": (analysis.windowed_gc, janalysis.windowed_gc),
+    "hdist_topk_batch": (hamming.hdist_topk_batch, jham.hdist_topk_batch),
 }
+# functions of tensors follow their inputs' device, and the host-only
+# parsers put nothing on one: no `device` parameter
+NO_DEVICE = ("search", "search_batch", "topk_batch_dispatch", "iter_fastq_ascii_batches",
+             "iter_fastq_record_batches", "merge_pairs", "windowed_gc", "hdist_topk_batch")
 
 
 @pytest.fixture
@@ -59,8 +71,7 @@ def test_parameters_follow_jax(name):
         want = ref[n].default
         if n != "n_bases":  # JAX requires it; the port does not read it
             assert port[n].default == want, n
-    assert list(port)[-1] == "device" or name in ("search", "search_batch",
-                                                  "topk_batch_dispatch")
+    assert (list(port)[-1] == "device") != (name in NO_DEVICE)
 
 
 def test_count_fastq_positional_order(fastq):
