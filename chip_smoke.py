@@ -50,7 +50,9 @@ Phases, each of which must pass:
    shapes and on a database of one repeated entry, beside torch._int_mm +
    the top-k, and both search_batch routes swept at Q = 1 to 512 (the
    sweep behind database.SEARCH_TC_MIN_Q).
-3. The golden vectors of the reference crate.
+3. The golden vectors of the reference crate, through PackedReads and
+   PackedDB and through the host API tier (as_2bit, from_2bit,
+   encode/decode, hdist, PackedSequence).
 4. The flagship step (bitnuc_tpu_torch.entry) on 262,144 reads x 150 bp
    against a 4,194,304-entry database, under the default backend (kernels)
    and under backend("torch") (plain versions), output for output.
@@ -88,9 +90,21 @@ Phases, each of which must pass:
    bp, and the --translate steps on the first batch. Checked against the
    plain backend, a host Hamming oracle, host-packed words, a host
    six-frame ORF oracle and a host codon table.
+9. The public surface and pair merging: 262,144 read pairs of 150 bp (1%
+   substitutions) from fragments of 160-400 bp as R1/R2 FASTQ, merged
+   along bitnuc-tpu merge's path (io.read_fastq with K1, merge_pairs at
+   min_overlap 10 and max_mismatch_frac 0.1, codec.decode_reads with K2),
+   its stages timed; checked 'packed' against 'codes', against the plain
+   backend, a 4,096-pair subset against a CPU run, and the pairs with a
+   clean true overlap of 20 bp or more against their true fragments.
+   read_fastq_fast, iter_fastq_ascii_batches and iter_fastq_record_batches
+   against read_fastq, pipeline.stats against host counts (and its
+   InvalidBase on phase 5's FASTQ), hdist_topk_batch of phase 8's queries
+   against search_batch (timed beside it), and windowed_gc of phase 8's
+   contigs against a numpy float32 model.
 
 The launch counters are set to 0 just before each main path (phases 4 and
-5 under the default backend, phases 6, 7 and 8) and read just after it; every
+5 under the default backend, phases 6, 7, 8 and 9) and read just after it; every
 kernel of that path must have launched there, and the flagship step alone
 must make two K3b launches (its plain and canonical k = 8 counts) and no K3a
 launch. The last lines printed are a
@@ -992,7 +1006,7 @@ def search_orf_path(torch, dev, tmp, db_wm, queries, reads, contigs, times):
 def search_orf_phase(args, torch, dev, timer, results, tmp, db_wm, genome, reads):
     """Phase 8: many-query search (K6, and K5 for a few queries), a database
     built from FASTQ, and ORF calling on reads and contigs (K10), with the
-    checks."""
+    checks. Returns its queries and contigs for phase 9."""
     from bitnuc_tpu_torch import config, kernels
     from bitnuc_tpu_torch.database import PackedDB, SEARCH_TC_MIN_Q, tc_min_q
     from bitnuc_tpu_torch.ops import hamming, orf
@@ -1139,6 +1153,283 @@ def search_orf_phase(args, torch, dev, timer, results, tmp, db_wm, genome, reads
     want = tuple(int(x) for x in orf_oracle(bytes(contig)))
     check(f"longest_orf of a {CONTIG_BP}-bp contig == host six-frame oracle", got == want,
           f"{got}; oracles {time.perf_counter() - t:.1f} s")
+    return queries, contigs
+
+
+# -- phase 9: the public surface and pair merging ---------------------------------
+
+MERGE_PAIRS = 262_144
+MERGE_READ_LEN = 150
+FRAG_MIN, FRAG_MAX = 160, 400  # overlaps from 140 bp down to none
+MERGE_SUB_RATE = 0.01
+MERGE_MIN_OVERLAP, MERGE_MAX_MISMATCH = 10, 0.1  # bitnuc-tpu merge's defaults
+MERGE_SUBSET = 4_096  # pairs also merged on the CPU
+MERGE_BATCH = 65_536  # records a batch of the streaming readers
+TRUE_OVERLAP_MIN = 20  # pairs checked against their true fragments
+GC_WINDOW, GC_STEPS = 1_000, (0, 100)
+MERGE_LAUNCHES = {}
+_COMP = np.zeros(256, np.uint8)
+_COMP[np.frombuffer(b"ACGT", np.uint8)] = np.frombuffer(b"TGCA", np.uint8)
+
+
+def make_pairs(rng):
+    """MERGE_PAIRS read pairs of MERGE_READ_LEN bp from random fragments of
+    FRAG_MIN..FRAG_MAX bp, with MERGE_SUB_RATE substitutions in each read
+    and no N; R2 is the reverse complement of the fragment's tail, as
+    sequenced. Returns (R1 ASCII, R2 ASCII, fragments ASCII [n, FRAG_MAX],
+    fragment lengths, and the substitution masks of R1 and of R2 read
+    forward along the fragment)."""
+    n, L = MERGE_PAIRS, MERGE_READ_LEN
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    frags = acgt[rng.integers(0, 4, (n, FRAG_MAX), dtype=np.uint8)]
+    flen = rng.integers(FRAG_MIN, FRAG_MAX + 1, n).astype(np.int64)
+    cols = np.arange(L)
+    r1 = frags[:, :L].copy()
+    r2f = np.take_along_axis(frags, flen[:, None] - L + cols[None, :], axis=1)
+    subs = []
+    for r in (r1, r2f):
+        sub = rng.random((n, L)) < MERGE_SUB_RATE
+        codes = ascii_codes(r)
+        r[sub] = acgt[(codes[sub] + rng.integers(1, 4, int(sub.sum()))) % 4]
+        subs.append(sub)
+    frags[np.arange(FRAG_MAX)[None, :] >= flen[:, None]] = 0
+    return r1, _COMP[r2f[:, ::-1]], frags, flen, subs[0], subs[1]
+
+
+def merge_path(torch, dev, r1_path, r2_path, scan="packed"):
+    """The bitnuc-tpu merge command's device path: read_fastq of both files
+    (validate=False; K1), merge_pairs at the CLI defaults, decode_reads of
+    the merged words (K2). Host outputs."""
+    from bitnuc_tpu_torch import io
+    from bitnuc_tpu_torch.ops import codec, merge_pairs
+
+    _, p1 = io.read_fastq(r1_path, validate=False, device=dev)
+    _, p2 = io.read_fastq(r2_path, validate=False, device=dev)
+    w, ln, m, ov, mm = merge_pairs.merge_pairs(p1.words, p1.lengths, p2.words, p2.lengths,
+                                               MERGE_MIN_OVERLAP, MERGE_MAX_MISMATCH, scan)
+    ascii_m = codec.decode_reads(w, ln)
+    out = {"words": w, "lens": ln, "merged": m, "overlap": ov, "mismatches": mm,
+           "ascii": ascii_m}
+    return {k: v.cpu().numpy() for k, v in out.items()}
+
+
+def public_phase(args, torch, dev, timer, results, tmp, db_wm, queries, contigs, fq5):
+    """Phase 9: the merge path (K1, merge_pairs, K2) on 262,144 pairs, the
+    FASTQ readers and stats on R1, hdist_topk_batch beside search_batch on
+    phase 8's database, windowed_gc of phase 8's contigs, with the
+    checks."""
+    import bitnuc_tpu_torch as bnt
+    from bitnuc_tpu_torch import config, io, kernels, pipeline
+    from bitnuc_tpu_torch.database import PackedDB
+    from bitnuc_tpu_torch.ops import codec, hamming, merge_pairs, revcomp
+    from bitnuc_tpu_torch.sequence import PackedReads, _rectangularize
+
+    ph = results["phases"]
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(args.seed + 9)
+    print(f"phase 9: public surface and pair merging ({MERGE_PAIRS} pairs of "
+          f"{MERGE_READ_LEN} bp, fragments {FRAG_MIN}-{FRAG_MAX} bp)", flush=True)
+    r1, r2, frags, flen, sub1, sub2 = make_pairs(rng)
+    paths = {k: os.path.join(tmp, f"{k}.fq") for k in ("r1", "r2", "r1s", "r2s")}
+    write_fastq(paths["r1"], r1)
+    write_fastq(paths["r2"], r2)
+    write_fastq(paths["r1s"], r1[:MERGE_SUBSET])
+    write_fastq(paths["r2s"], r2[:MERGE_SUBSET])
+    ph["merge_write_s"] = time.perf_counter() - t0
+
+    # -- the path, with the counters set to 0 just before it ---------------
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = merge_path(torch, dev, paths["r1"], paths["r2"])
+    ph["merge_path_s"] = time.perf_counter() - t
+    db_rm = db_wm.t().contiguous()  # the row-major database a caller holds
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    topk_d, topk_i = hamming.hdist_topk_batch(queries, db_rm, DB_BASES, SEARCH_TOPK)
+    torch.cuda.synchronize()
+    ph["hdist_topk_batch_first_s"] = time.perf_counter() - t
+    MERGE_LAUNCHES.update(kernels.LAUNCHES)
+    ph["merge_launches"] = dict(MERGE_LAUNCHES)
+    print(f"  launches {MERGE_LAUNCHES}", flush=True)
+    for name in ("pack", "unpack", "tc_search"):
+        check(f"{name} launched on the merge and search path", MERGE_LAUNCHES[name] > 0,
+              f"{MERGE_LAUNCHES[name]} launches")
+
+    # -- where the merge path's time goes -----------------------------------
+    t = time.perf_counter()
+    _, seqs = io._split_records_fastq(io._read_bytes(paths["r1"]))
+    ascii_h, lens_h = _rectangularize(seqs)
+    ph["merge_framing_one_file_s"] = time.perf_counter() - t
+    a_t, l_t = torch.from_numpy(ascii_h).to(dev), torch.from_numpy(lens_h).to(dev)
+    _, p1 = io.read_fastq(paths["r1"], validate=False, device=dev)
+    _, p2 = io.read_fastq(paths["r2"], validate=False, device=dev)
+    rc2 = revcomp.reverse_complement_reads(p2.words, p2.lengths)
+    mmf = torch.tensor(MERGE_MAX_MISMATCH, dtype=torch.float32, device=dev)
+    full = merge_pairs.merge_pairs(p1.words, p1.lengths, p2.words, p2.lengths,
+                                   MERGE_MIN_OVERLAP, MERGE_MAX_MISMATCH)
+    stages = {
+        "encode one file (K1)": lambda: codec.encode_reads(a_t, l_t),
+        "reverse complement of R2": lambda: revcomp.reverse_complement_reads(p2.words,
+                                                                              p2.lengths),
+        "offset scan (packed)": lambda: merge_pairs._packed_offset_scan(
+            p1.words, p1.lengths, rc2, p2.lengths, MERGE_MIN_OVERLAP, mmf),
+        "merge_pairs (packed)": lambda: merge_pairs.merge_pairs(
+            p1.words, p1.lengths, p2.words, p2.lengths, MERGE_MIN_OVERLAP, MERGE_MAX_MISMATCH),
+        "merge_pairs (codes)": lambda: merge_pairs.merge_pairs(
+            p1.words, p1.lengths, p2.words, p2.lengths, MERGE_MIN_OVERLAP, MERGE_MAX_MISMATCH,
+            "codes"),
+        "decode (K2)": lambda: codec.decode_reads(full[0], full[1]),
+    }
+    ph["merge_stages_ms"] = {}
+    for label, fn in stages.items():
+        ph["merge_stages_ms"][label] = timer(fn, 3)
+    st = ph["merge_stages_ms"]
+    st["fragment build (merge_pairs - reverse complement - scan)"] = (
+        st["merge_pairs (packed)"] - st["reverse complement of R2"]
+        - st["offset scan (packed)"])
+    for label, ms in st.items():
+        print(f"    stage {label}: {ms:.3f} ms ({MERGE_PAIRS / ms * 1e3:.0f} pairs/s)",
+              flush=True)
+    ph["merge_pairs_per_s"] = MERGE_PAIRS / ph["merge_path_s"]
+    print(f"  merge path (two files framed, K1, merge_pairs, K2, download): "
+          f"{ph['merge_path_s']:.3f} s ({ph['merge_pairs_per_s']:.0f} pairs/s; framing one "
+          f"file {ph['merge_framing_one_file_s']:.3f} s); {int(out['merged'].sum())} merged",
+          flush=True)
+    del a_t, l_t, rc2, full
+
+    # -- checks on the merge path --------------------------------------------
+    codes_out = merge_path(torch, dev, paths["r1"], paths["r2"], scan="codes")
+    check("merge_pairs 'packed' == 'codes' on the card, every output",
+          all(np.array_equal(out[k], codes_out[k]) for k in out))
+    del codes_out
+    with config.backend("torch"):
+        plain = merge_path(torch, dev, paths["r1"], paths["r2"])
+    check("merge path under backend('torch') == default backend, every output",
+          all(np.array_equal(out[k], plain[k]) for k in out))
+    del plain
+    cpu = merge_path(torch, torch.device("cpu"), paths["r1s"], paths["r2s"])
+    check(f"{MERGE_SUBSET}-pair subset on the CPU == the card's first {MERGE_SUBSET} rows",
+          all(np.array_equal(cpu[k], out[k][:MERGE_SUBSET]) for k in out))
+    true_ov = 2 * MERGE_READ_LEN - flen
+    cols = np.arange(out["ascii"].shape[1])[None, :]
+    # the overlap is fragment bases [flen - 150, 150): R1's columns from
+    # flen - 150 on, and R2's (read forward) before 300 - flen
+    read_cols = cols[:, :MERGE_READ_LEN]
+    clean_ov = ~(sub1 & (read_cols >= (flen - MERGE_READ_LEN)[:, None])).any(1) & ~(
+        sub2 & (read_cols < true_ov[:, None])).any(1)
+    sel = (true_ov >= TRUE_OVERLAP_MIN) & clean_ov
+    ok_len = out["merged"][sel].all() and np.array_equal(out["lens"][sel], flen[sel]) and (
+        np.array_equal(out["overlap"][sel], true_ov[sel])) and not out["mismatches"][sel].any()
+    check(f"{int(sel.sum())} pairs with a true overlap >= {TRUE_OVERLAP_MIN} bp free of "
+          "substitutions merge at their true length and overlap, 0 mismatches", bool(ok_len))
+    # their fragments: R1, then R2's bases past R1 read forward
+    r2f = _COMP[r2[:, ::-1]]
+    src = np.clip(cols - (flen - MERGE_READ_LEN)[:, None], 0, MERGE_READ_LEN - 1)
+    obs = np.where(cols < MERGE_READ_LEN, np.pad(r1, ((0, 0), (0, cols.shape[1] - 150))),
+                   np.take_along_axis(r2f, src, axis=1))
+    inside = cols < flen[:, None]
+    ok_obs = np.array_equal(np.where(inside, out["ascii"], 0)[sel], np.where(inside, obs, 0)[sel])
+    clean = sel & ~sub1.any(1) & ~sub2.any(1)
+    width = min(cols.shape[1], FRAG_MAX)
+    ok_true = np.array_equal(np.where(inside, out["ascii"], 0)[clean][:, :width],
+                             frags[clean][:, :width])
+    check("those pairs decode to R1 and R2's bases past it, and the "
+          f"{int(clean.sum())} without any substitution to their true fragments",
+          bool(ok_obs and ok_true))
+    del r2f, src, obs, inside
+
+    # -- the FASTQ readers and stats on R1 ------------------------------------
+    t = time.perf_counter()
+    want_w, want_l = PackedReads.from_ascii(r1, device=dev).to_numpy()
+    _, rf = io.read_fastq(paths["r1"], device=dev)
+    fast = io.read_fastq_fast(paths["r1"], device=dev)
+    asc = list(io.iter_fastq_ascii_batches(paths["r1"], MERGE_BATCH))
+    rec = list(io.iter_fastq_record_batches(paths["r1"], MERGE_BATCH))
+    ph["readers_s"] = time.perf_counter() - t
+    rf_w, rf_l = rf.to_numpy()
+    check("read_fastq == host-packed R1", np.array_equal(rf_w, want_w)
+          and np.array_equal(rf_l, want_l))
+    fw, fl = fast.to_numpy()
+    check("read_fastq_fast == read_fastq, words and lengths", np.array_equal(fw, rf_w)
+          and np.array_equal(fl, rf_l))
+    aw, al = PackedReads.from_ascii(np.concatenate([a for a, _, _ in asc]),
+                                    np.concatenate([n for _, n, _ in asc]), device=dev).to_numpy()
+    check("iter_fastq_ascii_batches == read_fastq, words and lengths",
+          np.array_equal(aw, rf_w) and np.array_equal(al, rf_l)
+          and asc[-1][2] == os.path.getsize(paths["r1"]))
+    qw, ql = PackedReads.from_ascii(np.concatenate([b[1] for b in rec]),
+                                    np.concatenate([b[3] for b in rec]), device=dev).to_numpy()
+    names_ok = all(raw[o : o + n] == b"r%09d" % (MERGE_BATCH * i + j)
+                   for i, (raw, *_, off, nl) in enumerate(rec)
+                   for j, (o, n) in enumerate(zip(off[:3].tolist(), nl[:3].tolist())))
+    check("iter_fastq_record_batches == read_fastq, qualities all 'I', names past '@'",
+          np.array_equal(qw, rf_w) and np.array_equal(ql, rf_l) and names_ok
+          and all((b[2] == ord("I")).all() for b in rec))
+    del asc, rec, rf, fast
+    t = time.perf_counter()
+    got = pipeline.stats(paths["r1"], device=dev)
+    ph["stats_s"] = time.perf_counter() - t
+    counts = np.bincount(ascii_codes(r1).reshape(-1), minlength=4)
+    n_bases = r1.size
+    want = {"reads": MERGE_PAIRS, "bases": n_bases, "a": int(counts[0]), "c": int(counts[1]),
+            "g": int(counts[2]), "t": int(counts[3]),
+            "gc_pct": round(int(counts[1] + counts[2]) / n_bases * 100.0, 4),
+            "min_len": MERGE_READ_LEN, "max_len": MERGE_READ_LEN,
+            "mean_len": float(MERGE_READ_LEN), "n50": MERGE_READ_LEN,
+            "l50": -(-((n_bases + 1) // 2) // MERGE_READ_LEN)}
+    check("stats(R1) == host numpy counts", got == want, f"{got}")
+    try:
+        pipeline.stats(fq5, device=dev)
+        check("stats(validate=True) of phase 5's FASTQ raises InvalidBase", False)
+    except bnt.InvalidBase:
+        check("stats(validate=True) of phase 5's FASTQ raises InvalidBase", True)
+
+    # -- hdist_topk_batch beside search_batch ----------------------------------
+    db = PackedDB(db_wm, DB_BASES)
+    sd, si = db.search_batch(queries, SEARCH_TOPK)
+    check(f"hdist_topk_batch of {len(queries)} queries, top {SEARCH_TOPK} == "
+          "PackedDB.search_batch", torch.equal(topk_d, sd) and torch.equal(topk_i, si))
+    ph["hdist_topk_batch_ms"] = timer(lambda: hamming.hdist_topk_batch(
+        queries, db_rm, DB_BASES, SEARCH_TOPK), 3)
+    ph["hdist_topk_batch_wm_view_ms"] = timer(lambda: hamming.hdist_topk_batch(
+        queries, db_wm.t(), DB_BASES, SEARCH_TOPK), 3)
+    ph["search_batch_beside_topk_ms"] = timer(lambda: db.search_batch(queries, SEARCH_TOPK), 3)
+    print(f"  hdist_topk_batch of {len(queries)} queries against {db_wm.shape[1]} x {DB_BASES} "
+          f"bases: {ph['hdist_topk_batch_ms']:.3f} ms from a row-major database (its "
+          f"transpose included), {ph['hdist_topk_batch_wm_view_ms']:.3f} ms from a transposed "
+          f"view; search_batch {ph['search_batch_beside_topk_ms']:.3f} ms", flush=True)
+    del db_rm, topk_d, topk_i, sd, si
+
+    # -- windowed GC of phase 8's contigs against a numpy float32 model ------------
+    pr = PackedReads.from_ascii(contigs, validate=False, device=dev)
+    gc_codes = ascii_codes(contigs)
+    csum = np.concatenate([np.zeros((len(contigs), 1), np.int64),
+                           np.cumsum((gc_codes == 1) | (gc_codes == 2), axis=1)], axis=1)
+    ok = True
+    for step in GC_STEPS:
+        pct, valid = bnt.windowed_gc(pr.words, pr.lengths, GC_WINDOW, step)
+        stride = step or GC_WINDOW
+        starts = np.arange(0, 16 * pr.n_words - GC_WINDOW + 1, stride)
+        sums = csum[:, starts + GC_WINDOW] - csum[:, starts]
+        model = sums.astype(np.float32) * np.float32(100.0 / GC_WINDOW)
+        ok &= np.array_equal(pct.cpu().numpy(), model) and bool(valid.all())
+        ph[f"windowed_gc_step{step}_ms"] = timer(
+            lambda step=step: bnt.windowed_gc(pr.words, pr.lengths, GC_WINDOW, step), 3)
+    check(f"windowed_gc of {len(contigs)} x {contigs.shape[1]} bp at window {GC_WINDOW}, steps "
+          f"{GC_STEPS} == numpy float32 model, bit for bit", bool(ok))
+    del pr
+
+    # -- the host API tier on a read ------------------------------------------------
+    s = r1[0].tobytes()
+    ps = bnt.PackedSequence(s)
+    check("PackedSequence of a read == its words and bases",
+          ps.to_vec() == s and np.array_equal(ps.data, bnt.encode(s))
+          and bnt.decode(bnt.encode(s), len(s)) == s
+          and PackedReads.from_ascii([s], device=dev)[0] == ps)
+    ph["phase9_s"] = time.perf_counter() - t0
+    print(f"  phase 9 in {ph['phase9_s']:.1f} s (inputs written in {ph['merge_write_s']:.1f} s, "
+          f"readers {ph['readers_s']:.2f} s, stats {ph['stats_s']:.2f} s)", flush=True)
 
 
 def int_mm_planes(torch, db):
@@ -2174,6 +2465,14 @@ def main() -> int:
     qd = bnt.PackedReads.from_ascii([b"ACTGACTG", b"TGCATGCA"], device=dev)
     gdb = bnt.PackedDB.from_reads(bnt.PackedReads(qd.words[1:], qd.lengths[1:]), 8)
     check("hdist(ACTGACTG, TGCATGCA) == 8", int(gdb.distances(qd.words[0])[0]) == 8)
+    check("the host API tier: as_2bit, from_2bit, encode/decode, hdist, PackedSequence",
+          bnt.as_2bit(b"ACGT") == 0b11100100
+          and bnt.from_2bit(71620941647064936, 28) == b"AGGCTTGAGGCCCATTCTCTGATCGTTT"
+          and bnt.decode(bnt.encode(b"ACGT" * 250), 1000) == b"ACGT" * 250
+          and bnt.hdist(bnt.encode(b"ACTGACTG"), bnt.encode(b"TGCATGCA"), 8) == 8
+          and bnt.PackedSequence(b"ACGTACGT").slice(1, 5) == b"CGTA"
+          and bnt.PackedSequence(b"ACGTACGT").gc_content() == 50.0
+          and g[0] == bnt.PackedSequence(b"ACGT"))
 
     # -- 4 + 5. the main path --------------------------------------------------
     fwd, (ascii_e, lens_e, db_e) = entry.entry(
@@ -2313,7 +2612,9 @@ def main() -> int:
             args, torch, dev, timer, tmp, results)
         mapping_phase(args, torch, dev, timer, results, fa, genome, reads_g, true_starts,
                       true_rev, compare, timed)
-        search_orf_phase(args, torch, dev, timer, results, tmp, db, genome, reads_g)
+        queries, contigs = search_orf_phase(args, torch, dev, timer, results, tmp, db, genome,
+                                            reads_g)
+        public_phase(args, torch, dev, timer, results, tmp, db, queries, contigs, fq)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
