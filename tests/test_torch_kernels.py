@@ -750,7 +750,7 @@ def test_hdist_topk_batch_card_route_matches_plain(cuda, k, dq, W, D, nb):
     Q = max(database.SEARCH_TC_MIN_Q + dq, 1)
     g = torch.Generator().manual_seed(W * 1000 + Q)
     db = torch.randint(-(2**31), 2**31 - 1, (D, W), generator=g, dtype=torch.int32)
-    db[D // 2 :] = db[: D - D // 2]
+    db[D - D // 2 :] = db[: D // 2].clone()  # the upper rows repeat the lower ones
     q = db[torch.randint(0, D, (Q,), generator=g)] ^ torch.randint(
         0, 4, (Q, W), generator=g, dtype=torch.int32)
     want = hamming.hdist_topk_batch_torch(q, db, nb, k)
