@@ -241,6 +241,17 @@ def _rectangle(arr: np.ndarray, starts: np.ndarray, lens: np.ndarray, B: int, L:
     return out, lens
 
 
+def _framed(data: bytes, max_len: Optional[int]):
+    """The bytes, their framed lines (``_fastq_lines``) and the sequence
+    rectangle: L is max_len, or the longest read (at least 1)."""
+    arr = np.frombuffer(data, np.uint8)
+    starts, lens = _fastq_lines(arr)
+    seq_starts, seq_lens = starts[1::4], lens[1::4]
+    B = seq_starts.size
+    L = int(max_len) if max_len else max(int(seq_lens.max()) if B else 0, 1)
+    return (arr, starts, lens) + _rectangle(arr, seq_starts, seq_lens, B, L)
+
+
 def fastq_to_batch(data: bytes, max_len: Optional[int] = None) -> Tuple[np.ndarray, np.ndarray]:
     """FASTQ bytes -> (ascii uint8 [B, L], lengths int32 [B]), vectorized;
     equal to the JAX package's ``native.fastq_to_batch``.
@@ -249,12 +260,7 @@ def fastq_to_batch(data: bytes, max_len: Optional[int] = None) -> Tuple[np.ndarr
     trailing record cut short after its sequence still counts. L is
     max_len, or the longest read (at least 1); longer reads are
     truncated."""
-    arr = np.frombuffer(data, np.uint8)
-    starts, lens = _fastq_lines(arr)
-    seq_starts, seq_lens = starts[1::4], lens[1::4]
-    B = seq_starts.size
-    L = int(max_len) if max_len else max(int(seq_lens.max()) if B else 0, 1)
-    return _rectangle(arr, seq_starts, seq_lens, B, L)
+    return _framed(data, max_len)[3:]
 
 
 def fastq_to_batch_sq(data: bytes, max_len: Optional[int] = None):
@@ -266,12 +272,8 @@ def fastq_to_batch_sq(data: bytes, max_len: Optional[int] = None):
     L like the sequence, and a record cut short before its quality line
     has a zero quality row. ``name_off`` points past the '@' into
     ``data``; ``name_len`` excludes a trailing '\\r'."""
-    arr = np.frombuffer(data, np.uint8)
-    starts, lens = _fastq_lines(arr)
-    seq_starts, seq_lens = starts[1::4], lens[1::4]
-    B = seq_starts.size
-    L = int(max_len) if max_len else max(int(seq_lens.max()) if B else 0, 1)
-    ascii_arr, seq_lens = _rectangle(arr, seq_starts, seq_lens, B, L)
+    arr, starts, lens, ascii_arr, seq_lens = _framed(data, max_len)
+    B, L = ascii_arr.shape
     quals, _ = _rectangle(arr, starts[3::4], lens[3::4], B, L)
     hdr_starts, hdr_lens = starts[0::4][:B], lens[0::4][:B]
     return (ascii_arr, quals, seq_lens, hdr_starts + 1,
