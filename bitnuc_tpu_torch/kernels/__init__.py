@@ -5,8 +5,10 @@ The wrappers themselves live beside their plain PyTorch versions in
 ``hist_words``), ``ops/hamming.py`` (``hdist_scan`` for one query and
 ``hdist_scan_batch`` for more, one kernel; ``tc_scan``, and ``tc_search``,
 its search form with a per-block top-k), ``ops/merge.py``
-(``merge``), ``ops/align.py`` (``fit_banded``, ``sw_score``) and
-``ops/orf.py`` (``orf_scan``). Each adds one to its entry in ``LAUNCHES``
+(``merge``), ``ops/align.py`` (``fit_banded``, ``sw_score``),
+``ops/orf.py`` (``orf_scan``) and ``ops/chain.py`` (``chain``, which
+replaces no TPU kernel: it is the device loop of the JAX package's
+chaining scan). Each adds one to its entry in ``LAUNCHES``
 where it launches its kernel, and nowhere else, so a run can show that its
 main path went through the kernels.
 """
@@ -28,6 +30,7 @@ LAUNCHES = {
     "tc_scan": 0,
     "tc_search": 0,
     "orf_scan": 0,
+    "chain": 0,
 }
 
 

@@ -51,6 +51,7 @@ _SIGNATURES = {
     "bn_tc_search": (_P, _P, _I64, _I64, _I64, _INT, _INT, _INT, _I64, _I64, _P, _P),
     "bn_tc_blocks_per_sm": (_INT, _INT, _INT, _P),
     "bn_orf_scan": (_P, _P, _I64, _INT, _INT, _P, _P, _P, _P),
+    "bn_chain": (_P, _P, _I64, _I64, _INT, _INT, _INT, _P, _P, _P, _P, _P, _P),
 }
 _ERROR_STRING = "bn_error_string"  # const char* (int code)
 
