@@ -28,9 +28,16 @@ The counterpart of the short-read path of ``bitnuc_tpu/mapper.py``:
 Both strands of a batch go through one join and one vote; coordinates are
 on the forward reference (PAF). ``map_reads`` maps in batches of
 MAP_BATCH reads; each read's result depends only on itself and the index,
-so the batching changes no output. The long-read path
-(``map_reads_long``, ``ops/chain.py``), ``map_pairs`` and the mesh paths are
-later ports.
+so the batching changes no output.
+
+Long reads (``map_reads_long``) share steps 1-3, then chain each strand's
+anchors (``ops.chain.chain_anchors``, C1 ``chain`` on the card) in place of
+the vote; with ``extend=True`` the read is fitted into the chain's window
+by the unbanded span fit (``ops.align.fit_distance_span``, plain PyTorch:
+the JAX package passes no band there). They map in chunks sized by
+``_long_chunk``. ``map_pairs`` maps both mates of a pair batch through one
+``map_reads`` call and applies the proper-pair rule on the host. The mesh
+paths wait for the distributed tier.
 """
 
 from __future__ import annotations
@@ -42,6 +49,7 @@ import torch
 
 from . import config
 from .ops import align as align_ops
+from .ops import chain as chain_ops
 from .ops import kmer as kmer_ops
 from .ops import revcomp as revcomp_ops
 from .utils import bitops
@@ -60,6 +68,8 @@ PAD = 32  # map_reads' default window padding on each side of the read
 # reads of 150 bp at the default pad, (N + 1) * T = 86,400 bytes each)
 _TB_PLANE_BUDGET = 3 << 30
 _TB_CHUNK_CPU = 1024
+# device bytes of one map_reads_long chunk, by the estimate of _long_chunk
+_LONG_BYTES = 8 << 30
 
 
 def _band_k8(off_lo: int, off_hi: int, sa: int = 8):
@@ -349,6 +359,20 @@ def _vote(diag: torch.Tensor, bin_bits: int):
     return best_sup, best_lo
 
 
+def _windows(ws, ref_words, ref_len: int, Wwin: int):
+    """(win [B, Wwin] words, wlen [B]): the reference windows that start at
+    words ws, as the JAX package's clamped dynamic_slice of the zero-padded
+    reference cuts them (the start clamped to [0, Wr]; wlen from the
+    unclamped ws)."""
+    Wr = ref_words.shape[0]
+    ref_pad = torch.cat([ref_words, ref_words.new_zeros(Wwin)])
+    first = torch.clamp(ws, 0, Wr)  # a window never starts past the padding
+    cols = torch.arange(Wwin, dtype=torch.int64, device=ws.device)
+    win = ref_pad[first.to(torch.int64)[:, None] + cols[None, :]]
+    wlen = torch.clamp(ref_len - ws * 16, 0, Wwin * 16).to(torch.int32)
+    return win, wlen
+
+
 def _fit_inputs(ws, ref_words, ref_len: int, Wwin: int, start_slack: int, band_gap: int):
     """(win [B, Wwin] words, wlen [B], off_lo, off_hi): the reference
     windows that start at words ws, and the band of the fit.
@@ -356,12 +380,7 @@ def _fit_inputs(ws, ref_words, ref_len: int, Wwin: int, start_slack: int, band_g
     The window puts each read's start diagonal within [0, start_slack] of
     its origin, so the live band is j - i in [-band_gap, start_slack +
     band_gap], widened by _band_k8 as the JAX package widens it."""
-    Wr = ref_words.shape[0]
-    ref_pad = torch.cat([ref_words, ref_words.new_zeros(Wwin)])
-    first = torch.clamp(ws, 0, Wr)  # a window never starts past the padding
-    cols = torch.arange(Wwin, dtype=torch.int64, device=ws.device)
-    win = ref_pad[first.to(torch.int64)[:, None] + cols[None, :]]
-    wlen = torch.clamp(ref_len - ws * 16, 0, Wwin * 16).to(torch.int32)
+    win, wlen = _windows(ws, ref_words, ref_len, Wwin)
     off_lo = -int(band_gap)
     _, off_hi = _band_k8(off_lo, int(start_slack) + int(band_gap))
     return win, wlen, off_lo, off_hi
@@ -569,3 +588,186 @@ def traceback_cigars(
     strings = align_ops.cigars(ops_all, eqx)
     cig = [c if m else None for c, m in zip(strings, mapped.tolist())]
     return {"cigar": cig, "tb_cost": costs, "ops": ops_all}
+
+
+# -- long reads: chaining instead of the vote -----------------------------------
+
+
+def _reverse_reads(words: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """Reverse without complement: complement, then reverse-complement
+    (both bit-local)."""
+    W = words.shape[-1]
+    comp = words ^ bitops.word_valid_mask(W, lengths.to(torch.int32))
+    return revcomp_ops.reverse_complement_reads(comp, lengths)
+
+
+def _long_chunk(W: int, index: MinimizerIndex, extend: bool, pad: int) -> int:
+    """Reads per map_reads_long chunk: as many as keep an estimate of the
+    chunk's largest tensors within _LONG_BYTES. A read holds two strands of
+    minimizer rows (about 64 bytes a base each), of anchors with their sort
+    keys and order (about 48 bytes an anchor each) and, with extend, the
+    wavefront's diagonals over the read and its window."""
+    L = W * bitops.BASES_PER_WORD
+    anchors = _seed_cap(L, index.w) * index.max_occ if L else 0
+    per_read = 2 * (64 * L + 48 * anchors)
+    if extend:
+        per_read += 80 * (L + L + L // 4 + 2 * pad)
+    return max(1, _LONG_BYTES // max(per_read, 1))
+
+
+def _map_long_core(words, lengths, index: MinimizerIndex, max_gap, gap_unit, lookback: int,
+                   extend: bool = False, pad: int = PAD, mismatch: int = 1, gap: int = 1):
+    """(score, use_rc, ref_start, ref_end, q_start, q_end, cost) of one
+    chunk, [B] each (cost 0 without extend)."""
+    B, W = words.shape
+    k = index.k
+    lengths = lengths.to(torch.int32)
+    rc_words = revcomp_ops.reverse_complement_reads(words, lengths)
+    # both strands through one join and one chaining pass
+    cand, qp, hit = _seed_anchors(
+        torch.cat([words, rc_words]), torch.cat([lengths, lengths]),
+        index.keys, index.keys_hi, index.pos, k, index.w,
+    )
+    M = cand.shape[1] * cand.shape[2]
+    rpos = torch.where(hit, cand, -1).reshape(2 * B, M)
+    qpos = qp[:, :, None].expand(cand.shape).reshape(2 * B, M)
+    del cand, hit
+    score, sr, er, sq, eq = chain_ops.chain_anchors(rpos, qpos, rpos >= 0, max_gap, gap_unit,
+                                                    lookback)
+    del rpos, qpos
+    use_rc = score[B:] > score[:B]  # the forward strand wins ties
+
+    def pick(x):
+        return torch.where(use_rc, x[B:], x[:B])
+
+    score, sr, er, sq, eq = map(pick, (score, sr, er, sq, eq))
+    # a reverse-strand k-mer start p spans forward [L - p - k, L - p)
+    q_start = torch.where(use_rc, lengths - eq - k, sq)
+    q_end = torch.where(use_rc, lengths - sq - k, eq)
+    if not extend:
+        return score, use_rc, sr, er, q_start, q_end, torch.zeros_like(score)
+    # the whole read fitted into the chain's window, capped at 1.25 times the
+    # read plus the padding
+    Lb = W * bitops.BASES_PER_WORD
+    Wwin = (Lb + Lb // 4 + 2 * pad) // bitops.BASES_PER_WORD + 1
+    q_words = torch.where(use_rc[:, None], rc_words, words)
+    ws = torch.div(torch.clamp(sr - pad, min=0), 16, rounding_mode="floor")
+    win, wlen = _windows(ws, index.ref_words, index.ref_len, Wwin)
+    cost, startj, endj = align_ops.fit_distance_span(q_words, lengths, win, wlen, mismatch, gap)
+    return score, use_rc, ws * 16 + startj, ws * 16 + endj, q_start, q_end, cost
+
+
+def map_reads_long(
+    index: MinimizerIndex,
+    reads,
+    min_chain: int = 3,
+    max_gap: int = 2048,
+    gap_unit: int = 16,
+    lookback: int = 64,
+    extend: bool = False,
+    pad: int = 32,
+    mismatch: int = 1,
+    gap: int = 1,
+    mesh=None,
+    axis: str = "data",
+) -> dict:
+    """Chain-based mapping of long or indel-rich reads, on the index's
+    device, in chunks of ``_long_chunk`` reads (the chunk changes no output).
+
+    Anchors come from the same minimizer join as map_reads; placement comes
+    from collinear chaining (``ops.chain``) instead of the diagonal vote, so
+    a diagonal drift of up to max_gap a link is tolerated. Returns numpy
+    arrays, one entry per read, as the JAX package does: mapped (chain score
+    >= min_chain), strand, ref_start / ref_end and q_start / q_end (the
+    inclusive first and last chained anchors, forward-read k-mer starts) and
+    chain_score. extend=True fits the whole read into the chain's reference
+    window (at most 1.25 times the read plus 2 pad) with the unbanded span
+    fit, replaces ref_start / ref_end with its base-exact span and adds
+    "cost"."""
+    config.require_no_mesh(mesh, "map_reads_long")
+    dev = index.device
+    B, W = (int(x) for x in reads.words.shape)
+    chunk = _long_chunk(W, index, extend, pad)
+    parts = []
+    for s in range(0, B, chunk):
+        e = min(B, s + chunk)
+        out = _map_long_core(reads.words[s:e].to(dev), reads.lengths[s:e].to(dev), index,
+                             max_gap, gap_unit, lookback, extend, pad, mismatch, gap)
+        parts.append([x.cpu().numpy() for x in out])
+    if parts:
+        score, use_rc, sr, er, q_start, q_end, cost = (np.concatenate(c) for c in zip(*parts))
+    else:
+        score = sr = er = q_start = q_end = cost = np.zeros(0, np.int32)
+        use_rc = np.zeros(0, bool)
+    out = {
+        "mapped": score >= min_chain,
+        "strand": np.where(use_rc, b"-", b"+"),
+        "ref_start": sr,
+        "ref_end": er,
+        "q_start": q_start,
+        "q_end": q_end,
+        "chain_score": score,
+    }
+    if extend:
+        out["cost"] = cost
+    return out
+
+
+# -- read pairs -----------------------------------------------------------------
+
+
+def map_pairs(
+    index: MinimizerIndex,
+    reads1,
+    reads2,
+    min_insert: int = 0,
+    max_insert: int = 1000,
+    min_seeds: int = 2,
+    mesh=None,
+    axis: str = "data",
+    **kw,
+) -> dict:
+    """Map R1/R2 mates and mark proper pairs: both mates map, on opposite
+    strands, the '+' mate leftmost (FR), and the outer span (insert) within
+    [min_insert, max_insert].
+
+    Both mates map through one map_reads call on the stacked batch, widened
+    to one word count with zero words. Returns {"r1", "r2" (map_reads
+    dicts), "proper" [B] bool, "insert" [B] int32, -1 where a pair is not
+    proper}."""
+    from .sequence import PackedReads
+
+    config.require_no_mesh(mesh, "map_pairs")
+    B = int(reads1.words.shape[0])
+    if int(reads2.words.shape[0]) != B:
+        raise ValueError(
+            f"mate batches differ: {B} R1 reads vs {int(reads2.words.shape[0])} R2 reads"
+        )
+    W = max(int(reads1.words.shape[1]), int(reads2.words.shape[1]))
+    dev = index.device
+
+    def widen(r):
+        w = r.words.to(dev)
+        return torch.nn.functional.pad(w, (0, W - w.shape[1])) if w.shape[1] < W else w
+
+    stacked = PackedReads(
+        words=torch.cat([widen(reads1), widen(reads2)]),
+        lengths=torch.cat([reads1.lengths.to(dev), reads2.lengths.to(dev)]),
+    )
+    both_res = map_reads(index, stacked, min_seeds=min_seeds, **kw)
+    r1 = {f: v[:B] for f, v in both_res.items()}
+    r2 = {f: v[B:] for f, v in both_res.items()}
+    both = r1["mapped"] & r2["mapped"]
+    opposite = r1["strand"] != r2["strand"]
+    fwd_is_1 = r1["strand"] == b"+"  # the forward mate must be leftmost
+    left_start = np.where(fwd_is_1, r1["ref_start"], r2["ref_start"])
+    right_end = np.where(fwd_is_1, r2["ref_end"], r1["ref_end"])
+    insert = right_end - left_start
+    fr = left_start <= np.where(fwd_is_1, r2["ref_start"], r1["ref_start"])
+    proper = both & opposite & fr & (insert >= min_insert) & (insert <= max_insert)
+    return {
+        "r1": r1,
+        "r2": r2,
+        "proper": proper,
+        "insert": np.where(proper, insert, -1).astype(np.int32),
+    }

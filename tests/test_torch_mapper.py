@@ -192,3 +192,178 @@ def test_seed_cap_and_mesh():
         mapper.map_reads(ti, reads, mesh=object())
     with pytest.raises(ValueError):
         mapper.MinimizerIndex.build(b"ACGT" * 10, k=32, device=CPU)
+
+
+# -- long reads and pairs ---------------------------------------------------------
+
+
+def _rc(s: bytes) -> bytes:
+    return s.translate(COMP)[::-1]
+
+
+def _indel_read(rng, src: bytes) -> bytes:
+    """src with an insertion or deletion of 1-14 bp every 120-300 bp, as
+    tests/test_mapper.py builds its long read."""
+    read = bytearray()
+    p = 0
+    while p < len(src):
+        chunk = int(rng.integers(120, 300))
+        read += src[p : p + chunk]
+        p += chunk
+        if p < len(src):
+            if rng.random() < 0.5:
+                read += ACGT[rng.integers(0, 4, int(rng.integers(1, 15)))].tobytes()
+            else:
+                p += int(rng.integers(1, 15))
+    return bytes(read)
+
+
+@pytest.fixture(scope="module")
+def long_data():
+    """A 14-kbp reference with a repeat; indel-rich reads of 600-2,500 bp
+    from both strands, one with substitutions, a junk read, a read shorter
+    than k + w and an empty one."""
+    rng = np.random.default_rng(11)
+    ref = bytearray(ACGT[rng.integers(0, 4, 14_000)].tobytes())
+    ref[9000:9400] = ref[2000:2400]  # a repeat: anchors on two loci
+    ref = bytes(ref)
+    reads = []
+    for i, (s, n) in enumerate(((3000, 2000), (500, 1200), (6000, 2500), (1800, 900),
+                                (11_000, 2400), (8700, 600))):
+        r = _indel_read(rng, ref[s : s + n])
+        if i == 3:  # substitutions too
+            b = bytearray(r)
+            for p in rng.integers(0, len(b), 20):
+                b[p] = int(ACGT[rng.integers(0, 4)])
+            r = bytes(b)
+        reads.append(_rc(r) if i % 2 else r)
+    reads.append(ACGT[rng.integers(0, 4, 1500)].tobytes())  # junk
+    reads += [reads[0][:18], b""]
+    return ref, reads
+
+
+def _long_pair(long_data, k=15, w=10):
+    ref, reads = long_data
+    ji = jmapper.MinimizerIndex.build(ref, k=k, w=w)
+    ti = mapper.MinimizerIndex.build(ref, k=k, w=w, device=CPU)
+    return (ji, JPackedReads.from_ascii(reads, validate=False), ti,
+            PackedReads.from_ascii(reads, validate=False, device=CPU))
+
+
+_JAX_LONG = {}
+
+
+def _jax_long(long_data, extend):
+    """JAX's map_reads_long at min_chain 10 (computed once per mode)."""
+    if extend not in _JAX_LONG:
+        ji, jr = _long_pair(long_data)[:2]
+        _JAX_LONG[extend] = jmapper.map_reads_long(ji, jr, min_chain=10, extend=extend)
+    return _JAX_LONG[extend]
+
+
+@pytest.mark.parametrize("extend", [False, True])
+def test_map_reads_long_matches_jax(long_data, extend):
+    ti, tr = _long_pair(long_data)[2:]
+    got = mapper.map_reads_long(ti, tr, min_chain=10, extend=extend)
+    _result_equal(got, _jax_long(long_data, extend))
+    assert got["mapped"].tolist() == [True] * 6 + [False] * 3
+    assert got["strand"][:6].tolist() == [b"+", b"-"] * 3
+    assert ("cost" in got) == extend
+
+
+def test_map_reads_long_parameters_match_jax(long_data):
+    """Other gaps, lookback, padding and costs, at k = 13 and w = 8."""
+    ji, jr, ti, tr = _long_pair(long_data, k=13, w=8)
+    kw = dict(min_chain=3, max_gap=300, gap_unit=4, lookback=9, pad=20, mismatch=2, gap=3)
+    _result_equal(mapper.map_reads_long(ti, tr, extend=True, **kw),
+                  jmapper.map_reads_long(ji, jr, extend=True, **kw))
+
+
+@pytest.mark.parametrize("extend", [False, True])
+def test_map_reads_long_chunks_change_no_output(long_data, monkeypatch, extend):
+    """Chunks of two reads against JAX's one batch."""
+    ti, tr = _long_pair(long_data)[2:]
+    W = tr.words.shape[1]
+    per_read = mapper._LONG_BYTES // mapper._long_chunk(W, ti, extend, 32)
+    monkeypatch.setattr(mapper, "_LONG_BYTES", 2 * per_read)
+    assert mapper._long_chunk(W, ti, extend, 32) == 2
+    _result_equal(mapper.map_reads_long(ti, tr, min_chain=10, extend=extend),
+                  _jax_long(long_data, extend))
+    empty = PackedReads(words=tr.words[:0], lengths=tr.lengths[:0])
+    assert all(len(v) == 0 for v in mapper.map_reads_long(ti, empty, extend=extend).values())
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        mapper.map_reads_long(ti, tr, mesh=object())
+
+
+def test_reverse_reads_matches_jax(long_data):
+    reads = long_data[1]
+    jr = JPackedReads.from_ascii(reads, validate=False)
+    tr = PackedReads.from_ascii(reads, validate=False, device=CPU)
+    got = mapper._reverse_reads(tr.words, tr.lengths)
+    want = jmapper._reverse_reads(jr.words, jr.lengths)
+    np.testing.assert_array_equal(words_to_u32_np(got), np.asarray(want))
+    back = PackedReads(words=got, lengths=tr.lengths).to_ascii()
+    assert back == [r[::-1] for r in reads]
+
+
+def _pairs(seed, ref: bytes, n: int = 40, L: int = 120):
+    """R1/R2 as tests/test_mapper.py's fuzz lays them out: FR, RF, FF, RR
+    and junk mates, inserts of 80-700 bp."""
+    rng = np.random.default_rng(seed)
+    r1s, r2s = [], []
+    for _ in range(n):
+        s1 = int(rng.integers(0, len(ref) - 200))
+        s2 = min(s1 + int(rng.integers(80, 700)) - L, len(ref) - L)
+        a, b = ref[s1 : s1 + L], ref[max(s2, 0) : max(s2, 0) + L]
+        layout = int(rng.integers(0, 5))
+        r1s.append((a, _rc(a), a, _rc(a), a)[layout])
+        r2s.append((_rc(b), b, b, _rc(b), ACGT[rng.integers(0, 4, L)].tobytes())[layout])
+    return r1s, r2s
+
+
+def _pairs_equal(got, want):
+    for mate in ("r1", "r2"):
+        _result_equal(got[mate], want[mate])
+    for key in ("proper", "insert"):
+        assert got[key].dtype == want[key].dtype
+        np.testing.assert_array_equal(got[key], want[key])
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_map_pairs_fuzz_matches_jax(seed):
+    rng = np.random.default_rng(40 + seed)
+    ref = ACGT[rng.integers(0, 4, 12_000)].tobytes()
+    ji = jmapper.MinimizerIndex.build(ref, k=13, w=8)
+    ti = mapper.MinimizerIndex.build(ref, k=13, w=8, device=CPU)
+    r1s, r2s = _pairs(seed, ref)
+    r2s[3] = r2s[3][:90]  # a narrower mate: the batches widen to one W
+    kw = dict(min_insert=150, max_insert=450)
+    want = jmapper.map_pairs(ji, JPackedReads.from_ascii(r1s), JPackedReads.from_ascii(r2s), **kw)
+    got = mapper.map_pairs(ti, PackedReads.from_ascii(r1s, device=CPU),
+                           PackedReads.from_ascii(r2s, device=CPU), **kw)
+    _pairs_equal(got, want)
+    assert got["proper"].any() and not got["proper"].all()
+
+
+def test_map_pairs_proper_discordant_rf_and_mismatched():
+    rng = np.random.default_rng(8)
+    ref = ACGT[rng.integers(0, 4, 8000)].tobytes()
+    ji = jmapper.MinimizerIndex.build(ref, k=13, w=8)
+    ti = mapper.MinimizerIndex.build(ref, k=13, w=8, device=CPU)
+    frag = ref[2000:2400]
+    r1s = [frag[:120], ref[500:620], ref[3000:3120], ref[4000:4120], _rc(ref[5000:5120])]
+    r2s = [_rc(frag[-120:]), _rc(ref[6000:6120]), ref[3200:3320],
+           ACGT[rng.integers(0, 4, 120)].tobytes(), ref[5300:5420]]  # proper, far, FF, junk, RF
+    kw = dict(min_insert=100, max_insert=800, bin_bits=4, pad=24)
+    want = jmapper.map_pairs(ji, JPackedReads.from_ascii(r1s), JPackedReads.from_ascii(r2s), **kw)
+    got = mapper.map_pairs(ti, PackedReads.from_ascii(r1s, device=CPU),
+                           PackedReads.from_ascii(r2s, device=CPU), **kw)
+    _pairs_equal(got, want)
+    assert got["proper"].tolist() == [True, False, False, False, False]
+    assert got["insert"].tolist() == [400, -1, -1, -1, -1]
+    with pytest.raises(ValueError, match="mate batches differ"):
+        mapper.map_pairs(ti, PackedReads.from_ascii(r1s[:1], device=CPU),
+                         PackedReads.from_ascii(r2s[:2], device=CPU))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        mapper.map_pairs(ti, PackedReads.from_ascii(r1s, device=CPU),
+                         PackedReads.from_ascii(r2s, device=CPU), mesh=object())
