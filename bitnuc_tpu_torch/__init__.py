@@ -28,6 +28,9 @@ with a plain PyTorch version beside it for CPU tensors:
   — K8 ``fit_banded``
 * ``ops.align.sw_score`` — K9 ``sw_score``
 * ``ops.orf.longest_orf`` — K10 ``orf_scan``, once for both strands
+* ``ops.chain.chain_anchors`` (the chaining of ``mapper.map_reads_long``) —
+  C1 ``chain``, the device loop of the JAX package's chaining scan (it
+  replaces no TPU kernel)
 
 ``hdist_search_batch`` searches as ``PackedDB.search_batch`` does (K4/K5,
 or K6's ``tc_search``). ``ops.merge_pairs.merge_pairs`` merges read pairs
@@ -36,7 +39,11 @@ counting for any k <= 32 (``count_kmers_sorted``, ``count_kmers_runs``,
 and ``pipeline.count_fastq``/``count_fasta`` above k = 12) sorts with
 ``torch.sort``. Short reads map with
 ``mapper.MinimizerIndex.build_multi``, ``mapper.map_reads`` and
-``mapper.traceback_cigars``. ``ops.split`` slices packed reads and
+``mapper.traceback_cigars``; long reads with ``mapper.map_reads_long``,
+read pairs with ``mapper.map_pairs``; ``ops.pileup.call_variants`` calls
+SNPs and indels from a mapping, and ``minimizer_sketch`` with
+``sketch_jaccard`` and ``sketch_containment`` (and their pair-key forms for
+k up to 31) compares sequence sets. ``ops.split`` slices packed reads and
 ``ops.orf.translate_reads`` translates them.
 
 Entry points that put host data on a device use the card unless their
@@ -82,6 +89,14 @@ from .ops.kmer import (  # noqa: F401
     count_kmers_runs,
     count_kmers_sorted,
     minimizer_positions,
+    minimizer_sketch,
+    minimizer_sketch64,
+    minimizers,
+    minimizers64,
+    sketch_containment,
+    sketch_containment64,
+    sketch_jaccard,
+    sketch_jaccard64,
     spectrum,
     top_kmers,
 )
@@ -91,7 +106,7 @@ from .sequence import PackedReads, PackedSequence, stack_sequences  # noqa: F401
 from . import io, mapper, pipeline  # noqa: F401
 from .ops import orf, split  # noqa: F401
 from .io import read_fasta  # noqa: F401
-from .mapper import MinimizerIndex, map_reads  # noqa: F401
+from .mapper import MinimizerIndex, map_pairs, map_reads, map_reads_long  # noqa: F401
 
 __all__ = [
     "as_2bit",
@@ -114,6 +129,10 @@ __all__ = [
     "count_kmers_reads",
     "count_kmers_sorted",
     "count_kmers_runs",
+    "minimizers",
+    "minimizer_sketch",
+    "sketch_containment",
+    "sketch_jaccard",
     "combine_counts",
     "combine_dicts",
     "read_fasta",

@@ -625,6 +625,145 @@ def minimizer_positions64(
     )
 
 
+# -- minimizers and sketches -------------------------------------------------------
+
+
+def _sliding_min(keys: torch.Tensor, w: int, fill) -> torch.Tensor:
+    """out[..., p] = unsigned min(keys[..., p : p + w]), ``fill`` past the
+    row end (the doubling scheme of _argmin_doubling, value only)."""
+    assert w >= 1
+    f = bitops.flip_sign
+    (v,) = _argmin_doubling((f(keys),), w, (fill ^ bitops.SIGN_BIT,))
+    return f(v)
+
+
+def _sliding_min2(hi: torch.Tensor, lo: torch.Tensor, w: int, fill):
+    """Unsigned lexicographic (hi, lo) sliding minimum over each w-window:
+    (min hi, min lo)."""
+    assert w >= 1
+    f = bitops.flip_sign
+    ff = fill ^ bitops.SIGN_BIT
+    h, l = _argmin_doubling((f(hi), f(lo)), w, (ff, ff))
+    return f(h), f(l)
+
+
+def _window_valid(L: int, lengths: torch.Tensor, k: int, w: int, device) -> torch.Tensor:
+    """[..., L] True where the window starting at p ends inside the read."""
+    p = torch.arange(L, dtype=torch.int32, device=device)
+    return p <= (lengths.to(torch.int32)[..., None] - (k + w - 1))
+
+
+def minimizers(words: torch.Tensor, lengths: torch.Tensor, k: int, w: int,
+               canonical: bool = False):
+    """(w,k)-minimizers, k <= 16: (vals [..., L] int32 views, valid [..., L]
+    bool). Position p holds the unsigned min of the k-mers at p..p+w-1,
+    valid iff p + k + w - 1 <= length; the sentinel elsewhere."""
+    assert 1 <= k <= 16, "minimizer keys are u32 (k <= 16)"
+    lo, _, valid_k = _window_keys(words, lengths, k, canonical)
+    vals = _sliding_min(torch.where(valid_k, lo, SENT), w, SENT)
+    valid = _window_valid(lo.shape[-1], lengths, k, w, lo.device)
+    return torch.where(valid, vals, SENT), valid
+
+
+def _distinct_front(s: torch.Tensor, live: torch.Tensor):
+    """The live entries of a sorted sketch moved to the front, ascending,
+    the sentinel behind them."""
+    return _sort_u32(torch.where(live, s, SENT))
+
+
+def minimizer_sketch(words: torch.Tensor, lengths: torch.Tensor, k: int, w: int,
+                     canonical: bool = False):
+    """The distinct (w,k)-minimizer values of a batch, ascending: (vals [N]
+    int32 views, n_unique 0-d int32); entries past n_unique are the
+    all-ones sentinel. k <= 15: at k = 16 the all-T key equals it."""
+    assert 1 <= k <= 15, "sketch keys must leave sentinel headroom (k <= 15)"
+    vals, _ = minimizers(words, lengths, k, w, canonical)
+    s = _sort_u32(vals.reshape(-1))  # invalid slots are already the sentinel
+    live = _run_starts(s) & (s != SENT)
+    return _distinct_front(s, live), live.sum(dtype=torch.int32)
+
+
+def _overlap(first: torch.Tensor, live: torch.Tensor):
+    """(intersection, union) of two merged sorted-distinct sketches: a value
+    in both forms a run of exactly 2."""
+    counts = _run_start_counts(first)
+    inter = (live & (counts == 2)).sum(dtype=torch.int32)
+    return inter, live.sum(dtype=torch.int32)
+
+
+def _sketch_overlap(a_vals: torch.Tensor, b_vals: torch.Tensor):
+    """(intersection, union) sizes of two minimizer_sketch outputs."""
+    merged = _sort_u32(torch.cat([a_vals, b_vals]))
+    first = _run_starts(merged)
+    return _overlap(first, first & (merged != SENT))
+
+
+def _ratio(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
+    """float32 num / den, 0.0 where den is 0."""
+    q = num.to(torch.float32) / torch.clamp(den, min=1).to(torch.float32)
+    return torch.where(den > 0, q, torch.zeros_like(q))
+
+
+def sketch_jaccard(a_vals: torch.Tensor, b_vals: torch.Tensor) -> torch.Tensor:
+    """Jaccard similarity |A n B| / |A u B| of two minimizer_sketch outputs
+    (float32; 0.0 when both are empty)."""
+    inter, union = _sketch_overlap(a_vals, b_vals)
+    return _ratio(inter, union)
+
+
+def sketch_containment(a_vals: torch.Tensor, b_vals: torch.Tensor) -> torch.Tensor:
+    """Containment |A n B| / |A| of sketch A within sketch B (float32; 0.0
+    for an empty A)."""
+    inter, _ = _sketch_overlap(a_vals, b_vals)
+    return _ratio(inter, (a_vals != SENT).sum(dtype=torch.int32))
+
+
+def minimizers64(words: torch.Tensor, lengths: torch.Tensor, k: int, w: int,
+                 canonical: bool = False):
+    """(w,k)-minimizers with (lo, hi) pair keys, k <= 31, unsigned
+    lexicographic (hi, lo) minima: (lo [..., L], hi [..., L], valid [...,
+    L]); invalid slots hold the sentinel in both words."""
+    assert 1 <= k <= 31, "minimizer keys must leave sentinel headroom"
+    lo, hi, valid_k = _window_keys(words, lengths, k, canonical)
+    hi_m, lo_m = _sliding_min2(torch.where(valid_k, hi, SENT), torch.where(valid_k, lo, SENT),
+                               w, SENT)
+    valid = _window_valid(lo.shape[-1], lengths, k, w, lo.device)
+    valid = valid & ((hi_m != SENT) | (lo_m != SENT))
+    return torch.where(valid, lo_m, SENT), torch.where(valid, hi_m, SENT), valid
+
+
+def minimizer_sketch64(words: torch.Tensor, lengths: torch.Tensor, k: int, w: int,
+                       canonical: bool = False):
+    """minimizer_sketch with pair keys, k <= 31: (lo [N], hi [N], n_unique),
+    the distinct keys ascending by unsigned (hi, lo), then the sentinel
+    pair."""
+    assert 1 <= k <= 31, "sketch keys must leave sentinel headroom (k <= 31)"
+    lo_m, hi_m, _ = minimizers64(words, lengths, k, w, canonical)
+    hi_s, lo_s = _sort_pairs(hi_m.reshape(-1), lo_m.reshape(-1))
+    live = _run_starts(hi_s, lo_s) & ((hi_s != SENT) | (lo_s != SENT))
+    hi_c, lo_c = _sort_pairs(torch.where(live, hi_s, SENT), torch.where(live, lo_s, SENT))
+    return lo_c, hi_c, live.sum(dtype=torch.int32)
+
+
+def _sketch_overlap64(a_lo, a_hi, b_lo, b_hi):
+    """(intersection, union) of two minimizer_sketch64 outputs."""
+    hi, lo = _sort_pairs(torch.cat([a_hi, b_hi]), torch.cat([a_lo, b_lo]))
+    first = _run_starts(hi, lo)
+    return _overlap(first, first & ((hi != SENT) | (lo != SENT)))
+
+
+def sketch_jaccard64(a_lo, a_hi, b_lo, b_hi) -> torch.Tensor:
+    """Jaccard similarity of two minimizer_sketch64 outputs (float32)."""
+    inter, union = _sketch_overlap64(a_lo, a_hi, b_lo, b_hi)
+    return _ratio(inter, union)
+
+
+def sketch_containment64(a_lo, a_hi, b_lo, b_hi) -> torch.Tensor:
+    """Containment |A n B| / |A| of 64-bit sketch A within B (float32)."""
+    inter, _ = _sketch_overlap64(a_lo, a_hi, b_lo, b_hi)
+    return _ratio(inter, ((a_hi != SENT) | (a_lo != SENT)).sum(dtype=torch.int32))
+
+
 def minimizer_sketch_mask(positions: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """True where a valid window's minimizer position differs from the
     previous window's: one selected window per minimizer occurrence."""

@@ -180,10 +180,8 @@ def test_oracle_alignment_matches_jax(name, kw):
         assert getattr(oracle, name)(a, b, **kw) == getattr(joracle, name)(a, b, **kw)
 
 
-# JAX's exports that wait for their modules: the sketch family, lookup,
-# dedupe, assembly and the other mappers
-NOT_YET = {"minimizers", "minimizer_sketch", "sketch_containment", "sketch_jaccard",
-           "lookup_counts", "kmer_hits_reads", "screen_reads", "solid_prefix_len",
+# JAX's exports that wait for their modules: lookup and dedupe
+NOT_YET = {"lookup_counts", "kmer_hits_reads", "screen_reads", "solid_prefix_len",
            "mark_duplicates", "dedupe_reads"}
 
 
@@ -197,7 +195,10 @@ def test_exports_follow_jax():
                if n not in NOT_YET and n not in bitnuc_tpu_torch.__all__]
     assert missing == []
     assert all(hasattr(bitnuc_tpu_torch, n) for n in bitnuc_tpu_torch.__all__)
-    for name in ("MinimizerIndex", "map_reads", "hdist_one_to_many", "windowed_gc"):
+    for name in ("MinimizerIndex", "map_reads", "hdist_one_to_many", "windowed_gc",
+                 "map_pairs", "map_reads_long", "minimizer_sketch", "sketch_jaccard",
+                 "minimizers64", "minimizer_sketch64", "sketch_jaccard64",
+                 "sketch_containment64"):
         assert hasattr(bitnuc_tpu_torch, name) and hasattr(bitnuc_tpu, name)
     assert bitnuc_tpu_torch.hdist_search_batch.__name__ == "hdist_topk_batch"
     assert bitnuc_tpu_torch.as_2bit(b"ACGT") == bitnuc_tpu.as_2bit(b"ACGT")

@@ -16,11 +16,12 @@ import torch
 
 import jax.numpy as jnp
 
-from bitnuc_tpu import database as jdatabase, io as jio, pipeline as jpipeline
-from bitnuc_tpu.ops import analysis as janalysis, hamming as jham, merge_pairs as jmerge_pairs
-from bitnuc_tpu_torch import database, io as tio, pipeline
+from bitnuc_tpu import database as jdatabase, io as jio, mapper as jmapper, pipeline as jpipeline
+from bitnuc_tpu.ops import analysis as janalysis, chain as jchain, hamming as jham
+from bitnuc_tpu.ops import kmer as jkmer, merge_pairs as jmerge_pairs, pileup as jpileup
+from bitnuc_tpu_torch import database, io as tio, mapper, pipeline
 from bitnuc_tpu_torch.errors import InvalidBase
-from bitnuc_tpu_torch.ops import analysis, hamming, merge_pairs
+from bitnuc_tpu_torch.ops import analysis, chain, hamming, kmer, merge_pairs, pileup
 from bitnuc_tpu_torch.utils.bitops import words_from_u32_np
 from conftest import random_seq
 
@@ -41,11 +42,26 @@ PAIRS = {
     "merge_pairs": (merge_pairs.merge_pairs, jmerge_pairs.merge_pairs),
     "windowed_gc": (analysis.windowed_gc, janalysis.windowed_gc),
     "hdist_topk_batch": (hamming.hdist_topk_batch, jham.hdist_topk_batch),
+    "chain_anchors": (chain.chain_anchors, jchain.chain_anchors),
+    "map_reads_long": (mapper.map_reads_long, jmapper.map_reads_long),
+    "map_pairs": (mapper.map_pairs, jmapper.map_pairs),
 }
-# functions of tensors follow their inputs' device, and the host-only
-# parsers put nothing on one: no `device` parameter
+PAIRS.update({name: (getattr(pileup, name), getattr(jpileup, name)) for name in (
+    "pileup_counts", "consensus_calls", "pileup_counts_ops", "_insertion_consensus",
+    "call_variants")})
+PAIRS.update({name: (getattr(kmer, name), getattr(jkmer, name)) for name in (
+    "minimizers", "minimizer_sketch", "sketch_jaccard", "sketch_containment", "_sliding_min2",
+    "minimizers64", "minimizer_sketch64", "sketch_jaccard64", "sketch_containment64")})
+# functions of tensors follow their inputs' device, the host-only parsers put
+# nothing on one, and the mappers and the caller follow the index's: no
+# `device` parameter
 NO_DEVICE = ("search", "search_batch", "topk_batch_dispatch", "iter_fastq_ascii_batches",
-             "iter_fastq_record_batches", "merge_pairs", "windowed_gc", "hdist_topk_batch")
+             "iter_fastq_record_batches", "merge_pairs", "windowed_gc", "hdist_topk_batch",
+             "chain_anchors", "map_reads_long", "map_pairs", "pileup_counts",
+             "consensus_calls", "pileup_counts_ops", "_insertion_consensus", "call_variants",
+             "minimizers", "minimizer_sketch", "sketch_jaccard", "sketch_containment",
+             "_sliding_min2", "minimizers64", "minimizer_sketch64", "sketch_jaccard64",
+             "sketch_containment64")
 
 
 @pytest.fixture
