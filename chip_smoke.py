@@ -23,8 +23,8 @@ Phases, each of which must pass:
 1. Device: the card's name and power limit, and the kernel build (all of
    bitnuc_tpu_torch/csrc/*.cu with nvcc, timed); the registers, shared
    memory and spills of pack.cu (K1), unpack.cu (K2), histogram.cu (K3a,
-   K3b), tcscan.cu (K6), merge.cu (K7), wavefront.cu (K8, K9) and orf.cu
-   (K10).
+   K3b), tcscan.cu (K6), merge.cu (K7), wavefront.cu (K8, K9), orf.cu
+   (K10) and chain.cu (C1).
 2. Every kernel against its plain PyTorch version on the card, bit for bit:
    K1 pack (at the flagship's batch, a count batch, reads of 300, 1,000
    and 4,000 bp, 64 rows of 16,384 bp, phase 6's genome as one row and a
@@ -102,9 +102,28 @@ Phases, each of which must pass:
    InvalidBase on phase 5's FASTQ), hdist_topk_batch of phase 8's queries
    against search_batch (timed beside it), and windowed_gc of phase 8's
    contigs against a numpy float32 model.
+10. Long reads, pairs, calls and sketches, on phase 6's genome and phase
+   7's index. map --long: 8,192 reads of 1,000-10,000 bp from both strands
+   (1% substitutions, 0.5% one-base insertions and 0.5% deletions) as FASTQ,
+   read with read_fastq_fast (K1) and mapped with map_reads_long (C1 chain)
+   at the CLI's settings; checked against the true spans, the 256 shortest
+   reads against the plain backend, 64 reads against a CPU run, and with
+   extend=True on 1,024 reads of 1,000-3,000 bp, 16 fits against a host
+   full-DP oracle. C1 against its plain version at the sub-batch's anchors,
+   a chunk's (timed) and edge shapes; the chunk's seeding, sort and the
+   unbanded extension fit timed. map --paired: map_pairs of 262,144 pairs
+   (fragments of 200-800 bp, 1% RF, 1% split) against map_reads of the
+   stacked batch and the pairing rule, and against the truth. call: a donor
+   of the genome's first 1,000,000 bp with 1,000 SNPs and 100 indels,
+   200,000 reads of 150 bp mapped and called in both modes; the grid against
+   np.add.at, the calls against the planted variants, the path against the
+   plain backend. sketch: minimizer_sketch (k = 15) and minimizer_sketch64
+   (k = 21) of the genome FASTA and of 262,144 reads, against a host set
+   model.
 
 The launch counters are set to 0 just before each main path (phases 4 and
-5 under the default backend, phases 6, 7, 8 and 9) and read just after it; every
+5 under the default backend, phases 6, 7, 8 and 9, and each path of phase
+10) and read just after it; every
 kernel of that path must have launched there, and the flagship step alone
 must make two K3b launches (its plain and canonical k = 8 counts) and no K3a
 launch. The last lines printed are a
@@ -869,6 +888,7 @@ def mapping_phase(args, torch, dev, timer, results, fa, genome, reads, true_star
         c, s0, e0 = fit_oracle(qa[i, : lens_np[r]], wb_[i, : wl[i]])
         want_f.append((c, int(ws_h[i] * 16 + s0), int(ws_h[i] * 16 + e0)))
     check(f"{len(rows)} fits == host full-DP oracle (cost, start, end)", got_f == want_f)
+    return index
 
 
 SEARCH_TOPK = 10
@@ -1432,6 +1452,622 @@ def public_phase(args, torch, dev, timer, results, tmp, db_wm, queries, contigs,
           f"readers {ph['readers_s']:.2f} s, stats {ph['stats_s']:.2f} s)", flush=True)
 
 
+# -- phase 10: long reads, pairs, calls and sketches --------------------------------
+
+LONG_READS = 8_192
+LONG_MIN, LONG_MAX = 1_000, 10_000
+LONG_SUB, LONG_INS, LONG_DEL = 0.01, 0.005, 0.005
+LONG_MIN_CHAIN = MAP_MIN_SEEDS  # bitnuc-tpu map --long passes --min-seeds as min_chain
+LONG_TOL = 100  # bp between a chain's ends and the true span's
+LONG_SUBBATCH = 256  # the shortest reads, also run under the plain backend
+LONG_CPU_READS = 64  # reads of 1,000-2,000 bp also mapped on the CPU
+LONG_EXTEND_READS = 1_024  # reads of 1,000-3,000 bp mapped with extend=True
+LONG_ORACLE = 16  # of them, fits held to fit_oracle
+PAIRS = 262_144
+PAIR_LEN = 150
+PAIR_FRAG_MIN, PAIR_FRAG_MAX = 200, 800
+PAIR_SUB = 0.001
+CALL_BP = 1_000_000
+CALL_SNPS = 1_000
+CALL_INDELS = 100
+CALL_READS = 200_000
+CALL_LEN = 150
+CALL_SUB = 0.001
+CALL_NEAR = 150  # SNP checks skip sites this close to a planted indel
+SKETCH_READS = 262_144
+SKETCH_W = 10
+SKETCH_K, SKETCH_K64 = 15, 21
+# C1 counted as the function needs it, a slot a step: the two differences
+# (2), the five tests of a predecessor (5), the drift and its penalty (2),
+# the candidate and its select (2) and the running max (2): 13. The four
+# tie-breaking maxima of a step that extends its chain are left out, so the
+# bound stays below the work. A step i of a row compares min(i, LB) filled
+# slots, up to the row's last live anchor.
+CHAIN_OPS_PER_SLOT = 13
+LONG_LAUNCHES = {}
+
+
+def comp_table() -> np.ndarray:
+    comp = np.arange(256, dtype=np.uint8)
+    comp[np.frombuffer(b"ACGTN", np.uint8)] = np.frombuffer(b"TGCAN", np.uint8)
+    return comp
+
+
+def make_long_reads(rng, genome: np.ndarray, n: int):
+    """n reads of LONG_MIN-LONG_MAX bp (uniform) from both strands with
+    LONG_SUB substitutions and LONG_INS / LONG_DEL one-base insertions and
+    deletions: (list of ASCII reads, true forward starts, true span lengths,
+    reverse flags)."""
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    comp = comp_table()
+    spans = rng.integers(LONG_MIN, LONG_MAX + 1, n)
+    starts = rng.integers(0, len(genome) - spans)
+    rev = rng.random(n) < 0.5
+    reads = []
+    for s, m, r in zip(starts.tolist(), spans.tolist(), rev.tolist()):
+        src = genome[s : s + m].copy()
+        u = rng.random(m)
+        sub = u < LONG_SUB
+        src[sub] = acgt[(np.searchsorted(acgt, src[sub]) + rng.integers(1, 4, int(sub.sum()))) % 4]
+        dele = (u >= LONG_SUB) & (u < LONG_SUB + LONG_DEL)
+        ins = (u >= LONG_SUB + LONG_DEL) & (u < LONG_SUB + LONG_DEL + LONG_INS)
+        rep = np.where(dele, 0, np.where(ins, 2, 1))
+        out = np.repeat(src, rep)
+        out[np.cumsum(rep)[ins] - 1] = acgt[rng.integers(0, 4, int(ins.sum()))]
+        reads.append((comp[out[::-1]] if r else out).tobytes())
+    return reads, starts, spans, rev
+
+
+def write_fastq_records(path: str, seqs) -> None:
+    """Variable-length records @l<i>, the sequence, '+', all-'I' qualities."""
+    with open(path, "wb") as f:
+        f.write(b"".join(b"@l%d\n%s\n+\n%s\n" % (i, s, b"I" * len(s)) for i, s in enumerate(seqs)))
+
+
+def long_anchors(torch, mapper, index, words, lengths):
+    """The sorted anchors that map_reads_long chains for a batch: (r, q)
+    [2B, A] int32, both strands."""
+    from bitnuc_tpu_torch.ops import chain, revcomp
+
+    lengths = lengths.to(torch.int32)
+    rc = revcomp.reverse_complement_reads(words, lengths)
+    cand, qp, hit = mapper._seed_anchors(torch.cat([words, rc]), torch.cat([lengths, lengths]),
+                                         index.keys, index.keys_hi, index.pos, index.k, index.w)
+    M = cand.shape[1] * cand.shape[2]
+    rpos = torch.where(hit, cand, -1).reshape(-1, M)
+    qpos = qp[:, :, None].expand(cand.shape).reshape(-1, M)
+    r, q = chain.sort_anchors(rpos, qpos, rpos >= 0)
+    return r.contiguous(), q.contiguous()
+
+
+def chain_work(torch, r, lookback: int):
+    """(live anchors, slot comparisons, bytes) of C1 over sorted anchors:
+    step i of a row compares min(i, LB) filled slots, up to its last live
+    anchor; it reads its live anchors (and the first dead one) and writes 5
+    ints a row."""
+    from bitnuc_tpu_torch.ops import chain
+
+    LB = min(lookback, r.shape[1])
+    n = (r < chain._BIG).sum(1).to(torch.int64)
+    head = torch.clamp(n, max=LB)
+    slots = head * (head - 1) // 2 + torch.clamp(n - LB, min=0) * LB
+    nbytes = 8 * int(torch.clamp(n + 1, max=r.shape[1]).sum()) + 20 * r.shape[0]
+    return int(n.sum()), int(slots.sum()), nbytes
+
+
+def plant_variants(rng, ref: np.ndarray):
+    """CALL_SNPS SNPs and CALL_INDELS indels of 1-8 bp (half deletions, half
+    insertions) in ref, clear of N runs and 30 bp apart, each indel with a
+    unique placement (no equal-cost shift: a deletion of ref[p:p+n] needs
+    ref[p] != ref[p+n] and ref[p-1] != ref[p+n-1]; an insertion S before p
+    needs S[0] != ref[p] and S[-1] != ref[p-1]). Returns (donor, snps {pos:
+    alt code}, dels {pos: len}, ins {pos: bytes})."""
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    n = len(ref)
+    sites = set()
+    snps, dels, ins = {}, {}, {}
+    bad = ~np.isin(ref, acgt)
+    near_n = np.convolve(bad, np.ones(41), "same") > 0  # within 20 bp of an N
+
+    def free(p):
+        return 40 <= p < n - 40 and not near_n[p] and all(abs(p - q) >= 30 for q in sites)
+
+    while len(dels) + len(ins) < CALL_INDELS:
+        p = int(rng.integers(40, n - 40))
+        if not free(p):
+            continue
+        L = int(rng.integers(1, 9))
+        if len(dels) < CALL_INDELS // 2:
+            if ref[p] == ref[p + L] or ref[p - 1] == ref[p + L - 1]:
+                continue
+            dels[p] = L
+        else:
+            s = acgt[rng.integers(0, 4, L)]
+            if s[0] == ref[p] or s[-1] == ref[p - 1]:
+                continue
+            ins[p] = s.tobytes()
+        sites.add(p)
+    while len(snps) < CALL_SNPS:
+        p = int(rng.integers(40, n - 40))
+        if not free(p):
+            continue
+        code = int(np.searchsorted(acgt, ref[p]))
+        snps[p] = (code + int(rng.integers(1, 4))) % 4
+        sites.add(p)
+    pieces, last = [], 0
+    for p in sorted(sites):
+        pieces.append(ref[last:p].tobytes())
+        if p in snps:
+            pieces.append(acgt[snps[p] : snps[p] + 1].tobytes())
+            last = p + 1
+        elif p in dels:
+            last = p + dels[p]
+        else:
+            pieces.append(ins[p])
+            last = p
+    pieces.append(ref[last:].tobytes())
+    return np.frombuffer(b"".join(pieces), np.uint8), snps, dels, ins
+
+
+def donor_reads(rng, donor: np.ndarray, n: int, L: int, sub: float) -> np.ndarray:
+    """n reads of L bp from uniform donor positions on both strands with
+    ``sub`` substitutions: ASCII [n, L]."""
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    starts = rng.integers(0, len(donor) - L + 1, n)
+    reads = np.lib.stride_tricks.sliding_window_view(donor, L)[starts].copy()
+    rev = rng.random(n) < 0.5
+    reads[rev] = comp_table()[reads[rev, ::-1]]
+    hits = (rng.random(reads.shape) < sub) & np.isin(reads, acgt)
+    codes = np.searchsorted(acgt, reads[hits])
+    reads[hits] = acgt[(codes + rng.integers(1, 4, codes.size)) % 4]
+    return reads
+
+
+def host_minimizer_set(codes_rows, k: int, w: int) -> np.ndarray:
+    """The distinct (w,k)-minimizer keys (uint64, ascending) of equal-length
+    code rows [n, L] by numpy: every window of w consecutive k-mer keys
+    that ends inside a row, its minimum."""
+    n, L = codes_rows.shape
+    nk = L - k + 1
+    keys = np.zeros((n, nk), np.uint64)
+    for j in range(k):
+        keys |= codes_rows[:, j : j + nk].astype(np.uint64) << np.uint64(2 * j)
+    mins = np.lib.stride_tricks.sliding_window_view(keys, w, axis=1).min(-1)
+    return np.unique(mins)
+
+
+def long_calls_phase(args, torch, dev, timer, results, fa, genome, reads_g, index, compare,
+                     timed):
+    """Phase 10: long reads (map_reads_long, C1 chain), read pairs
+    (map_pairs), variant calls (call_variants, both modes) and sketches,
+    with the checks."""
+    import bitnuc_tpu_torch as bnt
+    from bitnuc_tpu_torch import config, io as bnio, kernels, mapper
+    from bitnuc_tpu_torch.ops import align, chain, kmer, pileup
+    from bitnuc_tpu_torch.sequence import PackedReads
+    from bitnuc_tpu_torch.utils import bitops
+
+    ph = results["phases"]
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(args.seed + 10)
+    k = index.k
+    print(f"phase 10: long reads, pairs, calls and sketches (index k = {k}, w = {index.w}, "
+          f"max_occ = {index.max_occ})", flush=True)
+
+    # -- long reads: the path, with the counters set to 0 just before it -----
+    t = time.perf_counter()
+    long_reads, l_start, l_span, l_rev = make_long_reads(rng, genome, LONG_READS)
+    lq_path = os.path.join(os.path.dirname(fa), "long.fq")
+    write_fastq_records(lq_path, long_reads)
+    ph["long_write_s"] = time.perf_counter() - t
+    long_kw = dict(min_chain=LONG_MIN_CHAIN, max_gap=2048, gap_unit=16, lookback=64)
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    packed = bnio.read_fastq_fast(lq_path, validate=False, device=dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    res = mapper.map_reads_long(index, packed, **long_kw)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    LONG_LAUNCHES.update(kernels.LAUNCHES)
+    for name in ("pack", "chain"):
+        check(f"{name} launched on the long-read path", LONG_LAUNCHES[name] > 0,
+              f"{LONG_LAUNCHES[name]} launches")
+    lens = packed.lengths.cpu().numpy()
+    bases = int(lens.sum())
+    W = packed.words.shape[1]
+    chunk = mapper._long_chunk(W, index, False, 32)
+    ph.update(long_read_s=t1 - t0, long_map_s=t2 - t1, long_reads_per_s=LONG_READS / (t2 - t1),
+              long_bases_per_s=bases / (t2 - t1), long_chunk=chunk)
+    print(f"  {LONG_READS} reads, {bases} bases, W = {W}; read_fastq_fast {t1 - t0:.2f} s; "
+          f"map_reads_long {t2 - t1:.2f} s ({ph['long_reads_per_s']:.0f} reads/s, "
+          f"{ph['long_bases_per_s']:.0f} bases/s) in chunks of {chunk}; launches "
+          f"{LONG_LAUNCHES}", flush=True)
+    check("read_fastq_fast gives every long read", lens.tolist() == [len(r) for r in long_reads])
+    span = [genome[s : s + m] for s, m in zip(l_start.tolist(), l_span.tolist())]
+    clean = np.array([(x != ord("N")).all() for x in span])
+    ok = (res["mapped"] & ((res["strand"] == b"-") == l_rev)
+          & (np.abs(res["ref_start"] - l_start) <= LONG_TOL)
+          & (np.abs(res["ref_end"] + k - (l_start + l_span)) <= LONG_TOL))
+    frac = ok[clean].mean()
+    ph["long_placed_fraction"] = float(frac)
+    check(f"reads clear of N runs: >= 99% mapped on the true strand, both ends within "
+          f"{LONG_TOL} bp", frac >= 0.99, f"{frac * 100:.3f}% of {int(clean.sum())}")
+
+    # -- the shortest reads under the plain backend; a CPU run -----------------
+    order = np.argsort(lens, kind="stable")
+    sub = torch.from_numpy(np.sort(order[:LONG_SUBBATCH])).to(dev)
+    sub_reads = PackedReads(words=packed.words[sub], lengths=packed.lengths[sub])
+    t = time.perf_counter()
+    with config.backend("torch"):
+        res_p = mapper.map_reads_long(index, sub_reads, **long_kw)
+    ph["long_plain_subbatch_s"] = time.perf_counter() - t
+    rows = sub.cpu().numpy()
+    check(f"the {LONG_SUBBATCH} shortest reads under backend('torch') == default backend, "
+          "every field", all(np.array_equal(res_p[f], res[f][rows]) for f in res))
+    mid = np.flatnonzero((lens >= 1000) & (lens <= 2000))[:LONG_CPU_READS]
+    Wm = bitops.n_words_for(int(lens[mid].max()))
+    mid_t = torch.from_numpy(mid).to(dev)
+    mid_reads = PackedReads(words=packed.words[mid_t, :Wm].contiguous(),
+                            lengths=packed.lengths[mid_t])
+    cpu_index = mapper.MinimizerIndex(
+        index.keys, index.pos, index.nocc, index.ref_words, index.ref_len, index.k, index.w,
+        index.max_occ, index.contig_starts, keys_hi=index.keys_hi, device="cpu")
+    got = mapper.map_reads_long(index, mid_reads, **long_kw)
+    want = mapper.map_reads_long(cpu_index, PackedReads(words=mid_reads.words.cpu(),
+                                                        lengths=mid_reads.lengths.cpu()),
+                                 **long_kw)
+    check(f"{len(mid)} reads of 1,000-2,000 bp on the card == a CPU run, every field",
+          all(np.array_equal(got[f], want[f]) for f in want))
+
+    # -- extend=True on reads of 1,000-3,000 bp --------------------------------
+    ext = np.flatnonzero((lens >= 1000) & (lens <= 3000))[:LONG_EXTEND_READS]
+    We = bitops.n_words_for(int(lens[ext].max()))
+    ext_t = torch.from_numpy(ext).to(dev)
+    ext_reads = PackedReads(words=packed.words[ext_t, :We].contiguous(),
+                            lengths=packed.lengths[ext_t])
+    ext_bases = int(lens[ext].sum())
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    chained = mapper.map_reads_long(index, ext_reads, **long_kw)
+    torch.cuda.synchronize()
+    t_chain = time.perf_counter() - t
+    t = time.perf_counter()
+    extended = mapper.map_reads_long(index, ext_reads, extend=True, **long_kw)
+    torch.cuda.synchronize()
+    t_ext = time.perf_counter() - t
+    ph.update(long_ext_reads=len(ext), long_ext_chain_reads_per_s=len(ext) / t_chain,
+              long_ext_chain_bases_per_s=ext_bases / t_chain,
+              long_ext_reads_per_s=len(ext) / t_ext, long_ext_bases_per_s=ext_bases / t_ext)
+    print(f"  {len(ext)} reads of 1,000-3,000 bp (W = {We}): without extend {t_chain:.3f} s "
+          f"({len(ext) / t_chain:.0f} reads/s, {ext_bases / t_chain:.0f} bases/s); with extend "
+          f"{t_ext:.3f} s ({len(ext) / t_ext:.0f} reads/s, {ext_bases / t_ext:.0f} bases/s)",
+          flush=True)
+    check("extend=True keeps the chains (score, strand, query span)",
+          all(np.array_equal(extended[f], chained[f])
+              for f in ("mapped", "strand", "q_start", "q_end", "chain_score")))
+    # the oracle: each read in its chosen orientation into _map_long_core's window
+    Lb = We * 16
+    Wwin = (Lb + Lb // 4 + 64) // 16 + 1
+    pick = np.flatnonzero(chained["mapped"])[:LONG_ORACLE]
+    ref_codes = ascii_codes(genome)
+    got_f, want_f = [], []
+    for i in pick.tolist():
+        a = ascii_codes(np.frombuffer(long_reads[ext[i]], np.uint8))  # N packs as A
+        if extended["strand"][i] == b"-":
+            a = 3 - a[::-1]
+        ws = max(int(chained["ref_start"][i]) - 32, 0) // 16
+        wlen = min(max(index.ref_len - ws * 16, 0), Wwin * 16)
+        c, s0, e0 = fit_oracle(a, ref_codes[ws * 16 : ws * 16 + wlen])
+        want_f.append((c, ws * 16 + s0, ws * 16 + e0))
+        got_f.append(tuple(int(extended[f][i]) for f in ("cost", "ref_start", "ref_end")))
+    bad = [(i, g, w_) for i, g, w_ in zip(pick.tolist(), got_f, want_f) if g != w_]
+    check(f"{len(pick)} extended fits == host full-DP oracle (cost, start, end)",
+          len(pick) == LONG_ORACLE and not bad, f"differing (row, got, want): {bad[:4]}")
+
+    # -- C1 against its plain version; the stages of a chunk --------------------
+    r_s, q_s = long_anchors(torch, mapper, index, sub_reads.words, sub_reads.lengths)
+    label = f"[{r_s.shape[0]}, {r_s.shape[1]}] the {LONG_SUBBATCH} shortest reads' anchors"
+    compare("chain", label, chain.chain_sorted_kernel(r_s, q_s, 2048, 16, 64),
+            chain.chain_sorted_torch(r_s, q_s, 2048, 16, 64))
+    del r_s, q_s
+    w_c, l_c = packed.words[:chunk], packed.lengths[:chunk]
+    l32 = l_c.to(torch.int32)
+    both_c = torch.cat([w_c, bnt.reverse_complement_reads(w_c, l32)])
+    l2 = torch.cat([l32, l32])
+    ph["long_seed_join_ms"] = timer(lambda: mapper._seed_anchors(
+        both_c, l2, index.keys, index.keys_hi, index.pos, index.k, index.w), 2)
+    r_c, q_c = long_anchors(torch, mapper, index, w_c, l_c)
+    A = r_c.shape[1]
+    cand_c, qp_c, hit_c = mapper._seed_anchors(both_c, l2, index.keys, index.keys_hi, index.pos,
+                                               index.k, index.w)
+    rpos_c = torch.where(hit_c, cand_c, -1).reshape(-1, A)
+    qpos_c = qp_c[:, :, None].expand(cand_c.shape).reshape(-1, A)
+    del cand_c, qp_c, hit_c, both_c
+    ph["long_sort_ms"] = timer(lambda: chain.sort_anchors(rpos_c, qpos_c, rpos_c >= 0), 2)
+    del rpos_c, qpos_c
+    live, slots, nbytes = chain_work(torch, r_c, 64)
+    label = f"[{r_c.shape[0]}, {A}] a chunk of {chunk} reads, {live} live anchors"
+    compare("chain", label, chain.chain_sorted_kernel(r_c, q_c, 2048, 16, 64),
+            chain.chain_sorted_torch(r_c, q_c, 2048, 16, 64))
+    timed("chain", label, lambda: chain.chain_sorted_kernel(r_c, q_c, 2048, 16, 64),
+          lambda: chain.chain_sorted_torch(r_c, q_c, 2048, 16, 64), reps=5, plain_reps=1,
+          main=True, nbytes=nbytes, ops_ms=slots * CHAIN_OPS_PER_SLOT / INT32_OPS_PER_S * 1e3)
+    ph.update(long_anchors_a_row=A, long_live_anchors=live, long_chain_slots=slots)
+    del r_c, q_c
+    # the unbanded extension fit of the extend batch (plain PyTorch: no kernel)
+    use_rc = torch.from_numpy(chained["strand"] == b"-").to(dev)
+    l_e = ext_reads.lengths.to(torch.int32)
+    q_words = torch.where(use_rc[:, None], bnt.reverse_complement_reads(ext_reads.words, l_e),
+                          ext_reads.words)
+    ws_t = torch.div(torch.clamp(torch.from_numpy(chained["ref_start"]).to(dev) - 32, min=0),
+                     16, rounding_mode="floor")
+    win, wlen = mapper._windows(ws_t, index.ref_words, index.ref_len, Wwin)
+    ph["long_unbanded_fit_ms"] = timer(
+        lambda: align.fit_distance_span(q_words, l_e, win, wlen, 1, 1), 1)
+    del q_words, win, wlen
+    print(f"  a chunk of {chunk} reads: A = {A} anchors a row, {live} live in all; seeding + "
+          f"join {ph['long_seed_join_ms']:.1f} ms, the sort {ph['long_sort_ms']:.1f} ms, C1 "
+          f"above; the unbanded fit of the {len(ext)}-read extend batch (M = {Lb}, N = "
+          f"{Wwin * 16}) {ph['long_unbanded_fit_ms']:.1f} ms", flush=True)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed + 10)
+    for B, Ae, lo_r, case in ((40, 33, 0, "random"), (33, 150, 0, "random"),
+                              (9, 200, -7000, "negative"), (17, 64, 0, "duplicates"),
+                              (12, 90, 0, "no valid"), (5, 1, 0, "random")):
+        r0 = torch.randint(lo_r, lo_r + 9000, (B, Ae), device=dev, dtype=torch.int32,
+                           generator=gen)
+        q0 = torch.sort(torch.randint(lo_r // 3, lo_r // 3 + 3000, (B, Ae), device=dev,
+                                      dtype=torch.int32, generator=gen), dim=1).values
+        r0 = torch.sort(r0, dim=1).values
+        if case == "duplicates":
+            r0, q0 = r0[:, : Ae // 4].repeat(1, 4), q0[:, : Ae // 4].repeat(1, 4)
+        v0 = torch.rand((B, Ae), device=dev, generator=gen) < (0.0 if case == "no valid"
+                                                                 else 0.85)
+        rs0, qs0 = chain.sort_anchors(r0, q0, v0)
+        rs0, qs0 = rs0.contiguous(), qs0.contiguous()
+        for lookback in (1, 64, Ae + 5):
+            for mg, gu in ((2048, 16), (0, 1), (300, 1000)):
+                compare("chain", f"[{B}, {Ae}] {case}, lookback {lookback}, max_gap {mg}, "
+                        f"gap_unit {gu}", chain.chain_sorted_kernel(rs0, qs0, mg, gu, lookback),
+                        chain.chain_sorted_torch(rs0, qs0, mg, gu, lookback))
+    del packed, sub_reads, mid_reads, ext_reads
+
+    # -- read pairs: map --paired -----------------------------------------------
+    t = time.perf_counter()
+    flen = rng.integers(PAIR_FRAG_MIN, PAIR_FRAG_MAX + 1, PAIRS)
+    fs = rng.integers(0, len(genome) - flen)
+    win = np.lib.stride_tricks.sliding_window_view(genome, PAIR_LEN)
+    left, right = win[fs].copy(), win[fs + flen - PAIR_LEN].copy()
+    comp = comp_table()
+    kind = rng.random(PAIRS)
+    rf = kind < 0.01
+    split = (kind >= 0.01) & (kind < 0.02)
+    flip = rng.random(PAIRS) < 0.5  # the fragment from the reverse strand: R1 is its right end
+    r1 = np.where(flip[:, None], comp[right[:, ::-1]], left)
+    r2 = np.where(flip[:, None], left, comp[right[:, ::-1]])
+    # RF: the '+' mate rightmost
+    r1[rf] = comp[left[rf, ::-1]]
+    r2[rf] = right[rf]
+    far = (fs[split] + rng.integers(20_000, len(genome) - 20_000, int(split.sum()))) \
+        % (len(genome) - PAIR_LEN)
+    r2[split] = win[far]
+    for r in (r1, r2):
+        hits = (rng.random(r.shape) < PAIR_SUB) & (r != ord("N"))
+        r[hits] = np.frombuffer(b"ACGT", np.uint8)[
+            (np.searchsorted(np.frombuffer(b"ACGT", np.uint8), r[hits])
+             + rng.integers(1, 4, int(hits.sum()))) % 4]
+    ph["pairs_make_s"] = time.perf_counter() - t
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    p1 = PackedReads.from_ascii(r1, validate=False, device=dev)
+    p2 = PackedReads.from_ascii(r2, validate=False, device=dev)
+    pr = mapper.map_pairs(index, p1, p2)
+    torch.cuda.synchronize()
+    ph["pairs_s"] = time.perf_counter() - t
+    ph["pairs_per_s"] = PAIRS / ph["pairs_s"]
+    pair_launches = dict(kernels.LAUNCHES)
+    for name in ("pack", "fit_banded"):
+        check(f"{name} launched on the paired path", pair_launches[name] > 0,
+              f"{pair_launches[name]} launches")
+    print(f"  {PAIRS} pairs, fragments {PAIR_FRAG_MIN}-{PAIR_FRAG_MAX} bp: map_pairs (with K1) "
+          f"{ph['pairs_s']:.2f} s ({ph['pairs_per_s']:.0f} pairs/s); launches {pair_launches}",
+          flush=True)
+    stacked = PackedReads(words=torch.cat([p1.words, p2.words]),
+                          lengths=torch.cat([p1.lengths, p2.lengths]))
+    both = mapper.map_reads(index, stacked)
+    m1 = {f: v[:PAIRS] for f, v in both.items()}
+    m2 = {f: v[PAIRS:] for f, v in both.items()}
+    plus1 = m1["strand"] == b"+"
+    ls = np.where(plus1, m1["ref_start"], m2["ref_start"])
+    re_ = np.where(plus1, m2["ref_end"], m1["ref_end"])
+    ins_h = re_ - ls
+    prop_h = (m1["mapped"] & m2["mapped"] & (m1["strand"] != m2["strand"])
+              & (ls <= np.where(plus1, m2["ref_start"], m1["ref_start"]))
+              & (ins_h >= 0) & (ins_h <= 1000))
+    check("map_pairs == map_reads of the stacked batch + the pairing rule on the host",
+          all(np.array_equal(pr["r1"][f], m1[f]) and np.array_equal(pr["r2"][f], m2[f])
+              for f in m1)
+          and np.array_equal(pr["proper"], prop_h)
+          and np.array_equal(pr["insert"], np.where(prop_h, ins_h, -1).astype(np.int32)))
+    true1 = np.where(flip, fs + flen - PAIR_LEN, fs)
+    true2 = np.where(flip, fs, fs + flen - PAIR_LEN)
+    conc = ~rf & ~split
+    at_true = (m1["mapped"] & m2["mapped"] & (m1["ref_start"] == true1)
+               & (m2["ref_start"] == true2) & ((m1["strand"] == b"-") == flip)
+               & ((m2["strand"] == b"-") == ~flip))
+    sel = conc & at_true
+    good = pr["proper"][sel] & (pr["insert"][sel] == flen[sel])
+    ph["pairs_proper_fraction"] = float(good.mean())
+    check("concordant pairs with both mates at their true starts: >= 99% proper, insert == "
+          "fragment length", good.mean() >= 0.99, f"{good.mean() * 100:.3f}% of {int(sel.sum())}")
+    check("no RF or split pair is proper", not pr["proper"][rf | split].any(),
+          f"{int(rf.sum())} RF, {int(split.sum())} split")
+    del p1, p2, stacked, both, r1, r2, left, right
+
+    # -- variant calls: call and call --cigar -------------------------------------
+    t = time.perf_counter()
+    ref = genome[:CALL_BP]
+    donor, snps, dels, ins = plant_variants(rng, ref)
+    creads = donor_reads(rng, donor, CALL_READS, CALL_LEN, CALL_SUB)
+    ph["calls_make_s"] = time.perf_counter() - t
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    cp = PackedReads.from_ascii(creads, validate=False, device=dev)
+    cres = mapper.map_reads(index, cp)
+    torch.cuda.synchronize()
+    t_map = time.perf_counter() - t
+    t = time.perf_counter()
+    calls = pileup.call_variants(index, cp, cres)
+    torch.cuda.synchronize()
+    t_gapless = time.perf_counter() - t
+    t = time.perf_counter()
+    calls_c = pileup.call_variants(index, cp, cres, max_cost=20, cigar=True)
+    torch.cuda.synchronize()
+    t_cigar = time.perf_counter() - t
+    call_launches = dict(kernels.LAUNCHES)
+    for name in ("pack", "fit_banded"):
+        check(f"{name} launched on the calling path", call_launches[name] > 0,
+              f"{call_launches[name]} launches")
+    keep = cres["mapped"] & (cres["cost"] <= 8)
+    rs_t = torch.from_numpy(cres["ref_start"]).to(dev)
+    rc_t = torch.from_numpy(cres["strand"] == b"-").to(dev)
+    keep_t = torch.from_numpy(keep).to(dev)
+    ph["calls_pileup_ms"] = timer(lambda: pileup.pileup_counts(
+        cp.words, cp.lengths, rs_t, rc_t, keep_t, index.ref_len), 3)
+    counts_t = torch.from_numpy(calls["counts"]).to(dev)
+    ph["calls_consensus_ms"] = timer(lambda: pileup.consensus_calls(
+        counts_t, index.ref_words, 2, 0.5), 3)
+    ph.update(calls_map_s=t_map, calls_gapless_ms=t_gapless * 1e3, calls_cigar_ms=t_cigar * 1e3)
+    print(f"  {CALL_READS} reads of {CALL_LEN} bp from a donor of {len(donor)} bp ({len(snps)} "
+          f"SNPs, {len(dels)} deletions, {len(ins)} insertions): map_reads {t_map:.2f} s; "
+          f"call_variants {t_gapless * 1e3:.1f} ms gapless, {t_cigar * 1e3:.1f} ms with "
+          f"--cigar (its traceback included); pileup_counts {ph['calls_pileup_ms']:.2f} ms, "
+          f"consensus_calls {ph['calls_consensus_ms']:.2f} ms; launches {call_launches}",
+          flush=True)
+    # the gapless grid against np.add.at of the same map result
+    codes = ascii_codes(creads)
+    minus = cres["strand"] == b"-"
+    codes[minus] = 3 - codes[minus, ::-1]
+    gpos = cres["ref_start"][:, None].astype(np.int64) + np.arange(CALL_LEN)
+    ok = keep[:, None] & (gpos >= 0) & (gpos < index.ref_len)
+    host = np.zeros((index.ref_len, 4), np.int32)
+    np.add.at(host, (gpos[ok], codes[ok]), 1)
+    check("counts == np.add.at of the same map result", np.array_equal(calls["counts"], host))
+    indel_pos = np.array(sorted(list(dels) + list(ins)), np.int64)
+
+    def near_indel(p):
+        i = np.searchsorted(indel_pos, p)
+        return any(abs(int(indel_pos[j]) - p) <= CALL_NEAR for j in (i - 1, i)
+                   if 0 <= j < len(indel_pos))
+
+    for mode, c in (("gapless", calls), ("--cigar", calls_c)):
+        called = dict(zip(c["variant_pos"].tolist(), c["variant_alt"].tolist()))
+        want = [p for p in snps if c["depth"][p] >= 10 and not near_indel(p)]
+        hit = sum(called.get(p) == snps[p] for p in want)
+        false = [p for p in called if p not in snps and not near_indel(p)]
+        ph[f"calls_snp_recall_{mode.strip('-')}"] = hit / max(len(want), 1)
+        check(f"{mode}: >= 99% of planted SNPs at depth >= 10, clear of indels, called with "
+              "their alt", hit >= 0.99 * len(want), f"{hit} of {len(want)}")
+        check(f"{mode}: false SNP calls clear of indels < 1% of the SNPs planted",
+              len(false) < 0.01 * len(snps), f"{len(false)} calls")
+    got_d = dict(zip(calls_c["del_pos"].tolist(), calls_c["del_len"].tolist()))
+    got_i = dict(zip(calls_c["ins_pos"].tolist(), calls_c["ins_seq"]))
+    want_d = [p for p in dels if calls_c["depth"][p] + calls_c["dels"][p] >= 10]
+    missed = [(p, dels[p], got_d.get(p)) for p in want_d if got_d.get(p) != dels[p]]
+    ph["calls_del_recall"] = 1 - len(missed) / max(len(want_d), 1)
+    check("--cigar: >= 95% of planted deletions at depth >= 10 called at their position with "
+          "their length", len(missed) <= 0.05 * len(want_d),
+          f"{len(want_d) - len(missed)} of {len(want_d)}; missed (pos, planted, called): "
+          f"{missed[:6]}")
+    # insertions: the caller's rule (the JAX package's) tests ins >= min_frac * (depth + ins),
+    # and a read carrying the insertion also counts in depth at the anchor, so at min_frac 0.5
+    # an insertion is called only where every covering read carries it. The truth check reads
+    # the evidence at each planted anchor: carried by at least half the covering reads, with
+    # the planted sequence as the majority of the inserted ones.
+    tb_ops = mapper.traceback_cigars(index, cp, cres)["ops"]
+    keep20 = cres["mapped"] & (cres["cost"] <= 20)
+    want_i = [p for p in ins if calls_c["depth"][p] >= 10]
+    seqs = pileup._insertion_consensus(cp, cres, tb_ops, keep20, want_i)
+    missed = [(p, ins[p], int(calls_c["ins"][p]), int(calls_c["depth"][p]), seqs.get(p))
+              for p in want_i
+              if not (calls_c["ins"][p] >= 0.5 * calls_c["depth"][p] and seqs.get(p) == ins[p])]
+    check("--cigar: >= 95% of planted insertions at depth >= 10 carried at their anchor by at "
+          "least half the covering reads, with the planted sequence",
+          len(missed) <= 0.05 * len(want_i),
+          f"{len(want_i) - len(missed)} of {len(want_i)}; missed (pos, planted, ins, depth, "
+          f"majority): {missed[:4]}")
+    called = [p for p in want_i if got_i.get(p) == ins[p]]
+    ph["calls_ins_called_fraction"] = len(called) / max(len(want_i), 1)
+    check("--cigar: every insertion called at a planted anchor has the planted sequence",
+          all(got_i[p] == ins[p] for p in got_i if p in ins),
+          f"{len(called)} of {len(want_i)} planted insertions called by the caller's rule")
+    with config.backend("torch"):
+        cres_p = mapper.map_reads(index, cp)
+        calls_p = pileup.call_variants(index, cp, cres_p)
+        calls_cp = pileup.call_variants(index, cp, cres_p, max_cost=20, cigar=True)
+
+    def same(a, b):
+        return a.keys() == b.keys() and all(
+            a[f] == b[f] if isinstance(a[f], list) else np.array_equal(a[f], b[f]) for f in a)
+
+    check("the calling path under backend('torch') == default backend (map, both modes)",
+          same(cres, cres_p) and same(calls, calls_p) and same(calls_c, calls_cp))
+    del cp, calls, calls_c, calls_p, calls_cp, counts_t, rs_t, rc_t, keep_t
+
+    # -- sketches: bitnuc-tpu sketch of the genome and of reads ------------------
+    kernels.reset_launches()
+    _, fa_genome = bnio.read_fasta(fa, validate=False, device=dev)
+    sk_reads = PackedReads.from_ascii(reads_g[:SKETCH_READS], validate=False, device=dev)
+    sk = {}
+    for name, pr_ in (("genome", fa_genome), ("reads", sk_reads)):
+        sk[name] = kmer.minimizer_sketch(pr_.words, pr_.lengths, SKETCH_K, SKETCH_W)
+        sk[name + "64"] = kmer.minimizer_sketch64(pr_.words, pr_.lengths, SKETCH_K64, SKETCH_W)
+        ph[f"sketch_{name}_ms"] = timer(lambda: kmer.minimizer_sketch(
+            pr_.words, pr_.lengths, SKETCH_K, SKETCH_W), 2)
+        ph[f"sketch64_{name}_ms"] = timer(lambda: kmer.minimizer_sketch64(
+            pr_.words, pr_.lengths, SKETCH_K64, SKETCH_W), 2)
+    ratios = {
+        "jaccard": float(kmer.sketch_jaccard(sk["reads"][0], sk["genome"][0])),
+        "containment": float(kmer.sketch_containment(sk["reads"][0], sk["genome"][0])),
+        "jaccard64": float(kmer.sketch_jaccard64(*sk["reads64"][:2], *sk["genome64"][:2])),
+        "containment64": float(kmer.sketch_containment64(*sk["reads64"][:2],
+                                                        *sk["genome64"][:2])),
+    }
+    model = {}
+    for name, rows_ in (("genome", genome[None, :]), ("reads", reads_g[:SKETCH_READS])):
+        c = ascii_codes(rows_)
+        model[name] = host_minimizer_set(c, SKETCH_K, SKETCH_W)
+        model[name + "64"] = host_minimizer_set(c, SKETCH_K64, SKETCH_W)
+    for name in ("genome", "reads"):
+        vals, n_u = sk[name]
+        got_v = bitops.words_to_u32_np(vals[: int(n_u)]).astype(np.uint64)
+        lo, hi, n64 = sk[name + "64"]
+        got64 = (bitops.words_to_u32_np(hi[: int(n64)]).astype(np.uint64) << np.uint64(32)) \
+            | bitops.words_to_u32_np(lo[: int(n64)]).astype(np.uint64)
+        check(f"the {name} sketches (k = {SKETCH_K}, {SKETCH_K64}) == the host set model",
+              np.array_equal(got_v, model[name]) and np.array_equal(got64, model[name + "64"]),
+              f"{len(got_v)} and {len(got64)} distinct minimizers")
+    want_r = {}
+    for sfx in ("", "64"):
+        a, b = model["reads" + sfx], model["genome" + sfx]
+        inter = np.intersect1d(a, b).size
+        want_r["jaccard" + sfx] = float(np.float32(inter) / np.float32(np.union1d(a, b).size))
+        want_r["containment" + sfx] = float(np.float32(inter) / np.float32(a.size))
+    check("Jaccard and containment of reads in genome == the host set model", ratios == want_r,
+          f"{ratios}")
+    ph["sketch_ratios"] = ratios
+    print(f"  sketches: genome {ph['sketch_genome_ms']:.1f} ms (k = {SKETCH_K}), "
+          f"{ph['sketch64_genome_ms']:.1f} ms (k = {SKETCH_K64}); {SKETCH_READS} reads "
+          f"{ph['sketch_reads_ms']:.1f} / {ph['sketch64_reads_ms']:.1f} ms; {ratios}", flush=True)
+    ph["phase10_s"] = time.perf_counter() - t_phase
+    print(f"  phase 10 in {ph['phase10_s']:.1f} s (long reads written in "
+          f"{ph['long_write_s']:.1f} s)", flush=True)
+
+
 def int_mm_planes(torch, db):
     """The +-1 planes [D, 48W] int8 of a word-major database [W, D]: the
     operand of torch._int_mm, K6's library call, made in slices, untimed."""
@@ -1954,13 +2590,13 @@ def main() -> int:
     _build.library()
     build_s = time.perf_counter() - t
     print(f"  built {os.path.relpath(lib_path)} in {build_s:.1f} s", flush=True)
-    # K1's, K2's, K3a's, K6's, K7's, K8/K9's and K10's registers, shared
+    # K1's, K2's, K3a's, K6's, K7's, K8/K9's, K10's and C1's registers, shared
     # memory and spills: nvcc -Xptxas -v of pack.cu, unpack.cu, histogram.cu,
-    # tcscan.cu, merge.cu, wavefront.cu and orf.cu
+    # tcscan.cu, merge.cu, wavefront.cu, orf.cu and chain.cu
     with tempfile.TemporaryDirectory() as d:
         ptxas = build_time.ptxas_report(
             Path(d), ("pack.cu", "unpack.cu", "histogram.cu", "tcscan.cu", "merge.cu",
-                      "wavefront.cu", "orf.cu"))
+                      "wavefront.cu", "orf.cu", "chain.cu"))
     for src, lines in sorted(ptxas.items()):
         for line in lines:
             print(f"  ptxas {src}: {line}", flush=True)
@@ -2610,11 +3246,13 @@ def main() -> int:
 
         fa, genome, reads_g, true_starts, true_rev = large_k_phase(
             args, torch, dev, timer, tmp, results)
-        mapping_phase(args, torch, dev, timer, results, fa, genome, reads_g, true_starts,
-                      true_rev, compare, timed)
+        index = mapping_phase(args, torch, dev, timer, results, fa, genome, reads_g,
+                              true_starts, true_rev, compare, timed)
         queries, contigs = search_orf_phase(args, torch, dev, timer, results, tmp, db, genome,
                                             reads_g)
         public_phase(args, torch, dev, timer, results, tmp, db, queries, contigs, fq)
+        long_calls_phase(args, torch, dev, timer, results, fa, genome, reads_g, index, compare,
+                         timed)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2622,6 +3260,7 @@ def main() -> int:
     launches.update({name: MAP_LAUNCHES[name] for name in ("fit_banded", "sw_score")})
     launches.update({name: SEARCH_ORF_LAUNCHES[name]
                      for name in ("hdist_scan_batch", "tc_scan", "tc_search", "orf_scan")})
+    launches["chain"] = LONG_LAUNCHES["chain"]
 
     # -- report ------------------------------------------------------------
     # kernel -> (source, TPU kernel's def, its pallas_call)
@@ -2656,6 +3295,8 @@ def main() -> int:
                      "bitnuc_tpu/ops/pallas/wavefront.py:482"),
         "orf_scan": ("bitnuc_tpu_torch/csrc/orf.cu", "bitnuc_tpu/ops/pallas/orfscan.py:93",
                      "bitnuc_tpu/ops/pallas/orfscan.py:117"),
+        # C1 replaces no pallas_call: the JAX package's chaining is a lax.scan
+        "chain": ("bitnuc_tpu_torch/csrc/chain.cu", "bitnuc_tpu/ops/chain.py:43", None),
     }
     lines = []
     for name, (src, replaces, call) in sources.items():

@@ -13,7 +13,7 @@ import torch
 
 from bitnuc_tpu_torch import config, entry, kernels
 from bitnuc_tpu_torch.kernels import _build
-from bitnuc_tpu_torch.ops import align, codec, hamming, kmer, merge, orf
+from bitnuc_tpu_torch.ops import align, chain, codec, hamming, kmer, merge, orf
 from bitnuc_tpu_torch.utils import bitops
 
 torch.set_num_threads(1)
@@ -869,3 +869,117 @@ def test_orf_scan_kernel_matches_plain(cuda, B, W, lengths, motifs, strands, mon
     before = kernels.LAUNCHES["orf_scan"]
     orf.longest_orf(words, lens)
     assert kernels.LAUNCHES["orf_scan"] == before + 1
+
+
+# -- C1 chain ---------------------------------------------------------------------
+
+
+def _anchor_rows(seed, B, A, neg=False, big=False):
+    """B rows of A anchors in any order: a noisy diagonal, noise, repeated
+    anchors, about 15% invalid, row 0 all invalid; neg shifts coordinates
+    below -1, big makes some valid anchors dead (r >= 2^30)."""
+    rng = np.random.default_rng(seed)
+    step = rng.integers(1, 90, (B, A))
+    r = np.cumsum(step, 1) + rng.integers(0, 4000, (B, 1))
+    q = np.cumsum(np.maximum(step + rng.integers(-9, 10, (B, A)), 1), 1)
+    noise = rng.random((B, A)) < 0.3
+    r = np.where(noise, rng.integers(0, 9000, (B, A)), r)
+    q = np.where(noise, rng.integers(0, 3000, (B, A)), q)
+    src = rng.integers(0, max(A, 1), (B, A))
+    dup = rng.random((B, A)) < 0.15
+    r = np.where(dup, np.take_along_axis(r, src, 1), r)
+    q = np.where(dup, np.take_along_axis(q, src, 1), q)
+    if neg:
+        r, q = r - 7000, q - 2500
+    if big:
+        r = np.where(rng.random((B, A)) < 0.1, 2**30 + 2, r)
+    v = rng.random((B, A)) < 0.85
+    v[:1] = False
+    return tuple(torch.from_numpy(x) for x in (r.astype(np.int32), q.astype(np.int32), v))
+
+
+def _chain_equal(cuda, rows, max_gap, gap_unit, lookback):
+    r, q = chain.sort_anchors(*(x.to(cuda) for x in rows))
+    before = kernels.LAUNCHES["chain"]
+    got = chain.chain_sorted_kernel(r.contiguous(), q.contiguous(), max_gap, gap_unit, lookback)
+    assert kernels.LAUNCHES["chain"] == before + 1
+    for g, w in zip(got, chain.chain_sorted_torch(r, q, max_gap, gap_unit, lookback)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,A", [(1, 1), (3, 31), (40, 33), (130, 200), (5, 1000)])
+@pytest.mark.parametrize("lookback", [1, 4, 64, 100_000])
+@pytest.mark.parametrize("max_gap,gap_unit", [(512, 8), (0, 1), (2048, 16), (300, 1000),
+                                              (100, -3)])
+def test_chain_kernel_matches_plain(cuda, B, A, lookback, max_gap, gap_unit):
+    lookback = min(lookback, chain.MAX_LOOKBACK)
+    _chain_equal(cuda, _anchor_rows(B * A, B, A), max_gap, gap_unit, lookback)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["negative", "dead", "duplicates", "no_valid", "empty"])
+def test_chain_kernel_edges(cuda, case):
+    if case == "duplicates":  # every anchor five times: ties in every column
+        r = torch.tensor([[100, 150, 204, 260] * 5], dtype=torch.int32)
+        rows = (r, r - 90, torch.ones_like(r, dtype=torch.bool))
+    elif case == "no_valid":
+        r, q, v = _anchor_rows(2, 6, 70)
+        rows = (r, q, torch.zeros_like(v))
+    elif case == "empty":
+        z = torch.zeros((3, 0), dtype=torch.int32)
+        rows = (z, z, z.bool())
+    else:
+        rows = _anchor_rows(7, 50, 150, neg=case == "negative", big=case == "dead")
+    for lookback in (1, 2, 64, 500):
+        for max_gap, gap_unit in ((512, 8), (0, 1), (2048, 1000)):
+            _chain_equal(cuda, rows, max_gap, gap_unit, lookback)
+
+
+@pytest.mark.cuda
+def test_chain_kernel_refuses_a_ring_past_shared_memory(cuda):
+    r = torch.zeros((2, chain.MAX_LOOKBACK + 1), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        chain.chain_sorted_kernel(r, r, 512, 8, chain.MAX_LOOKBACK + 1)
+    chain.chain_sorted_kernel(r, r, 512, 8, chain.MAX_LOOKBACK)  # the largest ring fits
+    with config.backend("kernel"), pytest.raises(ValueError, match="CUDA"):
+        chain.chain_anchors(r.cpu(), r.cpu(), r.cpu().bool())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extend", [False, True])
+def test_map_reads_long_on_card_matches_cpu(cuda, extend):
+    """map_reads_long on the card (C1, one chain launch a chunk) equals the
+    CPU run: indel-rich reads of 600-2,000 bp from both strands, and junk."""
+    from bitnuc_tpu_torch import mapper
+    from bitnuc_tpu_torch.sequence import PackedReads
+
+    rng = np.random.default_rng(9)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    ref = acgt[rng.integers(0, 4, 30_000)].tobytes()
+    comp = bytes.maketrans(b"ACGT", b"TGCA")
+    reads = []
+    for i in range(24):
+        s = int(rng.integers(0, 27_000))
+        src = bytearray(ref[s : s + int(rng.integers(600, 2000))])
+        for _ in range(int(rng.integers(0, 12))):
+            p = int(rng.integers(0, len(src) - 4))
+            if rng.random() < 0.5:
+                del src[p : p + int(rng.integers(1, 4))]
+            else:
+                src[p:p] = acgt[rng.integers(0, 4, int(rng.integers(1, 4)))].tobytes()
+        r = bytes(src)
+        reads.append(r.translate(comp)[::-1] if i % 2 else r)
+    reads.append(acgt[rng.integers(0, 4, 1500)].tobytes())
+    index_cpu = mapper.MinimizerIndex.build(ref, device="cpu")
+    index_gpu = mapper.MinimizerIndex.build(ref, device=cuda)
+    want = mapper.map_reads_long(index_cpu, PackedReads.from_ascii(reads, device="cpu"),
+                                 extend=extend)
+    kernels.reset_launches()
+    got = mapper.map_reads_long(index_gpu, PackedReads.from_ascii(reads, device=cuda),
+                                extend=extend)
+    assert kernels.LAUNCHES["chain"] == 1
+    assert set(got) == set(want)
+    for key in want:
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+    assert got["mapped"][:-1].all() and not got["mapped"][-1]
