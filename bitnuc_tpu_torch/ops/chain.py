@@ -148,7 +148,7 @@ def chain_sorted_kernel(r: torch.Tensor, q: torch.Tensor, max_gap=512, gap_unit=
         raise ValueError(
             f"chain: a ring of {LB} slots needs {RING_COLUMNS * 4 * LB} bytes of shared "
             f"memory, over the limit of {MAX_SMEM_BYTES} bytes (lookback <= {MAX_LOOKBACK})")
-    outs = _empty_best(B, r.device)
+    outs = tuple(torch.empty(B, dtype=torch.int32, device=r.device) for _ in range(5))
     code = _build.library().bn_chain(
         r.data_ptr(), q.data_ptr(), B, A, max_gap, gap_unit, LB,
         *(o.data_ptr() for o in outs), kernels.stream_handle(r.device),
@@ -162,12 +162,6 @@ def chain_anchors_torch(rpos, qpos, valid, max_gap=512, gap_unit=8, lookback: in
     """Plain chain_anchors: the row sort, then chain_sorted_torch."""
     r, q = sort_anchors(rpos, qpos, valid)
     return chain_sorted_torch(r, q, max_gap, gap_unit, lookback)
-
-
-def chain_anchors_kernel(rpos, qpos, valid, max_gap=512, gap_unit=8, lookback: int = 64):
-    """chain_anchors on the card: the row sort, then C1."""
-    r, q = sort_anchors(rpos, qpos, valid)
-    return chain_sorted_kernel(r.contiguous(), q.contiguous(), max_gap, gap_unit, lookback)
 
 
 def chain_anchors(
@@ -186,7 +180,9 @@ def chain_anchors(
     penalties and its first and last anchor coordinates (inclusive); a row
     with no live anchor has score 0 and -1 coordinates. Dispatches C1 on
     CUDA tensors (see ``config``)."""
-    rpos, qpos, valid = (torch.as_tensor(x) for x in (rpos, qpos, valid))
+    rpos, qpos = torch.as_tensor(rpos), torch.as_tensor(qpos)
+    valid = torch.as_tensor(valid).to(torch.bool)
     if config.use_kernel(rpos):
-        return chain_anchors_kernel(rpos, qpos, valid.to(torch.bool), max_gap, gap_unit, lookback)
-    return chain_anchors_torch(rpos, qpos, valid.to(torch.bool), max_gap, gap_unit, lookback)
+        r, q = sort_anchors(rpos, qpos, valid)
+        return chain_sorted_kernel(r.contiguous(), q.contiguous(), max_gap, gap_unit, lookback)
+    return chain_anchors_torch(rpos, qpos, valid, max_gap, gap_unit, lookback)

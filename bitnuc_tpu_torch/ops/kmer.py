@@ -647,12 +647,6 @@ def _sliding_min2(hi: torch.Tensor, lo: torch.Tensor, w: int, fill):
     return f(h), f(l)
 
 
-def _window_valid(L: int, lengths: torch.Tensor, k: int, w: int, device) -> torch.Tensor:
-    """[..., L] True where the window starting at p ends inside the read."""
-    p = torch.arange(L, dtype=torch.int32, device=device)
-    return p <= (lengths.to(torch.int32)[..., None] - (k + w - 1))
-
-
 def minimizers(words: torch.Tensor, lengths: torch.Tensor, k: int, w: int,
                canonical: bool = False):
     """(w,k)-minimizers, k <= 16: (vals [..., L] int32 views, valid [..., L]
@@ -661,14 +655,8 @@ def minimizers(words: torch.Tensor, lengths: torch.Tensor, k: int, w: int,
     assert 1 <= k <= 16, "minimizer keys are u32 (k <= 16)"
     lo, _, valid_k = _window_keys(words, lengths, k, canonical)
     vals = _sliding_min(torch.where(valid_k, lo, SENT), w, SENT)
-    valid = _window_valid(lo.shape[-1], lengths, k, w, lo.device)
+    valid = window_valid_mask(lo.shape[-1], lengths, k + w - 1)  # the window's last k-mer fits
     return torch.where(valid, vals, SENT), valid
-
-
-def _distinct_front(s: torch.Tensor, live: torch.Tensor):
-    """The live entries of a sorted sketch moved to the front, ascending,
-    the sentinel behind them."""
-    return _sort_u32(torch.where(live, s, SENT))
 
 
 def minimizer_sketch(words: torch.Tensor, lengths: torch.Tensor, k: int, w: int,
@@ -680,7 +668,8 @@ def minimizer_sketch(words: torch.Tensor, lengths: torch.Tensor, k: int, w: int,
     vals, _ = minimizers(words, lengths, k, w, canonical)
     s = _sort_u32(vals.reshape(-1))  # invalid slots are already the sentinel
     live = _run_starts(s) & (s != SENT)
-    return _distinct_front(s, live), live.sum(dtype=torch.int32)
+    # duplicates become the sentinel; one more sort puts the distinct values first
+    return _sort_u32(torch.where(live, s, SENT)), live.sum(dtype=torch.int32)
 
 
 def _overlap(first: torch.Tensor, live: torch.Tensor):
@@ -727,7 +716,7 @@ def minimizers64(words: torch.Tensor, lengths: torch.Tensor, k: int, w: int,
     lo, hi, valid_k = _window_keys(words, lengths, k, canonical)
     hi_m, lo_m = _sliding_min2(torch.where(valid_k, hi, SENT), torch.where(valid_k, lo, SENT),
                                w, SENT)
-    valid = _window_valid(lo.shape[-1], lengths, k, w, lo.device)
+    valid = window_valid_mask(lo.shape[-1], lengths, k + w - 1)
     valid = valid & ((hi_m != SENT) | (lo_m != SENT))
     return torch.where(valid, lo_m, SENT), torch.where(valid, hi_m, SENT), valid
 
