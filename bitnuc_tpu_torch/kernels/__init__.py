@@ -7,8 +7,8 @@ The wrappers themselves live beside their plain PyTorch versions in
 its search form with a per-block top-k), ``ops/merge.py``
 (``merge``), ``ops/align.py`` (``fit_banded``, ``sw_score``),
 ``ops/orf.py`` (``orf_scan``) and ``ops/chain.py`` (``chain``, which
-replaces no TPU kernel: it is the device loop of the JAX package's
-chaining scan). Each adds one to its entry in ``LAUNCHES``
+replaces no TPU kernel: it is the JAX package's chaining, its row sort
+and scan, on the card). Each adds one to its entry in ``LAUNCHES``
 where it launches its kernel, and nowhere else, so a run can show that its
 main path went through the kernels.
 """

@@ -34,6 +34,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _INT = ctypes.c_int
+_U32 = ctypes.c_uint32
 # name -> argtypes of each C entry point (all return int: a cudaError_t)
 _SIGNATURES = {
     "bn_pack": (_P, _P, _I64, _I64, _I64, _P, _P, _P),
@@ -51,7 +52,8 @@ _SIGNATURES = {
     "bn_tc_search": (_P, _P, _I64, _I64, _I64, _INT, _INT, _INT, _I64, _I64, _P, _P),
     "bn_tc_blocks_per_sm": (_INT, _INT, _INT, _P),
     "bn_orf_scan": (_P, _P, _I64, _INT, _INT, _P, _P, _P, _P),
-    "bn_chain": (_P, _P, _I64, _I64, _INT, _INT, _INT, _P, _P, _P, _P, _P, _P),
+    "bn_chain_scratch": (_I64, _I64, _P),
+    "bn_chain": (_P, _P, _P, _I64, _I64, _INT, _INT, _U32, _INT, _INT, _INT) + (_P,) * 7,
 }
 _ERROR_STRING = "bn_error_string"  # const char* (int code)
 

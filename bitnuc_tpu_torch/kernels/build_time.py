@@ -46,17 +46,23 @@ def parallel_build(out_dir: Path) -> float:
 
 def ptxas_report(out_dir: Path, names=None) -> dict:
     """{source: the ptxas lines of its kernels} from ``-Xptxas -v``, for
-    every source or for those ``names`` (such as ``("tcscan.cu",)``)."""
-    report = {}
+    every source or for those ``names`` (such as ``("tcscan.cu",)``); one
+    nvcc a source, all started together."""
+    procs = {}
     for src in sorted(_build.CSRC.glob("*.cu")):
-        if names is not None and src.name not in names:
-            continue
-        proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
-                               str(out_dir / f"{src.stem}.o"), str(src)],
-                              check=True, capture_output=True, text=True)
-        report[src.name] = [ln.strip() for ln in (proc.stdout + proc.stderr).splitlines()
-                            if "ptxas info" in ln and ("Compiling" not in ln or "entry" in ln)
-                            or "spill" in ln or "warning" in ln]
+        if names is None or src.name in names:
+            procs[src.name] = subprocess.Popen(
+                [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
+                 str(out_dir / f"{src.stem}.o"), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    report = {}
+    for name, proc in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise subprocess.CalledProcessError(proc.returncode, proc.args, log)
+        report[name] = [ln.strip() for ln in log.splitlines()
+                        if "ptxas info" in ln and ("Compiling" not in ln or "entry" in ln)
+                        or "spill" in ln or "warning" in ln]
     return report
 
 

@@ -17,21 +17,25 @@ candidate is positive. The best anchor is the first, in sorted order, with
 the largest f. Every difference wraps modulo 2^32, as the JAX package's
 int32 arithmetic does.
 
-The JAX package runs the DP as a ``lax.scan`` over the sorted anchors,
-carrying a [B, lookback] ring of (f, r, q, sr, sq), which XLA compiles into
-one device loop. Eager PyTorch has no such loop, so the scan is a
-hand-written kernel on the card (C1 ``chain``, ``csrc/chain.cu``, one warp
-a row) with a plain PyTorch loop beside it that transcribes the scan step
-for step (``chain_sorted_torch``). The row sort comes first in both, with
-``torch.sort`` over one int64 key a row: (r << 32) + (q + 2^31) orders the
-signed pairs (r, q) as the JAX package's two-key sort does. Invalid
+The JAX package sorts each row and runs the DP as a ``lax.scan`` over it,
+carrying a [B, lookback] ring of (f, r, q, sr, sq), which XLA compiles
+into one device loop. Eager PyTorch has no such loop. On the card the whole
+function is one hand-written kernel (C1 ``chain``, ``csrc/chain.cu``): a
+warp a row compacts the row's live anchors into shared memory, sorts them
+there and runs the scan with the ring in registers, from the unsorted
+[B, A] inputs. The plain version (``chain_anchors_torch``) sorts each row
+with ``torch.sort`` over one int64 key, (r << 32) + (q + 2^31), which orders
+the signed pairs (r, q) as the JAX package's two-key sort does, then
+transcribes the scan step for step (``chain_sorted_torch``). Invalid
 anchors become (2^30, 2^30) and sort last; every anchor with r >= 2^30 is
-dead (it never extends a chain or becomes a predecessor), so both versions
-stop at the last row's first dead anchor.
+dead (it never extends a chain or becomes a predecessor), so the plain
+version stops at the last row's first dead anchor and the kernel keeps only
+the live ones (valid and r < 2^30).
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Tuple
 
 import torch
@@ -41,11 +45,18 @@ from ..kernels import _build
 
 _BIG = 2**30
 _NEG = -(2**30)
-# The kernel keeps a warp's ring, five int32 columns of `lookback` slots, in
-# shared memory: at most 227 KB for one block of one warp.
+# C1 keeps a ring of up to REG_LOOKBACK slots in registers. Above that its
+# five int32 columns of `lookback` slots sit in one block's shared memory,
+# at most 227 KB after a 16-byte header.
+REG_LOOKBACK = 256
 RING_COLUMNS = 5
 MAX_SMEM_BYTES = 227 * 1024
-MAX_LOOKBACK = MAX_SMEM_BYTES // (4 * RING_COLUMNS)
+MAX_LOOKBACK = (MAX_SMEM_BYTES - 16) // (4 * RING_COLUMNS)
+# A warp sorts up to ROW_CAP live anchors in its slice of shared memory;
+# a row with more goes to a block of its own, which sorts up to SMEM_KEYS
+# in shared memory (with the ring in registers) and more in device memory.
+ROW_CAP = 2016
+SMEM_KEYS = (MAX_SMEM_BYTES - 16) // 8
 
 
 def _check_params(max_gap, gap_unit, lookback) -> Tuple[int, int, int]:
@@ -58,6 +69,22 @@ def _check_params(max_gap, gap_unit, lookback) -> Tuple[int, int, int]:
     if lookback < 1:
         raise ValueError(f"chain_anchors: lookback must be >= 1, got {lookback}")
     return max_gap, gap_unit, lookback
+
+
+def gap_divider(gap_unit: int) -> Tuple[int, int, int]:
+    """C1's division of a drift x in [0, 2^31) by gap_unit, chosen once a
+    launch: (mode, magic, shift). Mode 0 is x >> shift for gap_unit =
+    2^shift; mode 1 is umulhi(2x, magic) >> shift for another positive
+    gap_unit, with shift = ceil(log2 gap_unit) and magic = ceil(2^(31 +
+    shift) / gap_unit) < 2^32; mode 2 is the floor of x / gap_unit for a
+    negative one."""
+    d = int(gap_unit)
+    if d > 0 and d & (d - 1) == 0:
+        return 0, 0, d.bit_length() - 1
+    if d > 0:
+        shift = (d - 1).bit_length()
+        return 1, -(-(1 << (31 + shift)) // d), shift
+    return 2, 0, 0
 
 
 def sort_anchors(rpos: torch.Tensor, qpos: torch.Tensor, valid: torch.Tensor):
@@ -131,27 +158,36 @@ def chain_sorted_torch(r: torch.Tensor, q: torch.Tensor, max_gap=512, gap_unit=8
     return tuple(best)
 
 
-def chain_sorted_kernel(r: torch.Tensor, q: torch.Tensor, max_gap=512, gap_unit=8,
-                        lookback: int = 64):
-    """C1 on the card (``csrc/chain.cu``): the scan of chain_sorted_torch
-    over contiguous int32 CUDA anchors [B, A] sorted by ``sort_anchors``.
-    Raises when the ring of min(lookback, A) slots does not fit in shared
-    memory (lookback <= MAX_LOOKBACK always fits)."""
+def chain_anchors_kernel(rpos: torch.Tensor, qpos: torch.Tensor, valid: torch.Tensor,
+                         max_gap=512, gap_unit=8, lookback: int = 64):
+    """C1 on the card (``csrc/chain.cu``): chain_anchors of contiguous
+    [B, A] CUDA tensors, rpos and qpos int32 and valid bool, in any order
+    within a row. Raises when a ring of min(lookback, A) slots past
+    REG_LOOKBACK does not fit in shared memory (lookback <= MAX_LOOKBACK
+    always fits)."""
     max_gap, gap_unit, lookback = _check_params(max_gap, gap_unit, lookback)
-    kernels.require(r, "chain r", torch.int32, 2)
-    kernels.require(q, "chain q", torch.int32, 2)
-    if q.shape != r.shape or q.device != r.device:
-        raise ValueError("chain: r and q need one shape and one device")
-    B, A = r.shape
+    kernels.require(rpos, "chain rpos", torch.int32, 2)
+    kernels.require(qpos, "chain qpos", torch.int32, 2)
+    kernels.require(valid, "chain valid", torch.bool, 2)
+    if not (rpos.shape == qpos.shape == valid.shape
+            and rpos.device == qpos.device == valid.device):
+        raise ValueError("chain: rpos, qpos and valid need one shape and one device")
+    B, A = rpos.shape
     LB = min(lookback, A)
-    if RING_COLUMNS * 4 * LB > MAX_SMEM_BYTES:
+    if LB > REG_LOOKBACK and RING_COLUMNS * 4 * LB + 16 > MAX_SMEM_BYTES:
         raise ValueError(
             f"chain: a ring of {LB} slots needs {RING_COLUMNS * 4 * LB} bytes of shared "
-            f"memory, over the limit of {MAX_SMEM_BYTES} bytes (lookback <= {MAX_LOOKBACK})")
-    outs = tuple(torch.empty(B, dtype=torch.int32, device=r.device) for _ in range(5))
-    code = _build.library().bn_chain(
-        r.data_ptr(), q.data_ptr(), B, A, max_gap, gap_unit, LB,
-        *(o.data_ptr() for o in outs), kernels.stream_handle(r.device),
+            f"memory, over the limit of {MAX_SMEM_BYTES - 16} bytes (lookback <= {MAX_LOOKBACK})")
+    mode, magic, shift = gap_divider(gap_unit)
+    lib = _build.library()
+    nbytes = ctypes.c_int64()
+    _build.check(lib.bn_chain_scratch(B, A, ctypes.byref(nbytes)), "chain scratch")
+    scratch = torch.empty(nbytes.value, dtype=torch.uint8, device=rpos.device)
+    outs = tuple(torch.empty(B, dtype=torch.int32, device=rpos.device) for _ in range(5))
+    code = lib.bn_chain(
+        rpos.data_ptr(), qpos.data_ptr(), valid.data_ptr(), B, A, max_gap, mode, magic, shift,
+        gap_unit, LB, scratch.data_ptr(), *(o.data_ptr() for o in outs),
+        kernels.stream_handle(rpos.device),
     )
     _build.check(code, "chain")
     kernels.LAUNCHES["chain"] += 1
@@ -183,6 +219,7 @@ def chain_anchors(
     rpos, qpos = torch.as_tensor(rpos), torch.as_tensor(qpos)
     valid = torch.as_tensor(valid).to(torch.bool)
     if config.use_kernel(rpos):
-        r, q = sort_anchors(rpos, qpos, valid)
-        return chain_sorted_kernel(r.contiguous(), q.contiguous(), max_gap, gap_unit, lookback)
+        return chain_anchors_kernel(rpos.to(torch.int32).contiguous(),
+                                    qpos.to(torch.int32).contiguous(), valid.contiguous(),
+                                    max_gap, gap_unit, lookback)
     return chain_anchors_torch(rpos, qpos, valid, max_gap, gap_unit, lookback)

@@ -10,13 +10,15 @@ PyTorch built for CUDA:
     python3 chip_smoke.py --pack-against DIR [--out results.json]
     python3 chip_smoke.py --hist-against DIR [--out results.json]
     python3 chip_smoke.py --unpack-against DIR [--out results.json]
+    python3 chip_smoke.py --chain-against DIR [--out results.json]
 
-The last five forms run no phase: they time K6 (tc_scan and tc_search),
+The last six forms run no phase: they time K6 (tc_scan and tc_search),
 K10 (orf_scan) and longest_orf, K1 (pack), K3b's counts and the flagship
-step, or K2 (unpack), of this checkout beside those of another checkout in
-DIR (for example a git archive of an earlier commit, unpacked), in turns
-DIR, this, this, DIR, on one card (see k6_against, orf_against,
-pack_against, hist_against and unpack_against).
+step, K2 (unpack), or chain_anchors (C1), of this checkout beside those of
+another checkout in DIR (for example a git archive of an earlier commit,
+unpacked), in turns DIR, this, this, DIR, on one card (see k6_against,
+orf_against, pack_against, hist_against, unpack_against and
+chain_against).
 
 Phases, each of which must pass:
 
@@ -109,9 +111,12 @@ Phases, each of which must pass:
    at the CLI's settings; checked against the true spans, the 256 shortest
    reads against the plain backend, 64 reads against a CPU run, and with
    extend=True on 1,024 reads of 1,000-3,000 bp, 16 fits against a host
-   full-DP oracle. C1 against its plain version at the sub-batch's anchors,
-   a chunk's (timed) and edge shapes; the chunk's seeding, sort and the
-   unbanded extension fit timed. map --paired: map_pairs of 262,144 pairs
+   full-DP oracle. C1 (chain_anchors from unsorted anchors) against its
+   plain version at the sub-batch's anchors, a chunk's (timed, with the
+   largest and median live anchors a row and the time a step of the
+   longest row) and edge shapes, rows past a warp's and a block's shared
+   memory among them; the chunk's seeding, its row sort alone (the
+   earlier route's) and the unbanded extension fit timed. map --paired: map_pairs of 262,144 pairs
    (fragments of 200-800 bp, 1% RF, 1% split) against map_reads of the
    stacked batch and the pairing rule, and against the truth. call: a donor
    of the genome's first 1,000,000 bp with 1,000 SNPs and 100 indels,
@@ -1480,9 +1485,11 @@ SKETCH_K, SKETCH_K64 = 15, 21
 # C1 counted as the function needs it, a slot a step: the two differences
 # (2), the five tests of a predecessor (5), the drift and its penalty (2),
 # the candidate and its select (2) and the running max (2): 13. The four
-# tie-breaking maxima of a step that extends its chain are left out, so the
-# bound stays below the work. A step i of a row compares min(i, LB) filled
-# slots, up to the row's last live anchor.
+# tie-breaking maxima of a step that extends its chain, and the sort of the
+# live anchors, are left out, so the bound stays below the work. A step i
+# of a row compares min(i, LB) filled slots, over the row's live anchors.
+# Its bytes: every valid flag, and the two coordinates of each valid anchor
+# (nothing else decides the result), read once; 20 bytes a row written.
 CHAIN_OPS_PER_SLOT = 13
 LONG_LAUNCHES = {}
 
@@ -1525,9 +1532,9 @@ def write_fastq_records(path: str, seqs) -> None:
 
 
 def long_anchors(torch, mapper, index, words, lengths):
-    """The sorted anchors that map_reads_long chains for a batch: (r, q)
-    [2B, A] int32, both strands."""
-    from bitnuc_tpu_torch.ops import chain, revcomp
+    """The anchors that map_reads_long chains for a batch, as it hands them
+    to chain_anchors: (rpos, qpos, valid) [2B, A], both strands, unsorted."""
+    from bitnuc_tpu_torch.ops import revcomp
 
     lengths = lengths.to(torch.int32)
     rc = revcomp.reverse_complement_reads(words, lengths)
@@ -1536,23 +1543,26 @@ def long_anchors(torch, mapper, index, words, lengths):
     M = cand.shape[1] * cand.shape[2]
     rpos = torch.where(hit, cand, -1).reshape(-1, M)
     qpos = qp[:, :, None].expand(cand.shape).reshape(-1, M)
-    r, q = chain.sort_anchors(rpos, qpos, rpos >= 0)
-    return r.contiguous(), q.contiguous()
+    return rpos, qpos, rpos >= 0
 
 
-def chain_work(torch, r, lookback: int):
-    """(live anchors, slot comparisons, bytes) of C1 over sorted anchors:
-    step i of a row compares min(i, LB) filled slots, up to its last live
-    anchor; it reads its live anchors (and the first dead one) and writes 5
-    ints a row."""
+def chain_work(torch, rpos, valid, lookback: int):
+    """(live anchors of each row [B], slot comparisons, bytes) of C1: step i
+    of a row compares min(i, LB) filled slots over its live anchors (valid
+    and r < 2^30); it reads every valid flag and the two coordinates of each
+    valid anchor, and writes 5 ints a row."""
     from bitnuc_tpu_torch.ops import chain
 
-    LB = min(lookback, r.shape[1])
-    n = (r < chain._BIG).sum(1).to(torch.int64)
+    LB = min(lookback, rpos.shape[1])
+    n = (valid & (rpos < chain._BIG)).sum(1).to(torch.int64)
     head = torch.clamp(n, max=LB)
     slots = head * (head - 1) // 2 + torch.clamp(n - LB, min=0) * LB
-    nbytes = 8 * int(torch.clamp(n + 1, max=r.shape[1]).sum()) + 20 * r.shape[0]
-    return int(n.sum()), int(slots.sum()), nbytes
+    nbytes = valid.numel() + 8 * int(valid.sum()) + 20 * rpos.shape[0]
+    return n, int(slots.sum()), nbytes
+
+
+def chain_bound_ms(nbytes: int, slots: int) -> float:
+    return max(nbytes / HBM_BYTES_PER_S, slots * CHAIN_OPS_PER_SLOT / INT32_OPS_PER_S) * 1e3
 
 
 def plant_variants(rng, ref: np.ndarray):
@@ -1767,35 +1777,46 @@ def long_calls_phase(args, torch, dev, timer, results, fa, genome, reads_g, inde
           len(pick) == LONG_ORACLE and not bad, f"differing (row, got, want): {bad[:4]}")
 
     # -- C1 against its plain version; the stages of a chunk --------------------
-    r_s, q_s = long_anchors(torch, mapper, index, sub_reads.words, sub_reads.lengths)
-    label = f"[{r_s.shape[0]}, {r_s.shape[1]}] the {LONG_SUBBATCH} shortest reads' anchors"
-    compare("chain", label, chain.chain_sorted_kernel(r_s, q_s, 2048, 16, 64),
-            chain.chain_sorted_torch(r_s, q_s, 2048, 16, 64))
-    del r_s, q_s
+    chain_kw = (2048, 16, 64)
+    anchors = long_anchors(torch, mapper, index, sub_reads.words, sub_reads.lengths)
+    label = (f"[{anchors[0].shape[0]}, {anchors[0].shape[1]}] the {LONG_SUBBATCH} shortest "
+             "reads' anchors")
+    compare("chain", label, chain.chain_anchors(*anchors, *chain_kw),
+            chain.chain_anchors_torch(*anchors, *chain_kw))
+    del anchors
     w_c, l_c = packed.words[:chunk], packed.lengths[:chunk]
     l32 = l_c.to(torch.int32)
     both_c = torch.cat([w_c, bnt.reverse_complement_reads(w_c, l32)])
     l2 = torch.cat([l32, l32])
     ph["long_seed_join_ms"] = timer(lambda: mapper._seed_anchors(
         both_c, l2, index.keys, index.keys_hi, index.pos, index.k, index.w), 2)
-    r_c, q_c = long_anchors(torch, mapper, index, w_c, l_c)
-    A = r_c.shape[1]
-    cand_c, qp_c, hit_c = mapper._seed_anchors(both_c, l2, index.keys, index.keys_hi, index.pos,
-                                               index.k, index.w)
-    rpos_c = torch.where(hit_c, cand_c, -1).reshape(-1, A)
-    qpos_c = qp_c[:, :, None].expand(cand_c.shape).reshape(-1, A)
-    del cand_c, qp_c, hit_c, both_c
-    ph["long_sort_ms"] = timer(lambda: chain.sort_anchors(rpos_c, qpos_c, rpos_c >= 0), 2)
-    del rpos_c, qpos_c
-    live, slots, nbytes = chain_work(torch, r_c, 64)
-    label = f"[{r_c.shape[0]}, {A}] a chunk of {chunk} reads, {live} live anchors"
-    compare("chain", label, chain.chain_sorted_kernel(r_c, q_c, 2048, 16, 64),
-            chain.chain_sorted_torch(r_c, q_c, 2048, 16, 64))
-    timed("chain", label, lambda: chain.chain_sorted_kernel(r_c, q_c, 2048, 16, 64),
-          lambda: chain.chain_sorted_torch(r_c, q_c, 2048, 16, 64), reps=5, plain_reps=1,
-          main=True, nbytes=nbytes, ops_ms=slots * CHAIN_OPS_PER_SLOT / INT32_OPS_PER_S * 1e3)
-    ph.update(long_anchors_a_row=A, long_live_anchors=live, long_chain_slots=slots)
-    del r_c, q_c
+    del both_c
+    anchors = long_anchors(torch, mapper, index, w_c, l_c)
+    B_c, A = anchors[0].shape
+    ph["long_sort_ms"] = timer(lambda: chain.sort_anchors(*anchors), 2)  # the earlier route's
+    r_big = torch.where(anchors[2], anchors[0], chain._BIG).to(torch.int64)
+    key_c = r_big * (1 << 32) + (torch.where(anchors[2], anchors[1], chain._BIG).to(torch.int64)
+                                 + (1 << 31))
+    del r_big
+    live_rows, slots, nbytes = chain_work(torch, anchors[0], anchors[2], 64)
+    live = int(live_rows.sum())
+    n_max, n_med = int(live_rows.max()), int(live_rows.median())
+    label = f"[{B_c}, {A}] a chunk of {chunk} reads, {live} live anchors"
+    compare("chain", label, chain.chain_anchors(*anchors, *chain_kw),
+            chain.chain_anchors_torch(*anchors, *chain_kw))
+    row = timed("chain", label, lambda: chain.chain_anchors(*anchors, *chain_kw),
+                lambda: chain.chain_anchors_torch(*anchors, *chain_kw), reps=5, plain_reps=1,
+                main=True, nbytes=nbytes,
+                ops_ms=chain_bound_ms(0, slots), library=lambda: torch.sort(key_c, dim=-1))
+    del key_c
+    full_ms = 9 * B_c * A / HBM_BYTES_PER_S * 1e3
+    ph.update(long_anchors_a_row=A, long_live_anchors=live, long_chain_slots=slots,
+              long_live_max=n_max, long_live_median=n_med, long_chain_bytes=nbytes,
+              long_chain_step_ns=row["ms"] / max(n_max, 1) * 1e6, long_full_read_ms=full_ms)
+    print(f"    chain: live anchors a row, largest {n_max}, median {n_med}; "
+          f"{ph['long_chain_step_ns']:.1f} ns a step of the longest row; {nbytes} bytes "
+          f"needed ({9 * B_c * A} to read every input whole: {full_ms:.4f} ms)", flush=True)
+    del anchors
     # the unbanded extension fit of the extend batch (plain PyTorch: no kernel)
     use_rc = torch.from_numpy(chained["strand"] == b"-").to(dev)
     l_e = ext_reads.lengths.to(torch.int32)
@@ -1808,14 +1829,16 @@ def long_calls_phase(args, torch, dev, timer, results, fa, genome, reads_g, inde
         lambda: align.fit_distance_span(q_words, l_e, win, wlen, 1, 1), 1)
     del q_words, win, wlen
     print(f"  a chunk of {chunk} reads: A = {A} anchors a row, {live} live in all; seeding + "
-          f"join {ph['long_seed_join_ms']:.1f} ms, the sort {ph['long_sort_ms']:.1f} ms, C1 "
-          f"above; the unbanded fit of the {len(ext)}-read extend batch (M = {Lb}, N = "
+          f"join {ph['long_seed_join_ms']:.1f} ms, the row sort alone (the earlier route's) "
+          f"{ph['long_sort_ms']:.1f} ms, C1 above; the unbanded fit of the {len(ext)}-read extend batch (M = {Lb}, N = "
           f"{Wwin * 16}) {ph['long_unbanded_fit_ms']:.1f} ms", flush=True)
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed + 10)
-    for B, Ae, lo_r, case in ((40, 33, 0, "random"), (33, 150, 0, "random"),
-                              (9, 200, -7000, "negative"), (17, 64, 0, "duplicates"),
-                              (12, 90, 0, "no valid"), (5, 1, 0, "random")):
+    cases = ((40, 33, 0, "random"), (33, 150, 0, "random"), (9, 200, -7000, "negative"),
+             (17, 64, 0, "duplicates"), (12, 90, 0, "no valid"), (5, 1, 0, "random"),
+             (3, chain.ROW_CAP + 600, 0, "past a warp's shared memory"),
+             (2, chain.SMEM_KEYS + 600, 0, "past a block's shared memory"))
+    for B, Ae, lo_r, case in cases:
         r0 = torch.randint(lo_r, lo_r + 9000, (B, Ae), device=dev, dtype=torch.int32,
                            generator=gen)
         q0 = torch.sort(torch.randint(lo_r // 3, lo_r // 3 + 3000, (B, Ae), device=dev,
@@ -1825,13 +1848,26 @@ def long_calls_phase(args, torch, dev, timer, results, fa, genome, reads_g, inde
             r0, q0 = r0[:, : Ae // 4].repeat(1, 4), q0[:, : Ae // 4].repeat(1, 4)
         v0 = torch.rand((B, Ae), device=dev, generator=gen) < (0.0 if case == "no valid"
                                                                  else 0.85)
-        rs0, qs0 = chain.sort_anchors(r0, q0, v0)
-        rs0, qs0 = rs0.contiguous(), qs0.contiguous()
-        for lookback in (1, 64, Ae + 5):
-            for mg, gu in ((2048, 16), (0, 1), (300, 1000)):
-                compare("chain", f"[{B}, {Ae}] {case}, lookback {lookback}, max_gap {mg}, "
-                        f"gap_unit {gu}", chain.chain_sorted_kernel(rs0, qs0, mg, gu, lookback),
-                        chain.chain_sorted_torch(rs0, qs0, mg, gu, lookback))
+        if case.startswith("past"):  # every anchor of row 0 live
+            v0[0] = True
+        perm = torch.randperm(Ae, device=dev, generator=gen)  # any order within a row
+        rows = (r0[:, perm].contiguous(), q0[:, perm].contiguous(), v0[:, perm].contiguous())
+        if Ae > chain.SMEM_KEYS:
+            runs = ((64, 2048, 16),)
+        elif case.startswith("past"):
+            runs = ((64, 2048, 16), (300, 300, 1000))
+        else:
+            runs = tuple((lb, mg, gu) for lb in (1, 64, chain.REG_LOOKBACK, Ae + 5)
+                         for mg, gu in ((2048, 16), (0, 1), (300, 1000), (100, -3)))
+        for lookback, mg, gu in runs:
+            got = chain.chain_anchors(*rows, mg, gu, lookback)
+            if Ae > chain.SMEM_KEYS:  # the plain loop of 30,000 steps runs faster on the host
+                want = chain.chain_anchors_torch(*(x.cpu() for x in rows), mg, gu, lookback)
+                got = tuple(x.cpu() for x in got)
+            else:
+                want = chain.chain_anchors_torch(*rows, mg, gu, lookback)
+            compare("chain", f"[{B}, {Ae}] {case}, lookback {lookback}, max_gap {mg}, "
+                    f"gap_unit {gu}", got, want)
     del packed, sub_reads, mid_reads, ext_reads
 
     # -- read pairs: map --paired -----------------------------------------------
@@ -2118,7 +2154,7 @@ def tree_modules(path: str, *names: str) -> list:
              "this": importlib.import_module(f"bitnuc_tpu_torch.{n}")} for n in names]
 
 
-def against(args, torch, rows) -> int:
+def against(args, torch, rows, extra=None) -> int:
     """The body of an ``--*-against`` mode. ``rows`` is [(label, fns, want,
     bound_ms)]: ``fns`` maps "other" and "this" to each tree's call of the
     row, ``want`` makes the plain result both must equal (None: the two are
@@ -2132,7 +2168,8 @@ def against(args, torch, rows) -> int:
         print("chip_smoke: jax was imported", file=sys.stderr)
         return 1
     timer = Timer(torch)
-    res = {"times_ms": {}, "checks": {}, "bound_ms": {}, "device_ops": {}, "passes_ms": {}}
+    res = {"times_ms": {}, "checks": {}, "bound_ms": {}, "device_ops": {}, "passes_ms": {},
+           **(extra or {})}
     for label, fns, want, bound in rows:
         got = {name: fn() for name, fn in fns.items()}
         if want is None:
@@ -2528,6 +2565,80 @@ def unpack_against(args, torch, dev) -> int:
     return against(args, torch, rows)
 
 
+def chain_breakdown(torch, anchors, kw) -> dict:
+    """ms of C1 at a chunk's anchors beside variants that take parts of its
+    work away: max_gap 0 (no slot ever qualifies: one maximum a step, not
+    five), every valid anchor dead (r = 2^30: the reads and the compaction
+    alone), the rows in order of their live counts, longest first; and the
+    chunk's longest row alone, 132 times (one an SM) and 1,848 times (a
+    warp of every row slot of the card)."""
+    from bitnuc_tpu_torch.ops import chain
+
+    timer = Timer(torch)
+    rpos, qpos, valid = anchors
+    n = (valid & (rpos < chain._BIG)).sum(1)
+    order = torch.argsort(n, descending=True)
+    by_count = tuple(x[order].contiguous() for x in anchors)
+    dead = torch.where(valid, chain._BIG, rpos)
+    i = int(order[0])
+    out = {"chunk": timer(lambda: chain.chain_anchors(*anchors, *kw)),
+           "max_gap 0": timer(lambda: chain.chain_anchors(*anchors, 0, *kw[1:])),
+           "every anchor dead": timer(lambda: chain.chain_anchors(dead, qpos, valid, *kw)),
+           "rows longest first": timer(lambda: chain.chain_anchors(*by_count, *kw))}
+    del by_count, dead
+    for copies in (1, 132, 1848):
+        rows = tuple(x[i : i + 1].expand(copies, -1).contiguous() for x in anchors)
+        out[f"longest row ({int(n[i])} live) x {copies}"] = timer(
+            lambda: chain.chain_anchors(*rows, *kw))
+        del rows
+    for label, ms in out.items():
+        print(f"  C1 breakdown, {label}: {ms:.4f} ms", flush=True)
+    return out
+
+
+def chain_against(args, torch, dev) -> int:
+    """chain_anchors of this checkout beside another's (``--chain-against
+    DIR``; in a checkout whose C1 scans sorted rows, that checkout's
+    sort_anchors and chain_sorted_kernel), by ``against``: at the anchors of
+    phase 10's first map_reads_long chunk (its long reads on phase 6's
+    genome, phase 7's index), held to this checkout's plain version, with
+    this checkout's bound; and the chunk's live anchors a row."""
+    from bitnuc_tpu_torch import mapper
+    from bitnuc_tpu_torch.ops import chain
+    from bitnuc_tpu_torch.sequence import PackedReads
+
+    (trees,) = tree_modules(args.chain_against, "ops.chain")
+    genome = make_genome(np.random.default_rng(args.seed + 1))
+    index = mapper.MinimizerIndex.build_multi([genome.tobytes()], k=MAP_K, w=MAP_W,
+                                              max_occ=MAP_OCC, device=dev)
+    long_reads = make_long_reads(np.random.default_rng(args.seed + 10), genome, LONG_READS)[0]
+    packed = PackedReads.from_ascii(long_reads, validate=False, device=dev)
+    chunk = mapper._long_chunk(packed.words.shape[1], index, False, 32)
+    anchors = long_anchors(torch, mapper, index, packed.words[:chunk], packed.lengths[:chunk])
+    del packed, index
+    kw = (2048, 16, 64)
+    live_rows, slots, nbytes = chain_work(torch, anchors[0], anchors[2], 64)
+    n_max = int(live_rows.max())
+    print(f"  [{anchors[0].shape[0]}, {anchors[0].shape[1]}] anchors of a chunk of {chunk} reads: "
+          f"{int(live_rows.sum())} live, largest {n_max} and median {int(live_rows.median())} "
+          f"a row", flush=True)
+
+    def other():
+        o = trees["other"]
+        if hasattr(o, "chain_sorted_kernel"):
+            r, q = o.sort_anchors(*anchors)
+            return o.chain_sorted_kernel(r.contiguous(), q.contiguous(), *kw)
+        return o.chain_anchors(*anchors, *kw)
+
+    breakdown = chain_breakdown(torch, anchors, kw)
+    label = f"[{anchors[0].shape[0]}, {anchors[0].shape[1]}] a chunk of {chunk} long reads"
+    want = lambda: chain.chain_anchors_torch(*anchors, *kw)  # noqa: E731
+    bound = chain_bound_ms(nbytes, slots)
+    rows = [(label, {"other": other, "this": lambda: trees["this"].chain_anchors(*anchors, *kw)},
+             want, bound)]
+    return against(args, torch, rows, {"breakdown_ms": breakdown})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the full results here as JSON")
@@ -2543,6 +2654,9 @@ def main() -> int:
                          "(see hist_against)")
     ap.add_argument("--unpack-against", metavar="DIR",
                     help="only time K2 beside another checkout's (see unpack_against)")
+    ap.add_argument("--chain-against", metavar="DIR",
+                    help="only time chain_anchors (C1) beside another checkout's "
+                         "(see chain_against)")
     args = ap.parse_args()
 
     import torch
@@ -2577,6 +2691,8 @@ def main() -> int:
         return hist_against(args, torch, dev)
     if args.unpack_against:
         return unpack_against(args, torch, dev)
+    if args.chain_against:
+        return chain_against(args, torch, dev)
     results = {"kernels": {}, "phases": {}}
     t_all = time.perf_counter()
 
@@ -2634,6 +2750,7 @@ def main() -> int:
                 extra += f", library call {row['library_ms']:.4f} ms"
         timings[name].append(row)
         print(f"    {name} {label}: kernel {ms:.4f} ms, plain {pms:.4f} ms{extra}", flush=True)
+        return row
 
     # -- 2. kernels against their plain versions ----------------------------
     print("phase 2: kernels against plain versions", flush=True)

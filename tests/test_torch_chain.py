@@ -2,7 +2,10 @@
 the same numpy-seeded anchors, all five outputs equal, over a fuzz of B, A,
 lookback (1, 4, 64 and past A), max_gap and gap_unit with duplicate
 anchors, rows with no valid anchor, negative coordinates and rpos at or
-above 2^30 with valid set; and the cases of tests/test_chain.py."""
+above 2^30 with valid set; and the cases of tests/test_chain.py. Two models
+of C1's arithmetic (``csrc/chain.cu``) in Python: its division of the drift
+by gap_unit (``gap_divider``) against //, and its compaction of the live
+anchors into unsigned keys against ``sort_anchors``."""
 
 import numpy as np
 import pytest
@@ -155,3 +158,90 @@ def test_chain_backends_and_arguments():
         chain.chain_anchors(*args, gap_unit=0)
     with pytest.raises(ValueError, match="lookback"):
         chain.chain_anchors(*args, lookback=0)
+
+
+def _div_model(x, gap_unit: int):
+    """``x // gap_unit`` for drifts in [0, 2^31) (Python ints or int64
+    arrays), as C1 (``csrc/chain.cu::div_drift``) computes it from
+    ``chain.gap_divider``. The high word of the 64-bit product 2x * magic
+    is taken in two 16-bit halves of magic, so no intermediate passes
+    2^49."""
+    mode, magic, shift = chain.gap_divider(gap_unit)
+    if mode == 0:
+        return x >> shift
+    if mode == 1:
+        x2 = x << 1
+        hi = (x2 * (magic >> 16) + ((x2 * (magic & 0xFFFF)) >> 16)) >> 16
+        return hi >> shift
+    return x // gap_unit
+
+
+def _drifts(d):
+    """Drifts in [0, 2^31): both ends of the range, a random sample, and
+    the neighbours of multiples of d across it."""
+    rng = np.random.default_rng(abs(d) % 1000)
+    top = 2**31 - 1
+    x = [np.arange(1 << 16), top - np.arange(1 << 16), rng.integers(0, top, 1 << 18)]
+    m = abs(d)
+    k = np.unique(np.concatenate([np.arange(1, 4096), rng.integers(1, top // m + 2, 1 << 14),
+                                  top // m - np.arange(min(4096, top // m + 1))]))
+    k = k[(k >= 1) & (k <= top // m)]
+    for off in (-1, 0, 1):
+        x.append(k * m + off)
+    x = np.concatenate(x).astype(np.int64)
+    return x[(x >= 0) & (x <= top)]
+
+
+@pytest.mark.parametrize("d", [1, -1, 2, -2, 16, -16, 2**30, -(2**30), -(2**31), 3, -3, 1000,
+                               -1000, 7, 2**31 - 1, -(2**31 - 1), 2**30 + 1])
+def test_chain_gap_divider_matches_floor(d):
+    """C1 divides the drift by gap_unit in one of three forms chosen once a
+    launch: a shift for a positive power of two, a multiply-high by a
+    32-bit reciprocal for another positive divisor, the exact floor for a
+    negative one. Each equals // over drifts 0 to 2^31 - 1."""
+    mode, magic, shift = chain.gap_divider(d)
+    assert mode == (2 if d < 0 else 0 if d & (d - 1) == 0 else 1)
+    assert 0 <= magic < 2**32 and 0 <= shift <= 31
+    x = _drifts(d)
+    got = _div_model(x, d)
+    if mode == 1:  # the kernel's operands: 2x and magic as uint32, the high word of their product
+        assert int(x.max()) << 1 < 2**32
+        for v in x[:: max(1, len(x) // 2000)].tolist():
+            assert _div_model(v, d) == ((2 * v * magic) >> 32) >> shift
+    np.testing.assert_array_equal(got, x // d)
+    for v in (0, 1, d - 1, d, d + 1, 2**31 - 2, 2**31 - 1):
+        if 0 <= v < 2**31:
+            assert _div_model(v, d) == v // d
+
+
+def _kernel_keys(r, q, v):
+    """C1's compaction of one row: the live anchors (valid and r < 2^30) as
+    unsigned keys ((r + 2^31) << 32) | (q + 2^31), sorted, decoded."""
+    live = v & (r < 2**30)
+    key = ((r[live].astype(np.int64) + 2**31).astype(np.uint64) << np.uint64(32)) | (
+        (q[live].astype(np.int64) + 2**31).astype(np.uint64))
+    key = np.sort(key)
+    return ((key >> np.uint64(32)).astype(np.int64) - 2**31,
+            (key & np.uint64(0xFFFFFFFF)).astype(np.int64) - 2**31)
+
+
+@pytest.mark.parametrize("seed", range(12))
+def test_chain_compaction_matches_sort_anchors(seed):
+    """The live anchors C1 keeps, in the order of its unsigned keys, are
+    sort_anchors' row up to its first dead anchor: negative, big (valid at
+    or above 2^30) and duplicate anchors, rows with none."""
+    rng = np.random.default_rng(200 + seed)
+    B, A = int(rng.integers(1, 7)), int(rng.integers(1, 150))
+    r, q, v = _rows(seed, B, A, dup=0.3, neg=seed % 2 == 1, big=seed % 3 != 0)
+    if seed % 4 == 3:  # coordinates at the ends of int32
+        q[:, ::5] = -(2**31)
+        q[:, 1::5] = 2**31 - 1
+        r[:, 2::7] = -(2**31)
+    rs, qs = (x.numpy() for x in chain.sort_anchors(*(torch.from_numpy(x) for x in (r, q, v))))
+    for b in range(B):
+        kr, kq = _kernel_keys(r[b], q[b], v[b])
+        n = int((rs[b] < 2**30).sum())
+        assert len(kr) == n
+        np.testing.assert_array_equal(kr, rs[b, :n])
+        np.testing.assert_array_equal(kq, qs[b, :n])
+        assert (rs[b, n:] >= 2**30).all()

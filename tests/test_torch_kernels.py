@@ -899,29 +899,36 @@ def _anchor_rows(seed, B, A, neg=False, big=False):
 
 
 def _chain_equal(cuda, rows, max_gap, gap_unit, lookback):
-    r, q = chain.sort_anchors(*(x.to(cuda) for x in rows))
+    """C1 on the card (one launch) equals the plain version on the CPU."""
     before = kernels.LAUNCHES["chain"]
-    got = chain.chain_sorted_kernel(r.contiguous(), q.contiguous(), max_gap, gap_unit, lookback)
+    got = chain.chain_anchors(*(x.to(cuda) for x in rows), max_gap, gap_unit, lookback)
     assert kernels.LAUNCHES["chain"] == before + 1
-    for g, w in zip(got, chain.chain_sorted_torch(r, q, max_gap, gap_unit, lookback)):
-        assert torch.equal(g, w)
+    for g, w in zip(got, chain.chain_anchors_torch(*rows, max_gap, gap_unit, lookback)):
+        assert torch.equal(g.cpu(), w)
+
+
+_CHAIN_LOOKBACKS = [1, 32, 33, 64, chain.REG_LOOKBACK, chain.REG_LOOKBACK + 1, chain.MAX_LOOKBACK]
+_CHAIN_GAPS = [(2048, 16), (512, 8), (0, 1), (300, 1000), (100, -3), (2**31 - 1, 1)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,A", [(1, 1), (3, 31), (40, 33), (130, 200), (5, 1000)])
-@pytest.mark.parametrize("lookback", [1, 4, 64, 100_000])
-@pytest.mark.parametrize("max_gap,gap_unit", [(512, 8), (0, 1), (2048, 16), (300, 1000),
-                                              (100, -3)])
+@pytest.mark.parametrize("B,A", [(1, 1), (3, 31), (40, 33), (9, 64), (130, 200), (5, 1000)])
+@pytest.mark.parametrize("lookback", _CHAIN_LOOKBACKS)
+@pytest.mark.parametrize("max_gap,gap_unit", _CHAIN_GAPS)
 def test_chain_kernel_matches_plain(cuda, B, A, lookback, max_gap, gap_unit):
-    lookback = min(lookback, chain.MAX_LOOKBACK)
+    """Unsorted rows: the register ring at 1, 2 and 8 slots a lane and its
+    edge (REG_LOOKBACK), the shared-memory ring past it; a shift, a
+    multiply-high and a floor for the division; rows of A % 16 == 0 on the
+    16-byte loads, the others on single ones."""
     _chain_equal(cuda, _anchor_rows(B * A, B, A), max_gap, gap_unit, lookback)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["negative", "dead", "duplicates", "no_valid", "empty"])
-def test_chain_kernel_edges(cuda, case):
+@pytest.mark.parametrize("max_gap,gap_unit", _CHAIN_GAPS[:5])
+def test_chain_kernel_edges(cuda, case, max_gap, gap_unit):
     if case == "duplicates":  # every anchor five times: ties in every column
-        r = torch.tensor([[100, 150, 204, 260] * 5], dtype=torch.int32)
+        r = torch.tensor([[100, 150, 204, 260] * 5, [-100, -50, 4, 60] * 5], dtype=torch.int32)
         rows = (r, r - 90, torch.ones_like(r, dtype=torch.bool))
     elif case == "no_valid":
         r, q, v = _anchor_rows(2, 6, 70)
@@ -930,18 +937,78 @@ def test_chain_kernel_edges(cuda, case):
         z = torch.zeros((3, 0), dtype=torch.int32)
         rows = (z, z, z.bool())
     else:
-        rows = _anchor_rows(7, 50, 150, neg=case == "negative", big=case == "dead")
-    for lookback in (1, 2, 64, 500):
-        for max_gap, gap_unit in ((512, 8), (0, 1), (2048, 1000)):
-            _chain_equal(cuda, rows, max_gap, gap_unit, lookback)
+        rows = _anchor_rows(7, 50, 160, neg=case == "negative", big=case == "dead")
+    for lookback in (1, 2, 64, chain.REG_LOOKBACK, 500):
+        _chain_equal(cuda, rows, max_gap, gap_unit, lookback)
+
+
+def _long_rows(B, A, live, seed):
+    """Rows laid out as map_reads_long's: anchors of a minimizer in groups of
+    8 (its occurrences), about `live` of them valid, the rest -1."""
+    rng = np.random.default_rng(seed)
+    S = A // 8
+    r = np.full((B, S, 8), -1, np.int64)
+    q = np.broadcast_to(np.arange(S) * 6, (B, S))[:, :, None].repeat(8, 2).copy()
+    hit = rng.random((B, S)) < live / S
+    r[:, :, 0] = np.where(hit, rng.integers(0, 5_000_000, (B, 1)) + np.arange(S) * 6
+                          + rng.integers(-3, 4, (B, S)), -1)
+    extra = rng.random((B, S, 7)) < 0.01
+    r[:, :, 1:] = np.where(extra, rng.integers(0, 5_000_000, (B, S, 7)), -1)
+    r, q = r.reshape(B, A).astype(np.int32), q.reshape(B, A).astype(np.int32)
+    return torch.from_numpy(r), torch.from_numpy(q), torch.from_numpy(r >= 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,A,live", [(300, 4096, 200), (64, 16_384, 1_800), (17, 1024, 120),
+                                      (2_000, 2_048, 900)])
+def test_chain_kernel_long_read_rows(cuda, monkeypatch, B, A, live):
+    """Rows shaped as the long-read path's (live anchors about one in eight
+    slots of a row's front), more rows than the card holds warps at once
+    among them; no torch.sort on the way."""
+    rows = _long_rows(B, A, live, A + live)
+    on_card = [x.to(cuda) for x in rows]
+    want = chain.chain_anchors_torch(*rows, 2048, 16, 64)
+
+    def no_sort(*args, **kwargs):
+        raise AssertionError("chain_anchors sorted on the card")
+    monkeypatch.setattr(torch, "sort", no_sort)
+    got = chain.chain_anchors(*on_card, 2048, 16, 64)
+    monkeypatch.undo()
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lookback", [64, chain.REG_LOOKBACK + 44])
+@pytest.mark.parametrize("n", [chain.ROW_CAP + 1, chain.ROW_CAP + 900, chain.SMEM_KEYS + 700])
+def test_chain_kernel_rows_past_shared_memory(cuda, lookback, n):
+    """A row of n live anchors past a warp's slice of shared memory (a block
+    sorts it, in shared memory below SMEM_KEYS and in device memory past
+    it) beside short rows, all in one launch; the same row unaligned (single
+    loads)."""
+    rng = np.random.default_rng(n)
+    A = n + 16 - n % 16
+    r = np.cumsum(rng.integers(1, 40, (4, A)), 1) - 5000
+    q = r + rng.integers(-30, 31, (4, A))
+    v = np.zeros((4, A), bool)
+    v[0, :n] = True
+    v[1:, : 300] = rng.random((3, 300)) < 0.9
+    perm = rng.permutation(A)
+    rows = tuple(torch.from_numpy(np.ascontiguousarray(x[:, perm]))
+                 for x in (r.astype(np.int32), q.astype(np.int32), v))
+    _chain_equal(cuda, rows, 512, 8, lookback)
+    if n == chain.ROW_CAP + 900:
+        flat = [torch.cat([x.reshape(-1)[:1], x.reshape(-1)]) for x in rows]
+        unaligned = tuple(f[1:].view(4, A) for f in flat)  # 4 bytes past 16-byte alignment
+        _chain_equal(cuda, unaligned, 512, 8, lookback)
 
 
 @pytest.mark.cuda
 def test_chain_kernel_refuses_a_ring_past_shared_memory(cuda):
     r = torch.zeros((2, chain.MAX_LOOKBACK + 1), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="shared memory"):
-        chain.chain_sorted_kernel(r, r, 512, 8, chain.MAX_LOOKBACK + 1)
-    chain.chain_sorted_kernel(r, r, 512, 8, chain.MAX_LOOKBACK)  # the largest ring fits
+        chain.chain_anchors_kernel(r, r, r.bool(), 512, 8, chain.MAX_LOOKBACK + 1)
+    chain.chain_anchors_kernel(r, r, r.bool(), 512, 8, chain.MAX_LOOKBACK)  # the largest fits
     with config.backend("kernel"), pytest.raises(ValueError, match="CUDA"):
         chain.chain_anchors(r.cpu(), r.cpu(), r.cpu().bool())
 
