@@ -46,6 +46,15 @@ SNPs and indels from a mapping, and ``minimizer_sketch`` with
 k up to 31) compares sequence sets. ``ops.split`` slices packed reads and
 ``ops.orf.translate_reads`` translates them.
 
+The read-processing tier runs in plain PyTorch on the device of its
+inputs (the JAX package has no kernel there): ``ops.lookup`` answers
+k-mer table lookups and screens reads (``lookup_counts``,
+``kmer_hits_reads``, ``screen_reads``, ``solid_prefix_len``),
+``ops.dedupe`` marks duplicate reads, ``ops.correct`` corrects single-base
+errors against a k-mer spectrum, ``ops.demux`` assigns barcodes, and
+``filters`` (``filter_fastq``, ``filter_fastq_paired``) and ``qc``
+(``qc_profile``) trim, filter and profile FASTQ files.
+
 Entry points that put host data on a device use the card unless their
 ``device`` argument names another (``config.resolve_device``).
 
@@ -100,10 +109,17 @@ from .ops.kmer import (  # noqa: F401
     spectrum,
     top_kmers,
 )
+from .ops.lookup import (  # noqa: F401
+    kmer_hits_reads,
+    lookup_counts,
+    screen_reads,
+    solid_prefix_len,
+)
 from .ops.revcomp import reverse_complement_reads  # noqa: F401
+from .ops.dedupe import dedupe_reads, mark_duplicates  # noqa: F401
 from .ops.setops import combine_counts, combine_dicts  # noqa: F401
 from .sequence import PackedReads, PackedSequence, stack_sequences  # noqa: F401
-from . import io, mapper, pipeline  # noqa: F401
+from . import filters, io, mapper, pipeline, qc  # noqa: F401
 from .ops import orf, split  # noqa: F401
 from .io import read_fasta  # noqa: F401
 from .mapper import MinimizerIndex, map_pairs, map_reads, map_reads_long  # noqa: F401
@@ -147,6 +163,12 @@ __all__ = [
     "gc_content_reads",
     "windowed_gc",
     "reverse_complement_reads",
+    "lookup_counts",
+    "kmer_hits_reads",
+    "screen_reads",
+    "solid_prefix_len",
+    "mark_duplicates",
+    "dedupe_reads",
     "io",
     "mapper",
     "pipeline",

@@ -180,9 +180,8 @@ def test_oracle_alignment_matches_jax(name, kw):
         assert getattr(oracle, name)(a, b, **kw) == getattr(joracle, name)(a, b, **kw)
 
 
-# JAX's exports that wait for their modules: lookup and dedupe
-NOT_YET = {"lookup_counts", "kmer_hits_reads", "screen_reads", "solid_prefix_len",
-           "mark_duplicates", "dedupe_reads"}
+# JAX's exports that wait for their modules: none since the read-processing tier
+NOT_YET = set()
 
 
 def test_exports_follow_jax():
@@ -201,4 +200,7 @@ def test_exports_follow_jax():
                  "sketch_containment64"):
         assert hasattr(bitnuc_tpu_torch, name) and hasattr(bitnuc_tpu, name)
     assert bitnuc_tpu_torch.hdist_search_batch.__name__ == "hdist_topk_batch"
+    for name in ("filters", "qc"):  # modules reachable as attributes, as in JAX
+        assert getattr(bitnuc_tpu_torch, name).__name__ == f"bitnuc_tpu_torch.{name}"
+        assert hasattr(bitnuc_tpu, name)
     assert bitnuc_tpu_torch.as_2bit(b"ACGT") == bitnuc_tpu.as_2bit(b"ACGT")

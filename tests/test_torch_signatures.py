@@ -19,7 +19,11 @@ import jax.numpy as jnp
 from bitnuc_tpu import database as jdatabase, io as jio, mapper as jmapper, pipeline as jpipeline
 from bitnuc_tpu.ops import analysis as janalysis, chain as jchain, hamming as jham
 from bitnuc_tpu.ops import kmer as jkmer, merge_pairs as jmerge_pairs, pileup as jpileup
-from bitnuc_tpu_torch import database, io as tio, mapper, pipeline
+from bitnuc_tpu import filters as jfilters, qc as jqc
+from bitnuc_tpu.ops import correct as jcorrect, dedupe as jdedupe, demux as jdemux
+from bitnuc_tpu.ops import lookup as jlookup
+from bitnuc_tpu_torch import database, filters, io as tio, mapper, pipeline, qc
+from bitnuc_tpu_torch.ops import correct, dedupe, demux, lookup
 from bitnuc_tpu_torch.errors import InvalidBase
 from bitnuc_tpu_torch.ops import analysis, chain, hamming, kmer, merge_pairs, pileup
 from bitnuc_tpu_torch.utils.bitops import words_from_u32_np
@@ -52,6 +56,19 @@ PAIRS.update({name: (getattr(pileup, name), getattr(jpileup, name)) for name in 
 PAIRS.update({name: (getattr(kmer, name), getattr(jkmer, name)) for name in (
     "minimizers", "minimizer_sketch", "sketch_jaccard", "sketch_containment", "_sliding_min2",
     "minimizers64", "minimizer_sketch64", "sketch_jaccard64", "sketch_containment64")})
+# the read-processing tier
+for _mod, _jmod, _names in (
+    (lookup, jlookup, ("lookup_counts", "kmer_hits_reads", "screen_reads", "solid_prefix_len",
+                       "table_from_dense", "table_from_dict")),
+    (dedupe, jdedupe, ("mark_duplicates", "dedupe_reads")),
+    (correct, jcorrect, ("_candidate_keys", "correct_reads_once", "correct_reads")),
+    (demux, jdemux, ("assign_barcodes",)),
+    (filters, jfilters, ("trim_bounds", "adapter_positions", "complexity_fraction",
+                         "triplet_entropy", "_filter_core", "filter_reads", "_batch_filter",
+                         "_iter_record_batches", "filter_fastq", "filter_fastq_paired")),
+    (qc, jqc, ("_percentile_from_hist", "_per_cycle_rows", "_status", "qc_profile")),
+):
+    PAIRS.update({name: (getattr(_mod, name), getattr(_jmod, name)) for name in _names})
 # functions of tensors follow their inputs' device, the host-only parsers put
 # nothing on one, and the mappers and the caller follow the index's: no
 # `device` parameter
@@ -61,7 +78,11 @@ NO_DEVICE = ("search", "search_batch", "topk_batch_dispatch", "iter_fastq_ascii_
              "consensus_calls", "pileup_counts_ops", "_insertion_consensus", "call_variants",
              "minimizers", "minimizer_sketch", "sketch_jaccard", "sketch_containment",
              "_sliding_min2", "minimizers64", "minimizer_sketch64", "sketch_jaccard64",
-             "sketch_containment64")
+             "sketch_containment64", "lookup_counts", "kmer_hits_reads", "screen_reads",
+             "solid_prefix_len", "mark_duplicates", "dedupe_reads", "_candidate_keys",
+             "correct_reads_once", "correct_reads", "assign_barcodes", "trim_bounds",
+             "adapter_positions", "complexity_fraction", "triplet_entropy", "_filter_core",
+             "_iter_record_batches", "_percentile_from_hist", "_per_cycle_rows", "_status")
 
 
 @pytest.fixture
