@@ -1050,3 +1050,213 @@ def test_map_reads_long_on_card_matches_cpu(cuda, extend):
     for key in want:
         np.testing.assert_array_equal(got[key], want[key], err_msg=key)
     assert got["mapped"][:-1].all() and not got["mapped"][-1]
+
+
+# -- the read-processing tier: plain PyTorch on the card against the CPU ----------
+#
+# lookup, dedupe, correct, demux, filters and qc have no kernel of their
+# own; on CUDA tensors their PyTorch ops run on the card, and K1/K2 pack
+# and decode. Each is held to the same call on the CPU.
+
+
+def _genome_reads(seed, n, L, genome_bp=3_000, sub=0.01, n_rate=0.0):
+    """ASCII reads of L bp drawn from a random genome (both strands), with
+    substitutions and Ns, and the genome."""
+    rng = np.random.default_rng(seed)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    genome = acgt[rng.integers(0, 4, genome_bp)]
+    starts = rng.integers(0, genome_bp - L + 1, n)
+    reads = np.lib.stride_tricks.sliding_window_view(genome, L)[starts].copy()
+    comp = np.zeros(256, np.uint8)
+    comp[acgt] = np.frombuffer(b"TGCA", np.uint8)
+    rev = rng.random(n) < 0.5
+    reads[rev] = comp[reads[rev, ::-1]]
+    err = rng.random(reads.shape) < sub
+    reads[err] = acgt[rng.integers(0, 4, int(err.sum()))]
+    reads[rng.random(reads.shape) < n_rate] = ord("N")
+    return reads, genome
+
+
+def _packed_both(cuda, ascii_rows, lens=None):
+    from bitnuc_tpu_torch.sequence import PackedReads
+
+    lens = np.full(len(ascii_rows), ascii_rows.shape[1], np.int32) if lens is None else lens
+    out = []
+    for dev in ("cpu", cuda):
+        r = PackedReads.from_ascii(ascii_rows, lens, validate=False, device=dev)
+        bv = codec.validity_mask(torch.from_numpy(ascii_rows).to(dev),
+                                 torch.from_numpy(lens).to(dev))
+        out.append((r.words, r.lengths, bv))
+    return out
+
+
+def _same(got, want):
+    if isinstance(got, (tuple, list)):
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            _same(g, w)
+    else:
+        assert got.dtype == want.dtype and got.shape == want.shape
+        assert torch.equal(got.cpu(), want)
+
+
+def _table_of(words, lengths, k, canonical, bv=None):
+    lo, hi, ct, _ = kmer.count_kmers_sorted(words, lengths, k, canonical, bv)
+    return lo, hi, ct
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 12, 21, 32])
+@pytest.mark.parametrize("canonical", [False, True])
+def test_lookup_and_screen_on_card_match_cpu(cuda, k, canonical):
+    from bitnuc_tpu_torch.ops import lookup
+
+    reads, _ = _genome_reads(k, 300, 90, n_rate=0.01)
+    (wc, lc, bc), (wg, lg, bg) = _packed_both(cuda, reads)
+    t_cpu = _table_of(wc[::2], lc[::2], k, canonical, bc[::2])
+    t_cpu = (t_cpu[0], t_cpu[1], t_cpu[2] - (torch.arange(t_cpu[2].numel()) % 5 == 0).int())
+    t_gpu = tuple(t.to(cuda) for t in t_cpu)
+    for bv_c, bv_g in ((None, None), (bc, bg)):
+        want = lookup.kmer_hits_reads(wc, lc, k, *t_cpu, canonical, bv_c)
+        _same(lookup.kmer_hits_reads(wg, lg, k, *t_gpu, canonical, bv_g), want)
+        for mc in (1, 3):
+            _same(lookup.screen_reads(wg, lg, k, *t_gpu, mc, canonical, bv_g),
+                  lookup.screen_reads(wc, lc, k, *t_cpu, mc, canonical, bv_c))
+            _same(lookup.solid_prefix_len(*(x.to(cuda) for x in want), lg, k, mc),
+                  lookup.solid_prefix_len(*want, lc, k, mc))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_table", [0, 1, 1000])
+def test_lookup_counts_on_card_match_cpu(cuda, n_table):
+    from bitnuc_tpu_torch.ops import lookup
+
+    g = torch.Generator().manual_seed(n_table)
+    t = torch.randint(-2**31, 2**31 - 1, (3, n_table), generator=g, dtype=torch.int32)
+    t[:, n_table // 2:] = t[:, : n_table - n_table // 2]  # duplicate rows
+    t[2] = torch.randint(-2, 9, (n_table,), generator=g, dtype=torch.int32)
+    q = torch.cat([t[:2, torch.randint(0, max(n_table, 1), (500,), generator=g) % max(n_table, 1)]
+                   if n_table else torch.zeros((2, 0), dtype=torch.int32),
+                   torch.randint(-2**31, 2**31 - 1, (2, 300), generator=g, dtype=torch.int32)], 1)
+    valid = torch.rand(q.shape[1], generator=g) < 0.8
+    want = lookup.lookup_counts(q[0], q[1], valid, *t)
+    _same(lookup.lookup_counts(q[0].to(cuda), q[1].to(cuda), valid.to(cuda),
+                               *(x.to(cuda) for x in t)), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [1, 2, 3, 10])
+@pytest.mark.parametrize("R", [0, 1, 777])
+def test_mark_duplicates_on_card_matches_cpu(cuda, W, R):
+    from bitnuc_tpu_torch.ops import dedupe
+
+    g = torch.Generator().manual_seed(W * 1000 + R)
+    pool = torch.randint(-2**31, 2**31 - 1, (30, W), generator=g, dtype=torch.int32)
+    pick = torch.randint(0, 30, (R,), generator=g)
+    words, lengths = pool[pick], torch.randint(15, 17, (R,), generator=g, dtype=torch.int32)
+    want = dedupe.mark_duplicates(words, lengths)
+    _same(dedupe.mark_duplicates(words.to(cuda), lengths.to(cuda)), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,L", [(21, 150), (11, 60), (31, 40), (21, 16)])
+@pytest.mark.parametrize("canonical", [False, True])
+def test_correct_reads_on_card_matches_cpu(cuda, k, L, canonical):
+    from bitnuc_tpu_torch.ops import correct
+
+    clean, _ = _genome_reads(k + L, 600, L, sub=0.0)
+    reads, _ = _genome_reads(k + L + 1, 200, L, sub=0.02, n_rate=0.005)
+    (cc, clc, cbc), _ = _packed_both(cuda, clean)
+    t_cpu = _table_of(cc, clc, k, canonical, cbc)
+    t_gpu = tuple(t.to(cuda) for t in t_cpu)
+    (wc, lc, bc), (wg, lg, bg) = _packed_both(cuda, reads)
+    if L == 16:  # one word a read: k > 16 bases, no window fits
+        wc, wg = wc[:, :1].contiguous(), wg[:, :1].contiguous()
+        bc, bg = bc[:, :16], bg[:, :16]
+    for rounds in (1, 4):
+        want = correct.correct_reads(wc, lc, k, *t_cpu, 2, rounds, canonical, bc)
+        _same(correct.correct_reads(wg, lg, k, *t_gpu, 2, rounds, canonical, bg), want)
+    mc = torch.tensor(3, dtype=torch.int32)
+    _same(correct.correct_reads_once(wg, lg, k, *t_gpu, mc.to(cuda), canonical),
+          correct.correct_reads_once(wc, lc, k, *t_cpu, mc, canonical))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bc_len", [8, 16, 24])
+@pytest.mark.parametrize("max_dist", [0, 1, 2])
+def test_assign_barcodes_on_card_matches_cpu(cuda, bc_len, max_dist):
+    from bitnuc_tpu_torch.ops import demux
+
+    rng = np.random.default_rng(bc_len + max_dist)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    bcs = acgt[rng.integers(0, 4, (40, bc_len))]
+    bcs[1] = bcs[0]
+    bcs[1, 0] = acgt[(np.flatnonzero(acgt == bcs[0, 0])[0] + 1) % 4]  # a near pair: ties
+    reads = np.concatenate([bcs[rng.integers(0, 40, 500)], acgt[rng.integers(0, 4, (500, 60))]],
+                           1)
+    reads[:, :bc_len][rng.random((500, bc_len)) < 0.05] = ord("A")
+    lens = rng.integers(0, reads.shape[1] + 1, 500).astype(np.int32)
+    (wc, lc, _), (wg, lg, _) = _packed_both(cuda, reads, lens)
+    (bw, _, _), _ = _packed_both(cuda, bcs)
+    md = torch.tensor(max_dist, dtype=torch.int32)
+    want = demux.assign_barcodes(wc, lc, bw, bc_len, md)
+    _same(demux.assign_barcodes(wg, lg, bw.to(cuda), bc_len, md.to(cuda)), want)
+
+
+def _fastq_rows(seed, R, L):
+    rng = np.random.default_rng(seed)
+    a = np.frombuffer(b"ACGTacgtN", np.uint8)[rng.integers(0, 9, (R, L))]
+    a[rng.random(R) < 0.1] = ord("A")  # poly-A rows
+    adapter = np.frombuffer(b"AGATCGGAAGAGC", np.uint8)
+    for r in range(0, R, 4):
+        p = int(rng.integers(0, L))
+        a[r, p : p + 13] = adapter[: L - p]
+    q = (np.clip(rng.normal(36, 4, (R, L)) - np.arange(L) * 0.1, 2, 41) + 33).astype(np.uint8)
+    lens = rng.integers(0, L + 1, R).astype(np.int64)
+    return a, q, lens
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,L", [(1, 1), (300, 2), (300, 3), (1000, 150), (64, 400)])
+@pytest.mark.parametrize("adapter", [None, b"AGATCGGAAGAGC"])
+def test_filter_reads_on_card_matches_cpu(cuda, R, L, adapter):
+    """The fused filter core on the card against the CPU: start and end
+    exactly; keep exactly wherever the float64 triplet entropy lies more
+    than 1e-4 from min_entropy (log2 and the sum's order differ in the
+    last bit between the two devices)."""
+    from bitnuc_tpu_torch import filters
+
+    a, q, lens = _fastq_rows(R * L, R, L)
+    kw = dict(min_len=5, min_mean_q=20, trim_q=20, max_n=3, adapter=adapter,
+              min_complexity=0.3, min_entropy=3.0)
+    want = filters.filter_reads(a, q, lens, device="cpu", **kw)
+    got = filters.filter_reads(a, q, lens, device=cuda, **kw)
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_array_equal(got[2], want[2])
+    h = filters.triplet_entropy(a, want[1], want[2])
+    sure = np.abs(h - 3.0) > 1e-4
+    np.testing.assert_array_equal(got[0][sure], want[0][sure])
+
+
+@pytest.mark.cuda
+def test_filter_fastq_and_qc_on_card_match_cpu(cuda, tmp_path):
+    from bitnuc_tpu_torch import filters, qc
+
+    a, q, lens = _fastq_rows(5, 3000, 151)
+    lens = np.maximum(lens, 1)  # an empty record would be a blank line
+    with open(tmp_path / "in.fq", "wb") as f:
+        for i in range(len(lens)):
+            n = int(lens[i])
+            f.write(b"@r%d x\n%s\n+\n%s\n" % (i, a[i, :n].tobytes(), q[i, :n].tobytes()))
+    kw = dict(min_len=30, min_mean_q=20, trim_q=20, max_n=5, adapter=b"AGATCGGAAGAGC",
+              min_complexity=0.3, batch_reads=1000)
+    assert filters.filter_fastq(tmp_path / "in.fq", tmp_path / "g.fq", device=cuda, **kw) == \
+        filters.filter_fastq(tmp_path / "in.fq", tmp_path / "c.fq", device="cpu", **kw)
+    assert (tmp_path / "g.fq").read_bytes() == (tmp_path / "c.fq").read_bytes()
+    assert filters.filter_fastq_paired(tmp_path / "in.fq", tmp_path / "in.fq", tmp_path / "g1",
+                                       tmp_path / "g2", device=cuda, **kw) == \
+        filters.filter_fastq_paired(tmp_path / "in.fq", tmp_path / "in.fq", tmp_path / "c1",
+                                    tmp_path / "c2", device="cpu", **kw)
+    assert (tmp_path / "g1").read_bytes() == (tmp_path / "c1").read_bytes()
+    assert qc.qc_profile(tmp_path / "in.fq", 700, device=cuda) == \
+        qc.qc_profile(tmp_path / "in.fq", 700, device="cpu")
