@@ -456,6 +456,7 @@ def oracle_counts(seqs: np.ndarray, k: int) -> dict:
 
 
 LARGE_K_LAUNCHES = {}
+LARGE_K_TABLES = {}  # phase 6's k = 21 tables as counted lists on the card
 
 
 def large_k_phase(args, torch, dev, timer, tmp, results):
@@ -573,6 +574,7 @@ def large_k_phase(args, torch, dev, timer, tmp, results):
         print(f"    combine stage {label}: {ms:.3f} ms ({hi_s.numel()} merged rows)", flush=True)
         if label == "merge (K7)":
             print_passes(torch, results, "large_k_merge", label, fn)
+    LARGE_K_TABLES.update(reads=a, genome=b)  # phase 11 screens and corrects against them
     del combined, a, b, sa, sb, hi_s, lo_s, ct_s
 
     t = time.perf_counter()
@@ -2104,6 +2106,445 @@ def long_calls_phase(args, torch, dev, timer, results, fa, genome, reads_g, inde
           f"{ph['long_write_s']:.1f} s)", flush=True)
 
 
+
+# -- phase 11: the read-processing tier ---------------------------------------------
+
+TIER_READS = 262_144  # reads of each stage
+TIER_RANDOM = 16_384  # random reads screened beside phase 6's
+TIER_SUBSET = 4_096  # reads held to a host oracle or a CPU run
+TIER_BATCH = 65_536  # records a batch of filter_fastq and qc_profile
+ADAPTER = b"AGATCGGAAGAGC"  # the TruSeq adapter's prefix
+ADAPTER_SHARE, POLY_A_SHARE, MANY_N_SHARE, MANY_N = 0.05, 0.01, 0.01, 8
+FILTER_KW = dict(trim_q=20, min_len=30, min_mean_q=20, max_n=5, adapter=ADAPTER,
+                 min_complexity=0.3, min_entropy=3.0)
+ENTROPY_TOL = 1e-4  # |h - min_entropy| within which the fused filter may differ
+ADAPTER_CHECK_MIN = 30  # planted adapters at this offset or later must be cut
+DUP_SHARE = 0.25
+CORRECT_MIN_COUNT, CORRECT_ROUNDS = 2, 4
+CORRECT_RECOVERED_MIN = 0.97
+SCREEN_RANDOM_SOLID_MAX, SCREEN_RANDOM_SHARE = 1, 0.999
+N_BARCODES, BC_LEN, BC_MIN_DIST, BC_SUB, BC_MAX_DIST = 96, 8, 3, 0.01, 1
+TIER_LAUNCHES = {}
+
+
+def write_fastq_quals(path: str, seqs: np.ndarray, quals: np.ndarray, prefix=b"q") -> None:
+    """Fixed-width records @<prefix>%09d, the sequence, '+', the qualities."""
+    n, L = seqs.shape
+    ids = np.arange(n, dtype=np.int64)
+    digits = (ids[:, None] // (10 ** np.arange(8, -1, -1))[None, :]) % 10
+    head = np.frombuffer(b"@" + prefix, np.uint8)
+    hdr = np.concatenate([np.broadcast_to(head, (n, head.size)), digits + ord("0"),
+                          np.full((n, 1), 10)], axis=1).astype(np.uint8)
+    tail = np.frombuffer(b"\n+\n", np.uint8)
+    rec = np.concatenate([hdr, seqs, np.broadcast_to(tail, (n, 3)), quals,
+                          np.full((n, 1), 10, np.uint8)], axis=1)
+    with open(path, "wb") as f:
+        f.write(np.ascontiguousarray(rec).tobytes())
+
+
+def tier_fastq(rng, genome: np.ndarray):
+    """TIER_READS reads of READ_LEN bp from the genome with qualities that
+    decline along the read with noise; the adapter's prefix planted at a
+    random offset in [0, READ_LEN - 3) of ADAPTER_SHARE of the reads (the
+    rest of the adapter runs off the read's end), POLY_A_SHARE poly-A
+    reads and MANY_N_SHARE reads with MANY_N Ns. Returns (ASCII, phred+33
+    qualities, adapter offset or -1 a read)."""
+    n, L = TIER_READS, READ_LEN
+    seqs, _, _ = sample_reads(rng, genome, n, L)
+    pos = np.arange(L)[None, :]
+    q = 40 - 0.12 * pos + rng.normal(0, 5, (n, L))
+    quals = (np.clip(np.rint(q), 2, 41) + 33).astype(np.uint8)
+    kind = rng.random(n)
+    offset = np.full(n, -1, np.int64)
+    ad = kind < ADAPTER_SHARE
+    offset[ad] = rng.integers(0, L - 3, int(ad.sum()))
+    adapter = np.frombuffer(ADAPTER, np.uint8)
+    for i in np.flatnonzero(ad):
+        p = int(offset[i])
+        seqs[i, p : p + len(adapter)] = adapter[: L - p]
+    seqs[(kind >= ADAPTER_SHARE) & (kind < ADAPTER_SHARE + POLY_A_SHARE)] = ord("A")
+    many = (kind >= ADAPTER_SHARE + POLY_A_SHARE) & (
+        kind < ADAPTER_SHARE + POLY_A_SHARE + MANY_N_SHARE)
+    for i in np.flatnonzero(many):
+        seqs[i, rng.choice(L, MANY_N, replace=False)] = ord("N")
+    return seqs, quals, offset
+
+
+def qc_host_fold(ascii_arr: np.ndarray, quals: np.ndarray, lens: np.ndarray):
+    """Host numpy QC fold (the JAX package's numpy path): (base_by_cycle
+    [L, 5], qual_by_cycle [L, 64], mean_q_hist [64], gc_hist [101])."""
+    R, L = ascii_arr.shape
+    sym_lut = np.full(256, 4, np.int64)
+    for i, b in enumerate(b"ACGT"):
+        sym_lut[b] = sym_lut[b | 0x20] = i
+    pos = np.arange(L, dtype=np.int64)[None, :]
+    in_read = pos < lens[:, None]
+    sym = sym_lut[ascii_arr]
+    base = np.bincount(np.where(in_read, pos * 5 + sym, L * 5).ravel(),
+                       minlength=L * 5 + 1)[: L * 5].reshape(L, 5)
+    phred = np.clip(quals, 33, 96).astype(np.int64) - 33
+    qual = np.bincount(np.where(in_read, pos * 64 + phred, L * 64).ravel(),
+                       minlength=L * 64 + 1)[: L * 64].reshape(L, 64)
+    span = np.maximum(lens, 1)
+    mean_q = np.clip(np.rint(np.where(in_read, phred, 0).sum(1) / span).astype(np.int64), 0, 63)
+    gc = (in_read & ((sym == 1) | (sym == 2))).sum(1)
+    gc_pct = np.clip(np.rint(100.0 * gc / span).astype(np.int64), 0, 100)
+    return base, qual, np.bincount(mean_q, minlength=64), np.bincount(gc_pct, minlength=101)
+
+
+def pick_barcodes(rng) -> np.ndarray:
+    """N_BARCODES codes [n, BC_LEN] whose pairwise Hamming distance is at
+    least BC_MIN_DIST, by rejection from the generator."""
+    out = []
+    while len(out) < N_BARCODES:
+        c = rng.integers(0, 4, BC_LEN)
+        if all((c != o).sum() >= BC_MIN_DIST for o in out):
+            out.append(c)
+    return np.stack(out)
+
+
+def host_canonical_keys(codes: np.ndarray, k: int) -> np.ndarray:
+    """[n, L - k + 1] uint64 canonical keys of every window of 2-bit codes
+    [n, L] (as_2bit: base j at bits 2j)."""
+    win = np.lib.stride_tricks.sliding_window_view(codes.astype(np.uint64), k, axis=1)
+    sh = (2 * np.arange(k)).astype(np.uint64)
+    fwd = (win << sh).sum(-1, dtype=np.uint64)
+    rc = ((np.uint64(3) - win[..., ::-1]) << sh).sum(-1, dtype=np.uint64)
+    return np.minimum(fwd, rc)
+
+
+def read_tier_phase(args, torch, dev, timer, results, tmp, genome, reads, true_starts,
+                    true_rev):
+    """Phase 11: the read-processing tier. filter_fastq, filter_fastq_paired
+    and qc_profile of a 262,144-read FASTQ; mark_duplicates, screen_reads,
+    correct_reads (decoded with K2) and assign_barcodes on 262,144 of
+    phase 6's reads (packed with K1) against phase 6's k = 21 tables; under
+    the default backend and backend('torch'), with host oracles and CPU
+    runs."""
+    from bitnuc_tpu_torch import config, filters, io, kernels, qc
+    from bitnuc_tpu_torch.ops import codec, correct, dedupe, demux, lookup
+    from bitnuc_tpu_torch.sequence import PackedReads
+
+    ph = results["phases"]
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(args.seed + 11)
+    k = LARGE_K
+    n = TIER_READS
+    print(f"phase 11: read-processing tier ({n} reads of {READ_LEN} bp; phase 6's k = {k} "
+          "tables)", flush=True)
+    # -- inputs ----------------------------------------------------------------
+    fq_seqs, fq_quals, ad_off = tier_fastq(rng, genome)
+    fq2_seqs, fq2_quals, _ = tier_fastq(rng, genome)
+    paths = {name: os.path.join(tmp, f"tier_{name}.fq") for name in ("r1", "r2")}
+    write_fastq_quals(paths["r1"], fq_seqs, fq_quals)
+    write_fastq_quals(paths["r2"], fq2_seqs, fq2_quals)
+    base = reads[:n]
+    dup_src = rng.integers(0, n, n)
+    dup = rng.random(n) < DUP_SHARE
+    dup_rows = np.where(dup[:, None], base[dup_src], base)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    random_rows = acgt[rng.integers(0, 4, (TIER_RANDOM, READ_LEN))]
+    screen_rows = np.concatenate([base, random_rows])
+    bcs = pick_barcodes(rng)
+    bc_of = rng.integers(0, N_BARCODES, n)
+    heads = bcs[bc_of].copy()
+    sub = rng.random(heads.shape) < BC_SUB
+    heads[sub] = (heads[sub] + rng.integers(1, 4, int(sub.sum()))) % 4
+    demux_rows = np.concatenate([acgt[heads], base], 1)
+    t_reads = LARGE_K_TABLES["reads"]
+    t_genome = LARGE_K_TABLES["genome"]
+    ph["tier_write_s"] = time.perf_counter() - t0
+    out_paths = {b: {name: os.path.join(tmp, f"tier_{b}_{name}.fq") for name in ("f", "p1", "p2")}
+                 for b in ("auto", "torch")}
+
+    def up(rows):
+        return torch.from_numpy(np.ascontiguousarray(rows)).to(dev)
+
+    def pack(rows):  # K1 on the card
+        return PackedReads.from_ascii(rows, validate=False, device=dev)
+
+    def stage_fns(label):
+        """The path's stages; each returns what the checks read."""
+        o = out_paths[label]
+
+        def filt():
+            return filters.filter_fastq(paths["r1"], o["f"], batch_reads=TIER_BATCH, device=dev,
+                                        **FILTER_KW)
+
+        def paired():
+            return filters.filter_fastq_paired(paths["r1"], paths["r2"], o["p1"], o["p2"],
+                                               batch_reads=TIER_BATCH, device=dev, **FILTER_KW)
+
+        def qcp():
+            return qc.qc_profile(paths["r1"], TIER_BATCH, device=dev)
+
+        def dedup():
+            r = pack(dup_rows)
+            return dedupe.dedupe_reads(r)
+
+        def screen():
+            r = pack(screen_rows)
+            bv = codec.validity_mask(up(screen_rows), r.lengths)
+            return lookup.screen_reads(r.words, r.lengths, k, *t_genome, 1, True, bv)
+
+        def corr():
+            r = pack(base)
+            bv = codec.validity_mask(up(base), r.lengths)
+            w, nc = correct.correct_reads(r.words, r.lengths, k, *t_reads, CORRECT_MIN_COUNT,
+                                          CORRECT_ROUNDS, True, bv)
+            return w, nc, codec.decode_reads(w, r.lengths, READ_LEN)  # K2
+
+        def dmx():
+            r = pack(demux_rows)
+            b = pack(acgt[bcs])
+            return demux.assign_barcodes(r.words, r.lengths, b.words, BC_LEN, BC_MAX_DIST)
+
+        return {"filter_fastq": filt, "filter_fastq_paired": paired, "qc_profile": qcp,
+                "mark_duplicates (K1 + dedupe)": dedup, "screen_reads (K1 + lookup)": screen,
+                "correct_reads (K1 + 4 rounds + K2)": corr,
+                "assign_barcodes (K1 + demux)": dmx}
+
+    def run(label):
+        out = {}
+        for name, fn in stage_fns(label).items():
+            got = fn()
+            out[name] = tuple(x.cpu().numpy() for x in got) if isinstance(got, tuple) else got
+        for name in ("f", "p1", "p2"):
+            with open(out_paths[label][name], "rb") as f:
+                out[f"file {name}"] = f.read()
+        return out
+
+    # -- the path, with the counters set to 0 just before it ----------------
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = run("auto")
+    torch.cuda.synchronize()
+    ph["tier_path_s"] = time.perf_counter() - t
+    TIER_LAUNCHES.update(kernels.LAUNCHES)
+    ph["tier_launches"] = dict(TIER_LAUNCHES)
+    print(f"  launches {TIER_LAUNCHES}", flush=True)
+    for name in ("pack", "unpack"):
+        check(f"{name} launched on the read-processing path", TIER_LAUNCHES[name] > 0,
+              f"{TIER_LAUNCHES[name]} launches")
+
+    # -- each stage on a warm second call -------------------------------------
+    ph["tier_stages_ms"] = {}
+    for name, fn in stage_fns("auto").items():
+        ms = timer(fn, 1)
+        ph["tier_stages_ms"][name] = ms
+        print(f"    stage {name}: {ms:.1f} ms ({n / ms * 1e3:.0f} reads/s)", flush=True)
+    r = pack(base)
+    bv = codec.validity_mask(up(base), r.lengths)
+    table = lookup._prepare(*t_reads)
+    w1, _ = correct._correct_once(table, r.words, r.lengths, k, CORRECT_MIN_COUNT, True, bv)
+    lo, hi, valid = kmer_window_keys(r.words, r.lengths, k, bv)
+    inner = {
+        "correct: table prep (sort + sums)": lambda: lookup._prepare(*t_reads),
+        "correct: one round": lambda: correct._correct_once(
+            table, r.words, r.lengths, k, CORRECT_MIN_COUNT, True, bv),
+        "correct: one round's window lookups alone": lambda: lookup._lookup_prepared(
+            table, lo.reshape(-1), hi.reshape(-1), valid.reshape(-1)),
+        "screen: table prep": lambda: lookup._prepare(*t_genome),
+        "pack (K1)": lambda: pack(base),
+        "decode (K2)": lambda: codec.decode_reads(w1, r.lengths, READ_LEN),
+    }
+    for name, fn in inner.items():
+        ms = timer(fn, 3)
+        ph["tier_stages_ms"][name] = ms
+        print(f"    {name}: {ms:.3f} ms", flush=True)
+    print(f"    table rows: reads {t_reads[0].numel()}, genome {t_genome[0].numel()}; window "
+          f"slots a lookup {lo.numel()} (x 3 candidates a round)", flush=True)
+    del r, bv, table, w1, lo, hi, valid
+
+    # -- the same path under backend('torch') ------------------------------------
+    with config.backend("torch"):
+        plain = run("torch")
+    bad = [name for name in out if not same_outputs(out[name], plain[name])]
+    check("read-processing path under backend('torch') == default backend, every output",
+          not bad, f"differ: {bad}")
+    del plain
+
+    # -- filter: fused core against the numpy reference -------------------------
+    f_out = out["filter_fastq"]
+    keeps, starts, ends, rows_sure = [], [], [], []
+    expect = []
+    t = time.perf_counter()
+    for raw, a, q, lens, noff, nlen in io.iter_fastq_record_batches(paths["r1"], TIER_BATCH):
+        kf, sf, ef = filters.filter_reads(a, q, lens, device=dev, **FILTER_KW)
+        kr, sr, er = filters.filter_reads(a, q, lens, use_jax=False, **FILTER_KW)
+        h = filters.triplet_entropy(a, sr, er)
+        sure = np.abs(h - FILTER_KW["min_entropy"]) > ENTROPY_TOL
+        ok = np.array_equal(sf, sr) and np.array_equal(ef, er) and np.array_equal(kf[sure],
+                                                                                 kr[sure])
+        keeps.append(kf), starts.append(sf), ends.append(ef), rows_sure.append(ok)
+        expect.append(filters._emit_records(raw, a, q, noff, nlen, np.where(sure, kr, kf), sr,
+                                            er))
+    ph["tier_filter_reference_s"] = time.perf_counter() - t
+    keep, start, end = (np.concatenate(x) for x in (keeps, starts, ends))
+    check("filter_reads' fused core on the card == the numpy reference (start, end; keep "
+          f"where |entropy - {FILTER_KW['min_entropy']}| > {ENTROPY_TOL})", all(rows_sure))
+    check("filter_fastq's file == the records the numpy reference keeps, byte for byte",
+          out["file f"] == b"".join(expect)
+          and f_out == {"reads_in": n, "reads_out": int(keep.sum()),
+                        "bases_in": n * READ_LEN,
+                        "bases_out": int(np.where(keep, end - start, 0).sum())}, f"{f_out}")
+    planted = ad_off >= ADAPTER_CHECK_MIN
+    check(f"every adapter planted at an offset >= {ADAPTER_CHECK_MIN} is cut at or before it",
+          bool((end[planted] <= ad_off[planted]).all()), f"{int(planted.sum())} reads")
+    print(f"  filter_fastq kept {f_out['reads_out']} of {n} reads, {f_out['bases_out']} of "
+          f"{f_out['bases_in']} bases", flush=True)
+    keep2 = np.concatenate([filters.filter_reads(a, q, lens, device=dev, **FILTER_KW)[0]
+                            for _, a, q, lens, _, _ in io.iter_fastq_record_batches(
+                                paths["r2"], TIER_BATCH)])
+    both = keep & keep2
+    p_out = out["filter_fastq_paired"]
+    want1 = b"".join(filters._emit_records(raw, a, q, noff, nlen,
+                                           both[i * TIER_BATCH : (i + 1) * TIER_BATCH],
+                                           start[i * TIER_BATCH : (i + 1) * TIER_BATCH],
+                                           end[i * TIER_BATCH : (i + 1) * TIER_BATCH])
+                     for i, (raw, a, q, _, noff, nlen) in enumerate(
+                         io.iter_fastq_record_batches(paths["r1"], TIER_BATCH)))
+    check("filter_fastq_paired keeps exactly the pairs whose mates both pass, R1 as trimmed",
+          p_out == {"pairs_in": n, "pairs_out": int(both.sum())} and out["file p1"] == want1,
+          f"{p_out}")
+
+    # -- qc against a host numpy fold ------------------------------------------------
+    rep = out["qc_profile"]
+    acc = qc._Acc(dev)
+    acc.width = READ_LEN
+    acc.base_by_cycle, acc.qual_by_cycle, acc.mean_q_hist, acc.gc_hist = qc_host_fold(
+        fq_seqs, fq_quals, np.full(n, READ_LEN, np.int64))
+    cyc = qc._per_cycle_rows(acc)
+    want = {"reads": n, "bases": n * READ_LEN, "min_len": READ_LEN, "max_len": READ_LEN,
+            "mean_len": float(READ_LEN), "per_cycle": cyc,
+            "mean_quality_hist": {int(i): int(acc.mean_q_hist[i])
+                                  for i in np.nonzero(acc.mean_q_hist)[0]},
+            "gc_hist": {int(i): int(acc.gc_hist[i]) for i in np.nonzero(acc.gc_hist)[0]},
+            "status": qc._status(cyc)}
+    check("qc_profile == the report of a host numpy fold, key for key", rep == want,
+          f"status {rep['status']}")
+
+    # -- dedupe against np.unique over the 2-bit codes ---------------------------------
+    keep_d, counts_d = out["mark_duplicates (K1 + dedupe)"]
+    codes = ascii_codes_any(dup_rows)
+    _, first, cnt = np.unique(codes, axis=0, return_index=True, return_counts=True)
+    want_keep = np.zeros(n, bool)
+    want_keep[first] = True
+    want_counts = np.zeros(n, np.int64)
+    want_counts[first] = cnt
+    check("mark_duplicates == np.unique(axis=0) over the 2-bit codes; counts sum to R",
+          np.array_equal(keep_d, want_keep) and np.array_equal(counts_d, want_counts)
+          and int(counts_d.sum()) == n, f"{int(keep_d.sum())} distinct of {n}")
+
+    # -- screen -----------------------------------------------------------------------
+    n_win, n_solid = out["screen_reads (K1 + lookup)"]
+    truth = true_slices(genome, true_starts[:n], true_rev[:n])
+    has_n = (base == ord("N")).any(1)
+    clean = ~has_n & (base == truth).all(1)
+    rand_solid = n_solid[n:]
+    share = float((rand_solid <= SCREEN_RANDOM_SOLID_MAX).mean())
+    check("screen: reads with no substitution and no N are fully solid against the genome",
+          bool((n_solid[:n][clean] == n_win[:n][clean]).all()
+               and (n_win[:n][clean] == READ_LEN - k + 1).all()), f"{int(clean.sum())} reads")
+    check(f"screen: >= {SCREEN_RANDOM_SHARE:.1%} of {TIER_RANDOM} random reads have n_solid <= "
+          f"{SCREEN_RANDOM_SOLID_MAX}", share >= SCREEN_RANDOM_SHARE, f"{share:.5f}")
+    sub_idx = np.concatenate([np.arange(TIER_SUBSET // 2), n + np.arange(TIER_SUBSET // 2)])
+    sub_rows = screen_rows[sub_idx]
+    g_keys = np.sort((t_genome[1].cpu().numpy().view(np.uint32).astype(np.uint64)
+                      << np.uint64(32)) | t_genome[0].cpu().numpy().view(np.uint32)
+                     .astype(np.uint64))
+    wk = host_canonical_keys(ascii_codes_any(sub_rows), k)
+    wv = ~np.lib.stride_tricks.sliding_window_view(sub_rows == ord("N"), k, axis=1).any(-1)
+    idx = np.minimum(np.searchsorted(g_keys, wk), len(g_keys) - 1)
+    hit = wv & (g_keys[idx] == wk)
+    check(f"screen: {TIER_SUBSET} reads == host oracle (windows, solid windows)",
+          np.array_equal(n_win[sub_idx], wv.sum(1)) and np.array_equal(n_solid[sub_idx],
+                                                                       hit.sum(1)))
+    sr = pack(sub_rows)
+    counts, valid = lookup.kmer_hits_reads(sr.words, sr.lengths, k, *t_genome, True,
+                                           codec.validity_mask(up(sub_rows), sr.lengths))
+    spl = lookup.solid_prefix_len(counts, valid, sr.lengths, k, 1).cpu().numpy()
+    weak = wv & ~hit
+    fw = np.where(weak.any(1), weak.argmax(1), -1)
+    want_spl = np.where(fw < 0, READ_LEN, np.where(fw > 0, np.minimum(fw + k - 1, READ_LEN), 0))
+    check(f"solid_prefix_len of the {TIER_SUBSET} reads == host rule", np.array_equal(spl,
+                                                                                    want_spl))
+    del counts, valid, sr
+
+    # -- correct ----------------------------------------------------------------------
+    w_c, n_c, dec = out["correct_reads (K1 + 4 rounds + K2)"]
+    dec = dec[:, :READ_LEN]
+    n_diff = (base != truth).sum(1)
+    one = ~has_n & (n_diff == 1)
+    back = (dec == truth).all(1)
+    rec = float(back[one].mean())
+    ph["tier_correct"] = {"one_error_no_n": int(one.sum()), "recovered": int(back[one].sum()),
+                          "corrected_reads": int((n_c > 0).sum()),
+                          "corrections": int(n_c.sum())}
+    print(f"  correct: {int(one.sum())} reads carry exactly one substitution and no N; "
+          f"{int(back[one].sum())} ({rec:.4%}) come back equal to their genome slice; "
+          f"{int((n_c > 0).sum())} reads changed, {int(n_c.sum())} bases", flush=True)
+    check(f"correct: >= {CORRECT_RECOVERED_MIN:.0%} of one-error reads recovered",
+          rec >= CORRECT_RECOVERED_MIN, f"{rec:.4f}")
+    changed = (dec != base).any(1)
+    check("correct: no read without a planted error and N changes",
+          not bool((changed & clean).any()) and not bool((n_c[clean] > 0).any()),
+          f"{int((changed & clean).sum())} changed")
+    cpu = torch.device("cpu")
+    sr = PackedReads.from_ascii(base[:TIER_SUBSET], validate=False, device=cpu)
+    w_cpu, n_cpu = correct.correct_reads(
+        sr.words, sr.lengths, k, *(x.cpu() for x in t_reads), CORRECT_MIN_COUNT,
+        CORRECT_ROUNDS, True, codec.validity_mask(torch.from_numpy(base[:TIER_SUBSET]),
+                                                  sr.lengths))
+    check(f"correct: {TIER_SUBSET}-read subset on the CPU == the card's first rows",
+          np.array_equal(w_cpu.numpy(), w_c[:TIER_SUBSET])
+          and np.array_equal(n_cpu.numpy(), n_c[:TIER_SUBSET]))
+    del sr, w_cpu, n_cpu
+
+    # -- demux against a host argmin ------------------------------------------------------
+    idx_d, dist_d = out["assign_barcodes (K1 + demux)"]
+    d = (heads[:, None, :] != bcs[None, :, :]).sum(-1)
+    best = d.min(1)
+    n_best = (d == best[:, None]).sum(1)
+    want_idx = np.where((best <= BC_MAX_DIST) & (n_best == 1), d.argmin(1), -1)
+    check(f"assign_barcodes of {n} reads to {N_BARCODES} barcodes == host argmin (ties "
+          "unassigned)", np.array_equal(idx_d, want_idx) and np.array_equal(dist_d, best),
+          f"{int((idx_d >= 0).sum())} assigned, {int((idx_d == bc_of).sum())} to their own")
+    ph["phase11_s"] = time.perf_counter() - t0
+    print(f"  phase 11 in {ph['phase11_s']:.1f} s (inputs {ph['tier_write_s']:.1f} s, the path "
+          f"{ph['tier_path_s']:.1f} s)", flush=True)
+
+
+def kmer_window_keys(words, lengths, k, bv):
+    from bitnuc_tpu_torch.ops import kmer
+
+    return kmer._window_keys(words, lengths, k, True, bv)
+
+
+def ascii_codes_any(rows: np.ndarray) -> np.ndarray:
+    """The 2-bit codes the packers give any byte: ((b >> 1) ^ (b >> 2)) & 3
+    (N packs as A)."""
+    r = rows.astype(np.uint8)
+    return ((r >> 1) ^ (r >> 2)) & 3
+
+
+def true_slices(genome: np.ndarray, starts: np.ndarray, rev: np.ndarray) -> np.ndarray:
+    """Each read's genome slice, reverse-complemented where it was drawn
+    from the reverse strand."""
+    t = np.lib.stride_tricks.sliding_window_view(genome, READ_LEN)[starts].copy()
+    t[rev] = comp_table()[t[rev, ::-1]]
+    return t
+
+
+def same_outputs(a, b) -> bool:
+    if isinstance(a, tuple):
+        return len(a) == len(b) and all(same_outputs(x, y) for x, y in zip(a, b))
+    if isinstance(a, np.ndarray):
+        return np.array_equal(a, b)
+    return a == b
+
+
 def int_mm_planes(torch, db):
     """The +-1 planes [D, 48W] int8 of a word-major database [W, D]: the
     operand of torch._int_mm, K6's library call, made in slices, untimed."""
@@ -3370,6 +3811,8 @@ def main() -> int:
         public_phase(args, torch, dev, timer, results, tmp, db, queries, contigs, fq)
         long_calls_phase(args, torch, dev, timer, results, fa, genome, reads_g, index, compare,
                          timed)
+        read_tier_phase(args, torch, dev, timer, results, tmp, genome, reads_g, true_starts,
+                        true_rev)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
