@@ -125,10 +125,21 @@ Phases, each of which must pass:
    plain backend. sketch: minimizer_sketch (k = 15) and minimizer_sketch64
    (k = 21) of the genome FASTA and of 262,144 reads, against a host set
    model.
+11. The read-processing tier, on phase 6's genome, reads and k = 21
+   tables: filter_fastq (adapter, quality trim, length, mean quality, N,
+   complexity and entropy filters), filter_fastq_paired and qc_profile of a
+   262,144-read FASTQ with declining qualities, planted adapters, poly-A and
+   N-rich reads; mark_duplicates of 262,144 reads with 25% copies,
+   screen_reads of them and 16,384 random reads against the genome's
+   table, correct_reads against the reads' own table (4 rounds, decoded
+   with K2) and assign_barcodes of 96 barcodes of 8 bp; each stage timed
+   warm; checked against the numpy filter reference, a host QC fold,
+   np.unique, a host k-mer oracle, the reads' true genome slices, a host
+   argmin, CPU runs of subsets and the plain backend.
 
 The launch counters are set to 0 just before each main path (phases 4 and
-5 under the default backend, phases 6, 7, 8 and 9, and each path of phase
-10) and read just after it; every
+5 under the default backend, phases 6, 7, 8, 9 and 11, and each path of
+phase 10) and read just after it; every
 kernel of that path must have launched there, and the flagship step alone
 must make two K3b launches (its plain and canonical k = 8 counts) and no K3a
 launch. The last lines printed are a
@@ -2345,17 +2356,47 @@ def read_tier_phase(args, torch, dev, timer, results, tmp, genome, reads, true_s
             table, r.words, r.lengths, k, CORRECT_MIN_COUNT, True, bv),
         "correct: one round's window lookups alone": lambda: lookup._lookup_prepared(
             table, lo.reshape(-1), hi.reshape(-1), valid.reshape(-1)),
+        "correct: a round's candidate keys (3 x [B, L], canonical)": lambda: (
+            correct._candidate_keys(codes3, k, True)),
+        "correct: a round's candidate lookups (3 x the window slots)": lambda: (
+            lookup._lookup_prepared(table, lo3, hi3, valid3)),
+        "correct_reads alone (packed input, 4 rounds)": lambda: correct.correct_reads(
+            r.words, r.lengths, k, *t_reads, CORRECT_MIN_COUNT, CORRECT_ROUNDS, True, bv),
         "screen: table prep": lambda: lookup._prepare(*t_genome),
-        "pack (K1)": lambda: pack(base),
+        "screen_reads alone (packed input)": lambda: lookup.screen_reads(
+            rs.words, rs.lengths, k, *t_genome, 1, True, bv_s),
+        "mark_duplicates alone (packed input)": lambda: dedupe.mark_duplicates(rd.words,
+                                                                              rd.lengths),
+        "assign_barcodes alone (packed input)": lambda: demux.assign_barcodes(
+            rb.words, rb.lengths, bcw, BC_LEN, BC_MAX_DIST),
+        "upload + pack (K1)": lambda: pack(base),
         "decode (K2)": lambda: codec.decode_reads(w1, r.lengths, READ_LEN),
+        "filter and qc: framing (iter_fastq_record_batches)": lambda: list(
+            io.iter_fastq_record_batches(paths["r1"], TIER_BATCH)),
+        "filter: fused filter_reads of the batches (upload, core, download)": lambda: [
+            filters.filter_reads(a, q, ln, device=dev, **FILTER_KW) for _, a, q, ln, _, _ in
+            framed],
+        "filter: emit of the batches": lambda: [
+            filters._emit_records(raw, a, q, no, nl, *kse) for (raw, a, q, _, no, nl), kse in
+            zip(framed, filtered)],
+        "qc: fold of the batches (upload, bincounts, download)": lambda: [
+            qc._Acc(dev).fold(a, q, ln) for _, a, q, ln, _, _ in framed],
     }
+    codes3 = bitops_unpack(r.words)[None].expand(3, -1, -1).contiguous()
+    lo3, hi3, valid3 = (x.reshape(-1).repeat(3) for x in (lo, hi, valid))
+    rs, rd, rb = pack(screen_rows), pack(dup_rows), pack(demux_rows)
+    bv_s = codec.validity_mask(up(screen_rows), rs.lengths)
+    bcw = pack(acgt[bcs]).words
+    framed = list(io.iter_fastq_record_batches(paths["r1"], TIER_BATCH))
+    filtered = [filters.filter_reads(a, q, ln, device=dev, **FILTER_KW)
+                for _, a, q, ln, _, _ in framed]
     for name, fn in inner.items():
         ms = timer(fn, 3)
         ph["tier_stages_ms"][name] = ms
         print(f"    {name}: {ms:.3f} ms", flush=True)
     print(f"    table rows: reads {t_reads[0].numel()}, genome {t_genome[0].numel()}; window "
           f"slots a lookup {lo.numel()} (x 3 candidates a round)", flush=True)
-    del r, bv, table, w1, lo, hi, valid
+    del r, bv, table, w1, lo, hi, valid, codes3, lo3, hi3, valid3, rs, rd, rb, bv_s, framed
 
     # -- the same path under backend('torch') ------------------------------------
     with config.backend("torch"):
@@ -2514,6 +2555,12 @@ def read_tier_phase(args, torch, dev, timer, results, tmp, genome, reads, true_s
     ph["phase11_s"] = time.perf_counter() - t0
     print(f"  phase 11 in {ph['phase11_s']:.1f} s (inputs {ph['tier_write_s']:.1f} s, the path "
           f"{ph['tier_path_s']:.1f} s)", flush=True)
+
+
+def bitops_unpack(words):
+    from bitnuc_tpu_torch.utils import bitops
+
+    return bitops.unpack_words(words)
 
 
 def kmer_window_keys(words, lengths, k, bv):

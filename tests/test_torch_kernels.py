@@ -1108,7 +1108,7 @@ def _table_of(words, lengths, k, canonical, bv=None):
 @pytest.mark.cuda
 @pytest.mark.parametrize("k", [1, 12, 21, 32])
 @pytest.mark.parametrize("canonical", [False, True])
-def test_lookup_and_screen_on_card_match_cpu(cuda, k, canonical):
+def test_tier_lookup_and_screen_match_cpu(cuda, k, canonical):
     from bitnuc_tpu_torch.ops import lookup
 
     reads, _ = _genome_reads(k, 300, 90, n_rate=0.01)
@@ -1128,7 +1128,7 @@ def test_lookup_and_screen_on_card_match_cpu(cuda, k, canonical):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_table", [0, 1, 1000])
-def test_lookup_counts_on_card_match_cpu(cuda, n_table):
+def test_tier_lookup_counts_match_cpu(cuda, n_table):
     from bitnuc_tpu_torch.ops import lookup
 
     g = torch.Generator().manual_seed(n_table)
@@ -1147,7 +1147,7 @@ def test_lookup_counts_on_card_match_cpu(cuda, n_table):
 @pytest.mark.cuda
 @pytest.mark.parametrize("W", [1, 2, 3, 10])
 @pytest.mark.parametrize("R", [0, 1, 777])
-def test_mark_duplicates_on_card_matches_cpu(cuda, W, R):
+def test_tier_mark_duplicates_matches_cpu(cuda, W, R):
     from bitnuc_tpu_torch.ops import dedupe
 
     g = torch.Generator().manual_seed(W * 1000 + R)
@@ -1161,7 +1161,7 @@ def test_mark_duplicates_on_card_matches_cpu(cuda, W, R):
 @pytest.mark.cuda
 @pytest.mark.parametrize("k,L", [(21, 150), (11, 60), (31, 40), (21, 16)])
 @pytest.mark.parametrize("canonical", [False, True])
-def test_correct_reads_on_card_matches_cpu(cuda, k, L, canonical):
+def test_tier_correct_reads_matches_cpu(cuda, k, L, canonical):
     from bitnuc_tpu_torch.ops import correct
 
     clean, _ = _genome_reads(k + L, 600, L, sub=0.0)
@@ -1184,7 +1184,7 @@ def test_correct_reads_on_card_matches_cpu(cuda, k, L, canonical):
 @pytest.mark.cuda
 @pytest.mark.parametrize("bc_len", [8, 16, 24])
 @pytest.mark.parametrize("max_dist", [0, 1, 2])
-def test_assign_barcodes_on_card_matches_cpu(cuda, bc_len, max_dist):
+def test_tier_assign_barcodes_matches_cpu(cuda, bc_len, max_dist):
     from bitnuc_tpu_torch.ops import demux
 
     rng = np.random.default_rng(bc_len + max_dist)
@@ -1219,7 +1219,7 @@ def _fastq_rows(seed, R, L):
 @pytest.mark.cuda
 @pytest.mark.parametrize("R,L", [(1, 1), (300, 2), (300, 3), (1000, 150), (64, 400)])
 @pytest.mark.parametrize("adapter", [None, b"AGATCGGAAGAGC"])
-def test_filter_reads_on_card_matches_cpu(cuda, R, L, adapter):
+def test_tier_filter_reads_matches_cpu(cuda, R, L, adapter):
     """The fused filter core on the card against the CPU: start and end
     exactly; keep exactly wherever the float64 triplet entropy lies more
     than 1e-4 from min_entropy (log2 and the sum's order differ in the
@@ -1239,7 +1239,7 @@ def test_filter_reads_on_card_matches_cpu(cuda, R, L, adapter):
 
 
 @pytest.mark.cuda
-def test_filter_fastq_and_qc_on_card_match_cpu(cuda, tmp_path):
+def test_tier_filter_fastq_and_qc_match_cpu(cuda, tmp_path):
     from bitnuc_tpu_torch import filters, qc
 
     a, q, lens = _fastq_rows(5, 3000, 151)
