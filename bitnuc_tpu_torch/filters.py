@@ -35,7 +35,6 @@ reader (``_iter_record_batches``), as the JAX package does.
 
 from __future__ import annotations
 
-from functools import lru_cache
 from typing import Optional, Tuple
 
 import numpy as np
@@ -176,14 +175,15 @@ def _entropy_f32(ascii_arr, is_acgt, start, end, pos):
     return torch.where(n > 0, h, 6.0)
 
 
-@lru_cache(maxsize=None)
 def _filter_core(m: int, has_trim: bool, has_meanq: bool, has_maxn: bool,
                  has_cplx: bool, has_ent: bool):
     """The fused filter for an adapter length and a set of enabled
     filters: a function (ascii, quals, lengths, adapter, params...) ->
     (keep [R] bool, start [R] int32, end [R] int32) on the tensors'
     device. Integer thresholds are int32 tensors and real ones float32
-    tensors, as the JAX kernel takes them."""
+    tensors, as the JAX kernel takes them. An adapter longer than L + 1
+    bases is compared as the numpy reference compares it (the JAX kernel's
+    shifted rows stop broadcasting there and it raises)."""
 
     def core(ascii_arr, quals, lengths, adapter_a, min_len, min_mean_q,
              trim_q, max_n, a_err, a_minov, min_cplx, min_ent):

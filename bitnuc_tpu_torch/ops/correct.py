@@ -31,6 +31,7 @@ import torch.nn.functional as F
 from ..utils import bitops
 from . import lookup
 from .kmer import kmer_keys, sliding_all, window_valid_mask
+from .revcomp import canonical_keys
 
 _BIG = 2**31 - 1
 
@@ -38,8 +39,6 @@ _BIG = 2**31 - 1
 def _candidate_keys(codes_c: torch.Tensor, k: int, canonical: bool):
     lo, hi = kmer_keys(codes_c, k)
     if canonical:
-        from .revcomp import canonical_keys
-
         lo, hi = canonical_keys(lo, hi, k)
     return lo, hi
 

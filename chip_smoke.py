@@ -2233,8 +2233,9 @@ def read_tier_phase(args, torch, dev, timer, results, tmp, genome, reads, true_s
     the default backend and backend('torch'), with host oracles and CPU
     runs."""
     from bitnuc_tpu_torch import config, filters, io, kernels, qc
-    from bitnuc_tpu_torch.ops import codec, correct, dedupe, demux, lookup
+    from bitnuc_tpu_torch.ops import codec, correct, dedupe, demux, kmer, lookup
     from bitnuc_tpu_torch.sequence import PackedReads
+    from bitnuc_tpu_torch.utils import bitops
 
     ph = results["phases"]
     t0 = time.perf_counter()
@@ -2349,7 +2350,7 @@ def read_tier_phase(args, torch, dev, timer, results, tmp, genome, reads, true_s
     bv = codec.validity_mask(up(base), r.lengths)
     table = lookup._prepare(*t_reads)
     w1, _ = correct._correct_once(table, r.words, r.lengths, k, CORRECT_MIN_COUNT, True, bv)
-    lo, hi, valid = kmer_window_keys(r.words, r.lengths, k, bv)
+    lo, hi, valid = kmer._window_keys(r.words, r.lengths, k, True, bv)
     inner = {
         "correct: table prep (sort + sums)": lambda: lookup._prepare(*t_reads),
         "correct: one round": lambda: correct._correct_once(
@@ -2382,7 +2383,7 @@ def read_tier_phase(args, torch, dev, timer, results, tmp, genome, reads, true_s
         "qc: fold of the batches (upload, bincounts, download)": lambda: [
             qc._Acc(dev).fold(a, q, ln) for _, a, q, ln, _, _ in framed],
     }
-    codes3 = bitops_unpack(r.words)[None].expand(3, -1, -1).contiguous()
+    codes3 = bitops.unpack_words(r.words)[None].expand(3, -1, -1).contiguous()
     lo3, hi3, valid3 = (x.reshape(-1).repeat(3) for x in (lo, hi, valid))
     rs, rd, rb = pack(screen_rows), pack(dup_rows), pack(demux_rows)
     bv_s = codec.validity_mask(up(screen_rows), rs.lengths)
@@ -2468,7 +2469,7 @@ def read_tier_phase(args, torch, dev, timer, results, tmp, genome, reads, true_s
 
     # -- dedupe against np.unique over the 2-bit codes ---------------------------------
     keep_d, counts_d = out["mark_duplicates (K1 + dedupe)"]
-    codes = ascii_codes_any(dup_rows)
+    codes = ascii_codes(dup_rows)
     _, first, cnt = np.unique(codes, axis=0, return_index=True, return_counts=True)
     want_keep = np.zeros(n, bool)
     want_keep[first] = True
@@ -2495,7 +2496,7 @@ def read_tier_phase(args, torch, dev, timer, results, tmp, genome, reads, true_s
     g_keys = np.sort((t_genome[1].cpu().numpy().view(np.uint32).astype(np.uint64)
                       << np.uint64(32)) | t_genome[0].cpu().numpy().view(np.uint32)
                      .astype(np.uint64))
-    wk = host_canonical_keys(ascii_codes_any(sub_rows), k)
+    wk = host_canonical_keys(ascii_codes(sub_rows), k)
     wv = ~np.lib.stride_tricks.sliding_window_view(sub_rows == ord("N"), k, axis=1).any(-1)
     idx = np.minimum(np.searchsorted(g_keys, wk), len(g_keys) - 1)
     hit = wv & (g_keys[idx] == wk)
@@ -2555,25 +2556,6 @@ def read_tier_phase(args, torch, dev, timer, results, tmp, genome, reads, true_s
     ph["phase11_s"] = time.perf_counter() - t0
     print(f"  phase 11 in {ph['phase11_s']:.1f} s (inputs {ph['tier_write_s']:.1f} s, the path "
           f"{ph['tier_path_s']:.1f} s)", flush=True)
-
-
-def bitops_unpack(words):
-    from bitnuc_tpu_torch.utils import bitops
-
-    return bitops.unpack_words(words)
-
-
-def kmer_window_keys(words, lengths, k, bv):
-    from bitnuc_tpu_torch.ops import kmer
-
-    return kmer._window_keys(words, lengths, k, True, bv)
-
-
-def ascii_codes_any(rows: np.ndarray) -> np.ndarray:
-    """The 2-bit codes the packers give any byte: ((b >> 1) ^ (b >> 2)) & 3
-    (N packs as A)."""
-    r = rows.astype(np.uint8)
-    return ((r >> 1) ^ (r >> 2)) & 3
 
 
 def true_slices(genome: np.ndarray, starts: np.ndarray, rev: np.ndarray) -> np.ndarray:
