@@ -55,6 +55,11 @@ errors against a k-mer spectrum, ``ops.demux`` assigns barcodes, and
 ``filters`` (``filter_fastq``, ``filter_fastq_paired``) and ``qc``
 (``qc_profile``) trim, filter and profile FASTQ files.
 
+``assemble`` (``assemble_reads``, ``assemble_keys``, ``unitig_graph``,
+``clean_keys``) builds unitigs from a read set's solid k-mers: the
+spectrum on the device (``count_kmers_runs``), the graph in numpy on the
+host. ``cli`` is the command line, ``python -m bitnuc_tpu_torch``.
+
 Entry points that put host data on a device use the card unless their
 ``device`` argument names another (``config.resolve_device``).
 
@@ -119,7 +124,8 @@ from .ops.revcomp import reverse_complement_reads  # noqa: F401
 from .ops.dedupe import dedupe_reads, mark_duplicates  # noqa: F401
 from .ops.setops import combine_counts, combine_dicts  # noqa: F401
 from .sequence import PackedReads, PackedSequence, stack_sequences  # noqa: F401
-from . import filters, io, mapper, pipeline, qc  # noqa: F401
+from . import assemble, filters, io, mapper, pipeline, qc  # noqa: F401
+from .assemble import assemble_reads  # noqa: F401
 from .ops import orf, split  # noqa: F401
 from .io import read_fasta  # noqa: F401
 from .mapper import MinimizerIndex, map_pairs, map_reads, map_reads_long  # noqa: F401

@@ -200,7 +200,9 @@ def test_exports_follow_jax():
                  "sketch_containment64"):
         assert hasattr(bitnuc_tpu_torch, name) and hasattr(bitnuc_tpu, name)
     assert bitnuc_tpu_torch.hdist_search_batch.__name__ == "hdist_topk_batch"
-    for name in ("filters", "qc"):  # modules reachable as attributes, as in JAX
+    assert bitnuc_tpu_torch.assemble_reads is bitnuc_tpu_torch.assemble.assemble_reads
+    assert hasattr(bitnuc_tpu, "assemble_reads")
+    for name in ("filters", "qc", "assemble"):  # modules reachable as attributes, as in JAX
         assert getattr(bitnuc_tpu_torch, name).__name__ == f"bitnuc_tpu_torch.{name}"
         assert hasattr(bitnuc_tpu, name)
     assert bitnuc_tpu_torch.as_2bit(b"ACGT") == bitnuc_tpu.as_2bit(b"ACGT")

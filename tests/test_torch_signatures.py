@@ -19,10 +19,10 @@ import jax.numpy as jnp
 from bitnuc_tpu import database as jdatabase, io as jio, mapper as jmapper, pipeline as jpipeline
 from bitnuc_tpu.ops import analysis as janalysis, chain as jchain, hamming as jham
 from bitnuc_tpu.ops import kmer as jkmer, merge_pairs as jmerge_pairs, pileup as jpileup
-from bitnuc_tpu import filters as jfilters, qc as jqc
+from bitnuc_tpu import assemble as jassemble, filters as jfilters, qc as jqc
 from bitnuc_tpu.ops import correct as jcorrect, dedupe as jdedupe, demux as jdemux
 from bitnuc_tpu.ops import lookup as jlookup
-from bitnuc_tpu_torch import database, filters, io as tio, mapper, pipeline, qc
+from bitnuc_tpu_torch import assemble, database, filters, io as tio, mapper, pipeline, qc
 from bitnuc_tpu_torch.ops import correct, dedupe, demux, lookup
 from bitnuc_tpu_torch.errors import InvalidBase
 from bitnuc_tpu_torch.ops import analysis, chain, hamming, kmer, merge_pairs, pileup
@@ -67,6 +67,8 @@ for _mod, _jmod, _names in (
                          "triplet_entropy", "_filter_core", "filter_reads", "_batch_filter",
                          "_iter_record_batches", "filter_fastq", "filter_fastq_paired")),
     (qc, jqc, ("_percentile_from_hist", "_per_cycle_rows", "_status", "qc_profile")),
+    (assemble, jassemble, ("assemble_reads", "assemble_keys", "assemble_counts",
+                           "unitigs_from_keys", "prepare_keys")),
 ):
     PAIRS.update({name: (getattr(_mod, name), getattr(_jmod, name)) for name in _names})
 # functions of tensors follow their inputs' device, the host-only parsers put
@@ -82,7 +84,9 @@ NO_DEVICE = ("search", "search_batch", "topk_batch_dispatch", "iter_fastq_ascii_
              "solid_prefix_len", "mark_duplicates", "dedupe_reads", "_candidate_keys",
              "correct_reads_once", "correct_reads", "assign_barcodes", "trim_bounds",
              "adapter_positions", "complexity_fraction", "triplet_entropy", "_filter_core",
-             "_iter_record_batches", "_percentile_from_hist", "_per_cycle_rows", "_status")
+             "_iter_record_batches", "_percentile_from_hist", "_per_cycle_rows", "_status",
+             "assemble_reads", "assemble_keys", "assemble_counts", "unitigs_from_keys",
+             "prepare_keys")
 
 
 @pytest.fixture
