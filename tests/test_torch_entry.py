@@ -44,7 +44,8 @@ def test_flagship_step_matches_jax():
 def test_import_leaves_jax_out():
     code = (
         "import sys, bitnuc_tpu_torch, bitnuc_tpu_torch.entry, bitnuc_tpu_torch.pipeline, "
-        "bitnuc_tpu_torch.mapper; "
+        "bitnuc_tpu_torch.mapper, bitnuc_tpu_torch.assemble, bitnuc_tpu_torch.cli, "
+        "bitnuc_tpu_torch.__main__; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'bitnuc_tpu.'))"
         " or m == 'bitnuc_tpu']; assert not bad, bad"
     )
