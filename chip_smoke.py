@@ -62,8 +62,8 @@ Phases, each of which must pass:
    reads x 150 bp, 0.5% N, N-skip) with pipeline.count_fastq: equal to the
    plain run, a run interrupted after its first checkpoint and resumed
    equals an uninterrupted one, and a 10,000-read subset equals a host
-   dict oracle. Timed at prefetch 2 (the default: framing on a producer
-   thread) and 0, with equal histograms.
+   dict oracle. Timed once each at prefetch 2 (the default: framing on a
+   producer thread) and 0, with equal histograms.
 6. The large-k path: a 5,000,000-bp random genome (10 runs of 100 N) as
    80-column FASTA and 1,000,000 reads x 150 bp drawn from both strands
    (0.1% substitutions, 0.05% N) as FASTQ, both gzip level 1. Canonical
@@ -110,7 +110,7 @@ Phases, each of which must pass:
    read with read_fastq_fast (K1) and mapped with map_reads_long (C1 chain)
    at the CLI's settings; checked against the true spans, the 256 shortest
    reads against the plain backend, 64 reads against a CPU run, and with
-   extend=True on 1,024 reads of 1,000-3,000 bp, 16 fits against a host
+   extend=True on 256 reads of 1,000-3,000 bp, 16 fits against a host
    full-DP oracle. C1 (chain_anchors from unsorted anchors) against its
    plain version at the sub-batch's anchors, a chunk's (timed, with the
    largest and median live anchors a row and the time a step of the
@@ -119,11 +119,11 @@ Phases, each of which must pass:
    earlier route's) and the unbanded extension fit timed. map --paired: map_pairs of 262,144 pairs
    (fragments of 200-800 bp, 1% RF, 1% split) against map_reads of the
    stacked batch and the pairing rule, and against the truth. call: a donor
-   of the genome's first 1,000,000 bp with 1,000 SNPs and 100 indels,
-   200,000 reads of 150 bp mapped and called in both modes; the grid against
+   of the genome's first 500,000 bp with 500 SNPs and 50 indels,
+   100,000 reads of 150 bp mapped and called in both modes; the grid against
    np.add.at, the calls against the planted variants, the path against the
    plain backend. sketch: minimizer_sketch (k = 15) and minimizer_sketch64
-   (k = 21) of the genome FASTA and of 262,144 reads, against a host set
+   (k = 21) of the genome FASTA and of 65,536 reads, against a host set
    model.
 11. The read-processing tier, on phase 6's genome, reads and k = 21
    tables: filter_fastq (adapter, quality trim, length, mean quality, N,
@@ -132,15 +132,30 @@ Phases, each of which must pass:
    N-rich reads; mark_duplicates of 262,144 reads with 25% copies,
    screen_reads of them and 16,384 random reads against the genome's
    table, correct_reads against the reads' own table (4 rounds, decoded
-   with K2) and assign_barcodes of 96 barcodes of 8 bp; each stage timed
-   warm; checked against the numpy filter reference, a host QC fold,
+   with K2) and assign_barcodes of 96 barcodes of 8 bp; each device stage
+   timed warm, the file stages as the path ran them; checked against the numpy filter reference, a host QC fold,
    np.unique, a host k-mer oracle, the reads' true genome slices, a host
-   argmin, CPU runs of subsets and the plain backend.
+   argmin, CPU runs of subsets and the plain backend (the stages that
+   launch a kernel).
+12. Unitig assembly and the command line. (a) assemble_reads of phase 6's
+   1,000,000 reads on the card (K1 with the validity mask, k = 21,
+   min_count 2, both strands, N windows dropped), its stages timed (the
+   spectrum with its download, prepare_keys, the graph, the emit, the
+   strand-twin dedupe); every unitig of 100 bp or more placed exactly in
+   the genome on one strand, covering 99% of its N-free bases, and the
+   reads of its first 20 kbp assembled on the card and on the CPU, plain
+   and cleaned. (b) python -m bitnuc_tpu_torch info and count in fresh
+   processes; then, through cli.main, every command that launches a kernel
+   (count, spectrum, search, pack, unpack, setop, align, map, call, merge,
+   orf, correct, assemble) on two contigs of the genome (100 kbp), their
+   reads, long reads, pairs and a search database, each held byte for byte
+   to the same command under backend('torch'), with its launches.
 
-The launch counters are set to 0 just before each main path (phases 4 and
-5 under the default backend, phases 6, 7, 8, 9 and 11, and each path of
-phase 10) and read just after it; every
-kernel of that path must have launched there, and the flagship step alone
+Each phase's start, and its sections', print as "[clock] ... at N s". The
+launch counters are set to 0 just before each main path (phases 4 and 5
+under the default backend, phases 6, 7, 8, 9 and 11, each path of phase
+10, and the assembly and each command of phase 12) and read just after
+it; every kernel of that path must have launched there, and the flagship step alone
 must make two K3b launches (its plain and canonical k = 8 counts) and no K3a
 launch. The last lines printed are a
 JSON object of per-kernel
@@ -254,6 +269,15 @@ TC_SLICE = 262_144  # database entries K6's plain version is compared on
 UNPACK_K_ROWS = 7_663_238
 
 FAILURES = []
+T_START = [0.0]
+
+
+def phase_clock(results, label: str) -> None:
+    """Print and record the seconds since the script started, at the start
+    of each phase: the phases' times."""
+    s = time.perf_counter() - T_START[0]
+    results["phases"].setdefault("clock_s", {})[label] = s
+    print(f"[clock] {label} at {s:.1f} s", flush=True)
 
 
 def check(name: str, ok: bool, detail: str = "") -> bool:
@@ -437,10 +461,20 @@ def table_to_lists(table: dict, torch, device):
     return tuple(torch.from_numpy(np.ascontiguousarray(c)).to(device) for c in cols)
 
 
-def lists_to_table(kmer, lo, hi, counts) -> dict:
+def lists_to_arrays(kmer, lo, hi, counts):
+    """Counted lists on the card -> host (uint64 keys, int64 counts) of
+    their live rows, in the lists' order."""
     lo, hi, counts = kmer.compact_runs(lo, hi, counts)
     keys = (hi.astype(np.uint64) << np.uint64(32)) | lo.astype(np.uint64)
-    return dict(zip(keys.tolist(), counts.tolist()))
+    return keys, counts.astype(np.int64)
+
+
+def table_to_arrays(table: dict):
+    """{key: count} -> (uint64 keys, int64 counts), ascending by key."""
+    keys = np.fromiter(table.keys(), np.uint64, len(table))
+    counts = np.fromiter(table.values(), np.int64, len(table))
+    order = np.argsort(keys)
+    return keys[order], counts[order]
 
 
 def decode_keys_host(keys: np.ndarray, k: int) -> np.ndarray:
@@ -497,6 +531,7 @@ def large_k_phase(args, torch, dev, timer, tmp, results):
           "FASTA.gz)", flush=True)
     count_kw = dict(batch_size=FASTQ_BATCH, canonical=True, on_invalid="skip", device=dev)
 
+    phase_clock(results, "phase 6: the path, with the counters set to 0 just before it")
     # -- the path, with the counters set to 0 just before it ---------------
     kernels.reset_launches()
     torch.cuda.synchronize()
@@ -534,18 +569,22 @@ def large_k_phase(args, torch, dev, timer, tmp, results):
           f"{ph['large_k_count_genome_s']:.2f} s; distinct k-mers {ph['large_k_distinct']}",
           flush=True)
 
+    phase_clock(results, "phase 6: checks")
     # -- checks ---------------------------------------------------------------
     for (mode, compact), out in combined.items():
         with config.backend("torch"):
             plain = setops.combine_counts(*a, *b, mode=mode, compact=compact)
         check(f"combine {mode} compact={int(compact)} == plain backend",
               all(torch.equal(x, y) for x, y in zip(out, plain)))
-    for mode in setops.MODES:
-        want = setops.combine_dicts(reads_t, genome_t, mode)
-        got = lists_to_table(kmer, *combined[mode, True][:3])
-        loose = lists_to_table(kmer, *combined[mode, False][:3])
-        check(f"combine {mode} == combine_dicts", got == want and loose == want
-              and int(combined[mode, True][3]) == len(want), f"{len(want)} k-mers")
+    def same_rows(x, y):
+        return all(np.array_equal(u, v) for u, v in zip(x, y))
+
+    for mode in setops.MODES:  # as sorted arrays: the same rows as the dicts
+        want = table_to_arrays(setops.combine_dicts(reads_t, genome_t, mode))
+        got = lists_to_arrays(kmer, *combined[mode, True][:3])
+        loose = lists_to_arrays(kmer, *combined[mode, False][:3])
+        check(f"combine {mode} == combine_dicts", same_rows(got, want) and same_rows(loose, want)
+              and int(combined[mode, True][3]) == len(want[0]), f"{len(want[0])} k-mers")
     host = decode_keys_host(
         (sub_hi[:n_err].cpu().numpy().view(np.uint32).astype(np.uint64) << np.uint64(32))
         | sub_lo[:n_err].cpu().numpy().view(np.uint32).astype(np.uint64), k)
@@ -734,6 +773,7 @@ def mapping_phase(args, torch, dev, timer, results, fa, genome, reads, true_star
     n_reads = reads.shape[0]
     lens_np = np.full(n_reads, reads.shape[1], np.int32)
 
+    phase_clock(results, "phase 7: the path, with the counters set to 0 just before it")
     # -- the path, with the counters set to 0 just before it ---------------
     kernels.reset_launches()
     torch.cuda.synchronize()
@@ -784,6 +824,7 @@ def mapping_phase(args, torch, dev, timer, results, fa, genome, reads, true_star
           f"{ph['map_e2e_reads_per_s']:.0f} reads/s end to end; SW rescoring of {nb} pairs "
           f"{ph['map_sw_rescore_s']:.2f} s", flush=True)
 
+    phase_clock(results, "phase 7: where a batch's time goes")
     # -- where a batch's time goes -----------------------------------------
     words_b, lens_b = packed.words[:nb], packed.lengths[:nb]
     ph["map_seed_join_vote_ms"] = timer(
@@ -799,6 +840,7 @@ def mapping_phase(args, torch, dev, timer, results, fa, genome, reads, true_star
           == tb["cigar"])
     del strings
 
+    phase_clock(results, "phase 7: K8 and K9 against their plain versions")
     # -- K8 and K9 against their plain versions -------------------------------
     M, N = 16 * q_words.shape[1], 16 * win.shape[1]
     K, _ = align._band_geometry(off_lo, off_hi, N)
@@ -846,6 +888,7 @@ def mapping_phase(args, torch, dev, timer, results, fa, genome, reads, true_star
             compare("sw_score", f"[{B}] Wa={Wa} Wb={Wb} ties={ties} params={params}",
                     align.sw_score_kernel(*pa, *params), align.sw_score_torch(*pa, *params))
 
+    phase_clock(results, "phase 7: one batch under the plain backend")
     # -- one batch under the plain backend ------------------------------------
     first = PackedReads(words=words_b, lengths=lens_b)
     res_k = {f: v[:nb] for f, v in res.items()}
@@ -858,6 +901,7 @@ def mapping_phase(args, torch, dev, timer, results, fa, genome, reads, true_star
           and np.array_equal(tb_p["tb_cost"], tb["tb_cost"][:nb]))
     del res_p, tb_p
 
+    phase_clock(results, "phase 7: checks against the truth")
     # -- checks against the truth -------------------------------------------
     L = reads.shape[1]
     span = np.lib.stride_tricks.sliding_window_view(genome, L)[true_starts]
@@ -885,6 +929,7 @@ def mapping_phase(args, torch, dev, timer, results, fa, genome, reads, true_star
           bool((sw_s[exact & placed[:nb]] == 2 * L).all()), f"{int((exact & placed[:nb]).sum())}"
           " reads")
 
+    phase_clock(results, "phase 7: checks on the CIGARs")
     # -- checks on the CIGARs ----------------------------------------------
     mapped = res["mapped"]
     check("tb_cost == cost for every mapped read",
@@ -897,6 +942,7 @@ def mapping_phase(args, torch, dev, timer, results, fa, genome, reads, true_star
     check("reference-consuming ops (=, X, D) sum to ref_end - ref_start",
           bool((r_use == (res["ref_end"] - res["ref_start"])[mapped]).all()))
 
+    phase_clock(results, "phase 7: a host oracle: full-DP fits of ORACLE_PAIRS reads into their windows")
     # -- a host oracle: full-DP fits of ORACLE_PAIRS reads into their windows -
     rows = np.flatnonzero(clean_span[:nb] & placed[:nb])[:ORACLE_PAIRS]
     qa = align._codes(q_words[rows], lens_b[rows], 4).cpu().numpy()
@@ -1073,6 +1119,7 @@ def search_orf_phase(args, torch, dev, timer, results, tmp, db_wm, genome, reads
     write_fastq(os.path.join(tmp, "db.fq"), fq_seqs)
     contigs = genome[: N_CONTIGS * CONTIG_BP].reshape(N_CONTIGS, CONTIG_BP)
 
+    phase_clock(results, "phase 8: the path, with the counters set to 0 just before it")
     # -- the path, with the counters set to 0 just before it ---------------
     times = {}
     kernels.reset_launches()
@@ -1134,6 +1181,7 @@ def search_orf_phase(args, torch, dev, timer, results, tmp, db_wm, genome, reads
           f"({ph['longest_orf_contig_bases_per_s'] / 1e6:.1f} Mbases/s); --translate of the "
           f"first batch {times['translate_s']:.3f} s", flush=True)
 
+    phase_clock(results, "phase 8: checks")
     # -- checks ---------------------------------------------------------------
     with config.backend("torch"):
         plain = search_orf_path(torch, dev, tmp, db_wm, queries, reads, contigs, {})
@@ -1481,20 +1529,20 @@ LONG_MIN_CHAIN = MAP_MIN_SEEDS  # bitnuc-tpu map --long passes --min-seeds as mi
 LONG_TOL = 100  # bp between a chain's ends and the true span's
 LONG_SUBBATCH = 256  # the shortest reads, also run under the plain backend
 LONG_CPU_READS = 64  # reads of 1,000-2,000 bp also mapped on the CPU
-LONG_EXTEND_READS = 1_024  # reads of 1,000-3,000 bp mapped with extend=True
+LONG_EXTEND_READS = 256  # reads of 1,000-3,000 bp mapped with extend=True
 LONG_ORACLE = 16  # of them, fits held to fit_oracle
 PAIRS = 262_144
 PAIR_LEN = 150
 PAIR_FRAG_MIN, PAIR_FRAG_MAX = 200, 800
 PAIR_SUB = 0.001
-CALL_BP = 1_000_000
-CALL_SNPS = 1_000
-CALL_INDELS = 100
-CALL_READS = 200_000
+CALL_BP = 500_000
+CALL_SNPS = 500
+CALL_INDELS = 50
+CALL_READS = 100_000
 CALL_LEN = 150
 CALL_SUB = 0.001
 CALL_NEAR = 150  # SNP checks skip sites this close to a planted indel
-SKETCH_READS = 262_144
+SKETCH_READS = 65_536
 SKETCH_W = 10
 SKETCH_K, SKETCH_K64 = 15, 21
 # C1 counted as the function needs it, a slot a step: the two differences
@@ -1679,6 +1727,7 @@ def long_calls_phase(args, torch, dev, timer, results, fa, genome, reads_g, inde
     print(f"phase 10: long reads, pairs, calls and sketches (index k = {k}, w = {index.w}, "
           f"max_occ = {index.max_occ})", flush=True)
 
+    phase_clock(results, "phase 10: long reads: the path, with the counters set to 0 just before it")
     # -- long reads: the path, with the counters set to 0 just before it -----
     t = time.perf_counter()
     long_reads, l_start, l_span, l_rev = make_long_reads(rng, genome, LONG_READS)
@@ -1720,6 +1769,7 @@ def long_calls_phase(args, torch, dev, timer, results, fa, genome, reads_g, inde
     check(f"reads clear of N runs: >= 99% mapped on the true strand, both ends within "
           f"{LONG_TOL} bp", frac >= 0.99, f"{frac * 100:.3f}% of {int(clean.sum())}")
 
+    phase_clock(results, "phase 10: the shortest reads under the plain backend; a CPU run")
     # -- the shortest reads under the plain backend; a CPU run -----------------
     order = np.argsort(lens, kind="stable")
     sub = torch.from_numpy(np.sort(order[:LONG_SUBBATCH])).to(dev)
@@ -1746,6 +1796,7 @@ def long_calls_phase(args, torch, dev, timer, results, fa, genome, reads_g, inde
     check(f"{len(mid)} reads of 1,000-2,000 bp on the card == a CPU run, every field",
           all(np.array_equal(got[f], want[f]) for f in want))
 
+    phase_clock(results, "phase 10: extend=True on reads of 1,000-3,000 bp")
     # -- extend=True on reads of 1,000-3,000 bp --------------------------------
     ext = np.flatnonzero((lens >= 1000) & (lens <= 3000))[:LONG_EXTEND_READS]
     We = bitops.n_words_for(int(lens[ext].max()))
@@ -1791,6 +1842,7 @@ def long_calls_phase(args, torch, dev, timer, results, fa, genome, reads_g, inde
     check(f"{len(pick)} extended fits == host full-DP oracle (cost, start, end)",
           len(pick) == LONG_ORACLE and not bad, f"differing (row, got, want): {bad[:4]}")
 
+    phase_clock(results, "phase 10: C1 against its plain version; the stages of a chunk")
     # -- C1 against its plain version; the stages of a chunk --------------------
     chain_kw = (2048, 16, 64)
     anchors = long_anchors(torch, mapper, index, sub_reads.words, sub_reads.lengths)
@@ -1885,6 +1937,7 @@ def long_calls_phase(args, torch, dev, timer, results, fa, genome, reads_g, inde
                     f"gap_unit {gu}", got, want)
     del packed, sub_reads, mid_reads, ext_reads
 
+    phase_clock(results, "phase 10: read pairs: map --paired")
     # -- read pairs: map --paired -----------------------------------------------
     t = time.perf_counter()
     flen = rng.integers(PAIR_FRAG_MIN, PAIR_FRAG_MAX + 1, PAIRS)
@@ -1958,6 +2011,7 @@ def long_calls_phase(args, torch, dev, timer, results, fa, genome, reads_g, inde
           f"{int(rf.sum())} RF, {int(split.sum())} split")
     del p1, p2, stacked, both, r1, r2, left, right
 
+    phase_clock(results, "phase 10: variant calls: call and call --cigar")
     # -- variant calls: call and call --cigar -------------------------------------
     t = time.perf_counter()
     ref = genome[:CALL_BP]
@@ -2069,6 +2123,7 @@ def long_calls_phase(args, torch, dev, timer, results, fa, genome, reads_g, inde
           same(cres, cres_p) and same(calls, calls_p) and same(calls_c, calls_cp))
     del cp, calls, calls_c, calls_p, calls_cp, counts_t, rs_t, rc_t, keep_t
 
+    phase_clock(results, "phase 10: sketches: bitnuc-tpu sketch of the genome and of reads")
     # -- sketches: bitnuc-tpu sketch of the genome and of reads ------------------
     kernels.reset_launches()
     _, fa_genome = bnio.read_fasta(fa, validate=False, device=dev)
@@ -2138,6 +2193,7 @@ CORRECT_RECOVERED_MIN = 0.97
 SCREEN_RANDOM_SOLID_MAX, SCREEN_RANDOM_SHARE = 1, 0.999
 N_BARCODES, BC_LEN, BC_MIN_DIST, BC_SUB, BC_MAX_DIST = 96, 8, 3, 0.01, 1
 TIER_LAUNCHES = {}
+FILE_STAGES = ("filter_fastq", "filter_fastq_paired", "qc_profile")  # host framing, no kernel
 
 
 def write_fastq_quals(path: str, seqs: np.ndarray, quals: np.ndarray, prefix=b"q") -> None:
@@ -2246,6 +2302,7 @@ def read_tier_phase(args, torch, dev, timer, results, tmp, genome, reads, true_s
     n = TIER_READS
     print(f"phase 11: read-processing tier ({n} reads of {READ_LEN} bp; phase 6's k = {k} "
           "tables)", flush=True)
+    phase_clock(results, "phase 11: inputs")
     # -- inputs ----------------------------------------------------------------
     fq_seqs, fq_quals, ad_off = tier_fastq(rng, genome)
     fq2_seqs, fq2_quals, _ = tier_fastq(rng, genome)
@@ -2318,17 +2375,26 @@ def read_tier_phase(args, torch, dev, timer, results, tmp, genome, reads, true_s
                 "correct_reads (K1 + 4 rounds + K2)": corr,
                 "assign_barcodes (K1 + demux)": dmx}
 
-    def run(label):
+    def run(label, file_stages=True):
+        """The path's outputs; file_stages=False leaves out filter_fastq,
+        filter_fastq_paired and qc_profile, which launch no kernel. Each
+        stage's wall seconds go to stage_s[label]."""
         out = {}
         for name, fn in stage_fns(label).items():
+            if not file_stages and name in FILE_STAGES:
+                continue
+            t = time.perf_counter()
             got = fn()
             out[name] = tuple(x.cpu().numpy() for x in got) if isinstance(got, tuple) else got
-        for name in ("f", "p1", "p2"):
+            stage_s.setdefault(label, {})[name] = time.perf_counter() - t
+        for name in ("f", "p1", "p2") if file_stages else ():
             with open(out_paths[label][name], "rb") as f:
                 out[f"file {name}"] = f.read()
         return out
 
+    phase_clock(results, "phase 11: the path, with the counters set to 0 just before it")
     # -- the path, with the counters set to 0 just before it ----------------
+    stage_s = {}
     kernels.reset_launches()
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -2342,10 +2408,13 @@ def read_tier_phase(args, torch, dev, timer, results, tmp, genome, reads, true_s
         check(f"{name} launched on the read-processing path", TIER_LAUNCHES[name] > 0,
               f"{TIER_LAUNCHES[name]} launches")
 
-    # -- each stage on a warm second call (the path's was the first) ------------
+    phase_clock(results, "phase 11: each device stage on a warm second call")
+    # -- each device stage on a warm second call (the path's was the first) -----
+    # (the file stages' seconds, on the host, are those of the path's run)
     ph["tier_stages_ms"] = {}
     for name, fn in stage_fns("auto").items():
-        ms = timer(fn, 1, warmup=False)
+        ms = (stage_s["auto"][name] * 1e3 if name in FILE_STAGES
+              else timer(fn, 1, warmup=False))
         ph["tier_stages_ms"][name] = ms
         print(f"    stage {name}: {ms:.1f} ms ({n / ms * 1e3:.0f} reads/s)", flush=True)
     r = pack(base)
@@ -2402,14 +2471,16 @@ def read_tier_phase(args, torch, dev, timer, results, tmp, genome, reads, true_s
           f"slots a lookup {lo.numel()} (x 3 candidates a round)", flush=True)
     del r, bv, table, w1, lo, hi, valid, codes3, lo3, hi3, valid3, rs, rd, rb, bv_s, framed
 
-    # -- the same path under backend('torch') ------------------------------------
+    phase_clock(results, "phase 11: the stages that launch a kernel, under backend('torch')")
+    # -- the stages that launch a kernel, under backend('torch') ---------------------
     with config.backend("torch"):
-        plain = run("torch")
-    bad = [name for name in out if not same_outputs(out[name], plain[name])]
-    check("read-processing path under backend('torch') == default backend, every output",
-          not bad, f"differ: {bad}")
+        plain = run("torch", file_stages=False)
+    bad = [name for name in plain if not same_outputs(out[name], plain[name])]
+    check("read-processing path under backend('torch') == default backend, every output of "
+          "the stages that launch a kernel", not bad and len(plain) == 4, f"differ: {bad}")
     del plain
 
+    phase_clock(results, "phase 11: filter: fused core against the numpy reference")
     # -- filter: fused core against the numpy reference -------------------------
     f_out = out["filter_fastq"]
     keeps, starts, ends, rows_sure = [], [], [], []
@@ -2454,6 +2525,7 @@ def read_tier_phase(args, torch, dev, timer, results, tmp, genome, reads, true_s
           p_out == {"pairs_in": n, "pairs_out": int(both.sum())} and out["file p1"] == want1,
           f"{p_out}")
 
+    phase_clock(results, "phase 11: qc against a host numpy fold")
     # -- qc against a host numpy fold ------------------------------------------------
     rep = out["qc_profile"]
     acc = qc._Acc(dev)
@@ -2470,6 +2542,7 @@ def read_tier_phase(args, torch, dev, timer, results, tmp, genome, reads, true_s
     check("qc_profile == the report of a host numpy fold, key for key", rep == want,
           f"status {rep['status']}")
 
+    phase_clock(results, "phase 11: dedupe against np.unique over the 2-bit codes")
     # -- dedupe against np.unique over the 2-bit codes ---------------------------------
     keep_d, counts_d = out["mark_duplicates (K1 + dedupe)"]
     codes = ascii_codes(dup_rows)
@@ -2482,6 +2555,7 @@ def read_tier_phase(args, torch, dev, timer, results, tmp, genome, reads, true_s
           np.array_equal(keep_d, want_keep) and np.array_equal(counts_d, want_counts)
           and int(counts_d.sum()) == n, f"{int(keep_d.sum())} distinct of {n}")
 
+    phase_clock(results, "phase 11: screen")
     # -- screen -----------------------------------------------------------------------
     n_win, n_solid = out["screen_reads (K1 + lookup)"]
     truth = true_slices(genome, true_starts[:n], true_rev[:n])
@@ -2517,6 +2591,7 @@ def read_tier_phase(args, torch, dev, timer, results, tmp, genome, reads, true_s
                                                                                     want_spl))
     del counts, valid, sr
 
+    phase_clock(results, "phase 11: correct")
     # -- correct ----------------------------------------------------------------------
     w_c, n_c, dec = out["correct_reads (K1 + 4 rounds + K2)"]
     dec = dec[:, :READ_LEN]
@@ -2547,6 +2622,7 @@ def read_tier_phase(args, torch, dev, timer, results, tmp, genome, reads, true_s
           and np.array_equal(n_cpu.numpy(), n_c[:TIER_SUBSET]))
     del sr, w_cpu, n_cpu
 
+    phase_clock(results, "phase 11: demux against a host argmin")
     # -- demux against a host argmin ------------------------------------------------------
     idx_d, dist_d = out["assign_barcodes (K1 + demux)"]
     d = (heads[:, None, :] != bcs[None, :, :]).sum(-1)
@@ -2559,6 +2635,354 @@ def read_tier_phase(args, torch, dev, timer, results, tmp, genome, reads, true_s
     ph["phase11_s"] = time.perf_counter() - t0
     print(f"  phase 11 in {ph['phase11_s']:.1f} s (inputs {ph['tier_write_s']:.1f} s, the path "
           f"{ph['tier_path_s']:.1f} s)", flush=True)
+
+
+# -- phase 12: unitig assembly and the command line ---------------------------------
+
+ASM_K, ASM_MIN_COUNT = 21, 2  # assemble_reads' default k and min_count
+ASM_MIN_LEN = 100  # unitigs of at least this many bp are held to the genome
+ASM_COVER_MIN = 0.99  # of the genome's N-free bases, covered by those unitigs
+ASM_SUBSET_BP = 20_000  # reads starting in the genome's first 20 kbp: card against CPU
+CLI_CONTIGS = ((1_000_000, 60_000), (3_000_000, 40_000))  # (start, bp) of the CLI's contigs
+CLI_LONG_READS = 48
+CLI_PAIRS = 4_096
+CLI_DB = 20_000  # entries of the search database, phase 6's first N-free reads
+CLI_TARGET_BP = 1_000  # the one target of bitnuc-tpu align, broadcast to every query
+ASM_LAUNCHES = {}
+CLI_LAUNCHES = {}
+
+
+class StageClock:
+    """Wall seconds spent in chosen functions of a module while a path runs:
+    each name is wrapped for the length of the ``with`` block and its time
+    added to ``times[name]`` (a function that calls another counts the
+    callee's time too)."""
+
+    def __init__(self, module, names, times: dict):
+        self.module, self.names, self.times = module, names, times
+
+    def __enter__(self):
+        self.saved = {n: getattr(self.module, n) for n in self.names}
+        for name, fn in self.saved.items():
+            def timed_fn(*a, _fn=fn, _name=name, **kw):
+                t = time.perf_counter()
+                try:
+                    return _fn(*a, **kw)
+                finally:
+                    self.times[_name] = self.times.get(_name, 0.0) + time.perf_counter() - t
+            setattr(self.module, name, timed_fn)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.module, name, fn)
+
+
+def n50(seqs) -> int:
+    lens = sorted((len(s) for s in seqs), reverse=True)
+    half, acc = sum(lens) / 2, 0
+    for ln in lens:
+        acc += ln
+        if acc >= half:
+            return ln
+    return 0
+
+
+def place_unitigs(genome: np.ndarray, seqs, k: int, min_len: int):
+    """Each unitig of at least min_len bp placed exactly in the genome on
+    one strand, through an index of the genome's N-free k-mers: (number
+    held, number placed, covered mask over the genome)."""
+    codes = ascii_codes(genome).astype(np.uint64)
+    nwin = len(genome) - k + 1
+    keys = np.zeros(nwin, np.uint64)
+    for t in range(k):
+        keys |= codes[t : t + nwin] << np.uint64(2 * t)
+    has_n = np.lib.stride_tricks.sliding_window_view(genome == ord("N"), k).any(1)
+    keys[has_n] = np.uint64(2**64 - 1)
+    order = np.argsort(keys, kind="stable")
+    skeys = keys[order]
+    gb = genome.tobytes()
+    comp = bytes.maketrans(b"ACGT", b"TGCA")
+    digit = bytes.maketrans(b"ACGT", b"0123")
+    covered = np.zeros(len(genome), bool)
+    held = placed = 0
+    for s in seqs:
+        if len(s) < min_len:
+            continue
+        held += 1
+        for cand in (s, s.translate(comp)[::-1]):
+            head = cand[:k]
+            if head.strip(b"ACGT"):
+                continue
+            q = np.uint64(int(head.translate(digit)[::-1], 4))
+            lo, hi = np.searchsorted(skeys, q, "left"), np.searchsorted(skeys, q, "right")
+            hit = next((int(p) for p in order[lo:hi] if gb[p : p + len(cand)] == cand), None)
+            if hit is not None:
+                covered[hit : hit + len(cand)] = True
+                placed += 1
+                break
+    return held, placed, covered
+
+
+def n_free_window(genome: np.ndarray, start: int, n: int) -> int:
+    """The first start at or after ``start`` of an N-free window of n bp."""
+    while (genome[start : start + n] == ord("N")).any():
+        start += int(np.flatnonzero(genome[start : start + n] == ord("N"))[-1]) + 1
+    return start
+
+
+def cli_inputs(rng, d: str, genome: np.ndarray, reads: np.ndarray, true_starts: np.ndarray):
+    """Phase 12's small shared inputs, from phase 6's genome and reads: two
+    contigs, the reads inside them (with their Ns) and their N-free ones,
+    long reads, read pairs, a search database with 64 and 3 queries, the
+    one target of align, and a packed .npz."""
+    from bitnuc_tpu_torch import io as bnio
+    from bitnuc_tpu_torch.sequence import PackedReads
+
+    os.makedirs(d, exist_ok=True)
+    contigs, inside = [], np.zeros(len(reads), bool)
+    for start, n in CLI_CONTIGS:
+        s = n_free_window(genome, start, n)
+        contigs.append(genome[s : s + n])
+        inside |= (true_starts >= s) & (true_starts + READ_LEN <= s + n)
+    with open(os.path.join(d, "ref.fa"), "wb") as f:
+        for i, c in enumerate(contigs):
+            f.write(b">ctg%d slice of phase 6's genome\n" % i)
+            f.write(b"\n".join(c[j : j + 80].tobytes() for j in range(0, len(c), 80)) + b"\n")
+    sel = reads[inside]
+    write_fastq(os.path.join(d, "reads.fq"), sel)
+    clean = reads[~(reads == ord("N")).any(1)]
+    write_fastq(os.path.join(d, "clean.fq"), clean[: len(sel)])
+    write_fastq(os.path.join(d, "db.fq"), clean[:CLI_DB])
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    q = clean[rng.integers(0, CLI_DB, 64)].copy()
+    hits = rng.random(q.shape) < 0.05
+    q[hits] = acgt[rng.integers(0, 4, int(hits.sum()))]
+    for name, rows in (("q64.fa", q), ("q3.fa", q[:3])):
+        with open(os.path.join(d, name), "wb") as f:
+            f.write(b"".join(b">q%d\n%s\n" % (i, r.tobytes()) for i, r in enumerate(rows)))
+    with open(os.path.join(d, "target.fa"), "wb") as f:
+        f.write(b">target\n" + contigs[0][:CLI_TARGET_BP].tobytes() + b"\n")
+    longs, _, _, _ = make_long_reads(rng, contigs[0], CLI_LONG_READS)
+    write_fastq_records(os.path.join(d, "long.fq"), longs)
+    c = contigs[0]
+    comp = comp_table()
+    flen = rng.integers(180, 401, CLI_PAIRS)
+    fs = rng.integers(0, len(c) - flen)
+    win = np.lib.stride_tricks.sliding_window_view(c, READ_LEN)
+    left, right = win[fs], comp[win[fs + flen - READ_LEN][:, ::-1]]
+    flip = rng.random(CLI_PAIRS) < 0.5
+    r1, r2 = np.where(flip[:, None], right, left), np.where(flip[:, None], left, right)
+    for name, r in (("r1.fq", r1), ("r2.fq", r2)):
+        r = r.copy()
+        hits = rng.random(r.shape) < 0.01
+        r[hits] = acgt[rng.integers(0, 4, int(hits.sum()))]
+        write_fastq(os.path.join(d, name), r)
+    bnio.save_packed(os.path.join(d, "clean.npz"),
+                     PackedReads.from_ascii(clean[:4096], device="cpu"))
+    return len(sel)
+
+
+# (label, argv) of phase 12(b): every command that launches a kernel
+CLI_RUNS = (
+    ("count", ["count", "{in}/reads.fq", "-k", "12", "--canonical", "--skip-invalid",
+               "--out", "{out}/count.tsv"]),
+    ("count k=21", ["count", "{in}/reads.fq", "-k", "21", "--skip-invalid", "--min-count",
+                    "2", "--out", "{out}/count21.tsv"]),
+    ("spectrum", ["spectrum", "{in}/ref.fa", "-k", "8", "--out", "{out}/spectrum.tsv"]),
+    ("search (64 queries)", ["search", "{in}/db.fq", "{in}/q64.fa", "--n-bases", "150",
+                             "-n", "5"]),
+    ("search (3 queries)", ["search", "{in}/db.fq", "{in}/q3.fa", "--n-bases", "150",
+                            "-n", "5"]),
+    ("pack", ["pack", "{in}/clean.fq", "-o", "{out}/clean.npz"]),
+    ("unpack", ["unpack", "{in}/clean.npz"]),
+    ("setop", ["setop", "subtract", "{in}/reads.fq", "{in}/ref.fa", "-k", "21", "--canonical",
+               "--skip-invalid", "--out", "{out}/setop.tsv"]),
+    ("align --mode fit", ["align", "{in}/q64.fa", "{in}/target.fa", "--mode", "fit",
+                          "--out", "{out}/fit.tsv"]),
+    ("align --mode local", ["align", "{in}/q64.fa", "{in}/target.fa", "--mode", "local",
+                            "--out", "{out}/local.tsv"]),
+    ("map", ["map", "{in}/ref.fa", "{in}/reads.fq", "--out", "{out}/map.paf"]),
+    ("map --sam", ["map", "{in}/ref.fa", "{in}/reads.fq", "--sam", "--out", "{out}/map.sam"]),
+    ("map --paired --sam", ["map", "{in}/ref.fa", "{in}/r1.fq", "--paired", "{in}/r2.fq",
+                            "--sam", "--out", "{out}/pairs.sam"]),
+    ("map --long", ["map", "{in}/ref.fa", "{in}/long.fq", "--long", "--out",
+                    "{out}/long.paf"]),
+    ("call", ["call", "{in}/ref.fa", "{in}/reads.fq", "--vcf", "--consensus",
+              "{out}/consensus.fa", "--out", "{out}/calls.vcf"]),
+    ("merge", ["merge", "{in}/r1.fq", "{in}/r2.fq", "--unmerged", "{out}/unmerged.fa",
+               "--out", "{out}/merged.fa"]),
+    ("orf", ["orf", "{in}/reads.fq", "--translate", "--out", "{out}/orf.tsv"]),
+    ("correct", ["correct", "{in}/reads.fq", "-k", "21", "--out", "{out}/corrected.fq"]),
+    ("assemble", ["assemble", "{in}/reads.fq", "-k", "21", "--skip-invalid", "--gfa",
+                  "{out}/unitigs.gfa", "--out", "{out}/unitigs.fa"]),
+)
+
+
+def run_cli(cli, argv, d_in: str, d_out: str):
+    """cli.main(argv) in this process: (exit code, stdout bytes, stderr with
+    the output directory as {out}, {file: bytes} of what it wrote)."""
+    import io as stdio
+
+    shutil.rmtree(d_out, ignore_errors=True)
+    os.makedirs(d_out)
+    argv = [a.replace("{in}", d_in).replace("{out}", d_out) for a in argv]
+    so = stdio.TextIOWrapper(stdio.BytesIO(), encoding="utf-8", write_through=True)
+    se = stdio.StringIO()
+    saved = sys.stdout, sys.stderr
+    sys.stdout, sys.stderr = so, se
+    try:
+        rc = cli.main(argv)
+    finally:
+        so.flush()
+        sys.stdout, sys.stderr = saved
+    files = {}
+    for name in sorted(os.listdir(d_out)):
+        with open(os.path.join(d_out, name), "rb") as f:
+            files[name] = f.read()
+    return rc, so.buffer.getvalue(), se.getvalue().replace(d_out, "{out}"), files
+
+
+def assembly_cli_phase(args, torch, dev, results, tmp, genome, reads, true_starts):
+    """Phase 12: (a) assemble_reads of phase 6's reads on the card, its
+    stages timed, its unitigs held to the genome and a subset held to a CPU
+    run; (b) python -m bitnuc_tpu_torch info and count in fresh processes,
+    then every command that launches a kernel through cli.main, its bytes
+    held to the same command under backend('torch')."""
+    import bitnuc_tpu_torch.assemble as asm
+    from bitnuc_tpu_torch import cli, config, kernels
+    from bitnuc_tpu_torch.ops import codec, kmer
+    from bitnuc_tpu_torch.sequence import PackedReads
+
+    ph = results["phases"]
+    t0 = time.perf_counter()
+    k = ASM_K
+    print(f"phase 12: unitig assembly ({len(reads)} reads of {READ_LEN} bp, k = {k}, "
+          f"min_count {ASM_MIN_COUNT}, both strands, N windows dropped) and the command line",
+          flush=True)
+
+    # -- (a) the assembly path, with the counters set to 0 just before it -------
+    times = {}
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    ascii_t = torch.from_numpy(reads).to(dev)
+    lens_t = torch.full((len(reads),), READ_LEN, dtype=torch.int32, device=dev)
+    words, _ = codec.encode_reads(ascii_t, lens_t)
+    bv = codec.validity_mask(ascii_t, lens_t)
+    torch.cuda.synchronize()
+    t_pack = time.perf_counter() - t
+    with StageClock(kmer, ("count_kmers_runs",), times), StageClock(
+            asm, ("_runs_to_keys", "prepare_keys", "_Graph", "unitigs_from_keys",
+                  "dedupe_strand_twins", "_sort_longest_first"), times):
+        seqs, circ = asm.assemble_reads(PackedReads(words=words, lengths=lens_t), k,
+                                        min_count=ASM_MIN_COUNT, base_valid=bv)
+    ph["asm_path_s"] = time.perf_counter() - t
+    ASM_LAUNCHES.update(kernels.LAUNCHES)
+    del ascii_t, words, bv
+    stages = {
+        "upload + K1 + validity mask": t_pack,
+        "spectrum on the card (count_kmers_runs + download)":
+            times["count_kmers_runs"] + times["_runs_to_keys"],
+        "prepare_keys (strand union)": times["prepare_keys"],
+        "graph (_Graph)": times["_Graph"],
+        "emit (unitigs_from_keys less the graph)": times["unitigs_from_keys"] - times["_Graph"],
+        "dedupe_strand_twins": times["dedupe_strand_twins"],
+        "sort longest first": times["_sort_longest_first"],
+    }
+    ph["asm_stages_s"] = stages
+    ph.update(asm_unitigs=len(seqs), asm_n50=n50(seqs), asm_bases=sum(len(s) for s in seqs),
+              asm_circular=int(sum(circ)))
+    print(f"  assemble_reads: {ph['asm_path_s']:.2f} s; {len(seqs)} unitigs "
+          f"({ph['asm_circular']} circular), {ph['asm_bases']} bases, N50 {ph['asm_n50']}; "
+          f"launches {ASM_LAUNCHES}", flush=True)
+    for label, s in stages.items():
+        print(f"    stage {label}: {s:.3f} s", flush=True)
+    check("pack launched on the assembly path", ASM_LAUNCHES["pack"] > 0,
+          f"{ASM_LAUNCHES['pack']} launches")
+    t = time.perf_counter()
+    held, placed, covered = place_unitigs(genome, seqs, k, ASM_MIN_LEN)
+    n_free = genome != ord("N")
+    cover = float(covered[n_free].mean())
+    ph.update(asm_held=held, asm_placed=placed, asm_cover=cover,
+              asm_check_s=time.perf_counter() - t)
+    check(f"every unitig of >= {ASM_MIN_LEN} bp lies exactly in the genome on one strand",
+          held > 0 and placed == held, f"{placed} of {held}")
+    check(f"those unitigs cover >= {ASM_COVER_MIN:.0%} of the genome's N-free bases",
+          cover >= ASM_COVER_MIN, f"{cover:.5%} of {int(n_free.sum())}")
+    sub = reads[true_starts < ASM_SUBSET_BP]
+    packed = []  # the card's, then the CPU's
+    for d in (dev, torch.device("cpu")):
+        a = torch.from_numpy(sub).to(d)
+        ln = torch.full((len(sub),), READ_LEN, dtype=torch.int32, device=d)
+        packed.append((PackedReads(words=codec.encode_reads(a, ln)[0], lengths=ln),
+                       codec.validity_mask(a, ln)))
+    for clean in (False, True):
+        got, want = (asm.assemble_reads(r, k, min_count=ASM_MIN_COUNT, base_valid=b,
+                                        clean=clean) for r, b in packed)
+        check(f"{len(sub)} reads of the first {ASM_SUBSET_BP} bp, clean={clean}: the card's "
+              "unitigs == the CPU's", got == want and len(got[0]) > 0,
+              f"{len(got[0])} unitigs")
+    del packed
+
+    # -- (b) the command line ------------------------------------------------------
+    rng = np.random.default_rng(args.seed + 12)
+    d_in = os.path.join(tmp, "cli_in")
+    t = time.perf_counter()
+    n_reads = cli_inputs(rng, d_in, genome, reads, true_starts)
+    ph["cli_inputs_s"] = time.perf_counter() - t
+    root = os.path.dirname(os.path.abspath(__file__))
+    t = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "bitnuc_tpu_torch", "info"], cwd=root,
+                       capture_output=True, text=True, timeout=300)
+    ph["cli_info_process_s"] = time.perf_counter() - t
+    try:
+        info = json.loads(r.stdout.strip().splitlines()[-1])
+    except (ValueError, IndexError):
+        info = {}
+    check("python -m bitnuc_tpu_torch info in a fresh process: the card by default",
+          r.returncode == 0 and info.get("device") == "cuda" and info.get("devices", 0) >= 1,
+          f"{info or r.stderr[-300:]}")
+    sub_out = os.path.join(tmp, "cli_process_count.tsv")
+    t = time.perf_counter()
+    argv = [a.replace("{in}", d_in) for a in CLI_RUNS[0][1][:-1]] + [sub_out]
+    r = subprocess.run([sys.executable, "-m", "bitnuc_tpu_torch", *argv], cwd=root,
+                       capture_output=True, text=True, timeout=300)
+    ph["cli_count_process_s"] = time.perf_counter() - t
+    print(f"  {n_reads} reads in the CLI's contigs; inputs {ph['cli_inputs_s']:.1f} s; fresh "
+          f"processes: info {ph['cli_info_process_s']:.1f} s, count "
+          f"{ph['cli_count_process_s']:.1f} s", flush=True)
+    ok = r.returncode == 0
+    ph["cli_s"], ph["cli_plain_s"] = {}, {}
+    for label, argv in CLI_RUNS:
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got = run_cli(cli, argv, d_in, os.path.join(tmp, "cli_auto"))
+        torch.cuda.synchronize()
+        ph["cli_s"][label] = time.perf_counter() - t
+        CLI_LAUNCHES[label] = {n: c for n, c in kernels.LAUNCHES.items() if c}
+        t = time.perf_counter()
+        with config.backend("torch"):
+            want = run_cli(cli, argv, d_in, os.path.join(tmp, "cli_torch"))
+        ph["cli_plain_s"][label] = time.perf_counter() - t
+        size = len(got[1]) + sum(len(v) for v in got[3].values())
+        print(f"    {label}: {ph['cli_s'][label]:.2f} s (backend('torch') "
+              f"{ph['cli_plain_s'][label]:.2f} s), {size} bytes out; launches "
+              f"{CLI_LAUNCHES[label]}", flush=True)
+        check(f"bitnuc_tpu_torch {label}: exit 0, output, a kernel launched, and bytes == "
+              "backend('torch')", got == want and got[0] == 0 and size > 0
+              and bool(CLI_LAUNCHES[label]))
+        if label == "count" and ok:
+            with open(sub_out, "rb") as f:
+                ok = ok and f.read() == got[3]["count.tsv"]
+    check("python -m bitnuc_tpu_torch count in a fresh process == cli.main's count", ok,
+          r.stderr[-300:] if r.returncode else "")
+    ph["cli_launches"] = CLI_LAUNCHES
+    ph["phase12_s"] = time.perf_counter() - t0
+    print(f"  phase 12 in {ph['phase12_s']:.1f} s (assembly path {ph['asm_path_s']:.1f} s, "
+          f"its checks {ph['asm_check_s']:.1f} s, commands {sum(ph['cli_s'].values()):.1f} s, "
+          f"under backend('torch') {sum(ph['cli_plain_s'].values()):.1f} s)", flush=True)
 
 
 def true_slices(genome: np.ndarray, starts: np.ndarray, rev: np.ndarray) -> np.ndarray:
@@ -3167,7 +3591,7 @@ def main() -> int:
     if args.chain_against:
         return chain_against(args, torch, dev)
     results = {"kernels": {}, "phases": {}}
-    t_all = time.perf_counter()
+    t_all = T_START[0] = time.perf_counter()
 
     # -- 1. device and build ------------------------------------------------
     print("phase 1: device", flush=True)
@@ -3179,6 +3603,7 @@ def main() -> int:
     _build.library()
     build_s = time.perf_counter() - t
     print(f"  built {os.path.relpath(lib_path)} in {build_s:.1f} s", flush=True)
+    phase_clock(results, "phase 1: ptxas reports")
     # K1's, K2's, K3a's, K6's, K7's, K8/K9's, K10's and C1's registers, shared
     # memory and spills: nvcc -Xptxas -v of pack.cu, unpack.cu, histogram.cu,
     # tcscan.cu, merge.cu, wavefront.cu, orf.cu and chain.cu
@@ -3226,6 +3651,7 @@ def main() -> int:
         return row
 
     # -- 2. kernels against their plain versions ----------------------------
+    phase_clock(results, "phase 2")
     print("phase 2: kernels against plain versions", flush=True)
     acgt = torch.tensor(list(b"ACGTacgt"), dtype=torch.uint8, device=dev)
 
@@ -3241,6 +3667,7 @@ def main() -> int:
         a, ln = reads(B, L, 0.05)
         compare("pack", f"[{B},{L}]", codec.encode_reads_kernel(a, ln),
                 codec.encode_reads_torch(a, ln))
+    phase_clock(results, "phase 2: K1")
     # K1 at its launches' shapes, (b) the main row; the launches of one call
     # (the wrapper's count) and its device operations (torch.profiler)
     for label, (a, ln) in pack_shapes(torch, dev, args.seed).items():
@@ -3283,6 +3710,7 @@ def main() -> int:
                 del lo, v, keys
     print(f"    ({n_windows} windows of k = 8 in the batch)", flush=True)
 
+    phase_clock(results, "phase 2: K3a")
     # K3a at the main paths' shapes: (a) a batch of the streaming count
     # (FASTQ_BATCH x READ_LEN uppercase ACGT, N at 1/200, k = 12 canonical
     # N-skip), the main row; (b) an edge row, the flagship step's canonical
@@ -3322,6 +3750,7 @@ def main() -> int:
                          lambda: kmer.histogram_from_keys_kernel(keys, k))
     del keys_a, keys_b, keys_c, keys_d, keys
 
+    phase_clock(results, "phase 2: K7")
     # K7: sorted lists with 1..3 key words and 0..2 payloads; small, empty,
     # heavily duplicated (around the sign bit and the all-ones word) and
     # the set-algebra shape
@@ -3373,6 +3802,7 @@ def main() -> int:
                          lambda: merge.merge_sorted_kernel(a, b, 3, (0,)))
         return label
 
+    phase_clock(results, "phase 2: K7 at its main shapes")
     # K7 at combine_counts' shapes (hi, lo, source; count): (m) two lists of
     # MERGE_ROWS, the main row; (s) phase 6's set operation, 7,700,000 +
     # 5,000,000 rows and 4,077,216 of padding; (l) a lopsided merge, whole
@@ -3413,6 +3843,7 @@ def main() -> int:
     long_ascii, _ = reads(64, 16_384, 0.0)
     long_lens = torch.full((64,), 16_384, dtype=torch.int32, device=dev)
     long_words, _ = codec.encode_reads_kernel(long_ascii, long_lens)
+    phase_clock(results, "phase 2: K3b")
     # K3b at both flags: k = 1 to 12 on phase 2's reads and on 64 rows of
     # 16,384 bp; random words with lengths -2, 0, k - 1, 16 W and 16 W + 7 and
     # rows of ACGT repeats, poly-A and poly-T; then hist_rows, (b) and (c)
@@ -3452,6 +3883,7 @@ def main() -> int:
         time_hist_words(label, w, ln, entry.K, canonical, main)
     del w, ln, edge_words, edge_lens
 
+    phase_clock(results, "phase 2: K2")
     # K2 at its launches' shapes (unpack_shapes; (b) the main row), the
     # launches of one call (the wrapper's count) and its device operations;
     # then edge shapes (lengths past max_len, max_len past the capacity 16 *
@@ -3493,6 +3925,7 @@ def main() -> int:
                     ops_ms=max(Q * DB_ENTRIES * n_w / POPC_PER_S,
                                4 * Q * DB_ENTRIES * n_w / INT32_OPS_PER_S) * 1e3)
 
+    phase_clock(results, "phase 2: K4 and K5")
     # K4 (Q = 1) and K5 (Q > 1): one kernel, counted and reported apart
     for nb in (512, 150, 7):
         for Q in (1, 64):
@@ -3510,6 +3943,7 @@ def main() -> int:
             compare("hdist_scan_batch", f"Q={Q} D={d.shape[1]} n_bases={nb}",
                     hamming.hdist_scan_kernel(q, d, nb), hamming.hdist_scan_torch(q, d, nb))
 
+    phase_clock(results, "phase 2: K6")
     # K6 against K5 on the full database at each swept Q, at 512-base
     # entries and at 150-base ones (W = 10, a read set): this feeds
     # database.tc_min_q. Then K6 against its plain version on a slice, and
@@ -3564,6 +3998,7 @@ def main() -> int:
           ops_ms=2 * SEARCH_QUERIES * DB_ENTRIES * 48 * W_db / INT8_TC_OPS_PER_S * 1e3,
           library=lambda: torch._int_mm(lib_q, lib_planes.t()))
 
+    phase_clock(results, "phase 2: tc_search")
     # tc_search: K6's main loop with a per-block top-k. Against its plain
     # version on the slice, against tc_scan + topk_batch_dispatch on the
     # whole database, at edge shapes, on a database of one repeated entry
@@ -3642,6 +4077,7 @@ def main() -> int:
     results["phases"]["search_sweep_ms"] = search_sweep
     del q_max, db_small
 
+    phase_clock(results, "phase 2: K10")
     # K10: its timed shapes (orf_shapes: (r) the table's row, (b) phase 8's
     # batch on both strands, the main row, as longest_orf launches it; (c)
     # phase 8's contigs, (l) rows of 100,000 bp, past the TPU's 32,767; (s),
@@ -3682,6 +4118,7 @@ def main() -> int:
     torch.cuda.synchronize()
 
     # -- 3. goldens ----------------------------------------------------------
+    phase_clock(results, "phase 3")
     print("phase 3: goldens", flush=True)
     g = bnt.PackedReads.from_ascii([b"ACGT"], device=dev)
     check("ACGT encodes to 0b11100100", int(g.to_u64()[0, 0]) == 0b11100100)
@@ -3717,6 +4154,7 @@ def main() -> int:
         results["phases"]["fastq_write_s"] = time.perf_counter() - t
         count_kw = dict(batch_size=FASTQ_BATCH, canonical=True, on_invalid="skip", device=dev)
 
+        phase_clock(results, "phase 4+5")
         print("phase 4+5: main path (flagship step, streaming count) under auto", flush=True)
         kernels.reset_launches()
         torch.cuda.synchronize()
@@ -3785,9 +4223,9 @@ def main() -> int:
                 pass
             torch.cuda.synchronize()
             results["phases"][f"ingest_only_prefetch{depth}_s"] = time.perf_counter() - t
-        # the count at both depths, in turns (the main path's run was at 2)
+        # the count at both depths (the main path's run was at 2)
         hists = {}
-        for depth in (0, 2, 0, 2):
+        for depth in (0, 2):
             t = time.perf_counter()
             hists[depth] = pipeline.count_fastq(fq, STREAM_K, prefetch=depth, **count_kw)
             results["phases"].setdefault(f"count_prefetch{depth}_s", []).append(
@@ -3834,17 +4272,27 @@ def main() -> int:
               f"{len(want)} distinct k-mers, {time.perf_counter() - t:.1f} s")
         del seqs, hist_k, hist_p, hist_r, hist_s, got, want
 
+        phase_clock(results, "phase 6")
         fa, genome, reads_g, true_starts, true_rev = large_k_phase(
             args, torch, dev, timer, tmp, results)
+        phase_clock(results, "phase 7")
         index = mapping_phase(args, torch, dev, timer, results, fa, genome, reads_g,
                               true_starts, true_rev, compare, timed)
+        phase_clock(results, "phase 8")
         queries, contigs = search_orf_phase(args, torch, dev, timer, results, tmp, db, genome,
                                             reads_g)
+        phase_clock(results, "phase 9")
         public_phase(args, torch, dev, timer, results, tmp, db, queries, contigs, fq)
+        phase_clock(results, "phase 10")
         long_calls_phase(args, torch, dev, timer, results, fa, genome, reads_g, index, compare,
                          timed)
+        phase_clock(results, "phase 11")
         read_tier_phase(args, torch, dev, timer, results, tmp, genome, reads_g, true_starts,
                         true_rev)
+        phase_clock(results, "phase 12")
+        del index, queries, contigs
+        assembly_cli_phase(args, torch, dev, results, tmp, genome, reads_g, true_starts)
+        phase_clock(results, "report")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -3853,6 +4301,9 @@ def main() -> int:
     launches.update({name: SEARCH_ORF_LAUNCHES[name]
                      for name in ("hdist_scan_batch", "tc_scan", "tc_search", "orf_scan")})
     launches["chain"] = LONG_LAUNCHES["chain"]
+    for counts in [ASM_LAUNCHES, *CLI_LAUNCHES.values()]:  # phase 12's paths
+        for name, n in counts.items():
+            launches[name] += n
 
     # -- report ------------------------------------------------------------
     # kernel -> (source, TPU kernel's def, its pallas_call)

@@ -1260,3 +1260,140 @@ def test_tier_filter_fastq_and_qc_match_cpu(cuda, tmp_path):
     assert (tmp_path / "g1").read_bytes() == (tmp_path / "c1").read_bytes()
     assert qc.qc_profile(tmp_path / "in.fq", 700, device=cuda) == \
         qc.qc_profile(tmp_path / "in.fq", 700, device="cpu")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [11, 21, 31])
+@pytest.mark.parametrize("engine", ["device", "host"])
+def test_assemble_reads_on_card_matches_cpu(cuda, k, engine):
+    """assemble_reads of reads packed on the card == of the same reads
+    packed on the CPU: both strands and one, cleaned and not, N windows
+    dropped and counted."""
+    from bitnuc_tpu_torch import assemble
+    from bitnuc_tpu_torch.sequence import PackedReads
+
+    reads, _ = _genome_reads(k, 1500, 100, genome_bp=4_000, sub=0.003, n_rate=0.002)
+    (wc, lc, bc), (wg, lg, bg) = _packed_both(cuda, reads)
+    rc_, rg = PackedReads(words=wc, lengths=lc), PackedReads(words=wg, lengths=lg)
+    for both in (True, False):
+        for min_count, clean, use_bv in ((2, False, True), (1, True, True), (2, False, False)):
+            kw = dict(min_count=min_count, both_strands=both, clean=clean, engine=engine)
+            want = assemble.assemble_reads(rc_, k, base_valid=bc if use_bv else None, **kw)
+            got = assemble.assemble_reads(rg, k, base_valid=bg if use_bv else None, **kw)
+            assert got == want and want[0]
+
+
+def _cli_inputs(d):
+    """Small inputs of every phase-12 command: a two-contig reference,
+    reads of it with Ns and without, long reads, pairs, a search database
+    with 64 and 3 queries, one align target and a packed .npz."""
+    from bitnuc_tpu_torch import io as bnio
+    from bitnuc_tpu_torch.sequence import PackedReads
+
+    rng = np.random.default_rng(22)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    comp = np.arange(256, dtype=np.uint8)
+    comp[acgt] = np.frombuffer(b"TGCA", np.uint8)
+    contigs = [acgt[rng.integers(0, 4, n)] for n in (6_000, 3_000)]
+
+    def fastq(name, rows):
+        with open(d / name, "wb") as f:
+            for i, r in enumerate(rows):
+                f.write(b"@r%d\n%s\n+\n%s\n" % (i, bytes(r), b"I" * len(r)))
+
+    def fasta(name, rows):
+        with open(d / name, "wb") as f:
+            for i, r in enumerate(rows):
+                f.write(b">s%d x\n%s\n" % (i, bytes(r)))
+
+    def draw(c, n, L, sub, n_rate=0.0):
+        s = rng.integers(0, len(c) - L + 1, n)
+        r = np.lib.stride_tricks.sliding_window_view(c, L)[s].copy()
+        rev = rng.random(n) < 0.5
+        r[rev] = comp[r[rev, ::-1]]
+        err = rng.random(r.shape) < sub
+        r[err] = acgt[rng.integers(0, 4, int(err.sum()))]
+        r[rng.random(r.shape) < n_rate] = ord("N")
+        return r
+
+    fasta("ref.fa", contigs)
+    reads = np.concatenate([draw(contigs[0], 800, 150, 0.005, 0.002),
+                            draw(contigs[1], 400, 150, 0.005, 0.002)])
+    fastq("reads.fq", reads)
+    clean = draw(contigs[0], 600, 150, 0.005)
+    fastq("clean.fq", clean)
+    fastq("db.fq", clean[:400])
+    q = clean[rng.integers(0, 400, 64)].copy()
+    q[rng.random(q.shape) < 0.05] = ord("A")
+    fasta("q64.fa", q)
+    fasta("q3.fa", q[:3])
+    fasta("target.fa", [contigs[0][:1000]])
+    longs = [bytes(contigs[0][s : s + n]) for s, n in ((100, 1500), (2000, 2500), (500, 900))]
+    fastq("long.fq", [np.frombuffer(s, np.uint8) for s in longs])
+    flen = rng.integers(180, 400, 300)
+    fs = rng.integers(0, 6_000 - flen)
+    win = np.lib.stride_tricks.sliding_window_view(contigs[0], 150)
+    left, right = win[fs], comp[win[fs + flen - 150][:, ::-1]]
+    fastq("r1.fq", left)
+    fastq("r2.fq", right)
+    bnio.save_packed(d / "clean.npz", PackedReads.from_ascii(clean[:100], device="cpu"))
+
+
+# phase 12's commands: each launches a kernel on the card
+CLI_CARD_RUNS = {
+    "count": ["count", "{in}/reads.fq", "-k", "12", "--canonical", "--skip-invalid"],
+    "count_k21": ["count", "{in}/reads.fq", "-k", "21", "--skip-invalid", "--min-count", "2"],
+    "spectrum": ["spectrum", "{in}/ref.fa", "-k", "8"],
+    "search_64": ["search", "{in}/db.fq", "{in}/q64.fa", "--n-bases", "150", "-n", "5"],
+    "search_3": ["search", "{in}/db.fq", "{in}/q3.fa", "--n-bases", "150", "-n", "5"],
+    "pack": ["pack", "{in}/clean.fq", "-o", "{out}/p.npz"],
+    "unpack": ["unpack", "{in}/clean.npz"],
+    "setop": ["setop", "subtract", "{in}/reads.fq", "{in}/ref.fa", "-k", "21", "--canonical",
+              "--skip-invalid"],
+    "align_fit": ["align", "{in}/q64.fa", "{in}/target.fa", "--mode", "fit"],
+    "align_local": ["align", "{in}/q64.fa", "{in}/target.fa", "--mode", "local"],
+    "map": ["map", "{in}/ref.fa", "{in}/reads.fq"],
+    "map_sam": ["map", "{in}/ref.fa", "{in}/reads.fq", "--sam"],
+    "map_paired": ["map", "{in}/ref.fa", "{in}/r1.fq", "--paired", "{in}/r2.fq", "--sam"],
+    "map_long": ["map", "{in}/ref.fa", "{in}/long.fq", "--long", "--all"],
+    "call": ["call", "{in}/ref.fa", "{in}/reads.fq", "--vcf", "--consensus", "{out}/c.fa"],
+    "merge": ["merge", "{in}/r1.fq", "{in}/r2.fq", "--unmerged", "{out}/u.fa"],
+    "orf": ["orf", "{in}/reads.fq", "--translate"],
+    "correct": ["correct", "{in}/reads.fq", "-k", "21"],
+    "assemble": ["assemble", "{in}/reads.fq", "-k", "21", "--skip-invalid", "--gfa",
+                 "{out}/a.gfa"],
+}
+
+
+@pytest.fixture(scope="module")
+def cli_inputs(tmp_path_factory):
+    d = tmp_path_factory.mktemp("cli_card_in")
+    _cli_inputs(d)
+    return d
+
+
+def _cli_bytes(argv, d_in, d_out, capsysbinary):
+    from bitnuc_tpu_torch import cli
+
+    d_out.mkdir()
+    argv = [a.replace("{in}", str(d_in)).replace("{out}", str(d_out)) for a in argv]
+    assert cli.main(argv) == 0
+    out = capsysbinary.readouterr()
+    files = {p.name: p.read_bytes() for p in sorted(d_out.iterdir()) if p.suffix != ".npz"}
+    for p in d_out.glob("*.npz"):
+        with np.load(p) as z:
+            files[p.name] = {k: z[k].tobytes() for k in z.files}
+    return out.out, out.err.replace(str(d_out).encode(), b"{out}"), files
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(CLI_CARD_RUNS))
+def test_cli_on_card_matches_cpu(cuda, cli_inputs, tmp_path, capsysbinary, name):
+    """The command with the default device (the card) writes the bytes it
+    writes with --device cpu, and launches a kernel."""
+    argv = CLI_CARD_RUNS[name]
+    want = _cli_bytes(["--device", "cpu", *argv], cli_inputs, tmp_path / "cpu", capsysbinary)
+    kernels.reset_launches()
+    got = _cli_bytes(argv, cli_inputs, tmp_path / "card", capsysbinary)
+    assert sum(kernels.LAUNCHES.values()) > 0
+    assert got == want and (got[0] or got[2])
