@@ -110,7 +110,7 @@ Phases, each of which must pass:
    read with read_fastq_fast (K1) and mapped with map_reads_long (C1 chain)
    at the CLI's settings; checked against the true spans, the 256 shortest
    reads against the plain backend, 64 reads against a CPU run, and with
-   extend=True on 256 reads of 1,000-3,000 bp, 16 fits against a host
+   extend=True on 1,024 reads of 1,000-3,000 bp, 16 fits against a host
    full-DP oracle. C1 (chain_anchors from unsorted anchors) against its
    plain version at the sub-batch's anchors, a chunk's (timed, with the
    largest and median live anchors a row and the time a step of the
@@ -1529,7 +1529,7 @@ LONG_MIN_CHAIN = MAP_MIN_SEEDS  # bitnuc-tpu map --long passes --min-seeds as mi
 LONG_TOL = 100  # bp between a chain's ends and the true span's
 LONG_SUBBATCH = 256  # the shortest reads, also run under the plain backend
 LONG_CPU_READS = 64  # reads of 1,000-2,000 bp also mapped on the CPU
-LONG_EXTEND_READS = 256  # reads of 1,000-3,000 bp mapped with extend=True
+LONG_EXTEND_READS = 1_024  # reads of 1,000-3,000 bp mapped with extend=True
 LONG_ORACLE = 16  # of them, fits held to fit_oracle
 PAIRS = 262_144
 PAIR_LEN = 150
@@ -1892,8 +1892,8 @@ def long_calls_phase(args, torch, dev, timer, results, fa, genome, reads_g, inde
     ws_t = torch.div(torch.clamp(torch.from_numpy(chained["ref_start"]).to(dev) - 32, min=0),
                      16, rounding_mode="floor")
     win, wlen = mapper._windows(ws_t, index.ref_words, index.ref_len, Wwin)
-    ph["long_unbanded_fit_ms"] = timer(
-        lambda: align.fit_distance_span(q_words, l_e, win, wlen, 1, 1), 1)
+    ph["long_unbanded_fit_ms"] = timer(  # warm: the extend run made the same fit
+        lambda: align.fit_distance_span(q_words, l_e, win, wlen, 1, 1), 1, warmup=False)
     del q_words, win, wlen
     print(f"  a chunk of {chunk} reads: A = {A} anchors a row, {live} live in all; seeding + "
           f"join {ph['long_seed_join_ms']:.1f} ms, the row sort alone (the earlier route's) "

@@ -73,7 +73,7 @@ def _mutate(rng, s: bytes, sub: float, n_rate: float = 0.0, indel: float = 0.0) 
     return bytes(a)
 
 
-def make_inputs(d: Path) -> dict:
+def make_inputs(d: Path) -> None:
     """The shared inputs, all from one numpy seed: a two-contig genome, a
     donor with SNPs and indels and reads of it (with Ns), clean reads,
     pairs, long reads, duplicates, quality-trimmed reads with adapters, a
@@ -159,7 +159,6 @@ def make_inputs(d: Path) -> dict:
     from bitnuc_tpu import io as jio, sequence as jseq
 
     jio.save_packed(str(d / "clean.npz"), jseq.PackedReads.from_ascii(clean[:50]))
-    return {"bcs": bcs}
 
 
 @pytest.fixture(scope="module")
