@@ -19,10 +19,10 @@ import jax.numpy as jnp
 from bitnuc_tpu import database as jdatabase, io as jio, mapper as jmapper, pipeline as jpipeline
 from bitnuc_tpu.ops import analysis as janalysis, chain as jchain, hamming as jham
 from bitnuc_tpu.ops import kmer as jkmer, merge_pairs as jmerge_pairs, pileup as jpileup
-from bitnuc_tpu import assemble as jassemble, filters as jfilters, qc as jqc
+from bitnuc_tpu import assemble as jassemble, cli as jcli, filters as jfilters, qc as jqc
 from bitnuc_tpu.ops import correct as jcorrect, dedupe as jdedupe, demux as jdemux
 from bitnuc_tpu.ops import lookup as jlookup
-from bitnuc_tpu_torch import assemble, database, filters, io as tio, mapper, pipeline, qc
+from bitnuc_tpu_torch import assemble, cli, database, filters, io as tio, mapper, pipeline, qc
 from bitnuc_tpu_torch.ops import correct, dedupe, demux, lookup
 from bitnuc_tpu_torch.errors import InvalidBase
 from bitnuc_tpu_torch.ops import analysis, chain, hamming, kmer, merge_pairs, pileup
@@ -69,6 +69,7 @@ for _mod, _jmod, _names in (
     (qc, jqc, ("_percentile_from_hist", "_per_cycle_rows", "_status", "qc_profile")),
     (assemble, jassemble, ("assemble_reads", "assemble_keys", "assemble_counts",
                            "unitigs_from_keys", "prepare_keys")),
+    (cli, jcli, ("main",)),
 ):
     PAIRS.update({name: (getattr(_mod, name), getattr(_jmod, name)) for name in _names})
 # functions of tensors follow their inputs' device, the host-only parsers put
@@ -86,7 +87,7 @@ NO_DEVICE = ("search", "search_batch", "topk_batch_dispatch", "iter_fastq_ascii_
              "adapter_positions", "complexity_fraction", "triplet_entropy", "_filter_core",
              "_iter_record_batches", "_percentile_from_hist", "_per_cycle_rows", "_status",
              "assemble_reads", "assemble_keys", "assemble_counts", "unitigs_from_keys",
-             "prepare_keys")
+             "prepare_keys", "main")
 
 
 @pytest.fixture
