@@ -55,6 +55,15 @@ errors against a k-mer spectrum, ``ops.demux`` assigns barcodes, and
 ``filters`` (``filter_fastq``, ``filter_fastq_paired``) and ``qc``
 (``qc_profile``) trim, filter and profile FASTQ files.
 
+``parallel`` is the distributed tier: a mesh of torch devices in one
+process (``parallel.make_mesh``; a device may repeat, so
+``[torch.device("cpu")] * 8`` holds eight CPU shards), sharded counting
+and search, and the process group (``parallel.runtime``). The ``mesh=``
+arguments of ``PackedDB.search``/``search_batch``, ``pipeline.count_fastq``/
+``count_fasta``, ``mapper.map_reads``/``map_reads_long``/``map_pairs``,
+``ops.pileup.pileup_counts_sharded`` and ``assemble_reads`` take such a
+mesh, and ``--devices N`` builds one on the command line.
+
 ``assemble`` (``assemble_reads``, ``assemble_keys``, ``unitig_graph``,
 ``clean_keys``) builds unitigs from a read set's solid k-mers: the
 spectrum on the device (``count_kmers_runs``), the graph in numpy on the
@@ -129,6 +138,7 @@ from .assemble import assemble_reads  # noqa: F401
 from .ops import orf, split  # noqa: F401
 from .io import read_fasta  # noqa: F401
 from .mapper import MinimizerIndex, map_pairs, map_reads, map_reads_long  # noqa: F401
+from . import parallel  # noqa: F401
 
 __all__ = [
     "as_2bit",

@@ -38,7 +38,6 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from . import config
 from .utils import bitops
 
 _ASCII = np.frombuffer(b"ACGT", np.uint8)
@@ -639,8 +638,11 @@ def assemble_reads(
     clean=True additionally clips tips and pops bubbles (clean_keys), the
     pass that rescues min_count=1 assemblies of low-coverage data.
     base_valid [B, L] bool (a tensor or an array) drops every window that
-    holds an invalid base. A mesh raises NotImplementedError: the sharded
-    spectrum waits for the distributed tier.
+    holds an invalid base. mesh: a ``parallel.mesh.Mesh`` — the spectrum
+    (the read-set-sized pass) splits the reads over ``axis`` and merges
+    with one all_gather (``parallel.kmer.count_kmers_sorted_sharded``),
+    whatever ``engine`` says; the graph stays on the host. The output
+    equals the single-device path's.
 
     engine selects where the spectrum is built (equal results):
       'device'  count_kmers_runs on the reads' device (torch.sort), then
@@ -657,7 +659,20 @@ def assemble_reads(
 
     if engine not in ("auto", "device", "host"):
         raise ValueError(f"engine must be auto|device|host, got {engine!r}")
-    config.require_no_mesh(mesh, "assemble_reads")
+    if mesh is not None:
+        from .parallel import kmer as pkmer, mesh as pmesh
+
+        sharded = pmesh.shard_reads(reads, mesh, axis)
+        bvs = None
+        if base_valid is not None:
+            bv = pmesh.pad_rows(base_valid, sharded.batch_size)
+            bvs = pmesh.Sharded(pmesh.split(bv, mesh, axis), mesh, axis)
+        lo, hi, cts, _ = pkmer.count_kmers_sorted_sharded(
+            sharded.words, sharded.lengths, k, mesh, axis, canonical=both_strands,
+            base_valid=bvs)
+        keys, cts = _runs_to_keys(lo, hi, cts, min_count)
+        return assemble_keys(
+            keys, k, counts=cts, both_strands=both_strands, clean=clean, tip_len=tip_len)
     if engine == "host":
         words, lens = reads.to_numpy()
         bv = None

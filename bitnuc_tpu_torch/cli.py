@@ -15,8 +15,9 @@ The work runs on the card unless the top-level ``--device`` names another
 device (``--device cpu``); without a CUDA device and without that option
 every command but ``info`` exits non-zero before it reads its input.
 Results come to the host once per command (``_host``). ``--devices N``
-parses as in the JAX package: N > 1 (its mesh path) exits with a message,
-since the mesh paths wait for the distributed tier.
+(N > 1) shards the work over a mesh (``_build_mesh``): the first N cards,
+or with ``--device cpu`` N CPU shards; the output bytes are the
+single-device run's.
 
 Input format is sniffed from the first byte ('>' FASTA, '@' FASTQ) unless
 the extension already says; .gz is handled by the io readers.
@@ -56,15 +57,28 @@ def _read_any(path: str, device, validate: bool = True):
 
 
 def _build_mesh(args):
-    """--devices N: None for N in {None, 0, 1} (the single-device paths);
-    N > 1 exits, because the mesh paths wait for the distributed tier."""
+    """--devices N -> a 1-D 'data' mesh (None for N in {None, 0, 1}, the
+    single-device paths): on the card the first N visible CUDA devices,
+    with ``--device cpu`` N CPU shards (the counterpart of the JAX
+    package's forced host device count)."""
     n = getattr(args, "devices", None)
     if not n or n <= 1:
         return None
-    raise SystemExit(
-        f"--devices {n}: the mesh path waits for the distributed tier; "
-        "this port runs on one device (--devices 1 or no --devices)"
-    )
+    import torch
+
+    from .parallel import mesh as pmesh
+
+    if torch.device(args.device).type == "cuda":
+        seen = torch.cuda.device_count()
+        if seen < n:
+            raise SystemExit(
+                f"--devices {n}: only {seen} device(s) visible "
+                "(--device cpu --devices N shards over the CPU)"
+            )
+        devices = [torch.device("cuda", i) for i in range(n)]
+    else:
+        devices = [torch.device(args.device)] * n
+    return pmesh.make_mesh((n,), ("data",), devices=devices)
 
 
 def _count_file(path: str, args):
@@ -1448,8 +1462,7 @@ def _add_devices_arg(p):
     p.add_argument(
         "--devices", type=int, default=None, metavar="N",
         help="shard the work over an N-device mesh (auto-built; output "
-        "identical to single-device runs); N > 1 waits for the distributed "
-        "tier",
+        "identical to single-device runs)",
     )
 
 

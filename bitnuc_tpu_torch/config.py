@@ -88,12 +88,3 @@ def use_kernel(t: torch.Tensor) -> bool:
         return False
     return t.is_cuda
 
-
-def require_no_mesh(mesh, what: str) -> None:
-    """Raise NotImplementedError unless ``mesh`` is None: the JAX package's
-    mesh paths wait for the distributed tier."""
-    if mesh is not None:
-        raise NotImplementedError(
-            f"{what}: the mesh path waits for the distributed tier (ROADMAP §1, "
-            "'The distributed tier')"
-        )

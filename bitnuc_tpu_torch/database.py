@@ -1,7 +1,6 @@
 """PackedDB: a fixed-length packed-sequence database in scan layout.
 
-The counterpart of ``bitnuc_tpu/database.py::PackedDB`` without its mesh
-paths. Entries are stored WORD-MAJOR, int32 [W, D]: a warp of the K4/K5
+The counterpart of ``bitnuc_tpu/database.py::PackedDB``. Entries are stored WORD-MAJOR, int32 [W, D]: a warp of the K4/K5
 scan kernel (``csrc/hamming.cu``) then reads 32 neighbouring entries of one
 word in one coalesced load. ``save``/``load`` use the JAX package's .npz
 keys (``words_wm`` as uint32, ``n_bases``), so either package reads the
@@ -143,12 +142,31 @@ class PackedDB:
         """Per-entry Hamming distances [D] for one packed query [W] (K4)."""
         return hamming.hdist_scan(query.reshape(1, -1), self.words_wm, self.n_bases)[0]
 
+    def _sharded_wm(self, mesh, axis: str):
+        """(words_wm zero-padded to a device multiple on D and split
+        column-wise over ``axis``, the true D)."""
+        from .parallel import mesh as pmesh
+
+        D = self.size
+        pad = (-D) % mesh.shape[axis]
+        wm = torch.nn.functional.pad(self.words_wm, (0, pad)) if pad else self.words_wm
+        return pmesh.Sharded(pmesh.split(wm, mesh, axis, dim=1), mesh, axis, dim=1), D
+
     def search(self, query: torch.Tensor, k: int, mesh=None,
                axis: str = "data") -> Tuple[torch.Tensor, torch.Tensor]:
-        """Exact top-k nearest entries: (distances [k], indices [k]). A
-        ``mesh`` (the JAX package's column-sharded scan) raises
-        NotImplementedError."""
-        config.require_no_mesh(mesh, "PackedDB.search")
+        """Exact top-k nearest entries: (distances [k], indices [k]).
+
+        mesh: a ``parallel.mesh.Mesh`` — the database splits column-wise
+        over ``axis`` (each device scans its slab with K4, the candidates
+        merge with one top-k; ``parallel.search.hdist_search_db_sharded``),
+        and min(k, D) entries come back, as in the JAX package. Results
+        equal the single-device scan's."""
+        if mesh is not None:
+            from .parallel import search as psearch
+
+            wm, D = self._sharded_wm(mesh, axis)
+            return psearch.hdist_search_db_sharded(
+                query, wm, self.n_bases, min(k, D), mesh, axis, d_valid=D)
         return hamming.topk_smallest(self.distances(query), k)
 
     def distances_batch(self, queries: torch.Tensor) -> torch.Tensor:
@@ -165,8 +183,16 @@ class PackedDB:
         for k <= hamming.SEARCH_TOPK_MAX the fused search (tc_search) keeps
         each query's k nearest entries in the kernel and never builds the
         [Q, D] matrix; otherwise distances_batch, then
-        topk_batch_dispatch. A ``mesh`` raises NotImplementedError."""
-        config.require_no_mesh(mesh, "PackedDB.search_batch")
+        topk_batch_dispatch. mesh: the column-sharded scan, each slab
+        searched this way (``parallel.search.hdist_search_batch_db_sharded``;
+        the slab that holds padding takes the unfused route); min(k, D)
+        entries a query come back."""
+        if mesh is not None:
+            from .parallel import search as psearch
+
+            wm, D = self._sharded_wm(mesh, axis)
+            return psearch.hdist_search_batch_db_sharded(
+                queries, wm, self.n_bases, min(k, D), mesh, axis, d_valid=D)
         if 0 < k <= hamming.SEARCH_TOPK_MAX and queries.shape[0] >= SEARCH_TC_MIN_Q:
             return hamming.hdist_search_tc(queries, self.words_wm, self.n_bases, k)
         return hamming.topk_batch_dispatch(self.distances_batch(queries), k, self.n_bases)

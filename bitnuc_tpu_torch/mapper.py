@@ -36,8 +36,13 @@ the vote; with ``extend=True`` the read is fitted into the chain's window
 by the unbanded span fit (``ops.align.fit_distance_span``, plain PyTorch:
 the JAX package passes no band there). They map in chunks sized by
 ``_long_chunk``. ``map_pairs`` maps both mates of a pair batch through one
-``map_reads`` call and applies the proper-pair rule on the host. The mesh
-paths wait for the distributed tier.
+``map_reads`` call and applies the proper-pair rule on the host.
+
+With a mesh (``parallel.mesh.Mesh``) the reads split over the mesh axis and
+the index is copied to each device (``map_reads_sharded``,
+``map_reads_long_sharded``): each device maps its slab in the same
+batches or chunks, the shards are visited in turn, and the results come
+to the host once, after the last shard's launch.
 """
 
 from __future__ import annotations
@@ -168,6 +173,15 @@ class MinimizerIndex:
     @property
     def device(self) -> torch.device:
         return self.keys.device
+
+    def to(self, device) -> "MinimizerIndex":
+        """This index on ``device`` (itself when it is there already)."""
+        device = torch.device(device)
+        if device == self.device:
+            return self
+        return MinimizerIndex(self.keys, self.pos, self.nocc, self.ref_words, self.ref_len,
+                              self.k, self.w, self.max_occ, self.contig_starts,
+                              keys_hi=self.keys_hi, device=device)
 
     @classmethod
     def build(
@@ -467,21 +481,42 @@ def map_reads(
       ref_end   int32 — one past its end
       cost      int32 — fitting-alignment cost of the whole read
       support   int32 — seed votes on the winning diagonal bin
-    Unmapped rows carry the attempt's numbers and should be ignored."""
-    config.require_no_mesh(mesh, "map_reads")
-    dev = index.device
-    B = int(reads.words.shape[0])
-    parts = []
-    for s in range(0, B, MAP_BATCH):
-        e = min(B, s + MAP_BATCH)
-        out = _map_core(reads.words[s:e].to(dev), reads.lengths[s:e].to(dev), index,
-                        bin_bits, pad, mismatch, gap)
-        parts.append([x.cpu().numpy() for x in out])
+    Unmapped rows carry the attempt's numbers and should be ignored.
+    mesh: a ``parallel.mesh.Mesh`` — the batch is zero-padded to a device
+    multiple, mapped by ``map_reads_sharded`` and sliced back, so any batch
+    size works and the output equals the single-device run's."""
+    if mesh is not None:
+        from .parallel.mesh import pad_batch
+
+        B = int(reads.words.shape[0])
+        res = map_reads_sharded(index, pad_batch(reads, int(mesh.shape[axis])), mesh, axis,
+                                min_seeds=min_seeds, bin_bits=bin_bits, pad=pad,
+                                mismatch=mismatch, gap=gap)
+        return {f: v[:B] for f, v in res.items()}
+    out = _map_slab(reads.words, reads.lengths, index, bin_bits, pad, mismatch, gap)
+    return _map_result(*(x.cpu().numpy() for x in out), min_seeds)
+
+
+def _concat(parts, n_out: int):
+    """Column-wise concatenation of per-batch device results; [0]-sized
+    int32 columns (bool for use_rc) when there are none."""
     if parts:
-        support, use_rc, ref_start, ref_end, cost = (np.concatenate(c) for c in zip(*parts))
-    else:
-        support = ref_start = ref_end = cost = np.zeros(0, np.int32)
-        use_rc = np.zeros(0, bool)
+        return [torch.cat(c) for c in zip(*parts)]
+    return [torch.zeros(0, dtype=torch.bool if i == 1 else torch.int32) for i in range(n_out)]
+
+
+def _map_slab(words, lengths, index: MinimizerIndex, bin_bits: int, pad: int, mismatch: int,
+              gap: int):
+    """(support, use_rc, ref_start, ref_end, cost) of a slab of reads on
+    the index's device, MAP_BATCH reads a batch; nothing is read back."""
+    dev = index.device
+    B = int(words.shape[0])
+    parts = [_map_core(words[s : s + MAP_BATCH].to(dev), lengths[s : s + MAP_BATCH].to(dev),
+                       index, bin_bits, pad, mismatch, gap) for s in range(0, B, MAP_BATCH)]
+    return _concat(parts, 5)
+
+
+def _map_result(support, use_rc, ref_start, ref_end, cost, min_seeds: int) -> dict:
     return {
         "mapped": support >= min_seeds,
         "strand": np.where(use_rc, b"-", b"+"),
@@ -490,6 +525,54 @@ def map_reads(
         "cost": cost,
         "support": support,
     }
+
+
+def _index_copies(index: MinimizerIndex, mesh) -> list:
+    """The index on each device of the mesh (one copy a distinct device)."""
+    copies = {}
+    for d in mesh.flat_devices:
+        if d not in copies:
+            copies[d] = index.to(d)
+    return [copies[d] for d in mesh.flat_devices]
+
+
+def _sharded_columns(index: MinimizerIndex, reads, mesh, axis: str, slab_fn) -> list:
+    """slab_fn(words, lengths, index copy) on each device's slab of the
+    reads, in mesh order with no host read between shards; then each
+    column of the results on the host, in batch order."""
+    from .parallel import mesh as pmesh
+
+    n = mesh.shape[axis]
+    B = int(reads.words.shape[0])
+    assert B % n == 0, f"mesh axis size {n} must divide batch {B}"
+    sharded = pmesh.shard_reads(reads, mesh, axis)
+    outs = []
+    for d, w, ln, idx in zip(mesh.flat_devices, sharded.word_shards, sharded.length_shards,
+                             _index_copies(index, mesh)):
+        with pmesh.on_device(d):
+            outs.append(slab_fn(w, ln, idx))
+    slabs = [outs[g] for g in mesh.groups(axis)[0]]
+    return [np.concatenate([col.cpu().numpy() for col in c]) for c in zip(*slabs)]
+
+
+def map_reads_sharded(
+    index: MinimizerIndex,
+    reads,
+    mesh,
+    axis: str = "data",
+    min_seeds: int = 2,
+    bin_bits: int = BIN_BITS,
+    pad: int = PAD,
+    mismatch: int = 1,
+    gap: int = 1,
+) -> dict:
+    """Data-parallel map_reads: the reads split over ``axis``, the index
+    copied to each device. The batch (a PackedReads, or a
+    ``parallel.mesh.ShardedReads`` of this mesh and axis) must divide the
+    axis; results equal map_reads'."""
+    cols = _sharded_columns(index, reads, mesh, axis, lambda w, ln, idx: _map_slab(
+        w, ln, idx, bin_bits, pad, mismatch, gap))
+    return _map_result(*cols, min_seeds)
 
 
 # -- per-base traceback (CIGAR) of mapped reads ---------------------------------
@@ -683,22 +766,39 @@ def map_reads_long(
     chain_score. extend=True fits the whole read into the chain's reference
     window (at most 1.25 times the read plus 2 pad) with the unbanded span
     fit, replaces ref_start / ref_end with its base-exact span and adds
-    "cost"."""
-    config.require_no_mesh(mesh, "map_reads_long")
+    "cost". mesh: the batch is zero-padded to a device multiple, mapped by
+    ``map_reads_long_sharded`` and sliced back; results equal the
+    single-device run's."""
+    if mesh is not None:
+        from .parallel.mesh import pad_batch
+
+        B = int(reads.words.shape[0])
+        res = map_reads_long_sharded(
+            index, pad_batch(reads, int(mesh.shape[axis])), mesh, axis, min_chain=min_chain,
+            max_gap=max_gap, gap_unit=gap_unit, lookback=lookback, extend=extend, pad=pad,
+            mismatch=mismatch, gap=gap)
+        return {f: v[:B] for f, v in res.items()}
+    out = _map_long_slab(reads.words, reads.lengths, index, max_gap, gap_unit, lookback,
+                         extend, pad, mismatch, gap)
+    return _long_result(*(x.cpu().numpy() for x in out), min_chain, extend)
+
+
+def _map_long_slab(words, lengths, index: MinimizerIndex, max_gap, gap_unit, lookback: int,
+                   extend: bool, pad: int, mismatch: int, gap: int):
+    """(score, use_rc, ref_start, ref_end, q_start, q_end, cost) of a slab
+    of reads on the index's device, in ``_long_chunk`` chunks; nothing is
+    read back."""
     dev = index.device
-    B, W = (int(x) for x in reads.words.shape)
+    B, W = (int(x) for x in words.shape)
     chunk = _long_chunk(W, index, extend, pad)
-    parts = []
-    for s in range(0, B, chunk):
-        e = min(B, s + chunk)
-        out = _map_long_core(reads.words[s:e].to(dev), reads.lengths[s:e].to(dev), index,
-                             max_gap, gap_unit, lookback, extend, pad, mismatch, gap)
-        parts.append([x.cpu().numpy() for x in out])
-    if parts:
-        score, use_rc, sr, er, q_start, q_end, cost = (np.concatenate(c) for c in zip(*parts))
-    else:
-        score = sr = er = q_start = q_end = cost = np.zeros(0, np.int32)
-        use_rc = np.zeros(0, bool)
+    parts = [_map_long_core(words[s : s + chunk].to(dev), lengths[s : s + chunk].to(dev),
+                            index, max_gap, gap_unit, lookback, extend, pad, mismatch, gap)
+             for s in range(0, B, chunk)]
+    return _concat(parts, 7)
+
+
+def _long_result(score, use_rc, sr, er, q_start, q_end, cost, min_chain: int,
+                 extend: bool) -> dict:
     out = {
         "mapped": score >= min_chain,
         "strand": np.where(use_rc, b"-", b"+"),
@@ -711,6 +811,29 @@ def map_reads_long(
     if extend:
         out["cost"] = cost
     return out
+
+
+def map_reads_long_sharded(
+    index: MinimizerIndex,
+    reads,
+    mesh,
+    axis: str = "data",
+    min_chain: int = 3,
+    max_gap: int = 2048,
+    gap_unit: int = 16,
+    lookback: int = 64,
+    extend: bool = False,
+    pad: int = 32,
+    mismatch: int = 1,
+    gap: int = 1,
+) -> dict:
+    """Data-parallel map_reads_long: the reads split over ``axis``, the
+    index copied to each device, each device mapping its slab in
+    ``_long_chunk`` chunks. The batch must divide the axis; results equal
+    map_reads_long's."""
+    cols = _sharded_columns(index, reads, mesh, axis, lambda w, ln, idx: _map_long_slab(
+        w, ln, idx, max_gap, gap_unit, lookback, extend, pad, mismatch, gap))
+    return _long_result(*cols, min_chain, extend)
 
 
 # -- read pairs -----------------------------------------------------------------
@@ -732,12 +855,12 @@ def map_pairs(
     [min_insert, max_insert].
 
     Both mates map through one map_reads call on the stacked batch, widened
-    to one word count with zero words. Returns {"r1", "r2" (map_reads
-    dicts), "proper" [B] bool, "insert" [B] int32, -1 where a pair is not
-    proper}."""
+    to one word count with zero words (with a mesh, through
+    ``map_reads_sharded``, padded to a device multiple). Returns {"r1",
+    "r2" (map_reads dicts), "proper" [B] bool, "insert" [B] int32, -1
+    where a pair is not proper}."""
     from .sequence import PackedReads
 
-    config.require_no_mesh(mesh, "map_pairs")
     B = int(reads1.words.shape[0])
     if int(reads2.words.shape[0]) != B:
         raise ValueError(
@@ -754,7 +877,7 @@ def map_pairs(
         words=torch.cat([widen(reads1), widen(reads2)]),
         lengths=torch.cat([reads1.lengths.to(dev), reads2.lengths.to(dev)]),
     )
-    both_res = map_reads(index, stacked, min_seeds=min_seeds, **kw)
+    both_res = map_reads(index, stacked, min_seeds=min_seeds, mesh=mesh, axis=axis, **kw)
     r1 = {f: v[:B] for f, v in both_res.items()}
     r2 = {f: v[B:] for f, v in both_res.items()}
     both = r1["mapped"] & r2["mapped"]

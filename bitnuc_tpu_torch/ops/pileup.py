@@ -18,6 +18,9 @@ for bit:
   where the depth reaches min_depth and the winner's share reaches
   min_frac, in float32 as the JAX package decides it:
   float32(best) >= float32(min_frac) * float32(depth).
+* ``pileup_counts_sharded`` splits the reads over a mesh axis
+  (``parallel.mesh``), piles each slab up on its device and merges the
+  grids with one psum (int32, as the JAX package sums them).
 * ``call_variants`` is the host convenience over mapper outputs, with the
   indel calls of ``cigar=True`` in host numpy and float64 as in the JAX
   package.
@@ -285,3 +288,22 @@ def call_variants(
         out["dels"] = dels
         out["ins"] = ins
     return out
+
+
+def pileup_counts_sharded(words, lengths, ref_start, use_rc, keep, ref_len: int, mesh,
+                          axis: str = "data") -> torch.Tensor:
+    """Data-parallel pileup_counts: the reads (and their per-read arrays)
+    split over ``axis``, one psum of the [ref_len, 4] int32 grid, on the
+    mesh's first device. The batch must divide the axis; the result equals
+    pileup_counts'."""
+    from ..parallel import mesh as pmesh
+
+    n = mesh.shape[axis]
+    B = int(words.shape[0])
+    assert B % n == 0, f"mesh axis size {n} must divide batch {B}"
+    cols = [pmesh.split(x, mesh, axis) for x in (words, lengths, ref_start, use_rc, keep)]
+    grids = []
+    for d, row in zip(mesh.flat_devices, zip(*cols)):
+        with pmesh.on_device(d):
+            grids.append(pileup_counts(*row, ref_len))
+    return pmesh.psum(grids, mesh, axis)[0]

@@ -16,6 +16,12 @@ Accumulators:
   doubles when the distinct keys pass 95% of it. The prefix sums are int32,
   so a job holds at most 2^31 - 2 windows and refuses more.
 
+With a mesh (``parallel.mesh.Mesh``), each batch is split over the mesh
+axis: dense counts merge with one psum a batch
+(``parallel.kmer.count_kmers_sharded``); above k = 12 every device keeps its
+own run list (``_ShardedSparseAcc``), fed with no communication, and the
+lists merge once at the end (``parallel.kmer.gather_runs_sharded``).
+
 Checkpoints keep the JAX package's format: ``CKPT_VERSION`` 2, the same
 parameters and file fingerprint, and ``engine`` "dense" (the int64
 ``hist``) or "sparse" (``lo`` and ``hi`` as uint32, ``counts`` as int32). A
@@ -142,6 +148,101 @@ class _SparseAcc:
         return dict(zip(keys.tolist(), counts.tolist()))
 
 
+class _ShardedSparseAcc:
+    """The distributed twin of _SparseAcc: every device owns a ``cap``-row
+    run list fed by its own batch shards. Adds and merges are per device
+    with no communication (``parallel.kmer.merge_runs_sharded``); the one
+    all_gather and merge happen at the end (``gather_runs_sharded``)."""
+
+    def __init__(self, cap, mesh, axis: str = "data", state=None):
+        from .parallel import kmer as pkmer
+
+        self._pk = pkmer
+        self.cap = int(cap)
+        self.mesh, self.axis = mesh, axis
+        self.n_dev = mesh.shape[axis]
+        self.state = state if state is not None else pkmer.sparse_state_sharded(
+            self.cap, mesh, axis)
+        self.pending = []
+        self.pending_rows = 0  # rows a device
+
+    @classmethod
+    def from_host_runs(cls, lo, hi, counts, mesh, axis: str = "data"):
+        """Rebuild from host run-list arrays (uint32, uint32, int32; a
+        checkpoint's). Rows are independent (key, count) pairs, so any even
+        split over the devices serves: pad to a device multiple with dead
+        sentinel rows and split."""
+        from .parallel import mesh as pmesh
+
+        n_dev = mesh.shape[axis]
+        n = lo.shape[0]
+        pad = (-n) % n_dev
+        if pad:
+            lo = np.concatenate([lo, np.full(pad, 0xFFFFFFFF, np.uint32)])
+            hi = np.concatenate([hi, np.full(pad, 0xFFFFFFFF, np.uint32)])
+            counts = np.concatenate([counts, np.zeros(pad, np.int32)])
+        state = tuple(
+            pmesh.Sharded(pmesh.split(bitops.words_from_u32_np(a), mesh, axis), mesh, axis)
+            for a in (lo, hi, counts.view(np.uint32))
+        )
+        return cls((n + pad) // n_dev, mesh, axis, state=state)
+
+    def add(self, lo, hi, ct):
+        self.pending.append((lo, hi, ct))
+        self.pending_rows += int(lo.shape[0]) // self.n_dev
+        if self.pending_rows >= self.cap:
+            self.flush()
+
+    def flush(self):
+        if not self.pending:
+            return
+        while True:
+            lo, hi, ct, n_max = self._pk.merge_runs_sharded(
+                (self.state, *self.pending), self.cap, self.mesh, self.axis)
+            if int(n_max) <= int(0.95 * self.cap):
+                self.state = (lo, hi, ct)
+                self.pending = []
+                self.pending_rows = 0
+                return
+            self.cap *= 2  # rare: merge again at twice the capacity
+            self.state = self._pk.grow_state_sharded(self.state, self.cap, self.mesh, self.axis)
+
+    def host_state(self):
+        """(lo uint32, hi uint32, counts int32) of every device's rows, in
+        mesh order: a checkpoint's run list."""
+        lo, hi, counts = (bitops.words_to_u32_np(a.full()) for a in self.state)
+        return lo, hi, counts.view(np.int32)
+
+    def to_dict(self) -> dict:
+        """{packed k-mer (hi << 32 | lo): count} of the whole job."""
+        self.flush()
+        lo, hi, ct, _ = self._pk.gather_runs_sharded(*self.state, self.mesh, self.axis)
+        lo, hi, counts = kmer_ops.compact_runs(lo, hi, ct)
+        keys = (hi.astype(np.uint64) << np.uint64(32)) | lo.astype(np.uint64)
+        return dict(zip(keys.tolist(), counts.tolist()))
+
+
+def _shard_batch_with_valid(reads, base_valid, mesh, axis):
+    """shard_reads, and base_valid padded and split the same way (None
+    stays None)."""
+    from .parallel import mesh as pmesh
+
+    sharded = pmesh.shard_reads(reads, mesh, axis)
+    bvs = None
+    if base_valid is not None:
+        bv = pmesh.pad_rows(base_valid, sharded.batch_size)
+        bvs = pmesh.Sharded(pmesh.split(bv, mesh, axis), mesh, axis)
+    return sharded, bvs
+
+
+def _mesh_device(mesh, device):
+    """The device batches load on: ``device`` if named, else the mesh's
+    first device."""
+    if device is None and mesh is not None:
+        return mesh.flat_devices[0]
+    return config.resolve_device(device)
+
+
 def _load_checkpoint(checkpoint: str, params: dict):
     """(n_batches, offset, total_windows, state) of a checkpoint written
     with ``params``: state is the int64 hist of the dense engine or the
@@ -186,13 +287,39 @@ def _check_on_invalid(on_invalid: str) -> bool:
     return on_invalid == "skip"
 
 
-def _sparse_add(acc, total_windows, words, lengths, k, canonical, base_valid):
+def _check_sparse_windows(total_windows: int) -> None:
     if total_windows > _SPARSE_MAX_WINDOWS:
         raise OverflowError(
             f"sparse counts are int32-bounded at {_SPARSE_MAX_WINDOWS} windows "
             "per job; split the input across jobs and merge the run lists"
         )
-    acc.add(*kmer_ops.raw_window_keys(words, lengths, k, canonical, base_valid))
+
+
+def _count_batch(acc, dense, total_windows, reads, base_valid, n_windows, k, canonical,
+                 mesh=None, axis="data"):
+    """Count one batch into ``acc``: dense into the histogram, else its raw
+    window keys into the run-list accumulator; with a mesh, split over
+    ``axis`` first."""
+    if not dense:
+        _check_sparse_windows(total_windows)
+    if mesh is None:
+        if dense:
+            acc.add(kmer_ops.count_kmers_reads(reads.words, reads.lengths, k,
+                                               canonical=canonical, base_valid=base_valid),
+                    n_windows)
+        else:
+            acc.add(*kmer_ops.raw_window_keys(reads.words, reads.lengths, k, canonical,
+                                              base_valid))
+        return
+    from .parallel import kmer as pkmer
+
+    sharded, bvs = _shard_batch_with_valid(reads, base_valid, mesh, axis)
+    if dense:
+        acc.add(pkmer.count_kmers_sharded(sharded.words, sharded.lengths, k, mesh, axis,
+                                          canonical=canonical, base_valid=bvs), n_windows)
+    else:
+        acc.add(*pkmer.raw_window_keys_sharded(sharded.words, sharded.lengths, k, mesh, axis,
+                                               canonical, bvs))
 
 
 def count_fastq(
@@ -223,8 +350,11 @@ def count_fastq(
     (atomic rename). An existing checkpoint resumes at its stored byte
     offset after its fingerprint (file identity, k, batch_size, max_len,
     canonical, on_invalid, engine) is checked; a mismatch raises.
-    mesh, axis: the JAX package's sharded job; a mesh raises
-    NotImplementedError here.
+    mesh: a ``parallel.mesh.Mesh`` — batches split over ``axis``; dense k
+    merges with one psum a batch, larger k keeps a run list a device
+    merged once at the end (``_ShardedSparseAcc``). Batches load on
+    ``device``, by default the mesh's first device. A checkpoint written
+    at one mesh size (or none) resumes at any other.
     prefetch: batches framed ahead on a producer thread
     (``io.iter_fastq_batches``); 0 frames on the caller's thread.
     sparse_capacity: the first row capacity of the k > 12 accumulator (it
@@ -235,9 +365,8 @@ def count_fastq(
     "bases_per_sec"} every ``progress_every`` batches."""
     if not 1 <= k <= 32:
         raise InvalidLength(k)
-    config.require_no_mesh(mesh, "count_fastq")
     skip = _check_on_invalid(on_invalid)
-    device = config.resolve_device(device)
+    device = _mesh_device(mesh, device)
     dense = k <= kmer_ops.MAX_DENSE_K
 
     params = {
@@ -259,7 +388,12 @@ def count_fastq(
             checkpoint, params
         )
     if dense:
-        acc = _DenseAcc(k, device, state)
+        acc = _DenseAcc(k, device if mesh is None else mesh.flat_devices[0], state)
+    elif mesh is not None:
+        # rows are independent (key, count) pairs: a checkpoint written at
+        # any mesh size (or none) resumes at any other
+        acc = (_ShardedSparseAcc(sparse_capacity, mesh, axis) if state is None
+               else _ShardedSparseAcc.from_host_runs(*state, mesh, axis))
     elif state is not None:
         acc = _SparseAcc(
             state[0].shape[0], device,
@@ -281,7 +415,10 @@ def count_fastq(
             payload["hist"] = acc.host
         else:
             acc.flush()  # the stored offset covers every pending batch
-            lo, hi, counts = (bitops.words_to_u32_np(a) for a in acc.state)
+            if mesh is not None:
+                lo, hi, counts = acc.host_state()
+            else:
+                lo, hi, counts = (bitops.words_to_u32_np(a) for a in acc.state)
             payload.update(lo=lo, hi=hi, counts=counts.view(np.int32))
         tmp = f"{checkpoint}.tmp.{os.getpid()}.npz"
         np.savez_compressed(tmp, **payload)
@@ -314,17 +451,8 @@ def count_fastq(
                 (batch, offset), base_valid = item, None
             batch_bases = int(batch.lengths.sum())
             total_windows += batch_bases  # an upper bound of the batch's windows
-            if dense:
-                acc.add(
-                    kmer_ops.count_kmers_reads(
-                        batch.words, batch.lengths, k, canonical=canonical,
-                        base_valid=base_valid,
-                    ),
-                    batch_bases,
-                )
-            else:
-                _sparse_add(acc, total_windows, batch.words, batch.lengths, k,
-                            canonical, base_valid)
+            _count_batch(acc, dense, total_windows, batch, base_valid, batch_bases, k,
+                         canonical, mesh, axis)
             n_batches += 1
             n_reads += len(batch)
             n_bases += batch_bases
@@ -370,23 +498,54 @@ def count_fasta(
     Returns what count_fastq returns: an int64 [4^k] histogram for k <= 12,
     else {packed_kmer: count}. on_invalid="skip" drops windows touching an
     N/ambiguous base (assemblies are full of Ns); "raise" raises
-    InvalidBase. A ``mesh`` raises NotImplementedError (the JAX package's
-    sharded job)."""
+    InvalidBase. mesh: segments go in groups of the axis size (the last
+    padded with empty rows), each group split over ``axis`` and counted
+    sharded (dense: one psum a group; larger k: a run list a device, one
+    merge at the end); segments are independent, so grouping is exact."""
     if not 1 <= k <= 32:
         raise InvalidLength(k)
-    config.require_no_mesh(mesh, "count_fasta")
     skip = _check_on_invalid(on_invalid)
-    device = config.resolve_device(device)
+    device = _mesh_device(mesh, device)
     seg = int(seg_bases)
     if seg < 16:
         raise ValueError(f"seg_bases must be >= 16, got {seg}")
     dense = k <= kmer_ops.MAX_DENSE_K
-    acc = _DenseAcc(k, device) if dense else _SparseAcc(sparse_capacity, device)
+    group = 1 if mesh is None else int(mesh.shape[axis])
+    if dense:
+        acc = _DenseAcc(k, device if mesh is None else mesh.flat_devices[0])
+    elif mesh is None:
+        acc = _SparseAcc(sparse_capacity, device)
+    else:
+        acc = _ShardedSparseAcc(sparse_capacity, mesh, axis)
     _, seqs = bnio._split_records_fasta(bnio._read_bytes(path))
     longest = max((len(c) for c in seqs), default=0)
     seg = min(seg, longest)
     width = seg + k - 1
     total_windows = 0
+    bufs, lens = [], []
+
+    def dispatch():
+        nonlocal total_windows
+        if not bufs:
+            return
+        while len(bufs) < group:  # empty rows keep the group's shape
+            bufs.append(np.zeros(width, np.uint8))
+            lens.append(0)
+        # fresh buffers every group: torch.from_numpy aliases its array
+        block = np.stack(bufs)
+        lengths = np.asarray(lens, np.int32)
+        reads = PackedReads.from_ascii(block, lengths=lengths, validate=not skip,
+                                       device=device)
+        bv = None
+        if skip:
+            bv = bnio._VALID_BASE[block] & (np.arange(width)[None, :] < lengths[:, None])
+            bv = torch.from_numpy(bv).to(device)
+        n_win = int(lengths.sum())
+        total_windows += n_win
+        _count_batch(acc, dense, total_windows, reads, bv, n_win, k, canonical, mesh, axis)
+        bufs.clear()
+        lens.clear()
+
     for contig in seqs if longest >= k else []:
         arr = np.frombuffer(contig, np.uint8)
         for s in range(0, len(arr), seg):
@@ -396,27 +555,13 @@ def count_fasta(
             L = len(chunk)
             if L < k:
                 continue  # shorter than a window: nothing to count
-            # a fresh buffer per segment: torch.from_numpy aliases its array
-            buf = np.zeros((1, width), np.uint8)
-            buf[0, :L] = chunk
-            lengths = np.array([L], np.int32)
-            reads = PackedReads.from_ascii(buf, lengths=lengths, validate=not skip,
-                                           device=device)
-            bv = None
-            if skip:
-                bv = bnio._VALID_BASE[buf] & (np.arange(width) < L)[None, :]
-                bv = torch.from_numpy(bv).to(device)
-            total_windows += L
-            if dense:
-                acc.add(
-                    kmer_ops.count_kmers_reads(
-                        reads.words, reads.lengths, k, canonical=canonical, base_valid=bv
-                    ),
-                    L,
-                )
-            else:
-                _sparse_add(acc, total_windows, reads.words, reads.lengths, k,
-                            canonical, bv)
+            buf = np.zeros(width, np.uint8)
+            buf[:L] = chunk
+            bufs.append(buf)
+            lens.append(L)
+            if len(bufs) == group:
+                dispatch()
+    dispatch()
     return acc.result() if dense else acc.to_dict()
 
 

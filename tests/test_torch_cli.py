@@ -4,8 +4,10 @@ through ``bitnuc_tpu.cli.main(argv)`` and ``bitnuc_tpu_torch.cli.main(
 ["--device", "cpu", *argv])`` on the same small files made from a numpy
 seed. Standard output, standard error (with each side's output directory
 written as {out}), the exit code or the error raised, and every file a
-command writes are compared; a .npz array for array. Also: --devices 2
-exits with the distributed tier's message, the command line without a
+command writes are compared; a .npz array for array. Also: --devices 8
+(the port on 8 CPU shards) against the JAX CLI's 8-device mesh and
+against the port's single-device run, --devices N on the card without N
+cards, the command line without a
 card and without --device exits before it reads anything, info's JSON,
 ``python -m bitnuc_tpu_torch`` in a fresh process, and ``| head`` ending
 with 0."""
@@ -376,12 +378,43 @@ def test_parsers_match_jax():
     assert spec(cli.build_parser()) == spec(jcli.build_parser())
 
 
-def test_devices_n_waits_for_the_distributed_tier(inputs):
-    for argv in (["count", str(inputs / "clean.fq"), "-k", "5", "--devices", "2"],
-                 ["search", str(inputs / "db.npz"), "ACGT", "--devices", "4"],
-                 ["assemble", str(inputs / "clean.fq"), "-k", "9", "--devices", "8"]):
-        with pytest.raises(SystemExit, match="distributed tier"):
-            port_main(argv)
+# --devices 8: the JAX CLI on its 8-device CPU mesh, the port's on 8 CPU
+# shards (--device cpu); the databases, batches and contigs divide no mesh
+DEVICES_CASES = [
+    ["count", "{in}/reads.fq", "-k", "5", "--skip-invalid", "--batch-size", "50"],
+    ["count", "{in}/reads.fq", "-k", "21", "--skip-invalid", "--batch-size", "50"],
+    ["count", "{in}/genome.fa", "-k", "21"],
+    ["count", "{in}/genome.fa", "-k", "9", "--canonical"],
+    ["search", "{in}/db.fq", "{in}/q10.fa", "--n-bases", "64", "-n", "3"],
+    ["search", "{in}/db.npz", "{in}/q3.fa", "-n", "2"],
+    ["map", "{in}/genome.fa", "{in}/reads.fa", "--no-cigar"],
+    ["map", "{in}/genome.fa", "{in}/long.fq", "--long", "--all"],
+    ["map", "{in}/genome.fa", "{in}/long.fq", "--long", "--extend"],
+    ["assemble", "{in}/clean.fq", "-k", "21"],
+]
+
+
+@pytest.mark.parametrize("i", range(len(DEVICES_CASES)))
+def test_devices_8_matches_jax(inputs, tmp_path, monkeypatch, i):
+    argv = DEVICES_CASES[i] + ["--devices", "8"]
+    got = check_same(argv, inputs, tmp_path, monkeypatch)
+    one = run(port_main, DEVICES_CASES[i], inputs, tmp_path / "one", monkeypatch)
+    assert got[:3] == one[:3]
+
+
+def test_devices_n_on_the_card_needs_n_cards(inputs):
+    """--devices N on CUDA takes the first N distinct cards and exits
+    naming the visible count when fewer are seen; 0 and 1 build no mesh."""
+    from types import SimpleNamespace
+
+    seen = torch.cuda.device_count()
+    n = max(2, seen + 1)
+    with pytest.raises(SystemExit, match=f"only {seen} device"):
+        cli._build_mesh(SimpleNamespace(devices=n, device=torch.device("cuda")))
+    for d in (None, 0, 1):
+        assert cli._build_mesh(SimpleNamespace(devices=d, device=torch.device("cpu"))) is None
+    m = cli._build_mesh(SimpleNamespace(devices=3, device=torch.device("cpu")))
+    assert m.shape == {"data": 3} and m.flat_devices == [torch.device("cpu")] * 3
 
 
 def test_no_card_and_no_device_exits_before_any_work(inputs, monkeypatch):

@@ -1,10 +1,11 @@
 """bitnuc_tpu_torch's entry points take bitnuc_tpu's parameters in its
 order: count_fastq, count_fasta, iter_fastq_batches, PackedDB.search,
 PackedDB.search_batch and topk_batch_dispatch, called with JAX's keywords
-and positions, give JAX's outputs. A mesh raises NotImplementedError,
-staged=True raises RuntimeError, and prefetch runs a producer thread whose
-batches, offsets and errors equal the unthreaded run's and which ends when
-its consumer stops."""
+and positions, give JAX's outputs, a mesh's among them (the port on 8 CPU
+shards, JAX on its 8 CPU devices); the mesh paths and the distributed
+tier take JAX's parameters too. staged=True raises RuntimeError, and
+prefetch runs a producer thread whose batches, offsets and errors equal
+the unthreaded run's and which ends when its consumer stops."""
 
 import gzip
 import inspect
@@ -14,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from bitnuc_tpu import database as jdatabase, io as jio, mapper as jmapper, pipeline as jpipeline
@@ -22,10 +24,13 @@ from bitnuc_tpu.ops import kmer as jkmer, merge_pairs as jmerge_pairs, pileup as
 from bitnuc_tpu import assemble as jassemble, cli as jcli, filters as jfilters, qc as jqc
 from bitnuc_tpu.ops import correct as jcorrect, dedupe as jdedupe, demux as jdemux
 from bitnuc_tpu.ops import lookup as jlookup
+from bitnuc_tpu.parallel import kmer as jpkmer, mesh as jpmesh, search as jpsearch
+from bitnuc_tpu_torch.parallel import kmer as tpkmer, mesh as tpmesh, search as tpsearch
 from bitnuc_tpu_torch import assemble, cli, database, filters, io as tio, mapper, pipeline, qc
 from bitnuc_tpu_torch.ops import correct, dedupe, demux, lookup
 from bitnuc_tpu_torch.errors import InvalidBase
 from bitnuc_tpu_torch.ops import analysis, chain, hamming, kmer, merge_pairs, pileup
+from bitnuc_tpu_torch.parallel import mesh as pmesh
 from bitnuc_tpu_torch.utils.bitops import words_from_u32_np
 from conftest import random_seq
 
@@ -70,6 +75,17 @@ for _mod, _jmod, _names in (
     (assemble, jassemble, ("assemble_reads", "assemble_keys", "assemble_counts",
                            "unitigs_from_keys", "prepare_keys")),
     (cli, jcli, ("main",)),
+    (mapper, jmapper, ("map_reads_sharded", "map_reads_long_sharded")),
+    (pileup, jpileup, ("pileup_counts_sharded",)),
+    (pipeline, jpipeline, ("_shard_batch_with_valid",)),
+    (tpmesh, jpmesh, ("pad_batch", "shard_reads", "replicate")),
+    (tpkmer, jpkmer, ("count_kmers_sharded", "count_kmers_sorted_sharded",
+                      "raw_window_keys_sharded", "sparse_state_sharded", "merge_runs_sharded",
+                      "grow_state_sharded", "gather_runs_sharded", "count_kmers_seqsharded",
+                      "count_kmers_seqsharded_sorted")),
+    (tpsearch, jpsearch, ("hdist_search_sharded", "hdist_search_batch_sharded",
+                          "hdist_search_batch_db_sharded", "hdist_search_grid",
+                          "hdist_many_to_many_sharded", "hdist_search_db_sharded")),
 ):
     PAIRS.update({name: (getattr(_mod, name), getattr(_jmod, name)) for name in _names})
 # functions of tensors follow their inputs' device, the host-only parsers put
@@ -87,7 +103,14 @@ NO_DEVICE = ("search", "search_batch", "topk_batch_dispatch", "iter_fastq_ascii_
              "adapter_positions", "complexity_fraction", "triplet_entropy", "_filter_core",
              "_iter_record_batches", "_percentile_from_hist", "_per_cycle_rows", "_status",
              "assemble_reads", "assemble_keys", "assemble_counts", "unitigs_from_keys",
-             "prepare_keys", "main")
+             "prepare_keys", "main", "map_reads_sharded", "map_reads_long_sharded",
+             "pileup_counts_sharded", "_shard_batch_with_valid", "pad_batch", "shard_reads",
+             "replicate", "count_kmers_sharded", "count_kmers_sorted_sharded",
+             "raw_window_keys_sharded", "sparse_state_sharded", "merge_runs_sharded",
+             "grow_state_sharded", "gather_runs_sharded", "count_kmers_seqsharded",
+             "count_kmers_seqsharded_sorted", "hdist_search_sharded",
+             "hdist_search_batch_sharded", "hdist_search_batch_db_sharded",
+             "hdist_search_grid", "hdist_many_to_many_sharded", "hdist_search_db_sharded")
 
 
 @pytest.fixture
@@ -171,17 +194,29 @@ def test_topk_batch_dispatch_takes_n_bases():
 
 
 @pytest.mark.parametrize("call", ["count_fastq", "count_fasta", "search", "search_batch"])
-def test_a_mesh_raises(call, fastq):
-    tdb, _, qs = _db(2)
+def test_a_mesh_matches_jax(call, fastq):
+    """JAX's mesh keywords: the port on 8 CPU shards, JAX on its 8 CPU
+    devices, one result."""
+    tdb, jdb, qs = _db(2)
+    mesh = pmesh.make_mesh((8,), ("data",), devices=[CPU] * 8)
+    jmesh = jax.make_mesh((8,), ("data",), devices=jax.devices()[:8])
+    fa = b">a\nACGTACGTTTGACCA\n>b\nGGATTACAGATTACA\n"
     calls = {
-        "count_fastq": lambda: pipeline.count_fastq(fastq, 5, mesh=object(), device=CPU),
-        "count_fasta": lambda: pipeline.count_fasta(b">a\nACGTACGT\n", 4, mesh=object(),
-                                                    device=CPU),
-        "search": lambda: tdb.search(words_from_u32_np(qs[0]), 3, mesh=object()),
-        "search_batch": lambda: tdb.search_batch(words_from_u32_np(qs), 3, mesh=object()),
+        "count_fastq": (lambda m: pipeline.count_fastq(fastq, 5, mesh=m, axis="data",
+                                                       on_invalid="skip", device=CPU),
+                        lambda m: jpipeline.count_fastq(fastq, 5, mesh=m, axis="data",
+                                                        on_invalid="skip")),
+        "count_fasta": (lambda m: pipeline.count_fasta(fa, 4, mesh=m, axis="data", device=CPU),
+                        lambda m: jpipeline.count_fasta(fa, 4, mesh=m, axis="data")),
+        "search": (lambda m: tdb.search(words_from_u32_np(qs[0]), 3, mesh=m, axis="data"),
+                   lambda m: jdb.search(jnp.asarray(qs[0]), 3, mesh=m, axis="data")),
+        "search_batch": (lambda m: tdb.search_batch(words_from_u32_np(qs), 3, m, "data"),
+                         lambda m: jdb.search_batch(jnp.asarray(qs), 3, m, "data")),
     }
-    with pytest.raises(NotImplementedError, match="distributed tier"):
-        calls[call]()
+    port, ref = calls[call]
+    got, want = port(mesh), ref(jmesh)
+    for g, w in (zip(got, want) if isinstance(got, tuple) else [(got, want)]):
+        np.testing.assert_array_equal(np.asarray(g), np.asarray(w).astype(np.asarray(g).dtype))
 
 
 def test_staged_true_raises(fastq):
