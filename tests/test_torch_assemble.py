@@ -17,6 +17,7 @@ from bitnuc_tpu.ops import codec as jcodec
 import bitnuc_tpu_torch as tbn
 from bitnuc_tpu_torch import assemble as asm
 from bitnuc_tpu_torch.ops import codec
+from bitnuc_tpu_torch.parallel import mesh as pmesh
 
 torch.set_num_threads(1)
 CPU = torch.device("cpu")
@@ -255,8 +256,9 @@ def test_assemble_reads_arguments():
     tr = tbn.PackedReads.from_ascii([b"ACGT" * 10], device=CPU)
     with pytest.raises(ValueError, match="engine must be"):
         asm.assemble_reads(tr, 5, engine="gpu")
-    with pytest.raises(NotImplementedError, match="distributed tier"):
-        asm.assemble_reads(tr, 5, mesh=object())
+    mesh = pmesh.make_mesh((3,), ("data",), devices=[CPU] * 3)
+    assert asm.assemble_reads(tr, 5, min_count=1, mesh=mesh) == asm.assemble_reads(
+        tr, 5, min_count=1)
     for engine in ("auto", "device", "host"):  # too short for any window
         assert asm.assemble_reads(tbn.PackedReads.from_ascii([b"ACG"], device=CPU), 5,
                                   engine=engine) == ([], [])
@@ -350,3 +352,26 @@ def test_gfa_and_fasta_bytes_match_jax(tmp_path, read_sets):
                 mod.write_fasta(tmp_path / f"{tag}.fa", seqs, circular, prefix=prefix)
             for ext in ("gfa", "fa"):
                 assert (tmp_path / f"t.{ext}").read_bytes() == (tmp_path / f"j.{ext}").read_bytes()
+
+
+@pytest.mark.parametrize("genome", ["linear", "repeats"])
+@pytest.mark.parametrize("n", [3, 8])
+def test_assemble_reads_mesh_matches_jax(read_sets, genome, n):
+    """The spectrum over n CPU shards (the reads padded to a multiple, the
+    validity mask with them) against JAX's n-device mesh path and the
+    unsharded run; one strand and both."""
+    import jax
+
+    k, reads = read_sets[genome]
+    jr, jbv, tr, tbv = _both(reads[: len(reads) - 1])  # a count no mesh divides
+    jmesh = jax.make_mesh((n,), ("data",), devices=jax.devices()[:n])
+    mesh = pmesh.make_mesh((n,), ("data",), devices=[CPU] * n)
+    for both in (True, False):
+        kw = dict(min_count=2, both_strands=both)
+        want = jasm.assemble_reads(jr, k, base_valid=jbv, mesh=jmesh, **kw)
+        assert want[0]
+        got = asm.assemble_reads(tr, k, base_valid=tbv, mesh=mesh, **kw)
+        same(got, want)
+        same(got, asm.assemble_reads(tr, k, base_valid=tbv, **kw))
+    same(asm.assemble_reads(tr, k, base_valid=tbv.numpy(), mesh=mesh, engine="host"),
+         jasm.assemble_reads(jr, k, base_valid=jbv, mesh=jmesh))

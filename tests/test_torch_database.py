@@ -170,3 +170,39 @@ def test_from_fastq_empty_and_invalid(tmp_path):
     with pytest.raises(InvalidBase):
         PackedDB.from_fastq(bad, 8, device=CPU)
     assert len(PackedDB.from_fastq(bad, 8, validate=False, device=CPU)) == 2
+
+
+# -- the mesh paths: the database split column-wise over CPU shards -----------------
+
+
+@pytest.mark.parametrize("n", [3, 8])
+@pytest.mark.parametrize("Q,k,D", [(1, 5, 301), (7, 4, 301), (20, 10, 301), (20, 40, 13)])
+def test_search_mesh_matches_jax(n, Q, k, D):
+    """search (one query, K4 a slab) and search_batch (few queries: K5 and
+    the top-k; SEARCH_TC_MIN_Q on: the fused search on unpadded slabs, the
+    unfused route on the padded one; k past SEARCH_TOPK_MAX and past D)
+    against JAX's n-device mesh path; D divides no mesh. Ties: the entries
+    repeat."""
+    import jax
+
+    from bitnuc_tpu_torch.parallel import mesh as pmesh
+
+    rng = np.random.default_rng(Q + k + n)
+    db = _words(rng, 6, 9)[:, rng.integers(0, 9, D)]
+    qs = _words(rng, Q, 6)
+    qs[0] = db[:, D // 2]
+    tdb = PackedDB.from_numpy(db, 90, device=CPU)
+    jdb = JPackedDB(words_wm=jnp.asarray(db), n_bases=90)
+    jmesh = jax.make_mesh((n,), ("data",), devices=jax.devices()[:n])
+    mesh = pmesh.make_mesh((n,), ("data",), devices=[CPU] * n)
+    for got, want in ((tdb.search_batch(words_from_u32_np(qs), k, mesh=mesh),
+                       jdb.search_batch(jnp.asarray(qs), k, mesh=jmesh)),
+                      (tdb.search(words_from_u32_np(qs[0]), k, mesh=mesh),
+                       jdb.search(jnp.asarray(qs[0]), k, mesh=jmesh))):
+        for g, w in zip(got, want):
+            assert g.dtype == torch.int32 and g.shape == np.asarray(w).shape
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    m = min(k, D)
+    for g, w in zip(tdb.search_batch(words_from_u32_np(qs), k, mesh=mesh),
+                    tdb.search_batch(words_from_u32_np(qs), m)):
+        assert torch.equal(g, w)

@@ -9,6 +9,7 @@ strands with substitutions and small indels, plus unmapped random reads,
 reads shorter than k + w, and reads over the contig junction. The JAX
 results of each configuration are computed once per module."""
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -17,6 +18,7 @@ from bitnuc_tpu import mapper as jmapper
 from bitnuc_tpu.ops.pallas import wavefront as jwavefront
 from bitnuc_tpu.sequence import PackedReads as JPackedReads
 from bitnuc_tpu_torch import mapper
+from bitnuc_tpu_torch.parallel import mesh as pmesh
 from bitnuc_tpu_torch.sequence import PackedReads
 from bitnuc_tpu_torch.utils.bitops import words_to_u32_np
 
@@ -135,6 +137,14 @@ def test_index_npz_both_ways(data, tmp_path):
         assert z["keys"].dtype == z["keys_hi"].dtype == z["ref_words"].dtype == np.uint32
 
 
+def _mesh(n):
+    return pmesh.make_mesh((n,), ("data",), devices=[CPU] * n)
+
+
+def _jmesh(n):
+    return jax.make_mesh((n,), ("data",), devices=jax.devices()[:n])
+
+
 def _result_equal(got, want):
     assert set(got) == set(want)
     for key in want:
@@ -187,9 +197,8 @@ def test_seed_cap_and_mesh():
         for w in (1, 5, 10):
             assert mapper._seed_cap(L, w) == jmapper._seed_cap(L, w)
     ti = mapper.MinimizerIndex.build(b"ACGT" * 40, k=5, w=3, device=CPU)
-    reads = PackedReads.from_ascii([b"ACGTACGTACGT"], device=CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mapper.map_reads(ti, reads, mesh=object())
+    reads = PackedReads.from_ascii([b"ACGTACGTACGT", b"CGTACGTACGTA", b"TTTT"], device=CPU)
+    _result_equal(mapper.map_reads(ti, reads, mesh=_mesh(2)), mapper.map_reads(ti, reads))
     with pytest.raises(ValueError):
         mapper.MinimizerIndex.build(b"ACGT" * 10, k=32, device=CPU)
 
@@ -291,8 +300,8 @@ def test_map_reads_long_chunks_change_no_output(long_data, monkeypatch, extend):
                   _jax_long(long_data, extend))
     empty = PackedReads(words=tr.words[:0], lengths=tr.lengths[:0])
     assert all(len(v) == 0 for v in mapper.map_reads_long(ti, empty, extend=extend).values())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mapper.map_reads_long(ti, tr, mesh=object())
+    _result_equal(mapper.map_reads_long(ti, tr, min_chain=10, extend=extend, mesh=_mesh(2)),
+                  _jax_long(long_data, extend))
 
 
 def test_reverse_reads_matches_jax(long_data):
@@ -364,6 +373,59 @@ def test_map_pairs_proper_discordant_rf_and_mismatched():
     with pytest.raises(ValueError, match="mate batches differ"):
         mapper.map_pairs(ti, PackedReads.from_ascii(r1s[:1], device=CPU),
                          PackedReads.from_ascii(r2s[:2], device=CPU))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mapper.map_pairs(ti, PackedReads.from_ascii(r1s, device=CPU),
-                         PackedReads.from_ascii(r2s, device=CPU), mesh=object())
+    _pairs_equal(mapper.map_pairs(ti, PackedReads.from_ascii(r1s, device=CPU),
+                                  PackedReads.from_ascii(r2s, device=CPU), mesh=_mesh(3), **kw),
+                 want)
+
+
+# -- the mesh paths: reads split over CPU shards, the index on every shard ---------
+
+
+@pytest.mark.parametrize("n", [3, 8])
+def test_map_reads_mesh_matches_jax(data, n):
+    """200 reads over n shards (padded to a multiple, sliced back), batches
+    of 37 a shard: JAX's mesh path and the unsharded run."""
+    ji, want, _ = _jax_run(data, 15)
+    ti = mapper.MinimizerIndex.build_multi(data[0], device=CPU)
+    jgot = jmapper.map_reads(ji, data[2], mesh=_jmesh(n))
+    _result_equal(jgot, want)
+    got = mapper.map_reads(ti, data[3], mesh=_mesh(n))
+    _result_equal(got, want)
+    padded = pmesh.pad_batch(data[3], n)
+    sharded = mapper.map_reads_sharded(ti, pmesh.shard_reads(padded, _mesh(n)), _mesh(n))
+    _result_equal({f: v[:200] for f, v in sharded.items()}, want)
+    with pytest.raises(AssertionError, match="must divide"):
+        mapper.map_reads_sharded(ti, data[3], _mesh(3))
+
+
+@pytest.mark.parametrize("extend", [False, True])
+def test_map_reads_long_mesh_matches_jax(long_data, extend):
+    """Nine reads over 8 shards against JAX's 8-device mesh path."""
+    ji, jr, ti, tr = _long_pair(long_data)
+    want = jmapper.map_reads_long(ji, jr, min_chain=10, extend=extend, mesh=_jmesh(8))
+    _result_equal(want, _jax_long(long_data, extend))
+    _result_equal(mapper.map_reads_long(ti, tr, min_chain=10, extend=extend, mesh=_mesh(8)),
+                  want)
+    padded = pmesh.pad_batch(tr, 3)
+    got = mapper.map_reads_long_sharded(ti, padded, _mesh(3), min_chain=10, extend=extend)
+    _result_equal({f: v[:9] for f, v in got.items()}, want)
+
+
+def test_map_pairs_mesh_matches_jax():
+    rng = np.random.default_rng(41)
+    ref = ACGT[rng.integers(0, 4, 12_000)].tobytes()
+    ji = jmapper.MinimizerIndex.build(ref, k=13, w=8)
+    ti = mapper.MinimizerIndex.build(ref, k=13, w=8, device=CPU)
+    r1s, r2s = _pairs(1, ref)
+    kw = dict(min_insert=150, max_insert=450)
+    want = jmapper.map_pairs(ji, JPackedReads.from_ascii(r1s), JPackedReads.from_ascii(r2s),
+                             mesh=_jmesh(8), **kw)
+    got = mapper.map_pairs(ti, PackedReads.from_ascii(r1s, device=CPU),
+                           PackedReads.from_ascii(r2s, device=CPU), mesh=_mesh(8), **kw)
+    _pairs_equal(got, want)
+    assert got["proper"].any()
+
+
+def test_index_to_another_device_is_a_copy(data):
+    ti = mapper.MinimizerIndex.build_multi(data[0], device=CPU)
+    assert ti.to(CPU) is ti and ti.to("cpu") is ti

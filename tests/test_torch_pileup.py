@@ -14,6 +14,7 @@ from bitnuc_tpu.ops import pileup as jpileup
 from bitnuc_tpu.sequence import PackedReads as JPackedReads
 from bitnuc_tpu_torch import mapper
 from bitnuc_tpu_torch.ops import pileup
+from bitnuc_tpu_torch.parallel import mesh as pmesh
 from bitnuc_tpu_torch.sequence import PackedReads
 from bitnuc_tpu_torch.utils.bitops import words_from_u32_np
 
@@ -59,6 +60,30 @@ def _batch(seed, ref_len, B=40):
     flags = rng.random(B) < 0.4
     keep = rng.random(B) < 0.85
     return reads, starts, flags, keep
+
+
+@pytest.mark.parametrize("n", [1, 3, 8])
+def test_pileup_counts_sharded_matches_jax(n):
+    """One psum of the int32 grid over n CPU shards against JAX's n-device
+    mesh and the unsharded grid; the batch of 48 divides 1, 3 and 8."""
+    import jax
+
+    ref_len = 300
+    reads, starts, flags, keep = _batch(9 + n, ref_len, B=48)
+    jr = JPackedReads.from_ascii(reads)
+    tr = PackedReads.from_ascii(reads, device=CPU)
+    jmesh = jax.make_mesh((n,), ("data",), devices=jax.devices()[:n])
+    want = jpileup.pileup_counts_sharded(jr.words, jr.lengths, jnp.asarray(starts),
+                                         jnp.asarray(flags), jnp.asarray(keep), ref_len, jmesh)
+    mesh = pmesh.make_mesh((n,), ("data",), devices=[CPU] * n)
+    args = (tr.words, tr.lengths, torch.from_numpy(starts), torch.from_numpy(flags),
+            torch.from_numpy(keep))
+    got = pileup.pileup_counts_sharded(*args, ref_len, mesh)
+    _equal([got], [want])
+    assert torch.equal(got, pileup.pileup_counts(*args, ref_len)) and int(got.sum()) > 0
+    if n > 1:
+        with pytest.raises(AssertionError, match="must divide"):
+            pileup.pileup_counts_sharded(*(a[:-1] for a in args), ref_len, mesh)
 
 
 @pytest.mark.parametrize("seed", range(3))

@@ -2,11 +2,13 @@
 same small FASTQ files, plain and .gz: equal histograms (k <= 12) and
 dicts (k > 12, the sparse engine, with and without capacity doubling)
 under on_invalid 'skip' and 'raise', crash/resume, and dense and sparse
-checkpoints that move between the packages in both directions. Counts
-match exactly."""
+checkpoints that move between the packages in both directions, and the
+mesh paths of count_fastq and count_fasta on 3 and 8 CPU shards against
+JAX's mesh of as many devices. Counts match exactly."""
 
 import gzip
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -15,6 +17,7 @@ from bitnuc_tpu import io as jio, pipeline as jpipeline
 from bitnuc_tpu.errors import InvalidBase as JInvalidBase
 from bitnuc_tpu_torch import io as tio, pipeline
 from bitnuc_tpu_torch.errors import InvalidBase, InvalidLength
+from bitnuc_tpu_torch.parallel import mesh as pmesh
 from conftest import random_seq
 
 torch.set_num_threads(1)
@@ -240,3 +243,72 @@ def test_stats_validate(fastq_n):
     got = pipeline.stats(fastq_n, validate=False, device=CPU)
     assert got == jpipeline.stats(fastq_n, validate=False)
     assert got["n50"] > 0 and got["l50"] > 0
+
+
+# -- the mesh paths: batches split over CPU shards ---------------------------------
+
+
+def _mesh(n):
+    return pmesh.make_mesh((n,), ("data",), devices=[CPU] * n)
+
+
+def _jmesh(n):
+    return jax.make_mesh((n,), ("data",), devices=jax.devices()[:n])
+
+
+def _same_counts(got, want):
+    if isinstance(want, dict):
+        assert got == want
+    else:
+        assert got.dtype == np.int64
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("n", [3, 8])
+@pytest.mark.parametrize("k,canonical,on_invalid", [(6, False, "skip"), (12, True, "skip"),
+                                                    (17, False, "skip"), (21, True, "skip"),
+                                                    (5, False, "raise")])
+def test_count_fastq_mesh_matches_jax(fastq_n, fastq_clean, n, k, canonical, on_invalid):
+    """Dense k (one psum a batch) and sparse k (a run list a shard, one
+    merge at the end, capacity doubling at 64 rows) against JAX's n-device
+    mesh and the port's single-device run."""
+    p = fastq_n if on_invalid == "skip" else fastq_clean
+    kw = dict(batch_size=8, canonical=canonical, on_invalid=on_invalid, sparse_capacity=64)
+    want = jpipeline.count_fastq(p, k, mesh=_jmesh(n), **kw)
+    got = pipeline.count_fastq(p, k, mesh=_mesh(n), **kw)
+    _same_counts(got, want)
+    _same_counts(pipeline.count_fastq(p, k, device=CPU, **kw), want)
+
+
+@pytest.mark.parametrize("n", [3, 8])
+@pytest.mark.parametrize("k", [6, 21])
+def test_count_fasta_mesh_matches_jax(tmp_path, rng, n, k):
+    """Segment groups of the mesh's size (the last padded with empty rows),
+    small segments so that one contig spans many, N windows skipped."""
+    contigs = []
+    for size in (700, 260, 31, 120):
+        s = bytearray(random_seq(rng, size).upper())
+        s[rng.integers(len(s))] = ord("N")
+        contigs.append(bytes(s))
+    p = tmp_path / "g_mesh.fa"
+    p.write_bytes(b"".join(b">c%d\n%s\n" % (i, c) for i, c in enumerate(contigs)))
+    kw = dict(on_invalid="skip", seg_bases=64, sparse_capacity=2048)
+    want = jpipeline.count_fasta(p, k, mesh=_jmesh(n), **kw)
+    _same_counts(pipeline.count_fasta(p, k, mesh=_mesh(n), **kw), want)
+    _same_counts(pipeline.count_fasta(p, k, device=CPU, **kw), want)
+
+
+def test_count_fastq_mesh_dense_crash_resume(fastq_n, tmp_path, monkeypatch):
+    """A dense checkpoint written on 8 shards resumes on 3 and on none."""
+    ckpt = str(tmp_path / "dense_mesh.npz")
+    kw = dict(batch_size=8, on_invalid="skip", checkpoint=ckpt, checkpoint_every=1)
+    monkeypatch.setattr(tio, "iter_fastq_batches", _crashing(tio.iter_fastq_batches, 3))
+    with pytest.raises(_Boom):
+        pipeline.count_fastq(fastq_n, 6, mesh=_mesh(8), **kw)
+    monkeypatch.undo()
+    whole = jpipeline.count_fastq(fastq_n, 6, batch_size=8, on_invalid="skip")
+    saved = tmp_path / "dense_mesh_saved.npz"
+    saved.write_bytes(open(ckpt, "rb").read())
+    np.testing.assert_array_equal(pipeline.count_fastq(fastq_n, 6, mesh=_mesh(3), **kw), whole)
+    np.testing.assert_array_equal(
+        pipeline.count_fastq(fastq_n, 6, device=CPU, **{**kw, "checkpoint": str(saved)}), whole)
