@@ -1,6 +1,6 @@
 """The port's flagship step against the JAX step, the package boundary (no
-jax, no bitnuc_tpu), and the backend switch. The kernels themselves are
-tested in test_torch_kernels.py."""
+jax, no bitnuc_tpu), the backend switch, and the distributed dry run on
+CPU shards. The kernels themselves are tested in test_torch_kernels.py."""
 
 import os
 import re
@@ -45,7 +45,7 @@ def test_import_leaves_jax_out():
     code = (
         "import sys, bitnuc_tpu_torch, bitnuc_tpu_torch.entry, bitnuc_tpu_torch.pipeline, "
         "bitnuc_tpu_torch.mapper, bitnuc_tpu_torch.assemble, bitnuc_tpu_torch.cli, "
-        "bitnuc_tpu_torch.__main__; "
+        "bitnuc_tpu_torch.__main__, bitnuc_tpu_torch.parallel; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'bitnuc_tpu.'))"
         " or m == 'bitnuc_tpu']; assert not bad, bad"
     )
@@ -55,7 +55,9 @@ def test_import_leaves_jax_out():
 
 def test_port_sources_import_neither_jax_nor_reference():
     pattern = re.compile(r"^\s*(import|from)\s+(jax|bitnuc_tpu)\b", re.M)
-    sources = list(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    sources = (list(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+               + sorted((ROOT / "examples").glob("torch_*.py")))
+    assert len(sources) > 60
     offenders = [str(p) for p in sources if pattern.search(p.read_text())]
     assert not offenders
 
@@ -100,3 +102,17 @@ def test_launch_counters_untouched_by_plain_paths():
     tfn, targs = entry.entry(device=CPU, batch=4, read_len=40, db_size=8)
     tfn(*targs)
     assert all(n == 0 for n in kernels.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("n", [3, 8])
+def test_dryrun_multichip_on_cpu_shards(n):
+    """The distributed step of __graft_entry__.dryrun_multichip on n CPU
+    shards (its own checks: sharded counts, searches, the grid at even n,
+    the halo, mapping, pileup, pairs, long reads, streaming k = 21), with
+    no kernel launched on the CPU; without CUDA the card default raises."""
+    kernels.reset_launches()
+    entry.dryrun_multichip(n, [CPU] * n)
+    assert all(v == 0 for v in kernels.LAUNCHES.values())
+    if not torch.cuda.is_available():
+        with pytest.raises(AssertionError, match=f"need {n} devices"):
+            entry.dryrun_multichip(n)
