@@ -57,7 +57,7 @@ def test_port_sources_import_neither_jax_nor_reference():
     pattern = re.compile(r"^\s*(import|from)\s+(jax|bitnuc_tpu)\b", re.M)
     sources = (list(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
                + sorted((ROOT / "examples").glob("torch_*.py")))
-    assert len(sources) > 60
+    assert len(sources) >= 50
     offenders = [str(p) for p in sources if pattern.search(p.read_text())]
     assert not offenders
 
