@@ -156,14 +156,6 @@ class Sharded:
     def dtype(self) -> torch.dtype:
         return self.shards[0].dtype
 
-    @property
-    def device(self) -> torch.device:
-        return self.shards[0].device
-
-    @property
-    def ndim(self) -> int:
-        return self.shards[0].ndim
-
     def full(self) -> torch.Tensor:
         """The whole tensor on the first device."""
         dev = self.shards[0].device
@@ -172,18 +164,6 @@ class Sharded:
     def __array__(self, dtype=None, copy=None):
         a = self.full().cpu().numpy()
         return a if dtype is None else a.astype(dtype)
-
-    def __getitem__(self, idx):
-        return self.full()[idx]
-
-    def __len__(self) -> int:
-        return int(self.shape[0])
-
-    def sum(self, *args, **kwargs):
-        return self.full().sum(*args, **kwargs)
-
-    def cpu(self) -> torch.Tensor:
-        return self.full().cpu()
 
     def __repr__(self) -> str:
         return (f"Sharded(shape={tuple(self.shape)}, dtype={self.dtype}, axis={self.axis!r}, "
@@ -249,16 +229,8 @@ class ShardedReads:
     def batch_size(self) -> int:
         return int(self.words.shape[0])
 
-    @property
-    def n_words(self) -> int:
-        return int(self.word_shards[0].shape[-1])
-
     def __len__(self) -> int:
         return self.batch_size
-
-    def gather(self) -> PackedReads:
-        """The padded whole as a PackedReads on the first device."""
-        return PackedReads(words=self.words.full(), lengths=self.lengths.full())
 
 
 def pad_batch(reads: PackedReads, multiple: int) -> PackedReads:
@@ -278,8 +250,6 @@ def shard_reads(reads, mesh: Mesh, axis: str = "data") -> ShardedReads:
     and split over it: each device gets its slab of words and lengths."""
     if isinstance(reads, ShardedReads) and reads.mesh is mesh and reads.axis == axis:
         return reads
-    if isinstance(reads, ShardedReads):
-        reads = reads.gather()
     reads = pad_batch(reads, int(mesh.shape[axis]))
     return ShardedReads(split(reads.words, mesh, axis), split(reads.lengths, mesh, axis),
                         mesh, axis)

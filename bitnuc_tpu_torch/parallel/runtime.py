@@ -34,17 +34,17 @@ def initialize(
     num_processes=None,
     process_id=None,
     local_device_ids=None,
-    backend=None,
     timeout_s: float = None,
     **kwargs,
 ):
     """Join the process group: ``coordinator_address`` ("host:port"),
     ``num_processes`` and ``process_id``, or, where an argument is missing,
     torchrun's ``MASTER_ADDR``:``MASTER_PORT``, ``WORLD_SIZE`` and ``RANK``.
-    ``backend`` defaults to ``nccl`` with CUDA and ``gloo`` without it;
+    The backend is ``nccl`` with CUDA and ``gloo`` without it;
     ``local_device_ids`` names the card this process uses (its first entry
-    becomes the current CUDA device). A no-op in one process and on a
-    second call; extra keywords go to ``init_process_group``."""
+    becomes the current CUDA device); ``timeout_s`` bounds the rendezvous
+    and each collective. A no-op in one process and on a second call;
+    extra keywords go to ``init_process_group``."""
     if is_initialized():
         return
     env = os.environ
@@ -60,14 +60,13 @@ def initialize(
         num_processes = int(env["WORLD_SIZE"])
     if process_id is None:
         process_id = int(env.get("RANK", "0"))
-    backend = backend or _backend()
     if local_device_ids is not None and torch.cuda.is_available():
         ids = [local_device_ids] if isinstance(local_device_ids, int) else list(local_device_ids)
         torch.cuda.set_device(int(ids[0]))
     if timeout_s is not None:
         kwargs["timeout"] = datetime.timedelta(seconds=float(timeout_s))
     torch.distributed.init_process_group(
-        backend,
+        _backend(),
         init_method=f"tcp://{coordinator_address}",
         world_size=int(num_processes),
         rank=int(process_id),

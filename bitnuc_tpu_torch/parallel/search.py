@@ -11,8 +11,9 @@ break by the lowest global index, as on one device.
 ``d_valid`` (a database zero-padded to a device multiple) gives the
 padding columns distance n_bases + 1 before a shard's top-k. The fused
 ``tc_search`` takes its top-k inside the kernel and knows no ``d_valid``,
-so a shard that holds padding takes the unfused route: distances, the
-mask, then the top-k.
+so the shard that holds padding searches its real columns alone and
+appends the padding columns its top-k would have taken: they rank after
+every real column (distance n_bases + 1) in index order.
 
 Replicated results are tensors on the mesh's first device; results that
 the JAX package leaves sharded are ``parallel.mesh.Sharded``s.
@@ -26,12 +27,6 @@ import torch
 
 from ..ops import hamming
 from . import mesh as pmesh
-
-
-def _local_topk(d: torch.Tensor, k: int, offset: int):
-    """Per-row top-k of [Q, D_loc] distances with global indices."""
-    dd, idx = hamming.topk_smallest_batch(d, k)
-    return dd, idx + offset
 
 
 def _mask_padding(d: torch.Tensor, offset: int, d_valid, n_bases: int) -> torch.Tensor:
@@ -106,19 +101,23 @@ def hdist_search_batch_sharded(queries, db_words, n_bases, topk: int, mesh: pmes
 
 def _scan_slab(qs: torch.Tensor, db_loc_wm: torch.Tensor, n_bases: int, k_loc: int,
                offset: int, d_valid):
-    """One slab's per-query top-k with global indices. Without padding in
-    the slab: ``PackedDB.search_batch`` (the fused tc_search from
-    SEARCH_TC_MIN_Q queries, else distances_batch and the top-k); with it:
-    distances_batch, the padding mask, then the top-k."""
+    """One slab's per-query top-k with global indices, through
+    ``PackedDB.search_batch`` (the fused tc_search from SEARCH_TC_MIN_Q
+    queries, else distances_batch and the top-k) over the slab's real
+    columns; the padding columns it would take follow at n_bases + 1."""
     from ..database import PackedDB
 
-    db = PackedDB(words_wm=db_loc_wm, n_bases=int(n_bases))
     D_loc = int(db_loc_wm.shape[1])
-    if d_valid is None or offset + D_loc <= int(d_valid):
-        dd, idx = db.search_batch(qs, k_loc)
-        return dd, idx + offset
-    d = _mask_padding(db.distances_batch(qs), offset, d_valid, n_bases)
-    return _local_topk(d, k_loc, offset)
+    n_real = D_loc if d_valid is None else max(0, min(D_loc, int(d_valid) - offset))
+    db = PackedDB(words_wm=db_loc_wm[:, :n_real], n_bases=int(n_bases))
+    dd, idx = db.search_batch(qs, min(k_loc, n_real))
+    extra = k_loc - dd.shape[1]
+    if extra:
+        Q = qs.shape[0]
+        dd = torch.cat([dd, dd.new_full((Q, extra), int(n_bases) + 1)], 1)
+        pad = torch.arange(n_real, n_real + extra, dtype=idx.dtype, device=idx.device)
+        idx = torch.cat([idx, pad.expand(Q, extra)], 1)
+    return dd, idx + offset
 
 
 def hdist_search_batch_db_sharded(queries, db_words_wm, n_bases: int, topk: int,
@@ -198,7 +197,7 @@ def hdist_search_db_sharded(query, db_words_wm, n_bases: int, topk: int, mesh: p
     for d, q, db_loc, me in zip(mesh.flat_devices, qs, slabs, mesh.axis_index(axis)):
         with pmesh.on_device(d):
             dist = hamming.hdist_scan(q.reshape(1, -1), db_loc, int(n_bases))[0]
-            if d_valid is not None:
+            if d_valid is not None and (me + 1) * D_loc > int(d_valid):  # a padded slab
                 dist = _mask_padding(dist, me * D_loc, d_valid, n_bases)
             dd, idx = hamming.topk_smallest(dist, k_loc)
             cand.append((dd, idx + me * D_loc))

@@ -150,11 +150,32 @@ Phases, each of which must pass:
    orf, correct, assemble) on two contigs of the genome (100 kbp), their
    reads, long reads, pairs and a search database, each held byte for byte
    to the same command under backend('torch'), with its launches.
+13. The distributed tier (bitnuc_tpu_torch.parallel) on meshes of 1 and 4
+   shards of the card, each sharded call held bit for bit to its unsharded
+   call and both timed: count_kmers_sharded of the flagship batch (K3b) and
+   of 262,144 of phase 6's reads with N-skip (K3a), count_kmers_sorted_sharded
+   of them, count_kmers_seqsharded (K3a) and its sorted form of phase 6's
+   genome as one sequence, PackedDB.search_batch of phase 8's 256, 8 and 4
+   queries (tc_search, K5) on the 4,194,304 x 512-base database and on
+   4,194,303 entries (a padded slab), PackedDB.search (K4), the row-major
+   hdist_search_sharded, hdist_search_batch_sharded and
+   hdist_many_to_many_sharded, map_reads (K8) and map_pairs of 262,144
+   reads on phase 7's index, map_reads_long of one phase 10 chunk of 2,090
+   long reads (C1), pileup_counts_sharded of phase 10's 100,000 called
+   reads, assemble_reads of phase 12's first-20-kbp reads, count_fastq of a
+   262,144-read FASTQ at k = 12 and 21; hdist_search_grid on a 2 x 2 mesh
+   and entry.dryrun_multichip(4) on 4 shards of the card. Then a
+   one-process NCCL group (runtime.initialize) with a psum of CUDA tensors,
+   --devices 1 through cli.main for count, search and map against the same
+   command without it, --devices N past the visible cards exiting with
+   their count, and the five examples (examples/torch_*.py) in-process at
+   tests/test_examples.py's arguments.
 
 Each phase's start, and its sections', print as "[clock] ... at N s". The
 launch counters are set to 0 just before each main path (phases 4 and 5
 under the default backend, phases 6, 7, 8, 9 and 11, each path of phase
-10, and the assembly and each command of phase 12) and read just after
+10, the assembly and each command of phase 12, and each sharded call of
+phase 13) and read just after
 it; every kernel of that path must have launched there, and the flagship step alone
 must make two K3b launches (its plain and canonical k = 8 counts) and no K3a
 launch. The last lines printed are a
@@ -2985,6 +3006,359 @@ def assembly_cli_phase(args, torch, dev, results, tmp, genome, reads, true_start
           f"under backend('torch') {sum(ph['cli_plain_s'].values()):.1f} s)", flush=True)
 
 
+MESH_SHARDS = (1, 4)  # shards of the card in phase 13's meshes
+MESH_READS = 262_144  # phase 13's read batches and its FASTQ
+MESH_LONG_READS = 2_090  # one phase 10 chunk of long reads
+MESH_ROWS = 262_144  # entries of the row-major database slice (hdist_search_sharded)
+MESH_M2M = (8, 65_536)  # queries x entries of hdist_many_to_many_sharded
+MESH_SEARCH_K = 10
+MESH_LAUNCHES = {}
+
+
+def runs_equal(a, b) -> bool:
+    """Two run-start lists (lo, hi, counts, n_unique) hold the same
+    distinct k-mers with the same counts."""
+    from bitnuc_tpu_torch.ops import kmer
+
+    x, y = kmer.compact_runs(*a[:3]), kmer.compact_runs(*b[:3])
+    return all(np.array_equal(p, q) for p, q in zip(x, y)) and int(a[3]) == int(b[3]) == len(x[2])
+
+
+def tensors_equal(a, b) -> bool:
+    """Equal tensors on one device (a sharded result never lands elsewhere)."""
+    return all(x.device == y.device and x.dtype == y.dtype and x.shape == y.shape
+               and bool((x == y).all()) for x, y in zip(a, b))
+
+
+def dicts_equal(a, b) -> bool:
+    return set(a) == set(b) and all(np.array_equal(a[f], b[f]) for f in a)
+
+
+def run_example(path: str, argv) -> str:
+    """An example script run in this process with sys.argv set: its
+    standard output."""
+    import contextlib
+    import io as stdio
+    import runpy
+
+    saved = sys.argv
+    sys.argv = [path, *argv]
+    buf = stdio.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            runpy.run_path(path, run_name="__main__")
+    finally:
+        sys.argv = saved
+    return buf.getvalue()
+
+
+def mesh_phase(args, torch, dev, results, tmp, genome, reads_g, true_starts, db_wm, queries,
+               index):
+    """Phase 13: the distributed tier on meshes of 1 and 4 shards of the
+    card, each sharded function held bit for bit to its unsharded run and
+    both timed; a one-process NCCL group; --devices through cli.main; the
+    five examples."""
+    import bitnuc_tpu_torch.assemble as asm
+    from bitnuc_tpu_torch import cli, entry, kernels, mapper, parallel, pipeline
+    from bitnuc_tpu_torch.database import PackedDB
+    from bitnuc_tpu_torch.ops import codec, hamming, kmer, pileup
+    from bitnuc_tpu_torch.parallel import mesh as pmesh, search as psearch
+    from bitnuc_tpu_torch.sequence import PackedReads
+
+    ph = results["phases"]
+    rows = ph["mesh"] = {}
+    t0 = time.perf_counter()
+    meshes = {n: pmesh.make_mesh((n,), ("data",), devices=[dev] * n) for n in MESH_SHARDS}
+    print(f"phase 13: the distributed tier on {', '.join(map(str, MESH_SHARDS))} shards of "
+          f"{dev}, against the unsharded calls", flush=True)
+
+    def sync_ms(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    def add_launches() -> dict:
+        """The counters' nonzero entries, added to MESH_LAUNCHES."""
+        launched = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        for k, v in launched.items():
+            MESH_LAUNCHES[k] = MESH_LAUNCHES.get(k, 0) + v
+        return launched
+
+    def held(label, plain_fn, sharded_fn, same, kernel=None):
+        """The unsharded call once, then the sharded call on each mesh with
+        the counters set to 0 just before it and read just after: equal
+        results, times, and ``kernel`` launched on every shard."""
+        want, ms = sync_ms(plain_fn)
+        row = {"unsharded_ms": ms}
+        for n, m in meshes.items():
+            kernels.reset_launches()
+            got, gms = sync_ms(lambda: sharded_fn(m))
+            launched = add_launches()
+            row[f"mesh{n}_ms"], row[f"mesh{n}_launches"] = gms, launched
+            check(f"phase 13 {label}: {n} shard(s) == unsharded, bit for bit", same(got, want))
+            if kernel:
+                check(f"phase 13 {label}: {kernel} launched on each of {n} shard(s)",
+                      launched.get(kernel, 0) >= n, f"{launched}")
+            del got
+        rows[label] = row
+        print(f"  {label}: unsharded {ms:.2f} ms, " + ", ".join(
+            f"{n} shard(s) {row[f'mesh{n}_ms']:.2f} ms" for n in meshes)
+            + f"; launches on {max(meshes)} shards {row[f'mesh{max(meshes)}_launches']}",
+            flush=True)
+        return want
+
+    # -- counting: the flagship batch, phase 6's reads, its genome ---------------
+    phase_clock(results, "phase 13: counting")
+    ascii_np, lens_np, _ = entry.example_batch(batch=READS, read_len=READ_LEN, db_size=1,
+                                               seed=args.seed)
+    a = torch.from_numpy(ascii_np).to(dev)
+    ln = torch.from_numpy(lens_np).to(dev)
+    words, _ = codec.encode_reads(a, ln)
+    held("count_kmers_sharded k=8 (K3b), the flagship batch",
+         lambda: kmer.count_kmers_dense(words, ln, entry.K),
+         lambda m: parallel.count_kmers_sharded(words, ln, entry.K, m),
+         lambda x, y: tensors_equal([x], [y]), "hist_words")
+    a = torch.from_numpy(reads_g[:MESH_READS]).to(dev)
+    ln = torch.full((MESH_READS,), READ_LEN, dtype=torch.int32, device=dev)
+    words, _ = codec.encode_reads(a, ln)
+    bv = codec.validity_mask(a, ln)
+    del a
+    held(f"count_kmers_sharded k={STREAM_K} canonical, N-skip (K3a), {MESH_READS} reads",
+         lambda: kmer.count_kmers_dense(words, ln, STREAM_K, True, bv),
+         lambda m: parallel.count_kmers_sharded(words, ln, STREAM_K, m, canonical=True,
+                                                base_valid=bv),
+         lambda x, y: tensors_equal([x], [y]), "hist_keys")
+    held(f"count_kmers_sorted_sharded k={LARGE_K} canonical, N-skip, {MESH_READS} reads",
+         lambda: kmer.count_kmers_runs(words, ln, LARGE_K, True, bv),
+         lambda m: parallel.count_kmers_sorted_sharded(words, ln, LARGE_K, m, canonical=True,
+                                                       base_valid=bv), runs_equal)
+    g_words = PackedReads.from_ascii([genome.tobytes()], validate=False, device=dev).words
+    pad = (-g_words.shape[1]) % max(MESH_SHARDS)  # words past the end count no window
+    g_words = torch.nn.functional.pad(g_words, (0, pad))
+    total = len(genome)
+    g_len = torch.tensor([total], dtype=torch.int32, device=dev)
+    held(f"count_kmers_seqsharded k={STREAM_K} (K3a), the {total}-bp genome as one sequence",
+         lambda: kmer.count_kmers_dense(g_words, g_len, STREAM_K),
+         lambda m: parallel.count_kmers_seqsharded(g_words[0], total, STREAM_K, m, "data"),
+         lambda x, y: tensors_equal([x], [y]), "hist_keys")
+    held(f"count_kmers_seqsharded_sorted k={LARGE_K}, the genome as one sequence",
+         lambda: kmer.count_kmers_runs(g_words, g_len, LARGE_K),
+         lambda m: parallel.count_kmers_seqsharded_sorted(g_words[0], total, LARGE_K, m,
+                                                          "data"), runs_equal)
+    del g_words
+
+    # -- search: phase 8's database and queries ------------------------------------
+    phase_clock(results, "phase 13: search")
+    pdb = PackedDB(db_wm, DB_BASES)
+    kk = MESH_SEARCH_K
+    for Q in (SEARCH_QUERIES, 8, 4):
+        route = "tc_search" if Q >= 8 else "hdist_scan_batch"
+        held(f"PackedDB.search_batch {Q} queries, k={kk} ({route} a shard)",
+             lambda: pdb.search_batch(queries[:Q], kk),
+             lambda m: pdb.search_batch(queries[:Q], kk, mesh=m), tensors_equal, route)
+    short = PackedDB(db_wm[:, :-1], DB_BASES)  # the last slab padded
+    held(f"PackedDB.search_batch {SEARCH_QUERIES} queries, D - 1 entries (a padded slab)",
+         lambda: short.search_batch(queries, kk),
+         lambda m: short.search_batch(queries, kk, mesh=m), tensors_equal)
+    held(f"PackedDB.search one query, k={kk} (K4 a shard)",
+         lambda: pdb.search(queries[0], kk),
+         lambda m: pdb.search(queries[0], kk, mesh=m), tensors_equal, "hdist_scan")
+    grid = pmesh.make_mesh((2, 2), ("data", "model"), devices=[dev] * 4)
+    want = pdb.search_batch(queries, kk)
+    kernels.reset_launches()
+    got, gms = sync_ms(lambda: psearch.hdist_search_grid(queries, db_wm, DB_BASES, kk, grid))
+    launched = add_launches()
+    rows["hdist_search_grid 2 x 2"] = {"mesh4_ms": gms, "mesh4_launches": launched}
+    check("phase 13 hdist_search_grid on a 2 x 2 mesh == search_batch",
+          tensors_equal([got[0].full(), got[1].full()], want), f"{gms:.2f} ms")
+    check("phase 13 hdist_search_grid: tc_search launched on each of 4 shards",
+          launched.get("tc_search", 0) >= 4, f"{launched}")
+    rm = db_wm[:, :MESH_ROWS].t().contiguous()  # a row-major slice
+    held(f"hdist_search_sharded one query, {MESH_ROWS} row-major entries (K4 a shard)",
+         lambda: hamming.hdist_topk(queries[0], rm, DB_BASES, kk),
+         lambda m: parallel.hdist_search_sharded(queries[0], rm, DB_BASES, kk, m),
+         tensors_equal, "hdist_scan")
+    held(f"hdist_search_batch_sharded {SEARCH_QUERIES} queries, {MESH_ROWS} row-major entries",
+         lambda: hamming.hdist_topk_batch(queries, rm, DB_BASES, kk),
+         lambda m: parallel.hdist_search_batch_sharded(queries, rm, DB_BASES, kk, m),
+         tensors_equal, "tc_search")
+    q8, r8 = queries[: MESH_M2M[0]], rm[: MESH_M2M[1]]
+    held(f"hdist_many_to_many_sharded {MESH_M2M[0]} x {MESH_M2M[1]}",
+         lambda: hamming.hdist_many_to_many(q8, r8, DB_BASES),
+         lambda m: parallel.hdist_many_to_many_sharded(q8, r8, DB_BASES, m).full(),
+         lambda x, y: tensors_equal([x], [y]))
+    del rm, short, pdb
+
+    # -- mapping, pairs, long reads, pileup ----------------------------------------
+    phase_clock(results, "phase 13: mapping")
+    reads = PackedReads(words=words, lengths=ln)
+    held(f"map_reads {MESH_READS} reads (K8 a shard)",
+         lambda: mapper.map_reads(index, reads),
+         lambda m: mapper.map_reads(index, reads, mesh=m), dicts_equal, "fit_banded")
+    half = MESH_READS // 4
+    r1 = PackedReads(words=words[:half], lengths=ln[:half])
+    r2 = PackedReads(words=words[half : 2 * half], lengths=ln[half : 2 * half])
+
+    def pairs_equal(x, y):
+        return (dicts_equal(x["r1"], y["r1"]) and dicts_equal(x["r2"], y["r2"])
+                and np.array_equal(x["proper"], y["proper"])
+                and np.array_equal(x["insert"], y["insert"]))
+
+    held(f"map_pairs {half} pairs",
+         lambda: mapper.map_pairs(index, r1, r2),
+         lambda m: mapper.map_pairs(index, r1, r2, mesh=m), pairs_equal, "fit_banded")
+    del reads, r1, r2, words, bv
+    rng = np.random.default_rng(args.seed + 13)
+    long_reads, _, _, _ = make_long_reads(rng, genome, MESH_LONG_READS)
+    lp = PackedReads.from_ascii(long_reads, validate=False, device=dev)
+    long_kw = dict(min_chain=LONG_MIN_CHAIN, max_gap=2048, gap_unit=16, lookback=64)
+    held(f"map_reads_long {MESH_LONG_READS} long reads (C1 a shard)",
+         lambda: mapper.map_reads_long(index, lp, **long_kw),
+         lambda m: mapper.map_reads_long(index, lp, mesh=m, **long_kw), dicts_equal, "chain")
+    del lp, long_reads
+    donor, _, _, _ = plant_variants(rng, genome[:CALL_BP])
+    creads = donor_reads(rng, donor, CALL_READS, CALL_LEN, CALL_SUB)
+    cp = PackedReads.from_ascii(creads, validate=False, device=dev)
+    cres = mapper.map_reads(index, cp)
+    rs = torch.from_numpy(cres["ref_start"]).to(dev)
+    rc = torch.from_numpy(cres["strand"] == b"-").to(dev)
+    keep = torch.from_numpy(cres["mapped"] & (cres["cost"] <= 8)).to(dev)
+    held(f"pileup_counts_sharded of {CALL_READS} called reads",
+         lambda: pileup.pileup_counts(cp.words, cp.lengths, rs, rc, keep, index.ref_len),
+         lambda m: pileup.pileup_counts_sharded(cp.words, cp.lengths, rs, rc, keep,
+                                                index.ref_len, m),
+         lambda x, y: tensors_equal([x], [y]))
+    del cp, creads
+
+    # -- assembly and the streaming count -------------------------------------------
+    phase_clock(results, "phase 13: assembly and count_fastq")
+    sub = reads_g[true_starts < ASM_SUBSET_BP]
+    a = torch.from_numpy(sub).to(dev)
+    sl = torch.full((len(sub),), READ_LEN, dtype=torch.int32, device=dev)
+    sreads = PackedReads(words=codec.encode_reads(a, sl)[0], lengths=sl)
+    sbv = codec.validity_mask(a, sl)
+    held(f"assemble_reads of the first {ASM_SUBSET_BP} bp's {len(sub)} reads",
+         lambda: asm.assemble_reads(sreads, ASM_K, min_count=ASM_MIN_COUNT, base_valid=sbv),
+         lambda m: asm.assemble_reads(sreads, ASM_K, min_count=ASM_MIN_COUNT, base_valid=sbv,
+                                      mesh=m),
+         lambda x, y: x == y and len(x[0]) > 0)
+    fq = os.path.join(tmp, "mesh.fq")
+    write_fastq(fq, reads_g[:MESH_READS])
+    kw = dict(batch_size=FASTQ_BATCH, canonical=True, on_invalid="skip", device=dev)
+    for k in (STREAM_K, LARGE_K):
+        held(f"count_fastq k={k} of {MESH_READS} reads",
+             lambda: pipeline.count_fastq(fq, k, **kw),
+             lambda m: pipeline.count_fastq(fq, k, mesh=m, **kw),
+             (lambda x, y: np.array_equal(x, y)) if k <= 12 else (lambda x, y: x == y),
+             "hist_keys" if k <= 12 else None)
+    kernels.reset_launches()
+    t = time.perf_counter()
+    entry.dryrun_multichip(4, [dev] * 4)  # raises when a result is wrong
+    torch.cuda.synchronize()
+    ph["mesh_dryrun_s"] = time.perf_counter() - t
+    launched = add_launches()
+    check("phase 13 entry.dryrun_multichip(4) on 4 shards of the card: its checks, and K1, "
+          "K3b, K4 and K8 launched", all(launched.get(n, 0) >= 4 for n in (
+              "pack", "hist_words", "hdist_scan", "fit_banded")),
+          f"{ph['mesh_dryrun_s']:.2f} s, launches {launched}")
+
+    # -- a one-process NCCL group ------------------------------------------------------
+    phase_clock(results, "phase 13: NCCL, the command line, the examples")
+    code = (
+        "import socket, sys, torch\n"
+        "from bitnuc_tpu_torch.parallel import mesh as pmesh, runtime\n"
+        "s = socket.socket(); s.bind(('127.0.0.1', 0)); port = s.getsockname()[1]; s.close()\n"
+        "runtime.initialize(f'127.0.0.1:{port}', 1, 0, timeout_s=60)\n"
+        "assert runtime.is_initialized() and torch.distributed.get_backend() == 'nccl'\n"
+        "m = pmesh.make_mesh((2,), devices=[torch.device('cuda')] * 2)\n"
+        "x = [torch.arange(5, device='cuda', dtype=torch.int32) + i for i in (1, 2)]\n"
+        "y = pmesh.psum(x, m, 'data')\n"
+        "assert all(t.is_cuda and t.dtype == torch.int32 for t in y)\n"
+        "assert y[0].tolist() == [3, 5, 7, 9, 11], y[0]\n"
+        "info = runtime.process_info()\n"
+        "runtime.shutdown()\n"
+        "assert not runtime.is_initialized() and 'jax' not in sys.modules\n"
+        "print('NCCL_OK', info)\n"
+    )
+    t = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", code], cwd=os.path.dirname(os.path.abspath(
+        __file__)), capture_output=True, text=True, timeout=180)
+    ph["mesh_nccl_s"] = time.perf_counter() - t
+    check("phase 13 runtime.initialize: a one-process NCCL group, a psum of CUDA tensors "
+          "through it, torn down", r.returncode == 0 and "NCCL_OK" in r.stdout,
+          (r.stdout.strip() or r.stderr[-400:]) + f" ({ph['mesh_nccl_s']:.1f} s)")
+
+    # -- --devices through cli.main ------------------------------------------------------
+    d_in = os.path.join(tmp, "cli_in")
+    for label in ("count", "search (64 queries)", "map"):
+        argv = dict(CLI_RUNS)[label]
+        kernels.reset_launches()
+        got = run_cli(cli, argv + ["--devices", "1"], d_in, os.path.join(tmp, "cli_dev1"))
+        launched = {k_: v for k_, v in kernels.LAUNCHES.items() if v}
+        want = run_cli(cli, argv, d_in, os.path.join(tmp, "cli_dev0"))
+        check(f"phase 13 bitnuc_tpu_torch {label} --devices 1 == without --devices",
+              got == want and got[0] == 0 and bool(launched), f"launches {launched}")
+    seen = torch.cuda.device_count()
+    over = max(2, seen + 1)
+    try:
+        run_cli(cli, dict(CLI_RUNS)["count"] + ["--devices", str(over)], d_in,
+                os.path.join(tmp, "cli_devn"))
+        msg = ""
+    except SystemExit as e:
+        msg = str(e.code)
+    check(f"phase 13 --devices {over} exits naming the {seen} visible card(s)",
+          f"only {seen} device(s) visible" in msg, msg)
+
+    # -- the five examples ----------------------------------------------------------------
+    ex_fq = os.path.join(tmp, "example.fastq")
+    rng = np.random.default_rng(args.seed + 113)
+    with open(ex_fq, "wb") as f:
+        for i in range(40):
+            seq = bytes(rng.choice(np.frombuffer(b"ACGT", np.uint8), size=80))
+            f.write(b"@r%d\n%s\n+\n%s\n" % (i, seq, b"I" * 80))
+    root = os.path.dirname(os.path.abspath(__file__))
+    examples = (
+        ("torch_kmer_pipeline.py", [ex_fq, "5"], ["40 reads, 3200 bases, k=5",
+                                                 "top canonical k-mers:",
+                                                 "pipeline recount: 3040 windows"]),
+        ("torch_hdist_search.py", ["2000", "64"], [
+            "row      17  distance 0",
+            "batch search: 8/8 queries found themselves at distance 0"]),
+        ("torch_distributed_counting.py", [], [
+            "batch-sharded: 31680 windows counted (expect 31680)",
+            "seq-sharded:   16379 windows counted (expect 16379)",
+            "mesh streaming k=21: 8640 distinct k-mers, 8640 windows (expect 8640)"]),
+        ("torch_sketch_compare.py", ["20000", "0.03"], ["jaccard(ref, mutated 3%) = 0.495",
+                                                        "jaccard(ref, unrelated)     = 0.000",
+                                                        "containment(ref[:half], ref) = 1.000"]),
+        ("torch_resequencing.py", ["20000", "600", "100"], ["resequencing example OK",
+                                                            "spurious: 0"]),
+    )
+    ph["mesh_examples_s"] = {}
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        for script, argv, lines in examples:
+            kernels.reset_launches()
+            t = time.perf_counter()
+            out = run_example(os.path.join("examples", script), argv)
+            torch.cuda.synchronize()
+            ph["mesh_examples_s"][script] = time.perf_counter() - t
+            launched = {k_: v for k_, v in kernels.LAUNCHES.items() if v}
+            check(f"phase 13 examples/{script} on the card", all(x in out for x in lines)
+                  and bool(launched),
+                  f"{ph['mesh_examples_s'][script]:.1f} s, launches {launched}; "
+                  + out.strip().splitlines()[-1][:120])
+    finally:
+        os.chdir(cwd)
+    ph["mesh_launches"] = MESH_LAUNCHES
+    ph["phase13_s"] = time.perf_counter() - t0
+    print(f"  phase 13 in {ph['phase13_s']:.1f} s; launches of its sharded runs "
+          f"{MESH_LAUNCHES}", flush=True)
+
+
 def true_slices(genome: np.ndarray, starts: np.ndarray, rev: np.ndarray) -> np.ndarray:
     """Each read's genome slice, reverse-complemented where it was drawn
     from the reverse strand."""
@@ -4290,8 +4664,12 @@ def main() -> int:
         read_tier_phase(args, torch, dev, timer, results, tmp, genome, reads_g, true_starts,
                         true_rev)
         phase_clock(results, "phase 12")
-        del index, queries, contigs
+        del contigs
         assembly_cli_phase(args, torch, dev, results, tmp, genome, reads_g, true_starts)
+        phase_clock(results, "phase 13")
+        mesh_phase(args, torch, dev, results, tmp, genome, reads_g, true_starts, db, queries,
+                   index)
+        del index, queries
         phase_clock(results, "report")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -4301,7 +4679,7 @@ def main() -> int:
     launches.update({name: SEARCH_ORF_LAUNCHES[name]
                      for name in ("hdist_scan_batch", "tc_scan", "tc_search", "orf_scan")})
     launches["chain"] = LONG_LAUNCHES["chain"]
-    for counts in [ASM_LAUNCHES, *CLI_LAUNCHES.values()]:  # phase 12's paths
+    for counts in [ASM_LAUNCHES, *CLI_LAUNCHES.values(), MESH_LAUNCHES]:  # phases 12, 13
         for name, n in counts.items():
             launches[name] += n
 

@@ -1397,3 +1397,144 @@ def test_cli_on_card_matches_cpu(cuda, cli_inputs, tmp_path, capsysbinary, name)
     got = _cli_bytes(argv, cli_inputs, tmp_path / "card", capsysbinary)
     assert sum(kernels.LAUNCHES.values()) > 0
     assert got == want and (got[0] or got[2])
+
+
+# -- the mesh paths on shards of the card ---------------------------------------------
+
+
+def _card_mesh(cuda, n):
+    from bitnuc_tpu_torch.parallel import mesh as pmesh
+
+    return pmesh.make_mesh((n,), ("data",), devices=[cuda] * n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 4])
+@pytest.mark.parametrize("k,use_bv", [(8, False), (12, True), (5, True)])
+def test_count_kmers_sharded_on_card(cuda, n, k, use_bv):
+    """One K3b (or K3a with a mask) launch a shard; the psum equals the
+    unsharded count, on the card."""
+    from bitnuc_tpu_torch import parallel
+    from bitnuc_tpu_torch.parallel import mesh as pmesh
+    from bitnuc_tpu_torch.sequence import PackedReads
+
+    a, lens = _reads_on(cuda, 1001, 150, 40 + k)
+    words, _ = codec.encode_reads(a, lens)
+    bv = (a != ord("N")) if use_bv else None
+    mesh = _card_mesh(cuda, n)
+    sh = parallel.shard_reads(PackedReads(words=words, lengths=lens), mesh)
+    bvs = pmesh.pad_rows(bv, sh.batch_size) if use_bv else None
+    kernels.reset_launches()
+    got = parallel.count_kmers_sharded(sh.words, sh.lengths, k, mesh, base_valid=bvs)
+    launched = dict(kernels.LAUNCHES)
+    assert launched["hist_keys" if use_bv else "hist_words"] == n
+    assert got.is_cuda and torch.equal(got, kmer.count_kmers_dense(words, lens, k, False, bv))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 4])
+@pytest.mark.parametrize("Q,k", [(1, 10), (8, 10), (64, 32), (40, 40)])
+def test_search_mesh_on_card(cuda, n, Q, k):
+    """PackedDB.search / search_batch on n shards of the card (the last
+    slab padded) equal the unsharded search; the fused tc_search runs on
+    unpadded slabs only."""
+    from bitnuc_tpu_torch.database import PackedDB, SEARCH_TC_MIN_Q
+
+    g = torch.Generator().manual_seed(Q + k + n)
+    D, W = 40_001, 8
+    db = torch.randint(-(2**31), 2**31 - 1, (W, 5), generator=g, dtype=torch.int32)
+    db = db[:, torch.randint(0, 5, (D,), generator=g)].contiguous().to(cuda)  # ties
+    qs = torch.randint(-(2**31), 2**31 - 1, (Q, W), generator=g, dtype=torch.int32).to(cuda)
+    pdb = PackedDB(words_wm=db, n_bases=120)
+    mesh = _card_mesh(cuda, n)
+    kernels.reset_launches()
+    got = pdb.search_batch(qs, k, mesh=mesh)
+    launched = dict(kernels.LAUNCHES)
+    want = pdb.search_batch(qs, k)
+    assert all(t.is_cuda for t in got)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    fused = Q >= SEARCH_TC_MIN_Q and k <= hamming.SEARCH_TOPK_MAX
+    padded = D % n != 0
+    assert launched["tc_search"] == (n - padded if fused else 0)
+    one = pdb.search(qs[0], k, mesh=mesh)
+    assert torch.equal(one[0], pdb.search(qs[0], k)[0])
+    assert torch.equal(one[1], pdb.search(qs[0], k)[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 4])
+def test_sorted_and_seq_sharded_on_card(cuda, n):
+    from bitnuc_tpu_torch import parallel
+
+    a, lens = _reads_on(cuda, 513, 150, 7)
+    words, _ = codec.encode_reads(a, lens)
+    mesh = _card_mesh(cuda, n)
+    got = parallel.count_kmers_sorted_sharded(words[:512], lens[:512], 21, mesh)
+    cpu = parallel.count_kmers_sorted_sharded(words[:512].cpu(), lens[:512].cpu(), 21,
+                                              _card_mesh(torch.device("cpu"), n))
+    for x, y in zip(got, cpu):
+        assert x.is_cuda and torch.equal(x.cpu(), y)
+    seq = words[0, :8].repeat(n * 16)  # [n * 128] words
+    total = seq.shape[0] * 16 - 9
+    kernels.reset_launches()
+    h = parallel.count_kmers_seqsharded(seq, total, 11, mesh, "data")
+    assert kernels.LAUNCHES["hist_keys"] == n
+    assert torch.equal(h.cpu(), parallel.count_kmers_seqsharded(
+        seq.cpu(), total, 11, _card_mesh(torch.device("cpu"), n), "data"))
+
+
+@pytest.mark.cuda
+def test_map_reads_mesh_on_card(cuda):
+    """map_reads and map_reads_long on 4 shards of the card equal the
+    unsharded runs; K8 and C1 launch on every shard."""
+    from bitnuc_tpu_torch import mapper
+    from bitnuc_tpu_torch.sequence import PackedReads
+
+    reads, genome = _genome_reads(15, 301, 150, genome_bp=20_000, sub=0.01, n_rate=0.0)
+    idx = mapper.MinimizerIndex.build(genome.tobytes(), device=cuda)
+    pr = PackedReads.from_ascii(reads, np.full(len(reads), 150, np.int32), validate=False,
+                                device=cuda)
+    mesh = _card_mesh(cuda, 4)
+    want = mapper.map_reads(idx, pr)
+    kernels.reset_launches()
+    got = mapper.map_reads(idx, pr, mesh=mesh)
+    assert kernels.LAUNCHES["fit_banded"] >= 4
+    for f in want:
+        assert np.array_equal(got[f], want[f]), f
+    want = mapper.map_reads_long(idx, pr, min_chain=3)
+    kernels.reset_launches()
+    got = mapper.map_reads_long(idx, pr, min_chain=3, mesh=mesh)
+    assert kernels.LAUNCHES["chain"] >= 4
+    for f in want:
+        assert np.array_equal(got[f], want[f]), f
+
+
+@pytest.mark.cuda
+def test_nccl_psum_in_one_process_group(cuda, tmp_path):
+    """runtime.initialize on the card joins an NCCL group; a psum of a CUDA
+    tensor crosses it and stays on the card."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    code = (
+        "import torch\n"
+        "from bitnuc_tpu_torch.parallel import mesh as pmesh, runtime\n"
+        f"runtime.initialize('127.0.0.1:{port}', 1, 0, timeout_s=60)\n"
+        "assert torch.distributed.get_backend() == 'nccl'\n"
+        "m = pmesh.make_mesh((2,), devices=[torch.device('cuda')] * 2)\n"
+        "x = [torch.tensor([1, 2], device='cuda'), torch.tensor([3, 4], device='cuda')]\n"
+        "y = pmesh.psum(x, m, 'data')\n"
+        "assert y[0].is_cuda and y[0].tolist() == [4, 6], y\n"
+        "runtime.shutdown()\n"
+        "print('NCCL_OK')\n"
+    )
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    res = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0 and "NCCL_OK" in res.stdout, res.stderr

@@ -376,6 +376,21 @@ def test_padding_never_displaces_a_real_entry():
     assert (dd == L).all() and sorted(ii[0].tolist()) == list(range(7))
 
 
+@pytest.mark.parametrize("Q", [2, 16])
+def test_padding_columns_fill_a_top_k_past_the_real_entries(Q):
+    """topk past d_valid: the padding columns come back at n_bases + 1 in
+    index order, as JAX's masked top-k returns them."""
+    m, jm = _meshes(3)
+    db, qs = _db(Q, 4, 3, 40, Q)
+    wm = np.pad(db.T, ((0, 0), (0, 2)))
+    want = jpsearch.hdist_search_batch_db_sharded(
+        jnp.asarray(qs), _jshard(wm, jm, P(None, "data")), 40, 5, jm, d_valid=4)
+    got = psearch.hdist_search_batch_db_sharded(
+        words_from_u32_np(qs), words_from_u32_np(wm), 40, 5, m, d_valid=4)
+    _same(got, want)
+    assert (got[0][:, 4] == 41).all() and (got[1][:, 4] == 4).all()  # the first padding
+
+
 @pytest.mark.parametrize("shape,axes", [((4, 2), ("data", "model")), ((2, 4), ("q", "d")),
                                         ((1, 3), ("data", "model"))])
 def test_hdist_search_grid_matches_jax(shape, axes):
