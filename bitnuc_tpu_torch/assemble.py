@@ -660,13 +660,10 @@ def assemble_reads(
     if engine not in ("auto", "device", "host"):
         raise ValueError(f"engine must be auto|device|host, got {engine!r}")
     if mesh is not None:
-        from .parallel import kmer as pkmer, mesh as pmesh
+        from .parallel import kmer as pkmer
+        from .pipeline import _shard_batch_with_valid
 
-        sharded = pmesh.shard_reads(reads, mesh, axis)
-        bvs = None
-        if base_valid is not None:
-            bv = pmesh.pad_rows(base_valid, sharded.batch_size)
-            bvs = pmesh.Sharded(pmesh.split(bv, mesh, axis), mesh, axis)
+        sharded, bvs = _shard_batch_with_valid(reads, base_valid, mesh, axis)
         lo, hi, cts, _ = pkmer.count_kmers_sorted_sharded(
             sharded.words, sharded.lengths, k, mesh, axis, canonical=both_strands,
             base_valid=bvs)

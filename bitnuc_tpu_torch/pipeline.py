@@ -102,6 +102,13 @@ def _merge_runs_device(acc, pending, cap):
     return kmer_ops.compact_live(lo_u, hi_u, tot, cap), n_unique
 
 
+def _runs_dict(lo, hi, counts) -> dict:
+    """{packed k-mer (hi << 32 | lo): count} of a run-start list."""
+    lo, hi, counts = kmer_ops.compact_runs(lo, hi, counts)
+    keys = (hi.astype(np.uint64) << np.uint64(32)) | lo.astype(np.uint64)
+    return dict(zip(keys.tolist(), counts.tolist()))
+
+
 class _SparseAcc:
     """Device-resident run-list accumulator (lo, hi, counts of ``cap``
     rows) with deferred merging and capacity doubling. Pending entries are
@@ -143,9 +150,7 @@ class _SparseAcc:
     def to_dict(self) -> dict:
         """{packed k-mer (hi << 32 | lo): count} of the whole job."""
         self.flush()
-        lo, hi, counts = kmer_ops.compact_runs(*self.state)
-        keys = (hi.astype(np.uint64) << np.uint64(32)) | lo.astype(np.uint64)
-        return dict(zip(keys.tolist(), counts.tolist()))
+        return _runs_dict(*self.state)
 
 
 class _ShardedSparseAcc:
@@ -216,10 +221,7 @@ class _ShardedSparseAcc:
     def to_dict(self) -> dict:
         """{packed k-mer (hi << 32 | lo): count} of the whole job."""
         self.flush()
-        lo, hi, ct, _ = self._pk.gather_runs_sharded(*self.state, self.mesh, self.axis)
-        lo, hi, counts = kmer_ops.compact_runs(lo, hi, ct)
-        keys = (hi.astype(np.uint64) << np.uint64(32)) | lo.astype(np.uint64)
-        return dict(zip(keys.tolist(), counts.tolist()))
+        return _runs_dict(*self._pk.gather_runs_sharded(*self.state, self.mesh, self.axis)[:3])
 
 
 def _shard_batch_with_valid(reads, base_valid, mesh, axis):
@@ -287,21 +289,16 @@ def _check_on_invalid(on_invalid: str) -> bool:
     return on_invalid == "skip"
 
 
-def _check_sparse_windows(total_windows: int) -> None:
-    if total_windows > _SPARSE_MAX_WINDOWS:
-        raise OverflowError(
-            f"sparse counts are int32-bounded at {_SPARSE_MAX_WINDOWS} windows "
-            "per job; split the input across jobs and merge the run lists"
-        )
-
-
 def _count_batch(acc, dense, total_windows, reads, base_valid, n_windows, k, canonical,
                  mesh=None, axis="data"):
     """Count one batch into ``acc``: dense into the histogram, else its raw
     window keys into the run-list accumulator; with a mesh, split over
     ``axis`` first."""
-    if not dense:
-        _check_sparse_windows(total_windows)
+    if not dense and total_windows > _SPARSE_MAX_WINDOWS:
+        raise OverflowError(
+            f"sparse counts are int32-bounded at {_SPARSE_MAX_WINDOWS} windows "
+            "per job; split the input across jobs and merge the run lists"
+        )
     if mesh is None:
         if dense:
             acc.add(kmer_ops.count_kmers_reads(reads.words, reads.lengths, k,
