@@ -1437,7 +1437,7 @@ def test_count_kmers_sharded_on_card(cuda, n, k, use_bv):
 def test_search_mesh_on_card(cuda, n, Q, k):
     """PackedDB.search / search_batch on n shards of the card (the last
     slab padded) equal the unsharded search; the fused tc_search runs on
-    unpadded slabs only."""
+    every slab, the padded one over its real columns."""
     from bitnuc_tpu_torch.database import PackedDB, SEARCH_TC_MIN_Q
 
     g = torch.Generator().manual_seed(Q + k + n)
@@ -1454,8 +1454,7 @@ def test_search_mesh_on_card(cuda, n, Q, k):
     assert all(t.is_cuda for t in got)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     fused = Q >= SEARCH_TC_MIN_Q and k <= hamming.SEARCH_TOPK_MAX
-    padded = D % n != 0
-    assert launched["tc_search"] == (n - padded if fused else 0)
+    assert launched["tc_search"] == (n if fused else 0)
     one = pdb.search(qs[0], k, mesh=mesh)
     assert torch.equal(one[0], pdb.search(qs[0], k)[0])
     assert torch.equal(one[1], pdb.search(qs[0], k)[1])
