@@ -88,3 +88,25 @@ def use_kernel(t: torch.Tensor) -> bool:
         return False
     return t.is_cuda
 
+
+
+def host_cpu_tag() -> str:
+    """Fingerprint of the host CPU's feature flags (``/proc/cpuinfo``).
+
+    The host library is compiled with ``-march=native``; keying its file
+    by this tag makes a checkout moved to a host with other features
+    build its own library instead of loading one that may hold
+    instructions this CPU lacks.
+    """
+    import hashlib
+
+    try:
+        with open("/proc/cpuinfo", "rb") as f:
+            for line in f:
+                if line.startswith(b"flags"):
+                    return hashlib.sha1(line).hexdigest()[:12]
+    except OSError:
+        pass
+    import platform
+
+    return hashlib.sha1(platform.processor().encode()).hexdigest()[:12]
