@@ -5,24 +5,26 @@ count_kmers.
 
 The counterpart of ``bitnuc_tpu/api.py``. These are single-sequence host
 operations on reference-layout u64 words; a device call per sequence would
-cost more than the work. The JAX package runs them on its native C++
-library when that is built and on its oracle otherwise; this package has no
-native library, so they run on numpy forms equal to ``oracle`` (a whole
-sequence at a time, no per-base Python). Where the native library and the
-oracle differ, these follow ``bitnuc_tpu.api`` with the library built: a
-negative length or index raises (ValueError in decode and from_2bit,
-InvalidLength in hdist and hdist_scalar, IndexOutOfBounds in
-split_packed), a packed word outside u64 raises OverflowError, and
-count_kmers validates a sequence shorter than k. Batched device
-equivalents live in ``ops`` and work on ``PackedReads``.
+cost more than the work. As in the JAX package they run on the host
+library (``native``) where it loads; otherwise on numpy forms equal to
+``oracle`` (a whole sequence at a time, no per-base Python; each public
+function's ``numpy`` attribute). Where the library and the oracle differ,
+the numpy forms follow the library: a negative length or index raises
+(ValueError in decode and from_2bit, InvalidLength in hdist and
+hdist_scalar, IndexOutOfBounds in split_packed), a packed word outside u64
+raises OverflowError, and count_kmers validates a sequence shorter than k
+up to k = 12. Batched device equivalents live in ``ops`` and work on
+``PackedReads``.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple, Union
 
 import numpy as np
 
+from . import native
 from .errors import IndexOutOfBounds, InvalidBase, InvalidLength, SequenceTooLong
 
 Seq = Union[bytes, bytearray, str, np.ndarray]
@@ -34,7 +36,7 @@ for _i, _b in enumerate(b"ACGT"):
 _BASE = np.frombuffer(b"ACGT", np.uint8)
 _SHIFTS = 2 * np.arange(32, dtype=np.uint64)
 _LOW = np.uint64(0x5555555555555555)
-_NATIVE_DENSE_MAX_K = 12  # the JAX package's native count_kmers takes k <= 12
+_NATIVE_DENSE_MAX_K = 12  # native.count_kmers counts k <= 12 in C++
 
 
 def _as_u8(seq: Seq) -> np.ndarray:
@@ -73,6 +75,21 @@ def _u64_words(ebuf) -> np.ndarray:
     return np.ascontiguousarray(np.asarray(ebuf, dtype=np.uint64)).reshape(-1)
 
 
+def _routed(fn):
+    """``native``'s function of the same name where the host library loads,
+    else ``fn`` (kept as the ``numpy`` attribute)."""
+
+    @functools.wraps(fn)
+    def call(*args):
+        if native.available():
+            return getattr(native, fn.__name__)(*args)
+        return fn(*args)
+
+    call.numpy = fn
+    return call
+
+
+@_routed
 def as_2bit(seq: Seq) -> int:
     """Pack up to 32 bases into one u64 (src/utils/packing/mod.rs:81).
 
@@ -85,6 +102,7 @@ def as_2bit(seq: Seq) -> int:
     return int(_pack(_codes(s))[0]) if s.size else 0
 
 
+@_routed
 def from_2bit(packed: int, n_bases: int) -> bytes:
     """Unpack n_bases (<= 32) from one u64 (src/utils/unpacking/mod.rs:119).
     Returns fresh bytes where the reference appends to a caller's buffer
@@ -103,6 +121,7 @@ def from_2bit_alloc(packed: int, n_bases: int) -> bytes:
     return from_2bit(packed, n_bases)
 
 
+@_routed
 def encode(seq: Seq) -> np.ndarray:
     """Encode a sequence of any length to ceil(n / 32) u64 words
     (src/utils/mod.rs:22); empty input gives no words.
@@ -121,6 +140,7 @@ def encode_alloc(seq: Seq) -> np.ndarray:
     return encode(seq)
 
 
+@_routed
 def decode(ebuf, n_bases: int) -> bytes:
     """Decode n_bases from u64 words (src/utils/mod.rs:60); InvalidLength
     when the words hold fewer.
@@ -138,6 +158,7 @@ def _popcount64(x: np.ndarray) -> int:
     return int(np.unpackbits(x.view(np.uint8)).sum())
 
 
+@_routed
 def hdist(ebuf1, ebuf2, n_bases: int) -> int:
     """Per-base Hamming distance over packed word arrays
     (src/utils/functions/hamming/multi.rs:122). A total of 0 is not
@@ -159,6 +180,7 @@ def hdist(ebuf1, ebuf2, n_bases: int) -> int:
     return _popcount64((d | (d >> np.uint64(1))) & _LOW)
 
 
+@_routed
 def hdist_scalar(u: int, v: int, length: int) -> int:
     """Single-word per-base Hamming distance (hamming/scalar.rs:11)."""
     if length > 32:
@@ -166,6 +188,7 @@ def hdist_scalar(u: int, v: int, length: int) -> int:
     return hdist(np.array([u], np.uint64), np.array([v], np.uint64), length)
 
 
+@_routed
 def split_packed(ebuf, slen: int, idx: int) -> Tuple[np.ndarray, np.ndarray]:
     """Split a packed stream at base idx (src/utils/functions/split.rs:14):
     left keeps the reference's word layout, whole words plus a masked
@@ -202,15 +225,22 @@ def count_kmers(seq: Seq, k: int) -> dict:
     (README.md:164-180): {packed k-mer: count}, each window packed as by
     as_2bit. The windows' keys are made for the whole sequence at once.
 
-    Every byte is validated, as the JAX package's native library does
-    through k = 12: a sequence shorter than k with an invalid byte raises
-    InvalidBase there, where its oracle (and its k > 12 path) returns {}.
+    Up to k = 12 it runs on the host library where that loads, and every
+    byte is validated: a sequence shorter than k with an invalid byte
+    raises InvalidBase, where the oracle (and the k > 12 path) returns {}.
 
     >>> count_kmers(b"AAAA", 2)
     {0: 3}
     """
     if not 1 <= k <= 32:
         raise InvalidLength(k)
+    if k <= _NATIVE_DENSE_MAX_K and native.available():
+        return native.count_kmers(seq, k)
+    return _count_kmers_numpy(seq, k)
+
+
+def _count_kmers_numpy(seq: Seq, k: int) -> dict:
+    """count_kmers' numpy form, for any k in [1, 32]."""
     s = _as_u8(seq)
     if s.size < k:
         if k <= _NATIVE_DENSE_MAX_K:

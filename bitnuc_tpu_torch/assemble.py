@@ -7,17 +7,18 @@ and outputs. The pipeline splits by hardware affinity:
     k <= 32, ``torch.sort`` on the reads' device) gives the distinct
     k-mers of a read set with their counts; the solid ones are selected
     there and downloaded once.
-  - HOST: graph construction and unitig compaction, numpy passes over the
+  - HOST: graph construction and unitig compaction, passes over the
     distinct-key array (n ~ genome size, not read-set size): sorted-array
-    membership joins (np.searchsorted) build the edge structure, and
-    Wyllie pointer-doubling list ranking compacts maximal paths in
-    O(n log n), with no per-base or per-node Python loop on the hot path.
+    membership joins build the edge structure, and Wyllie pointer-doubling
+    list ranking compacts maximal paths in O(n log n), with no per-base or
+    per-node Python loop on the hot path.
 
-The JAX package runs four of the host passes through its optional C++
-library where that is built (merge joins, list ranking, the edge pass and
-a radix argsort) and through numpy otherwise; its tests hold the two forms
-bit-identical. This package carries the numpy forms only, and the host
-spectrum engine (``engine='host'``) as numpy too.
+Four of the host passes run on the host library (``native``) where it
+loads, as in the JAX package: the merge joins (``merge_join``), list
+ranking (``list_rank``), the edge pass (``graph_edges``) and a radix
+argsort (``argsort_u64``); the numpy forms here are their twins, taken
+without the library and equal to them. The host spectrum engine
+(``engine='host'``) is ``native.spectrum``, whose twin is ``_np_spectrum``.
 
 Semantics follow the standard compacted-DBG contract (bcalm2-style
 unitigs): a unitig is a maximal path whose every edge x -> y satisfies
@@ -38,6 +39,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from . import native
 from .utils import bitops
 
 _ASCII = np.frombuffer(b"ACGT", np.uint8)
@@ -52,9 +54,11 @@ def rc_ascii(seq: bytes) -> bytes:
 def _member(sorted_keys: np.ndarray, q: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     """Membership of q in a sorted unique key array: (present, index).
     q is itself sorted at the only call site (the graph build's successor
-    candidates suf | b<<2(k-1) keep key order), which keeps the binary
-    searches cache-friendly."""
+    candidates suf | b<<2(k-1) keep key order): one linear merge on the host
+    library, else binary searches that stay cache-friendly."""
     n = sorted_keys.shape[0]
+    if n and native.available():
+        return native.merge_join(sorted_keys, q)
     idx = np.minimum(np.searchsorted(sorted_keys, q), n - 1).astype(np.int32)
     return sorted_keys[idx] == q, idx
 
@@ -69,9 +73,12 @@ def _wyllie_rank(prev: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     rank >= n is the (exact) cycle detector the caller uses. Early exit
     when every jump pointer is a fixed point (no cycles and the longest
     chain already resolved) — real unitigs are kilobases, so this usually
-    stops after ~a dozen of the worst-case ~31 rounds.
+    stops after ~a dozen of the worst-case ~31 rounds. On the host library
+    (``native.list_rank``, threaded) where it loads.
     """
     n = prev.shape[0]
+    if n and native.available():
+        return native.list_rank(prev)
     iota = np.arange(n, dtype=np.int32)
     jump = np.where(prev >= 0, prev, iota)
     # int32 ranks: chain ranks stay < n and cycle ranks cap at ~2n over
@@ -88,6 +95,46 @@ def _wyllie_rank(prev: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
             return rank, jump
         jump = jump2
     return rank, jump
+
+
+def _edges(keys: np.ndarray, k: int):
+    """The edge structure of a sorted unique key set, numpy twin of
+    ``native.graph_edges``: (succ_ok [4, n], succ_idx [4, n], outdeg,
+    indeg, succ1, pred1, nxt, prev)."""
+    n = keys.shape[0]
+    iota = np.arange(n, dtype=np.int32)
+    shift_hi = np.uint64(2 * (k - 1))
+    suf = keys >> np.uint64(2)
+
+    # Edge structure via 4 sorted joins: successor y_b = suf | b <<
+    # 2(k-1). Each candidate array is itself SORTED (suf is monotone in
+    # keys; OR-ing constant high bits preserves order), so searchsorted
+    # runs cache-friendly. Predecessor structure needs no joins of its
+    # own: every edge is discovered once as (x -> y), so indeg is a
+    # bincount of the targets and pred1 a (collision-don't-care)
+    # scatter of the sources — pred1 is only read where indeg == 1.
+    succ_ok = np.zeros((4, n), dtype=bool)
+    succ_idx = np.zeros((4, n), dtype=np.int32)
+    indeg = np.zeros(n, dtype=np.int64)
+    pred1 = np.zeros(n, dtype=np.int32)
+    for b in range(4):
+        ok, idx = _member(keys, suf | (np.uint64(b) << shift_hi))
+        succ_ok[b], succ_idx[b] = ok, idx
+        tgt = idx[ok]
+        indeg += np.bincount(tgt, minlength=n)
+        pred1[tgt] = iota[ok]
+    outdeg = succ_ok.sum(axis=0)
+    succ1 = succ_idx[succ_ok.argmax(axis=0), iota]
+
+    # nxt[i]: unique successor when the edge is "simple" (internal to a
+    # unitig): outdeg(x) == 1 and indeg(y) == 1. nxt is then injective,
+    # so its inverse prev is a well-defined predecessor forest.
+    simple = (outdeg == 1) & (indeg[succ1] == 1)
+    nxt = np.where(simple, succ1, np.int32(-1))
+    prev = np.full(n, -1, dtype=np.int32)
+    src = np.nonzero(nxt >= 0)[0]
+    prev[nxt[src]] = src
+    return succ_ok, succ_idx, outdeg, indeg, succ1, pred1, nxt, prev
 
 
 class _Graph:
@@ -108,40 +155,9 @@ class _Graph:
         n = keys.shape[0]
         self.keys, self.k = keys, k
         iota = np.arange(n, dtype=np.int32)
-        shift_hi = np.uint64(2 * (k - 1))
-        suf = keys >> np.uint64(2)
-
-        # Edge structure via 4 sorted joins: successor y_b = suf | b <<
-        # 2(k-1). Each candidate array is itself SORTED (suf is monotone in
-        # keys; OR-ing constant high bits preserves order), so searchsorted
-        # runs cache-friendly. Predecessor structure needs no joins of its
-        # own: every edge is discovered once as (x -> y), so indeg is a
-        # bincount of the targets and pred1 a (collision-don't-care)
-        # scatter of the sources — pred1 is only read where indeg == 1.
-        succ_ok = np.zeros((4, n), dtype=bool)
-        succ_idx = np.zeros((4, n), dtype=np.int32)
-        indeg = np.zeros(n, dtype=np.int64)
-        pred1 = np.zeros(n, dtype=np.int32)
-        for b in range(4):
-            ok, idx = _member(keys, suf | (np.uint64(b) << shift_hi))
-            succ_ok[b], succ_idx[b] = ok, idx
-            tgt = idx[ok]
-            indeg += np.bincount(tgt, minlength=n)
-            pred1[tgt] = iota[ok]
-        self.outdeg = succ_ok.sum(axis=0)
-        self.indeg = indeg
-        self.succ1 = succ_idx[succ_ok.argmax(axis=0), iota]
-        self.pred1 = pred1
-        self.succ_ok, self.succ_idx = succ_ok, succ_idx
-
-        # nxt[i]: unique successor when the edge is "simple" (internal to a
-        # unitig): outdeg(x) == 1 and indeg(y) == 1. nxt is then injective,
-        # so its inverse prev is a well-defined predecessor forest.
-        simple = (self.outdeg == 1) & (self.indeg[self.succ1] == 1)
-        self.nxt = np.where(simple, self.succ1, np.int32(-1))
-        prev = np.full(n, -1, dtype=np.int32)
-        src = np.nonzero(self.nxt >= 0)[0]
-        prev[self.nxt[src]] = src
+        ge = native.graph_edges(keys, k) if n and native.available() else None
+        (self.succ_ok, self.succ_idx, self.outdeg, self.indeg, self.succ1, self.pred1,
+         self.nxt, prev) = ge if ge is not None else _edges(keys, k)
 
         # Rank; break each pure cycle at its minimum-index (= minimum-key,
         # keys are sorted) node, found by min-propagating pointer doubling.
@@ -310,7 +326,12 @@ def _rc_keys(keys: np.ndarray, k: int) -> np.ndarray:
 
 
 def _argsort_u64(keys: np.ndarray) -> np.ndarray:
-    """Stable u64 argsort (numpy's stable sort)."""
+    """Stable u64 argsort: the host library's radix sort where it loads
+    (int32), else numpy's stable sort."""
+    if native.available():
+        order = native.argsort_u64(keys)
+        if order is not None:
+            return order
     return np.argsort(keys, kind="stable")
 
 
@@ -581,9 +602,9 @@ def _np_spectrum(words, lens, k, canonical, valid):
     """Host spectrum of a packed read batch: (sorted distinct uint64 keys,
     int32 counts), the content of count_kmers_runs compacted (canonical =
     min(kmer, revcomp); windows touching an invalid base dropped). The
-    numpy form of the JAX package's host spectrum, ~k vector passes over
-    the batch; a count past 2^31 - 1 saturates there, as its C++ form
-    does, rather than wrap."""
+    numpy twin of ``native.spectrum``, ~k vector passes over the batch; a
+    count past 2^31 - 1 saturates, as the library's does, rather than
+    wrap."""
     words = np.ascontiguousarray(words, dtype=np.uint32)
     lens = np.asarray(lens, dtype=np.int32)
     B, W = words.shape
@@ -647,7 +668,8 @@ def assemble_reads(
     engine selects where the spectrum is built (equal results):
       'device'  count_kmers_runs on the reads' device (torch.sort), then
                 one download of the solid keys (12 bytes a solid k-mer);
-      'host'    numpy over the packed words (downloaded once);
+      'host'    ``native.spectrum`` over the packed words (downloaded
+                once; its numpy twin without the host library);
       'auto'    'device'. The JAX package picks 'host' on a TPU, whose
                 device-to-host link it measured at ~12 MB/s; a card on
                 local PCIe downloads the spectrum faster than the host
@@ -671,12 +693,12 @@ def assemble_reads(
         return assemble_keys(
             keys, k, counts=cts, both_strands=both_strands, clean=clean, tip_len=tip_len)
     if engine == "host":
-        words, lens = reads.to_numpy()
         bv = None
         if base_valid is not None:
             bv = (base_valid.detach().cpu().numpy() if isinstance(base_valid, torch.Tensor)
                   else np.asarray(base_valid))
-        keys, cts = _np_spectrum(words, lens, k, both_strands, bv)
+        keys, cts = native.spectrum(reads.words.cpu().numpy(), reads.lengths.cpu().numpy(), k,
+                                    canonical=both_strands, valid=bv)
         m = cts >= max(min_count, 1)
         return assemble_keys(
             keys[m], k, counts=cts[m].astype(np.int64),

@@ -1436,11 +1436,12 @@ def cmd_qc(args) -> int:
 
 
 def cmd_info(args) -> int:
-    """Backend and device status; the device is the one the other
-    commands would use (null when none is named and no card is present)."""
+    """Backend, device and host-library status; the device is the one the
+    other commands would use (null when none is named and no card is
+    present), ``native`` whether the host library loads."""
     import torch
 
-    from . import config
+    from . import config, native
 
     try:
         device = str(config.resolve_device(args.device))
@@ -1452,6 +1453,7 @@ def cmd_info(args) -> int:
                 "backend": config.get_backend(),
                 "device": device,
                 "devices": torch.cuda.device_count(),
+                "native": native.available(),
             }
         )
     )
@@ -1847,7 +1849,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--out", default=None, help="write here instead of stdout")
     p.set_defaults(fn=cmd_qc)
 
-    p = sub.add_parser("info", help="backend/device status as JSON")
+    p = sub.add_parser("info", help="backend/device/native status as JSON")
     p.set_defaults(fn=cmd_info)
     return ap
 

@@ -89,7 +89,8 @@ class PackedDB:
         """Stream a FASTQ file (plain or ``.gz``) into the word-major layout
         on ``device`` (default: the card). Entries are truncated or
         zero-padded to exactly n_bases; validate=True raises InvalidBase on
-        the first invalid base."""
+        the first invalid base. Records are framed by ``io.iter_fastq_batches``
+        (the host library's scanner where it loads) and packed by K1."""
         device = config.resolve_device(device)
         W = bitops.n_words_for(n_bases)
         slabs = []

@@ -27,8 +27,9 @@ Rules (phred+33 qualities):
      fraction >= min_complexity and a triplet entropy >= min_entropy.
 
 ``filter_fastq`` frames records with ``io.iter_fastq_record_batches`` and
-writes the kept records with a vectorised numpy emit (``_emit_records``)
-whose bytes are those of the JAX package's native writer.
+writes the kept records with the host library's emitter
+(``native.filter_emit``), as the JAX package does; without the library, with
+its vectorised numpy twin (``_emit_records``), byte for byte the same.
 ``filter_fastq_paired`` reads both mates with the JAX package's per-record
 reader (``_iter_record_batches``), as the JAX package does.
 """
@@ -395,7 +396,7 @@ def _emit_records(raw, ascii_arr, quals, name_off, name_len, keep, start, end) -
     """The kept records of a batch as FASTQ bytes: '@', the header's bytes
     of ``raw``, the bases and qualities of [start, end) (clamped to the
     row), in batch order. One masked compress of a [kept, width] byte
-    matrix; the bytes of the JAX package's native ``bn_filter_emit``."""
+    matrix: the numpy twin of ``native.filter_emit``."""
     rows = np.flatnonzero(keep)
     if rows.size == 0:
         return b""
@@ -444,8 +445,12 @@ def filter_fastq(
 
     Records stream in ``batch_reads`` batches (bounded memory at any file
     size); kept reads are written with their trimmed sequence and quality
-    line under their header. The filter runs on ``device``."""
-    from . import io as bnio
+    line under their header. The filter runs on ``device``; the framing and
+    the emit on the host library (``native.filter_emit``) where it loads,
+    else on their numpy twins (``_emit_records``)."""
+    from . import io as bnio, native
+
+    emit = native.filter_emit if native.available() else _emit_records
 
     n_in = n_out = bases_in = bases_out = 0
     with open(out_path, "wb") as out:
@@ -459,7 +464,7 @@ def filter_fastq(
             bases_in += int(lens.sum())
             n_out += int(keep.sum())
             bases_out += int(np.where(keep, end - start, 0).sum())
-            out.write(_emit_records(raw, a, q, noff, nlen, keep, start, end))
+            out.write(emit(raw, a, q, noff, nlen, keep, start, end))
     return {
         "reads_in": n_in,
         "reads_out": n_out,

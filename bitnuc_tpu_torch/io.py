@@ -2,7 +2,7 @@
 
 The counterpart of ``bitnuc_tpu/io.py``. ``save_packed``/``load_packed`` use the JAX package's .npz keys
 (``words`` as uint32, ``lengths``), so either package reads the other's
-files. ``iter_fastq_batches`` frames records on the host with numpy, with
+files. ``iter_fastq_batches`` frames records on the host, with
 the JAX package's byte-offset semantics (an offset is the byte just past a
 batch's last record, and ``start_offset`` resumes there), uploads each
 batch's ASCII and packs it on the device with the K1 kernel. A ``.gz`` path
@@ -16,10 +16,13 @@ gzip, framing, the numpy rectangle) on a producer thread that keeps up to
 The upload and K1 stay on the consumer's thread, so every device call runs
 on that thread's current stream.
 
-The JAX package frames whole FASTQ buffers with its native C++ scanner
-(``bn_fastq_fill``, ``bn_fastq_fill_sq``); ``fastq_to_batch`` and
-``fastq_to_batch_sq`` here are its numpy twins, behind ``read_fastq_fast``,
-``iter_fastq_ascii_batches`` and ``iter_fastq_record_batches``.
+Whole FASTQ buffers are framed by the host library's scanner
+(``native.fastq_to_batch``, ``native.fastq_to_batch_sq``) behind
+``read_fastq_fast``, ``iter_fastq_ascii_batches``,
+``iter_fastq_record_batches`` and ``iter_fastq_batches`` (``staged=None``
+or True), as in the JAX package; ``fastq_to_batch`` and
+``fastq_to_batch_sq`` here are its numpy twins, taken without the library
+and by ``staged=False``. Packing stays on the device (K1) either way.
 ``read_fastq`` keeps the JAX package's strict 4-line reader, and
 ``split_records_fastq_full`` its blank-line-tolerant record parser.
 """
@@ -35,7 +38,7 @@ from typing import Iterator, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from . import config
+from . import config, native
 from .errors import InvalidBase
 from .ops import codec
 from .sequence import PackedReads
@@ -188,11 +191,11 @@ def read_fastq(
 def read_fastq_fast(
     path_or_data, max_len: Optional[int] = None, validate: bool = True, device=None
 ) -> PackedReads:
-    """Name-free FASTQ ingestion: the whole buffer framed by
-    ``fastq_to_batch`` (the JAX package's native scanner's rules, which
-    differ from ``read_fastq``'s on blank lines), packed on ``device``
-    (default: the card)."""
-    ascii_arr, lens = fastq_to_batch(_read_bytes(path_or_data), max_len)
+    """Name-free FASTQ ingestion: the whole buffer framed by the host
+    library's scanner, or by its twin ``fastq_to_batch`` without the
+    library (rules that differ from ``read_fastq``'s on blank lines),
+    packed on ``device`` (default: the card)."""
+    ascii_arr, lens = _to_batch(native.available())(_read_bytes(path_or_data), max_len)
     return PackedReads.from_ascii(ascii_arr, lengths=lens, validate=validate, device=device)
 
 
@@ -250,6 +253,20 @@ def _framed(data: bytes, max_len: Optional[int]):
     B = seq_starts.size
     L = int(max_len) if max_len else max(int(seq_lens.max()) if B else 0, 1)
     return (arr, starts, lens) + _rectangle(arr, seq_starts, seq_lens, B, L)
+
+
+def _to_batch(use_native: bool):
+    """The sequence framer: the host library's, or its numpy twin."""
+    if use_native:
+        return lambda data, max_len: native.fastq_to_batch(data, max_len or 0)
+    return fastq_to_batch
+
+
+def _to_batch_sq(use_native: bool):
+    """The full-record framer: the host library's, or its numpy twin."""
+    if use_native:
+        return lambda data, max_len: native.fastq_to_batch_sq(data, max_len or 0)
+    return fastq_to_batch_sq
 
 
 def fastq_to_batch(data: bytes, max_len: Optional[int] = None) -> Tuple[np.ndarray, np.ndarray]:
@@ -324,6 +341,14 @@ def _iter_fastq_record_blocks(path: PathLike, batch_size: int, start_offset: int
         yield carry, abs_base + len(carry)
 
 
+def _ascii_batches(path, batch_size, max_len, start_offset, use_native: bool):
+    frame = _to_batch(use_native)
+    for data, end in _iter_fastq_record_blocks(path, batch_size, start_offset):
+        ascii_arr, lens = frame(data, max_len)
+        if len(lens):
+            yield ascii_arr, lens, end
+
+
 def iter_fastq_ascii_batches(
     path: PathLike,
     batch_size: int,
@@ -332,11 +357,9 @@ def iter_fastq_ascii_batches(
 ):
     """Host-only streaming parse: (ascii uint8 [B, L], lengths int32 [B],
     end byte offset) per batch of ``batch_size`` records, framed as
-    ``iter_fastq_batches`` frames them (its host side); no device work."""
-    for data, end in _iter_fastq_record_blocks(path, batch_size, start_offset):
-        ascii_arr, lens = fastq_to_batch(data, max_len)
-        if len(lens):
-            yield ascii_arr, lens, end
+    ``iter_fastq_batches`` frames them (its host side; the host library's
+    scanner, else its numpy twin); no device work."""
+    return _ascii_batches(path, batch_size, max_len, start_offset, native.available())
 
 
 def iter_fastq_record_batches(
@@ -346,10 +369,12 @@ def iter_fastq_record_batches(
 ):
     """Full-record streaming parse for the preprocessing tier: (raw bytes,
     ascii uint8 [B, L], quals uint8 [B, L], lens int32 [B], name_off int64
-    [B], name_len int64 [B]) per batch (``fastq_to_batch_sq``); the header
-    spans index into the raw bytes, past the '@'."""
+    [B], name_len int64 [B]) per batch (the host library's
+    ``fastq_to_batch_sq``, else its numpy twin); the header spans index into
+    the raw bytes, past the '@'."""
+    frame = _to_batch_sq(native.available())
     for data, _ in _iter_fastq_record_blocks(path, batch_size):
-        ascii_arr, quals, lens, name_off, name_len = fastq_to_batch_sq(data, max_len)
+        ascii_arr, quals, lens, name_off, name_len = frame(data, max_len)
         if len(lens):
             yield data, ascii_arr, quals, lens, name_off, name_len
 
@@ -423,19 +448,21 @@ def iter_fastq_batches(
     the batch's last record (``with_offsets``); feeding that offset back as
     ``start_offset`` resumes framing at the same record boundary.
     validate=True raises InvalidBase on the first invalid in-range base.
-    ``staged`` selects the JAX package's native scanner, which this package
-    does not have: None and False take the numpy framing, True raises
-    RuntimeError as the JAX package does without its native library.
+    ``staged`` selects the framing: the host library's scanner (True; None
+    where the library loads) or its numpy twin (False; None without the
+    library). True without the library raises RuntimeError, as in the JAX
+    package. Either way the batch is uploaded as ASCII and packed by K1.
     ``prefetch > 0`` frames up to that many batches ahead on a producer
     thread; the upload and K1 run on the caller's thread.
     ``device`` defaults to the card (``config.resolve_device``)."""
-    if staged:
+    use_native = native.available() if staged is None else bool(staged)
+    if use_native and not native.available():
         raise RuntimeError(
-            "staged=True needs the native FASTQ scanner, which bitnuc_tpu_torch does not "
-            "have; use staged=None or False for the numpy framing"
+            "staged=True but the host library is not available "
+            f"({native._error}); use staged=None or False for the numpy framing"
         )
     device = config.resolve_device(device)
-    source = iter_fastq_ascii_batches(path, batch_size, max_len, start_offset)
+    source = _ascii_batches(path, batch_size, max_len, start_offset, use_native)
     if prefetch > 0:
         source = _prefetched(source, prefetch)
     with contextlib.closing(source):  # an early stop ends the worker and the file

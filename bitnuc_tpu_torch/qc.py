@@ -1,7 +1,8 @@
 """FastQC-style per-cycle quality-control profile for FASTQ files.
 
 The counterpart of ``bitnuc_tpu/qc.py``. Each batch of records
-(``io.iter_fastq_record_batches``) is folded on a device by integer
+(``io.iter_fastq_record_batches``, framed by the host library where it
+loads, as in the JAX package) is folded on a device by integer
 ``torch.bincount`` over fused keys: (cycle, base symbol) for the base
 counts, (cycle, phred) for the quality histograms, and each read's
 rounded mean phred and GC percent. The two per-read roundings follow the

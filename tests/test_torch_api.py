@@ -1,5 +1,6 @@
 """bitnuc_tpu_torch.api and bitnuc_tpu_torch.oracle against the JAX
-package's api (its native library where built) and oracle, on the same
+package's api (its native library where built; loaded where the two forms
+differ) and oracle, on the same
 numpy-seeded sequences: every function at lengths 0, 1, 31, 32, 33, 64 and
 200 with lower case, the four error types, count_kmers at k = 1, 2, 15, 31
 and 32, and the oracle's alignment functions."""
@@ -8,7 +9,8 @@ import numpy as np
 import pytest
 
 from bitnuc_tpu import api as japi, oracle as joracle
-from bitnuc_tpu_torch import api, errors, oracle
+from bitnuc_tpu_torch import api, errors, native as tnative, oracle
+from test_torch_native import jax_native, port_native
 
 LENGTHS = [0, 1, 31, 32, 33, 64, 200]
 ACGT_MIXED = np.frombuffer(b"ACGTacgt", np.uint8)
@@ -94,13 +96,25 @@ def test_count_kmers_repeats_and_edges():
         _same("count_kmers", b"ACGT", k, want_oracle=False)
 
 
-def test_count_kmers_short_invalid_follows_native():
+def _pinned_routes(monkeypatch):
+    """The JAX package with its native library loaded; yields once with the
+    port's host library and once with its numpy forms."""
+    jax_native()
+    port_native()
+    yield "library"
+    with monkeypatch.context() as m:
+        m.setattr(tnative, "available", lambda: False)
+        yield "numpy"
+
+
+def test_count_kmers_short_invalid_follows_native(monkeypatch):
     """A sequence shorter than k with an invalid byte: JAX's native library
     (k <= 12) raises InvalidBase, its oracle and k > 12 return {}; the port
-    follows bitnuc_tpu.api."""
-    for k in (3, 12, 13):
-        _same("count_kmers", b"AN", k, want_oracle=False)
-    assert api.count_kmers(b"AN", 13) == joracle.count_kmers(b"AN", 13) == {}
+    follows bitnuc_tpu.api with its library, on both of its routes."""
+    for _ in _pinned_routes(monkeypatch):
+        for k in (3, 12, 13):
+            _same("count_kmers", b"AN", k, want_oracle=False)
+        assert api.count_kmers(b"AN", 13) == joracle.count_kmers(b"AN", 13) == {}
 
 
 @pytest.mark.parametrize("case", [
@@ -131,13 +145,15 @@ def test_invalid_range_and_error_fields():
     assert e.value.base == ord("N") and isinstance(e.value, errors.NucleotideError)
 
 
-def test_negative_lengths_follow_native():
+def test_negative_lengths_follow_native(monkeypatch):
     """Where the JAX package's native library and its oracle differ on a
-    negative length or index, the port follows bitnuc_tpu.api."""
-    e = api.encode(b"ACGT" * 20)
-    for name, args in [("decode", (e, -1)), ("from_2bit", (5, -1)), ("hdist", (e, e, -5)),
-                       ("hdist_scalar", (1, 2, -1)), ("split_packed", (e, 80, -1))]:
-        _same(name, *args, want_oracle=False)
+    negative length or index, the port follows bitnuc_tpu.api with its
+    library, on both of its routes."""
+    for _ in _pinned_routes(monkeypatch):
+        e = api.encode(b"ACGT" * 20)
+        for name, args in [("decode", (e, -1)), ("from_2bit", (5, -1)), ("hdist", (e, e, -5)),
+                           ("hdist_scalar", (1, 2, -1)), ("split_packed", (e, 80, -1))]:
+            _same(name, *args, want_oracle=False)
 
 
 def test_goldens():

@@ -1,6 +1,6 @@
 """bitnuc_tpu_torch.assemble against bitnuc_tpu.assemble on the same
-numpy-seeded inputs, with the JAX package's native library (where it loads
-here) and with it switched off: unitigs (linear, circular, palindromes at
+numpy-seeded inputs, with the JAX package's native library loaded and with
+it switched off: unitigs (linear, circular, palindromes at
 even k, k = 1, 2, 31 and 32), the strand union, tip and bubble cleaning,
 graph links, GFA and FASTA bytes, the three spectrum engines of
 assemble_reads with base_valid, and assemble_counts."""
@@ -18,6 +18,7 @@ import bitnuc_tpu_torch as tbn
 from bitnuc_tpu_torch import assemble as asm
 from bitnuc_tpu_torch.ops import codec
 from bitnuc_tpu_torch.parallel import mesh as pmesh
+from test_torch_native import jax_native
 
 torch.set_num_threads(1)
 CPU = torch.device("cpu")
@@ -27,13 +28,13 @@ CODE = {c: i for i, c in enumerate(BASES)}
 
 @pytest.fixture(params=["native", "numpy"])
 def jax_side(request, monkeypatch):
-    """The JAX package as it loads here, or with its native library
+    """The JAX package with its native library loaded, or with it
     switched off (its numpy forms)."""
     if request.param == "numpy":
         monkeypatch.setattr(jnative, "available", lambda: False)
         monkeypatch.setattr(jnative, "_load", lambda: None)
-    elif not jnative.available():
-        pytest.skip("the JAX package's native library does not load here")
+    else:
+        jax_native()
     return request.param
 
 

@@ -26,7 +26,7 @@ import torch
 
 from bitnuc_tpu import cli as jcli
 from bitnuc_tpu.database import PackedDB as JPackedDB
-from bitnuc_tpu_torch import cli
+from bitnuc_tpu_torch import cli, native
 
 torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parents[1]
@@ -443,7 +443,8 @@ def test_info_json(capsys):
     assert cli.main(["info"]) == 0
     info = json.loads(capsys.readouterr().out)
     want = "cuda" if torch.cuda.is_available() else None
-    assert info == {"backend": "auto", "device": want, "devices": torch.cuda.device_count()}
+    assert info == {"backend": "auto", "device": want, "devices": torch.cuda.device_count(),
+                    "native": native.available()}
     assert cli.main(["--device", "cpu", "info"]) == 0
     assert json.loads(capsys.readouterr().out)["device"] == "cpu"
 

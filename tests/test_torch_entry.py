@@ -45,9 +45,10 @@ def test_import_leaves_jax_out():
     code = (
         "import sys, bitnuc_tpu_torch, bitnuc_tpu_torch.entry, bitnuc_tpu_torch.pipeline, "
         "bitnuc_tpu_torch.mapper, bitnuc_tpu_torch.assemble, bitnuc_tpu_torch.cli, "
-        "bitnuc_tpu_torch.__main__, bitnuc_tpu_torch.parallel; "
+        "bitnuc_tpu_torch.__main__, bitnuc_tpu_torch.parallel, bitnuc_tpu_torch.native; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'bitnuc_tpu.'))"
-        " or m == 'bitnuc_tpu']; assert not bad, bad"
+        " or m == 'bitnuc_tpu']; assert not bad, bad; "
+        "assert not bitnuc_tpu_torch.native._tried  # the host library builds at first use"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, check=True, timeout=120)
@@ -60,6 +61,9 @@ def test_port_sources_import_neither_jax_nor_reference():
     assert len(sources) >= 50
     offenders = [str(p) for p in sources if pattern.search(p.read_text())]
     assert not offenders
+    # the host library's C++ source names no file of the JAX package
+    cpp = (PORT / "native" / "bitnuc_host.cpp").read_text()
+    assert "#include" in cpp and not re.search(r"bitnuc_tpu(?!_torch)\b|bitnuc_tpu/", cpp)
 
 
 def test_kernel_backend_refuses_cpu_tensors():

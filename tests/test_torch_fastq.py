@@ -1,6 +1,6 @@
 """bitnuc_tpu_torch's FASTQ readers against the JAX package's on the same
-files: fastq_to_batch and fastq_to_batch_sq (numpy, the port's twins of
-JAX's native scanner), read_fastq, read_fastq_fast,
+files: fastq_to_batch and fastq_to_batch_sq (numpy, the twins of the host
+library's scanner, held to JAX's native scanner), read_fastq, read_fastq_fast,
 split_records_fastq_full, iter_fastq_ascii_batches and
 iter_fastq_record_batches, on files with CRLF, blank lines, an empty read, a
 trailing record without its newline, max_len truncation, gzip and a bad
@@ -15,11 +15,19 @@ import torch
 from bitnuc_tpu import io as jio, native
 from bitnuc_tpu_torch import io as tio
 from conftest import random_seq
+from test_torch_native import jax_native
 
 torch.set_num_threads(1)
 CPU = torch.device("cpu")
-needs_native = pytest.mark.skipif(not native.available(),
-                                  reason="the JAX package's native library is not built")
+
+
+@pytest.fixture
+def _jax_native_loaded():
+    jax_native()
+
+
+# the comparisons with the JAX package's native scanner load its library first
+needs_native = pytest.mark.usefixtures("_jax_native_loaded")
 
 EMPTY_READ = b"@r1\n\n+\n\n@r2\nACGT\n+\nIIII\n@r3\nGG\n+\nII\n"
 

@@ -10,8 +10,9 @@ import numpy as np
 import pytest
 import torch
 
-from bitnuc_tpu import native, qc as jqc
-from bitnuc_tpu_torch import qc
+from bitnuc_tpu import qc as jqc
+from bitnuc_tpu_torch import native as tnative, qc
+from test_torch_native import jax_native, port_native
 
 torch.set_num_threads(1)
 CPU = torch.device("cpu")
@@ -39,8 +40,8 @@ def _equal(a, b):
 
 @pytest.mark.parametrize("use_native", [False, True])
 def test_fold_matches_jax_folds(use_native):
-    if use_native and not native.available():
-        pytest.skip("the JAX package's native library is not built")
+    if use_native:
+        jax_native()
     rng = np.random.default_rng(int(use_native))
     want, got = jqc._Acc(), qc._Acc(CPU)
     for R, L in ((50, 30), (0, 10), (120, 151), (7, 1), (60, 90)):
@@ -75,14 +76,21 @@ def _write(path, rng, n, lo, hi):
 
 @pytest.mark.parametrize("suffix", [".fq", ".fq.gz"])
 @pytest.mark.parametrize("batch", [13, 65536])
-def test_qc_profile_matches_jax(tmp_path, suffix, batch):
+def test_qc_profile_matches_jax(tmp_path, suffix, batch, monkeypatch):
+    """Both packages' routes pinned: the JAX package with its native
+    library loaded, the port with its host library and with its numpy
+    framing."""
     rng = np.random.default_rng(batch)
     path = tmp_path / f"r{suffix}"
     _write(path, rng, 200, 1, 140)
+    jax_native()
     want = jqc.qc_profile(path, batch_reads=batch)
+    port_native()
     got = qc.qc_profile(path, batch_reads=batch, device=CPU)
     assert got == want
     assert got["per_cycle"] and got["reads"] == 200
+    monkeypatch.setattr(tnative, "available", lambda: False)
+    assert qc.qc_profile(path, batch_reads=batch, device=CPU) == want
 
 
 def test_qc_profile_status_levels_match_jax(tmp_path):

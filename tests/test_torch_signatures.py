@@ -219,11 +219,27 @@ def test_a_mesh_matches_jax(call, fastq):
         np.testing.assert_array_equal(np.asarray(g), np.asarray(w).astype(np.asarray(g).dtype))
 
 
-def test_staged_true_raises(fastq):
+def test_staged_true_raises(fastq, monkeypatch):
+    """staged=True (the host library's framing) yields what staged=False
+    (its numpy twin) yields, and raises only without the library."""
+    from bitnuc_tpu_torch import native
+
+    def run(staged):
+        return [(r.to_ascii(), v.numpy(), off) for r, v, off in tio.iter_fastq_batches(
+            fastq, 8, validate=False, staged=staged, with_validity=True, with_offsets=True,
+            device=CPU)]
+
+    want = run(False)
+    assert len(want) == 8
+    for staged in (True, None):
+        got = run(staged)
+        assert [(a, o) for a, _, o in got] == [(a, o) for a, _, o in want]
+        for (_, g, _), (_, w, _) in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+    monkeypatch.setattr(native, "available", lambda: False)
     with pytest.raises(RuntimeError, match="staged=True"):
         next(tio.iter_fastq_batches(fastq, 8, staged=True, device=CPU))
-    assert len(list(tio.iter_fastq_batches(fastq, 8, validate=False, staged=False,
-                                           device=CPU))) == 8
+    assert len(run(None)) == len(run(False)) == 8
 
 
 def _batches(path, prefetch, **kw):
