@@ -23,7 +23,9 @@ chain_against).
 Phases, each of which must pass:
 
 1. Device: the card's name and power limit, and the kernel build (all of
-   bitnuc_tpu_torch/csrc/*.cu with nvcc, timed); the registers, shared
+   bitnuc_tpu_torch/csrc/*.cu with nvcc, timed) with the host library's
+   beside it (bitnuc_tpu_torch/native with the host compiler, timed; the
+   script fails when it does not build or load); the registers, shared
    memory and spills of pack.cu (K1), unpack.cu (K2), histogram.cu (K3a,
    K3b), tcscan.cu (K6), merge.cu (K7), wavefront.cu (K8, K9), orf.cu
    (K10) and chain.cu (C1).
@@ -38,7 +40,7 @@ Phases, each of which must pass:
    hist_words (plain and canonical at k = 1, 4, 7, 8, 9 and 12, at edge
    lengths and on poly-A; timed at the flagship step's two k = 8 launches,
    the main rows), K4 hdist_scan and K5
-   hdist_scan_batch (one kernel), K6 tc_scan, K7 merge and K10 orf_scan at
+   hdist_scan_batch (one kernel; K5 beside torch._int_mm), K6 tc_scan, K7 merge and K10 orf_scan at
    the main paths' shapes and at edge shapes (K3a also on poly-A keys and
    at k = 11; K7 also lopsided and all ties; K10 at phase 8's batch on
    both strands, and on one strand at the table's row, phase 8's contigs,
@@ -59,7 +61,8 @@ Phases, each of which must pass:
    against a 4,194,304-entry database, under the default backend (kernels)
    and under backend("torch") (plain versions), output for output.
 5. Streaming canonical k = 12 counting of a generated FASTQ (1,000,000
-   reads x 150 bp, 0.5% N, N-skip) with pipeline.count_fastq: equal to the
+   reads x 150 bp, 0.5% N, N-skip) with pipeline.count_fastq (framing on
+   the host library, packing by K1): equal to the
    plain run, a run interrupted after its first checkpoint and resumed
    equals an uninterrupted one, and a 10,000-read subset equals a host
    dict oracle. Timed once each at prefetch 2 (the default: framing on a
@@ -100,7 +103,7 @@ Phases, each of which must pass:
    backend, a 4,096-pair subset against a CPU run, and the pairs with a
    clean true overlap of 20 bp or more against their true fragments.
    read_fastq_fast, iter_fastq_ascii_batches and iter_fastq_record_batches
-   against read_fastq, pipeline.stats against host counts (and its
+   (each timed) against read_fastq, pipeline.stats against host counts (and its
    InvalidBase on phase 5's FASTQ), hdist_topk_batch of phase 8's queries
    against search_batch (timed beside it), and windowed_gc of phase 8's
    contigs against a numpy float32 model.
@@ -140,8 +143,8 @@ Phases, each of which must pass:
 12. Unitig assembly and the command line. (a) assemble_reads of phase 6's
    1,000,000 reads on the card (K1 with the validity mask, k = 21,
    min_count 2, both strands, N windows dropped), its stages timed (the
-   spectrum with its download, prepare_keys, the graph, the emit, the
-   strand-twin dedupe); every unitig of 100 bp or more placed exactly in
+   spectrum with its download, prepare_keys, the graph on the host library,
+   the emit, the strand-twin dedupe); every unitig of 100 bp or more placed exactly in
    the genome on one strand, covering 99% of its N-free bases, and the
    reads of its first 20 kbp assembled on the card and on the CPU, plain
    and cleaned. (b) python -m bitnuc_tpu_torch info and count in fresh
@@ -170,12 +173,24 @@ Phases, each of which must pass:
    command without it, --devices N past the visible cards exiting with
    their count, and the five examples (examples/torch_*.py) in-process at
    tests/test_examples.py's arguments.
+14. The host library (bitnuc_tpu_torch/native) on the phases' real inputs,
+   each routed function held to its numpy twin and timed beside it:
+   fastq_to_batch and fastq_to_batch_sq on a 65,536-record block of phase
+   5's FASTQ, and the framing of the whole file; iter_fastq_batches
+   staged=True against staged=False; native.encode_batch beside K1, the
+   ASCII upload and the words' upload at the count batch (recorded, not
+   routed; checked against K1 on the N-free rows); filter_emit of phase
+   11's first batch and its filter, and qc_fold beside the card's fold;
+   merge_join, graph_edges, list_rank and argsort_u64 on phase 12's key set
+   (the twins on its first 1,048,576 keys), and native.spectrum of phase
+   12's reads against the device engine's solid k-mers (the twin on 65,536
+   reads).
 
 Each phase's start, and its sections', print as "[clock] ... at N s". The
 launch counters are set to 0 just before each main path (phases 4 and 5
 under the default backend, phases 6, 7, 8, 9 and 11, each path of phase
 10, the assembly and each command of phase 12, and each sharded call of
-phase 13) and read just after
+phase 13; phase 14 launches none) and read just after
 it; every kernel of that path must have launched there, and the flagship step alone
 must make two K3b launches (its plain and canonical k = 8 counts) and no K3a
 launch. The last lines printed are a
@@ -190,6 +205,7 @@ from __future__ import annotations
 
 import argparse
 import gzip
+import itertools
 import json
 import os
 import re
@@ -198,6 +214,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import traceback
 from pathlib import Path
@@ -1451,11 +1468,23 @@ def public_phase(args, torch, dev, timer, results, tmp, db_wm, queries, contigs,
     # -- the FASTQ readers and stats on R1 ------------------------------------
     t = time.perf_counter()
     want_w, want_l = PackedReads.from_ascii(r1, device=dev).to_numpy()
-    _, rf = io.read_fastq(paths["r1"], device=dev)
-    fast = io.read_fastq_fast(paths["r1"], device=dev)
-    asc = list(io.iter_fastq_ascii_batches(paths["r1"], MERGE_BATCH))
-    rec = list(io.iter_fastq_record_batches(paths["r1"], MERGE_BATCH))
+    readers = {  # each timed alone; the framing runs on the host library
+        "read_fastq": lambda: io.read_fastq(paths["r1"], device=dev)[1],
+        "read_fastq_fast": lambda: io.read_fastq_fast(paths["r1"], device=dev),
+        "iter_fastq_ascii_batches": lambda: list(
+            io.iter_fastq_ascii_batches(paths["r1"], MERGE_BATCH)),
+        "iter_fastq_record_batches": lambda: list(
+            io.iter_fastq_record_batches(paths["r1"], MERGE_BATCH)),
+    }
+    out_r, reader_s = {}, ph.setdefault("reader_s", {})
+    for name, fn in readers.items():
+        t1 = time.perf_counter()
+        out_r[name] = fn()
+        torch.cuda.synchronize()
+        reader_s[name] = time.perf_counter() - t1
+    rf, fast, asc, rec = out_r.values()
     ph["readers_s"] = time.perf_counter() - t
+    print("  readers: " + ", ".join(f"{n} {v:.3f} s" for n, v in reader_s.items()), flush=True)
     rf_w, rf_l = rf.to_numpy()
     check("read_fastq == host-packed R1", np.array_equal(rf_w, want_w)
           and np.array_equal(rf_l, want_l))
@@ -2311,7 +2340,7 @@ def read_tier_phase(args, torch, dev, timer, results, tmp, genome, reads, true_s
     phase 6's reads (packed with K1) against phase 6's k = 21 tables; under
     the default backend and backend('torch'), with host oracles and CPU
     runs."""
-    from bitnuc_tpu_torch import config, filters, io, kernels, qc
+    from bitnuc_tpu_torch import config, filters, io, kernels, native, qc
     from bitnuc_tpu_torch.ops import codec, correct, dedupe, demux, kmer, lookup
     from bitnuc_tpu_torch.sequence import PackedReads
     from bitnuc_tpu_torch.utils import bitops
@@ -2469,8 +2498,8 @@ def read_tier_phase(args, torch, dev, timer, results, tmp, genome, reads, true_s
         "filter: fused filter_reads of the batches (upload, core, download)": lambda: [
             filters.filter_reads(a, q, ln, device=dev, **FILTER_KW) for _, a, q, ln, _, _ in
             framed],
-        "filter: emit of the batches": lambda: [
-            filters._emit_records(raw, a, q, no, nl, *kse) for (raw, a, q, _, no, nl), kse in
+        "filter: emit of the batches (native.filter_emit)": lambda: [
+            native.filter_emit(raw, a, q, no, nl, *kse) for (raw, a, q, _, no, nl), kse in
             zip(framed, filtered)],
         "qc: fold of the batches (upload, bincounts, download)": lambda: [
             qc._Acc(dev).fold(a, q, ln) for _, a, q, ln, _, _ in framed],
@@ -2490,6 +2519,7 @@ def read_tier_phase(args, torch, dev, timer, results, tmp, genome, reads, true_s
         print(f"    {name}: {ms:.3f} ms", flush=True)
     print(f"    table rows: reads {t_reads[0].numel()}, genome {t_genome[0].numel()}; window "
           f"slots a lookup {lo.numel()} (x 3 candidates a round)", flush=True)
+    HOST_INPUTS["tier"] = (framed[0], filtered[0])  # a batch and its filter, for phase 14
     del r, bv, table, w1, lo, hi, valid, codes3, lo3, hi3, valid3, rs, rd, rb, bv_s, framed
 
     phase_clock(results, "phase 11: the stages that launch a kernel, under backend('torch')")
@@ -2699,6 +2729,29 @@ class StageClock:
             setattr(self.module, name, fn)
 
 
+class Capture:
+    """The arguments and result of each call of chosen functions of a module
+    while a path runs: ``seen[name]`` lists (args, result) pairs."""
+
+    def __init__(self, module, names):
+        self.module, self.names = module, names
+
+    def __enter__(self):
+        self.saved = {n: getattr(self.module, n) for n in self.names}
+        self.seen = {n: [] for n in self.names}
+        for name, fn in self.saved.items():
+            def capture(*a, _fn=fn, _name=name):
+                out = _fn(*a)
+                self.seen[_name].append((a, out))
+                return out
+            setattr(self.module, name, capture)
+        return self.seen
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.module, name, fn)
+
+
 def n50(seqs) -> int:
     lens = sorted((len(s) for s in seqs), reverse=True)
     half, acc = sum(lens) / 2, 0
@@ -2893,14 +2946,21 @@ def assembly_cli_phase(args, torch, dev, results, tmp, genome, reads, true_start
     bv = codec.validity_mask(ascii_t, lens_t)
     torch.cuda.synchronize()
     t_pack = time.perf_counter() - t
-    with StageClock(kmer, ("count_kmers_runs",), times), StageClock(
+    with Capture(asm, ("_runs_to_keys", "_Graph")) as seen, StageClock(
+            kmer, ("count_kmers_runs",), times), StageClock(
             asm, ("_runs_to_keys", "prepare_keys", "_Graph", "unitigs_from_keys",
                   "dedupe_strand_twins", "_sort_longest_first"), times):
         seqs, circ = asm.assemble_reads(PackedReads(words=words, lengths=lens_t), k,
                                         min_count=ASM_MIN_COUNT, base_valid=bv)
     ph["asm_path_s"] = time.perf_counter() - t
     ASM_LAUNCHES.update(kernels.LAUNCHES)
-    del ascii_t, words, bv
+    # for phase 14: the reads, their mask, the device engine's solid spectrum and
+    # the graph's key set
+    HOST_INPUTS["asm"] = dict(
+        words=words.cpu().numpy(), lens=lens_t.cpu().numpy(), valid=bv.cpu().numpy(),
+        solid=seen["_runs_to_keys"][0][1],
+        graph_keys=max((a[0] for a, _ in seen["_Graph"]), key=len))
+    del ascii_t, words, bv, seen
     stages = {
         "upload + K1 + validity mask": t_pack,
         "spectrum on the card (count_kmers_runs + download)":
@@ -3358,6 +3418,196 @@ def mesh_phase(args, torch, dev, results, tmp, genome, reads_g, true_starts, db_
     print(f"  phase 13 in {ph['phase13_s']:.1f} s; launches of its sharded runs "
           f"{MESH_LAUNCHES}", flush=True)
 
+
+# -- phase 14: the host library ----------------------------------------------------
+
+HOST_INPUTS = {}  # phases 11 and 12 leave host inputs here for phase 14
+HOST_READS = 16_384  # reads the spectrum's numpy twin is timed on
+HOST_KEYS = 1 << 20  # keys the graph passes' numpy twins are timed on
+
+
+def wall_ms(fn, reps: int = 3, warmup: bool = True):
+    """(median wall milliseconds, last result) of a host callable."""
+    if warmup:
+        fn()
+    times = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        out = fn()
+        times.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(times), out
+
+
+class NumpyTwins:
+    """Inside the block the port's callers take the host library's numpy
+    twins (``native.available`` is False)."""
+
+    def __init__(self, native):
+        self.native = native
+
+    def __enter__(self):
+        self.saved = (self.native.available, self.native._load)
+        self.native.available, self.native._load = (lambda: False), (lambda: None)
+
+    def __exit__(self, *exc):
+        self.native.available, self.native._load = self.saved
+
+
+def arrays_equal(a, b) -> bool:
+    """Equal tuples of arrays (or values), compared by value."""
+    if isinstance(a, tuple):
+        return len(a) == len(b) and all(arrays_equal(x, y) for x, y in zip(a, b))
+    return np.array_equal(np.asarray(a), np.asarray(b))
+
+
+def host_library_phase(args, torch, dev, timer, results, fq):
+    """Phase 14: the host library (bitnuc_tpu_torch/native) on the phases'
+    real inputs, each routed function held to its numpy twin and timed
+    beside it on the same input (the graph passes and the spectrum also on
+    the whole input): FASTQ framing of a block of phase 5's FASTQ and of
+    the whole file, staged=True against staged=False, native.encode_batch
+    beside K1 at the count batch (recorded, not routed), phase 11's first
+    batch through the emitter and the QC fold, and phase 12's key set
+    through the four graph passes and its reads through the spectrum."""
+    from bitnuc_tpu_torch import assemble as asm, filters, io, native, qc
+    from bitnuc_tpu_torch.ops import codec
+    from bitnuc_tpu_torch.utils import bitops
+
+    ph = results["phases"]
+    rows = ph["host_library"] = {}
+    print(f"phase 14: the host library (built in {ph['native_build_s']:.1f} s, "
+          f"{os.path.relpath(native.library_path())})", flush=True)
+    if not check("the host library builds and loads", native.available(), native._error):
+        return
+
+    def twin_of(fn):
+        def run():
+            with NumpyTwins(native):
+                return fn()
+        return run
+
+    def row(name, lib, twin, size, full=None, full_size="", equal=arrays_equal,
+            twin_name="its numpy twin"):
+        """Time lib and twin on one input (the twin once, cold) and check
+        their outputs equal; time ``full``, the library on the whole input."""
+        lib_ms, got = wall_ms(lib)
+        twin_ms, want = wall_ms(twin, reps=1, warmup=False)
+        r = rows[name] = dict(size=size, lib_ms=lib_ms, twin_ms=twin_ms)
+        check(f"{name}: the library == {twin_name}", equal(got, want))
+        extra = ""
+        if full is not None:
+            r.update(full_size=full_size, full_ms=wall_ms(full)[0])
+            extra = f"; the library on {full_size} {r['full_ms']:.3f} ms"
+        print(f"    {name} ({size}): library {lib_ms:.3f} ms, {twin_name} {twin_ms:.3f} ms "
+              f"({twin_ms / lib_ms:.1f}x){extra}", flush=True)
+
+    # -- FASTQ framing: phase 5's file ----------------------------------------------
+    blocks = io._iter_fastq_record_blocks(fq, FASTQ_BATCH)
+    data, _ = next(blocks)
+    blocks.close()
+    for name in ("fastq_to_batch", "fastq_to_batch_sq"):
+        row(name, lambda: getattr(native, name)(data), lambda: getattr(io, name)(data),
+            f"{FASTQ_BATCH} records")
+    t = time.perf_counter()
+    n_batches = sum(1 for _ in io.iter_fastq_ascii_batches(fq, FASTQ_BATCH))
+    ph["native_framing_file_s"] = time.perf_counter() - t
+    print(f"    framing phase 5's whole FASTQ ({n_batches} batches, iter_fastq_ascii_batches): "
+          f"{ph['native_framing_file_s']:.3f} s", flush=True)
+
+    def batches(staged):
+        it = io.iter_fastq_batches(fq, FASTQ_BATCH, validate=False, staged=staged,
+                                   with_validity=True, with_offsets=True, device=dev)
+        out = [(r.words.cpu().numpy(), r.lengths.cpu().numpy(), v.cpu().numpy(), off)
+               for r, v, off in itertools.islice(it, 3)]
+        it.close()
+        return tuple(map(tuple, out))
+
+    check("iter_fastq_batches staged=True == staged=False: words, lengths, validity, offsets",
+          arrays_equal(batches(True), batches(False)))
+
+    # -- the host pack beside K1 at the count batch (recorded, not routed) ----------
+    ascii_arr, lens = native.fastq_to_batch(data)
+    n_w64 = -(-ascii_arr.shape[1] // 32)
+    host_words = native.encode_batch(ascii_arr, n_w64)
+    ascii_t, lens_t = torch.from_numpy(ascii_arr).to(dev), torch.from_numpy(lens).to(dev)
+    k1_words = bitops.words_u32_to_u64_np(bitops.words_to_u32_np(
+        codec.encode_reads(ascii_t, lens_t)[0]))
+    acgt_rows = io._VALID_BASE[ascii_arr].all(1)
+    check("native.encode_batch == K1 on the count batch's N-free rows",
+          np.array_equal(host_words[acgt_rows], k1_words[acgt_rows]),
+          f"{int(acgt_rows.sum())} rows")
+    pack = rows["encode_batch beside K1"] = dict(
+        size=f"{ascii_arr.shape[0]} x {ascii_arr.shape[1]}",
+        host_pack_ms=wall_ms(lambda: native.encode_batch(ascii_arr, n_w64))[0],
+        host_pack_1_thread_ms=wall_ms(lambda: native.encode_batch(ascii_arr, n_w64, 1))[0],
+        k1_ms=timer(lambda: codec.encode_reads(ascii_t, lens_t)),
+        ascii_upload_ms=timer(lambda: torch.from_numpy(ascii_arr).to(dev)),
+        words_upload_ms=timer(lambda: torch.from_numpy(host_words).to(dev)))
+    print("    encode_batch beside K1: " + ", ".join(
+        f"{k} {v:.3f}" if isinstance(v, float) else f"{k} {v}" for k, v in pack.items()),
+        flush=True)
+    del ascii_t, lens_t, host_words, k1_words, data
+
+    # -- phase 11's first batch: the emitter and the QC fold --------------------------
+    (raw, a, q, ln, noff, nlen), kse = HOST_INPUTS.pop("tier")
+    row("filter_emit", lambda: native.filter_emit(raw, a, q, noff, nlen, *kse),
+        lambda: filters._emit_records(raw, a, q, noff, nlen, *kse), f"{len(ln)} records",
+        equal=bytes.__eq__)
+
+    def host_fold():
+        acc = (np.zeros((a.shape[1], 5), np.int64), np.zeros((a.shape[1], qc._QMAX), np.int64),
+               np.zeros(qc._QMAX, np.int64), np.zeros(101, np.int64))
+        native.qc_fold(a, q, ln, qc._QMAX, *acc)
+        return acc
+
+    row("qc_fold (bound, not routed)", host_fold,
+        lambda: tuple(t.cpu().numpy() for t in qc._fold_device(
+            torch.from_numpy(a).to(dev), torch.from_numpy(q).to(dev),
+            torch.from_numpy(ln.astype(np.int64)).to(dev))), f"{len(ln)} records",
+        twin_name="the card's fold (upload, bincounts, download)")
+
+    # -- phase 12's key set through the graph passes, its reads through the spectrum --
+    inp = HOST_INPUTS.pop("asm")
+    k, keys = ASM_K, inp["graph_keys"]
+    sub = keys[:HOST_KEYS]
+    sized = dict(size=f"{len(sub)} keys", full_size=f"{len(keys)} keys")
+    hi = np.uint64(1) << np.uint64(2 * (k - 1))
+    q_sub, q_full = (sub >> np.uint64(2)) | hi, (keys >> np.uint64(2)) | hi
+    row("merge_join", lambda: native.merge_join(sub, q_sub),
+        twin_of(lambda: asm._member(sub, q_sub)), full=lambda: native.merge_join(keys, q_full),
+        **sized)
+    row("graph_edges", lambda: native.graph_edges(sub, k), twin_of(lambda: asm._edges(sub, k)),
+        full=lambda: native.graph_edges(keys, k), **sized)
+    prev_sub, prev_full = native.graph_edges(sub, k)[7], native.graph_edges(keys, k)[7]
+
+    def same_ranks(got, want):
+        """Chain nodes equal; cycle nodes (rank >= n) flagged alike."""
+        n, cyc = len(prev_sub), want[0] >= len(prev_sub)
+        return bool(np.array_equal(got[0] >= n, cyc)
+                    and np.array_equal(got[0][~cyc], want[0][~cyc])
+                    and np.array_equal(got[1][~cyc], want[1][~cyc]))
+
+    row("list_rank", lambda: native.list_rank(prev_sub),
+        twin_of(lambda: asm._wyllie_rank(prev_sub.copy())),
+        full=lambda: native.list_rank(prev_full), equal=same_ranks, **sized)
+    rc = asm._rc_keys(keys, k)
+    rc_sub = rc[:HOST_KEYS]
+    row("argsort_u64", lambda: native.argsort_u64(rc_sub),
+        lambda: np.argsort(rc_sub, kind="stable"), full=lambda: native.argsort_u64(rc), **sized)
+    w, lens, valid = inp["words"], inp["lens"], inp["valid"]
+    t = time.perf_counter()
+    s_keys, s_cts = native.spectrum(w, lens, k, True, valid)
+    spectrum_s = time.perf_counter() - t
+    rows["spectrum of phase 12's reads"] = dict(size=f"{len(lens)} reads", s=spectrum_s)
+    solid = s_cts >= ASM_MIN_COUNT
+    want_keys, want_cts = inp["solid"]
+    check("native.spectrum's solid k-mers == the device engine's (phase 12)",
+          np.array_equal(s_keys[solid], want_keys) and np.array_equal(s_cts[solid], want_cts),
+          f"{int(solid.sum())} solid of {len(s_keys)}; {len(lens)} reads in {spectrum_s:.3f} s")
+    ws, ls, vs = w[:HOST_READS], lens[:HOST_READS], valid[:HOST_READS]
+    row("spectrum", lambda: native.spectrum(ws, ls, k, True, vs),
+        lambda: asm._np_spectrum(ws.view(np.uint32), ls, k, True, vs), f"{len(ls)} reads")
+    del inp, keys, sub, rc, rc_sub, w, lens, valid, prev_full, prev_sub
 
 def true_slices(genome: np.ndarray, starts: np.ndarray, rev: np.ndarray) -> np.ndarray:
     """Each read's genome slice, reverse-complemented where it was drawn
@@ -3938,7 +4188,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
         import bitnuc_tpu_torch as bnt
-        from bitnuc_tpu_torch import config, entry, kernels, pipeline
+        from bitnuc_tpu_torch import config, entry, kernels, native, pipeline
         from bitnuc_tpu_torch.database import PackedDB, SEARCH_TC_MIN_Q, tc_min_q
         from bitnuc_tpu_torch.kernels import _build, build_time
         from bitnuc_tpu_torch.ops import codec, hamming, kmer, merge, orf, setops
@@ -3972,11 +4222,30 @@ def main() -> int:
     smi = nvidia_smi_line()
     print(f"  device {torch.cuda.get_device_name(0)}; torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}; nvidia-smi: {smi}", flush=True)
+    # the host library (g++) builds on a thread beside the kernels (nvcc)
+    native_build = {}
+
+    def build_native():
+        t = time.perf_counter()
+        try:
+            native.build()
+        except RuntimeError as e:
+            native_build["error"] = str(e)
+        native_build["s"] = time.perf_counter() - t
+
+    host_thread = threading.Thread(target=build_native)
     t = time.perf_counter()
+    host_thread.start()
     lib_path = _build.build()
     _build.library()
     build_s = time.perf_counter() - t
-    print(f"  built {os.path.relpath(lib_path)} in {build_s:.1f} s", flush=True)
+    host_thread.join()
+    print(f"  built {os.path.relpath(lib_path)} in {build_s:.1f} s; the host library "
+          f"(bitnuc_tpu_torch/native, g++) in {native_build['s']:.1f} s beside it", flush=True)
+    results["phases"]["native_build_s"] = native_build["s"]
+    if not check("the host library builds and loads", native.available(),
+                 native_build.get("error", native._error)):
+        return 1
     phase_clock(results, "phase 1: ptxas reports")
     # K1's, K2's, K3a's, K6's, K7's, K8/K9's, K10's and C1's registers, shared
     # memory and spills: nvcc -Xptxas -v of pack.cu, unpack.cu, histogram.cu,
@@ -4300,18 +4569,29 @@ def main() -> int:
                                4 * Q * DB_ENTRIES * n_w / INT32_OPS_PER_S) * 1e3)
 
     phase_clock(results, "phase 2: K4 and K5")
-    # K4 (Q = 1) and K5 (Q > 1): one kernel, counted and reported apart
+    # K4 (Q = 1) and K5 (Q > 1): one kernel, counted and reported apart. K5's
+    # library call is torch._int_mm of the same bit planes, as K6's (K4 has
+    # none: torch._int_mm takes more than 16 rows)
+    lib_planes = int_mm_planes(torch, db)
     for nb in (512, 150, 7):
         for Q in (1, 64):
             name = "hdist_scan" if Q == 1 else "hdist_scan_batch"
             q = q_max[:Q].contiguous()
             label = f"Q={Q} D={DB_ENTRIES} n_bases={nb}"
-            compare(name, label, hamming.hdist_scan_kernel(q, db, nb),
-                    hamming.hdist_scan_torch(q, db, nb))
+            got = hamming.hdist_scan_kernel(q, db, nb)
+            compare(name, label, got, hamming.hdist_scan_torch(q, db, nb))
+            library = None
+            if Q > 1 and nb == DB_BASES:
+                lib_q5 = hamming.query_planes(q, nb)
+                compare(name, f"torch._int_mm core Q={Q} (affine step applied)",
+                        torch.div(3 * nb - torch._int_mm(lib_q5, lib_planes.t()), 4,
+                                  rounding_mode="floor"), got)
+                library = lambda: torch._int_mm(lib_q5, lib_planes.t())  # noqa: E731
+            del got
             if nb in (512, 150):
                 timed(name, label, lambda: hamming.hdist_scan_kernel(q, db, nb),
                       lambda: hamming.hdist_scan_torch(q, db, nb),
-                      main=nb == DB_BASES, **scan_bounds(Q, nb))
+                      main=nb == DB_BASES, library=library, **scan_bounds(Q, nb))
         for Q, d in ((3, db), (64, db_small), (3, db_small)):
             q = q_max[:Q].contiguous()
             compare("hdist_scan_batch", f"Q={Q} D={d.shape[1]} n_bases={nb}",
@@ -4360,7 +4640,6 @@ def main() -> int:
                         hamming.hdist_scan_tc_torch(qw, dw, nb))
                 compare("tc_scan", f"Q={Q} W={W} D=5000 n_bases={nb} against K5", got,
                         hamming.hdist_scan_kernel(qw, dw, nb))
-    lib_planes = int_mm_planes(torch, db)
     lib_q = hamming.query_planes(q, 512)
     compare("tc_scan", f"torch._int_mm core Q={SEARCH_QUERIES} (affine step applied)",
             torch.div(3 * 512 - torch._int_mm(lib_q, lib_planes.t()), 4, rounding_mode="floor"),
@@ -4670,6 +4949,8 @@ def main() -> int:
         mesh_phase(args, torch, dev, results, tmp, genome, reads_g, true_starts, db, queries,
                    index)
         del index, queries
+        phase_clock(results, "phase 14")
+        host_library_phase(args, torch, dev, timer, results, fq)
         phase_clock(results, "report")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
