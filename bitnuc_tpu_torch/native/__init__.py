@@ -59,38 +59,32 @@ _lock = threading.Lock()
 # status codes shared with bitnuc_host.cpp
 _OK = 0
 _ERR_INVALID_BASE = 1
-_ERR_TOO_LONG = 2
-_ERR_INVALID_LENGTH = 3
-_ERR_OOB = 4
 
 # Buffers pass as addresses (``ndarray.ctypes.data``): a typed pointer made
 # by ``data_as`` costs more than a short call's work. The callers keep each
 # array alive through the call.
-_U8P = _U32P = _U64P = _I32P = _I64P = _SZP = ctypes.c_void_p
+_P = ctypes.c_void_p
 _SZ = ctypes.c_size_t
 _INT = ctypes.c_int
 # name -> (restype, argtypes) of each C entry point
 _SIGNATURES = {
-    "bn_encode": (_INT, (_U8P, _SZ, _U64P, _U8P)),
-    "bn_decode": (_INT, (_U64P, _SZ, _SZ, _U8P)),
-    "bn_hdist": (_INT, (_U64P, _U64P, _SZ, _SZ, _U64P)),
-    "bn_split": (_INT, (_U64P, _SZ, _SZ, _SZ, _U64P, _U64P)),
-    "bn_encode_batch": (_INT, (_U8P, _SZ, _SZ, _U64P, _SZ)),
-    "bn_encode_batch_mt": (_INT, (_U8P, _SZ, _SZ, _U64P, _SZ, _INT)),
-    "bn_count_kmers": (_INT, (_U64P, _SZ, _SZ, _SZ, _U64P)),
-    "bn_fastq_scan": (_INT, (_U8P, _SZ, _SZP, _SZP)),
-    "bn_fastq_fill": (_INT, (_U8P, _SZ, _U8P, _I32P, _SZ, _SZ)),
-    "bn_fastq_fill_sq": (_INT, (_U8P, _SZ, _U8P, _U8P, _I32P, _I64P, _I64P, _SZ, _SZ)),
-    "bn_filter_emit": (ctypes.c_int64, (_U8P, _U8P, _U8P, _SZ, _SZ, _I64P, _I64P, _U8P,
-                                        _I64P, _I64P, _U8P)),
-    "bn_merge_join": (_INT, (_U64P, _SZ, _U64P, _SZ, _U8P, _I32P)),
-    "bn_list_rank": (_INT, (_I32P, _SZ, _I32P, _I32P, _INT)),
-    "bn_graph_edges": (_INT, (_U64P, _SZ, _INT, _U8P) + (_I32P,) * 7),
-    "bn_argsort_u64": (_INT, (_U64P, _SZ, _I32P)),
-    "bn_qc_fold": (_INT, (_U8P, _U8P, _I32P, _SZ, _SZ, _INT, _I64P, _I64P, _I64P, _I64P,
-                          _INT)),
-    "bn_spectrum": (_INT, (_U32P, _SZ, _SZ, _I32P, _INT, _INT, _U8P, _U64P, _I32P, _I64P,
-                           _INT)),
+    "bn_encode": (_INT, (_P, _SZ, _P, _P)),
+    "bn_decode": (_INT, (_P, _SZ, _SZ, _P)),
+    "bn_hdist": (_INT, (_P, _P, _SZ, _SZ, _P)),
+    "bn_split": (_INT, (_P, _SZ, _SZ, _SZ, _P, _P)),
+    "bn_encode_batch": (_INT, (_P, _SZ, _SZ, _P, _SZ)),
+    "bn_encode_batch_mt": (_INT, (_P, _SZ, _SZ, _P, _SZ, _INT)),
+    "bn_count_kmers": (_INT, (_P, _SZ, _SZ, _SZ, _P)),
+    "bn_fastq_scan": (_INT, (_P, _SZ, _P, _P)),
+    "bn_fastq_fill": (_INT, (_P, _SZ, _P, _P, _SZ, _SZ)),
+    "bn_fastq_fill_sq": (_INT, (_P, _SZ, _P, _P, _P, _P, _P, _SZ, _SZ)),
+    "bn_filter_emit": (ctypes.c_int64, (_P, _P, _P, _SZ, _SZ) + (_P,) * 6),
+    "bn_merge_join": (_INT, (_P, _SZ, _P, _SZ, _P, _P)),
+    "bn_list_rank": (_INT, (_P, _SZ, _P, _P, _INT)),
+    "bn_graph_edges": (_INT, (_P, _SZ, _INT) + (_P,) * 8),
+    "bn_argsort_u64": (_INT, (_P, _SZ, _P)),
+    "bn_qc_fold": (_INT, (_P, _P, _P, _SZ, _SZ, _INT, _P, _P, _P, _P, _INT)),
+    "bn_spectrum": (_INT, (_P, _SZ, _SZ, _P, _INT, _INT, _P, _P, _P, _P, _INT)),
 }
 
 
