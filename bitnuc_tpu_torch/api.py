@@ -80,10 +80,10 @@ def _routed(fn):
     else ``fn`` (kept as the ``numpy`` attribute)."""
 
     @functools.wraps(fn)
-    def call(*args):
+    def call(*args, **kwargs):
         if native.available():
-            return getattr(native, fn.__name__)(*args)
-        return fn(*args)
+            return getattr(native, fn.__name__)(*args, **kwargs)
+        return fn(*args, **kwargs)
 
     call.numpy = fn
     return call

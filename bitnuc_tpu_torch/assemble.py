@@ -697,8 +697,9 @@ def assemble_reads(
         if base_valid is not None:
             bv = (base_valid.detach().cpu().numpy() if isinstance(base_valid, torch.Tensor)
                   else np.asarray(base_valid))
-        keys, cts = native.spectrum(reads.words.cpu().numpy(), reads.lengths.cpu().numpy(), k,
-                                    canonical=both_strands, valid=bv)
+        spectrum = native.spectrum if native.available() else _np_spectrum
+        keys, cts = spectrum(reads.words.cpu().numpy(), reads.lengths.cpu().numpy(), k,
+                             both_strands, bv)
         m = cts >= max(min_count, 1)
         return assemble_keys(
             keys[m], k, counts=cts[m].astype(np.int64),

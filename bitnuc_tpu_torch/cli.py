@@ -118,9 +118,25 @@ def _iter_counts(result, k: int):
             yield int(key), int(hist[key])
 
 
-def cmd_count(args) -> int:
-    from . import api
+def _write_kmer_rows(out, rows, k: int, chunk: int = 1 << 16) -> None:
+    """Write (packed k-mer, count) rows as "KMER\tcount" lines, the k-mers
+    unpacked as api.from_2bit does (base j in bits 2j and 2j + 1), a
+    chunk of rows at a time."""
+    import itertools
 
+    import numpy as np
+
+    shifts = np.arange(0, 2 * k, 2, dtype=np.uint64)
+    rows = iter(rows)
+    while block := list(itertools.islice(rows, chunk)):
+        keys = np.array([key for key, _ in block], np.uint64)
+        text = np.frombuffer(b"ACGT", np.uint8)[(keys[:, None] >> shifts) & np.uint64(3)]
+        kmers = text.tobytes().decode()
+        out.write("".join(f"{kmers[i * k : (i + 1) * k]}\t{count}\n"
+                          for i, (_, count) in enumerate(block)))
+
+
+def cmd_count(args) -> int:
     result = _count_file(args.path, args)
     out = sys.stdout if args.out is None else open(args.out, "w")
     try:
@@ -131,8 +147,7 @@ def cmd_count(args) -> int:
             import heapq
 
             rows = heapq.nlargest(args.top, rows, key=lambda kv: kv[1])
-        for key, count in rows:
-            out.write(f"{api.from_2bit(key, args.k).decode()}\t{count}\n")
+        _write_kmer_rows(out, rows, args.k)
     finally:
         if out is not sys.stdout:
             out.close()
@@ -282,7 +297,6 @@ def cmd_unpack(args) -> int:
 def cmd_setop(args) -> int:
     import numpy as np
 
-    from . import api
     from .ops import setops
 
     ra = _count_file(args.a, args)
@@ -309,8 +323,7 @@ def cmd_setop(args) -> int:
         rows = ((int(i), int(a[i])) for i in np.nonzero(a)[0])
     out = sys.stdout if args.out is None else open(args.out, "w")
     try:
-        for key, count in rows:
-            out.write(f"{api.from_2bit(key, args.k).decode()}\t{count}\n")
+        _write_kmer_rows(out, rows, args.k)
     finally:
         if out is not sys.stdout:
             out.close()

@@ -525,15 +525,11 @@ def spectrum(words, lens, k: int, canonical: bool = False, valid=None, n_threads
     uint64 keys, int32 counts saturated at 2^31 - 1), the content of
     ``ops.kmer.count_kmers_runs`` compacted (canonical = min(kmer,
     revcomp); windows touching an invalid base dropped). ``words`` are the
-    port's [B, W] int32 words (or uint32). Without the library it runs the
-    numpy twin, ``assemble._np_spectrum``."""
+    port's [B, W] int32 words (or uint32). Its numpy twin is
+    ``assemble._np_spectrum``."""
     words = _word_view(words)
     lens = np.ascontiguousarray(lens, dtype=np.int32)
-    lib = _load()
-    if lib is None:
-        from ..assemble import _np_spectrum
-
-        return _np_spectrum(words, lens, k, canonical, valid)
+    lib = _need()
     B, W = words.shape
     if lens.shape != (B,):
         raise ValueError("spectrum: lens needs one entry a row")

@@ -650,10 +650,8 @@ int bn_qc_fold(const uint8_t* ascii, const uint8_t* quals,
 // compacted: canonical = count min(kmer, revcomp(kmer)); windows touching
 // an invalid base (valid[r*L + j] == 0) are dropped; output is ascending
 // distinct u64 keys (the 2k-bit LSB-first window) with int32 counts,
-// saturated at 2^31 - 1. For k <= 12, when the 4^k bins are no more than
-// the windows, each thread counts its rows into a dense table and the
-// tables are summed and scanned in key order. Otherwise two passes:
-// threaded window emission into per-read offsets, a threaded LSD radix sort
+// saturated at BN_SPECTRUM_COUNT_MAX (2^31 - 1). Two passes: threaded
+// window emission into per-read offsets, a threaded LSD radix sort
 // (per-pass per-thread counts, disjoint scatter regions), then one
 // run-length pass.
 //
@@ -661,6 +659,10 @@ int bn_qc_fold(const uint8_t* ascii, const uint8_t* quals,
 // crate's src/utils/packing/naive.rs:17 layout in u32 lanes); lens int32
 // [B]; valid: NULL or u8 [B, L] with L == 16*W; out arrays hold at least
 // min(total windows, 4^k) entries (the distinct keys' bound).
+#ifndef BN_SPECTRUM_COUNT_MAX  // a test build lowers the clamp to reach it
+#define BN_SPECTRUM_COUNT_MAX 0x7FFFFFFFull
+#endif
+
 int bn_spectrum(const uint32_t* words, size_t B, size_t W,
                 const int32_t* lens, int k, int canonical,
                 const uint8_t* valid, uint64_t* out_keys,
@@ -682,22 +684,6 @@ int bn_spectrum(const uint32_t* words, size_t B, size_t W,
   if (n_threads <= 0) n_threads = 1;
   size_t nt = (size_t)n_threads;
   if (nt > B) nt = B;
-  // calls emit(key) for every valid window of row r, in order
-  auto windows = [&](size_t r, auto&& emit) {
-    int32_t len = lens[r];
-    if (len < k) return;
-    const uint32_t* w = words + r * W;
-    const uint8_t* v = valid ? valid + r * L : nullptr;
-    uint64_t key = 0, rck = 0;
-    int run = 0;  // consecutive valid bases ending at j
-    for (int32_t j = 0; j < len; ++j) {
-      uint64_t b = (w[j >> 4] >> (2 * (j & 15))) & 3u;
-      key = ((key >> 2) | (b << (2 * (k - 1)))) & mask;
-      rck = ((rck << 2) | (3 - b)) & mask;
-      run = (!v || v[j]) ? run + 1 : 0;
-      if (j >= k - 1 && run >= k) emit(canonical && rck < key ? rck : key);
-    }
-  };
   auto run_threads = [&](size_t n, auto&& fn) {
     if (n == 1) {
       fn((size_t)0);
@@ -707,34 +693,24 @@ int bn_spectrum(const uint32_t* words, size_t B, size_t W,
     for (size_t ti = 0; ti < n; ++ti) ts.emplace_back(fn, ti);
     for (auto& t : ts) t.join();
   };
-  if (k <= 12 && ((size_t)1 << (2 * k)) <= total) {
-    size_t bins = (size_t)1 << (2 * k);
-    size_t ntd = nt;  // the tables together stay within the windows' count
-    while (ntd > 1 && ntd * bins > total) --ntd;
-    std::vector<uint64_t> hist(ntd * bins, 0);
-    run_threads(ntd, [&](size_t ti) {
-      uint64_t* h = hist.data() + ti * bins;
-      for (size_t r = B * ti / ntd; r < B * (ti + 1) / ntd; ++r)
-        windows(r, [&](uint64_t key) { ++h[key]; });
-    });
-    size_t m = 0;
-    for (size_t key = 0; key < bins; ++key) {
-      uint64_t c = 0;
-      for (size_t ti = 0; ti < ntd; ++ti) c += hist[ti * bins + key];
-      if (!c) continue;
-      out_keys[m] = key;
-      out_counts[m] = (int32_t)(c > 0x7FFFFFFFull ? 0x7FFFFFFFull : c);
-      ++m;
-    }
-    *n_out = (int64_t)m;
-    return BN_OK;
-  }
   std::vector<uint64_t> keys(total);
   std::vector<size_t> emitted(B, 0);
   run_threads(nt, [&](size_t ti) {
     for (size_t r = B * ti / nt; r < B * (ti + 1) / nt; ++r) {
+      int32_t len = lens[r];
+      if (len < k) continue;
+      const uint32_t* w = words + r * W;
+      const uint8_t* v = valid ? valid + r * L : nullptr;
+      uint64_t key = 0, rck = 0;
+      int run = 0;  // consecutive valid bases ending at j
       size_t out = off[r];
-      windows(r, [&](uint64_t key) { keys[out++] = key; });
+      for (int32_t j = 0; j < len; ++j) {
+        uint64_t b = (w[j >> 4] >> (2 * (j & 15))) & 3u;
+        key = ((key >> 2) | (b << (2 * (k - 1)))) & mask;
+        rck = ((rck << 2) | (3 - b)) & mask;
+        run = (!v || v[j]) ? run + 1 : 0;
+        if (j >= k - 1 && run >= k) keys[out++] = canonical && rck < key ? rck : key;
+      }
       emitted[r] = out - off[r];
     }
   });
@@ -792,7 +768,8 @@ int bn_spectrum(const uint32_t* words, size_t B, size_t W,
     size_t j = i + 1;
     while (j < n && src[j] == src[i]) ++j;
     out_keys[m] = src[i];
-    out_counts[m] = (int32_t)((j - i) > 0x7FFFFFFF ? 0x7FFFFFFF : (j - i));
+    size_t c = j - i;
+    out_counts[m] = (int32_t)(c > BN_SPECTRUM_COUNT_MAX ? BN_SPECTRUM_COUNT_MAX : c);
     ++m;
     i = j;
   }

@@ -4,7 +4,7 @@ inputs: every function (the codec at lengths 0 to 1,000 with the errors of
 tests/test_native.py, count_kmers, the host pack, ragged and blank-line
 FASTQ framing, the record emitter, the QC fold, the merge join, list
 ranking on chains and cycles, the edge pass, the radix argsort, the
-spectrum with validity masks and past 2^31 - 1 windows of one key), two
+spectrum with validity masks and counts past its clamp), two
 processes building the library at once, and the routed paths (io, api,
 filter_fastq, qc_profile, assemble_reads with both engines, info) with the
 port's library switched on and off against the JAX package with its
@@ -14,6 +14,7 @@ library loaded.
 other test_torch_*.py files that compare against it."""
 
 import collections
+import ctypes
 import fcntl
 import gzip
 import json
@@ -126,8 +127,8 @@ def route(request, monkeypatch):
 
         monkeypatch.setattr(native, name, spy)
     yield request.param, calls
-    if request.param == "numpy":  # only the spectrum is called, and runs its twin
-        assert set(calls) <= {"spectrum"}
+    if request.param == "numpy":  # the callers chose the twins
+        assert not calls
 
 
 def _eq(got, want):
@@ -448,20 +449,52 @@ def test_spectrum_matches_twin_and_jax(tn, jn, k, canonical):
         _eq(got, asm._np_spectrum(words_u, lens, k, canonical, valid))
 
 
-def test_spectrum_counts_past_int32_saturate(tn):
-    """2^31 windows of one key (two poly-A reads of 2^30 bases, k = 1): the
-    count saturates at 2^31 - 1 instead of wrapping, on either strand. The
-    words are untouched zero pages, so this reads 512 MiB of address space
-    without holding it. The twin and the JAX package's library would hold
-    every window's key (17 GB), so only the result's bound is checked."""
-    n = 1 << 30
-    words = np.zeros((2, n // 16), np.int32)
-    lens = np.full(2, n, np.int32)
-    for canonical in (False, True):
-        keys, counts = tn.spectrum(words, lens, 1, canonical)
-        _eq((keys, counts), (np.zeros(1, np.uint64), np.array([2**31 - 1], np.int32)))
-    keys, counts = tn.spectrum(words[:, :2], np.array([32, 31], np.int32), 1)
-    _eq((keys, counts), (np.zeros(1, np.uint64), np.array([63], np.int32)))
+def _clamped_library(tmp_path, count_max: int):
+    """The port's library built with its spectrum's clamp lowered to
+    count_max (BN_SPECTRUM_COUNT_MAX), loaded with native's signatures."""
+    out = tmp_path / "libbitnuc_host_clamp.so"
+    proc = subprocess.run([native._compiler(), *native.CXX_FLAGS,
+                           f"-DBN_SPECTRUM_COUNT_MAX={count_max}ull", "-o", str(out),
+                           str(native.SOURCE)], capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stderr
+    lib = ctypes.CDLL(str(out))
+    for name, (restype, argtypes) in native._SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.restype, fn.argtypes = restype, argtypes
+    return lib
+
+
+def test_spectrum_counts_past_int32_saturate(tn, jn, tmp_path, monkeypatch):
+    """A count past the clamp saturates instead of wrapping, in the run-length
+    pass after the radix sort. The library clamps at BN_SPECTRUM_COUNT_MAX,
+    2^31 - 1; reaching it takes 2^31 windows of one key, whose 16 GiB of
+    keys and 16 GiB of sort buffer do not fit here, so a build with the
+    clamp lowered to 40 counts keys just under, at and past it: poly-A of
+    41 windows, poly-C of 40 and poly-G of 39 at k = 13 (poly-C and
+    poly-G are one canonical key of 79), among random reads. Its counts
+    equal the twin's and the JAX package's library's clamped at 40, and
+    the default build's equal theirs unclamped."""
+    source = native.SOURCE.read_text()
+    assert "#define BN_SPECTRUM_COUNT_MAX 0x7FFFFFFFull" in source
+    rng = np.random.default_rng(13)
+    reads = [b"A" * 53, b"C" * 52, b"G" * 51]
+    reads += [random_seq(rng, int(n)) for n in rng.integers(10, 90, 40)]
+    tr = tbn.PackedReads.from_ascii(reads, validate=False, device=CPU)
+    jr = jbn.PackedReads.from_ascii(reads, validate=False)
+    words, lens = tr.words.numpy(), tr.lengths.numpy()
+    cases = [(k, canonical) for k in (13, 21) for canonical in (False, True)]
+    want = {c: asm._np_spectrum(words, lens, *c, None) for c in cases}
+    for c in cases:
+        _eq(tn.spectrum(words, lens, *c), want[c])
+        _eq(jn.spectrum(np.asarray(jr.words), np.asarray(jr.lengths), *c), want[c])
+    monkeypatch.setattr(native, "_lib", _clamped_library(tmp_path, 40))
+    for k, canonical in cases:
+        keys, counts = native.spectrum(words, lens, k, canonical)
+        _eq((keys, counts), (want[k, canonical][0], np.minimum(want[k, canonical][1], 40)))
+    counts = dict(zip(*native.spectrum(words, lens, 13, False)))
+    poly = [int(api.as_2bit(b * 13)) for b in (b"A", b"C", b"G")]
+    assert [counts[key] for key in poly] == [40, 40, 39]
+    assert dict(zip(*native.spectrum(words, lens, 13, True)))[poly[1]] == 40
 
 
 def test_inputs_checked_before_the_pointers(tn):
@@ -536,11 +569,10 @@ def test_build_without_a_compiler_raises_and_is_unavailable(tmp_path, monkeypatc
                               [], [], [], [], []) is None
     assert native.merge_join(np.arange(3, dtype=np.uint64), np.arange(3, dtype=np.uint64)) is None
     assert native.count_kmers(b"ACGTT", 2) == api._count_kmers_numpy(b"ACGTT", 2)
-    _eq(native.spectrum(np.full((1, 2), 7, np.int32), np.array([30], np.int32), 4),
-        asm._np_spectrum(np.full((1, 2), 7, np.uint32), np.array([30], np.int32), 4, False,
-                         None))
     with pytest.raises(RuntimeError, match="not available"):
         native.encode(b"ACGT")
+    with pytest.raises(RuntimeError, match="not available"):
+        native.spectrum(np.full((1, 2), 7, np.int32), np.array([30], np.int32), 4)
     monkeypatch.setattr(native, "_tried", False)
     monkeypatch.setenv("CXX", "no-such-compiler-here")
     with pytest.raises(RuntimeError, match="no C\\+\\+ compiler"):
@@ -618,6 +650,28 @@ def test_api_routes_match_jax(route):
         _eq(_outcome(getattr(api, name), *args)[:2], _outcome(getattr(japi, name), *args)[:2])
     if mode == "library":
         assert calls["encode"] and calls["count_kmers"] and calls["split_packed"]
+
+
+def test_api_routes_take_keywords(route):
+    """Each routed function of the host API takes its parameters by name,
+    as the JAX package's do, on either route."""
+    from bitnuc_tpu import api as japi
+
+    mode, calls = route
+    e = api.encode.numpy(b"ACGTTGCAAC" * 4)
+    calls_by_name = [
+        ("as_2bit", dict(seq=b"ACGT")), ("from_2bit", dict(packed=228, n_bases=4)),
+        ("encode", dict(seq=b"ACGTTGCA")), ("decode", dict(ebuf=e, n_bases=40)),
+        ("hdist", dict(ebuf1=e, ebuf2=e[::-1].copy(), n_bases=40)),
+        ("hdist_scalar", dict(u=228, v=27, length=4)),
+        ("split_packed", dict(ebuf=e, slen=40, idx=13)),
+    ]
+    for name, kw in calls_by_name:
+        got = getattr(api, name)(**kw)
+        _eq(got, getattr(api, name)(*kw.values()))
+        _eq(got, getattr(japi, name)(**kw))
+    if mode == "library":
+        assert all(calls[name] >= 2 for name, _ in calls_by_name)
 
 
 def test_filter_and_qc_route_match_jax(route, tmp_path):
