@@ -3488,10 +3488,11 @@ def host_library_phase(args, torch, dev, timer, results, fq):
 
     def row(name, lib, twin, size, full=None, full_size="", equal=arrays_equal,
             twin_name="its numpy twin"):
-        """Time lib and twin on one input (the twin once, cold) and check
-        their outputs equal; time ``full``, the library on the whole input."""
+        """Time lib and twin alike on one input (each warm, the median of
+        3) and check their outputs equal; time ``full``, the library on the
+        whole input."""
         lib_ms, got = wall_ms(lib)
-        twin_ms, want = wall_ms(twin, reps=1, warmup=False)
+        twin_ms, want = wall_ms(twin)
         r = rows[name] = dict(size=size, lib_ms=lib_ms, twin_ms=twin_ms)
         check(f"{name}: the library == {twin_name}", equal(got, want))
         extra = ""
