@@ -12,68 +12,127 @@
 // query, word and entry).
 //
 // Design: threads run along D, so a warp's loads of db[w, d:d+32] are
-// coalesced. A block takes a tile of TQ queries, keeps them pre-masked in
-// shared memory, and holds each loaded database word in a register while it
-// serves all TQ queries; the database is read once per query tile instead
-// of once per query. n_bases is a runtime argument: the per-word masks are
-// computed in the kernel, and words wholly past n_bases are never loaded.
-// The TPU kernel's 8-row broadcast output tile and literal-baked masks are
-// Mosaic artefacts and are not kept.
+// coalesced. A block takes a tile of queries, keeps them in shared memory,
+// and holds each loaded database word in a register while it serves every
+// query of the tile; the database is read once per tile. The tile is sized
+// to Q: TQ in {1, 2, 4, 8, 16, 32}, the smallest that covers Q, and
+// ceil(Q / 32) tiles of 32 above. A tile computes only the queries it has
+// (nq <= TQ, see slot_query), so no slot works for a query that is not
+// there. Only the last word can be partial: it alone is masked, in the
+// query (in shared memory) and in the database word. n_bases is a runtime
+// argument and words wholly past it are never loaded. Queries longer than
+// the shared-memory budget are taken in chunks of words. The TPU kernel's
+// 8-row broadcast output tile and literal-baked masks are Mosaic artefacts
+// and are not kept.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kTileQ = 16;
-constexpr size_t kMaxSmem = 227 * 1024;
+constexpr int kMaxTile = 32;              // the largest query tile
+constexpr int kSmemBudget = 48 * 1024;    // shared bytes a block: chunks past it
 
+__host__ __device__ constexpr int log2i(int n) { return n > 1 ? 1 + log2i(n / 2) : 0; }
+
+// The query held in slot s of a tile that serves nq of its TQ slots, or -1.
+// nq == TQ fills every slot in order. Otherwise each set bit b of nq is a
+// run of 2^b slots at TQ - 2^(b+1), holding the queries from nq's bits
+// above b on: every run's offset is a compile-time constant, and a tile
+// runs exactly the runs of nq's bits.
 template <int TQ>
-__global__ void hdist_scan_kernel(const uint32_t* __restrict__ queries,
-                                  const uint32_t* __restrict__ db, int64_t Q,
-                                  int64_t W, int64_t D, int weff, int n_bases,
-                                  int32_t* __restrict__ out) {
-  extern __shared__ uint32_t sq[];  // [TQ, weff] masked query words
-  const int64_t q0 = (int64_t)blockIdx.y * TQ;
-  for (int i = threadIdx.x; i < TQ * weff; i += blockDim.x) {
-    const int t = i / weff;
-    const int w = i - t * weff;
-    sq[i] = q0 + t < Q ? queries[(q0 + t) * W + w] & bn::base_mask(n_bases - 16 * w)
-                       : 0u;
+__device__ __forceinline__ int slot_query(int s, int nq) {
+  if (nq == TQ) return s;
+  for (int b = 0; (1 << b) < TQ; ++b) {
+    const int off = TQ - (2 << b);
+    if ((nq >> b & 1) && s >= off && s < off + (1 << b)) return (nq >> (b + 1) << (b + 1)) + s - off;
   }
-  __syncthreads();
-  const int64_t d = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (d >= D) return;
-  int acc[TQ];
+  return -1;
+}
+
+// One database word x against the N slots from OFF of one word's queries.
+template <int N, int OFF, int TQ>
+__device__ __forceinline__ void run_word(int (&acc)[TQ], const uint32_t* sq, uint32_t x) {
 #pragma unroll
-  for (int t = 0; t < TQ; ++t) acc[t] = 0;
-  for (int w = 0; w < weff; ++w) {
-    const uint32_t x = db[(int64_t)w * D + d] & bn::base_mask(n_bases - 16 * w);
-#pragma unroll
-    for (int t = 0; t < TQ; ++t) {
-      const uint32_t diff = x ^ sq[t * weff + w];
-      acc[t] += __popc((diff | (diff >> 1)) & 0x55555555u);
-    }
+  for (int i = 0; i < N; ++i) {
+    const uint32_t diff = x ^ sq[OFF + i];
+    acc[OFF + i] += __popc((diff | (diff >> 1)) & 0x55555555u);
   }
-#pragma unroll
-  for (int t = 0; t < TQ; ++t) {
-    if (q0 + t < Q) out[(q0 + t) * D + d] = acc[t];
+}
+
+template <int TQ, int B>
+__device__ __forceinline__ void bit_runs(int (&acc)[TQ], const uint32_t* sq, uint32_t x, int nq) {
+  if (nq >> B & 1) run_word<(1 << B), TQ - (2 << B), TQ>(acc, sq, x);
+  if constexpr (B > 0) bit_runs<TQ, B - 1>(acc, sq, x, nq);
+}
+
+// One database word against the tile's nq queries (branches uniform).
+template <int TQ>
+__device__ __forceinline__ void tile_word(int (&acc)[TQ], const uint32_t* sq, uint32_t x, int nq) {
+  if (nq == TQ) {
+    run_word<TQ, 0, TQ>(acc, sq, x);
+  } else if constexpr (TQ > 1) {
+    bit_runs<TQ, log2i(TQ) - 1>(acc, sq, x, nq);
   }
 }
 
 template <int TQ>
-int launch(const uint32_t* queries, const uint32_t* db, int64_t Q, int64_t W,
-           int64_t D, int weff, int n_bases, int32_t* out, cudaStream_t stream) {
-  const size_t smem = sizeof(uint32_t) * TQ * (size_t)(weff > 0 ? weff : 1);
-  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  cudaFuncSetAttribute(hdist_scan_kernel<TQ>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+__global__ void __launch_bounds__(kThreads)
+hdist_scan_kernel(const uint32_t* __restrict__ queries, const uint32_t* __restrict__ db,
+                  int64_t Q, int64_t W, int64_t D, int weff, int n_bases, int chunk,
+                  int32_t* __restrict__ out) {
+  extern __shared__ uint32_t sq[];  // [chunk words, TQ slots]
+  const int64_t q0 = (int64_t)blockIdx.y * TQ;
+  const int nq = Q - q0 < TQ ? (int)(Q - q0) : TQ;
+  const int64_t d = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const bool live = d < D;
+  const int last = weff - 1;  // the only word that may be partial
+  const uint32_t last_mask = bn::base_mask(n_bases - 16 * last);
+  int acc[TQ];
+#pragma unroll
+  for (int s = 0; s < TQ; ++s) acc[s] = 0;
+  for (int w0 = 0; w0 < weff; w0 += chunk) {
+    const int wn = weff - w0 < chunk ? weff - w0 : chunk;
+    if (w0 > 0) __syncthreads();
+    for (int i = threadIdx.x; i < wn * TQ; i += blockDim.x) {
+      const int w = i / TQ;
+      const int j = slot_query<TQ>(i - w * TQ, nq);
+      uint32_t v = 0;
+      if (j >= 0) {
+        v = queries[(q0 + j) * W + w0 + w];
+        if (w0 + w == last) v &= last_mask;
+      }
+      sq[i] = v;
+    }
+    __syncthreads();
+    if (live) {
+      const int full = w0 + wn < last ? w0 + wn : last;
+#pragma unroll(TQ <= 4 ? 4 : 2)
+      for (int w = w0; w < full; ++w) tile_word<TQ>(acc, sq + (w - w0) * TQ, db[w * D + d], nq);
+      if (w0 + wn == weff)
+        tile_word<TQ>(acc, sq + (last - w0) * TQ, db[last * D + d] & last_mask, nq);
+    }
+  }
+  if (!live) return;
+#pragma unroll
+  for (int s = 0; s < TQ; ++s) {
+    const int j = slot_query<TQ>(s, nq);
+    if (j >= 0) out[(q0 + j) * D + d] = acc[s];
+  }
+}
+
+template <int TQ>
+int launch(const uint32_t* queries, const uint32_t* db, int64_t Q, int64_t W, int64_t D,
+           int weff, int n_bases, int32_t* out, cudaStream_t stream) {
+  const int cap = kSmemBudget / (int)(sizeof(uint32_t) * TQ);
+  const int chunk = weff < cap ? (weff > 0 ? weff : 1) : cap;
+  const size_t smem = sizeof(uint32_t) * TQ * (size_t)chunk;
   const unsigned bx = (unsigned)((D + kThreads - 1) / kThreads);
   const int64_t max_tiles = 65535;  // gridDim.y limit
   for (int64_t qs = 0; qs < Q; qs += max_tiles * TQ) {
     const int64_t qn = Q - qs < max_tiles * TQ ? Q - qs : max_tiles * TQ;
     const dim3 grid(bx, (unsigned)((qn + TQ - 1) / TQ));
     hdist_scan_kernel<TQ><<<grid, kThreads, smem, stream>>>(
-        queries + qs * W, db, qn, W, D, weff, n_bases, out + qs * D);
+        queries + qs * W, db, qn, W, D, weff, n_bases, chunk, out + qs * D);
   }
   return (int)cudaGetLastError();
 }
@@ -90,6 +149,11 @@ extern "C" int bn_hdist_scan(const void* queries, const void* db, int64_t Q,
   const uint32_t* d = (const uint32_t*)db;
   int32_t* o = (int32_t*)out;
   cudaStream_t s = (cudaStream_t)stream;
-  if (Q == 1) return launch<1>(q, d, Q, W, D, (int)weff, n_bases, o, s);
-  return launch<kTileQ>(q, d, Q, W, D, (int)weff, n_bases, o, s);
+  const int we = (int)weff;
+  if (Q == 1) return launch<1>(q, d, Q, W, D, we, n_bases, o, s);
+  if (Q == 2) return launch<2>(q, d, Q, W, D, we, n_bases, o, s);
+  if (Q <= 4) return launch<4>(q, d, Q, W, D, we, n_bases, o, s);
+  if (Q <= 8) return launch<8>(q, d, Q, W, D, we, n_bases, o, s);
+  if (Q <= 16) return launch<16>(q, d, Q, W, D, we, n_bases, o, s);
+  return launch<kMaxTile>(q, d, Q, W, D, we, n_bases, o, s);
 }

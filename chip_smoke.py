@@ -5,6 +5,7 @@ Run from the root of a checkout, on a machine with a CUDA card, nvcc and
 PyTorch built for CUDA:
 
     python3 chip_smoke.py [--out results.json] [--seed 0]
+    python3 chip_smoke.py --scan-against DIR [--out results.json]
     python3 chip_smoke.py --k6-against DIR [--out results.json]
     python3 chip_smoke.py --orf-against DIR [--out results.json]
     python3 chip_smoke.py --pack-against DIR [--out results.json]
@@ -12,13 +13,13 @@ PyTorch built for CUDA:
     python3 chip_smoke.py --unpack-against DIR [--out results.json]
     python3 chip_smoke.py --chain-against DIR [--out results.json]
 
-The last six forms run no phase: they time K6 (tc_scan and tc_search),
-K10 (orf_scan) and longest_orf, K1 (pack), K3b's counts and the flagship
-step, K2 (unpack), or chain_anchors (C1), of this checkout beside those of
-another checkout in DIR (for example a git archive of an earlier commit,
-unpacked), in turns DIR, this, this, DIR, on one card (see k6_against,
-orf_against, pack_against, hist_against, unpack_against and
-chain_against).
+The last seven forms run no phase: they time K4/K5 (hdist_scan), K6
+(tc_scan and tc_search), K10 (orf_scan) and longest_orf, K1 (pack), K3b's
+counts and the flagship step, K2 (unpack), or chain_anchors (C1), of this
+checkout beside those of another checkout in DIR (for example a git
+archive of an earlier commit, unpacked), in turns DIR, this, this, DIR, on
+one card (see scan_against, k6_against, orf_against, pack_against,
+hist_against, unpack_against and chain_against).
 
 Phases, each of which must pass:
 
@@ -27,8 +28,8 @@ Phases, each of which must pass:
    beside it (bitnuc_tpu_torch/native with the host compiler, timed; the
    script fails when it does not build or load); the registers, shared
    memory and spills of pack.cu (K1), unpack.cu (K2), histogram.cu (K3a,
-   K3b), tcscan.cu (K6), merge.cu (K7), wavefront.cu (K8, K9), orf.cu
-   (K10) and chain.cu (C1).
+   K3b), hamming.cu (K4/K5, each query tile), tcscan.cu (K6), merge.cu
+   (K7), wavefront.cu (K8, K9), orf.cu (K10) and chain.cu (C1).
 2. Every kernel against its plain PyTorch version on the card, bit for bit:
    K1 pack (at the flagship's batch, a count batch, reads of 300, 1,000
    and 4,000 bp, 64 rows of 16,384 bp, phase 6's genome as one row and a
@@ -40,7 +41,9 @@ Phases, each of which must pass:
    hist_words (plain and canonical at k = 1, 4, 7, 8, 9 and 12, at edge
    lengths and on poly-A; timed at the flagship step's two k = 8 launches,
    the main rows), K4 hdist_scan and K5
-   hdist_scan_batch (one kernel; K5 beside torch._int_mm), K6 tc_scan, K7 merge and K10 orf_scan at
+   hdist_scan_batch (one kernel, at the shapes distances_batch sends it:
+   Q = 1, 3, 8, 16 and 31 on 512-base entries, 64 and 127 on 150-base
+   ones; beside torch._int_mm at Q = 31 and 64), K6 tc_scan, K7 merge and K10 orf_scan at
    the main paths' shapes and at edge shapes (K3a also on poly-A keys and
    at k = 11; K7 also lopsided and all ties; K10 at phase 8's batch on
    both strands, and on one strand at the table's row, phase 8's contigs,
@@ -298,7 +301,20 @@ HIST_PRIVATE_K = 7  # K3b's largest k on private tables, timed beside k = 8
 HIST_CANONICAL_OPS_PER_WINDOW = HIST_OPS_PER_WINDOW + 3 + 8 / 16
 ORF_OPS_PER_WORD = 48
 ORF_TWO_STRAND_OPS_PER_WORD = 8 + 5 + 2 + 2 * (7 + 3 * 8 + 3)
-TC_SWEEP_Q = (1, 8, 16, 32, 64, 128, 256, 512)
+# K4/K5 counted in the cheapest form known (csrc/hamming.cu): per word pair
+# of an entry, the two words merged into two by a bit select and by two
+# shifts and a select (4); per query, word pair and entry one XOR, one
+# three-input op, one popcount and half an add (two pairs' popcounts go
+# into one three-input add). So 1.25 int32 operations and half a popcount a
+# (query, word, entry), and 2 int32 operations a (word, entry).
+SCAN_OPS_PER_QWE = 1.25
+SCAN_POPC_PER_QWE = 0.5
+SCAN_OPS_PER_WE = 2
+# K4 (Q = 1) and K5 at the shapes PackedDB.distances_batch sends it, (Q,
+# n_bases) on DB_ENTRIES entries: phase 2's rows and --scan-against's
+SCAN_SHAPES = ((1, DB_BASES), (3, DB_BASES), (8, DB_BASES), (16, DB_BASES), (31, DB_BASES),
+               (64, DB_BASES), (64, READ_LEN), (127, READ_LEN))
+TC_SWEEP_Q = (1, 8, 16, 24, 32, 48, 64, 128, 256, 512)
 SEARCH_SWEEP_Q = (1, 8, 32, 64, 128, 256, 512)  # search_batch's two routes
 SEARCH_QUERIES = 256  # phase 8's query file, and K6's reported shape
 TC_SLICE = 262_144  # database entries K6's plain version is compared on
@@ -3722,6 +3738,53 @@ def against(args, torch, rows, extra=None) -> int:
     return finish_against(args, torch, res)
 
 
+def scan_bounds(Q: int, nb: int, D: int = DB_ENTRIES) -> dict:
+    """K4/K5's bytes (each entry's first ceil(nb / 16) words, the queries'
+    and the output, each once) and the least time of its operations, the
+    busier of the popcount and int32 units (SCAN_*_PER_*)."""
+    n_w = -(-nb // 16)
+    return dict(nbytes=4 * n_w * D + 4 * Q * n_w + 4 * Q * D,
+                ops_ms=max(SCAN_POPC_PER_QWE * Q * D * n_w / POPC_PER_S,
+                           (SCAN_OPS_PER_QWE * Q + SCAN_OPS_PER_WE) * D * n_w
+                           / INT32_OPS_PER_S) * 1e3)
+
+
+def scan_inputs(torch, dev, seed: int):
+    """The random word-major database [DB_BASES / 16, DB_ENTRIES] and the
+    largest query batch of SCAN_SHAPES, made from ``seed``."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 25)
+    W = DB_BASES // 16
+    db = torch.randint(-(2**31), 2**31 - 1, (W, DB_ENTRIES), device=dev, generator=gen,
+                       dtype=torch.int32)
+    q = torch.randint(-(2**31), 2**31 - 1, (max(Q for Q, _ in SCAN_SHAPES), W), device=dev,
+                      generator=gen, dtype=torch.int32)
+    return db, q
+
+
+def scan_against(args, torch, dev) -> int:
+    """K4/K5 of this checkout beside another's (``--scan-against DIR``), by
+    ``against``: hdist_scan_kernel at each of SCAN_SHAPES (K4 at Q = 1, K5
+    at the Q that distances_batch sends it, on 512- and 150-base entries),
+    held to this checkout's plain version, with K4/K5's bound."""
+    from bitnuc_tpu_torch.ops import hamming
+    from bitnuc_tpu_torch.utils import bitops
+
+    (trees,) = tree_modules(args.scan_against, "ops.hamming")
+    db, q_max = scan_inputs(torch, dev, args.seed)
+    rows = []
+    for Q, nb in SCAN_SHAPES:
+        d = db[: bitops.n_words_for(nb)].contiguous()
+        q = q_max[:Q, : d.shape[0]].contiguous()
+        b = scan_bounds(Q, nb)
+        rows.append((f"Q={Q} D={DB_ENTRIES} n_bases={nb}",
+                     {name: (lambda h=h, q=q, d=d, nb=nb: h.hdist_scan_kernel(q, d, nb))
+                      for name, h in trees.items()},
+                     lambda q=q, d=d, nb=nb: hamming.hdist_scan_torch(q, d, nb),
+                     max(b["nbytes"] / HBM_BYTES_PER_S * 1e3, b["ops_ms"])))
+    return against(args, torch, rows)
+
+
 def k6_against(args, torch, dev) -> int:
     """K6 of this checkout beside another's (``--k6-against DIR``): tc_scan,
     and tc_search at k = SEARCH_TOPK, at Q = SEARCH_QUERIES and 8 against
@@ -4165,6 +4228,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the full results here as JSON")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--scan-against", metavar="DIR",
+                    help="only time K4/K5 beside another checkout's (see scan_against)")
     ap.add_argument("--k6-against", metavar="DIR",
                     help="only time K6 beside another checkout's (see k6_against)")
     ap.add_argument("--orf-against", metavar="DIR",
@@ -4203,6 +4268,8 @@ def main() -> int:
         return 1
 
     dev = torch.device("cuda")
+    if args.scan_against:
+        return scan_against(args, torch, dev)
     if args.k6_against:
         return k6_against(args, torch, dev)
     if args.orf_against:
@@ -4248,13 +4315,14 @@ def main() -> int:
                  native_build.get("error", native._error)):
         return 1
     phase_clock(results, "phase 1: ptxas reports")
-    # K1's, K2's, K3a's, K6's, K7's, K8/K9's, K10's and C1's registers, shared
-    # memory and spills: nvcc -Xptxas -v of pack.cu, unpack.cu, histogram.cu,
-    # tcscan.cu, merge.cu, wavefront.cu, orf.cu and chain.cu
+    # K1's, K2's, K3a's, K4/K5's (one instantiation a query tile), K6's, K7's,
+    # K8/K9's, K10's and C1's registers, shared memory and spills: nvcc
+    # -Xptxas -v of pack.cu, unpack.cu, histogram.cu, hamming.cu, tcscan.cu,
+    # merge.cu, wavefront.cu, orf.cu and chain.cu
     with tempfile.TemporaryDirectory() as d:
         ptxas = build_time.ptxas_report(
-            Path(d), ("pack.cu", "unpack.cu", "histogram.cu", "tcscan.cu", "merge.cu",
-                      "wavefront.cu", "orf.cu", "chain.cu"))
+            Path(d), ("pack.cu", "unpack.cu", "histogram.cu", "hamming.cu", "tcscan.cu",
+                      "merge.cu", "wavefront.cu", "orf.cu", "chain.cu"))
     for src, lines in sorted(ptxas.items()):
         for line in lines:
             print(f"  ptxas {src}: {line}", flush=True)
@@ -4277,19 +4345,18 @@ def main() -> int:
         """Time a kernel and its plain version. The bound comes from the
         bytes it must move (``nbytes``) and its operations' least time
         (``ops_ms``). ``main`` marks the shape that the summary line reports
-        for the kernel; there ``library`` is the one PyTorch call that
-        computes the same function, where there is one (timed, never used
-        by the port)."""
+        for the kernel. ``library`` is the one PyTorch call that computes the
+        same function, where there is one (timed, never used by the
+        port)."""
         ms, pms = timer(kern, reps), timer(plain, plain_reps)
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         row = {"shape": label, "ms": ms, "plain_ms": pms, "main": main,
                "bound_ms": max(bytes_ms, ops_ms),
                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
         extra = f", bound {row['bound_ms']:.4f} ms ({row['bound_by']})" if row["bound_ms"] else ""
-        if main:
-            row["library_ms"] = timer(library, reps) if library else None
-            if library:
-                extra += f", library call {row['library_ms']:.4f} ms"
+        row["library_ms"] = timer(library, reps) if library else None
+        if library:
+            extra += f", library call {row['library_ms']:.4f} ms"
         timings[name].append(row)
         print(f"    {name} {label}: kernel {ms:.4f} ms, plain {pms:.4f} ms{extra}", flush=True)
         return row
@@ -4561,41 +4628,44 @@ def main() -> int:
                           generator=gen, dtype=torch.int32)
     db_small = db[:, :1000].contiguous()
 
-    def scan_bounds(Q, nb):
-        """K4/K5's bytes, and the busier of its two units: a popcount and
-        four int32 operations per (query, word, entry)."""
-        n_w = -(-nb // 16)  # words a distance reads per entry
-        return dict(nbytes=4 * n_w * DB_ENTRIES + 4 * Q * n_w + 4 * Q * DB_ENTRIES,
-                    ops_ms=max(Q * DB_ENTRIES * n_w / POPC_PER_S,
-                               4 * Q * DB_ENTRIES * n_w / INT32_OPS_PER_S) * 1e3)
-
     phase_clock(results, "phase 2: K4 and K5")
-    # K4 (Q = 1) and K5 (Q > 1): one kernel, counted and reported apart. K5's
-    # library call is torch._int_mm of the same bit planes, as K6's (K4 has
-    # none: torch._int_mm takes more than 16 rows)
+    # K4 (Q = 1) and K5 (Q > 1): one kernel, counted and reported apart, at
+    # SCAN_SHAPES, the shapes distances_batch sends it (the main rows: K4,
+    # and K5 at Q = 8, 16 and 31, on 512-base entries). K5's library call is
+    # torch._int_mm of the same bit planes, as K6's, where it takes the rows
+    # (more than 16): at Q = 31 and 64 on 512-base entries
     lib_planes = int_mm_planes(torch, db)
-    for nb in (512, 150, 7):
-        for Q in (1, 64):
-            name = "hdist_scan" if Q == 1 else "hdist_scan_batch"
+    for Q, nb in SCAN_SHAPES:
+        name = "hdist_scan" if Q == 1 else "hdist_scan_batch"
+        d = db[: bitops.n_words_for(nb)].contiguous() if nb < DB_BASES else db
+        q = q_max[:Q, : d.shape[0]].contiguous()
+        label = f"Q={Q} D={DB_ENTRIES} n_bases={nb}"
+        got = hamming.hdist_scan_kernel(q, d, nb)
+        compare(name, label, got, hamming.hdist_scan_torch(q, d, nb))
+        library = None
+        if Q > 16 and nb == DB_BASES:
+            lib_q5 = hamming.query_planes(q, nb)
+            compare(name, f"torch._int_mm core Q={Q} (affine step applied)",
+                    torch.div(3 * nb - torch._int_mm(lib_q5, lib_planes.t()), 4,
+                              rounding_mode="floor"), got)
+            library = lambda: torch._int_mm(lib_q5, lib_planes.t())  # noqa: E731
+        del got
+        row = timed(name, label, lambda: hamming.hdist_scan_kernel(q, d, nb),
+                    lambda: hamming.hdist_scan_torch(q, d, nb),
+                    main=nb == DB_BASES and Q in (1, 8, 16, 31), library=library,
+                    **scan_bounds(Q, nb))
+        if library:
+            check(f"K5 no slower than torch._int_mm at Q={Q}", row["ms"] <= row["library_ms"],
+                  f"{row['ms']:.4f} against {row['library_ms']:.4f} ms")
+        del d
+    for nb in (512, 150, 7):  # edge shapes: partial tiles, one and 1,000 entries
+        for Q, d in ((1, db), (3, db), (64, db), (3, db_small), (17, db_small), (33, db_small),
+                     (64, db_small), (1, db[:, :1].contiguous())):
+            if nb == DB_BASES and d is db:
+                continue  # above
             q = q_max[:Q].contiguous()
-            label = f"Q={Q} D={DB_ENTRIES} n_bases={nb}"
-            got = hamming.hdist_scan_kernel(q, db, nb)
-            compare(name, label, got, hamming.hdist_scan_torch(q, db, nb))
-            library = None
-            if Q > 1 and nb == DB_BASES:
-                lib_q5 = hamming.query_planes(q, nb)
-                compare(name, f"torch._int_mm core Q={Q} (affine step applied)",
-                        torch.div(3 * nb - torch._int_mm(lib_q5, lib_planes.t()), 4,
-                                  rounding_mode="floor"), got)
-                library = lambda: torch._int_mm(lib_q5, lib_planes.t())  # noqa: E731
-            del got
-            if nb in (512, 150):
-                timed(name, label, lambda: hamming.hdist_scan_kernel(q, db, nb),
-                      lambda: hamming.hdist_scan_torch(q, db, nb),
-                      main=nb == DB_BASES, library=library, **scan_bounds(Q, nb))
-        for Q, d in ((3, db), (64, db_small), (3, db_small)):
-            q = q_max[:Q].contiguous()
-            compare("hdist_scan_batch", f"Q={Q} D={d.shape[1]} n_bases={nb}",
+            compare("hdist_scan" if Q == 1 else "hdist_scan_batch",
+                    f"Q={Q} D={d.shape[1]} n_bases={nb}",
                     hamming.hdist_scan_kernel(q, d, nb), hamming.hdist_scan_torch(q, d, nb))
 
     phase_clock(results, "phase 2: K6")

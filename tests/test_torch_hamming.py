@@ -34,9 +34,26 @@ def test_scan_one_query_matches_pallas(rng, D, W, nb):
     np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
 
 
-@pytest.mark.parametrize("Q,D,nb", [(1, 16, 32), (5, 100, 77), (70, 513, 200)])
-def test_scan_batch_matches_pallas_and_xla(rng, Q, D, nb):
-    W = jbitops.n_words_for(nb)
+# n_bases of each widened case, from W: none, one base, one word, one base
+# into the second word, one short of every word, every word
+SCAN_NB = {"0": lambda W: 0, "1": lambda W: 1, "16": lambda W: 16, "17": lambda W: 17,
+           "16W-1": lambda W: 16 * W - 1, "16W": lambda W: 16 * W}
+
+
+@pytest.mark.parametrize("Q,D,W,nb", [
+    pytest.param(1, 16, None, 32, id="1-16-32"),
+    pytest.param(5, 100, None, 77, id="5-100-77"),
+    pytest.param(70, 513, None, 200, id="70-513-200"),
+] + [pytest.param(Q, 300, 5, nb, id=f"Q{Q}-W5-nb{nb}")
+     for Q in (2, 8, 16, 17, 31, 33) for nb in SCAN_NB])
+def test_scan_batch_matches_pallas_and_xla(rng, Q, D, W, nb):
+    """Q across K5's query tiles (a partial tile of 32 past it); n_bases at
+    0, 1, a word's end and past it, one short of all words and all of them,
+    on an odd W."""
+    if W is None:
+        W = jbitops.n_words_for(nb)
+    else:
+        nb = SCAN_NB[nb](W)
     db = rng.integers(0, 2**32, size=(D, W), dtype=np.uint32)
     qs = rng.integers(0, 2**32, size=(Q, W), dtype=np.uint32)
     want = np.asarray(jph.hdist_scan_batch_pallas(
@@ -47,6 +64,50 @@ def test_scan_batch_matches_pallas_and_xla(rng, Q, D, nb):
     np.testing.assert_array_equal(got.numpy(), want)
     got_rm = hamming.hdist_many_to_many(words_from_u32_np(qs), words_from_u32_np(db), nb)
     np.testing.assert_array_equal(got_rm.numpy(), want)
+
+
+# -- a model of K4/K5's query tiles (csrc/hamming.cu) ---------------------------
+
+SCAN_TILES = (1, 2, 4, 8, 16, 32)
+
+
+def _scan_tile(Q):
+    """The kernel's query tile for Q queries: the smallest that covers Q,
+    else 32 (and ceil(Q / 32) tiles)."""
+    return next((t for t in SCAN_TILES if t >= Q), SCAN_TILES[-1])
+
+
+def _slot_query(TQ, s, nq):
+    """hamming.cu's slot_query: the query of slot s in a tile of TQ slots
+    serving nq queries, or -1."""
+    if nq == TQ:
+        return s
+    for b in range(TQ.bit_length() - 1):
+        off = TQ - (2 << b)
+        if nq >> b & 1 and off <= s < off + (1 << b):
+            return (nq >> (b + 1) << (b + 1)) + s - off
+    return -1
+
+
+@pytest.mark.parametrize("TQ", SCAN_TILES)
+def test_scan_tile_slots_hold_each_query_once(TQ):
+    """Every nq <= TQ: the slots hold queries 0..nq-1 once each, no more
+    slots work than nq, and each of nq's bits b is the run of 2^b slots at
+    TQ - 2^(b+1) whatever the other bits (its offset is fixed)."""
+    for nq in range(1, TQ + 1):
+        held = [_slot_query(TQ, s, nq) for s in range(TQ)]
+        assert sorted(j for j in held if j >= 0) == list(range(nq))
+        if nq == TQ:
+            continue
+        for b in range(TQ.bit_length() - 1):
+            run = held[TQ - (2 << b): TQ - (1 << b)]
+            if nq >> b & 1:
+                base = nq >> (b + 1) << (b + 1)
+                assert run == list(range(base, base + (1 << b)))
+            else:
+                assert run == [-1] * (1 << b)
+    assert [_scan_tile(Q) for Q in (1, 2, 3, 5, 9, 16, 17, 32, 33, 127)] == \
+        [1, 2, 4, 8, 16, 16, 32, 32, 32, 32]
 
 
 def test_topk_ties_and_tail(rng):

@@ -264,13 +264,33 @@ def test_hist_keys_kernel_edges(cuda, k, kind):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("Q,nb", [(1, 512), (3, 150), (64, 7)])
-def test_hdist_scan_kernel_matches_plain(cuda, Q, nb):
+@pytest.mark.parametrize("Q", [1, 2, 3, 7, 8, 9, 15, 16, 17, 31, 32, 33, 64, 127])
+@pytest.mark.parametrize("nb", [1, 7, 16, 17, 150, 511, 512])
+@pytest.mark.parametrize("W", [1, 10, 32, 33])
+def test_hdist_scan_kernel_matches_plain(cuda, Q, nb, W):
+    """Every query tile, full and partial, and past 32 queries; n_bases on
+    both sides of a word's end (clamped to 16 W); odd and even W; D = 1,
+    1,000 and 1,001 (a ragged block)."""
     g = torch.Generator().manual_seed(3)
-    db = torch.randint(-(2**31), 2**31 - 1, (32, 1000), generator=g, dtype=torch.int32)
-    q = torch.randint(-(2**31), 2**31 - 1, (Q, 32), generator=g, dtype=torch.int32)
-    db, q = db.to(cuda), q.to(cuda)
-    assert torch.equal(hamming.hdist_scan_kernel(q, db, nb), hamming.hdist_scan_torch(q, db, nb))
+    for D in (1, 1000, 1001):
+        db = torch.randint(-(2**31), 2**31 - 1, (W, D), generator=g, dtype=torch.int32)
+        q = torch.randint(-(2**31), 2**31 - 1, (Q, W), generator=g, dtype=torch.int32)
+        db, q = db.to(cuda), q.to(cuda)
+        assert torch.equal(hamming.hdist_scan_kernel(q, db, nb),
+                           hamming.hdist_scan_torch(q, db, nb))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q,W", [(1, 13000), (2, 6500), (3, 3100), (32, 385), (33, 800)])
+def test_hdist_scan_kernel_word_chunks(cuda, Q, W):
+    """Queries past the shared-memory budget of their tile, taken in chunks
+    of words; n_bases inside the last chunk and at its end, and 0."""
+    g = torch.Generator().manual_seed(4)
+    db = torch.randint(-(2**31), 2**31 - 1, (W, 300), generator=g, dtype=torch.int32).to(cuda)
+    q = torch.randint(-(2**31), 2**31 - 1, (Q, W), generator=g, dtype=torch.int32).to(cuda)
+    for nb in (16 * W - 5, 16 * W, 0):
+        assert torch.equal(hamming.hdist_scan_kernel(q, db, nb),
+                           hamming.hdist_scan_torch(q, db, nb))
 
 
 @pytest.mark.cuda
