@@ -75,6 +75,31 @@ __device__ __forceinline__ void tile_word(int (&acc)[TQ], const uint32_t* sq, ui
   }
 }
 
+// The N slots from OFF, holding the queries from j0 on, into their rows of
+// out (at this thread's entry).
+template <int N, int OFF, int TQ>
+__device__ __forceinline__ void store_run(const int (&acc)[TQ], int32_t* out, int64_t D, int j0) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) out[(j0 + i) * D] = acc[OFF + i];
+}
+
+template <int TQ, int B>
+__device__ __forceinline__ void store_bit_runs(const int (&acc)[TQ], int32_t* out, int64_t D,
+                                               int nq) {
+  if (nq >> B & 1) store_run<(1 << B), TQ - (2 << B), TQ>(acc, out, D, nq >> (B + 1) << (B + 1));
+  if constexpr (B > 0) store_bit_runs<TQ, B - 1>(acc, out, D, nq);
+}
+
+// The tile's nq distances, run by run as slot_query lays them out.
+template <int TQ>
+__device__ __forceinline__ void store_tile(const int (&acc)[TQ], int32_t* out, int64_t D, int nq) {
+  if (nq == TQ) {
+    store_run<TQ, 0, TQ>(acc, out, D, 0);
+  } else if constexpr (TQ > 1) {
+    store_bit_runs<TQ, log2i(TQ) - 1>(acc, out, D, nq);
+  }
+}
+
 template <int TQ>
 __global__ void __launch_bounds__(kThreads)
 hdist_scan_kernel(const uint32_t* __restrict__ queries, const uint32_t* __restrict__ db,
@@ -112,12 +137,7 @@ hdist_scan_kernel(const uint32_t* __restrict__ queries, const uint32_t* __restri
         tile_word<TQ>(acc, sq + (last - w0) * TQ, db[last * D + d] & last_mask, nq);
     }
   }
-  if (!live) return;
-#pragma unroll
-  for (int s = 0; s < TQ; ++s) {
-    const int j = slot_query<TQ>(s, nq);
-    if (j >= 0) out[(q0 + j) * D + d] = acc[s];
-  }
+  if (live) store_tile<TQ>(acc, out + q0 * D + d, D, nq);
 }
 
 template <int TQ>
