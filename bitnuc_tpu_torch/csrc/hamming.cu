@@ -3,27 +3,36 @@
 //
 // Replaces bitnuc_tpu/ops/pallas/hamming.py::hdist_scan_pallas (K4, one
 // query) and ::hdist_scan_batch_pallas (K5, a query batch): one kernel,
-// with K4 its Q = 1 case. For each (query, entry) pair it sums over the
-// words popcount(c(q ^ d) & m), where c collapses each 2-bit group to one
-// bit, (x | x >> 1) & 0x55555555, and m keeps the first n_bases bases.
+// with K4 its Q = 1 case. For each (query, entry) pair it counts the bases,
+// among the first n_bases, whose 2-bit codes differ.
+//
+// Arithmetic, a pair of words at a time: with d0, d1 the XORs of words w
+// and w + 1, c0 = d0 | d0 >> 1 holds word w's mismatches in its even bits
+// and c1 = d1 | d1 << 1 word w + 1's in its odd bits, so one popcount of
+// (c0 & 0x55555555) | (c1 & 0xAAAAAAAA) counts both. Shared memory holds
+// each query's words with their shifts, [q_w, q_w >> 1, q_w+1, q_w+1 << 1]
+// a pair, and each database word is shifted once for all queries:
+// c0 = (x0 >> 1 ^ q_w >> 1) | (x0 ^ q_w). Per query and pair: one 16-byte
+// broadcast load, 2 XORs, 2 three-input ops, a select, a popcount and an
+// add. An odd number of words pairs the last with zero.
 //
 // Bound on the card: at Q = 1, memory (4W bytes per entry, each read once);
-// at large Q, integer issue (about six integer operations and one popc per
-// query, word and entry).
+// from a few queries on, the popcount and integer units (see
+// chip_smoke.scan_bounds for the counts).
 //
 // Design: threads run along D, so a warp's loads of db[w, d:d+32] are
 // coalesced. A block takes a tile of queries, keeps them in shared memory,
-// and holds each loaded database word in a register while it serves every
-// query of the tile; the database is read once per tile. The tile is sized
-// to Q: TQ in {1, 2, 4, 8, 16, 32}, the smallest that covers Q, and
+// and holds each loaded pair of database words in registers while it serves
+// every query of the tile; the database is read once per tile. The tile is
+// sized to Q: TQ in {1, 2, 4, 8, 16, 32}, the smallest that covers Q, and
 // ceil(Q / 32) tiles of 32 above. A tile computes only the queries it has
 // (nq <= TQ, see slot_query), so no slot works for a query that is not
 // there. Only the last word can be partial: it alone is masked, in the
 // query (in shared memory) and in the database word. n_bases is a runtime
 // argument and words wholly past it are never loaded. Queries longer than
-// the shared-memory budget are taken in chunks of words. The TPU kernel's
-// 8-row broadcast output tile and literal-baked masks are Mosaic artefacts
-// and are not kept.
+// the shared-memory budget are taken in chunks of word pairs. The TPU
+// kernel's 8-row broadcast output tile and literal-baked masks are Mosaic
+// artefacts and are not kept.
 #include "common.cuh"
 
 namespace {
@@ -49,27 +58,35 @@ __device__ __forceinline__ int slot_query(int s, int nq) {
   return -1;
 }
 
-// One database word x against the N slots from OFF of one word's queries.
+// A pair of database words (x1 zero past the last word) and their shifts.
+struct Pair {
+  uint32_t x0, xs0, x1, xs1;
+  __device__ __forceinline__ Pair(uint32_t a, uint32_t b) : x0(a), xs0(a >> 1), x1(b), xs1(b << 1) {}
+};
+
+// One database word pair against the N slots from OFF of one pair's queries.
 template <int N, int OFF, int TQ>
-__device__ __forceinline__ void run_word(int (&acc)[TQ], const uint32_t* sq, uint32_t x) {
+__device__ __forceinline__ void run_pair(int (&acc)[TQ], const uint4* sq, const Pair& x) {
 #pragma unroll
   for (int i = 0; i < N; ++i) {
-    const uint32_t diff = x ^ sq[OFF + i];
-    acc[OFF + i] += __popc((diff | (diff >> 1)) & 0x55555555u);
+    const uint4 q = sq[OFF + i];
+    const uint32_t c0 = (x.xs0 ^ q.y) | (x.x0 ^ q.x);
+    const uint32_t c1 = (x.xs1 ^ q.w) | (x.x1 ^ q.z);
+    acc[OFF + i] += __popc((c0 & 0x55555555u) | (c1 & 0xAAAAAAAAu));
   }
 }
 
 template <int TQ, int B>
-__device__ __forceinline__ void bit_runs(int (&acc)[TQ], const uint32_t* sq, uint32_t x, int nq) {
-  if (nq >> B & 1) run_word<(1 << B), TQ - (2 << B), TQ>(acc, sq, x);
+__device__ __forceinline__ void bit_runs(int (&acc)[TQ], const uint4* sq, const Pair& x, int nq) {
+  if (nq >> B & 1) run_pair<(1 << B), TQ - (2 << B), TQ>(acc, sq, x);
   if constexpr (B > 0) bit_runs<TQ, B - 1>(acc, sq, x, nq);
 }
 
-// One database word against the tile's nq queries (branches uniform).
+// One database word pair against the tile's nq queries (branches uniform).
 template <int TQ>
-__device__ __forceinline__ void tile_word(int (&acc)[TQ], const uint32_t* sq, uint32_t x, int nq) {
+__device__ __forceinline__ void tile_pair(int (&acc)[TQ], const uint4* sq, const Pair& x, int nq) {
   if (nq == TQ) {
-    run_word<TQ, 0, TQ>(acc, sq, x);
+    run_pair<TQ, 0, TQ>(acc, sq, x);
   } else if constexpr (TQ > 1) {
     bit_runs<TQ, log2i(TQ) - 1>(acc, sq, x, nq);
   }
@@ -105,36 +122,52 @@ __global__ void __launch_bounds__(kThreads)
 hdist_scan_kernel(const uint32_t* __restrict__ queries, const uint32_t* __restrict__ db,
                   int64_t Q, int64_t W, int64_t D, int weff, int n_bases, int chunk,
                   int32_t* __restrict__ out) {
-  extern __shared__ uint32_t sq[];  // [chunk words, TQ slots]
+  extern __shared__ uint4 sq[];  // [chunk pairs, TQ slots]
   const int64_t q0 = (int64_t)blockIdx.y * TQ;
   const int nq = Q - q0 < TQ ? (int)(Q - q0) : TQ;
   const int64_t d = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   const bool live = d < D;
   const int last = weff - 1;  // the only word that may be partial
   const uint32_t last_mask = bn::base_mask(n_bases - 16 * last);
+  const int npairs = (weff + 1) / 2;
+  const int lp = npairs - 1;  // the pair that holds the last word
   int acc[TQ];
 #pragma unroll
   for (int s = 0; s < TQ; ++s) acc[s] = 0;
-  for (int w0 = 0; w0 < weff; w0 += chunk) {
-    const int wn = weff - w0 < chunk ? weff - w0 : chunk;
-    if (w0 > 0) __syncthreads();
-    for (int i = threadIdx.x; i < wn * TQ; i += blockDim.x) {
-      const int w = i / TQ;
-      const int j = slot_query<TQ>(i - w * TQ, nq);
-      uint32_t v = 0;
+  for (int p0 = 0; p0 < npairs; p0 += chunk) {
+    const int pn = npairs - p0 < chunk ? npairs - p0 : chunk;
+    if (p0 > 0) __syncthreads();
+    for (int i = threadIdx.x; i < pn * TQ; i += blockDim.x) {
+      const int p = i / TQ;
+      const int j = slot_query<TQ>(i - p * TQ, nq);
+      uint32_t a = 0, b = 0;
       if (j >= 0) {
-        v = queries[(q0 + j) * W + w0 + w];
-        if (w0 + w == last) v &= last_mask;
+        const uint32_t* qw = queries + (q0 + j) * W + 2 * (p0 + p);
+        a = qw[0];
+        if (p0 + p == lp) {
+          b = 2 * lp + 1 < weff ? qw[1] & last_mask : 0u;
+          if (2 * lp == last) a &= last_mask;
+        } else {
+          b = qw[1];
+        }
       }
-      sq[i] = v;
+      sq[i] = make_uint4(a, a >> 1, b, b << 1);
     }
     __syncthreads();
     if (live) {
-      const int full = w0 + wn < last ? w0 + wn : last;
+      const int full = p0 + pn < lp ? p0 + pn : lp;
+      const uint32_t* col = db + d;
 #pragma unroll(TQ <= 4 ? 4 : 2)
-      for (int w = w0; w < full; ++w) tile_word<TQ>(acc, sq + (w - w0) * TQ, db[w * D + d], nq);
-      if (w0 + wn == weff)
-        tile_word<TQ>(acc, sq + (last - w0) * TQ, db[last * D + d] & last_mask, nq);
+      for (int p = p0; p < full; ++p) {
+        const Pair x(col[(2 * p) * D], col[(2 * p + 1) * D]);
+        tile_pair<TQ>(acc, sq + (p - p0) * TQ, x, nq);
+      }
+      if (p0 + pn == npairs) {
+        uint32_t a = col[(2 * lp) * D], b = 0;
+        if (2 * lp == last) a &= last_mask;
+        else b = col[(2 * lp + 1) * D] & last_mask;
+        tile_pair<TQ>(acc, sq + (lp - p0) * TQ, Pair(a, b), nq);
+      }
     }
   }
   if (live) store_tile<TQ>(acc, out + q0 * D + d, D, nq);
@@ -143,9 +176,10 @@ hdist_scan_kernel(const uint32_t* __restrict__ queries, const uint32_t* __restri
 template <int TQ>
 int launch(const uint32_t* queries, const uint32_t* db, int64_t Q, int64_t W, int64_t D,
            int weff, int n_bases, int32_t* out, cudaStream_t stream) {
-  const int cap = kSmemBudget / (int)(sizeof(uint32_t) * TQ);
-  const int chunk = weff < cap ? (weff > 0 ? weff : 1) : cap;
-  const size_t smem = sizeof(uint32_t) * TQ * (size_t)chunk;
+  const int npairs = (weff + 1) / 2;
+  const int cap = kSmemBudget / (int)(sizeof(uint4) * TQ);
+  const int chunk = npairs < cap ? (npairs > 0 ? npairs : 1) : cap;
+  const size_t smem = sizeof(uint4) * TQ * (size_t)chunk;
   const unsigned bx = (unsigned)((D + kThreads - 1) / kThreads);
   const int64_t max_tiles = 65535;  // gridDim.y limit
   for (int64_t qs = 0; qs < Q; qs += max_tiles * TQ) {

@@ -110,6 +110,110 @@ def test_scan_tile_slots_hold_each_query_once(TQ):
         [1, 2, 4, 8, 16, 16, 32, 32, 32, 32]
 
 
+EVEN = np.uint32(0x55555555)
+
+
+def _popc(x):
+    return np.bitwise_count(x).astype(np.int64)
+
+
+def _merge_pair(w0, w1):
+    """hamming.cu's merge_pair: words w and w + 1 into (a, b)."""
+    return (w0 & EVEN) | (w1 & ~EVEN), ((w0 >> 1) & EVEN) | ((w1 << 1) & ~EVEN)
+
+
+def _two_word_select(x0, x1, q0, q1):
+    """One popcount's operand in the unmerged form: word w's mismatches in
+    the even bits, word w + 1's in the odd bits, from the shifted words."""
+    c0 = ((x0 >> 1) ^ (q0 >> 1)) | (x0 ^ q0)
+    c1 = ((x1 << 1) ^ (q1 << 1)) | (x1 ^ q1)
+    return (c0 & EVEN) | (c1 & ~EVEN)
+
+
+def _base_mask(v):
+    return np.uint32(0 if v <= 0 else 0xFFFFFFFF if v >= 16 else (1 << (2 * v)) - 1)
+
+
+def _scan_model(qs, db_wm, nb):
+    """A numpy model of csrc/hamming.cu, step by step: query tiles and their
+    slots, only the last word masked (in the query and the database), the
+    words merged in pairs and two pairs a quad, a lone last pair when the
+    pairs are odd, one popcount a pair. At every pair it also checks the
+    unmerged two-word select against the merged count."""
+    Q, W = qs.shape
+    D = db_wm.shape[1]
+    weff = min(-(-nb // 16), W) if nb > 0 else 0
+    last = weff - 1
+    last_mask = _base_mask(nb - 16 * last)
+    words = [db_wm[w] & (last_mask if w == last else np.uint32(0xFFFFFFFF)) for w in range(weff)]
+    zero = np.zeros(D, np.uint32)
+    qwords = [qs[:, w] & (last_mask if w == last else np.uint32(0xFFFFFFFF)) for w in range(weff)]
+    qzero = np.zeros(Q, np.uint32)
+    out = np.zeros((Q, D), np.int64)
+    TQ = _scan_tile(Q)
+    lp = (weff + 1) // 2 - 1
+    pairs = list(range(lp + 1))  # full quads, then the tail's one or two pairs
+    for q0 in range(0, Q, TQ):
+        nq = min(TQ, Q - q0)
+        slots = [j for j in (_slot_query(TQ, s, nq) for s in range(TQ)) if j >= 0]
+        acc = np.zeros((len(slots), D), np.int64)
+        for p in pairs:
+            x0 = words[2 * p]
+            x1 = words[2 * p + 1] if 2 * p + 1 < weff else zero
+            a, b = _merge_pair(x0, x1)
+            for k, j in enumerate(slots):
+                y0 = qwords[2 * p][q0 + j]
+                y1 = (qwords[2 * p + 1] if 2 * p + 1 < weff else qzero)[q0 + j]
+                qa, qb = _merge_pair(y0, y1)
+                count = _popc((a ^ qa) | (b ^ qb))
+                np.testing.assert_array_equal(count, _popc(_two_word_select(x0, x1, y0, y1)))
+                acc[k] += count
+        for k, j in enumerate(slots):
+            out[q0 + j] = acc[k]
+    return out
+
+
+def test_merged_pair_counts_both_words(rng):
+    """popc((a ^ qa) | (b ^ qb)) of the merged pairs, and the two-word select
+    it comes from, count word w's and word w + 1's differing bases."""
+    x0, x1, q0, q1 = rng.integers(0, 2**32, size=(4, 100_000), dtype=np.uint32)
+    q1[:1000] = x1[:1000]  # the second word equal
+    x0[1000:2000] = q0[1000:2000]  # the first word equal
+
+    def per_word(x, q):
+        d = x ^ q
+        return _popc((d | (d >> 1)) & EVEN)
+
+    want = per_word(x0, q0) + per_word(x1, q1)
+    (a, b), (qa, qb) = _merge_pair(x0, x1), _merge_pair(q0, q1)
+    np.testing.assert_array_equal(_popc((a ^ qa) | (b ^ qb)), want)
+    np.testing.assert_array_equal(_popc(_two_word_select(x0, x1, q0, q1)), want)
+    a, b = _merge_pair(x0, np.zeros_like(x1))  # a lone word paired with zero
+    qa, qb = _merge_pair(q0, np.zeros_like(q1))
+    np.testing.assert_array_equal(_popc((a ^ qa) | (b ^ qb)), per_word(x0, q0))
+
+
+@pytest.mark.parametrize("Q,W,nb", [
+    (1, 1, 16), (2, 2, 17), (4, 4, 1), (3, 3, 47), (5, 5, 80), (8, 6, 95), (17, 7, 112),
+    (31, 8, 128), (33, 5, 33), (33, 9, 0), (64, 10, 150), (16, 32, 511),
+])
+def test_scan_model_matches_plain_and_pallas(rng, Q, W, nb):
+    """The kernel's model equals the plain version and the Pallas kernel in
+    interpret mode: partial tiles and tiles past 32, odd and even weff
+    (a lone last pair or two), the last word partial or whole, and weff
+    below W."""
+    D = 257
+    db = rng.integers(0, 2**32, size=(W, D), dtype=np.uint32)
+    qs = rng.integers(0, 2**32, size=(Q, W), dtype=np.uint32)
+    qs[0] = db[:, 5]  # a distance of 0
+    got = _scan_model(qs, db, nb)
+    want = np.asarray(jph.hdist_scan_batch_pallas(jnp.asarray(qs), jnp.asarray(db), nb,
+                                                  interpret=True))
+    np.testing.assert_array_equal(got, want)
+    plain = hamming.hdist_scan_torch(words_from_u32_np(qs), words_from_u32_np(db), nb)
+    np.testing.assert_array_equal(got, plain.numpy())
+
+
 def test_topk_ties_and_tail(rng):
     vals = rng.integers(0, 4, size=37).astype(np.int32)  # many ties
     for k in (1, 10, 37, 50):
