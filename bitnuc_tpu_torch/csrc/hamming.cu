@@ -6,42 +6,51 @@
 // with K4 its Q = 1 case. For each (query, entry) pair it counts the bases,
 // among the first n_bases, whose 2-bit codes differ.
 //
-// Arithmetic, a pair of words at a time: with d0, d1 the XORs of words w
-// and w + 1, c0 = d0 | d0 >> 1 holds word w's mismatches in its even bits
-// and c1 = d1 | d1 << 1 word w + 1's in its odd bits, so one popcount of
-// (c0 & 0x55555555) | (c1 & 0xAAAAAAAA) counts both. Shared memory holds
-// each query's words with their shifts, [q_w, q_w >> 1, q_w+1, q_w+1 << 1]
-// a pair, and each database word is shifted once for all queries:
-// c0 = (x0 >> 1 ^ q_w >> 1) | (x0 ^ q_w). Per query and pair: one 16-byte
-// broadcast load, 2 XORs, 2 three-input ops, a select, a popcount and an
-// add. An odd number of words pairs the last with zero.
+// Arithmetic, a pair of words at a time. With d0, d1 the XORs of words w and
+// w + 1, c0 = d0 | d0 >> 1 holds word w's mismatches in its even bits and
+// c1 = d1 | d1 << 1 word w + 1's in its odd bits, so one popcount of
+// (c0 & E) | (c1 & ~E), E = 0x55555555, counts both words. The masks
+// distribute over the XORs, so each side merges its two words into two once:
+// a = w0 & E | w1 & ~E and b = (w0 >> 1) & E | (w1 << 1) & ~E (merge_pair),
+// and the count is popc((a ^ qa) | (b ^ qb)). The database side merges once
+// an entry, the query side once a block, into shared memory; per query and
+// word pair that leaves one XOR, one three-input op, one popcount and half
+// an add (two pairs' counts go into one three-input add).
 //
 // Bound on the card: at Q = 1, memory (4W bytes per entry, each read once);
-// from a few queries on, the popcount and integer units (see
-// chip_smoke.scan_bounds for the counts).
+// from Q = 3 on, the popcount unit, at half a popcount a (query, word,
+// entry) beside 1.25 int32 operations (chip_smoke.scan_bounds).
 //
 // Design: threads run along D, so a warp's loads of db[w, d:d+32] are
-// coalesced. A block takes a tile of queries, keeps them in shared memory,
-// and holds each loaded pair of database words in registers while it serves
-// every query of the tile; the database is read once per tile. The tile is
-// sized to Q: TQ in {1, 2, 4, 8, 16, 32}, the smallest that covers Q, and
-// ceil(Q / 32) tiles of 32 above. A tile computes only the queries it has
-// (nq <= TQ, see slot_query), so no slot works for a query that is not
-// there. Only the last word can be partial: it alone is masked, in the
-// query (in shared memory) and in the database word. n_bases is a runtime
-// argument and words wholly past it are never loaded. Queries longer than
-// the shared-memory budget are taken in chunks of word pairs. The TPU
-// kernel's 8-row broadcast output tile and literal-baked masks are Mosaic
-// artefacts and are not kept.
+// coalesced. A block takes a tile of queries, keeps their merged word pairs
+// in shared memory, two pairs a 16-byte broadcast load, and holds each
+// merged quad of database words in registers while it serves every query
+// of the tile; the database is read once per tile. The tile is sized to Q:
+// TQ in {1, 2, 4, 8, 16, 32}, the smallest that covers Q, and ceil(Q / 32)
+// tiles of 32 above (halved while its queries overflow shared memory). A
+// tile computes only the queries it has (nq <= TQ, see slot_query), so no
+// slot works for a query that is not there. Only the last word can be
+// partial: it alone is masked, in the query and in the database word. The
+// last word's pair runs alone when the pairs are odd, so no slot counts a
+// zero pair. n_bases is a runtime argument and words wholly past it are
+// never loaded. The TPU kernel's 8-row broadcast output tile and
+// literal-baked masks are Mosaic artefacts and are not kept.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxTile = 32;              // the largest query tile
-constexpr int kSmemBudget = 48 * 1024;    // shared bytes a block: chunks past it
+constexpr int kMaxTile = 32;  // the largest query tile
+constexpr size_t kMaxSmem = 227 * 1024;
+constexpr uint32_t kEven = 0x55555555u;
 
 __host__ __device__ constexpr int log2i(int n) { return n > 1 ? 1 + log2i(n / 2) : 0; }
+
+// Words w0 and w0 + 1 merged into the two words that one popcount of
+// (a ^ qa) | (b ^ qb) needs (see the top of the file).
+__device__ __forceinline__ uint2 merge_pair(uint32_t w0, uint32_t w1) {
+  return make_uint2((w0 & kEven) | (w1 & ~kEven), ((w0 >> 1) & kEven) | ((w1 << 1) & ~kEven));
+}
 
 // The query held in slot s of a tile that serves nq of its TQ slots, or -1.
 // nq == TQ fills every slot in order. Otherwise each set bit b of nq is a
@@ -58,37 +67,37 @@ __device__ __forceinline__ int slot_query(int s, int nq) {
   return -1;
 }
 
-// A pair of database words (x1 zero past the last word) and their shifts.
-struct Pair {
-  uint32_t x0, xs0, x1, xs1;
-  __device__ __forceinline__ Pair(uint32_t a, uint32_t b) : x0(a), xs0(a >> 1), x1(b), xs1(b << 1) {}
-};
-
-// One database word pair against the N slots from OFF of one pair's queries.
-template <int N, int OFF, int TQ>
-__device__ __forceinline__ void run_pair(int (&acc)[TQ], const uint4* sq, const Pair& x) {
+// P merged word pairs of one entry (P = 2, or 1 for a lone last pair)
+// against the N slots from OFF; sq holds each slot's two merged pairs.
+template <int N, int OFF, int TQ, int P>
+__device__ __forceinline__ void run_quad(int (&acc)[TQ], const uint4* sq, uint2 x0, uint2 x1) {
 #pragma unroll
   for (int i = 0; i < N; ++i) {
-    const uint4 q = sq[OFF + i];
-    const uint32_t c0 = (x.xs0 ^ q.y) | (x.x0 ^ q.x);
-    const uint32_t c1 = (x.xs1 ^ q.w) | (x.x1 ^ q.z);
-    acc[OFF + i] += __popc((c0 & 0x55555555u) | (c1 & 0xAAAAAAAAu));
+    if constexpr (P == 2) {
+      const uint4 q = sq[OFF + i];
+      acc[OFF + i] += __popc((x0.x ^ q.x) | (x0.y ^ q.y)) + __popc((x1.x ^ q.z) | (x1.y ^ q.w));
+    } else {
+      const uint2 q = *reinterpret_cast<const uint2*>(sq + OFF + i);
+      acc[OFF + i] += __popc((x0.x ^ q.x) | (x0.y ^ q.y));
+    }
   }
 }
 
-template <int TQ, int B>
-__device__ __forceinline__ void bit_runs(int (&acc)[TQ], const uint4* sq, const Pair& x, int nq) {
-  if (nq >> B & 1) run_pair<(1 << B), TQ - (2 << B), TQ>(acc, sq, x);
-  if constexpr (B > 0) bit_runs<TQ, B - 1>(acc, sq, x, nq);
+template <int TQ, int P, int B>
+__device__ __forceinline__ void bit_runs(int (&acc)[TQ], const uint4* sq, uint2 x0, uint2 x1,
+                                         int nq) {
+  if (nq >> B & 1) run_quad<(1 << B), TQ - (2 << B), TQ, P>(acc, sq, x0, x1);
+  if constexpr (B > 0) bit_runs<TQ, P, B - 1>(acc, sq, x0, x1, nq);
 }
 
-// One database word pair against the tile's nq queries (branches uniform).
-template <int TQ>
-__device__ __forceinline__ void tile_pair(int (&acc)[TQ], const uint4* sq, const Pair& x, int nq) {
+// P merged pairs against the tile's nq queries (branches uniform).
+template <int TQ, int P>
+__device__ __forceinline__ void tile_quad(int (&acc)[TQ], const uint4* sq, uint2 x0, uint2 x1,
+                                          int nq) {
   if (nq == TQ) {
-    run_pair<TQ, 0, TQ>(acc, sq, x);
+    run_quad<TQ, 0, TQ, P>(acc, sq, x0, x1);
   } else if constexpr (TQ > 1) {
-    bit_runs<TQ, log2i(TQ) - 1>(acc, sq, x, nq);
+    bit_runs<TQ, P, log2i(TQ) - 1>(acc, sq, x0, x1, nq);
   }
 }
 
@@ -120,73 +129,71 @@ __device__ __forceinline__ void store_tile(const int (&acc)[TQ], int32_t* out, i
 template <int TQ>
 __global__ void __launch_bounds__(kThreads)
 hdist_scan_kernel(const uint32_t* __restrict__ queries, const uint32_t* __restrict__ db,
-                  int64_t Q, int64_t W, int64_t D, int weff, int n_bases, int chunk,
+                  int64_t Q, int64_t W, int64_t D, int weff, int n_bases,
                   int32_t* __restrict__ out) {
-  extern __shared__ uint4 sq[];  // [chunk pairs, TQ slots]
+  extern __shared__ uint4 sq[];  // [quads, TQ slots]: words 4u..4u+3, merged
   const int64_t q0 = (int64_t)blockIdx.y * TQ;
   const int nq = Q - q0 < TQ ? (int)(Q - q0) : TQ;
-  const int64_t d = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const bool live = d < D;
   const int last = weff - 1;  // the only word that may be partial
   const uint32_t last_mask = bn::base_mask(n_bases - 16 * last);
-  const int npairs = (weff + 1) / 2;
-  const int lp = npairs - 1;  // the pair that holds the last word
+  const int nquads = (weff + 3) / 4;
+  for (int i = threadIdx.x; i < nquads * TQ; i += blockDim.x) {
+    const int u = i / TQ;
+    const int j = slot_query<TQ>(i - u * TQ, nq);
+    uint32_t w[4] = {0u, 0u, 0u, 0u};
+    if (j >= 0) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int wi = 4 * u + k;
+        if (wi < weff) w[k] = queries[(q0 + j) * W + wi] & (wi == last ? last_mask : ~0u);
+      }
+    }
+    const uint2 a = merge_pair(w[0], w[1]), b = merge_pair(w[2], w[3]);
+    sq[i] = make_uint4(a.x, a.y, b.x, b.y);
+  }
+  __syncthreads();
+  const int64_t d = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (d >= D) return;
   int acc[TQ];
 #pragma unroll
   for (int s = 0; s < TQ; ++s) acc[s] = 0;
-  for (int p0 = 0; p0 < npairs; p0 += chunk) {
-    const int pn = npairs - p0 < chunk ? npairs - p0 : chunk;
-    if (p0 > 0) __syncthreads();
-    for (int i = threadIdx.x; i < pn * TQ; i += blockDim.x) {
-      const int p = i / TQ;
-      const int j = slot_query<TQ>(i - p * TQ, nq);
-      uint32_t a = 0, b = 0;
-      if (j >= 0) {
-        const uint32_t* qw = queries + (q0 + j) * W + 2 * (p0 + p);
-        a = qw[0];
-        if (p0 + p == lp) {
-          b = 2 * lp + 1 < weff ? qw[1] & last_mask : 0u;
-          if (2 * lp == last) a &= last_mask;
-        } else {
-          b = qw[1];
-        }
-      }
-      sq[i] = make_uint4(a, a >> 1, b, b << 1);
-    }
-    __syncthreads();
-    if (live) {
-      const int full = p0 + pn < lp ? p0 + pn : lp;
-      const uint32_t* col = db + d;
-#pragma unroll(TQ <= 4 ? 4 : 2)
-      for (int p = p0; p < full; ++p) {
-        const Pair x(col[(2 * p) * D], col[(2 * p + 1) * D]);
-        tile_pair<TQ>(acc, sq + (p - p0) * TQ, x, nq);
-      }
-      if (p0 + pn == npairs) {
-        uint32_t a = col[(2 * lp) * D], b = 0;
-        if (2 * lp == last) a &= last_mask;
-        else b = col[(2 * lp + 1) * D] & last_mask;
-        tile_pair<TQ>(acc, sq + (lp - p0) * TQ, Pair(a, b), nq);
-      }
-    }
+  const uint32_t* col = db + d;
+  const int lp = (weff + 1) / 2 - 1;  // the pair that holds the last word
+  const int full = lp / 2;            // quads of two pairs before it
+#pragma unroll(TQ <= 8 ? 2 : 1)
+  for (int u = 0; u < full; ++u) {
+    const uint32_t* c = col + 4 * u * D;
+    tile_quad<TQ, 2>(acc, sq + u * TQ, merge_pair(c[0], c[D]), merge_pair(c[2 * D], c[3 * D]),
+                     nq);
   }
-  if (live) store_tile<TQ>(acc, out + q0 * D + d, D, nq);
+  if (weff > 0) {  // from word 4 * full: two pairs when lp is odd, else one
+    uint32_t x[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int wi = 4 * full + k;
+      x[k] = wi < weff ? col[wi * D] & (wi == last ? last_mask : ~0u) : 0u;
+    }
+    if (lp & 1)
+      tile_quad<TQ, 2>(acc, sq + full * TQ, merge_pair(x[0], x[1]), merge_pair(x[2], x[3]), nq);
+    else
+      tile_quad<TQ, 1>(acc, sq + full * TQ, merge_pair(x[0], x[1]), make_uint2(0u, 0u), nq);
+  }
+  store_tile<TQ>(acc, out + q0 * D + d, D, nq);
 }
 
 template <int TQ>
 int launch(const uint32_t* queries, const uint32_t* db, int64_t Q, int64_t W, int64_t D,
-           int weff, int n_bases, int32_t* out, cudaStream_t stream) {
-  const int npairs = (weff + 1) / 2;
-  const int cap = kSmemBudget / (int)(sizeof(uint4) * TQ);
-  const int chunk = npairs < cap ? (npairs > 0 ? npairs : 1) : cap;
-  const size_t smem = sizeof(uint4) * TQ * (size_t)chunk;
+           int weff, int n_bases, size_t smem, int32_t* out, cudaStream_t stream) {
+  if (smem > 48 * 1024)
+    cudaFuncSetAttribute(hdist_scan_kernel<TQ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem);
   const unsigned bx = (unsigned)((D + kThreads - 1) / kThreads);
   const int64_t max_tiles = 65535;  // gridDim.y limit
   for (int64_t qs = 0; qs < Q; qs += max_tiles * TQ) {
     const int64_t qn = Q - qs < max_tiles * TQ ? Q - qs : max_tiles * TQ;
     const dim3 grid(bx, (unsigned)((qn + TQ - 1) / TQ));
     hdist_scan_kernel<TQ><<<grid, kThreads, smem, stream>>>(
-        queries + qs * W, db, qn, W, D, weff, n_bases, chunk, out + qs * D);
+        queries + qs * W, db, qn, W, D, weff, n_bases, out + qs * D);
   }
   return (int)cudaGetLastError();
 }
@@ -199,15 +206,23 @@ extern "C" int bn_hdist_scan(const void* queries, const void* db, int64_t Q,
   if (Q <= 0 || D <= 0) return (int)cudaGetLastError();
   int64_t weff = n_bases <= 0 ? 0 : ((int64_t)n_bases + 15) / 16;
   if (weff > W) weff = W;
+  // the smallest tile that covers Q, halved while its slots overflow
+  const size_t per_slot = sizeof(uint4) * (size_t)(weff > 0 ? (weff + 3) / 4 : 1);
+  int tq = Q == 1 ? 1 : Q == 2 ? 2 : Q <= 4 ? 4 : Q <= 8 ? 8 : Q <= 16 ? 16 : kMaxTile;
+  while (tq > 1 && per_slot * tq > kMaxSmem) tq /= 2;
+  if (per_slot * tq > kMaxSmem) return (int)cudaErrorInvalidValue;
   const uint32_t* q = (const uint32_t*)queries;
   const uint32_t* d = (const uint32_t*)db;
   int32_t* o = (int32_t*)out;
   cudaStream_t s = (cudaStream_t)stream;
   const int we = (int)weff;
-  if (Q == 1) return launch<1>(q, d, Q, W, D, we, n_bases, o, s);
-  if (Q == 2) return launch<2>(q, d, Q, W, D, we, n_bases, o, s);
-  if (Q <= 4) return launch<4>(q, d, Q, W, D, we, n_bases, o, s);
-  if (Q <= 8) return launch<8>(q, d, Q, W, D, we, n_bases, o, s);
-  if (Q <= 16) return launch<16>(q, d, Q, W, D, we, n_bases, o, s);
-  return launch<kMaxTile>(q, d, Q, W, D, we, n_bases, o, s);
+  const size_t smem = per_slot * tq;
+  switch (tq) {
+    case 1: return launch<1>(q, d, Q, W, D, we, n_bases, smem, o, s);
+    case 2: return launch<2>(q, d, Q, W, D, we, n_bases, smem, o, s);
+    case 4: return launch<4>(q, d, Q, W, D, we, n_bases, smem, o, s);
+    case 8: return launch<8>(q, d, Q, W, D, we, n_bases, smem, o, s);
+    case 16: return launch<16>(q, d, Q, W, D, we, n_bases, smem, o, s);
+    default: return launch<kMaxTile>(q, d, Q, W, D, we, n_bases, smem, o, s);
+  }
 }

@@ -281,10 +281,12 @@ def test_hdist_scan_kernel_matches_plain(cuda, Q, nb, W):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("Q,W", [(1, 13000), (2, 6500), (3, 3100), (32, 385), (33, 800)])
-def test_hdist_scan_kernel_word_chunks(cuda, Q, W):
-    """Queries past the shared-memory budget of their tile, taken in chunks
-    of words; n_bases inside the last chunk and at its end, and 0."""
+@pytest.mark.parametrize("Q,W", [(1, 13000), (2, 30000), (3, 3100), (32, 385), (33, 800),
+                                 (32, 1900)])
+def test_hdist_scan_kernel_long_queries(cuda, Q, W):
+    """Long queries, among them tiles whose merged words overflow shared
+    memory and are halved (2 x 30,000 words, 32 x 1,900); n_bases inside the
+    last word, at its end, and 0."""
     g = torch.Generator().manual_seed(4)
     db = torch.randint(-(2**31), 2**31 - 1, (W, 300), generator=g, dtype=torch.int32).to(cuda)
     q = torch.randint(-(2**31), 2**31 - 1, (Q, W), generator=g, dtype=torch.int32).to(cuda)
