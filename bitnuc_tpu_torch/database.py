@@ -21,27 +21,24 @@ from .ops import hamming
 from .utils import bitops
 
 # distances_batch runs K6 (the tensor cores) from tc_min_q(W) queries on,
-# and K5 below it. chip_smoke.py's sweep over 4,194,304 entries on an NVIDIA
-# H100 80GB HBM3 at a 700.00 W power limit, K5 / K6 in ms at Q = 1, 8, 16,
-# 32, 64, 128, 256, 512, in two runs. 512 bases (W = 32): 0.199 / 1.320,
-# 0.678 / 1.243, 0.695 / 1.381, 1.388 / 1.363, 2.740 / 2.053, 5.397 /
-# 2.699, 10.834 / 4.102, 21.799 / 8.638 and 0.196 / 1.256, 0.682 / 1.185,
-# 0.700 / 1.455, 1.380 / 1.371, 2.741 / 1.576, 5.392 / 2.676, 10.729 /
-# 4.057, 21.739 / 7.820. 150 bases (W = 10): 0.081 / 0.774, 0.247 / 0.854,
-# 0.265 / 0.776, 0.510 / 0.938, 1.011 / 1.117, 2.013 / 1.855, 4.103 /
-# 2.791, 8.262 / 5.181 and 0.080 / 0.634, 0.245 / 0.683, 0.265 / 0.571,
-# 0.519 / 0.779, 1.016 / 0.978, 2.022 / 1.690, 4.037 / 2.620, 8.153 /
-# 5.225. K6 sizes its query tile to Q (8 to 256) and expands the whole
-# database whatever Q is, so the crossover depends on the entries' width:
-# K6 led from Q = 32 at 512 bases in both runs, from 64 or from 128 at 150.
-# Only W = 10 and 32 were swept: entries of fewer than 32 words keep the
-# larger threshold.
+# and K5 below it, or K5 at any Q where tc_min_q(W) is None. K5 reads the
+# database once for each tile of 32 queries; K6 expands the whole database
+# whatever Q is, in tiles of up to 256 queries. chip_smoke.py's sweep over
+# 4,194,304 entries on an NVIDIA H100 80GB HBM3 at a 700.00 W power limit,
+# K5 / K6 in ms at Q = 1, 8, 16, 24, 32, 48, 64, 128, 256, 512: 512 bases
+# (W = 32) 0.207 / 1.786, 0.236 / 1.702, 0.348 / 1.965, 0.537 / 1.730,
+# 0.643 / 1.682, 1.070 / 2.295, 1.329 / 2.379, 2.559 / 3.363, 5.105 /
+# 4.616, 10.042 / 8.684; 150 bases (W = 10) 0.099 / 1.240, 0.113 / 1.374,
+# 0.188 / 1.354, 0.239 / 1.460, 0.277 / 1.231, 0.460 / 1.273, 0.562 /
+# 1.363, 1.145 / 2.117, 2.318 / 3.480, 4.497 / 6.089. K6 led only at 256
+# and 512 queries of 512 bases; on 150-base entries K5 led at every Q, and
+# its cost grows more slowly with Q than K6's.
 
 
-def tc_min_q(n_words: int) -> int:
+def tc_min_q(n_words: int):
     """The fewest queries for which distances_batch runs K6 on entries of
-    ``n_words`` packed words."""
-    return 32 if n_words >= 32 else 128
+    ``n_words`` packed words, or None where K5 serves any number."""
+    return 256 if n_words >= 32 else None
 
 
 # search_batch runs the fused search (K6 with its top-k epilogue, the
@@ -172,8 +169,10 @@ class PackedDB:
 
     def distances_batch(self, queries: torch.Tensor) -> torch.Tensor:
         """All-pairs distances [Q, D] for a packed query batch [Q, W]: K6 on
-        the tensor cores from tc_min_q(W) queries on, K5 below."""
-        if queries.shape[0] >= tc_min_q(self.words_wm.shape[0]):
+        the tensor cores from tc_min_q(W) queries on, K5 below (and at any
+        Q where it is None)."""
+        t = tc_min_q(self.words_wm.shape[0])
+        if t is not None and queries.shape[0] >= t:
             return hamming.hdist_scan_tc(queries, self.words_wm, self.n_bases)
         return hamming.hdist_scan(queries, self.words_wm, self.n_bases)
 

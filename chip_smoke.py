@@ -50,7 +50,7 @@ Phases, each of which must pass:
    rows of 100,000 bp and reads of 300, 1,000 and 4,000 bp), each timed
    with CUDA events (median of several runs, L2 flushed before each) beside
    its plain version. K6 also against K5 on the full database at Q = 1 to
-   512, at 512-base and 150-base entries (the sweep behind
+   512, at 512-, 448-, 320- and 150-base entries (the sweep behind
    database.tc_min_q), and beside torch._int_mm. tc_search, K6's search
    form with a per-block top-k, against its plain version, against tc_scan
    + top-k on the full database at k = 1, 10 and SEARCH_TOPK_MAX, at edge
@@ -314,7 +314,8 @@ SCAN_OPS_PER_WE = 2
 # n_bases) on DB_ENTRIES entries: phase 2's rows and --scan-against's
 SCAN_SHAPES = ((1, DB_BASES), (3, DB_BASES), (8, DB_BASES), (16, DB_BASES), (31, DB_BASES),
                (64, DB_BASES), (64, READ_LEN), (127, READ_LEN))
-TC_SWEEP_Q = (1, 8, 16, 24, 32, 48, 64, 128, 256, 512)
+TC_SWEEP_Q = (1, 8, 16, 24, 32, 48, 64, 128, 192, 256, 384, 512)
+TC_SWEEP_BASES = (DB_BASES, 448, 320, READ_LEN)  # W = 32, 28, 20 and 10
 SEARCH_SWEEP_Q = (1, 8, 32, 64, 128, 256, 512)  # search_batch's two routes
 SEARCH_QUERIES = 256  # phase 8's query file, and K6's reported shape
 TC_SLICE = 262_144  # database entries K6's plain version is compared on
@@ -4651,7 +4652,7 @@ def main() -> int:
             library = lambda: torch._int_mm(lib_q5, lib_planes.t())  # noqa: E731
         del got
         row = timed(name, label, lambda: hamming.hdist_scan_kernel(q, d, nb),
-                    lambda: hamming.hdist_scan_torch(q, d, nb),
+                    lambda: hamming.hdist_scan_torch(q, d, nb), plain_reps=1,
                     main=nb == DB_BASES and Q in (1, 8, 16, 31), library=library,
                     **scan_bounds(Q, nb))
         if library:
@@ -4669,13 +4670,13 @@ def main() -> int:
                     hamming.hdist_scan_kernel(q, d, nb), hamming.hdist_scan_torch(q, d, nb))
 
     phase_clock(results, "phase 2: K6")
-    # K6 against K5 on the full database at each swept Q, at 512-base
-    # entries and at 150-base ones (W = 10, a read set): this feeds
+    # K6 against K5 on the full database at each swept Q, at 512-, 448- and
+    # 320-base entries and at 150-base ones (W = 10, a read set): this feeds
     # database.tc_min_q. Then K6 against its plain version on a slice, and
     # at edge shapes; timed beside torch._int_mm of the same planes at
     # phase 8's Q
     sweep = {}
-    for nb in (DB_BASES, READ_LEN):
+    for nb in TC_SWEEP_BASES:
         d = db[: bitops.n_words_for(nb)].contiguous() if nb < DB_BASES else db
         sweep[nb] = {}
         for Q in TC_SWEEP_Q:
@@ -4689,7 +4690,7 @@ def main() -> int:
                   flush=True)
         faster = [Q for Q in TC_SWEEP_Q if sweep[nb][Q]["k6_ms"] < sweep[nb][Q]["k5_ms"]]
         print(f"    n_bases={nb}: K6 faster at Q = {faster} (tc_min_q = "
-              f"{tc_min_q(d.shape[0])})", flush=True)
+              f"{tc_min_q(d.shape[0])}: K6 from it, K5 below; None: K5)", flush=True)
         del d
     results["phases"]["tc_sweep_ms"] = sweep
     check("K6 beats K5 at Q = 512", sweep[DB_BASES][512]["k6_ms"] < sweep[DB_BASES][512]["k5_ms"],

@@ -98,12 +98,15 @@ def test_b_stages_follow_the_descriptor_layout(Q, N, W):
     assert not B[Q:].any()
 
 
-@pytest.mark.parametrize("Q", [3, database.tc_min_q(6) - 1, database.tc_min_q(6),
-                               database.tc_min_q(6) + 5])
+@pytest.mark.parametrize("Q", [3, database.tc_min_q(32) - 1, database.tc_min_q(32),
+                               database.tc_min_q(32) + 5])
 def test_distances_and_search_batch_both_sides_of_tc_min_q(Q):
+    """Both sides of the K5/K6 threshold of 32-word entries, n_bases
+    inside the last word; fewer words never reach K6."""
+    assert database.tc_min_q(31) is None
     rng = np.random.default_rng(Q)
-    D, nb = 500, 90
-    W = 6
+    D, nb = 500, 500
+    W = 32
     db, qs = _words(rng, D, W), _words(rng, Q, W)
     jdb = JPackedDB(words_wm=jnp.asarray(db.T.copy()), n_bases=nb)
     tdb = PackedDB.from_numpy(db.T.copy(), nb, device=CPU)

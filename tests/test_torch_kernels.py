@@ -658,20 +658,26 @@ def test_tc_scan_kernel_over_many_tiles_a_block(cuda, Q, W, nb_of):
 
 
 @pytest.mark.cuda
-def test_distances_batch_routes_by_tc_min_q(cuda):
+@pytest.mark.parametrize("W", [10, 31, 32, 64])
+def test_distances_batch_routes_by_tc_min_q(cuda, W):
+    """K6 from tc_min_q(W) queries on and K5 below it; K5 at any Q where it
+    is None."""
     from bitnuc_tpu_torch import database
 
     g = torch.Generator().manual_seed(9)
+    nb = 16 * W - 3
     db = database.PackedDB(
-        torch.randint(-(2**31), 2**31 - 1, (32, 3000), generator=g, dtype=torch.int32).to(cuda),
-        512)
-    t = database.tc_min_q(32)
-    for Q, name in ((t, "tc_scan"), (t - 1, "hdist_scan_batch"), (512, "tc_scan")):
-        q = torch.randint(-(2**31), 2**31 - 1, (Q, 32), generator=g, dtype=torch.int32).to(cuda)
+        torch.randint(-(2**31), 2**31 - 1, (W, 3000), generator=g, dtype=torch.int32).to(cuda),
+        nb)
+    t = database.tc_min_q(W)
+    cases = ([(2, "hdist_scan_batch"), (600, "hdist_scan_batch")] if t is None else
+             [(t, "tc_scan"), (t - 1, "hdist_scan_batch"), (2 * t + 1, "tc_scan")])
+    for Q, name in cases:
+        q = torch.randint(-(2**31), 2**31 - 1, (Q, W), generator=g, dtype=torch.int32).to(cuda)
         before = dict(kernels.LAUNCHES)
         got = db.distances_batch(q)
         assert kernels.LAUNCHES[name] == before[name] + 1
-        assert torch.equal(got, hamming.hdist_scan_torch(q, db.words_wm, 512))
+        assert torch.equal(got, hamming.hdist_scan_torch(q, db.words_wm, nb))
 
 
 @pytest.mark.cuda
