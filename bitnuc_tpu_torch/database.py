@@ -46,12 +46,14 @@ def tc_min_q(n_words: int):
 # on; below it, and above that k, distances_batch and then
 # topk_batch_dispatch. Both routes are exact. chip_smoke.py's sweep over
 # 4,194,304 entries, k = 10, on an NVIDIA H100 80GB HBM3 at a 700.00 W power
-# limit, two-step / fused in ms at Q = 1, 8, 32, 64, 128, 256, 512: 512
-# bases 0.904 / 1.612, 5.071 / 1.426, 15.968 / 2.123, 30.739 / 1.938,
-# 58.019 / 3.357, 113.558 / 4.785, 234.638 / 9.409; 150 bases 0.761 /
-# 0.895, 4.634 / 1.109, 14.945 / 1.392, 28.887 / 1.390, 56.851 / 2.459,
-# 111.428 / 3.622, 230.302 / 6.246. One query stays on K4 and its top-k:
-# the fused route expands the whole database whatever Q is.
+# limit, two-step / fused in ms at Q = 1, 8, 32, 64, 128, 256, 512, with
+# K5 as redesigned for Hopper: 512 bases 0.945 / 1.771, 4.761 / 1.744,
+# 17.053 / 2.131, 30.885 / 2.715, 59.004 / 4.345, 113.859 / 5.758, 235.178
+# / 9.385; 150 bases 1.177 / 1.502, 4.571 / 1.065, 14.784 / 1.197, 28.488 /
+# 1.785, 56.910 / 2.410, 111.296 / 3.829, 231.140 / 6.794. The two-step
+# route's top-k over [Q, D], not its scan, holds it from 8 queries on. One
+# query stays on K4 and its top-k: the fused route expands the whole
+# database whatever Q is.
 SEARCH_TC_MIN_Q = 8
 
 

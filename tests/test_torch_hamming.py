@@ -77,35 +77,30 @@ def _scan_tile(Q):
     return next((t for t in SCAN_TILES if t >= Q), SCAN_TILES[-1])
 
 
-def _slot_query(TQ, s, nq):
-    """hamming.cu's slot_query: the query of slot s in a tile of TQ slots
-    serving nq queries, or -1."""
+def _runs(TQ, nq):
+    """hamming.cu's for_runs: the (N, OFF, j0) runs of a tile of TQ slots
+    serving nq queries, slots OFF..OFF+N-1 holding queries j0..j0+N-1."""
     if nq == TQ:
-        return s
-    for b in range(TQ.bit_length() - 1):
-        off = TQ - (2 << b)
-        if nq >> b & 1 and off <= s < off + (1 << b):
-            return (nq >> (b + 1) << (b + 1)) + s - off
-    return -1
+        return [(TQ, 0, 0)]
+    return [(1 << b, TQ - (2 << b), nq >> (b + 1) << (b + 1))
+            for b in reversed(range(TQ.bit_length() - 1)) if nq >> b & 1]
 
 
 @pytest.mark.parametrize("TQ", SCAN_TILES)
 def test_scan_tile_slots_hold_each_query_once(TQ):
-    """Every nq <= TQ: the slots hold queries 0..nq-1 once each, no more
-    slots work than nq, and each of nq's bits b is the run of 2^b slots at
-    TQ - 2^(b+1) whatever the other bits (its offset is fixed)."""
+    """Every nq <= TQ: the runs hold queries 0..nq-1 once each in distinct
+    slots, so no more slots work than nq, and each of nq's bits b is the
+    run of 2^b slots at TQ - 2^(b+1) whatever the other bits (its offset
+    is fixed)."""
     for nq in range(1, TQ + 1):
-        held = [_slot_query(TQ, s, nq) for s in range(TQ)]
-        assert sorted(j for j in held if j >= 0) == list(range(nq))
-        if nq == TQ:
-            continue
-        for b in range(TQ.bit_length() - 1):
-            run = held[TQ - (2 << b): TQ - (1 << b)]
-            if nq >> b & 1:
-                base = nq >> (b + 1) << (b + 1)
-                assert run == list(range(base, base + (1 << b)))
-            else:
-                assert run == [-1] * (1 << b)
+        runs = _runs(TQ, nq)
+        slots = [off + i for n, off, _ in runs for i in range(n)]
+        held = [j0 + i for n, _, j0 in runs for i in range(n)]
+        assert len(set(slots)) == len(slots) and max(slots) < TQ
+        assert sorted(held) == list(range(nq))
+        if nq < TQ:
+            assert {n: off for n, off, _ in runs} == {
+                1 << b: TQ - (2 << b) for b in range(TQ.bit_length() - 1) if nq >> b & 1}
     assert [_scan_tile(Q) for Q in (1, 2, 3, 5, 9, 16, 17, 32, 33, 127)] == \
         [1, 2, 4, 8, 16, 16, 32, 32, 32, 32]
 
@@ -155,7 +150,7 @@ def _scan_model(qs, db_wm, nb):
     pairs = list(range(lp + 1))  # full quads, then the tail's one or two pairs
     for q0 in range(0, Q, TQ):
         nq = min(TQ, Q - q0)
-        slots = [j for j in (_slot_query(TQ, s, nq) for s in range(TQ)) if j >= 0]
+        slots = [j0 + i for n, _, j0 in _runs(TQ, nq) for i in range(n)]
         acc = np.zeros((len(slots), D), np.int64)
         for p in pairs:
             x0 = words[2 * p]
