@@ -28,15 +28,13 @@
 // of the tile; the database is read once per tile. The tile is sized to Q:
 // TQ in {1, 2, 4, 8, 16, 32}, the smallest that covers Q, and ceil(Q / 32)
 // tiles of 32 above (halved while its queries overflow shared memory). A
-// tile computes only the queries it has (nq <= TQ, see for_runs), so no
+// tile computes only the queries it has (nq <= TQ, see slot_query), so no
 // slot works for a query that is not there. Only the last word can be
 // partial: it alone is masked, in the query and in the database word. The
 // last word's pair runs alone when the pairs are odd, so no slot counts a
 // zero pair. n_bases is a runtime argument and words wholly past it are
 // never loaded. The TPU kernel's 8-row broadcast output tile and
 // literal-baked masks are Mosaic artefacts and are not kept.
-#include <type_traits>
-
 #include "common.cuh"
 
 namespace {
@@ -54,27 +52,19 @@ __device__ __forceinline__ uint2 merge_pair(uint32_t w0, uint32_t w1) {
   return make_uint2((w0 & kEven) | (w1 & ~kEven), ((w0 >> 1) & kEven) | ((w1 << 1) & ~kEven));
 }
 
-template <int V>
-using Int = std::integral_constant<int, V>;
-
-// Calls f(N, OFF, j0) for each run of slots of a tile that serves nq of its
-// TQ query slots: slots OFF..OFF+N-1 hold queries j0..j0+N-1. nq == TQ is
-// one run of every slot; otherwise each set bit b of nq is a run of N = 2^b
-// slots at OFF = TQ - 2^(b+1), from the query after nq's bits above b. N
-// and OFF are compile-time constants (Int), so each slot's accumulator
-// stays in a register and a tile computes exactly its nq queries.
-template <int TQ, int B = log2i(TQ) - 1, class F>
-__device__ __forceinline__ void for_runs(int nq, F&& f) {
-  if constexpr (B == log2i(TQ) - 1) {
-    if (nq == TQ) {
-      f(Int<TQ>{}, Int<0>{}, 0);
-      return;
-    }
+// The query held in slot s of a tile that serves nq of its TQ slots, or -1.
+// nq == TQ fills every slot in order. Otherwise each set bit b of nq is a
+// run of 2^b slots at TQ - 2^(b+1), holding the queries from nq's bits
+// above b on: every run's offset is a compile-time constant, and a tile
+// runs exactly the runs of nq's bits.
+template <int TQ>
+__device__ __forceinline__ int slot_query(int s, int nq) {
+  if (nq == TQ) return s;
+  for (int b = 0; (1 << b) < TQ; ++b) {
+    const int off = TQ - (2 << b);
+    if ((nq >> b & 1) && s >= off && s < off + (1 << b)) return (nq >> (b + 1) << (b + 1)) + s - off;
   }
-  if constexpr (B >= 0) {
-    if (nq >> B & 1) f(Int<(1 << B)>{}, Int<TQ - (2 << B)>{}, nq >> (B + 1) << (B + 1));
-    for_runs<TQ, B - 1>(nq, f);
-  }
+  return -1;
 }
 
 // P merged word pairs of one entry (P = 2, or 1 for a lone last pair)
@@ -93,13 +83,47 @@ __device__ __forceinline__ void run_quad(int (&acc)[TQ], const uint4* sq, uint2 
   }
 }
 
+template <int TQ, int P, int B>
+__device__ __forceinline__ void bit_runs(int (&acc)[TQ], const uint4* sq, uint2 x0, uint2 x1,
+                                         int nq) {
+  if (nq >> B & 1) run_quad<(1 << B), TQ - (2 << B), TQ, P>(acc, sq, x0, x1);
+  if constexpr (B > 0) bit_runs<TQ, P, B - 1>(acc, sq, x0, x1, nq);
+}
+
 // P merged pairs against the tile's nq queries (branches uniform).
 template <int TQ, int P>
 __device__ __forceinline__ void tile_quad(int (&acc)[TQ], const uint4* sq, uint2 x0, uint2 x1,
                                           int nq) {
-  for_runs<TQ>(nq, [&](auto n, auto off, int) {
-    run_quad<decltype(n)::value, decltype(off)::value, TQ, P>(acc, sq, x0, x1);
-  });
+  if (nq == TQ) {
+    run_quad<TQ, 0, TQ, P>(acc, sq, x0, x1);
+  } else if constexpr (TQ > 1) {
+    bit_runs<TQ, P, log2i(TQ) - 1>(acc, sq, x0, x1, nq);
+  }
+}
+
+// The N slots from OFF, holding the queries from j0 on, into their rows of
+// out (at this thread's entry).
+template <int N, int OFF, int TQ>
+__device__ __forceinline__ void store_run(const int (&acc)[TQ], int32_t* out, int64_t D, int j0) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) out[(j0 + i) * D] = acc[OFF + i];
+}
+
+template <int TQ, int B>
+__device__ __forceinline__ void store_bit_runs(const int (&acc)[TQ], int32_t* out, int64_t D,
+                                               int nq) {
+  if (nq >> B & 1) store_run<(1 << B), TQ - (2 << B), TQ>(acc, out, D, nq >> (B + 1) << (B + 1));
+  if constexpr (B > 0) store_bit_runs<TQ, B - 1>(acc, out, D, nq);
+}
+
+// The tile's nq distances, run by run as slot_query lays them out.
+template <int TQ>
+__device__ __forceinline__ void store_tile(const int (&acc)[TQ], int32_t* out, int64_t D, int nq) {
+  if (nq == TQ) {
+    store_run<TQ, 0, TQ>(acc, out, D, 0);
+  } else if constexpr (TQ > 1) {
+    store_bit_runs<TQ, log2i(TQ) - 1>(acc, out, D, nq);
+  }
 }
 
 template <int TQ>
@@ -113,20 +137,20 @@ hdist_scan_kernel(const uint32_t* __restrict__ queries, const uint32_t* __restri
   const int last = weff - 1;  // the only word that may be partial
   const uint32_t last_mask = bn::base_mask(n_bases - 16 * last);
   const int nquads = (weff + 3) / 4;
-  for_runs<TQ>(nq, [&](auto n, auto off, int j0) {  // slots past nq are never read
-    constexpr int N = decltype(n)::value;
-    for (int i = threadIdx.x; i < nquads * N; i += blockDim.x) {
-      const int u = i / N, k = i - u * N;
-      uint32_t w[4];
+  for (int i = threadIdx.x; i < nquads * TQ; i += blockDim.x) {
+    const int u = i / TQ;
+    const int j = slot_query<TQ>(i - u * TQ, nq);
+    uint32_t w[4] = {0u, 0u, 0u, 0u};
+    if (j >= 0) {
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int wi = 4 * u + c;
-        w[c] = wi < weff ? queries[(q0 + j0 + k) * W + wi] & (wi == last ? last_mask : ~0u) : 0u;
+      for (int k = 0; k < 4; ++k) {
+        const int wi = 4 * u + k;
+        if (wi < weff) w[k] = queries[(q0 + j) * W + wi] & (wi == last ? last_mask : ~0u);
       }
-      const uint2 a = merge_pair(w[0], w[1]), b = merge_pair(w[2], w[3]);
-      sq[u * TQ + decltype(off)::value + k] = make_uint4(a.x, a.y, b.x, b.y);
     }
-  });
+    const uint2 a = merge_pair(w[0], w[1]), b = merge_pair(w[2], w[3]);
+    sq[i] = make_uint4(a.x, a.y, b.x, b.y);
+  }
   __syncthreads();
   const int64_t d = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   if (d >= D) return;
@@ -154,11 +178,7 @@ hdist_scan_kernel(const uint32_t* __restrict__ queries, const uint32_t* __restri
     else
       tile_quad<TQ, 1>(acc, sq + full * TQ, merge_pair(x[0], x[1]), make_uint2(0u, 0u), nq);
   }
-  for_runs<TQ>(nq, [&](auto n, auto off, int j0) {
-#pragma unroll
-    for (int i = 0; i < decltype(n)::value; ++i)
-      out[(q0 + j0 + i) * D + d] = acc[decltype(off)::value + i];
-  });
+  store_tile<TQ>(acc, out + q0 * D + d, D, nq);
 }
 
 template <int TQ>

@@ -23,16 +23,20 @@ from .utils import bitops
 # distances_batch runs K6 (the tensor cores) from tc_min_q(W) queries on,
 # and K5 below it, or K5 at any Q where tc_min_q(W) is None. K5 reads the
 # database once for each tile of 32 queries; K6 expands the whole database
-# whatever Q is, in tiles of up to 256 queries. chip_smoke.py's sweep over
-# 4,194,304 entries on an NVIDIA H100 80GB HBM3 at a 700.00 W power limit,
-# K5 / K6 in ms at Q = 1, 8, 16, 24, 32, 48, 64, 128, 256, 512: 512 bases
-# (W = 32) 0.207 / 1.786, 0.236 / 1.702, 0.348 / 1.965, 0.537 / 1.730,
-# 0.643 / 1.682, 1.070 / 2.295, 1.329 / 2.379, 2.559 / 3.363, 5.105 /
-# 4.616, 10.042 / 8.684; 150 bases (W = 10) 0.099 / 1.240, 0.113 / 1.374,
-# 0.188 / 1.354, 0.239 / 1.460, 0.277 / 1.231, 0.460 / 1.273, 0.562 /
-# 1.363, 1.145 / 2.117, 2.318 / 3.480, 4.497 / 6.089. K6 led only at 256
-# and 512 queries of 512 bases; on 150-base entries K5 led at every Q, and
-# its cost grows more slowly with Q than K6's.
+# whatever Q is, in tiles of up to 256 queries (384 is a tile and a half).
+# chip_smoke.py's sweep over 4,194,304 entries on an NVIDIA H100 80GB HBM3
+# at a 700.00 W power limit, K5 / K6 in ms, in two runs. 512 bases (W = 32)
+# at Q = 1, 8, 16, 24, 32, 48, 64, 128, 256, 512: 0.207 / 1.786, 0.236 /
+# 1.702, 0.348 / 1.965, 0.537 / 1.730, 0.643 / 1.682, 1.070 / 2.295, 1.329
+# / 2.379, 2.559 / 3.363, 5.105 / 4.616, 10.042 / 8.684, and 0.238 / 2.284,
+# 0.308 / 2.377, 0.427 / 2.554, 0.580 / 2.263, 0.743 / 1.750, 1.021 /
+# 3.105, 1.404 / 2.897, 2.726 / 3.800, 5.317 / 5.675, 10.364 / 8.639 (and
+# 3.884 / 4.937 at 192, 7.690 / 8.947 at 384). 150 bases (W = 10): K5 led
+# at every Q in both runs, 4.497 / 6.089 and 4.516 / 5.734 at 512; 448 and
+# 320 bases (W = 28, 20, the second run): K5 led at every Q, 8.301 / 8.589
+# and 6.514 / 7.394 at 512. On 32-word entries K6 led at 512 queries in
+# both runs and at 256 in the first; past 256 it loses where a query tile is
+# left part empty (384).
 
 
 def tc_min_q(n_words: int):

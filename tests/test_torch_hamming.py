@@ -78,8 +78,9 @@ def _scan_tile(Q):
 
 
 def _runs(TQ, nq):
-    """hamming.cu's for_runs: the (N, OFF, j0) runs of a tile of TQ slots
-    serving nq queries, slots OFF..OFF+N-1 holding queries j0..j0+N-1."""
+    """The runs of hamming.cu's tiles (slot_query, bit_runs, store_tile):
+    (N, OFF, j0) for a tile of TQ slots serving nq queries, slots
+    OFF..OFF+N-1 holding queries j0..j0+N-1."""
     if nq == TQ:
         return [(TQ, 0, 0)]
     return [(1 << b, TQ - (2 << b), nq >> (b + 1) << (b + 1))
