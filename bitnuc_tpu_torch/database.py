@@ -28,15 +28,15 @@ from .utils import bitops
 # at a 700.00 W power limit, K5 / K6 in ms, in two runs. 512 bases (W = 32)
 # at Q = 1, 8, 16, 24, 32, 48, 64, 128, 256, 512: 0.207 / 1.786, 0.236 /
 # 1.702, 0.348 / 1.965, 0.537 / 1.730, 0.643 / 1.682, 1.070 / 2.295, 1.329
-# / 2.379, 2.559 / 3.363, 5.105 / 4.616, 10.042 / 8.684, and 0.238 / 2.284,
-# 0.308 / 2.377, 0.427 / 2.554, 0.580 / 2.263, 0.743 / 1.750, 1.021 /
-# 3.105, 1.404 / 2.897, 2.726 / 3.800, 5.317 / 5.675, 10.364 / 8.639 (and
-# 3.884 / 4.937 at 192, 7.690 / 8.947 at 384). 150 bases (W = 10): K5 led
-# at every Q in both runs, 4.497 / 6.089 and 4.516 / 5.734 at 512; 448 and
-# 320 bases (W = 28, 20, the second run): K5 led at every Q, 8.301 / 8.589
-# and 6.514 / 7.394 at 512. On 32-word entries K6 led at 512 queries in
-# both runs and at 256 in the first; past 256 it loses where a query tile is
-# left part empty (384).
+# / 2.379, 2.559 / 3.363, 5.105 / 4.616, 10.042 / 8.684, and 0.202 / 1.706,
+# 0.237 / 1.839, 0.348 / 1.773, 0.526 / 2.222, 0.678 / 2.049, 1.091 /
+# 1.919, 1.322 / 2.354, 2.506 / 3.223, 5.136 / 5.058, 10.074 / 8.634 (and
+# 3.852 / 4.847 at 192, 7.501 / 8.925 at 384). 150 bases (W = 10): K5 led
+# at every Q in both runs, 4.497 / 6.089 and 4.488 / 6.029 at 512; 448 and
+# 320 bases (W = 28, 20, the second run): K5 led at every Q but 512 queries
+# of 448 bases, 8.308 / 7.828, and 6.347 / 7.190 at 512 of 320. On 32-word
+# entries K6 led at 256 and 512 queries in both runs; between them it loses
+# where a query tile is left part empty (384).
 
 
 def tc_min_q(n_words: int):

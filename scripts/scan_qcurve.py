@@ -7,7 +7,7 @@ entries of 512 bases, from the seed); at each Q every checkout is timed in
 the order given (CUDA events, median of 5, L2 flushed before each run). One
 line per Q, then the card's name and power limit; --out gets the JSON.
 
-    python3 scripts/scan_qcurve.py TREE [TREE ...] --out chiprun_out/qcurve.json
+    python3 scripts/scan_qcurve.py TREE [TREE ...] --out qcurve.json
 """
 
 import argparse
