@@ -17,9 +17,10 @@
 // word pair that leaves one XOR, one three-input op, one popcount and half
 // an add (two pairs' counts go into one three-input add).
 //
-// Bound on the card: at Q = 1, memory (4W bytes per entry, each read once);
-// from Q = 3 on, the popcount unit, at half a popcount a (query, word,
-// entry) beside 1.25 int32 operations (chip_smoke.scan_bounds).
+// Bound on the card (chip_smoke.scan_bounds): memory for a few queries (4W
+// bytes an entry read once, the [Q, D] output written once); for more, the
+// popcount unit, at half a popcount a (query, word, entry) beside 1.25
+// int32 operations (from about 16 queries of 32-word entries).
 //
 // Design: threads run along D, so a warp's loads of db[w, d:d+32] are
 // coalesced. A block takes a tile of queries, keeps their merged word pairs
