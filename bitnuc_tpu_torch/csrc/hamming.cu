@@ -29,7 +29,7 @@
 // of the tile; the database is read once per tile. The tile is sized to Q:
 // TQ in {1, 2, 4, 8, 16, 32}, the smallest that covers Q, and ceil(Q / 32)
 // tiles of 32 above (halved while its queries overflow shared memory). A
-// tile computes only the queries it has (nq <= TQ, see slot_query), so no
+// tile computes only the queries it has (nq <= TQ, see run_slot), so no
 // slot works for a query that is not there. Only the last word can be
 // partial: it alone is masked, in the query and in the database word. The
 // last word's pair runs alone when the pairs are odd, so no slot counts a
@@ -53,17 +53,22 @@ __device__ __forceinline__ uint2 merge_pair(uint32_t w0, uint32_t w1) {
   return make_uint2((w0 & kEven) | (w1 & ~kEven), ((w0 >> 1) & kEven) | ((w1 << 1) & ~kEven));
 }
 
-// The query held in slot s of a tile that serves nq of its TQ slots, or -1.
-// nq == TQ fills every slot in order. Otherwise each set bit b of nq is a
-// run of 2^b slots at TQ - 2^(b+1), holding the queries from nq's bits
-// above b on: every run's offset is a compile-time constant, and a tile
-// runs exactly the runs of nq's bits.
+// The slot layout of a tile that serves nq of its TQ slots. nq == TQ fills
+// every slot in order. Otherwise each set bit b of nq is a run of 2^b slots
+// from run_slot(TQ, b), holding the queries from run_query(b, nq) (nq's
+// bits above b) on: every run's offset is a compile-time constant, and a
+// tile runs exactly the runs of nq's bits. slot_query (the fill), bit_runs
+// (the scan) and store_bit_runs (the store) all take the layout from here.
+__host__ __device__ constexpr int run_slot(int TQ, int b) { return TQ - (2 << b); }
+__host__ __device__ constexpr int run_query(int b, int nq) { return nq >> (b + 1) << (b + 1); }
+
+// The query held in slot s, or -1.
 template <int TQ>
 __device__ __forceinline__ int slot_query(int s, int nq) {
   if (nq == TQ) return s;
   for (int b = 0; (1 << b) < TQ; ++b) {
-    const int off = TQ - (2 << b);
-    if ((nq >> b & 1) && s >= off && s < off + (1 << b)) return (nq >> (b + 1) << (b + 1)) + s - off;
+    const int off = run_slot(TQ, b);
+    if ((nq >> b & 1) && s >= off && s < off + (1 << b)) return run_query(b, nq) + s - off;
   }
   return -1;
 }
@@ -87,7 +92,7 @@ __device__ __forceinline__ void run_quad(int (&acc)[TQ], const uint4* sq, uint2 
 template <int TQ, int P, int B>
 __device__ __forceinline__ void bit_runs(int (&acc)[TQ], const uint4* sq, uint2 x0, uint2 x1,
                                          int nq) {
-  if (nq >> B & 1) run_quad<(1 << B), TQ - (2 << B), TQ, P>(acc, sq, x0, x1);
+  if (nq >> B & 1) run_quad<(1 << B), run_slot(TQ, B), TQ, P>(acc, sq, x0, x1);
   if constexpr (B > 0) bit_runs<TQ, P, B - 1>(acc, sq, x0, x1, nq);
 }
 
@@ -113,11 +118,11 @@ __device__ __forceinline__ void store_run(const int (&acc)[TQ], int32_t* out, in
 template <int TQ, int B>
 __device__ __forceinline__ void store_bit_runs(const int (&acc)[TQ], int32_t* out, int64_t D,
                                                int nq) {
-  if (nq >> B & 1) store_run<(1 << B), TQ - (2 << B), TQ>(acc, out, D, nq >> (B + 1) << (B + 1));
+  if (nq >> B & 1) store_run<(1 << B), run_slot(TQ, B), TQ>(acc, out, D, run_query(B, nq));
   if constexpr (B > 0) store_bit_runs<TQ, B - 1>(acc, out, D, nq);
 }
 
-// The tile's nq distances, run by run as slot_query lays them out.
+// The tile's nq distances, run by run as run_slot and run_query lay them out.
 template <int TQ>
 __device__ __forceinline__ void store_tile(const int (&acc)[TQ], int32_t* out, int64_t D, int nq) {
   if (nq == TQ) {

@@ -34,15 +34,21 @@ from .utils import bitops
 # 3.852 / 4.847 at 192, 7.501 / 8.925 at 384). 150 bases (W = 10): K5 led
 # at every Q in both runs, 4.497 / 6.089 and 4.488 / 6.029 at 512; 448 and
 # 320 bases (W = 28, 20, the second run): K5 led at every Q but 512 queries
-# of 448 bases, 8.308 / 7.828, and 6.347 / 7.190 at 512 of 320. On 32-word
-# entries K6 led at 256 and 512 queries in both runs; between them it loses
-# where a query tile is left part empty (384).
+# of 448 bases, 8.308 / 7.828 (4.330 / 4.944 at 256), and 6.347 / 7.190 at
+# 512 of 320. So K6 from 256 queries on 32-word entries, where it led at
+# 256 and 512 in both runs (it loses at 384, a query tile left part
+# empty); from 512 on 28 to 31 words; none below 28 (the sweep's 384-base
+# row, W = 24, is in PERF.md). 29 to 31 words and more than 32 are not
+# swept: K6's lead grows with W, so they take the threshold of the swept
+# width below them.
 
 
 def tc_min_q(n_words: int):
     """The fewest queries for which distances_batch runs K6 on entries of
     ``n_words`` packed words, or None where K5 serves any number."""
-    return 256 if n_words >= 32 else None
+    if n_words >= 32:
+        return 256
+    return 512 if n_words >= 28 else None
 
 
 # search_batch runs the fused search (K6 with its top-k epilogue, the

@@ -43,14 +43,15 @@ Phases, each of which must pass:
    the main rows), K4 hdist_scan and K5
    hdist_scan_batch (one kernel, at the shapes distances_batch sends it:
    Q = 1, 3, 8, 16 and 31 on 512-base entries, 64 and 127 on 150-base
-   ones; beside torch._int_mm at Q = 31 and 64), K6 tc_scan, K7 merge and K10 orf_scan at
-   the main paths' shapes and at edge shapes (K3a also on poly-A keys and
-   at k = 11; K7 also lopsided and all ties; K10 at phase 8's batch on
-   both strands, and on one strand at the table's row, phase 8's contigs,
+   ones; beside torch._int_mm at Q = 8, 16, 31 and 64), K6 tc_scan, K7
+   merge and K10 orf_scan at the main paths' shapes and at edge shapes
+   (K3a also on poly-A keys and at k = 11; K7 also lopsided and all ties;
+   K10 at phase 8's batch on both strands, and on one strand at the
+   table's row, phase 8's contigs,
    rows of 100,000 bp and reads of 300, 1,000 and 4,000 bp), each timed
    with CUDA events (median of several runs, L2 flushed before each) beside
    its plain version. K6 also against K5 on the full database at Q = 1 to
-   512, at 512-, 448-, 320- and 150-base entries (the sweep behind
+   512, at 512-, 448-, 384-, 320- and 150-base entries (the sweep behind
    database.tc_min_q), and beside torch._int_mm. tc_search, K6's search
    form with a per-block top-k, against its plain version, against tc_scan
    + top-k on the full database at k = 1, 10 and SEARCH_TOPK_MAX, at edge
@@ -315,7 +316,7 @@ SCAN_OPS_PER_WE = 2
 SCAN_SHAPES = ((1, DB_BASES), (3, DB_BASES), (8, DB_BASES), (16, DB_BASES), (31, DB_BASES),
                (64, DB_BASES), (64, READ_LEN), (127, READ_LEN))
 TC_SWEEP_Q = (1, 8, 16, 24, 32, 48, 64, 128, 192, 256, 384, 512)
-TC_SWEEP_BASES = (DB_BASES, 448, 320, READ_LEN)  # W = 32, 28, 20 and 10
+TC_SWEEP_BASES = (DB_BASES, 448, 384, 320, READ_LEN)  # W = 32, 28, 24, 20 and 10
 SEARCH_SWEEP_Q = (1, 8, 32, 64, 128, 256, 512)  # search_batch's two routes
 SEARCH_QUERIES = 256  # phase 8's query file, and K6's reported shape
 TC_SLICE = 262_144  # database entries K6's plain version is compared on
@@ -3656,17 +3657,17 @@ def int_mm_planes(torch, db):
     return planes
 
 
-def load_other_tree(path: str):
+def load_other_tree(path: str, name: str = "bnt_other"):
     """The ``bitnuc_tpu_torch`` of the checkout in ``path``, imported as the
-    package ``bnt_other``; it builds its own kernels at first use."""
+    package ``name``; it builds its own kernels at first use."""
     import importlib.util
 
     pkg = os.path.join(os.path.abspath(path), "bitnuc_tpu_torch")
     spec = importlib.util.spec_from_file_location(
-        "bnt_other", os.path.join(pkg, "__init__.py"), submodule_search_locations=[pkg])
-    sys.modules["bnt_other"] = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(sys.modules["bnt_other"])
-    return sys.modules["bnt_other"]
+        name, os.path.join(pkg, "__init__.py"), submodule_search_locations=[pkg])
+    sys.modules[name] = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sys.modules[name])
+    return sys.modules[name]
 
 
 def finish_against(args, torch, res) -> int:
@@ -4633,8 +4634,10 @@ def main() -> int:
     # K4 (Q = 1) and K5 (Q > 1): one kernel, counted and reported apart, at
     # SCAN_SHAPES, the shapes distances_batch sends it (the main rows: K4,
     # and K5 at Q = 8, 16 and 31, on 512-base entries). K5's library call is
-    # torch._int_mm of the same bit planes, as K6's, where it takes the rows
-    # (more than 16): at Q = 31 and 64 on 512-base entries
+    # torch._int_mm of the same bit planes, as K6's, on 512-base entries: the
+    # queries lead from 17 rows on (Q = 31, 64); at Q = 8 and 16 the planes
+    # lead ([D, Q], Q a multiple of 8) and the result is transposed. Q = 3
+    # fits neither form
     lib_planes = int_mm_planes(torch, db)
     for Q, nb in SCAN_SHAPES:
         name = "hdist_scan" if Q == 1 else "hdist_scan_batch"
@@ -4644,12 +4647,17 @@ def main() -> int:
         got = hamming.hdist_scan_kernel(q, d, nb)
         compare(name, label, got, hamming.hdist_scan_torch(q, d, nb))
         library = None
-        if Q > 16 and nb == DB_BASES:
+        if nb == DB_BASES and (Q > 16 or Q % 8 == 0):
             lib_q5 = hamming.query_planes(q, nb)
+            if Q > 16:
+                library = lambda: torch._int_mm(lib_q5, lib_planes.t())  # noqa: E731
+                core = library()
+            else:
+                library = lambda: torch._int_mm(lib_planes, lib_q5.t())  # noqa: E731
+                core = library().t()
             compare(name, f"torch._int_mm core Q={Q} (affine step applied)",
-                    torch.div(3 * nb - torch._int_mm(lib_q5, lib_planes.t()), 4,
-                              rounding_mode="floor"), got)
-            library = lambda: torch._int_mm(lib_q5, lib_planes.t())  # noqa: E731
+                    torch.div(3 * nb - core, 4, rounding_mode="floor"), got)
+            del core
         del got
         row = timed(name, label, lambda: hamming.hdist_scan_kernel(q, d, nb),
                     lambda: hamming.hdist_scan_torch(q, d, nb), plain_reps=1,
@@ -4670,9 +4678,10 @@ def main() -> int:
                     hamming.hdist_scan_kernel(q, d, nb), hamming.hdist_scan_torch(q, d, nb))
 
     phase_clock(results, "phase 2: K6")
-    # K6 against K5 on the full database at each swept Q, at 512-, 448- and
-    # 320-base entries and at 150-base ones (W = 10, a read set): this feeds
-    # database.tc_min_q. Then K6 against its plain version on a slice, and
+    # K6 against K5 on the full database at each swept Q, at 512-, 448-,
+    # 384- and 320-base entries and at 150-base ones (W = 10, a read set):
+    # this feeds database.tc_min_q. Then K6 against its plain version on a
+    # slice, and
     # at edge shapes; timed beside torch._int_mm of the same planes at
     # phase 8's Q
     sweep = {}

@@ -102,8 +102,9 @@ def test_b_stages_follow_the_descriptor_layout(Q, N, W):
                                database.tc_min_q(32) + 5])
 def test_distances_and_search_batch_both_sides_of_tc_min_q(Q):
     """Both sides of the K5/K6 threshold of 32-word entries, n_bases
-    inside the last word; fewer words never reach K6."""
-    assert database.tc_min_q(31) is None
+    inside the last word; 28 to 31 words reach K6 from 512 queries, fewer
+    never."""
+    assert database.tc_min_q(31) == 512 and database.tc_min_q(27) is None
     rng = np.random.default_rng(Q)
     D, nb = 500, 500
     W = 32
@@ -116,6 +117,26 @@ def test_distances_and_search_batch_both_sides_of_tc_min_q(Q):
     got_d, got_i = tdb.search_batch(words_from_u32_np(qs), 9)
     np.testing.assert_array_equal(got_d.numpy(), np.asarray(want_d))
     np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+
+
+@pytest.mark.parametrize("W,Q", [(28, 511), (28, 512), (31, 512)])
+def test_distances_batch_both_sides_of_tc_min_q_below_32_words(W, Q):
+    """28 to 31 words, K5 below 512 queries and K6 from it: equal to the
+    JAX package."""
+    rng = np.random.default_rng(W + Q)
+    D, nb = 40, 16 * W - 5
+    db, qs = _words(rng, D, W), _words(rng, Q, W)
+    jdb = JPackedDB(words_wm=jnp.asarray(db.T.copy()), n_bases=nb)
+    tdb = PackedDB.from_numpy(db.T.copy(), nb, device=CPU)
+    np.testing.assert_array_equal(tdb.distances_batch(words_from_u32_np(qs)).numpy(),
+                                  np.asarray(jdb.distances_batch(jnp.asarray(qs))))
+
+
+def test_tc_min_q_by_width():
+    """K6 from 256 queries on 32 words or more, from 512 on 28 to 31, never
+    on fewer."""
+    assert [database.tc_min_q(w) for w in (1, 10, 20, 24, 27, 28, 31, 32, 33, 64)] == \
+        [None] * 5 + [512, 512, 256, 256, 256]
 
 
 def _write_fastq(path, seqs):

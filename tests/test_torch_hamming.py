@@ -3,6 +3,9 @@ the K4/K5 scan against the Pallas scans in interpret mode and against
 hdist_many_to_many, top-k ties and sentinel tails, and PackedDB .npz files
 moving between the two packages. Distances and indices match exactly."""
 
+import pathlib
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -77,13 +80,27 @@ def _scan_tile(Q):
     return next((t for t in SCAN_TILES if t >= Q), SCAN_TILES[-1])
 
 
+def _source_layout(name):
+    """hamming.cu's constexpr ``name`` (run_slot or run_query) as a Python
+    function: its one-line body of shifts and a subtraction means the same
+    in Python on non-negative ints."""
+    src = (pathlib.Path(hamming.__file__).parents[1] / "csrc" / "hamming.cu").read_text()
+    m = re.search(rf"constexpr int {name}\(int (\w+), int (\w+)\) \{{ return ([^;]+); \}}", src)
+    assert m, name
+    return eval(f"lambda {m[1]}, {m[2]}: {m[3]}")  # noqa: S307
+
+
+RUN_SLOT, RUN_QUERY = _source_layout("run_slot"), _source_layout("run_query")
+
+
 def _runs(TQ, nq):
-    """The runs of hamming.cu's tiles (slot_query, bit_runs, store_tile):
-    (N, OFF, j0) for a tile of TQ slots serving nq queries, slots
-    OFF..OFF+N-1 holding queries j0..j0+N-1."""
+    """The runs of hamming.cu's tiles, from its run_slot and run_query (the
+    one layout that slot_query, bit_runs and store_bit_runs share): (N, OFF,
+    j0) for a tile of TQ slots serving nq queries, slots OFF..OFF+N-1
+    holding queries j0..j0+N-1."""
     if nq == TQ:
         return [(TQ, 0, 0)]
-    return [(1 << b, TQ - (2 << b), nq >> (b + 1) << (b + 1))
+    return [(1 << b, RUN_SLOT(TQ, b), RUN_QUERY(b, nq))
             for b in reversed(range(TQ.bit_length() - 1)) if nq >> b & 1]
 
 

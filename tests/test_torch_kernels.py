@@ -658,7 +658,7 @@ def test_tc_scan_kernel_over_many_tiles_a_block(cuda, Q, W, nb_of):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("W", [10, 31, 32, 64])
+@pytest.mark.parametrize("W", [10, 27, 28, 31, 32, 64])
 def test_distances_batch_routes_by_tc_min_q(cuda, W):
     """K6 from tc_min_q(W) queries on and K5 below it; K5 at any Q where it
     is None."""
