@@ -8,7 +8,9 @@ its search form with a per-block top-k), ``ops/merge.py``
 (``merge``), ``ops/align.py`` (``fit_banded``, ``sw_score``),
 ``ops/orf.py`` (``orf_scan``) and ``ops/chain.py`` (``chain``, which
 replaces no TPU kernel: it is the JAX package's chaining, its row sort
-and scan, on the card). Each adds one to its entry in ``LAUNCHES``
+and scan, on the card), and ``traceback`` in ``ops/align.py`` (C2, which
+replaces no TPU kernel either: the JAX package's direction-recording
+wavefront and its walk behind every CIGAR). Each adds one to its entry in ``LAUNCHES``
 where it launches its kernel, and nowhere else, so a run can show that its
 main path went through the kernels.
 """
@@ -31,6 +33,7 @@ LAUNCHES = {
     "tc_search": 0,
     "orf_scan": 0,
     "chain": 0,
+    "traceback": 0,
 }
 
 

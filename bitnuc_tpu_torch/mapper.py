@@ -69,9 +69,13 @@ _BAND_GAP = 32
 MAP_BATCH = 262_144  # reads per map_reads batch
 BIN_BITS = 5  # map_reads' default diagonal bin (32 bp)
 PAD = 32  # map_reads' default window padding on each side of the read
-# direction-plane bytes of one traceback chunk on the card (3 GiB: 37,282
-# reads of 150 bp at the default pad, (N + 1) * T = 86,400 bytes each)
+# device bytes of one traceback chunk on the card: under the plain backend
+# its direction plane (3 GiB: 37,282 reads of 150 bp at the default pad,
+# (N + 1) * T = 86,400 bytes each); on C2's route its operands, about
+# _TB_KERNEL_BYTES_PER_BASE a read and window base (codes, gather indices,
+# ops; C2's own scratch is bounded in ops.align), at most MAP_BATCH reads
 _TB_PLANE_BUDGET = 3 << 30
+_TB_KERNEL_BYTES_PER_BASE = 16
 _TB_CHUNK_CPU = 1024
 # device bytes of one map_reads_long chunk, by the estimate of _long_chunk
 _LONG_BYTES = 8 << 30
@@ -609,12 +613,16 @@ def _traceback_core(words, lengths, ref_codes, ref_start, ref_end, use_rc,
 
 def _traceback_chunk(device, W: int, pad: int = PAD, band: int = 0) -> int:
     """Reads per traceback chunk: 1024 on the CPU, as in the JAX package;
-    on the card as many as keep the direction plane ((M+N)(N+1) bytes a
-    read, (M+N)(band+2) with a band) within 3 GiB."""
+    on the card, through C2, as many as keep the operands within 3 GiB, at
+    most MAP_BATCH; under backend('torch') as many as keep the plain
+    version's direction plane ((M+N)(N+1) bytes a read, (M+N)(band+2) with a
+    band) within 3 GiB."""
     if torch.device(device).type != "cuda":
         return _TB_CHUNK_CPU
     L = 16 * W
     N = L + 2 * pad
+    if config.get_backend() != "torch":
+        return max(1, min(MAP_BATCH, _TB_PLANE_BUDGET // (_TB_KERNEL_BYTES_PER_BASE * (L + N))))
     lanes = (N + 1) if not band else min(N + 1, (2 * band + 1) // 2 + 2)
     return max(1, _TB_PLANE_BUDGET // ((L + N) * lanes))
 

@@ -12,20 +12,23 @@ int32 values: every sum wraps modulo 2^32, as the JAX package's int32
 arithmetic does, and so do the kernels' (``_i32`` wraps the boundary
 products d * gap, which are Python ints here).
 
-Two functions have hand-written kernels (``csrc/wavefront.cu``), each
-beside its plain version here and picked by the device of the words (see
-``config``):
+Three functions have hand-written kernels, each beside its plain version
+here and picked by the device of the inputs (see ``config``):
 
-* ``fit_distance_span_banded`` — K8 ``fit_banded`` (the mapper's fit);
-* ``sw_score`` — K9 ``sw_score``.
+* ``fit_distance_span_banded`` — K8 ``fit_banded`` (``csrc/wavefront.cu``,
+  the mapper's fit);
+* ``sw_score`` — K9 ``sw_score`` (``csrc/wavefront.cu``);
+* the tracebacks ``align_ops``, ``align_ops_codes`` and
+  ``align_ops_codes_banded`` — C2 ``traceback`` (``csrc/traceback.cu``,
+  the source of every CIGAR), which replaces no TPU kernel: the JAX package
+  runs them as two ``lax.scan`` loops, the direction-recording wavefront
+  and its walk.
 
 The plain loops stop at the batch's largest m + n: no cell past it can
 reach an output (the fitting extraction needs j = d - m <= n, the global
 answer and every traceback cell lie on d <= m + n, and Smith-Waterman only
 scores cells with i <= m and j <= n), so the results are those of the
-full M + N diagonals. The tracebacks (``align_ops``, ``align_ops_codes``,
-``align_ops_codes_banded``) stay plain PyTorch, as the JAX package has no
-kernel for them.
+full M + N diagonals.
 """
 
 from __future__ import annotations
@@ -559,14 +562,130 @@ def _pad_codes(codes_a, lens_a, codes_b, lens_b):
     return a, lens_a, b, lens_b
 
 
+def align_ops_codes_torch(codes_a, lens_a, codes_b, lens_b, mismatch=1, gap=1,
+                          ends_free_b: bool = False, tie_late=None):
+    """Plain version of C2, unbanded: align_ops_codes over the full N + 1
+    lanes of each diagonal and the recorded [T, N + 1] plane."""
+    a, lens_a, b, lens_b = _pad_codes(codes_a, lens_a, codes_b, lens_b)
+    return _wavefront_tb_codes(a, lens_a, b, lens_b, int(mismatch), int(gap),
+                               ends_free_b, tie_late)
+
+
+def align_ops_codes_banded_torch(codes_a, lens_a, codes_b, lens_b, mismatch=1, gap=1,
+                                 ends_free_b: bool = False, off_lo: int = -64,
+                                 off_hi: int = 64):
+    """Plain version of C2, banded: align_ops_codes_banded over K band lanes
+    and the recorded [T, K] plane."""
+    a, lens_a, b, lens_b = _pad_codes(codes_a, lens_a, codes_b, lens_b)
+    return _wavefront_tb_codes_banded(a, lens_a, b, lens_b, int(mismatch), int(gap),
+                                      ends_free_b, off_lo, off_hi)
+
+
+# C2 keeps a pair's last three diagonals (a ring of 12 bytes a lane) and its
+# direction plane ((M + 1)(N + 1) bytes unbanded, (M + N) K banded) in
+# shared memory where both fit in _TB_SMEM_BYTES; past that the plane, and
+# past _TB_RING_SMEM_BYTES the ring too, go to a slice of device scratch a
+# block, for at most _TB_MAX_BLOCKS blocks within _TB_SCRATCH_BYTES.
+_TB_SMEM_BYTES = 96 * 1024
+_TB_RING_SMEM_BYTES = 192 * 1024
+_TB_SCRATCH_BYTES = 1 << 30
+_TB_MAX_BLOCKS = 8192
+
+
+def _round16(x: int) -> int:
+    return (x + 15) // 16 * 16
+
+
+def _tb_layout(B: int, M: int, N: int, K: int) -> Tuple[int, int, int, int]:
+    """(ring_smem, plane_smem, stride, nblocks) of a C2 launch: K = 0 for
+    the unbanded form, else the band's lanes. stride is the scratch bytes a
+    block (0: all in shared memory, one block a pair); otherwise nblocks
+    blocks stride over the B pairs."""
+    ring = _round16(12 * (K if K else N + 1))
+    plane = (M + N) * K if K else (M + 1) * (N + 1)
+    ring_smem = ring <= _TB_RING_SMEM_BYTES
+    plane_smem = ring_smem and ring + plane <= _TB_SMEM_BYTES
+    stride = (0 if ring_smem else ring) + (0 if plane_smem else _round16(plane))
+    if stride == 0:
+        return 1, 1, 0, max(1, B)
+    nblocks = max(1, min(B, _TB_MAX_BLOCKS, _TB_SCRATCH_BYTES // stride))
+    return int(ring_smem), int(plane_smem), stride, nblocks
+
+
+def _traceback_kernel(codes_a, lens_a, codes_b, lens_b, mismatch, gap, ends_free_b: bool,
+                      tie_late, off_lo: int = 0, K: int = 0):
+    """C2 on the card (``csrc/traceback.cu``): contiguous int32 CUDA codes
+    [B, M] and [B, N] (anything past each length) with int32 lengths [B] in
+    [0, M] and [0, N]; K = 0 unbanded, else 2 <= K < N + 1 band lanes from
+    off_lo. Returns (cost [B], end_j [B], ops [B, M + N] uint8)."""
+    kernels.require(codes_a, "traceback codes_a", torch.int32, 2)
+    kernels.require(lens_a, "traceback lens_a", torch.int32, 1)
+    kernels.require(codes_b, "traceback codes_b", torch.int32, 2)
+    kernels.require(lens_b, "traceback lens_b", torch.int32, 1)
+    B, M = codes_a.shape
+    N = codes_b.shape[1]
+    if codes_b.shape[0] != B or lens_a.shape[0] != B or lens_b.shape[0] != B:
+        raise ValueError("traceback: codes and lengths of a and b need one batch size")
+    if len({t.device for t in (codes_a, lens_a, codes_b, lens_b)}) != 1:
+        raise ValueError("traceback: every input must lie on one device")
+    dev = codes_a.device
+    if B and bool(((lens_a < 0) | (lens_a > M) | (lens_b < 0) | (lens_b > N)).any()):
+        raise ValueError(f"traceback: lengths must lie in [0, {M}] and [0, {N}]")
+    cost, endj = (torch.empty(B, dtype=torch.int32, device=dev) for _ in range(2))
+    ops = torch.empty((B, M + N), dtype=torch.uint8, device=dev)
+    if B == 0:
+        return cost, endj, ops
+    late = None
+    if tie_late is not None:
+        late = torch.as_tensor(tie_late, device=dev).to(torch.bool).reshape(B).contiguous()
+    ring_smem, plane_smem, stride, nblocks = _tb_layout(B, M, N, K)
+    scratch = torch.empty(nblocks * stride, dtype=torch.uint8, device=dev) if stride else None
+    code = _build.library().bn_traceback(
+        codes_a.data_ptr(), lens_a.data_ptr(), codes_b.data_ptr(), lens_b.data_ptr(),
+        None if late is None else late.data_ptr(), B, M, N, _i32(mismatch), _i32(gap),
+        int(bool(ends_free_b)), off_lo, K, ring_smem, plane_smem,
+        None if scratch is None else scratch.data_ptr(), stride, nblocks,
+        cost.data_ptr(), endj.data_ptr(), ops.data_ptr(), kernels.stream_handle(dev),
+    )
+    _build.check(code, "traceback")
+    kernels.LAUNCHES["traceback"] += 1
+    return cost, endj, ops
+
+
+def _kernel_operands(codes_a, lens_a, codes_b, lens_b):
+    return (codes_a.to(torch.int32).contiguous(), lens_a.to(torch.int32).contiguous(),
+            codes_b.to(torch.int32).contiguous(), lens_b.to(torch.int32).contiguous())
+
+
+def align_ops_codes_kernel(codes_a, lens_a, codes_b, lens_b, mismatch=1, gap=1,
+                           ends_free_b: bool = False, tie_late=None):
+    """C2 on the card, unbanded: align_ops_codes on CUDA codes."""
+    return _traceback_kernel(*_kernel_operands(codes_a, lens_a, codes_b, lens_b),
+                             mismatch, gap, ends_free_b, tie_late)
+
+
+def align_ops_codes_banded_kernel(codes_a, lens_a, codes_b, lens_b, mismatch=1, gap=1,
+                                  ends_free_b: bool = False, off_lo: int = -64,
+                                  off_hi: int = 64):
+    """C2 on the card, banded: align_ops_codes_banded on CUDA codes (a band
+    as wide as the window, K >= N + 1, runs the unbanded form)."""
+    K, _ = _band_geometry(off_lo, off_hi, codes_b.shape[-1])
+    operands = _kernel_operands(codes_a, lens_a, codes_b, lens_b)
+    if K >= codes_b.shape[-1] + 1:
+        return _traceback_kernel(*operands, mismatch, gap, ends_free_b, None)
+    return _traceback_kernel(*operands, mismatch, gap, ends_free_b, None, off_lo, K)
+
+
 def align_ops_codes_banded(codes_a, lens_a, codes_b, lens_b, mismatch=1, gap=1,
                            ends_free_b: bool = False, off_lo: int = -64, off_hi: int = 64):
     """align_ops_codes restricted to the diagonal band j - i in
     [off_lo, off_hi]: the same (cost, end_j, ops) whenever some optimal
-    path stays in the band."""
-    a, lens_a, b, lens_b = _pad_codes(codes_a, lens_a, codes_b, lens_b)
-    return _wavefront_tb_codes_banded(a, lens_a, b, lens_b, int(mismatch), int(gap),
-                                      ends_free_b, off_lo, off_hi)
+    path stays in the band. Dispatches C2 on CUDA codes (see ``config``)."""
+    if config.use_kernel(codes_a):
+        return align_ops_codes_banded_kernel(codes_a, lens_a, codes_b, lens_b, mismatch, gap,
+                                             ends_free_b, off_lo, off_hi)
+    return align_ops_codes_banded_torch(codes_a, lens_a, codes_b, lens_b, mismatch, gap,
+                                        ends_free_b, off_lo, off_hi)
 
 
 def align_ops(words_a, lens_a, words_b, lens_b, mismatch=1, gap=1,
@@ -574,7 +693,12 @@ def align_ops(words_a, lens_a, words_b, lens_b, mismatch=1, gap=1,
     """Min-cost alignment with per-base operations (the CIGAR source):
     global when ends_free_b=False, fitting otherwise. Returns (cost [B],
     end_j [B], ops [B, M+N] uint8) in forward order (OP_EQ/OP_X/OP_INS/
-    OP_DEL, OP_STOP-padded). Compress with ``cigars``."""
+    OP_DEL, OP_STOP-padded). Compress with ``cigars``. Dispatches C2 on CUDA
+    words (see ``config``)."""
+    if config.use_kernel(words_a):
+        return align_ops_codes_kernel(bitops.unpack_words(words_a), lens_a,
+                                      bitops.unpack_words(words_b), lens_b, mismatch, gap,
+                                      ends_free_b, tie_late)
     lens_a, lens_b = lens_a.to(torch.int32), lens_b.to(torch.int32)
     a = _codes(words_a, lens_a, _PAD_A)
     b = _codes(words_b, lens_b, _PAD_B)
@@ -585,10 +709,13 @@ def align_ops(words_a, lens_a, words_b, lens_b, mismatch=1, gap=1,
 def align_ops_codes(codes_a, lens_a, codes_b, lens_b, mismatch=1, gap=1,
                     ends_free_b: bool = False, tie_late=None):
     """align_ops over int32 code arrays [B, M] and [B, N]; codes past each
-    length are re-padded with the sentinels, so they may hold anything."""
-    a, lens_a, b, lens_b = _pad_codes(codes_a, lens_a, codes_b, lens_b)
-    return _wavefront_tb_codes(a, lens_a, b, lens_b, int(mismatch), int(gap),
-                               ends_free_b, tie_late)
+    length are re-padded with the sentinels, so they may hold anything.
+    Dispatches C2 on CUDA codes (see ``config``)."""
+    if config.use_kernel(codes_a):
+        return align_ops_codes_kernel(codes_a, lens_a, codes_b, lens_b, mismatch, gap,
+                                      ends_free_b, tie_late)
+    return align_ops_codes_torch(codes_a, lens_a, codes_b, lens_b, mismatch, gap,
+                                 ends_free_b, tie_late)
 
 
 def cigar_string(ops_row, eqx: bool = True) -> str:

@@ -29,7 +29,8 @@ Phases, each of which must pass:
    script fails when it does not build or load); the registers, shared
    memory and spills of pack.cu (K1), unpack.cu (K2), histogram.cu (K3a,
    K3b), hamming.cu (K4/K5, each query tile), tcscan.cu (K6), merge.cu
-   (K7), wavefront.cu (K8, K9), orf.cu (K10) and chain.cu (C1).
+   (K7), wavefront.cu (K8, K9), orf.cu (K10), chain.cu (C1) and
+   traceback.cu (C2).
 2. Every kernel against its plain PyTorch version on the card, bit for bit:
    K1 pack (at the flagship's batch, a count batch, reads of 300, 1,000
    and 4,000 bp, 64 rows of 16,384 bp, phase 6's genome as one row and a
@@ -84,10 +85,16 @@ Phases, each of which must pass:
 7. Short-read mapping of phase 6's genome and reads at the CLI defaults
    (k = 15, w = 10, max_occ = 8): MinimizerIndex.build_multi of the FASTA's
    contigs, map_reads in batches of 262,144 (K8 fit_banded),
-   traceback_cigars, and a local rescoring of the first batch with
-   ops.align.sw_score (K9). K8 and K9 against their plain versions at the
-   first batch's shapes and at edge shapes (for K9 also tie-heavy rows and
-   one cell a lane); one batch against the plain
+   traceback_cigars (C2 traceback), and a local rescoring of the first
+   batch with ops.align.sw_score (K9). K8 and K9 against their plain
+   versions at the first batch's shapes and at edge shapes (for K9 also
+   tie-heavy rows and one cell a lane); C2 against its plain version at
+   traceback_cigars' first chunk (timed beside one plain run) and at edge
+   shapes: m or n of 0, poly-A and short repeats, planted indel drift past
+   a narrow band (walks out of the band), ends_free_b with tie_late,
+   int32-extreme costs, N + 1 = 1,025 and a band of K 1,252 (a 10-kb
+   --long --sam read's) on 4 pairs of 300 x 1,300 codes; C2 also timed
+   with its plane in device scratch; one batch against the plain
    backend; checks against the reads' true starts and strands, Hamming
    distances and planted exact reads, on the CIGARs, and against a host
    full-DP fit of 256 reads.
@@ -197,7 +204,8 @@ under the default backend, phases 6, 7, 8, 9 and 11, each path of phase
 phase 13; phase 14 launches none) and read just after
 it; every kernel of that path must have launched there, and the flagship step alone
 must make two K3b launches (its plain and canonical k = 8 counts) and no K3a
-launch. The last lines printed are a
+launch; C2 must launch on phase 7's path, in phase 10's call --cigar and in
+phase 12's map --sam and map --paired --sam. The last lines printed are a
 JSON object of per-kernel
 results, the card's name and power limit from nvidia-smi, and the final
 JSON status line. The script exits non-zero, and prints no status line,
@@ -263,6 +271,11 @@ POPC_PER_S = 132 * 16 * 1.98e9
 # compares, 2 operations to combine them into one order and the pointer step.
 FIT_OPS_PER_CELL = 15
 SW_OPS_PER_CELL = 12
+# C2 (the traceback) counted over the real cells of each pair (the m x n
+# cells inside the matrix): the code compare and substitution select, 3
+# candidate sums and 2 mins, 3 tie compares and the mask's assembly (2); the
+# walk's m + n steps and the boundaries left out.
+TB_OPS_PER_CELL = 12
 MERGE_OPS_PER_ROW = 6
 # K6 runs on the int8 tensor cores: 1,979 dense TOP/s on an H100 SXM
 # (NVIDIA's H100 data sheet, int8 without sparsity). K10 counted as the
@@ -867,7 +880,7 @@ def mapping_phase(args, torch, dev, timer, results, fa, genome, reads, true_star
     ph["map_sw_rescore_s"] = time.perf_counter() - t3
     MAP_LAUNCHES.update(kernels.LAUNCHES)
     print(f"  launches {MAP_LAUNCHES}", flush=True)
-    for name in ("pack", "fit_banded", "sw_score"):
+    for name in ("pack", "fit_banded", "sw_score", "traceback"):
         check(f"{name} launched on the mapping path", MAP_LAUNCHES[name] > 0,
               f"{MAP_LAUNCHES[name]} launches")
     ph["map_index_keys"] = len(index)
@@ -944,6 +957,9 @@ def mapping_phase(args, torch, dev, timer, results, fa, genome, reads, true_star
             compare("sw_score", f"[{B}] Wa={Wa} Wb={Wb} ties={ties} params={params}",
                     align.sw_score_kernel(*pa, *params), align.sw_score_torch(*pa, *params))
 
+    phase_clock(results, "phase 7: C2 against its plain version")
+    traceback_block(args, torch, dev, timer, results, index, packed, res, compare, timed)
+
     phase_clock(results, "phase 7: one batch under the plain backend")
     # -- one batch under the plain backend ------------------------------------
     first = PackedReads(words=words_b, lengths=lens_b)
@@ -1011,6 +1027,142 @@ def mapping_phase(args, torch, dev, timer, results, fa, genome, reads, true_star
         want_f.append((c, int(ws_h[i] * 16 + s0), int(ws_h[i] * 16 + e0)))
     check(f"{len(rows)} fits == host full-DP oracle (cost, start, end)", got_f == want_f)
     return index
+
+
+def tb_pairs(rng, B: int, M: int, N: int, kind: str):
+    """B (read, window) code pairs [B, M], [B, N] int32 for C2, garbage
+    (codes 0-7) past each length: "planted" (a in b with a few edits),
+    "drift" (6-40 bases deleted from or inserted into a's middle: indel
+    drift past a narrow band, so the walk leaves it), "polyA" (runs of one
+    base) or "repeat" (period-2 and period-3 repeats) on both sides.
+    Lengths random, with m = 0, n = 0 and both 0 in the first rows."""
+    ca = rng.integers(0, 8, (B, M))
+    cb = rng.integers(0, 8, (B, N))
+    la = rng.integers(0, M + 1, B)
+    lb = rng.integers(0, N + 1, B)
+    la[:5], lb[:5] = np.array([0, M, 0, M, M // 2])[:B], np.array([N, 0, 0, N, N])[:B]
+    for r in range(B):
+        m, n = int(la[r]), int(lb[r])
+        if kind in ("polyA", "repeat"):
+            p = 1 if kind == "polyA" else int(rng.integers(2, 4))
+            ca[r, :m] = (np.arange(m) + rng.integers(0, 4)) % p if p > 1 else rng.integers(0, 4)
+            cb[r, :n] = (np.arange(n) + rng.integers(0, 3)) % p if p > 1 else ca[r, :1].max(
+                initial=0) % 4
+            continue
+        a = list(rng.integers(0, 4, m))
+        ca[r, :m] = a
+        if kind == "drift" and m > 60:
+            k, mid = int(rng.integers(6, 41)), m // 2
+            a = a[: mid - k] + a[mid:] if r % 2 else a[:mid] + list(rng.integers(0, 4, k)) + a[mid:]
+        else:
+            for _ in range(int(rng.integers(0, 5))):
+                q, op = int(rng.integers(0, max(len(a), 1))), int(rng.integers(0, 3))
+                if op == 0 and a:
+                    a[q] = int(rng.integers(0, 4))
+                elif op == 1 and a:
+                    del a[q]
+                else:
+                    a.insert(q, int(rng.integers(0, 4)))
+        body = rng.integers(0, 4, N)
+        lead = int(rng.integers(0, max(1, N - len(a)) + 1))
+        body[lead : lead + len(a)] = a[: max(0, N - lead)]
+        cb[r, :n] = body[:n]
+    return ca.astype(np.int32), la.astype(np.int32), cb.astype(np.int32), lb.astype(np.int32)
+
+
+def traceback_block(args, torch, dev, timer, results, index, packed, res, compare, timed):
+    """Phase 7's C2 block: C2 against its plain version at the first chunk
+    of traceback_cigars (the operands _traceback_core hands
+    align_ops_codes, captured as it runs), timed beside the plain version
+    (one run, the first chunk's plane being tens of GB), then at edge and
+    tie-heavy shapes, with walks out of the band, tie_late, int32-extreme
+    costs and a banded shape of K 1,252 (the band of a 10-kb --long --sam
+    read) on a few shorter pairs."""
+    from bitnuc_tpu_torch import mapper
+    from bitnuc_tpu_torch.ops import align
+    from bitnuc_tpu_torch.utils import bitops
+
+    ph = results["phases"]
+    W = packed.words.shape[1]
+    chunk = min(mapper._traceback_chunk(dev, W), len(res["mapped"]))
+    mapped = np.asarray(res["mapped"][:chunk], bool)
+    rs = torch.from_numpy(np.where(mapped, res["ref_start"][:chunk], 0).astype(np.int32)).to(dev)
+    re_ = torch.from_numpy(np.where(mapped, res["ref_end"][:chunk], 0).astype(np.int32)).to(dev)
+    use_rc = torch.from_numpy(res["strand"][:chunk] == b"-").to(dev)
+    ref_codes = bitops.unpack_words(index.ref_words[None, :]).reshape(-1)
+    seen = []
+    run = align.align_ops_codes
+
+    def capture(*a, **kw):
+        seen.append(a[:4])
+        return run(*a, **kw)
+
+    align.align_ops_codes = capture
+    try:
+        mapper._traceback_core(packed.words[:chunk], packed.lengths[:chunk], ref_codes, rs, re_,
+                               use_rc, 16 * W + 2 * mapper.PAD, 1, 1)
+    finally:
+        align.align_ops_codes = run
+    ca, la, cb, lb = (x.to(torch.int32).contiguous() for x in seen[0])
+    M, N = ca.shape[1], cb.shape[1]
+    label = f"[{chunk}] M={M} N={N} (traceback_cigars' first chunk)"
+    got = align.align_ops_codes_kernel(ca, la, cb, lb, 1, 1, False)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = align.align_ops_codes_torch(ca, la, cb, lb, 1, 1, False)
+    end.record()
+    end.synchronize()
+    plain_ms = start.elapsed_time(end)
+    compare("traceback", label, got, want)
+    del got, want
+    torch.cuda.empty_cache()
+    cells = int((la.long() * lb.long()).sum())
+    nbytes = 4 * chunk * (M + N) + 8 * chunk + chunk * (M + N) + 8 * chunk
+    row = timed("traceback", label, lambda: align.align_ops_codes_kernel(ca, la, cb, lb, 1, 1,
+                                                                        False),
+                plain_ms, reps=5, main=True, nbytes=nbytes,
+                ops_ms=cells * TB_OPS_PER_CELL / INT32_OPS_PER_S * 1e3)
+    # the same chunk with the plane in device scratch (more blocks an SM)
+    smem_bytes = align._TB_SMEM_BYTES
+    align._TB_SMEM_BYTES = 0
+    try:
+        scratch_ms = timer(lambda: align.align_ops_codes_kernel(ca, la, cb, lb, 1, 1, False), 3)
+    finally:
+        align._TB_SMEM_BYTES = smem_bytes
+    ph.update(traceback_chunk=chunk, traceback_cells=cells, traceback_ms=row["ms"],
+              traceback_plain_ms=plain_ms, traceback_scratch_plane_ms=scratch_ms)
+    print(f"    traceback: {cells} real cells; one byte a cell over HBM would take "
+          f"{cells / HBM_BYTES_PER_S * 1e3:.4f} ms; layout {align._tb_layout(chunk, M, N, 0)}; "
+          f"with the plane in device scratch {scratch_ms:.4f} ms", flush=True)
+    phase_clock(results, "phase 7: C2 at edge shapes")
+    rng = np.random.default_rng(args.seed + 26)
+    # the plain version costs some 40 launches a diagonal: each shape runs
+    # in the modes it is there for
+    for B, M, N, kind, band, costs, modes in (
+            (40, 13, 16, "planted", None, (1, 1), (False, True)),   # K = 17
+            (40, 33, 32, "planted", (-15, 15), (3, 2), (False, True)),  # K = 17, banded
+            (300, 160, 224, "polyA", None, (1, 1), (True,)),  # with tie_late
+            (300, 160, 224, "repeat", (-32, 32), (1, 1), (False,)),
+            (300, 160, 224, "drift", (-4, 4), (1, 1), (False,)),  # walks out of the band
+            (64, 160, 224, "planted", None, (2**29, 3), (False,)),  # int32 wrap
+            (64, 160, 224, "planted", (-8, 8), (-2**31, 2**31 - 1), (True,)),
+            (20, 0, 37, "planted", None, (1, 1), (False, True)),
+            (20, 45, 0, "planted", None, (1, 1), (False, True)),
+            (6, 100, 1024, "repeat", None, (1, 1), (True,)),  # K = 1,025
+            (4, 300, 1300, "drift", (-1250, 1250), (1, 1), (False,))):  # K = 1,252
+        ops = [torch.from_numpy(x).to(dev) for x in tb_pairs(rng, B, M, N, kind)]
+        for efb in modes:
+            shape = f"[{B}] M={M} N={N} {kind} band={band} costs={costs} efb={efb}"
+            if band is None:
+                late = (torch.arange(len(ops[0]), device=dev) % 2 == 1) if efb else None
+                compare("traceback", shape + (" tie_late" if efb else ""),
+                        align.align_ops_codes_kernel(*ops, *costs, efb, late),
+                        align.align_ops_codes_torch(*ops, *costs, efb, late))
+            else:
+                compare("traceback", shape,
+                        align.align_ops_codes_banded_kernel(*ops, *costs, efb, *band),
+                        align.align_ops_codes_banded_torch(*ops, *costs, efb, *band))
 
 
 SEARCH_TOPK = 10
@@ -2102,7 +2254,7 @@ def long_calls_phase(args, torch, dev, timer, results, fa, genome, reads_g, inde
     torch.cuda.synchronize()
     t_cigar = time.perf_counter() - t
     call_launches = dict(kernels.LAUNCHES)
-    for name in ("pack", "fit_banded"):
+    for name in ("pack", "fit_banded", "traceback"):
         check(f"{name} launched on the calling path", call_launches[name] > 0,
               f"{call_launches[name]} launches")
     keep = cres["mapped"] & (cres["cost"] <= 8)
@@ -3072,6 +3224,9 @@ def assembly_cli_phase(args, torch, dev, results, tmp, genome, reads, true_start
         check(f"bitnuc_tpu_torch {label}: exit 0, output, a kernel launched, and bytes == "
               "backend('torch')", got == want and got[0] == 0 and size > 0
               and bool(CLI_LAUNCHES[label]))
+        if label.endswith("--sam"):
+            check(f"traceback launched in {label}", CLI_LAUNCHES[label].get("traceback", 0) > 0,
+                  f"{CLI_LAUNCHES[label].get('traceback', 0)} launches")
         if label == "count" and ok:
             with open(sub_out, "rb") as f:
                 ok = ok and f.read() == got[3]["count.tsv"]
@@ -4318,13 +4473,13 @@ def main() -> int:
         return 1
     phase_clock(results, "phase 1: ptxas reports")
     # K1's, K2's, K3a's, K4/K5's (one instantiation a query tile), K6's, K7's,
-    # K8/K9's, K10's and C1's registers, shared memory and spills: nvcc
+    # K8/K9's, K10's, C1's and C2's registers, shared memory and spills: nvcc
     # -Xptxas -v of pack.cu, unpack.cu, histogram.cu, hamming.cu, tcscan.cu,
-    # merge.cu, wavefront.cu, orf.cu and chain.cu
+    # merge.cu, wavefront.cu, orf.cu, chain.cu and traceback.cu
     with tempfile.TemporaryDirectory() as d:
         ptxas = build_time.ptxas_report(
             Path(d), ("pack.cu", "unpack.cu", "histogram.cu", "hamming.cu", "tcscan.cu",
-                      "merge.cu", "wavefront.cu", "orf.cu", "chain.cu"))
+                      "merge.cu", "wavefront.cu", "orf.cu", "chain.cu", "traceback.cu"))
     for src, lines in sorted(ptxas.items()):
         for line in lines:
             print(f"  ptxas {src}: {line}", flush=True)
@@ -4349,8 +4504,10 @@ def main() -> int:
         (``ops_ms``). ``main`` marks the shape that the summary line reports
         for the kernel. ``library`` is the one PyTorch call that computes the
         same function, where there is one (timed, never used by the
-        port)."""
-        ms, pms = timer(kern, reps), timer(plain, plain_reps)
+        port). ``plain`` may be a time in ms the caller measured (a plain
+        version too slow to run again)."""
+        ms = timer(kern, reps)
+        pms = plain if isinstance(plain, float) else timer(plain, plain_reps)
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         row = {"shape": label, "ms": ms, "plain_ms": pms, "main": main,
                "bound_ms": max(bytes_ms, ops_ms),
@@ -5037,7 +5194,8 @@ def main() -> int:
         shutil.rmtree(tmp, ignore_errors=True)
 
     launches.update({name: LARGE_K_LAUNCHES[name] for name in ("unpack", "merge")})
-    launches.update({name: MAP_LAUNCHES[name] for name in ("fit_banded", "sw_score")})
+    launches.update({name: MAP_LAUNCHES[name] for name in ("fit_banded", "sw_score",
+                                                            "traceback")})
     launches.update({name: SEARCH_ORF_LAUNCHES[name]
                      for name in ("hdist_scan_batch", "tc_scan", "tc_search", "orf_scan")})
     launches["chain"] = LONG_LAUNCHES["chain"]
@@ -5080,6 +5238,9 @@ def main() -> int:
                      "bitnuc_tpu/ops/pallas/orfscan.py:117"),
         # C1 replaces no pallas_call: the JAX package's chaining is a lax.scan
         "chain": ("bitnuc_tpu_torch/csrc/chain.cu", "bitnuc_tpu/ops/chain.py:43", None),
+        # nor does C2: the JAX package's traceback is two lax.scans
+        "traceback": ("bitnuc_tpu_torch/csrc/traceback.cu", "bitnuc_tpu/ops/align.py:448",
+                      None),
     }
     lines = []
     for name, (src, replaces, call) in sources.items():

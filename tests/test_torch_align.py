@@ -16,7 +16,10 @@ import jax.numpy as jnp
 from bitnuc_tpu.ops import align as jalign
 from bitnuc_tpu.ops.pallas import wavefront as jwavefront
 from bitnuc_tpu.sequence import PackedReads as JPackedReads
+from bitnuc_tpu_torch import config, kernels
+from bitnuc_tpu_torch.kernels import _build
 from bitnuc_tpu_torch.ops import align
+from bitnuc_tpu_torch.utils import bitops
 from bitnuc_tpu_torch.utils.bitops import words_from_u32_np
 
 torch.set_num_threads(1)
@@ -386,3 +389,347 @@ def test_cigars_edge_rows():
     assert align.cigars(np.zeros((0, 5), np.uint8)) == []
     assert (align.OP_STOP, align.OP_EQ, align.OP_X, align.OP_INS, align.OP_DEL) == (
         jalign.OP_STOP, jalign.OP_EQ, jalign.OP_X, jalign.OP_INS, jalign.OP_DEL)
+
+
+# -- C2: the traceback kernel's cell set, plane layout and walk ---------------
+
+
+def _wrap32(x):
+    """int64 values wrapped to int32, as int32 sums and products wrap."""
+    return (np.asarray(x, np.int64) + 2**31) % 2**32 - 2**31
+
+
+_POISON = 0xFF  # a plane byte C2 never writes: no mask has bits 4-7
+
+
+def _c2_model(ca, la, cb, lb, mismatch=1, gap=1, ends_free_b=False, tie_late=None,
+              band=None):
+    """numpy model of C2 (csrc/traceback.cu), a pair at a time as a block
+    runs it. Unbanded: only the cells of the rectangle [0, m] x [0, n],
+    their masks at plane[i (N + 1) + j]; banded: every lane of diagonals
+    1 .. m + n, at plane[(d - 1) K + lane] with the plain version's clamped
+    walk index. Every other plane byte (and every ring lane the kernel does
+    not write) is poisoned, and reading one fails. Returns (cost, end_j,
+    ops [B, M + N] uint8, left [B] bool: the walk read a clamped lane)."""
+    ca, cb = np.asarray(ca, np.int64), np.asarray(cb, np.int64)
+    la, lb = np.asarray(la, np.int64), np.asarray(lb, np.int64)
+    B, M = ca.shape
+    N = cb.shape[1]
+    T = M + N
+    big, gone = 2**30, 2**40  # gone: a ring lane the kernel never wrote
+    mm, gp = int(mismatch), int(gap)
+    late = np.zeros(B, bool) if tie_late is None else np.asarray(tie_late, bool)
+    K = 0
+    if band is not None:
+        K, base = align._band_geometry(*band, N)
+        if K >= N + 1:
+            K, late = 0, np.zeros(B, bool)
+    cost, endj = np.zeros(B, np.int32), np.zeros(B, np.int32)
+    ops = np.zeros((B, T), np.uint8)
+    left = np.zeros(B, bool)
+    for r in range(B):
+        m, n = int(la[r]), int(lb[r])
+        assert 0 <= m <= M and 0 <= n <= N
+
+        def code(row, x, length, pad):
+            ok = (x >= 0) & (x < length)  # length <= len(row)
+            return np.where(ok, row[np.where(ok, x, 0)] if length else pad, pad)
+
+        c = (0 if m == 0 else big) if ends_free_b else (0 if m + n == 0 else big)
+        e = 0 if ends_free_b else n
+        if K:
+            plane = np.full(T * K, _POISON, np.int64)
+            t = np.arange(K)
+            prev, prev2 = np.where(t == 0, 0, big), np.full(K, big)
+            b1 = b2 = 0
+
+            def at(x, k):
+                return np.where((k >= 0) & (k < K), x[np.clip(k, 0, K - 1)], big)
+        else:
+            plane = np.full((M + 1) * (N + 1), _POISON, np.int64)
+            prev, prev2 = np.full(N + 1, gone), np.full(N + 1, gone)
+            prev[0] = 0
+        for d in range(1, m + n + 1):
+            if K:
+                bd = base(d)
+                d1, d2 = bd - b1, bd - b2
+                j = bd + t
+                up, lf, dg = at(prev, t + d1), at(prev, t + d1 - 1), at(prev2, t + d2 - 1)
+            else:
+                j = np.arange(max(0, d - m), min(n, d) + 1)
+                jm1 = np.maximum(j - 1, 0)
+                up, lf, dg = prev[j], prev[jm1], prev2[jm1]
+            i = d - j
+            eq = code(ca[r], i - 1, m, 4) == code(cb[r], j - 1, n, 5)
+            c_diag = _wrap32(dg + np.where(eq, 0, mm))
+            c_up, c_left = _wrap32(up + gp), _wrap32(lf + gp)
+            D = np.minimum(np.minimum(c_diag, c_up), c_left)
+            mask = ((D == c_diag) * 1 + (D == c_up) * 2 + (D == c_left) * 4 + eq * 8)
+            if not K:  # interior cells read only cells the kernel wrote
+                inner = (i > 0) & (j > 0)
+                assert not (np.isin(gone, up[inner]) or np.isin(gone, lf[inner])
+                            or np.isin(gone, dg[inner]))
+            D = np.where(j == 0, _wrap32(d * gp), D)
+            mask = np.where(j == 0, 2, mask)
+            D = np.where(j == d, 0 if ends_free_b else _wrap32(d * gp), D)
+            mask = np.where(j == d, 0 if ends_free_b else 4, mask)
+            if K:
+                D = np.where(j > d, big, D)
+                plane[(d - 1) * K : d * K] = mask
+                nxt = D
+            else:
+                plane[i * (N + 1) + j] = mask
+                nxt = np.full(N + 1, gone)
+                nxt[j] = D
+            hit = (i == m) & (j <= n)
+            if ends_free_b and hit.any():
+                v = int(D[hit][0])
+                if v < c or (late[r] and v == c and v < big):
+                    c, e = min(c, v), int(j[hit][0])
+            elif not ends_free_b and d == m + n and (j == n).any():
+                c = min(c, int(D[j == n][0]))
+            prev2, prev = prev, nxt
+            if K:
+                b2, b1 = b1, bd
+        ii, jj, prev_op, steps = m, e, 0, []
+        for _ in range(T):
+            if not (ii > 0 if ends_free_b else (ii > 0 or jj > 0)):
+                break
+            if K:
+                dd = ii + jj
+                lane = min(max(jj - base(dd), 0), K - 1)
+                left[r] |= lane != jj - base(dd)
+                idx = min(max((dd - 1) * K + lane, 0), T * K - 1)
+            else:
+                idx = ii * (N + 1) + jj
+            mask = int(plane[idx])
+            assert mask != _POISON, (r, ii, jj)
+            if prev_op == align.OP_INS and mask & 2:
+                op = align.OP_INS
+            elif prev_op == align.OP_DEL and mask & 4:
+                op = align.OP_DEL
+            elif mask & 1:
+                op = align.OP_EQ if mask & 8 else align.OP_X
+            else:
+                op = align.OP_INS if mask & 2 else align.OP_DEL
+            steps.append(op)
+            ii -= op != align.OP_DEL
+            jj -= op != align.OP_INS
+            prev_op = op
+        ops[r, : len(steps)] = steps[::-1]
+        cost[r], endj[r] = _wrap32(c), e
+    return cost, endj, ops, left
+
+
+def _tb_codes(seed, B, M, N, kind):
+    """B (read, window) code pairs [B, M], [B, N] int32 with garbage past
+    each length (codes 0-7, re-padded by every form): "planted" (a in b
+    with a few substitutions and indels), "drift" (a in b with 6-12 bases
+    deleted from a's middle and 6-12 inserted: net indel drift past a
+    narrow band), "polyA" (runs of one base on both sides), "repeat"
+    (period-2 and period-3 repeats, phase-shifted). Lengths random in
+    [0, M] and [0, N], with m = 0, n = 0 and both 0 in the first rows."""
+    rng = np.random.default_rng(seed)
+    ca = rng.integers(0, 8, (B, M))
+    cb = rng.integers(0, 8, (B, N))
+    la = rng.integers(0, M + 1, B)
+    lb = rng.integers(0, N + 1, B)
+    for r in range(B):
+        m, n = int(la[r]), int(lb[r])
+        if kind == "polyA":
+            ca[r, :m] = rng.integers(0, 4) if r % 3 else 0
+            cb[r, :n] = ca[r, 0] if r % 4 else rng.integers(0, 4)
+            continue
+        if kind == "repeat":
+            p = int(rng.integers(2, 4))
+            ca[r, :m] = np.arange(m) % p
+            cb[r, :n] = (np.arange(n) + rng.integers(0, 3)) % p
+            continue
+        a = rng.integers(0, 4, m)
+        ca[r, :m] = a
+        s = list(a)
+        if kind == "drift" and m > 30:
+            k = int(rng.integers(6, 13))
+            mid = m // 2
+            s = s[: mid - k] + s[mid:] if r % 2 else s[:mid] + list(rng.integers(0, 4, k)) + s[mid:]
+        else:
+            for _ in range(int(rng.integers(0, 4))):
+                p = int(rng.integers(0, max(len(s), 1)))
+                op = int(rng.integers(0, 3))
+                if op == 0 and s:
+                    s[p] = int(rng.integers(0, 4))
+                elif op == 1 and s:
+                    del s[p]
+                else:
+                    s.insert(p, int(rng.integers(0, 4)))
+        lead = int(rng.integers(0, max(1, N - len(s)) + 1)) if kind == "planted" else 0
+        body = rng.integers(0, 4, N)
+        body[lead : lead + len(s)] = s[: max(0, N - lead)]
+        cb[r] = np.where(np.arange(N) < n, body, cb[r])
+    la[:3], lb[:3] = [0, M, 0], [N, 0, 0]
+    return (ca.astype(np.int32), la.astype(np.int32), cb.astype(np.int32),
+            lb.astype(np.int32))
+
+
+def _jax_tb(ca, la, cb, lb, mm, gap, efb, late=None, band=None):
+    args = (jnp.asarray(ca), jnp.asarray(la), jnp.asarray(cb), jnp.asarray(lb), mm, gap)
+    if band is None:
+        return jalign.align_ops_codes(*args, ends_free_b=efb,
+                                      tie_late=None if late is None else jnp.asarray(late))
+    return jalign.align_ops_codes_banded(*args, efb, *band)
+
+
+def _torch_tb(ca, la, cb, lb, mm, gap, efb, late=None, band=None):
+    args = tuple(torch.from_numpy(x) for x in (ca, la, cb, lb)) + (mm, gap)
+    if band is None:
+        return align.align_ops_codes_torch(*args, efb,
+                                           None if late is None else torch.from_numpy(late))
+    return align.align_ops_codes_banded_torch(*args, efb, *band)
+
+
+def _tb_all_eq(inputs, mm, gap, efb, late=None, band=None):
+    """The plain version and the model of C2 against JAX, bit for bit;
+    returns the model's left-the-band flags."""
+    want = _jax_tb(*inputs, mm, gap, efb, late, band)
+    _all_eq(_torch_tb(*inputs, mm, gap, efb, late, band), want)
+    *model, left = _c2_model(*inputs, mm, gap, efb, late, band)
+    _all_eq(model, want)
+    return left
+
+
+@pytest.mark.parametrize("kind", ["planted", "polyA", "repeat"])
+@pytest.mark.parametrize("mm,gap", WEIGHTS)
+def test_c2_tie_late_fits_match_jax(kind, mm, gap):
+    """ends_free_b with tie_late on every other row: the latest of equal fits
+    ends the walk; tie-heavy rows give many equal fits."""
+    inputs = _tb_codes(11, 16, 40, 70, kind)
+    late = np.arange(16) % 2 == 1
+    _tb_all_eq(inputs, mm, gap, True, late)
+    _tb_all_eq(inputs, mm, gap, False)
+
+
+@pytest.mark.parametrize("efb", [False, True])
+@pytest.mark.parametrize("band", [(-4, 4), (-2, 6), (-9, 3)])
+def test_c2_banded_walk_out_of_the_band_matches_jax(band, efb):
+    """Planted indel drift past a narrow band: no optimal path stays in the
+    band, so the walk reads clamped lanes, cells with i < 0 or past the
+    lengths among them, exactly as the plain version reads them."""
+    inputs = _tb_codes(12, 20, 60, 72, "drift")
+    left = _tb_all_eq(inputs, 1, 1, efb, band=band)
+    assert left.any()
+
+
+@pytest.mark.parametrize("kind", ["planted", "polyA", "repeat"])
+@pytest.mark.parametrize("band", [None, (-8, 8), (-30, 5), (-200, 200)])
+def test_c2_tie_heavy_rows_match_jax(kind, band):
+    """poly-A and short repeats, where most cells tie: the op-continuation
+    policy decides every step (the last band is wider than the window: the
+    unbanded form)."""
+    inputs = _tb_codes(13, 18, 36, 50, kind)
+    for efb in (False, True):
+        _tb_all_eq(inputs, 1, 1, efb, band=band)
+        _tb_all_eq(inputs, 3, 2, efb, band=band)
+
+
+@pytest.mark.parametrize("band", [None, (-6, 6)])
+@pytest.mark.parametrize("M,N", [(0, 9), (9, 0), (0, 0), (17, 33)])
+def test_c2_empty_sides_match_jax(M, N, band):
+    """Widths of 0 on either side, m = 0 and n = 0 rows, and an empty
+    batch."""
+    inputs = _tb_codes(14, 9, M, N, "planted")
+    for efb in (False, True):
+        if band is None or N > 0:
+            _tb_all_eq(inputs, 1, 1, efb, band=band)
+        _tb_all_eq(tuple(x[:0] for x in inputs), 1, 1, efb, band=band)
+
+
+@pytest.mark.parametrize("mm,gap", [(-1, 1), (2**29, 3), (5, -2), (3, 2**29),
+                                    (-2**31, 2**31 - 1), (2**31 - 1, -2**31)])
+@pytest.mark.parametrize("band", [None, (-8, 8)])
+def test_c2_any_int32_costs_match_jax(mm, gap, band):
+    """Negative costs and sums past 2^31 wrap in int32 on every side; the
+    boundary products d * gap wrap too."""
+    inputs = _tb_codes(15, 14, 30, 44, "planted")
+    late = np.arange(14) % 3 == 0
+    for efb in (False, True):
+        _tb_all_eq(inputs, mm, gap, efb, late if band is None else None, band)
+
+
+def test_c2_model_on_the_mapping_pairs(pairs):
+    """The model of C2 on test_align_ops_codes_match_jax's pairs (garbage
+    past each length), both forms and modes, against JAX."""
+    _, (_, la), _, (_, lb) = pairs
+    rng = np.random.default_rng(7)
+    ca = rng.integers(0, 4, (la.shape[0], 96)).astype(np.int32)
+    cb = rng.integers(0, 4, (la.shape[0], 130)).astype(np.int32)
+    cb[:, 10:60] = ca[:, :50]
+    inputs = (ca, la.numpy(), cb, np.minimum(lb.numpy(), 130).astype(np.int32))
+    for band in (None, (-64, 64), (-10, 30)):
+        for efb in (False, True):
+            _tb_all_eq(inputs, 1, 1, efb, band=band)
+
+
+def test_c2_routes_cpu_tensors_to_the_plain_version():
+    """A CPU tensor takes the plain version (no launch); backend('kernel')
+    on one raises; the counter exists."""
+    assert "traceback" in kernels.LAUNCHES
+    ca, la, cb, lb = (torch.from_numpy(x) for x in _tb_codes(16, 6, 20, 30, "planted"))
+    wa, wb = (bitops.pack_codes(torch.nn.functional.pad(c & 3, (0, -c.shape[1] % 16)))
+              for c in (ca, cb))
+    before = kernels.LAUNCHES["traceback"]
+    _all_eq(align.align_ops_codes(ca, la, cb, lb, 1, 1, True),
+            align.align_ops_codes_torch(ca, la, cb, lb, 1, 1, True))
+    _all_eq(align.align_ops_codes_banded(ca, la, cb, lb, 1, 1, False, -6, 6),
+            align.align_ops_codes_banded_torch(ca, la, cb, lb, 1, 1, False, -6, 6))
+    align.align_ops(wa, la, wb, lb)
+    assert kernels.LAUNCHES["traceback"] == before
+    with config.backend("kernel"):
+        for call in (lambda: align.align_ops_codes(ca, la, cb, lb),
+                     lambda: align.align_ops_codes_banded(ca, la, cb, lb, 1, 1, False, -6, 6),
+                     lambda: align.align_ops(wa, la, wb, lb)):
+            with pytest.raises(ValueError, match="CUDA"):
+                call()
+
+
+@pytest.mark.parametrize("B,M,N,K,want", [
+    (262_144, 160, 224, 0, (1, 1, 0, 262_144)),  # phase 7's chunk: all in shared memory
+    (5, 320, 320, 0, (1, 0, 103_056, 5)),        # the plane past 96 KB
+    (100, 2048, 2600, 1252, (1, 0, 5_819_296, 100)),  # a long read's band
+    (3, 20_000, 20_000, 0, (0, 0, 400_280_032, 2)),   # the ring past shared memory
+    (0, 10, 10, 0, (1, 1, 0, 1)),
+])
+def test_c2_layout(B, M, N, K, want):
+    """Where C2 keeps a pair's ring and plane, and how many blocks stride
+    over the pairs when they live in device scratch."""
+    assert align._tb_layout(B, M, N, K) == want
+
+
+def _c_params(name):
+    """The parameters of csrc's C entry point ``name``, from its source."""
+    import re
+
+    for src in _build.CSRC.glob("*.cu"):
+        m = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", src.read_text())
+        if m:
+            return [p.strip() for p in m.group(1).split(",") if p.strip()]
+    raise AssertionError(f"{name}: no C entry point in csrc")
+
+
+@pytest.mark.parametrize("name", sorted(_build._SIGNATURES))
+def test_c_entry_point_argtypes(name):
+    """Each ctypes signature has one argtype a parameter of its C entry
+    point, a pointer where the C side takes a pointer and a 64-bit integer
+    where it takes int64_t (ctypes would pass a wrong count or width
+    silently)."""
+    import ctypes
+
+    params = _c_params(name)
+    argtypes = _build._SIGNATURES[name]
+    assert len(params) == len(argtypes)
+    for p, t in zip(params, argtypes):
+        if "*" in p:
+            assert t is ctypes.c_void_p, p
+        elif p.startswith("int64_t"):
+            assert t is ctypes.c_int64, p
+        else:
+            assert t in (ctypes.c_int, ctypes.c_uint32), p

@@ -611,6 +611,166 @@ def test_sw_kernel_any_int32_scores(cuda, params, kind, Wb):
         assert torch.equal(g, w)
 
 
+def _tb_codes(seed, B, M, N, kind):
+    """B (read, window) code pairs [B, M], [B, N] int32, garbage (codes 0-7)
+    past each length: "planted" (a in b with a few edits), "drift" (6-40
+    bases deleted from or inserted into a's middle: indel drift past a
+    narrow band), "ties" (runs of one base and period-2 and period-3
+    repeats on both sides). Lengths random, with m = 0, n = 0 and both 0 in
+    the first rows, and full rows."""
+    rng = np.random.default_rng(seed)
+    ca = rng.integers(0, 8, (B, M))
+    cb = rng.integers(0, 8, (B, N))
+    la = rng.integers(0, M + 1, B)
+    lb = rng.integers(0, N + 1, B)
+    la[:5], lb[:5] = [0, M, 0, M, M // 2], [N, 0, 0, N, N]
+    la, lb = np.minimum(la, M), np.minimum(lb, N)
+    for r in range(B):
+        m, n = int(la[r]), int(lb[r])
+        if kind == "ties":
+            p = int(rng.integers(1, 4))
+            ca[r, :m] = np.arange(m) % p
+            cb[r, :n] = (np.arange(n) + rng.integers(0, 3)) % p
+            continue
+        a = list(rng.integers(0, 4, m))
+        ca[r, :m] = a
+        if kind == "drift" and m > 60:
+            k = int(rng.integers(6, 41))
+            mid = m // 2
+            a = a[: mid - k] + a[mid:] if r % 2 else a[:mid] + list(rng.integers(0, 4, k)) + a[mid:]
+        else:
+            for _ in range(int(rng.integers(0, 5))):
+                q = int(rng.integers(0, max(len(a), 1)))
+                op = int(rng.integers(0, 3))
+                if op == 0 and a:
+                    a[q] = int(rng.integers(0, 4))
+                elif op == 1 and a:
+                    del a[q]
+                else:
+                    a.insert(q, int(rng.integers(0, 4)))
+        body = rng.integers(0, 4, N)
+        lead = int(rng.integers(0, max(1, N - len(a)) + 1))
+        body[lead : lead + len(a)] = a[: max(0, N - lead)]
+        cb[r, :n] = body[:n]
+    return tuple(torch.from_numpy(x.astype(np.int32)) for x in (ca, la, cb, lb))
+
+
+def _tb_equal(got, want):
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w.to(g.device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["planted", "ties"])
+@pytest.mark.parametrize("efb", [False, True])
+@pytest.mark.parametrize("B,M,N", [
+    (40, 13, 16),     # K = N + 1 = 17, odd M
+    (40, 33, 32),     # 33
+    (300, 160, 224),  # 225: phase 7's shape
+    (12, 900, 1023),  # 1,024
+    (10, 1000, 1024),  # 1,025
+    (6, 1101, 1251),  # 1,252
+    (20, 0, 37),      # an empty a side
+    (20, 45, 0),      # an empty b side
+])
+def test_traceback_kernel_matches_plain(cuda, B, M, N, efb, kind):
+    """C2 unbanded against its plain version: the ops, costs and ends of
+    global and fitting alignments (tie_late on every third row), rows with
+    m = 0 or n = 0, tie-heavy rows, and one launch a call."""
+    ca, la, cb, lb = (x.to(cuda) for x in _tb_codes(B + M + N, B, M, N, kind))
+    late = (torch.arange(B, device=cuda) % 3 == 1) if efb else None
+    for costs in ((1, 1), (3, 2)):
+        got = align.align_ops_codes_kernel(ca, la, cb, lb, *costs, efb, late)
+        _tb_equal(got, align.align_ops_codes_torch(ca, la, cb, lb, *costs, efb, late))
+    before = kernels.LAUNCHES["traceback"]
+    align.align_ops_codes(ca, la, cb, lb, 1, 1, efb, late)
+    assert kernels.LAUNCHES["traceback"] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["planted", "drift", "ties"])
+@pytest.mark.parametrize("efb", [False, True])
+@pytest.mark.parametrize("band,M,N", [
+    ((-15, 15), 50, 61),         # K = 17
+    ((-31, 31), 77, 70),         # 33
+    ((-40, 24), 101, 90),        # 34, asymmetric
+    ((-223, 223), 160, 300),     # 225
+    ((-1022, 1022), 1100, 1200),  # 1,024
+    ((-1023, 1023), 1200, 1100),  # 1,025
+    ((-1250, 1250), 1500, 1700),  # 1,252: the band of a 10-kb --long --sam read
+    ((-3, 3), 40, 41),           # K = 5: most walks leave the band
+])
+def test_traceback_banded_kernel_matches_plain(cuda, band, M, N, efb, kind):
+    """C2 banded against its plain version, planted indel drift past the
+    band included (the walk reads clamped lanes, cells with i < 0 or past
+    the lengths among them)."""
+    B = 24 if M < 1000 else 5
+    ca, la, cb, lb = (x.to(cuda) for x in _tb_codes(B + M - band[0], B, M, N, kind))
+    got = align.align_ops_codes_banded_kernel(ca, la, cb, lb, 1, 1, efb, *band)
+    _tb_equal(got, align.align_ops_codes_banded_torch(ca, la, cb, lb, 1, 1, efb, *band))
+    before = kernels.LAUNCHES["traceback"]
+    align.align_ops_codes_banded(ca, la, cb, lb, 1, 1, efb, *band)
+    assert kernels.LAUNCHES["traceback"] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("costs", [(-1, 1), (2**29, 3), (5, -2), (3, 2**29),
+                                   (-2**31, 2**31 - 1), (2**31 - 1, -2**31)])
+@pytest.mark.parametrize("band", [None, (-8, 8)])
+def test_traceback_kernel_any_int32_costs(cuda, costs, band):
+    """Negative costs and sums past 2^31 wrap as the plain version's int32
+    tensors do; so do the boundary products d * gap."""
+    ca, la, cb, lb = (x.to(cuda) for x in _tb_codes(9, 30, 40, 57, "planted"))
+    for efb in (False, True):
+        if band is None:
+            late = torch.arange(30, device=cuda) % 2 == 0
+            _tb_equal(align.align_ops_codes_kernel(ca, la, cb, lb, *costs, efb, late),
+                      align.align_ops_codes_torch(ca, la, cb, lb, *costs, efb, late))
+        else:
+            _tb_equal(align.align_ops_codes_banded_kernel(ca, la, cb, lb, *costs, efb, *band),
+                      align.align_ops_codes_banded_torch(ca, la, cb, lb, *costs, efb, *band))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("where", ["plane", "ring"])
+def test_traceback_kernel_scratch_and_grid_stride(cuda, monkeypatch, where):
+    """The plane, or the ring and the plane, in device scratch, with fewer
+    blocks than pairs, so each block reuses its slice for several pairs."""
+    monkeypatch.setattr(align, "_TB_SMEM_BYTES", 0)
+    if where == "ring":
+        monkeypatch.setattr(align, "_TB_RING_SMEM_BYTES", 0)
+    monkeypatch.setattr(align, "_TB_MAX_BLOCKS", 3)
+    ca, la, cb, lb = (x.to(cuda) for x in _tb_codes(3, 40, 150, 224, "planted"))
+    for efb in (False, True):
+        _tb_equal(align.align_ops_codes_kernel(ca, la, cb, lb, 1, 1, efb),
+                  align.align_ops_codes_torch(ca, la, cb, lb, 1, 1, efb))
+        _tb_equal(align.align_ops_codes_banded_kernel(ca, la, cb, lb, 1, 1, efb, -20, 20),
+                  align.align_ops_codes_banded_torch(ca, la, cb, lb, 1, 1, efb, -20, 20))
+
+
+@pytest.mark.cuda
+def test_traceback_kernel_edges(cuda):
+    """An empty batch launches nothing; align_ops on packed words runs C2;
+    lengths outside [0, M] and [0, N] raise; a band as wide as the window
+    runs the unbanded form."""
+    ca, la, cb, lb = (x.to(cuda) for x in _tb_codes(4, 20, 48, 64, "planted"))
+    before = kernels.LAUNCHES["traceback"]
+    out = align.align_ops_codes_kernel(ca[:0], la[:0], cb[:0], lb[:0])
+    assert [tuple(x.shape) for x in out] == [(0,), (0,), (0, 112)]
+    assert kernels.LAUNCHES["traceback"] == before
+    wa, wb = bitops.pack_codes(ca & 3), bitops.pack_codes(cb & 3)
+    _tb_equal(align.align_ops(wa, la, wb, lb, 1, 1, True),
+              align.align_ops_codes_torch(ca & 3, la, cb & 3, lb, 1, 1, True))
+    assert kernels.LAUNCHES["traceback"] == before + 1
+    for side, bad in ((0, 49), (0, -1), (1, 65), (1, -2)):
+        lens = [la.clone(), lb.clone()]
+        lens[side][7] = bad
+        with pytest.raises(ValueError, match="lengths"):
+            align.align_ops_codes_kernel(ca, lens[0], cb, lens[1])
+    _tb_equal(align.align_ops_codes_banded_kernel(ca, la, cb, lb, 1, 1, False, -80, 80),
+              align.align_ops_codes_torch(ca, la, cb, lb, 1, 1, False))
+
+
 # Q covers each query-tile width of K6 (8, 32, 64, 128, 256) and the walk
 # over tiles of 256 past it; W = 64 takes the ring of B stages around more
 # than once a tile.

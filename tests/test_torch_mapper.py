@@ -186,6 +186,51 @@ def test_banded_cigars_match_jax(data):
     np.testing.assert_array_equal(got["ops"], want["ops"])
 
 
+@pytest.mark.parametrize("band", [0, 20])
+def test_cigars_through_the_model_of_c2_match_jax(data, monkeypatch, band):
+    """traceback_cigars with align_ops_codes and align_ops_codes_banded
+    replaced by the numpy model of C2 (its cell set, plane layout and walk:
+    tests/test_torch_align.py::_c2_model): every CIGAR, cost and op equal to
+    the JAX package's on the mapping data."""
+    from bitnuc_tpu_torch.ops import align as talign
+    from test_torch_align import _c2_model
+
+    def model(ca, la, cb, lb, mm, gap, ends_free_b=False, tie_late=None, off_lo=None,
+              off_hi=None):
+        band_ = None if off_lo is None else (off_lo, off_hi)
+        out = _c2_model(ca.numpy(), la.numpy(), cb.numpy(), lb.numpy(), mm, gap,
+                        ends_free_b, tie_late, band_)[:3]
+        return tuple(torch.from_numpy(x) for x in out)
+
+    ji, res, want = _jax_run(data, 15)
+    if band:
+        want = jmapper.traceback_cigars(ji, data[2], res, band=band)
+    ti = mapper.MinimizerIndex.build_multi(data[0], device=CPU)
+    monkeypatch.setattr(talign, "align_ops_codes", model)
+    monkeypatch.setattr(talign, "align_ops_codes_banded",
+                        lambda *a, **kw: model(*a[:6], kw["ends_free_b"], None,
+                                               kw["off_lo"], kw["off_hi"]))
+    got = mapper.traceback_cigars(ti, data[3], res, chunk=97, band=band)
+    assert got["cigar"] == want["cigar"]
+    np.testing.assert_array_equal(got["tb_cost"], want["tb_cost"])
+    np.testing.assert_array_equal(got["ops"], want["ops"])
+
+
+def test_traceback_chunk_on_each_route():
+    """On the card, C2's route budgets the chunk's operands (at most
+    MAP_BATCH reads); backend('torch') the plain version's direction plane;
+    1024 reads on the CPU."""
+    from bitnuc_tpu_torch import config
+
+    cuda = torch.device("cuda")
+    assert mapper._traceback_chunk(cuda, 10) == mapper.MAP_BATCH
+    assert mapper._traceback_chunk(cuda, 625, pad=1250) == (3 << 30) // (16 * (10_000 + 12_500))
+    with config.backend("torch"):
+        assert mapper._traceback_chunk(cuda, 10) == (3 << 30) // (384 * 225) == 37_282
+        assert mapper._traceback_chunk(cuda, 10, band=20) == (3 << 30) // (384 * 22)
+    assert mapper._traceback_chunk(CPU, 10) == 1024
+
+
 def test_band_widening_matches_jax():
     for lo, hi in ((-32, 112), (-8, 40), (-16, 96), (0, 0), (-5, 200)):
         assert mapper._band_k8(lo, hi) == jwavefront._band_k8(lo, hi)
