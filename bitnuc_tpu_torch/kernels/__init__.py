@@ -10,7 +10,10 @@ its search form with a per-block top-k), ``ops/merge.py``
 replaces no TPU kernel: it is the JAX package's chaining, its row sort
 and scan, on the card), and ``traceback`` in ``ops/align.py`` (C2, which
 replaces no TPU kernel either: the JAX package's direction-recording
-wavefront and its walk behind every CIGAR). Each adds one to its entry in ``LAUNCHES``
+wavefront and its walk behind every CIGAR), and ``fit_span`` in
+``ops/align.py`` (C3, which replaces no TPU kernel: the JAX package's
+unbanded wavefront, a ``lax.scan``, behind ``fit_distance_span`` and the
+distance forms). Each adds one to its entry in ``LAUNCHES``
 where it launches its kernel, and nowhere else, so a run can show that its
 main path went through the kernels.
 """
@@ -34,6 +37,7 @@ LAUNCHES = {
     "orf_scan": 0,
     "chain": 0,
     "traceback": 0,
+    "fit_span": 0,
 }
 
 

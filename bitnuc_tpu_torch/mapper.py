@@ -33,9 +33,9 @@ so the batching changes no output.
 Long reads (``map_reads_long``) share steps 1-3, then chain each strand's
 anchors (``ops.chain.chain_anchors``, C1 ``chain`` on the card) in place of
 the vote; with ``extend=True`` the read is fitted into the chain's window
-by the unbanded span fit (``ops.align.fit_distance_span``, plain PyTorch:
-the JAX package passes no band there). They map in chunks sized by
-``_long_chunk``. ``map_pairs`` maps both mates of a pair batch through one
+by the unbanded span fit (``ops.align.fit_distance_span``, C3 ``fit_span``
+on the card, one launch a chunk: the JAX package passes no band there).
+They map in chunks sized by ``_long_chunk``. ``map_pairs`` maps both mates of a pair batch through one
 ``map_reads`` call and applies the proper-pair rule on the host.
 
 With a mesh (``parallel.mesh.Mesh``) the reads split over the mesh axis and

@@ -12,8 +12,8 @@ int32 values: every sum wraps modulo 2^32, as the JAX package's int32
 arithmetic does, and so do the kernels' (``_i32`` wraps the boundary
 products d * gap, which are Python ints here).
 
-Three functions have hand-written kernels, each beside its plain version
-here and picked by the device of the inputs (see ``config``):
+Four groups of functions have hand-written kernels, each beside its plain
+version here and picked by the device of the inputs (see ``config``):
 
 * ``fit_distance_span_banded`` — K8 ``fit_banded`` (``csrc/wavefront.cu``,
   the mapper's fit);
@@ -22,7 +22,12 @@ here and picked by the device of the inputs (see ``config``):
   ``align_ops_codes_banded`` — C2 ``traceback`` (``csrc/traceback.cu``,
   the source of every CIGAR), which replaces no TPU kernel: the JAX package
   runs them as two ``lax.scan`` loops, the direction-recording wavefront
-  and its walk.
+  and its walk;
+* the unbanded wavefront, ``fit_distance_span`` (the fit of
+  ``map_reads_long``'s extend, and of a band as wide as the window) and the
+  distance forms behind ``edit_distance``, ``global_distance`` and
+  ``fit_distance`` — C3 ``fit_span`` (``csrc/fitspan.cu``), which replaces
+  no TPU kernel either: the JAX package runs each as one ``lax.scan``.
 
 The plain loops stop at the batch's largest m + n: no cell past it can
 reach an output (the fitting extraction needs j = d - m <= n, the global
@@ -59,6 +64,10 @@ _WIDE_SCRATCH_BYTES = 1 << 28
 def _i32(x: int) -> int:
     """A Python int wrapped to int32, as an int32 product wraps."""
     return (int(x) + 2**31) % 2**32 - 2**31
+
+
+def _round16(x: int) -> int:
+    return (x + 15) // 16 * 16
 
 
 def _codes(words: torch.Tensor, lengths: torch.Tensor, pad: int) -> torch.Tensor:
@@ -100,15 +109,10 @@ def _last_diagonal(lens_a: torch.Tensor, lens_b: torch.Tensor, T: int) -> int:
 # -- unbanded distances -----------------------------------------------------
 
 
-def _distance_wavefront(words_a, lens_a, words_b, lens_b, mismatch, gap,
-                        ends_free_b: bool = False, tie_late=None):
-    """Min-cost alignment DP: global (Needleman-Wunsch in distance form)
-    when ends_free_b=False, fitting (all of ``a`` inside a substring of
-    ``b``: D[0, j] = 0, answer min_j D[m, j]) when True.
-
-    Returns (cost [B], end_j [B]): end_j is one past the best fit's end
-    (lens_b for global). Equal-cost fits tie to the smallest end_j, or to
-    the largest on rows where tie_late [B] bool is True."""
+def _distance_wavefront_torch(words_a, lens_a, words_b, lens_b, mismatch, gap,
+                              ends_free_b: bool = False, tie_late=None):
+    """Plain version of C3's distance form: _distance_wavefront over the
+    full N + 1 lanes of each diagonal."""
     lens_a, lens_b = lens_a.to(torch.int32), lens_b.to(torch.int32)
     a = _codes(words_a, lens_a, _PAD_A)
     b = _codes(words_b, lens_b, _PAD_B)
@@ -153,7 +157,8 @@ def _distance_wavefront(words_a, lens_a, words_b, lens_b, mismatch, gap,
 
 
 def edit_distance(words_a, lens_a, words_b, lens_b) -> torch.Tensor:
-    """Levenshtein distance per pair (a[i] vs b[i]): [B] int32."""
+    """Levenshtein distance per pair (a[i] vs b[i]): [B] int32. Dispatches
+    C3 on CUDA words, as do global_distance and fit_distance."""
     return _distance_wavefront(words_a, lens_a, words_b, lens_b, 1, 1)[0]
 
 
@@ -182,12 +187,9 @@ def _span_step_min(c_diag, c_up, c_left, s_diag, s_up, s_left):
     return diag, S
 
 
-def fit_distance_span(words_a, lens_a, words_b, lens_b, mismatch=1, gap=1):
-    """Fitting alignment returning both span ends in one pass: (cost [B],
-    start_j [B], end_j [B]). The path's row-0 entry column rides through
-    the DP, so start and end come from one optimal path. Ties: the
-    earliest diagonal (smallest end) wins strictly; the start is the
-    smallest over every optimal path to that end."""
+def fit_distance_span_torch(words_a, lens_a, words_b, lens_b, mismatch=1, gap=1):
+    """Plain version of C3's span form: fit_distance_span over the full
+    N + 1 lanes of each diagonal."""
     lens_a, lens_b = lens_a.to(torch.int32), lens_b.to(torch.int32)
     a = _codes(words_a, lens_a, _PAD_A)
     b = _codes(words_b, lens_b, _PAD_B)
@@ -228,6 +230,121 @@ def fit_distance_span(words_a, lens_a, words_b, lens_b, mismatch=1, gap=1):
         prev, prev2, s_prev, s_prev2 = diag, prev, S, s_prev
     startj = torch.where(fit < _BIG, torch.minimum(startj, endj), 0)
     return fit, startj, endj
+
+
+# -- unbanded wavefront on the card: C3 ------------------------------------------
+#
+# C3 computes only the cells of each pair's rectangle [0, m] x [0, n]: no
+# cell of it depends on a cell outside it, and every output is read off it
+# (see csrc/fitspan.cu). It keeps a pair's ring of three diagonals (12
+# bytes a lane a plane: the cost, and in the span form the start column)
+# and its codes (a byte a base) in shared memory; past _FIT_RING_SMEM_BYTES
+# the ring, and past _FIT_SMEM_BYTES the codes too, go to a slice of device
+# scratch a block, for at most _FIT_MAX_BLOCKS blocks within
+# _FIT_SCRATCH_BYTES.
+_FIT_RING_SMEM_BYTES = 192 * 1024
+_FIT_SMEM_BYTES = 227 * 1024 - 64
+_FIT_SCRATCH_BYTES = 1 << 30
+_FIT_MAX_BLOCKS = 8192
+
+
+def _fit_layout(B: int, M: int, N: int, planes: int = 2) -> Tuple[int, int, int, int]:
+    """(ring_smem, codes_smem, stride, nblocks) of a C3 launch over codes
+    of widths M and N: planes 2 for the span form, 1 for the distance form.
+    stride is the scratch bytes a block (0: all in shared memory, one block
+    a pair); otherwise nblocks blocks stride over the B pairs."""
+    ring = _round16(12 * planes * (N + 1))
+    codes = _round16(M) + _round16(N)
+    ring_smem = ring <= _FIT_RING_SMEM_BYTES
+    codes_smem = codes + (ring if ring_smem else 0) <= _FIT_SMEM_BYTES
+    stride = (0 if ring_smem else ring) + (0 if codes_smem else codes)
+    if stride == 0:
+        return 1, 1, 0, max(1, B)
+    nblocks = max(1, min(B, _FIT_MAX_BLOCKS, _FIT_SCRATCH_BYTES // stride))
+    return int(ring_smem), int(codes_smem), stride, nblocks
+
+
+def _fit_span_launch(words_a, lens_a, words_b, lens_b, mismatch, gap, span: bool,
+                     ends_free_b: bool, tie_late):
+    """C3 on the card (``csrc/fitspan.cu``): contiguous int32 CUDA words
+    [B, Wa] and [B, Wb] with int32 lengths [B] in [0, 16 Wa] and [0, 16 Wb]
+    (others raise); costs are any int32 values. Returns (cost, start_j or
+    None, end_j), [B] int32 each: the span form where ``span``, else the
+    distance form (fitting where ``ends_free_b``, with tie_late rows)."""
+    B, M, N = _check_pairs("fit_span", words_a, lens_a, words_b, lens_b)
+    dev = words_a.device
+    if B and bool(((lens_a < 0) | (lens_a > M) | (lens_b < 0) | (lens_b > N)).any()):
+        raise ValueError(f"fit_span: lengths must lie in [0, {M}] and [0, {N}]")
+    cost, endj = (torch.empty(B, dtype=torch.int32, device=dev) for _ in range(2))
+    startj = torch.empty(B, dtype=torch.int32, device=dev) if span else None
+    if B == 0:
+        return cost, startj, endj
+    late = None
+    if tie_late is not None and ends_free_b and not span:
+        late = torch.as_tensor(tie_late, device=dev).to(torch.bool).reshape(B).contiguous()
+    ring_smem, codes_smem, stride, nblocks = _fit_layout(B, M, N, 2 if span else 1)
+    scratch = torch.empty(nblocks * stride, dtype=torch.uint8, device=dev) if stride else None
+    code = _build.library().bn_fit_span(
+        words_a.data_ptr(), lens_a.data_ptr(), words_b.data_ptr(), lens_b.data_ptr(),
+        None if late is None else late.data_ptr(), B, words_a.shape[1], words_b.shape[1],
+        _i32(mismatch), _i32(gap), int(span), int(bool(ends_free_b)), ring_smem, codes_smem,
+        None if scratch is None else scratch.data_ptr(), stride, nblocks, cost.data_ptr(),
+        None if startj is None else startj.data_ptr(), endj.data_ptr(),
+        kernels.stream_handle(dev),
+    )
+    _build.check(code, "fit_span")
+    kernels.LAUNCHES["fit_span"] += 1
+    return cost, startj, endj
+
+
+def _kernel_words(words_a, lens_a, words_b, lens_b):
+    return (words_a.contiguous(), lens_a.to(torch.int32).contiguous(),
+            words_b.contiguous(), lens_b.to(torch.int32).contiguous())
+
+
+def fit_distance_span_kernel(words_a, lens_a, words_b, lens_b, mismatch=1, gap=1):
+    """C3 on the card, span form: fit_distance_span on CUDA words (see
+    ``_fit_span_launch``)."""
+    return _fit_span_launch(words_a, lens_a, words_b, lens_b, mismatch, gap, True, True, None)
+
+
+def _distance_wavefront_kernel(words_a, lens_a, words_b, lens_b, mismatch, gap,
+                               ends_free_b: bool = False, tie_late=None):
+    """C3 on the card, distance form: _distance_wavefront on CUDA words
+    (see ``_fit_span_launch``)."""
+    cost, _, endj = _fit_span_launch(words_a, lens_a, words_b, lens_b, mismatch, gap, False,
+                                     ends_free_b, tie_late)
+    return cost, endj
+
+
+def _distance_wavefront(words_a, lens_a, words_b, lens_b, mismatch, gap,
+                        ends_free_b: bool = False, tie_late=None):
+    """Min-cost alignment DP: global (Needleman-Wunsch in distance form)
+    when ends_free_b=False, fitting (all of ``a`` inside a substring of
+    ``b``: D[0, j] = 0, answer min_j D[m, j]) when True.
+
+    Returns (cost [B], end_j [B]): end_j is one past the best fit's end
+    (lens_b for global). Equal-cost fits tie to the smallest end_j, or to
+    the largest on rows where tie_late [B] bool is True. Dispatches C3 on
+    CUDA words (see ``config``)."""
+    if config.use_kernel(words_a):
+        return _distance_wavefront_kernel(*_kernel_words(words_a, lens_a, words_b, lens_b),
+                                          mismatch, gap, ends_free_b, tie_late)
+    return _distance_wavefront_torch(words_a, lens_a, words_b, lens_b, mismatch, gap,
+                                     ends_free_b, tie_late)
+
+
+def fit_distance_span(words_a, lens_a, words_b, lens_b, mismatch=1, gap=1):
+    """Fitting alignment returning both span ends in one pass: (cost [B],
+    start_j [B], end_j [B]). The path's row-0 entry column rides through
+    the DP, so start and end come from one optimal path. Ties: the
+    earliest diagonal (smallest end) wins strictly; the start is the
+    smallest over every optimal path to that end. Dispatches C3 on CUDA
+    words (see ``config``)."""
+    if config.use_kernel(words_a):
+        return fit_distance_span_kernel(*_kernel_words(words_a, lens_a, words_b, lens_b),
+                                        mismatch, gap)
+    return fit_distance_span_torch(words_a, lens_a, words_b, lens_b, mismatch, gap)
 
 
 # -- banded fit: K8 -----------------------------------------------------------
@@ -274,7 +391,7 @@ def fit_distance_span_banded_torch(words_a, lens_a, words_b, lens_b, mismatch=1,
     N = b.shape[-1]
     K, base = _band_geometry(off_lo, off_hi, N)
     if K >= N + 1:
-        return fit_distance_span(words_a, lens_a, words_b, lens_b, mismatch, gap)
+        return fit_distance_span_torch(words_a, lens_a, words_b, lens_b, mismatch, gap)
     dev = a.device
     t = torch.arange(K, dtype=torch.int32, device=dev)
     arp = _rev_padded(a, N + 1)
@@ -590,10 +707,6 @@ _TB_SMEM_BYTES = 96 * 1024
 _TB_RING_SMEM_BYTES = 192 * 1024
 _TB_SCRATCH_BYTES = 1 << 30
 _TB_MAX_BLOCKS = 8192
-
-
-def _round16(x: int) -> int:
-    return (x + 15) // 16 * 16
 
 
 def _tb_layout(B: int, M: int, N: int, K: int) -> Tuple[int, int, int, int]:

@@ -29,8 +29,8 @@ Phases, each of which must pass:
    script fails when it does not build or load); the registers, shared
    memory and spills of pack.cu (K1), unpack.cu (K2), histogram.cu (K3a,
    K3b), hamming.cu (K4/K5, each query tile), tcscan.cu (K6), merge.cu
-   (K7), wavefront.cu (K8, K9), orf.cu (K10), chain.cu (C1) and
-   traceback.cu (C2).
+   (K7), wavefront.cu (K8, K9), orf.cu (K10), chain.cu (C1),
+   traceback.cu (C2) and fitspan.cu (C3).
 2. Every kernel against its plain PyTorch version on the card, bit for bit:
    K1 pack (at the flagship's batch, a count batch, reads of 300, 1,000
    and 4,000 bp, 64 rows of 16,384 bp, phase 6's genome as one row and a
@@ -124,13 +124,18 @@ Phases, each of which must pass:
    read with read_fastq_fast (K1) and mapped with map_reads_long (C1 chain)
    at the CLI's settings; checked against the true spans, the 256 shortest
    reads against the plain backend, 64 reads against a CPU run, and with
-   extend=True on 1,024 reads of 1,000-3,000 bp, 16 fits against a host
-   full-DP oracle. C1 (chain_anchors from unsorted anchors) against its
+   extend=True (C3 fit_span, one launch a chunk) on 1,024 reads of
+   1,000-3,000 bp, 16 fits against a host full-DP oracle. C1 (chain_anchors from unsorted anchors) against its
    plain version at the sub-batch's anchors, a chunk's (timed, with the
    largest and median live anchors a row and the time a step of the
    longest row) and edge shapes, rows past a warp's and a block's shared
-   memory among them; the chunk's seeding, its row sort alone (the
-   earlier route's) and the unbanded extension fit timed. map --paired: map_pairs of 262,144 pairs
+   memory among them; the chunk's seeding and its row sort alone (the
+   earlier route's) timed. C3 against its plain version at the extend
+   batch's unbanded fit (timed beside one plain run), its distance forms at
+   the mapping shape (global and fitting, tie_late rows, int32-extreme
+   costs), its ring in device scratch over fewer blocks than pairs, and 4
+   reads of 9-10 kb extended (their ring in device scratch at its natural
+   size) against the host full-DP oracle. map --paired: map_pairs of 262,144 pairs
    (fragments of 200-800 bp, 1% RF, 1% split) against map_reads of the
    stacked batch and the pairing rule, and against the truth. call: a donor
    of the genome's first 500,000 bp with 500 SNPs and 50 indels,
@@ -163,7 +168,8 @@ Phases, each of which must pass:
    (count, spectrum, search, pack, unpack, setop, align, map, call, merge,
    orf, correct, assemble) on two contigs of the genome (100 kbp), their
    reads, long reads, pairs and a search database, each held byte for byte
-   to the same command under backend('torch'), with its launches.
+   to the same command under backend('torch'), with its launches (C2 in
+   each --sam command, C3 once in align --mode fit).
 13. The distributed tier (bitnuc_tpu_torch.parallel) on meshes of 1 and 4
    shards of the card, each sharded call held bit for bit to its unsharded
    call and both timed: count_kmers_sharded of the flagship batch (K3b) and
@@ -276,6 +282,12 @@ SW_OPS_PER_CELL = 12
 # candidate sums and 2 mins, 3 tie compares and the mask's assembly (2); the
 # walk's m + n steps and the boundaries left out.
 TB_OPS_PER_CELL = 12
+# C3 (the unbanded fit) counted over the real cells of each pair, as its
+# span form computes them (csrc/fitspan.cu): the code compare and
+# substitution select, 3 candidate sums and 2 mins for D, 3 tie compares, 3
+# selects and 2 mins for the start column S; the boundaries and the
+# extraction left out.
+SPAN_OPS_PER_CELL = 15
 MERGE_OPS_PER_ROW = 6
 # K6 runs on the int8 tensor cores: 1,979 dense TOP/s on an H100 SXM
 # (NVIDIA's H100 data sheet, int8 without sparsity). K10 counted as the
@@ -1070,6 +1082,37 @@ def tb_pairs(rng, B: int, M: int, N: int, kind: str):
     return ca.astype(np.int32), la.astype(np.int32), cb.astype(np.int32), lb.astype(np.int32)
 
 
+def fit_span_edges(torch, dev, rng, align, bitops, compare):
+    """Phase 10's small C3 checks against the plain versions: the distance
+    forms at the mapping shape (global, fitting, fitting with tie_late
+    rows, int32-extreme costs), and the span form with its ring in device
+    scratch (forced by _fit_layout's budget) over fewer blocks than pairs."""
+    def words(B, M, N, kind):
+        ca, la, cb, lb = tb_pairs(rng, B, M, N, kind)
+        return ([bitops.pack_codes(torch.from_numpy(c & 3)).to(dev) for c in (ca, cb)],
+                [torch.from_numpy(x).to(dev) for x in (la, lb)])
+
+    for kind in ("planted", "repeat"):
+        (wa, wb), (la, lb) = words(512, 160, 224, kind)
+        late = torch.arange(512, device=dev) % 2 == 1
+        for efb, tl, costs in ((False, None, (1, 1)), (False, None, (3, 2)), (True, None, (1, 1)),
+                               (True, late, (1, 1)), (True, late, (-2**31, 2**31 - 1))):
+            compare("fit_span", f"[512] M=160 N=224 {kind} distance form efb={efb} "
+                    f"tie_late={tl is not None} costs={costs}",
+                    align._distance_wavefront_kernel(wa, la, wb, lb, *costs, efb, tl),
+                    align._distance_wavefront_torch(wa, la, wb, lb, *costs, efb, tl))
+    (wa, wb), (la, lb) = words(8, 608, 800, "planted")
+    ring, blocks = align._FIT_RING_SMEM_BYTES, align._FIT_MAX_BLOCKS
+    align._FIT_RING_SMEM_BYTES, align._FIT_MAX_BLOCKS = 0, 3
+    try:
+        layout = align._fit_layout(8, 608, 800)
+        compare("fit_span", f"[8] M=608 N=800 the ring in device scratch, layout {layout}",
+                align.fit_distance_span_kernel(wa, la, wb, lb, 1, 1),
+                align.fit_distance_span_torch(wa, la, wb, lb, 1, 1))
+    finally:
+        align._FIT_RING_SMEM_BYTES, align._FIT_MAX_BLOCKS = ring, blocks
+
+
 def traceback_block(args, torch, dev, timer, results, index, packed, res, compare, timed):
     """Phase 7's C2 block: C2 against its plain version at the first chunk
     of traceback_cigars (the operands _traceback_core hands
@@ -1751,6 +1794,7 @@ LONG_SUBBATCH = 256  # the shortest reads, also run under the plain backend
 LONG_CPU_READS = 64  # reads of 1,000-2,000 bp also mapped on the CPU
 LONG_EXTEND_READS = 1_024  # reads of 1,000-3,000 bp mapped with extend=True
 LONG_ORACLE = 16  # of them, fits held to fit_oracle
+LONG_TEN_KB = 4  # reads of 9-10 kb extended, held to fit_oracle
 PAIRS = 262_144
 PAIR_LEN = 150
 PAIR_FRAG_MIN, PAIR_FRAG_MAX = 200, 800
@@ -1775,6 +1819,7 @@ SKETCH_K, SKETCH_K64 = 15, 21
 # (nothing else decides the result), read once; 20 bytes a row written.
 CHAIN_OPS_PER_SLOT = 13
 LONG_LAUNCHES = {}
+EXTEND_LAUNCHES = {}
 
 
 def comp_table() -> np.ndarray:
@@ -2029,10 +2074,16 @@ def long_calls_phase(args, torch, dev, timer, results, fa, genome, reads_g, inde
     chained = mapper.map_reads_long(index, ext_reads, **long_kw)
     torch.cuda.synchronize()
     t_chain = time.perf_counter() - t
+    kernels.reset_launches()
     t = time.perf_counter()
     extended = mapper.map_reads_long(index, ext_reads, extend=True, **long_kw)
     torch.cuda.synchronize()
     t_ext = time.perf_counter() - t
+    EXTEND_LAUNCHES.update(kernels.LAUNCHES)
+    n_chunks = -(-len(ext) // mapper._long_chunk(We, index, True, 32))
+    check("fit_span (C3) launched once a chunk on the extend path",
+          EXTEND_LAUNCHES["fit_span"] == n_chunks == EXTEND_LAUNCHES["chain"],
+          f"{EXTEND_LAUNCHES['fit_span']} launches, {n_chunks} chunks")
     ph.update(long_ext_reads=len(ext), long_ext_chain_reads_per_s=len(ext) / t_chain,
               long_ext_chain_bases_per_s=ext_bases / t_chain,
               long_ext_reads_per_s=len(ext) / t_ext, long_ext_bases_per_s=ext_bases / t_ext)
@@ -2104,7 +2155,12 @@ def long_calls_phase(args, torch, dev, timer, results, fa, genome, reads_g, inde
           f"{ph['long_chain_step_ns']:.1f} ns a step of the longest row; {nbytes} bytes "
           f"needed ({9 * B_c * A} to read every input whole: {full_ms:.4f} ms)", flush=True)
     del anchors
-    # the unbanded extension fit of the extend batch (plain PyTorch: no kernel)
+    print(f"  a chunk of {chunk} reads: A = {A} anchors a row, {live} live in all; seeding + "
+          f"join {ph['long_seed_join_ms']:.1f} ms, the row sort alone (the earlier route's) "
+          f"{ph['long_sort_ms']:.1f} ms, C1 above", flush=True)
+    phase_clock(results, "phase 10: C3 against its plain version")
+    # -- C3 against its plain version -------------------------------------------
+    # the unbanded extension fit of the extend batch, as _map_long_core makes it
     use_rc = torch.from_numpy(chained["strand"] == b"-").to(dev)
     l_e = ext_reads.lengths.to(torch.int32)
     q_words = torch.where(use_rc[:, None], bnt.reverse_complement_reads(ext_reads.words, l_e),
@@ -2112,13 +2168,59 @@ def long_calls_phase(args, torch, dev, timer, results, fa, genome, reads_g, inde
     ws_t = torch.div(torch.clamp(torch.from_numpy(chained["ref_start"]).to(dev) - 32, min=0),
                      16, rounding_mode="floor")
     win, wlen = mapper._windows(ws_t, index.ref_words, index.ref_len, Wwin)
-    ph["long_unbanded_fit_ms"] = timer(  # warm: the extend run made the same fit
-        lambda: align.fit_distance_span(q_words, l_e, win, wlen, 1, 1), 1, warmup=False)
-    del q_words, win, wlen
-    print(f"  a chunk of {chunk} reads: A = {A} anchors a row, {live} live in all; seeding + "
-          f"join {ph['long_seed_join_ms']:.1f} ms, the row sort alone (the earlier route's) "
-          f"{ph['long_sort_ms']:.1f} ms, C1 above; the unbanded fit of the {len(ext)}-read extend batch (M = {Lb}, N = "
-          f"{Wwin * 16}) {ph['long_unbanded_fit_ms']:.1f} ms", flush=True)
+    fit_args = (q_words, l_e, win, wlen, 1, 1)
+    label = f"[{len(ext)}] M={Lb} N={Wwin * 16} (the extend batch)"
+    got = align.fit_distance_span_kernel(*fit_args)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = align.fit_distance_span_torch(*fit_args)
+    end.record()
+    end.synchronize()
+    plain_ms = start.elapsed_time(end)
+    compare("fit_span", label, got, want)
+    del got, want
+    cells = int((l_e.long() * wlen.long()).sum())
+    nbytes = 4 * len(ext) * (We + Wwin) + 8 * len(ext) + 12 * len(ext)
+    timed("fit_span", label, lambda: align.fit_distance_span_kernel(*fit_args), plain_ms,
+          reps=5, main=True, nbytes=nbytes,
+          ops_ms=cells * SPAN_OPS_PER_CELL / INT32_OPS_PER_S * 1e3)
+    ph["long_unbanded_fit_ms"] = timer(lambda: align.fit_distance_span(*fit_args), 3)
+    ph.update(long_unbanded_fit_plain_ms=plain_ms, long_unbanded_fit_cells=cells)
+    print(f"  the unbanded fit of the {len(ext)}-read extend batch (M = {Lb}, N = {Wwin * 16}, "
+          f"{cells} real cells; layout {align._fit_layout(len(ext), Lb, Wwin * 16)}): "
+          f"fit_distance_span {ph['long_unbanded_fit_ms']:.4f} ms, its plain version "
+          f"{plain_ms:.1f} ms", flush=True)
+    del q_words, win, wlen, fit_args
+    fit_span_edges(torch, dev, np.random.default_rng(args.seed + 27), align, bitops, compare)
+    # 10-kb reads: the ring of their windows (N + 1 past 8,000 lanes) in
+    # device scratch, through map_reads_long, against the host full DP
+    tens = np.flatnonzero(res["mapped"] & (lens >= 9000) & (lens <= LONG_MAX))[:LONG_TEN_KB]
+    W10 = bitops.n_words_for(int(lens[tens].max()))
+    t10 = torch.from_numpy(tens).to(dev)
+    reads10 = PackedReads(words=packed.words[t10, :W10].contiguous(),
+                          lengths=packed.lengths[t10])
+    chained10 = mapper.map_reads_long(index, reads10, **long_kw)
+    before = kernels.LAUNCHES["fit_span"]
+    ext10 = mapper.map_reads_long(index, reads10, extend=True, **long_kw)
+    Lb10 = W10 * 16
+    Wwin10 = (Lb10 + Lb10 // 4 + 64) // 16 + 1
+    layout10 = align._fit_layout(len(tens), Lb10, Wwin10 * 16)
+    bad = []
+    for r, i in enumerate(tens.tolist()):
+        a = ascii_codes(np.frombuffer(long_reads[i], np.uint8))  # N packs as A
+        if ext10["strand"][r] == b"-":
+            a = 3 - a[::-1]
+        ws = max(int(chained10["ref_start"][r]) - 32, 0) // 16
+        wl = min(max(index.ref_len - ws * 16, 0), Wwin10 * 16)
+        c, s0, e0 = fit_oracle(a, ref_codes[ws * 16 : ws * 16 + wl])
+        got_r = tuple(int(ext10[f][r]) for f in ("cost", "ref_start", "ref_end"))
+        if got_r != (c, ws * 16 + s0, ws * 16 + e0):
+            bad.append((int(i), got_r, (c, ws * 16 + s0, ws * 16 + e0)))
+    check(f"{len(tens)} reads of 9-10 kb extended (N = {Wwin10 * 16}, the ring in device "
+          f"scratch: layout {layout10}) == host full-DP oracle (cost, start, end)",
+          len(tens) == LONG_TEN_KB and layout10[0] == 0 and not bad
+          and kernels.LAUNCHES["fit_span"] == before + 1, f"differing: {bad[:4]}")
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed + 10)
     cases = ((40, 33, 0, "random"), (33, 150, 0, "random"), (9, 200, -7000, "negative"),
@@ -3227,6 +3329,9 @@ def assembly_cli_phase(args, torch, dev, results, tmp, genome, reads, true_start
         if label.endswith("--sam"):
             check(f"traceback launched in {label}", CLI_LAUNCHES[label].get("traceback", 0) > 0,
                   f"{CLI_LAUNCHES[label].get('traceback', 0)} launches")
+        if label == "align --mode fit":
+            check(f"fit_span launched in {label}", CLI_LAUNCHES[label].get("fit_span", 0) == 1,
+                  f"{CLI_LAUNCHES[label].get('fit_span', 0)} launches")
         if label == "count" and ok:
             with open(sub_out, "rb") as f:
                 ok = ok and f.read() == got[3]["count.tsv"]
@@ -4479,7 +4584,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as d:
         ptxas = build_time.ptxas_report(
             Path(d), ("pack.cu", "unpack.cu", "histogram.cu", "hamming.cu", "tcscan.cu",
-                      "merge.cu", "wavefront.cu", "orf.cu", "chain.cu", "traceback.cu"))
+                      "merge.cu", "wavefront.cu", "orf.cu", "chain.cu", "traceback.cu",
+                      "fitspan.cu"))
     for src, lines in sorted(ptxas.items()):
         for line in lines:
             print(f"  ptxas {src}: {line}", flush=True)
@@ -5199,6 +5305,7 @@ def main() -> int:
     launches.update({name: SEARCH_ORF_LAUNCHES[name]
                      for name in ("hdist_scan_batch", "tc_scan", "tc_search", "orf_scan")})
     launches["chain"] = LONG_LAUNCHES["chain"]
+    launches["fit_span"] = EXTEND_LAUNCHES["fit_span"]
     for counts in [ASM_LAUNCHES, *CLI_LAUNCHES.values(), MESH_LAUNCHES]:  # phases 12, 13
         for name, n in counts.items():
             launches[name] += n
@@ -5241,6 +5348,8 @@ def main() -> int:
         # nor does C2: the JAX package's traceback is two lax.scans
         "traceback": ("bitnuc_tpu_torch/csrc/traceback.cu", "bitnuc_tpu/ops/align.py:448",
                       None),
+        # nor does C3: the JAX package's unbanded fit is a lax.scan
+        "fit_span": ("bitnuc_tpu_torch/csrc/fitspan.cu", "bitnuc_tpu/ops/align.py:218", None),
     }
     lines = []
     for name, (src, replaces, call) in sources.items():

@@ -704,6 +704,215 @@ def test_c2_layout(B, M, N, K, want):
     assert align._tb_layout(B, M, N, K) == want
 
 
+_GONE = 2**40  # a ring lane C3 did not write on that diagonal (no int32 value)
+
+
+def _c3_model(ca, la, cb, lb, mismatch=1, gap=1, form="span", tie_late=None):
+    """numpy model of C3 (csrc/fitspan.cu), a pair at a time as a block
+    runs it: diagonal d = 1 .. m + n computes only the lanes j in
+    [max(0, d - m), min(n, d)] from a ring of the last three diagonals
+    (slot d % 3) whose every other lane is poisoned, and reading one fails;
+    the codes past each length are not there to read. The extraction is
+    the plain version's, clamped (min(D, 2^30) and min(S, 2^30), unclamped
+    on a window of one lane), and at every extraction the kernel's rule on
+    the unclamped cell must decide the same. form "span" returns (cost,
+    start_j, end_j), "fit" (cost, end_j) with tie_late rows, "global"
+    (cost, n)."""
+    ca, cb = np.asarray(ca, np.int64), np.asarray(cb, np.int64)
+    la, lb = np.asarray(la, np.int64), np.asarray(lb, np.int64)
+    B, M = ca.shape
+    N = cb.shape[1]
+    big = 2**30
+    mm, gp = int(mismatch), int(gap)
+    late = np.zeros(B, bool) if tie_late is None else np.asarray(tie_late, bool)
+    out = np.zeros((3, B), np.int64)
+    for r in range(B):
+        m, n = int(la[r]), int(lb[r])
+        assert 0 <= m <= M and 0 <= n <= N
+        a, b = ca[r, :m] & 3, cb[r, :n] & 3
+        ring = np.full((2, 3, N + 1), _GONE)  # (cost, S) x slot x lane
+        ring[:, 0, 0] = 0  # D[0, 0], S[0, 0]
+        fit = (0 if m + n == 0 else big) if form == "global" else (0 if m == 0 else big)
+        start, end = 0, (n if form == "global" else 0)
+        for d in range(1, m + n + 1):
+            j = np.arange(max(0, d - m), min(n, d) + 1)
+            i = d - j
+            (P, SP), (Q, SQ) = ring[:, (d + 2) % 3], ring[:, (d + 1) % 3]
+            D, S = np.zeros(j.size, np.int64), np.zeros(j.size, np.int64)
+            inner = (i > 0) & (j > 0)
+            ii, jj = i[inner], j[inner]
+            reads = (Q[jj - 1], P[jj], P[jj - 1], SQ[jj - 1], SP[jj], SP[jj - 1])
+            assert not any(np.isin(_GONE, x) for x in reads), (r, d)
+            c_diag = _wrap32(Q[jj - 1] + np.where(a[ii - 1] == b[jj - 1], 0, mm))
+            c_up, c_left = _wrap32(P[jj] + gp), _wrap32(P[jj - 1] + gp)
+            D[inner] = np.minimum(np.minimum(c_diag, c_up), c_left)
+            S[inner] = np.minimum(np.minimum(np.where(c_diag == D[inner], SQ[jj - 1], big),
+                                             np.where(c_up == D[inner], SP[jj], big)),
+                                  np.where(c_left == D[inner], SP[jj - 1], big))
+            D[j == 0], S[j == 0] = _wrap32(d * gp), 0
+            D[i == 0] = _wrap32(d * gp) if form == "global" else 0
+            S[i == 0] = j[i == 0]
+            ring[:, d % 3] = _GONE
+            ring[0, d % 3, j], ring[1, d % 3, j] = D, S
+            hit = i == m
+            if not hit.any():
+                continue
+            Dc, Sc, jc = int(D[hit][0]), int(S[hit][0]), int(j[hit][0])
+            v, st = (min(Dc, big), min(Sc, big)) if N > 0 else (Dc, Sc)
+            if form == "span":
+                better = v < fit
+                assert better == (Dc < fit)  # the kernel's rule
+                if better:
+                    fit, start, end = v, st, jc
+            elif form == "fit":
+                better = v < fit or (late[r] and v == fit and v < big)
+                assert better == (Dc < fit or (late[r] and Dc == fit and Dc < big))
+                fit, end = min(fit, v), (jc if better else end)
+            elif jc == n:  # d == m + n
+                fit = min(fit, v)
+        if form == "span":
+            start = min(start, end) if fit < big else 0
+        out[:, r] = (fit, start, end)
+    out = out.astype(np.int32)
+    return (out[0], out[1], out[2]) if form == "span" else (out[0], out[2])
+
+
+def _c3_inputs(seed, B, M, N, kind):
+    """_tb_codes widened to whole words: (codes a, la, codes b, lb) numpy
+    with garbage past each length, and the same as the JAX package's
+    uint32 words and as the port's int32 words."""
+    ca, la, cb, lb = _tb_codes(seed, B, M, N, kind)
+    ca = np.pad(ca, ((0, 0), (0, -M % 16)))
+    cb = np.pad(cb, ((0, 0), (0, -N % 16)))
+    wa, wb = (bitops.pack_codes(torch.from_numpy(c & 3)) for c in (ca, cb))
+    return (ca, la, cb, lb), (wa, torch.from_numpy(la), wb, torch.from_numpy(lb))
+
+
+def _jax_c3(words, mm, gap, form, late=None):
+    wa, la, wb, lb = (jnp.asarray(x.numpy().view(np.uint32) if x.ndim == 2 else x.numpy())
+                      for x in words)
+    if form == "span":
+        return jalign.fit_distance_span(wa, la, wb, lb, mm, gap)
+    if form == "fit":
+        return jalign.fit_distance(wa, la, wb, lb, mm, gap,
+                                   tie_late=None if late is None else jnp.asarray(late))
+    return jalign.global_distance(wa, la, wb, lb, mm, gap), lb
+
+
+def _c3_all_eq(seed, B, M, N, kind, costs):
+    """The model of C3 in its three forms against JAX, bit for bit, at each
+    (mismatch, gap) of ``costs``; tie_late on every other row of the fit."""
+    codes, words = _c3_inputs(seed, B, M, N, kind)
+    late = np.arange(B) % 2 == 1
+    for mm, gap in costs:
+        for form in ("span", "fit", "global"):
+            _all_eq(_c3_model(*codes, mm, gap, form, late), _jax_c3(words, mm, gap, form, late))
+
+
+@pytest.mark.parametrize("kind,M,N", [
+    (kind, M, N) for kind in ("planted", "polyA", "repeat") for M, N in ((30, 60), (60, 30))
+] + [("planted", 0, 40), ("planted", 40, 0), ("planted", 0, 0)])
+def test_c3_model_matches_jax(kind, M, N):
+    """The live-lane recurrence with its ring of three diagonals: seeded
+    pairs, m > n, empty sides (m = 0 or n = 0 rows in every batch),
+    tie-heavy rows (poly-A, period-2 and -3 repeats), at weights (1, 1) and
+    (3, 2)."""
+    _c3_all_eq(31, 12, M, N, kind, WEIGHTS)
+
+
+_EXTREME = (-2**31, -7, 0, 2**30, 2**31 - 1)
+
+
+@pytest.mark.parametrize("mm", _EXTREME)
+def test_c3_model_any_int32_costs_match_jax(mm):
+    """Costs in {-2^31, -7, 0, 2^30, 2^31 - 1} on both sides: every sum and
+    the boundary products d * gap wrap in int32, the tie tests compare the
+    wrapped values, and cells past 2^30 meet the clamped extraction."""
+    _c3_all_eq(32, 10, 26, 41, "planted", [(mm, gap) for gap in _EXTREME])
+
+
+def test_c3_model_on_the_seeded_pairs(pairs):
+    """The model on the module's seeded pairs (JAX's words, zero past each
+    length) against JAX in all three forms."""
+    ja, (wa, la), jb, (wb, lb) = pairs
+    ca, cb = bitops.unpack_words(wa).numpy(), bitops.unpack_words(wb).numpy()
+    late = np.arange(wa.shape[0]) % 3 == 0
+    for mm, gap in WEIGHTS:
+        _all_eq(_c3_model(ca, la, cb, lb, mm, gap, "span"),
+                jalign.fit_distance_span(ja.words, ja.lengths, jb.words, jb.lengths, mm, gap))
+        _all_eq(_c3_model(ca, la, cb, lb, mm, gap, "fit", late),
+                jalign.fit_distance(ja.words, ja.lengths, jb.words, jb.lengths, mm, gap,
+                                    tie_late=jnp.asarray(late)))
+        _eq(_c3_model(ca, la, cb, lb, mm, gap, "global")[0],
+            jalign.global_distance(ja.words, ja.lengths, jb.words, jb.lengths, mm, gap))
+
+
+def test_c3_plain_versions_past_the_widths_match_jax():
+    """Lengths outside [0, 16 Wa] and [0, 16 Wb] (negative, and past the
+    words): the plain versions give what JAX gives (C3 refuses them on the
+    card; no caller passes them)."""
+    rng = np.random.default_rng(33)
+    wa = rng.integers(0, 2**32, (8, 2), dtype=np.uint64).astype(np.uint32)
+    wb = rng.integers(0, 2**32, (8, 3), dtype=np.uint64).astype(np.uint32)
+    la = np.array([40, -3, 32, 5, 33, 0, -1, 20], np.int32)
+    lb = np.array([60, 10, 49, -2, 48, 70, 5, 100], np.int32)
+    late = np.arange(8) % 2 == 0
+    tw = [torch.from_numpy(x.view(np.int32).copy()) for x in (wa, wb)]
+    t = (tw[0], torch.from_numpy(la), tw[1], torch.from_numpy(lb))
+    j = tuple(jnp.asarray(x) for x in (wa, la, wb, lb))
+    for mm, gap in ((1, 1), (3, 2), (-1, 1)):
+        _all_eq(align.fit_distance_span_torch(*t, mm, gap), jalign.fit_distance_span(*j, mm, gap))
+        _all_eq(align._distance_wavefront_torch(*t, mm, gap, True, torch.from_numpy(late)),
+                jalign.fit_distance(*j, mm, gap, tie_late=jnp.asarray(late)))
+        _eq(align._distance_wavefront_torch(*t, mm, gap)[0], jalign.global_distance(*j, mm, gap))
+
+
+@pytest.mark.parametrize("B,M,N,planes,want", [
+    (1024, 3008, 3840, 2, (1, 1, 0, 1024)),  # phase 10's extend batch: 92,192 B of ring
+    (1024, 160, 224, 1, (1, 1, 0, 1024)),    # the distance forms at the mapping shape
+    (4, 10_016, 12_640, 2, (0, 1, 303_392, 4)),  # 10-kb reads: the ring in scratch
+    (5000, 10_016, 12_640, 2, (0, 1, 303_392, 3539)),  # capped by _FIT_SCRATCH_BYTES
+    (9000, 4000, 8191, 2, (1, 1, 0, 9000)),          # the widest ring in shared memory
+    (9000, 4000, 8192, 2, (0, 1, 196_640, 5460)),    # one lane past it
+    (9000, 4000, 8192, 1, (1, 1, 0, 9000)),          # one plane fits
+    (3, 150_000, 150_000, 1, (0, 0, 2_100_016, 3)),  # the codes past shared memory too
+    (0, 10, 10, 2, (1, 1, 0, 1)),
+])
+def test_c3_layout(B, M, N, planes, want):
+    """Where C3 keeps a pair's ring and codes, and how many blocks stride
+    over the pairs when they live in device scratch."""
+    assert align._fit_layout(B, M, N, planes) == want
+
+
+def test_c3_routes_cpu_tensors_to_the_plain_version():
+    """CPU words take the plain versions of both forms (no launch);
+    backend('kernel') on them raises; the counter exists; the plain K8's
+    wide band runs the plain span form."""
+    assert "fit_span" in kernels.LAUNCHES
+    _, (wa, la, wb, lb) = _c3_inputs(34, 6, 20, 30, "planted")
+    before = kernels.LAUNCHES["fit_span"]
+    want = align.fit_distance_span_torch(wa, la, wb, lb, 3, 2)
+    _all_eq(align.fit_distance_span(wa, la, wb, lb, 3, 2), want)
+    _all_eq(align.fit_distance_span_banded(wa, la, wb, lb, 3, 2, -200, 200), want)
+    _all_eq(align.fit_distance_span_banded_torch(wa, la, wb, lb, 3, 2, -200, 200), want)
+    late = torch.arange(6) % 2 == 0
+    want_fit = align._distance_wavefront_torch(wa, la, wb, lb, 3, 2, True, late)
+    _all_eq(align.fit_distance(wa, la, wb, lb, 3, 2, late), want_fit)
+    _all_eq(align._distance_wavefront(wa, la, wb, lb, 3, 2, True, late), want_fit)
+    _eq(align.global_distance(wa, la, wb, lb, 3, 2),
+        align._distance_wavefront_torch(wa, la, wb, lb, 3, 2)[0])
+    _eq(align.edit_distance(wa, la, wb, lb), align._distance_wavefront_torch(wa, la, wb, lb, 1, 1)[0])
+    assert kernels.LAUNCHES["fit_span"] == before
+    with config.backend("kernel"):
+        for call in (lambda: align.fit_distance_span(wa, la, wb, lb),
+                     lambda: align.fit_distance_span_banded(wa, la, wb, lb, 1, 1, -200, 200),
+                     lambda: align.edit_distance(wa, la, wb, lb),
+                     lambda: align.global_distance(wa, la, wb, lb),
+                     lambda: align.fit_distance(wa, la, wb, lb, 1, 1, late)):
+            with pytest.raises(ValueError, match="CUDA"):
+                call()
+
+
 def _c_params(name):
     """The parameters of csrc's C entry point ``name``, from its source."""
     import re

@@ -771,6 +771,128 @@ def test_traceback_kernel_edges(cuda):
               align.align_ops_codes_torch(ca, la, cb, lb, 1, 1, False))
 
 
+def _fs_words(seed, B, M, N, kind):
+    """_tb_codes packed into words (M and N multiples of 16): the codes past
+    each length stay in the words."""
+    ca, la, cb, lb = _tb_codes(seed, B, M, N, kind)
+    return bitops.pack_codes(ca & 3), la, bitops.pack_codes(cb & 3), lb
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["planted", "ties"])
+@pytest.mark.parametrize("B,M,N", [
+    (40, 16, 16),
+    (40, 48, 32),       # m > n
+    (300, 160, 224),    # the mapping shape
+    (12, 1008, 1008),   # N + 1 = 1,009: two lanes a thread
+    (10, 1008, 1024),   # N + 1 = 1,025
+    (6, 1104, 1248),
+    (5, 1504, 1920),    # half of phase 10's extend shape
+    (20, 0, 48),        # an empty a side
+    (20, 48, 0),        # an empty b side
+])
+def test_fit_span_kernel_matches_plain(cuda, B, M, N, kind):
+    """C3's span form against its plain version: rows with m = 0 or n = 0,
+    full rows, tie-heavy rows, and one launch a call."""
+    wa, la, wb, lb = (x.to(cuda) for x in _fs_words(B + M + N, B, M, N, kind))
+    for costs in ((1, 1), (3, 2)):
+        got = align.fit_distance_span_kernel(wa, la, wb, lb, *costs)
+        _tb_equal(got, align.fit_distance_span_torch(wa, la, wb, lb, *costs))
+    before = kernels.LAUNCHES["fit_span"]
+    align.fit_distance_span(wa, la, wb, lb)
+    assert kernels.LAUNCHES["fit_span"] == before + 1
+
+
+def _distance_equal(wa, la, wb, lb, costs, late):
+    """C3's distance form against its plain version: global, and fitting
+    with and without tie_late rows."""
+    for efb, tl in ((False, None), (True, None), (True, late)):
+        _tb_equal(align._distance_wavefront_kernel(wa, la, wb, lb, *costs, efb, tl),
+                  align._distance_wavefront_torch(wa, la, wb, lb, *costs, efb, tl))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["planted", "ties"])
+@pytest.mark.parametrize("B,M,N", [
+    (40, 16, 16),
+    (40, 48, 32),       # m > n
+    (300, 160, 224),    # the mapping shape (align --mode fit and global)
+    (10, 1008, 1024),   # N + 1 = 1,025
+    (6, 1104, 1248),
+    (20, 0, 48),        # an empty a side
+    (20, 48, 0),        # an empty b side
+])
+def test_fit_span_distance_kernel_matches_plain(cuda, B, M, N, kind):
+    """C3's distance form against its plain version (tie_late on every
+    third row), and one launch for each of edit_distance, global_distance
+    and fit_distance."""
+    wa, la, wb, lb = (x.to(cuda) for x in _fs_words(B + M + N + 1, B, M, N, kind))
+    late = torch.arange(B, device=cuda) % 3 == 1
+    for costs in ((1, 1), (3, 2)):
+        _distance_equal(wa, la, wb, lb, costs, late)
+    before = kernels.LAUNCHES["fit_span"]
+    assert torch.equal(align.edit_distance(wa, la, wb, lb),
+                       align._distance_wavefront_torch(wa, la, wb, lb, 1, 1)[0])
+    align.global_distance(wa, la, wb, lb, 3, 2)
+    align.fit_distance(wa, la, wb, lb, 1, 1, late)
+    assert kernels.LAUNCHES["fit_span"] == before + 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("costs", [(-1, 1), (2**29, 3), (5, -2), (3, 2**29), (0, 0),
+                                   (-2**31, 2**31 - 1), (2**31 - 1, -2**31), (-7, 2**30)])
+def test_fit_span_kernel_any_int32_costs(cuda, costs):
+    """Negative costs and sums past 2^31 wrap as the plain version's int32
+    tensors do; so do the boundary products d * gap."""
+    wa, la, wb, lb = (x.to(cuda) for x in _fs_words(19, 30, 48, 64, "planted"))
+    _tb_equal(align.fit_distance_span_kernel(wa, la, wb, lb, *costs),
+              align.fit_distance_span_torch(wa, la, wb, lb, *costs))
+    _distance_equal(wa, la, wb, lb, costs, torch.arange(30, device=cuda) % 2 == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("where", ["ring", "codes"])
+def test_fit_span_kernel_scratch_and_grid_stride(cuda, monkeypatch, where):
+    """The ring, or the ring and the codes, in device scratch, with fewer
+    blocks than pairs, so each block reuses its slice for several pairs."""
+    monkeypatch.setattr(align, "_FIT_RING_SMEM_BYTES", 0)
+    if where == "codes":
+        monkeypatch.setattr(align, "_FIT_SMEM_BYTES", 0)
+    monkeypatch.setattr(align, "_FIT_MAX_BLOCKS", 3)
+    wa, la, wb, lb = (x.to(cuda) for x in _fs_words(5, 40, 160, 224, "planted"))
+    for planes in (1, 2):
+        ring_smem, codes_smem, stride, nblocks = align._fit_layout(40, 160, 224, planes)
+        assert (ring_smem, codes_smem, nblocks) == (0, int(where == "ring"), 3) and stride
+    _tb_equal(align.fit_distance_span_kernel(wa, la, wb, lb, 1, 1),
+              align.fit_distance_span_torch(wa, la, wb, lb, 1, 1))
+    _distance_equal(wa, la, wb, lb, (1, 1), torch.arange(40, device=cuda) % 2 == 0)
+
+
+@pytest.mark.cuda
+def test_fit_span_kernel_edges(cuda):
+    """An empty batch launches nothing; lengths outside [0, 16 Wa] and
+    [0, 16 Wb] raise; a band as wide as the window runs C3 and not K8."""
+    wa, la, wb, lb = (x.to(cuda) for x in _fs_words(6, 20, 48, 64, "planted"))
+    before = dict(kernels.LAUNCHES)
+    out = align.fit_distance_span_kernel(wa[:0], la[:0], wb[:0], lb[:0])
+    assert [tuple(x.shape) for x in out] == [(0,)] * 3
+    assert kernels.LAUNCHES["fit_span"] == before["fit_span"]
+    out = align._distance_wavefront_kernel(wa[:0], la[:0], wb[:0], lb[:0], 1, 1, True)
+    assert [tuple(x.shape) for x in out] == [(0,)] * 2
+    assert kernels.LAUNCHES["fit_span"] == before["fit_span"]
+    for side, bad in ((0, 49), (0, -1), (1, 65), (1, -2)):
+        lens = [la.clone(), lb.clone()]
+        lens[side][7] = bad
+        with pytest.raises(ValueError, match="lengths"):
+            align.fit_distance_span_kernel(wa, lens[0], wb, lens[1])
+        with pytest.raises(ValueError, match="lengths"):
+            align.global_distance(wa, lens[0], wb, lens[1])
+    _tb_equal(align.fit_distance_span_banded(wa, la, wb, lb, 1, 1, -80, 80),
+              align.fit_distance_span_torch(wa, la, wb, lb, 1, 1))
+    assert kernels.LAUNCHES["fit_span"] == before["fit_span"] + 1
+    assert kernels.LAUNCHES["fit_banded"] == before["fit_banded"]
+
+
 # Q covers each query-tile width of K6 (8, 32, 64, 128, 256) and the walk
 # over tiles of 256 past it; W = 64 takes the ring of B stages around more
 # than once a tile.
@@ -1234,10 +1356,37 @@ def test_map_reads_long_on_card_matches_cpu(cuda, extend):
     got = mapper.map_reads_long(index_gpu, PackedReads.from_ascii(reads, device=cuda),
                                 extend=extend)
     assert kernels.LAUNCHES["chain"] == 1
+    assert kernels.LAUNCHES["fit_span"] == int(extend)
     assert set(got) == set(want)
     for key in want:
         np.testing.assert_array_equal(got[key], want[key], err_msg=key)
     assert got["mapped"][:-1].all() and not got["mapped"][-1]
+
+
+@pytest.mark.cuda
+def test_map_reads_long_extend_launches_c3_once_a_chunk(cuda, monkeypatch):
+    """map_reads_long(extend=True) in chunks of 3 reads on the card: one C1
+    and one C3 launch a chunk, and the result of one chunk."""
+    from bitnuc_tpu_torch import mapper
+    from bitnuc_tpu_torch.sequence import PackedReads
+
+    rng = np.random.default_rng(10)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    ref = acgt[rng.integers(0, 4, 20_000)].tobytes()
+    reads = [ref[s : s + n] for s, n in zip(rng.integers(0, 17_000, 10).tolist(),
+                                            rng.integers(700, 2500, 10).tolist())]
+    index = mapper.MinimizerIndex.build(ref, device=cuda)
+    pr = PackedReads.from_ascii(reads, device=cuda)
+    want = mapper.map_reads_long(index, pr, extend=True)
+    W = pr.words.shape[1]
+    per_read = mapper._LONG_BYTES // mapper._long_chunk(W, index, True, 32)
+    monkeypatch.setattr(mapper, "_LONG_BYTES", 3 * per_read)
+    kernels.reset_launches()
+    got = mapper.map_reads_long(index, pr, extend=True)
+    assert kernels.LAUNCHES["chain"] == kernels.LAUNCHES["fit_span"] == 4
+    for key in want:
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+    assert got["mapped"].all()
 
 
 # -- the read-processing tier: plain PyTorch on the card against the CPU ----------

@@ -349,6 +349,31 @@ def test_map_reads_long_chunks_change_no_output(long_data, monkeypatch, extend):
                   _jax_long(long_data, extend))
 
 
+def test_map_reads_long_extend_fits_once_a_chunk(long_data, monkeypatch):
+    """extend=True fits each chunk with one fit_distance_span call (C3 on
+    the card, one launch a chunk); CPU reads take the plain version and
+    launch nothing."""
+    from bitnuc_tpu_torch import kernels
+    from bitnuc_tpu_torch.ops import align as talign
+
+    ti, tr = _long_pair(long_data)[2:]
+    W = tr.words.shape[1]
+    per_read = mapper._LONG_BYTES // mapper._long_chunk(W, ti, True, 32)
+    monkeypatch.setattr(mapper, "_LONG_BYTES", 3 * per_read)
+    calls = []
+    fit = talign.fit_distance_span
+
+    def counted(*a, **kw):
+        calls.append(a[0].shape[0])
+        return fit(*a, **kw)
+
+    monkeypatch.setattr(talign, "fit_distance_span", counted)
+    before = kernels.LAUNCHES["fit_span"]
+    _result_equal(mapper.map_reads_long(ti, tr, min_chain=10, extend=True),
+                  _jax_long(long_data, True))
+    assert calls == [3, 3, 3] and kernels.LAUNCHES["fit_span"] == before
+
+
 def test_reverse_reads_matches_jax(long_data):
     reads = long_data[1]
     jr = JPackedReads.from_ascii(reads, validate=False)
