@@ -31,6 +31,12 @@ with a plain PyTorch version beside it for CPU tensors:
 * ``ops.chain.chain_anchors`` (the chaining of ``mapper.map_reads_long``) —
   C1 ``chain``, the device loop of the JAX package's chaining scan (it
   replaces no TPU kernel)
+* ``ops.align.align_ops`` / ``align_ops_codes[_banded]`` (the CIGARs of
+  ``mapper.traceback_cigars``) — C2 ``traceback``, and
+  ``ops.align.fit_distance_span`` (the extension fit of
+  ``mapper.map_reads_long``) with ``edit_distance``, ``global_distance``
+  and ``fit_distance`` — C3 ``fit_span``: the device loops of the JAX
+  package's wavefront scans (neither replaces a TPU kernel)
 
 ``hdist_search_batch`` searches as ``PackedDB.search_batch`` does (K4/K5,
 or K6's ``tc_search``). ``ops.merge_pairs.merge_pairs`` merges read pairs

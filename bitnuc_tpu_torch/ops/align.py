@@ -497,11 +497,8 @@ def fit_distance_span_banded(words_a, lens_a, words_b, lens_b, mismatch=1, gap=1
     if K >= 16 * words_b.shape[-1] + 1:
         return fit_distance_span(words_a, lens_a, words_b, lens_b, mismatch, gap)
     if config.use_kernel(words_a):
-        return fit_distance_span_banded_kernel(
-            words_a.contiguous(), lens_a.to(torch.int32).contiguous(),
-            words_b.contiguous(), lens_b.to(torch.int32).contiguous(),
-            mismatch, gap, off_lo, off_hi,
-        )
+        return fit_distance_span_banded_kernel(*_kernel_words(words_a, lens_a, words_b, lens_b),
+                                               mismatch, gap, off_lo, off_hi)
     return fit_distance_span_banded_torch(words_a, lens_a, words_b, lens_b, mismatch, gap,
                                           off_lo, off_hi)
 
@@ -964,10 +961,7 @@ def sw_score(words_a, lens_a, words_b, lens_b, match=2, mismatch=-3,
     gap_open is the cost of a gap's first base, gap_extend of each further
     base. Dispatches K9 on CUDA words (see ``config``)."""
     if config.use_kernel(words_a):
-        return sw_score_kernel(
-            words_a.contiguous(), lens_a.to(torch.int32).contiguous(),
-            words_b.contiguous(), lens_b.to(torch.int32).contiguous(),
-            match, mismatch, gap_open, gap_extend,
-        )
+        return sw_score_kernel(*_kernel_words(words_a, lens_a, words_b, lens_b),
+                               match, mismatch, gap_open, gap_extend)
     return sw_score_torch(words_a, lens_a, words_b, lens_b, match, mismatch,
                           gap_open, gap_extend)

@@ -2221,6 +2221,7 @@ def long_calls_phase(args, torch, dev, timer, results, fa, genome, reads_g, inde
           f"scratch: layout {layout10}) == host full-DP oracle (cost, start, end)",
           len(tens) == LONG_TEN_KB and layout10[0] == 0 and not bad
           and kernels.LAUNCHES["fit_span"] == before + 1, f"differing: {bad[:4]}")
+    phase_clock(results, "phase 10: C1 at edge shapes")
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed + 10)
     cases = ((40, 33, 0, "random"), (33, 150, 0, "random"), (9, 200, -7000, "negative"),
