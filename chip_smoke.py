@@ -235,6 +235,7 @@ import tempfile
 import threading
 import time
 import traceback
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -2193,6 +2194,7 @@ def long_calls_phase(args, torch, dev, timer, results, fa, genome, reads_g, inde
           f"{plain_ms:.1f} ms", flush=True)
     del q_words, win, wlen, fit_args
     fit_span_edges(torch, dev, np.random.default_rng(args.seed + 27), align, bitops, compare)
+    phase_clock(results, "phase 10: C3 on reads of 9-10 kb")
     # 10-kb reads: the ring of their windows (N + 1 past 8,000 lanes) in
     # device scratch, through map_reads_long, against the host full DP
     tens = np.flatnonzero(res["mapped"] & (lens >= 9000) & (lens <= LONG_MAX))[:LONG_TEN_KB]
@@ -2206,17 +2208,21 @@ def long_calls_phase(args, torch, dev, timer, results, fa, genome, reads_g, inde
     Lb10 = W10 * 16
     Wwin10 = (Lb10 + Lb10 // 4 + 64) // 16 + 1
     layout10 = align._fit_layout(len(tens), Lb10, Wwin10 * 16)
-    bad = []
-    for r, i in enumerate(tens.tolist()):
-        a = ascii_codes(np.frombuffer(long_reads[i], np.uint8))  # N packs as A
+
+    def oracle10(r: int):  # the host DP of row r (numpy, so threads overlap)
+        a = ascii_codes(np.frombuffer(long_reads[int(tens[r])], np.uint8))  # N packs as A
         if ext10["strand"][r] == b"-":
             a = 3 - a[::-1]
         ws = max(int(chained10["ref_start"][r]) - 32, 0) // 16
         wl = min(max(index.ref_len - ws * 16, 0), Wwin10 * 16)
         c, s0, e0 = fit_oracle(a, ref_codes[ws * 16 : ws * 16 + wl])
-        got_r = tuple(int(ext10[f][r]) for f in ("cost", "ref_start", "ref_end"))
-        if got_r != (c, ws * 16 + s0, ws * 16 + e0):
-            bad.append((int(i), got_r, (c, ws * 16 + s0, ws * 16 + e0)))
+        return c, ws * 16 + s0, ws * 16 + e0
+
+    with ThreadPoolExecutor(max(1, len(tens))) as pool:
+        want10 = list(pool.map(oracle10, range(len(tens))))
+    got10 = [tuple(int(ext10[f][r]) for f in ("cost", "ref_start", "ref_end"))
+             for r in range(len(tens))]
+    bad = [(int(i), g, w_) for i, g, w_ in zip(tens.tolist(), got10, want10) if g != w_]
     check(f"{len(tens)} reads of 9-10 kb extended (N = {Wwin10 * 16}, the ring in device "
           f"scratch: layout {layout10}) == host full-DP oracle (cost, start, end)",
           len(tens) == LONG_TEN_KB and layout10[0] == 0 and not bad
