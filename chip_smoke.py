@@ -235,7 +235,6 @@ import tempfile
 import threading
 import time
 import traceback
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -815,29 +814,27 @@ def ascii_codes(x: np.ndarray) -> np.ndarray:
 
 
 def fit_oracle(a: np.ndarray, b: np.ndarray, mismatch: int = 1, gap: int = 1):
-    """Host full-DP fitting alignment of codes a into b: (cost, start, end)
-    with the earliest end and, among optimal paths to it, the smallest
-    start. Rows go one at a time; the left moves of a row are one
-    lexicographic running min over (cost - j * gap, start)."""
+    """Host full-DP fitting alignment of codes a (0-3) into b: (cost,
+    start, end) with the earliest end and, among optimal paths to it, the
+    smallest start. Rows go one at a time over keys cost * 2^21 + start,
+    which order as (cost, start) pairs: a cell's key is the least of its
+    candidates' (its start the smallest over the optimal ones), and the
+    left moves of a row are one running min over key - j * gap * 2^21."""
     m, n = len(a), len(b)
-    j = np.arange(n + 1, dtype=np.int64)
-    D = np.zeros(n + 1, np.int64)  # row 0: free b-prefix, the path enters at j
-    S = j.copy()
-    shift = 1 << 21  # start < 2^21: (value, start) pairs order as one int64
+    shift = 1 << 21  # start < 2^21
+    jg = np.arange(n + 1, dtype=np.int64) * (gap * shift)
+    K = np.arange(n + 1, dtype=np.int64)  # row 0: free b-prefix, the path enters at j
+    sub = [np.where(b == c, 0, mismatch * shift).astype(np.int64) for c in range(4)]
+    X = np.empty(n + 1, np.int64)
     for i in range(1, m + 1):
-        sub = np.where(b == a[i - 1], 0, mismatch)
-        diag = D[:-1] + sub
-        up = D[1:] + gap
-        X = np.minimum(diag, up)
-        SX = np.minimum(np.where(diag == X, S[:-1], 1 << 40), np.where(up == X, S[1:], 1 << 40))
-        X = np.concatenate([[i * gap], X])
-        SX = np.concatenate([[0], SX])
-        run = np.minimum.accumulate((X - j * gap) * shift + SX)
-        D = (run // shift) + j * gap
-        S = run % shift
+        np.minimum(K[:-1] + sub[int(a[i - 1])], K[1:] + gap * shift, out=X[1:])
+        X[0] = i * gap * shift
+        X -= jg
+        np.minimum.accumulate(X, out=K)
+        K += jg
+    D, S = K // shift, K % shift
     end = int(np.argmin(D))
-    cost = int(D[end])
-    return cost, min(int(S[end]), end), end
+    return int(D[end]), min(int(S[end]), end), end
 
 
 def mapping_phase(args, torch, dev, timer, results, fa, genome, reads, true_starts, true_rev,
@@ -2208,21 +2205,17 @@ def long_calls_phase(args, torch, dev, timer, results, fa, genome, reads_g, inde
     Lb10 = W10 * 16
     Wwin10 = (Lb10 + Lb10 // 4 + 64) // 16 + 1
     layout10 = align._fit_layout(len(tens), Lb10, Wwin10 * 16)
-
-    def oracle10(r: int):  # the host DP of row r (numpy, so threads overlap)
-        a = ascii_codes(np.frombuffer(long_reads[int(tens[r])], np.uint8))  # N packs as A
+    bad = []
+    for r, i in enumerate(tens.tolist()):
+        a = ascii_codes(np.frombuffer(long_reads[i], np.uint8))  # N packs as A
         if ext10["strand"][r] == b"-":
             a = 3 - a[::-1]
         ws = max(int(chained10["ref_start"][r]) - 32, 0) // 16
         wl = min(max(index.ref_len - ws * 16, 0), Wwin10 * 16)
         c, s0, e0 = fit_oracle(a, ref_codes[ws * 16 : ws * 16 + wl])
-        return c, ws * 16 + s0, ws * 16 + e0
-
-    with ThreadPoolExecutor(max(1, len(tens))) as pool:
-        want10 = list(pool.map(oracle10, range(len(tens))))
-    got10 = [tuple(int(ext10[f][r]) for f in ("cost", "ref_start", "ref_end"))
-             for r in range(len(tens))]
-    bad = [(int(i), g, w_) for i, g, w_ in zip(tens.tolist(), got10, want10) if g != w_]
+        got_r = tuple(int(ext10[f][r]) for f in ("cost", "ref_start", "ref_end"))
+        if got_r != (c, ws * 16 + s0, ws * 16 + e0):
+            bad.append((int(i), got_r, (c, ws * 16 + s0, ws * 16 + e0)))
     check(f"{len(tens)} reads of 9-10 kb extended (N = {Wwin10 * 16}, the ring in device "
           f"scratch: layout {layout10}) == host full-DP oracle (cost, start, end)",
           len(tens) == LONG_TEN_KB and layout10[0] == 0 and not bad
