@@ -3,32 +3,65 @@
 //
 // Replaces no TPU kernel. bitnuc_tpu/ops/align.py::_wavefront_tb_codes
 // (align.py:448) and _wavefront_tb_codes_banded (:585) are two lax.scans in
-// one jit (a forward scan over the M + N diagonals that records a uint8
+// one jit (a forward scan over the M + N diagonals that records a 4-bit
 // candidate mask per cell, then a walk of M + N steps), which XLA compiles
-// into device loops; eager PyTorch has no such loop. This kernel is both
-// scans: (cost [B], end_j [B], ops [B, M + N] uint8 in forward order,
+// into device loops; eager PyTorch has no such loop. Both kernels here are
+// both scans: (cost [B], end_j [B], ops [B, M + N] uint8 in forward order,
 // OP_STOP-padded), equal bit for bit to the plain version
 // (ops.align.align_ops_codes_torch / align_ops_codes_banded_torch) for
-// lengths in [0, M] and [0, N].
+// lengths in [0, M] and [0, N]. A cell's mask: bit0 diag ties, bit1 up
+// ties, bit2 left ties, bit3 diag is a match. The walk's tie policy:
+// continue an INS on bit 1 or a DEL on bit 2, else diag > up > left.
 //
-// Bound on the card: integer ALU. A pair is a chain of m + n dependent
-// diagonals of about 12 int32 operations a cell (the code compare and
-// substitution select, three candidate sums, two mins, three tie compares
-// and the mask), then a serial walk of at most m + n steps; the bytes are
-// the codes, read once, and the ops, written once.
+// Bound on the card: integer ALU. A pair is m x n cells of about 12 int32
+// operations (the code compare and substitution select, three candidate
+// sums, two mins, three tie compares and the mask), then a serial walk of
+// at most m + n steps; the bytes are the codes, read once, and the ops,
+// written once.
 //
-// Design (a simple first form): one block a pair (a grid-stride loop over
-// the pairs where the plane lives in device memory). The threads stride
-// over the lanes of a diagonal; the last three diagonals live in a ring in
-// shared memory (slot d % 3), or in the block's slice of device scratch
-// past what shared memory holds. One __syncthreads a diagonal. Each cell's
-// 4-bit candidate mask (bit0 diag ties, bit1 up ties, bit2 left ties, bit3
-// diag is a match) goes to a per-pair plane of bytes, in shared memory
-// where the ring and plane fit in ops.align._TB_SMEM_BYTES, else in the
-// block's scratch. Then thread 0 walks the plane with the op-continuation tie
-// policy (continue an INS on bit 1 or a DEL on bit 2, else diag > up >
-// left), writing the ops into the output row end first, and the block
-// reverses the row in place and pads it with OP_STOP.
+// traceback_warp_kernel<C>, the unbanded form where N + 1 <= 1,024 and a
+// warp's plane fits in shared memory (ops.align._tb_warp_cells): a warp a
+// pair, rows pipelined down the warp, as K9's sw_kernel<C>. Lane L holds
+// columns j = L C .. L C + C - 1 (C the smallest of the instantiated cells
+// a lane with 32 C >= N + 1) and at step s works row i = s - L, so no lane
+// computes a row outside [1, m] and no barrier is needed: one
+// __shfl_up_sync a step brings D[i][L C - 1] from lane L - 1 (made at step
+// s - 1), and the value it brought one step earlier is the diagonal
+// neighbour. The previous row's costs and the lane's codes of b stay in
+// registers; a step reads one code of a, fetched a step ahead. A lane whose
+// columns all lie past n keeps only the shuffles. Every cell runs the plain
+// version's operations in its order (wadd, the j = 0 and i = 0 boundaries),
+// and the cells past n inside a live lane are computed and never read.
+// The masks go four bits a cell into the lane's ceil(C / 8) words, stored
+// at plane[i][word][L]: a row is 32 words a word index, so lane L always
+// hits bank L and a row costs one conflict-free store a word (the block
+// form's byte plane put a warp's 32 stores on 4 banks). A warp's plane is
+// (M + 1) x 128 ceil(C / 8) bytes (20,608 at M 160, C 8, against the block
+// form's 36,225), beside an (M + N)-byte buffer of ops; the launch takes
+// the warps a block that keep the most warps resident an SM (occupancy
+// query; 11 warps, one block, at M 160, N 224), and the warps stride over
+// the pairs. The ends: without ends_free_b the cost is min(2^30, D[m][n])
+// (0 when m + n = 0), shuffled from the lane of column n; with it, each
+// lane folds row m's columns <= n at step m + L (the first minimum, or
+// with tie_late the last), and two warp reductions give the plain
+// version's running fit. One lane then walks the nibble plane from
+// (m, end_j), writing the ops end first into the warp's buffer, and the
+// warp writes the row forward, OP_STOP-padded, in 16-byte stores. The walk
+// stays serial a pair (m + end_j dependent shared loads); the other warps
+// of the SM cover it.
+//
+// traceback_kernel<kBanded> (the first form, kept for the banded form,
+// N + 1 > 1,024 and planes past shared memory): one block a pair (a
+// grid-stride loop over the pairs where the plane lives in device memory).
+// The threads stride over the lanes of a diagonal; the last three
+// diagonals live in a ring in shared memory (slot d % 3), or in the
+// block's slice of device scratch past what shared memory holds. One
+// __syncthreads a diagonal, so about 40% of a block works between two
+// barriers on a 150 x 150 rectangle. Each cell's mask goes to a per-pair
+// plane of bytes, in shared memory where the ring and plane fit in
+// ops.align._TB_SMEM_BYTES, else in the block's scratch. Then thread 0
+// walks the plane, writing the ops into the output row end first, and the
+// block reverses the row in place and pads it with OP_STOP.
 //
 // Unbanded (K == 0): the walk of a pair with lengths in [0, M] x [0, N]
 // never leaves the rectangle [0, m] x [0, n] (j = 0 records only "up" and
@@ -261,6 +294,234 @@ __global__ void __launch_bounds__(kMaxThreads) traceback_kernel(const Args p) {
   }
 }
 
+constexpr unsigned kFull = 0xFFFFFFFFu;
+constexpr int kWarpMaxWarps = 16;  // warps a block of traceback_warp_kernel
+constexpr int kWarpMaxSmem = 227 * 1024;
+
+struct WarpArgs {
+  const int* ca;       // [B, M] codes of a
+  const int* la;       // [B] lengths of a
+  const int* cb;       // [B, N] codes of b
+  const int* lb;       // [B] lengths of b
+  const uint8_t* late; // [B] tie_late, or null
+  int64_t B;
+  int M, N;
+  int mm, gp;
+  int efb;             // ends_free_b
+  int stride;          // shared bytes a warp: the plane, then the ops buffer
+  int64_t nwarps;      // warps of the grid, striding over the pairs
+  int* cost;
+  int* endj;
+  uint8_t* ops;        // [B, M + N]
+};
+
+template <int C>
+__global__ void __launch_bounds__(32 * kWarpMaxWarps) traceback_warp_kernel(const WarpArgs p) {
+  constexpr int W = (C + 7) / 8;  // mask words a lane a row
+  constexpr int kRow = 32 * W;    // words a row of the plane
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  uint32_t* plane = reinterpret_cast<uint32_t*>(smem + (int64_t)warp * p.stride);
+  uint8_t* buf = reinterpret_cast<uint8_t*>(plane + (p.M + 1) * kRow);
+  const int M = p.M, N = p.N, T = M + N, mm = p.mm, gp = p.gp;
+  const bool efb = p.efb != 0;
+  const int t0 = lane * C;  // lane L holds columns j = t0 .. t0 + C - 1
+  const bool wide16 = (T & 15) == 0 && (reinterpret_cast<uintptr_t>(p.ops) & 15) == 0;
+  for (int64_t r = (int64_t)blockIdx.x * (blockDim.x >> 5) + warp; r < p.B; r += p.nwarps) {
+    // lengths outside [0, M] x [0, N] are refused by the wrapper; the clamps
+    // only keep every access in bounds
+    const int m = min(max(p.la[r], 0), M), n = min(max(p.lb[r], 0), N);
+    const int* ra = p.ca + r * M;
+    const int* rb = p.cb + r * N;
+    const bool late = p.late != nullptr && p.late[r] != 0;
+    const bool live = t0 <= n;  // the lane holds a column of [0, n]
+    int hp[C], cbv[C];          // D of the lane's last row; b's codes
+    uint32_t w0[W];
+#pragma unroll
+    for (int w = 0; w < W; ++w) w0[w] = 0;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {  // row 0: D[0][j], mask "left" (none in a fit)
+      const int j = t0 + c;
+      hp[c] = (j == 0 || efb) ? 0 : wmul(j, gp);
+      cbv[c] = (j >= 1 && j <= n) ? __ldg(rb + j - 1) : kPadB;
+      w0[c / 8] |= (uint32_t)((j == 0 || efb) ? 0 : 4) << (4 * (c % 8));
+    }
+#pragma unroll
+    for (int w = 0; w < W; ++w) plane[w * 32 + lane] = w0[w];
+    // row m: the lane's least D over its columns <= n and its first (with
+    // tie_late its last) column holding it; D[m][n] from the lane of column n
+    int fmin = INT_MAX, fj = -1, dmn = 0;
+    auto take_row_m = [&]() {
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const int j = t0 + c;
+        if (j <= n) {
+          const int v = hp[c];
+          if (v < fmin || fj < 0) {
+            fmin = v;
+            fj = j;
+          } else if (late && v == fmin) {
+            fj = j;
+          }
+        }
+        if (j == n) dmn = hp[c];
+      }
+    };
+    if (m == 0 && live) take_row_m();
+    // lane L works row s - L at step s; the lane of column n ends the pair
+    const int steps = m > 0 ? m + n / C : 0;
+    int hlast = hp[C - 1];  // D[i][t0 + C - 1] of the lane's last row
+    int hdiag = 0;          // D[i - 1][t0 - 1] for the next row i
+    int acode = (lane == 0 && m > 0) ? __ldg(ra) : kPadA;  // a[i - 1] of the next row
+    for (int s = 1; s <= steps; ++s) {
+      const int hl = __shfl_up_sync(kFull, hlast, 1);  // D[i][t0 - 1], lane L - 1's
+      const int i = s - lane;
+      if (live && i >= 1 && i <= m) {
+        const int ca = acode;
+        int h_left = hl, h_diag = hdiag;
+        uint32_t wd[W];
+#pragma unroll
+        for (int w = 0; w < W; ++w) wd[w] = 0;
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          const bool eq = ca == cbv[c];
+          const int c_diag = wadd(h_diag, eq ? 0 : mm);
+          const int c_up = wadd(hp[c], gp), c_left = wadd(h_left, gp);
+          int D = min(min(c_diag, c_up), c_left);
+          uint32_t mask = (uint32_t)(D == c_diag) | ((uint32_t)(D == c_up) << 1) |
+                          ((uint32_t)(D == c_left) << 2) | ((uint32_t)eq << 3);
+          if (c == 0 && lane == 0) {  // j = 0: "up" only
+            D = wmul(i, gp);
+            mask = 2;
+          }
+          h_diag = hp[c];
+          hp[c] = D;
+          h_left = D;
+          wd[c / 8] |= mask << (4 * (c % 8));
+        }
+        hlast = h_left;
+        uint32_t* row = plane + i * kRow + lane;
+#pragma unroll
+        for (int w = 0; w < W; ++w) row[w * 32] = wd[w];
+        if (i == m) take_row_m();
+      }
+      const int x = s - lane;  // a[i] for row i + 1, one step ahead
+      acode = (live && x >= 0 && x < m) ? __ldg(ra + x) : kPadA;
+      hdiag = hl;
+    }
+    int cost, ej;
+    if (efb) {
+      // the plain version's running fit over j = 0 .. n: D < fit, or with
+      // tie_late D == fit < 2^30, moves the end to j
+      const int init = m == 0 ? 0 : kBig;
+      const int mn = __reduce_min_sync(kFull, fmin);
+      cost = min(init, mn);
+      if (late) {
+        const int lj = __reduce_max_sync(kFull, (fj >= 0 && fmin == cost) ? fj : -1);
+        ej = cost < kBig ? max(lj, 0) : 0;
+      } else {
+        const int first = __reduce_min_sync(kFull, (fj >= 0 && fmin == mn) ? fj : INT_MAX);
+        ej = mn < init ? first : 0;
+      }
+    } else {
+      const int v = __shfl_sync(kFull, dmn, n / C);
+      cost = m + n == 0 ? 0 : min(kBig, v);
+      ej = n;
+    }
+    __syncwarp();  // every row is in the plane
+    int nsteps = 0;
+    if (lane == 0) {
+      int i = m, j = ej, prev = 0, s = 0;
+      for (; s < T; ++s) {
+        if (!(efb ? i > 0 : (i > 0 || j > 0))) break;
+        const int L = j / C, c = j - L * C;
+        const uint32_t word = plane[i * kRow + (c / 8) * 32 + L];
+        const int mask = (int)(word >> (4 * (c % 8))) & 15;
+        int op;
+        if (prev == kOpIns && (mask & 2)) {
+          op = kOpIns;
+        } else if (prev == kOpDel && (mask & 4)) {
+          op = kOpDel;
+        } else if (mask & 1) {
+          op = (mask & 8) ? kOpEq : kOpX;
+        } else {
+          op = (mask & 2) ? kOpIns : kOpDel;
+        }
+        buf[s] = (uint8_t)op;
+        i -= op != kOpDel;
+        j -= op != kOpIns;
+        prev = op;
+      }
+      nsteps = s;
+      p.cost[r] = cost;
+      p.endj[r] = ej;
+    }
+    nsteps = __shfl_sync(kFull, nsteps, 0);
+    __syncwarp();  // the buffer is whole
+    uint8_t* out = p.ops + r * T;
+    if (wide16) {  // the row forward, OP_STOP-padded, 16 bytes a lane
+      for (int k = 16 * lane; k < T; k += 512) {
+        uint32_t v[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          v[q] = 0;
+#pragma unroll
+          for (int x = 0; x < 4; ++x) {
+            const int kk = k + 4 * q + x;
+            if (kk < nsteps) v[q] |= (uint32_t)buf[nsteps - 1 - kk] << (8 * x);
+          }
+        }
+        *reinterpret_cast<uint4*>(out + k) = make_uint4(v[0], v[1], v[2], v[3]);
+      }
+    } else {
+      for (int k = lane; k < T; k += 32) out[k] = k < nsteps ? buf[nsteps - 1 - k] : 0;
+    }
+    __syncwarp();  // the plane and the buffer are free for the next pair
+  }
+}
+
+// The cells a lane of traceback_warp_kernel: the smallest instantiated C
+// with 32 C >= lanes, or 0 when there is none.
+int warp_cells(int lanes) {
+  static const int kC[] = {1, 2, 3, 4, 5, 6, 8, 12, 16, 24, 32};
+  for (int c : kC) {
+    if (32 * c >= lanes) return c;
+  }
+  return 0;
+}
+
+#define BN_TB_CELL_CASES(X) \
+  X(1) X(2) X(3) X(4) X(5) X(6) X(8) X(12) X(16) X(24) X(32)
+
+// Launches traceback_warp_kernel<C> with the warps a block that keep the
+// most warps resident an SM (the fewest on a tie), enough blocks for the
+// pairs, at most those resident at once.
+template <int C>
+int launch_warp(WarpArgs a, cudaStream_t s) {
+  auto kern = traceback_warp_kernel<C>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       kWarpMaxSmem);
+  if (e != cudaSuccess) return (int)e;
+  int best = 0, wpb = 1, per_sm = 1;
+  for (int w = 1; w <= kWarpMaxWarps && (int64_t)w * a.stride <= kWarpMaxSmem; ++w) {
+    int nb = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, kern, 32 * w, (size_t)w * a.stride);
+    if (e != cudaSuccess) return (int)e;
+    if (nb * w > best) {
+      best = nb * w;
+      wpb = w;
+      per_sm = nb;
+    }
+  }
+  if (best == 0) return (int)cudaErrorInvalidValue;
+  int64_t blocks = (a.B + wpb - 1) / wpb;
+  const int64_t cap = (int64_t)bn::sm_count() * per_sm;
+  if (blocks > cap) blocks = cap;
+  a.nwarps = blocks * wpb;
+  traceback_warp_kernel<C><<<(unsigned)blocks, 32 * wpb, (size_t)wpb * a.stride, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // codes_a [B, M], codes_b [B, N] int32 (anything past each length); lens_a,
@@ -331,4 +592,53 @@ extern "C" int bn_traceback(const void* codes_a, const void* lens_a, const void*
     traceback_kernel<false><<<(unsigned)nblocks, threads, (size_t)smem, s>>>(a);
   }
   return (int)cudaGetLastError();
+}
+
+// The unbanded form on traceback_warp_kernel: codes_a [B, M], codes_b
+// [B, N] int32 (anything past each length); lens_a, lens_b [B] int32 in
+// [0, M] and [0, N]; late [B] bytes or null; N + 1 <= 1,024 and a warp's
+// plane and ops buffer ((M + 1) 128 ceil(C / 8) + M + N rounded up to 16
+// bytes) within 227 KB. Outputs cost, endj [B] int32 and ops [B, M + N]
+// bytes.
+extern "C" int bn_traceback_warp(const void* codes_a, const void* lens_a, const void* codes_b,
+                                 const void* lens_b, const void* late, int64_t B, int M, int N,
+                                 int mismatch, int gap, int ends_free_b, void* cost, void* endj,
+                                 void* ops, void* stream) {
+  const int C = (N >= 0 && N < 1024) ? warp_cells(N + 1) : 0;
+  const int64_t stride = C ? (int64_t)(M + 1) * 128 * ((C + 7) / 8) +
+                                 ((int64_t)M + N + 15) / 16 * 16
+                           : 0;
+  if (B < 0 || M < 0 || C == 0 || (int64_t)M + N > INT_MAX / 2 || stride > kWarpMaxSmem) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (B == 0) return (int)cudaGetLastError();
+  WarpArgs a;
+  a.ca = static_cast<const int*>(codes_a);
+  a.la = static_cast<const int*>(lens_a);
+  a.cb = static_cast<const int*>(codes_b);
+  a.lb = static_cast<const int*>(lens_b);
+  a.late = static_cast<const uint8_t*>(late);
+  a.B = B;
+  a.M = M;
+  a.N = N;
+  a.mm = mismatch;
+  a.gp = gap;
+  a.efb = ends_free_b ? 1 : 0;
+  a.stride = (int)stride;
+  a.nwarps = 0;
+  a.cost = static_cast<int*>(cost);
+  a.endj = static_cast<int*>(endj);
+  a.ops = static_cast<uint8_t*>(ops);
+  cudaStream_t s = (cudaStream_t)stream;
+  int code = (int)cudaErrorInvalidValue;
+  switch (C) {
+#define BN_TB_CASE(c)               \
+  case c:                           \
+    code = launch_warp<c>(a, s);    \
+    break;
+    BN_TB_CELL_CASES(BN_TB_CASE)
+#undef BN_TB_CASE
+  }
+  const int last = (int)cudaGetLastError();  // also clears a failed launch
+  return code != 0 ? code : last;
 }

@@ -55,6 +55,7 @@ _SIGNATURES = {
     "bn_chain_scratch": (_I64, _I64, _P),
     "bn_chain": (_P, _P, _P, _I64, _I64, _INT, _INT, _U32, _INT, _INT, _INT) + (_P,) * 7,
     "bn_traceback": (_P,) * 5 + (_I64,) + (_INT,) * 9 + (_P, _I64, _I64) + (_P,) * 4,
+    "bn_traceback_warp": (_P,) * 5 + (_I64,) + (_INT,) * 5 + (_P,) * 4,
     "bn_fit_span": (_P,) * 5 + (_I64,) + (_INT,) * 8 + (_P, _I64, _I64) + (_P,) * 4,
 }
 _ERROR_STRING = "bn_error_string"  # const char* (int code)

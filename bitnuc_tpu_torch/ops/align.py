@@ -722,6 +722,27 @@ def _tb_layout(B: int, M: int, N: int, K: int) -> Tuple[int, int, int, int]:
     return int(ring_smem), int(plane_smem), stride, nblocks
 
 
+# C2's warp form (traceback_warp_kernel<C>: a warp a pair, rows pipelined
+# down the warp, C columns a lane, masks four bits a cell) takes the
+# unbanded launches whose rows fit _TB_WARP_LANES lanes and whose warp's
+# plane ((M + 1) x 128 ceil(C / 8) bytes) and ops buffer (M + N bytes,
+# rounded up to 16) fit in _TB_WARP_SMEM_BYTES; the block form takes the
+# rest.
+_TB_WARP_LANES = 1024
+_TB_WARP_SMEM_BYTES = 227 * 1024
+_TB_WARP_CELLS = (1, 2, 3, 4, 5, 6, 8, 12, 16, 24, 32)
+
+
+def _tb_warp_cells(M: int, N: int) -> int:
+    """The cells a lane C of C2's warp form for an unbanded launch of
+    [B, M] x [B, N] codes, or 0 where the block form runs it."""
+    if N + 1 > min(_TB_WARP_LANES, 32 * _TB_WARP_CELLS[-1]):
+        return 0
+    C = next(c for c in _TB_WARP_CELLS if 32 * c >= N + 1)
+    need = (M + 1) * 128 * ((C + 7) // 8) + _round16(M + N)
+    return C if need <= _TB_WARP_SMEM_BYTES else 0
+
+
 def _traceback_kernel(codes_a, lens_a, codes_b, lens_b, mismatch, gap, ends_free_b: bool,
                       tie_late, off_lo: int = 0, K: int = 0):
     """C2 on the card (``csrc/traceback.cu``): contiguous int32 CUDA codes
@@ -748,15 +769,25 @@ def _traceback_kernel(codes_a, lens_a, codes_b, lens_b, mismatch, gap, ends_free
     late = None
     if tie_late is not None:
         late = torch.as_tensor(tie_late, device=dev).to(torch.bool).reshape(B).contiguous()
-    ring_smem, plane_smem, stride, nblocks = _tb_layout(B, M, N, K)
-    scratch = torch.empty(nblocks * stride, dtype=torch.uint8, device=dev) if stride else None
-    code = _build.library().bn_traceback(
-        codes_a.data_ptr(), lens_a.data_ptr(), codes_b.data_ptr(), lens_b.data_ptr(),
-        None if late is None else late.data_ptr(), B, M, N, _i32(mismatch), _i32(gap),
-        int(bool(ends_free_b)), off_lo, K, ring_smem, plane_smem,
-        None if scratch is None else scratch.data_ptr(), stride, nblocks,
-        cost.data_ptr(), endj.data_ptr(), ops.data_ptr(), kernels.stream_handle(dev),
-    )
+    lib = _build.library()
+    if K == 0 and _tb_warp_cells(M, N):
+        code = lib.bn_traceback_warp(
+            codes_a.data_ptr(), lens_a.data_ptr(), codes_b.data_ptr(), lens_b.data_ptr(),
+            None if late is None else late.data_ptr(), B, M, N, _i32(mismatch), _i32(gap),
+            int(bool(ends_free_b)), cost.data_ptr(), endj.data_ptr(), ops.data_ptr(),
+            kernels.stream_handle(dev),
+        )
+    else:
+        ring_smem, plane_smem, stride, nblocks = _tb_layout(B, M, N, K)
+        scratch = (torch.empty(nblocks * stride, dtype=torch.uint8, device=dev)
+                   if stride else None)
+        code = lib.bn_traceback(
+            codes_a.data_ptr(), lens_a.data_ptr(), codes_b.data_ptr(), lens_b.data_ptr(),
+            None if late is None else late.data_ptr(), B, M, N, _i32(mismatch), _i32(gap),
+            int(bool(ends_free_b)), off_lo, K, ring_smem, plane_smem,
+            None if scratch is None else scratch.data_ptr(), stride, nblocks,
+            cost.data_ptr(), endj.data_ptr(), ops.data_ptr(), kernels.stream_handle(dev),
+        )
     _build.check(code, "traceback")
     kernels.LAUNCHES["traceback"] += 1
     return cost, endj, ops

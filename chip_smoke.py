@@ -12,14 +12,16 @@ PyTorch built for CUDA:
     python3 chip_smoke.py --hist-against DIR [--out results.json]
     python3 chip_smoke.py --unpack-against DIR [--out results.json]
     python3 chip_smoke.py --chain-against DIR [--out results.json]
+    python3 chip_smoke.py --traceback-against DIR [--out results.json]
 
-The last seven forms run no phase: they time K4/K5 (hdist_scan), K6
+The last eight forms run no phase: they time K4/K5 (hdist_scan), K6
 (tc_scan and tc_search), K10 (orf_scan) and longest_orf, K1 (pack), K3b's
-counts and the flagship step, K2 (unpack), or chain_anchors (C1), of this
-checkout beside those of another checkout in DIR (for example a git
-archive of an earlier commit, unpacked), in turns DIR, this, this, DIR, on
-one card (see scan_against, k6_against, orf_against, pack_against,
-hist_against, unpack_against and chain_against).
+counts and the flagship step, K2 (unpack), chain_anchors (C1) or the
+traceback (C2), of this checkout beside those of another checkout in DIR
+(for example a git archive of an earlier commit, unpacked), in turns DIR,
+this, this, DIR, on one card (see scan_against, k6_against, orf_against,
+pack_against, hist_against, unpack_against, chain_against and
+traceback_against).
 
 Phases, each of which must pass:
 
@@ -222,6 +224,7 @@ any phase fails. Nothing here imports jax or bitnuc_tpu.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gzip
 import itertools
 import json
@@ -1111,19 +1114,14 @@ def fit_span_edges(torch, dev, rng, align, bitops, compare):
         align._FIT_RING_SMEM_BYTES, align._FIT_MAX_BLOCKS = ring, blocks
 
 
-def traceback_block(args, torch, dev, timer, results, index, packed, res, compare, timed):
-    """Phase 7's C2 block: C2 against its plain version at the first chunk
-    of traceback_cigars (the operands _traceback_core hands
-    align_ops_codes, captured as it runs), timed beside the plain version
-    (one run, the first chunk's plane being tens of GB), then at edge and
-    tie-heavy shapes, with walks out of the band, tie_late, int32-extreme
-    costs and a banded shape of K 1,252 (the band of a 10-kb --long --sam
-    read) on a few shorter pairs."""
+def traceback_operands(torch, dev, index, packed, res):
+    """The operands (codes_a, lens_a, codes_b, lens_b) that traceback_cigars
+    hands align_ops_codes for its first chunk of ``res``'s reads, captured
+    as _traceback_core runs, and the chunk's size."""
     from bitnuc_tpu_torch import mapper
     from bitnuc_tpu_torch.ops import align
     from bitnuc_tpu_torch.utils import bitops
 
-    ph = results["phases"]
     W = packed.words.shape[1]
     chunk = min(mapper._traceback_chunk(dev, W), len(res["mapped"]))
     mapped = np.asarray(res["mapped"][:chunk], bool)
@@ -1144,7 +1142,44 @@ def traceback_block(args, torch, dev, timer, results, index, packed, res, compar
                                use_rc, 16 * W + 2 * mapper.PAD, 1, 1)
     finally:
         align.align_ops_codes = run
-    ca, la, cb, lb = (x.to(torch.int32).contiguous() for x in seen[0])
+    return tuple(x.to(torch.int32).contiguous() for x in seen[0]), chunk
+
+
+@contextlib.contextmanager
+def tb_block_form(align):
+    """A context in which every unbanded C2 launch takes the block form
+    (traceback_kernel<false>), as before the warp form."""
+    lanes = align._TB_WARP_LANES
+    align._TB_WARP_LANES = 0
+    try:
+        yield
+    finally:
+        align._TB_WARP_LANES = lanes
+
+
+def tb_bound(la, lb, M: int, N: int):
+    """C2's bytes (the codes and lengths read once, the costs, ends and
+    ops written once) and the least time of TB_OPS_PER_CELL int32
+    operations over the pairs' real cells."""
+    B = la.shape[0]
+    cells = int((la.long() * lb.long()).sum())
+    nbytes = 4 * B * (M + N) + 8 * B + B * (M + N) + 8 * B
+    return cells, nbytes, cells * TB_OPS_PER_CELL / INT32_OPS_PER_S * 1e3
+
+
+def traceback_block(args, torch, dev, timer, results, index, packed, res, compare, timed):
+    """Phase 7's C2 block: C2 (the warp form) against its plain version at
+    the first chunk of traceback_cigars (the operands _traceback_core hands
+    align_ops_codes, captured as it runs), timed beside the plain version
+    (one run, the first chunk's plane being tens of GB) and beside the block
+    form on the same chunk; then at edge and tie-heavy shapes, each cells-a-
+    lane case of the warp form at its widest row, with walks out of the
+    band, tie_late, int32-extreme costs and a banded shape of K 1,252 (the
+    band of a 10-kb --long --sam read) on a few shorter pairs."""
+    from bitnuc_tpu_torch.ops import align
+
+    ph = results["phases"]
+    (ca, la, cb, lb), chunk = traceback_operands(torch, dev, index, packed, res)
     M, N = ca.shape[1], cb.shape[1]
     label = f"[{chunk}] M={M} N={N} (traceback_cigars' first chunk)"
     got = align.align_ops_codes_kernel(ca, la, cb, lb, 1, 1, False)
@@ -1155,27 +1190,27 @@ def traceback_block(args, torch, dev, timer, results, index, packed, res, compar
     end.record()
     end.synchronize()
     plain_ms = start.elapsed_time(end)
-    compare("traceback", label, got, want)
+    compare("traceback", label + f", the warp form at C {align._tb_warp_cells(M, N)}", got, want)
+    with tb_block_form(align):
+        compare("traceback", label + ", the block form",
+                align.align_ops_codes_kernel(ca, la, cb, lb, 1, 1, False), want)
     del got, want
     torch.cuda.empty_cache()
-    cells = int((la.long() * lb.long()).sum())
-    nbytes = 4 * chunk * (M + N) + 8 * chunk + chunk * (M + N) + 8 * chunk
+    cells, nbytes, ops_ms = tb_bound(la, lb, M, N)
+    print_passes(torch, results, "traceback", label,
+                 lambda: align.align_ops_codes_kernel(ca, la, cb, lb, 1, 1, False))
     row = timed("traceback", label, lambda: align.align_ops_codes_kernel(ca, la, cb, lb, 1, 1,
                                                                         False),
-                plain_ms, reps=5, main=True, nbytes=nbytes,
-                ops_ms=cells * TB_OPS_PER_CELL / INT32_OPS_PER_S * 1e3)
-    # the same chunk with the plane in device scratch (more blocks an SM)
-    smem_bytes = align._TB_SMEM_BYTES
-    align._TB_SMEM_BYTES = 0
-    try:
-        scratch_ms = timer(lambda: align.align_ops_codes_kernel(ca, la, cb, lb, 1, 1, False), 3)
-    finally:
-        align._TB_SMEM_BYTES = smem_bytes
+                plain_ms, reps=5, main=True, nbytes=nbytes, ops_ms=ops_ms)
+    # the same chunk on the block form (a block a pair, one barrier a diagonal)
+    with tb_block_form(align):
+        block_ms = timer(lambda: align.align_ops_codes_kernel(ca, la, cb, lb, 1, 1, False), 3)
     ph.update(traceback_chunk=chunk, traceback_cells=cells, traceback_ms=row["ms"],
-              traceback_plain_ms=plain_ms, traceback_scratch_plane_ms=scratch_ms)
+              traceback_plain_ms=plain_ms, traceback_block_form_ms=block_ms)
     print(f"    traceback: {cells} real cells; one byte a cell over HBM would take "
-          f"{cells / HBM_BYTES_PER_S * 1e3:.4f} ms; layout {align._tb_layout(chunk, M, N, 0)}; "
-          f"with the plane in device scratch {scratch_ms:.4f} ms", flush=True)
+          f"{cells / HBM_BYTES_PER_S * 1e3:.4f} ms; the warp form at C "
+          f"{align._tb_warp_cells(M, N)}; the block form (layout "
+          f"{align._tb_layout(chunk, M, N, 0)}) {block_ms:.4f} ms", flush=True)
     phase_clock(results, "phase 7: C2 at edge shapes")
     rng = np.random.default_rng(args.seed + 26)
     # the plain version costs some 40 launches a diagonal: each shape runs
@@ -1190,7 +1225,11 @@ def traceback_block(args, torch, dev, timer, results, index, packed, res, compar
             (64, 160, 224, "planted", (-8, 8), (-2**31, 2**31 - 1), (True,)),
             (20, 0, 37, "planted", None, (1, 1), (False, True)),
             (20, 45, 0, "planted", None, (1, 1), (False, True)),
-            (6, 100, 1024, "repeat", None, (1, 1), (True,)),  # K = 1,025
+            (40, 33, 63, "planted", None, (3, 2), (False, True)),  # C = 2, a full row
+            (40, 60, 256, "repeat", None, (1, 1), (False, True)),  # C = 12: two words a lane
+            (20, 100, 1023, "planted", None, (1, 1), (False, True)),  # C = 32, a full row
+            (8, 440, 1000, "planted", None, (1, 1), (True,)),  # C = 32, 227,232 bytes a warp
+            (6, 100, 1024, "repeat", None, (1, 1), (True,)),  # K = 1,025: the block form
             (4, 300, 1300, "drift", (-1250, 1250), (1, 1), (False,))):  # K = 1,252
         ops = [torch.from_numpy(x).to(dev) for x in tb_pairs(rng, B, M, N, kind)]
         for efb in modes:
@@ -4486,6 +4525,48 @@ def chain_against(args, torch, dev) -> int:
     return against(args, torch, rows, {"breakdown_ms": breakdown})
 
 
+def traceback_against(args, torch, dev) -> int:
+    """align_ops_codes_kernel (C2) of this checkout beside another's
+    (``--traceback-against DIR``), by ``against``: at the operands of
+    phase 7's first traceback_cigars chunk (phase 6's genome and first
+    262,144 reads, mapped at the CLI defaults), held to this checkout's
+    plain version, with C2's bound; and this checkout's block form on the
+    same chunk beside them."""
+    from bitnuc_tpu_torch import mapper
+    from bitnuc_tpu_torch.ops import align
+    from bitnuc_tpu_torch.sequence import PackedReads
+
+    (trees,) = tree_modules(args.traceback_against, "ops.align")
+    rng = np.random.default_rng(args.seed + 1)
+    genome = make_genome(rng)
+    reads = sample_reads(rng, genome, FASTQ_READS, READ_LEN)[0][:mapper.MAP_BATCH]
+    index = mapper.MinimizerIndex.build_multi([genome.tobytes()], k=MAP_K, w=MAP_W,
+                                              max_occ=MAP_OCC, device=dev)
+    packed = PackedReads.from_ascii(reads, lengths=np.full(len(reads), READ_LEN, np.int32),
+                                    validate=False, device=dev)
+    res = mapper.map_reads(index, packed, min_seeds=MAP_MIN_SEEDS)
+    ops, chunk = traceback_operands(torch, dev, index, packed, res)
+    del index, packed, res
+    M, N = ops[0].shape[1], ops[2].shape[1]
+    cells, nbytes, ops_ms = tb_bound(ops[1], ops[3], M, N)
+    bound = max(nbytes / HBM_BYTES_PER_S * 1e3, ops_ms)
+    print(f"  [{chunk}] M={M} N={N}: {cells} real cells", flush=True)
+
+    def block():
+        with tb_block_form(align):
+            return align.align_ops_codes_kernel(*ops, 1, 1, False)
+
+    label = f"[{chunk}] M={M} N={N} (traceback_cigars' first chunk)"
+    want = lambda: align.align_ops_codes_torch(*ops, 1, 1, False)  # noqa: E731
+    rows = [(label, {name: (lambda t=t: t.align_ops_codes_kernel(*ops, 1, 1, False))
+                     for name, t in trees.items()}, want, bound)]
+    timer = Timer(torch)
+    block_ms = [timer(block) for _ in range(2)]
+    print(f"  {label} this tree's block form: {block_ms[0]:.4f} / {block_ms[1]:.4f} ms",
+          flush=True)
+    return against(args, torch, rows, {"block_form_ms": block_ms, "cells": cells})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the full results here as JSON")
@@ -4506,6 +4587,9 @@ def main() -> int:
     ap.add_argument("--chain-against", metavar="DIR",
                     help="only time chain_anchors (C1) beside another checkout's "
                          "(see chain_against)")
+    ap.add_argument("--traceback-against", metavar="DIR",
+                    help="only time align_ops_codes_kernel (C2) beside another checkout's "
+                         "(see traceback_against)")
     args = ap.parse_args()
 
     import torch
@@ -4544,6 +4628,8 @@ def main() -> int:
         return unpack_against(args, torch, dev)
     if args.chain_against:
         return chain_against(args, torch, dev)
+    if args.traceback_against:
+        return traceback_against(args, torch, dev)
     results = {"kernels": {}, "phases": {}}
     t_all = T_START[0] = time.perf_counter()
 

@@ -704,6 +704,226 @@ def test_c2_layout(B, M, N, K, want):
     assert align._tb_layout(B, M, N, K) == want
 
 
+def _c2_warp_model(ca, la, cb, lb, mismatch=1, gap=1, ends_free_b=False, tie_late=None,
+                   C=None):
+    """numpy model of C2's warp form (traceback_warp_kernel<C> in
+    csrc/traceback.cu), a pair at a time as a warp runs it, the 32 lanes as
+    vectors: lane L holds columns L C .. L C + C - 1 and works row s - L at
+    step s from the shuffled edge D of lane L - 1 (its previous step's, and
+    the one before as the diagonal), with a's code fetched a step ahead;
+    lanes whose columns all lie past n only shuffle. The masks go four bits a
+    cell into ceil(C / 8) words at plane[i][word][L]; a nibble no step wrote
+    is poisoned, and the walk reading one fails. The ends come from the
+    lanes' row-m folds and warp reductions; the walk writes ops end first
+    into a buffer and the forward copy reverses it, OP_STOP-padded. Returns
+    (cost, end_j, ops [B, M + N] uint8)."""
+    ca, cb = np.asarray(ca, np.int64), np.asarray(cb, np.int64)
+    la, lb = np.asarray(la, np.int64), np.asarray(lb, np.int64)
+    B, M = ca.shape
+    N = cb.shape[1]
+    T = M + N
+    C = C or align._tb_warp_cells(M, N)
+    assert C and 32 * C >= N + 1
+    W = (C + 7) // 8
+    big, imax = 2**30, 2**31 - 1
+    mm, gp = int(mismatch), int(gap)
+    late_all = np.zeros(B, bool) if tie_late is None else np.asarray(tie_late, bool)
+    lanes = np.arange(32)
+    t0 = lanes * C
+    cols = t0[:, None] + np.arange(C)[None, :]  # [32, C]
+    cost, endj = np.zeros(B, np.int32), np.zeros(B, np.int32)
+    ops = np.zeros((B, T), np.uint8)
+    for r in range(B):
+        m, n, late = int(la[r]), int(lb[r]), bool(late_all[r])
+        assert 0 <= m <= M and 0 <= n <= N
+        live = t0 <= n
+        plane = np.zeros((M + 1, W, 32), np.int64)
+        written = np.zeros((M + 1, 32 * C), bool)
+        hp = np.where((cols == 0) | ends_free_b, 0, _wrap32(cols * gp))
+        ok_b = (cols >= 1) & (cols <= n)
+        cbv = np.where(ok_b, cb[r][np.clip(cols - 1, 0, max(N - 1, 0))] if N else 5, 5)
+        m0 = np.where((cols == 0) | ends_free_b, 0, 4)
+        for c in range(C):  # row 0, every lane
+            plane[0, c // 8] |= m0[:, c] << (4 * (c % 8))
+        written[0] = True
+        fmin, fj, dmn = np.full(32, imax), np.full(32, -1), np.zeros(32, np.int64)
+
+        def take_row_m(sel):
+            nonlocal fmin, fj, dmn
+            for c in range(C):
+                j, v = cols[:, c], hp[:, c]
+                ok = sel & (j <= n)
+                upd = ok & ((v < fmin) | (fj < 0))
+                tie = ok & ~upd & late & (v == fmin)
+                fmin = np.where(upd, v, fmin)
+                fj = np.where(upd | tie, j, fj)
+                dmn = np.where(sel & (j == n), v, dmn)
+
+        if m == 0:
+            take_row_m(live)
+        steps = m + n // C if m > 0 else 0
+        hlast, hdiag = hp[:, C - 1].copy(), np.zeros(32, np.int64)
+        acode = np.full(32, 4)
+        if m > 0:
+            acode[0] = ca[r][0]
+        for s in range(1, steps + 1):
+            hl = np.concatenate([hlast[:1], hlast[:-1]])  # __shfl_up_sync by 1
+            i = s - lanes
+            act = live & (i >= 1) & (i <= m)
+            h_left, h_diag = hl.copy(), hdiag.copy()
+            wd = np.zeros((32, W), np.int64)
+            for c in range(C):
+                eq = acode == cbv[:, c]
+                c_diag = _wrap32(h_diag + np.where(eq, 0, mm))
+                c_up, c_left = _wrap32(hp[:, c] + gp), _wrap32(h_left + gp)
+                D = np.minimum(np.minimum(c_diag, c_up), c_left)
+                mask = (D == c_diag) * 1 + (D == c_up) * 2 + (D == c_left) * 4 + eq * 8
+                if c == 0:  # lane 0's column 0: "up" only
+                    D[0], mask[0] = _wrap32(int(i[0]) * gp), 2
+                h_diag = hp[:, c].copy()
+                hp[:, c] = np.where(act, D, hp[:, c])
+                h_left = D
+                wd[:, c // 8] |= mask << (4 * (c % 8))
+            hlast = np.where(act, h_left, hlast)
+            for L in np.flatnonzero(act):
+                plane[i[L], :, L] = wd[L]
+                written[i[L], t0[L] : t0[L] + C] = True
+            take_row_m(act & (i == m))
+            x = s - lanes
+            acode = np.where(live & (x >= 0) & (x < m), ca[r][np.clip(x, 0, max(M - 1, 0))]
+                             if M else 4, 4)
+            hdiag = hl
+        if ends_free_b:
+            init = 0 if m == 0 else big
+            mn = int(fmin.min())
+            c_r = min(init, mn)
+            if late:
+                lj = int(np.where((fj >= 0) & (fmin == c_r), fj, -1).max())
+                e = max(lj, 0) if c_r < big else 0
+            else:
+                first = int(np.where((fj >= 0) & (fmin == mn), fj, imax).min())
+                e = first if mn < init else 0
+        else:
+            c_r = 0 if m + n == 0 else min(big, int(dmn[n // C]))
+            e = n
+        ii, jj, prev_op, buf = m, e, 0, []
+        for _ in range(T):
+            if not (ii > 0 if ends_free_b else (ii > 0 or jj > 0)):
+                break
+            L, c = divmod(jj, C)
+            assert written[ii, jj], (r, ii, jj)
+            mask = int(plane[ii, c // 8, L] >> (4 * (c % 8))) & 15
+            if prev_op == align.OP_INS and mask & 2:
+                op = align.OP_INS
+            elif prev_op == align.OP_DEL and mask & 4:
+                op = align.OP_DEL
+            elif mask & 1:
+                op = align.OP_EQ if mask & 8 else align.OP_X
+            else:
+                op = align.OP_INS if mask & 2 else align.OP_DEL
+            buf.append(op)
+            ii -= op != align.OP_DEL
+            jj -= op != align.OP_INS
+            prev_op = op
+        nsteps = len(buf)
+        for k in range(0, T, 16):  # the forward copy, 16 bytes a lane
+            for kk in range(k, min(k + 16, T)):
+                ops[r, kk] = buf[nsteps - 1 - kk] if kk < nsteps else align.OP_STOP
+        cost[r], endj[r] = _wrap32(c_r), e
+    return cost, endj, ops
+
+
+def _tb_warp_eq(inputs, mm, gap, efb, late=None):
+    """C2's form for these shapes (the warp form's model, else the block
+    form's) against JAX, bit for bit; returns the warp form's C (0: the
+    block form)."""
+    M, N = inputs[0].shape[1], inputs[2].shape[1]
+    C = align._tb_warp_cells(M, N)
+    want = _jax_tb(*inputs, mm, gap, efb, late)
+    if C:
+        _all_eq(_c2_warp_model(*inputs, mm, gap, efb, late, C), want)
+    else:
+        _all_eq(_c2_model(*inputs, mm, gap, efb, late)[:3], want)
+    return C
+
+
+@pytest.mark.parametrize("C", [1, 2, 8, 32])
+@pytest.mark.parametrize("edge", [0, 1])
+def test_c2_warp_model_at_each_width(C, edge):
+    """N + 1 = 32 C fills the lanes of the warp form at C; N + 1 = 32 C + 1
+    takes the next C (past 32 x 32, the block form), both modes, tie_late
+    on every other row, m = 0, n = 0 and full rows among them."""
+    N = 32 * C - 1 + edge
+    want_C = next((c for c in align._TB_WARP_CELLS if 32 * c >= N + 1), 0)
+    M = 20 if C == 32 else 40
+    inputs = _tb_codes(40 + C + edge, 6 if C == 32 else 10, M, N, "planted")
+    assert align._tb_warp_cells(M, N) == (want_C if N + 1 <= 1024 else 0)
+    late = np.arange(len(inputs[0])) % 2 == 1
+    for efb in (False, True):
+        got = _tb_warp_eq(inputs, 1, 1, efb, late if efb else None)
+        assert got == (C if not edge else (want_C if N + 1 <= 1024 else 0))
+
+
+@pytest.mark.parametrize("M,N", [(0, 9), (9, 0), (0, 0), (17, 33)])
+def test_c2_warp_model_empty_sides(M, N):
+    """Widths of 0 on either side and rows with m = 0 or n = 0, both
+    modes; an empty batch."""
+    inputs = _tb_codes(44, 9, M, N, "planted")
+    for efb in (False, True):
+        assert _tb_warp_eq(inputs, 1, 1, efb) > 0
+        _all_eq(_c2_warp_model(*(x[:0] for x in inputs), 1, 1, efb),
+                _jax_tb(*(x[:0] for x in inputs), 1, 1, efb))
+
+
+@pytest.mark.parametrize("kind", ["planted", "polyA", "repeat"])
+def test_c2_warp_model_tie_late(kind):
+    """ends_free_b with tie_late on every other row, in tie-heavy rows: the
+    lanes' folds and the warp reductions pick the plain version's end."""
+    inputs = _tb_codes(45, 14, 36, 70, kind)
+    late = np.arange(14) % 2 == 1
+    _tb_warp_eq(inputs, 1, 1, True, late)
+    _tb_warp_eq(inputs, 3, 2, True, late)
+    _tb_warp_eq(inputs, 1, 1, False)
+
+
+@pytest.mark.parametrize("mm,gap", [(-2**31, 2**31 - 1), (2**29, 3), (-1, 1), (5, -2)])
+def test_c2_warp_model_any_int32_costs(mm, gap):
+    """Sums past 2^31 wrap in every cell and boundary; row m's folds keep
+    the plain version's 2^30 clamps."""
+    inputs = _tb_codes(46, 12, 30, 44, "planted")
+    late = np.arange(12) % 3 == 0
+    for efb in (False, True):
+        _tb_warp_eq(inputs, mm, gap, efb, late if efb else None)
+
+
+def test_c2_warp_model_on_the_mapping_pairs(pairs):
+    """The warp form's model on test_c2_model_on_the_mapping_pairs's pairs
+    (garbage past each length), both modes, against JAX."""
+    _, (_, la), _, (_, lb) = pairs
+    rng = np.random.default_rng(7)
+    ca = rng.integers(0, 4, (la.shape[0], 96)).astype(np.int32)
+    cb = rng.integers(0, 4, (la.shape[0], 130)).astype(np.int32)
+    cb[:, 10:60] = ca[:, :50]
+    inputs = (ca, la.numpy(), cb, np.minimum(lb.numpy(), 130).astype(np.int32))
+    for efb in (False, True):
+        assert _tb_warp_eq(inputs, 1, 1, efb) == 5
+
+
+@pytest.mark.parametrize("M,N,want", [
+    (160, 224, 8),     # phase 7's chunk: 20,608 plane bytes a warp
+    (150, 1023, 32),   # N + 1 = 1,024: the widest row
+    (150, 1024, 0),    # 1,025: the block form
+    (1_700, 200, 8),   # 1,701 x 128 + 1,904 bytes: within 227 KB
+    (1_800, 200, 0),   # 1,801 x 128 + 2,000: past it
+    (440, 1000, 32),   # 441 x 512 + 1,440 bytes at C = 32: within it
+    (460, 1000, 0),    # 461 x 512 + 1,472: past it
+    (0, 0, 1),
+])
+def test_c2_warp_dispatch(M, N, want):
+    """Which unbanded launches take the warp form, and at which C."""
+    assert align._tb_warp_cells(M, N) == want
+
+
 _GONE = 2**40  # a ring lane C3 did not write on that diagonal (no int32 value)
 
 

@@ -664,19 +664,36 @@ def _tb_equal(got, want):
 @pytest.mark.parametrize("kind", ["planted", "ties"])
 @pytest.mark.parametrize("efb", [False, True])
 @pytest.mark.parametrize("B,M,N", [
-    (40, 13, 16),     # K = N + 1 = 17, odd M
-    (40, 33, 32),     # 33
-    (300, 160, 224),  # 225: phase 7's shape
-    (12, 900, 1023),  # 1,024
-    (10, 1000, 1024),  # 1,025
+    (40, 13, 16),     # K = N + 1 = 17, odd M: the warp form at C = 1
+    (40, 50, 31),     # 32: C = 1, every lane's column
+    (40, 33, 32),     # 33: C = 2
+    (40, 50, 63),     # 64: C = 2, full
+    (40, 50, 95),     # 96: C = 3
+    (40, 60, 127),    # 128: C = 4
+    (40, 50, 159),    # 160: C = 5
+    (40, 50, 191),    # 192: C = 6
+    (300, 160, 224),  # 225: phase 7's shape, C = 8
+    (100, 160, 255),  # 256: C = 8, full
+    (40, 60, 256),    # 257: C = 12, two mask words a lane
+    (30, 80, 383),    # 384: C = 12, full
+    (30, 80, 511),    # 512: C = 16
+    (20, 100, 767),   # 768: C = 24, three words
+    (12, 150, 1023),  # 1,024: C = 32, full
+    (8, 440, 1000),   # C = 32 at 227,232 bytes a warp: one warp a block
+    (10, 1700, 200),  # C = 8 at 219,632 bytes a warp
+    (12, 900, 1023),  # 1,024 lanes, a plane past shared memory: the block form
+    (10, 1000, 1024),  # 1,025: the block form
     (6, 1101, 1251),  # 1,252
     (20, 0, 37),      # an empty a side
     (20, 45, 0),      # an empty b side
+    (20, 0, 0),       # both
 ])
 def test_traceback_kernel_matches_plain(cuda, B, M, N, efb, kind):
-    """C2 unbanded against its plain version: the ops, costs and ends of
-    global and fitting alignments (tie_late on every third row), rows with
-    m = 0 or n = 0, tie-heavy rows, and one launch a call."""
+    """C2 unbanded against its plain version, on the warp form at each of
+    its cells a lane and at the edges of its rows and shared memory, and on
+    the block form past them: the ops, costs and ends of global and fitting
+    alignments (tie_late on every third row), rows with m = 0 or n = 0,
+    tie-heavy rows, and one launch a call."""
     ca, la, cb, lb = (x.to(cuda) for x in _tb_codes(B + M + N, B, M, N, kind))
     late = (torch.arange(B, device=cuda) % 3 == 1) if efb else None
     for costs in ((1, 1), (3, 2)):
@@ -716,11 +733,18 @@ def test_traceback_banded_kernel_matches_plain(cuda, band, M, N, efb, kind):
 @pytest.mark.cuda
 @pytest.mark.parametrize("costs", [(-1, 1), (2**29, 3), (5, -2), (3, 2**29),
                                    (-2**31, 2**31 - 1), (2**31 - 1, -2**31)])
-@pytest.mark.parametrize("band", [None, (-8, 8)])
-def test_traceback_kernel_any_int32_costs(cuda, costs, band):
+@pytest.mark.parametrize("band,M,N", [
+    (None, 40, 57),     # the warp form at C = 2
+    (None, 30, 255),    # C = 8, full rows
+    (None, 30, 256),    # C = 12
+    (None, 20, 1023),   # C = 32, full rows
+    (None, 20, 1024),   # the block form
+    ((-8, 8), 40, 57),
+])
+def test_traceback_kernel_any_int32_costs(cuda, costs, band, M, N):
     """Negative costs and sums past 2^31 wrap as the plain version's int32
-    tensors do; so do the boundary products d * gap."""
-    ca, la, cb, lb = (x.to(cuda) for x in _tb_codes(9, 30, 40, 57, "planted"))
+    tensors do; so do the boundary products d * gap, in both forms."""
+    ca, la, cb, lb = (x.to(cuda) for x in _tb_codes(9, 30, M, N, "planted"))
     for efb in (False, True):
         if band is None:
             late = torch.arange(30, device=cuda) % 2 == 0
@@ -736,6 +760,7 @@ def test_traceback_kernel_any_int32_costs(cuda, costs, band):
 def test_traceback_kernel_scratch_and_grid_stride(cuda, monkeypatch, where):
     """The plane, or the ring and the plane, in device scratch, with fewer
     blocks than pairs, so each block reuses its slice for several pairs."""
+    monkeypatch.setattr(align, "_TB_WARP_LANES", 0)  # the unbanded form on the block form
     monkeypatch.setattr(align, "_TB_SMEM_BYTES", 0)
     if where == "ring":
         monkeypatch.setattr(align, "_TB_RING_SMEM_BYTES", 0)
@@ -746,6 +771,44 @@ def test_traceback_kernel_scratch_and_grid_stride(cuda, monkeypatch, where):
                   align.align_ops_codes_torch(ca, la, cb, lb, 1, 1, efb))
         _tb_equal(align.align_ops_codes_banded_kernel(ca, la, cb, lb, 1, 1, efb, -20, 20),
                   align.align_ops_codes_banded_torch(ca, la, cb, lb, 1, 1, efb, -20, 20))
+
+
+def _tb_entry_calls(monkeypatch):
+    """Counts of C2's C entry points called from here on: "warp"
+    (bn_traceback_warp) and "block" (bn_traceback)."""
+    lib = _build.library()
+    calls = {"warp": 0, "block": 0}
+    for form, name in (("warp", "bn_traceback_warp"), ("block", "bn_traceback")):
+        fn = getattr(lib, name)
+
+        def spy(*a, _fn=fn, _form=form):
+            calls[_form] += 1
+            return _fn(*a)
+        monkeypatch.setattr(lib, name, spy)
+    return calls
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["banded", "wide", "plane past shared memory", "scratch",
+                                  "warp"])
+def test_traceback_forms(cuda, monkeypatch, case):
+    """The banded form, rows past 1,024 lanes, planes past a warp's shared
+    memory and the scratch layouts still launch the block form and equal
+    the plain version; phase 7's shape launches the warp form."""
+    M, N = {"wide": (150, 1024), "plane past shared memory": (1_800, 200)}.get(case, (150, 224))
+    ca, la, cb, lb = (x.to(cuda) for x in _tb_codes(31, 6, M, N, "planted"))
+    if case == "scratch":
+        monkeypatch.setattr(align, "_TB_WARP_LANES", 0)
+        monkeypatch.setattr(align, "_TB_SMEM_BYTES", 0)
+    calls = _tb_entry_calls(monkeypatch)
+    for efb in (False, True):
+        if case == "banded":
+            _tb_equal(align.align_ops_codes_banded_kernel(ca, la, cb, lb, 1, 1, efb, -20, 20),
+                      align.align_ops_codes_banded_torch(ca, la, cb, lb, 1, 1, efb, -20, 20))
+        else:
+            _tb_equal(align.align_ops_codes_kernel(ca, la, cb, lb, 1, 1, efb),
+                      align.align_ops_codes_torch(ca, la, cb, lb, 1, 1, efb))
+    assert calls == ({"warp": 2, "block": 0} if case == "warp" else {"warp": 0, "block": 2})
 
 
 @pytest.mark.cuda
