@@ -315,167 +315,218 @@ struct WarpArgs {
   uint8_t* ops;        // [B, M + N]
 };
 
+constexpr int kCells[] = {1, 2, 3, 4, 5, 6, 8, 12, 16, 24, 32};  // the cases of C
+// The walk's tie policy as tables: nibble (mask & 7) of each is the op
+// after an EQ/X (or at the start), after an INS (an INS continues on bit 1)
+// and after a DEL (a DEL continues on bit 2); otherwise diag (written as
+// EQ, X where bit 3 is clear) > up (INS) > left (DEL).
+constexpr uint32_t kTabNone = 0x13141314u;  // masks 7..0: EQ INS EQ DEL EQ INS EQ DEL
+constexpr uint32_t kTabIns = 0x33143314u;
+constexpr uint32_t kTabDel = 0x44441314u;
+
+// One pair on one warp, lane L holding columns L C .. L C + C - 1 (32 C >=
+// n + 1), its masks at plane[i][word][L] (ceil(C / 8) words a lane a row).
 template <int C>
-__global__ void __launch_bounds__(32 * kWarpMaxWarps) traceback_warp_kernel(const WarpArgs p) {
+__device__ __forceinline__ void tb_pair(const WarpArgs& p, uint32_t* plane, uint8_t* buf,
+                                        int64_t r, int m, int n, bool late, int lane) {
   constexpr int W = (C + 7) / 8;  // mask words a lane a row
   constexpr int kRow = 32 * W;    // words a row of the plane
-  extern __shared__ __align__(16) uint8_t smem[];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  uint32_t* plane = reinterpret_cast<uint32_t*>(smem + (int64_t)warp * p.stride);
-  uint8_t* buf = reinterpret_cast<uint8_t*>(plane + (p.M + 1) * kRow);
   const int M = p.M, N = p.N, T = M + N, mm = p.mm, gp = p.gp;
   const bool efb = p.efb != 0;
   const int t0 = lane * C;  // lane L holds columns j = t0 .. t0 + C - 1
+  const int* ra = p.ca + r * M;
+  const int* rb = p.cb + r * N;
   const bool wide16 = (T & 15) == 0 && (reinterpret_cast<uintptr_t>(p.ops) & 15) == 0;
+  const bool live = t0 <= n;  // the lane holds a column of [0, n]
+  int hp[C], cbv[C];          // D of the lane's last row; b's codes
+  uint32_t w0[W];
+#pragma unroll
+  for (int w = 0; w < W; ++w) w0[w] = 0;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {  // row 0: D[0][j], mask "left" (none in a fit)
+    const int j = t0 + c;
+    hp[c] = (j == 0 || efb) ? 0 : wmul(j, gp);
+    cbv[c] = (j >= 1 && j <= n) ? __ldg(rb + j - 1) : kPadB;
+    w0[c / 8] |= (uint32_t)((j == 0 || efb) ? 0 : 4) << (4 * (c % 8));
+  }
+#pragma unroll
+  for (int w = 0; w < W; ++w) plane[w * 32 + lane] = w0[w];
+  // row m: the lane's least D over its columns <= n and its first (with
+  // tie_late its last) column holding it; D[m][n] from the lane of column n
+  int fmin = INT_MAX, fj = -1, dmn = 0;
+  auto take_row_m = [&]() {
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int j = t0 + c;
+      if (j <= n) {
+        const int v = hp[c];
+        if (v < fmin || fj < 0) {
+          fmin = v;
+          fj = j;
+        } else if (late && v == fmin) {
+          fj = j;
+        }
+      }
+      if (j == n) dmn = hp[c];
+    }
+  };
+  if (m == 0 && live) take_row_m();
+  // lane L works row s - L at step s; the lane of column n ends the pair
+  const int steps = m > 0 ? m + n / C : 0;
+  int hlast = hp[C - 1];  // D[i][t0 + C - 1] of the lane's last row
+  int hdiag = 0;          // D[i - 1][t0 - 1] for the next row i
+  int acode = (lane == 0 && m > 0) ? __ldg(ra) : kPadA;  // a[i - 1] of the next row
+  for (int s = 1; s <= steps; ++s) {
+    const int hl = __shfl_up_sync(kFull, hlast, 1);  // D[i][t0 - 1], lane L - 1's
+    const int i = s - lane;
+    if (live && i >= 1 && i <= m) {
+      const int ca = acode;
+      int h_left = hl, h_diag = hdiag;
+      uint32_t wd[W];
+#pragma unroll
+      for (int w = 0; w < W; ++w) wd[w] = 0;
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const bool eq = ca == cbv[c];
+        const int c_diag = wadd(h_diag, eq ? 0 : mm);
+        const int c_up = wadd(hp[c], gp), c_left = wadd(h_left, gp);
+        int D = min(min(c_diag, c_up), c_left);
+        uint32_t mask = (uint32_t)(D == c_diag) | ((uint32_t)(D == c_up) << 1) |
+                        ((uint32_t)(D == c_left) << 2) | ((uint32_t)eq << 3);
+        if (c == 0 && lane == 0) {  // j = 0: "up" only
+          D = wmul(i, gp);
+          mask = 2;
+        }
+        h_diag = hp[c];
+        hp[c] = D;
+        h_left = D;
+        wd[c / 8] |= mask << (4 * (c % 8));
+      }
+      hlast = h_left;
+      uint32_t* row = plane + i * kRow + lane;
+#pragma unroll
+      for (int w = 0; w < W; ++w) row[w * 32] = wd[w];
+      if (i == m) take_row_m();
+    }
+    const int x = s - lane;  // a[i] for row i + 1, one step ahead
+    acode = (live && x >= 0 && x < m) ? __ldg(ra + x) : kPadA;
+    hdiag = hl;
+  }
+  int cost, ej;
+  if (efb) {
+    // the plain version's running fit over j = 0 .. n: D < fit, or with
+    // tie_late D == fit < 2^30, moves the end to j
+    const int init = m == 0 ? 0 : kBig;
+    const int mn = __reduce_min_sync(kFull, fmin);
+    cost = min(init, mn);
+    if (late) {
+      const int lj = __reduce_max_sync(kFull, (fj >= 0 && fmin == cost) ? fj : -1);
+      ej = cost < kBig ? max(lj, 0) : 0;
+    } else {
+      const int first = __reduce_min_sync(kFull, (fj >= 0 && fmin == mn) ? fj : INT_MAX);
+      ej = mn < init ? first : 0;
+    }
+  } else {
+    const int v = __shfl_sync(kFull, dmn, n / C);
+    cost = m + n == 0 ? 0 : min(kBig, v);
+    ej = n;
+  }
+  __syncwarp();  // every row is in the plane
+  int nsteps = 0;
+  if (lane == 0) {
+    // the walk from (m, ej): the word of the current cell in hand, and the
+    // words of the three cells it may move to loaded before the decision
+    // that picks one, so no shared load waits on the previous step
+    auto word_at = [&](int i, int L, int c) { return i * kRow + (c >> 3) * 32 + L; };
+    int i = m, j = ej, L = (int)((unsigned)ej / C), c = ej - L * C, s = 0;
+    uint32_t cur = plane[word_at(i, L, c)];
+    uint32_t tab = kTabNone;
+    for (; s < T; ++s) {
+      if (!(efb ? i > 0 : (i > 0 || j > 0))) break;
+      const int iu = max(i - 1, 0);  // rows and lanes clamped in range; such
+      const int Ll = c > 0 ? L : max(L - 1, 0), cl = c > 0 ? c - 1 : C - 1;  // words go unused
+      const uint32_t w_up = plane[word_at(iu, L, c)];
+      const uint32_t w_diag = plane[word_at(iu, Ll, cl)];
+      const uint32_t w_left = plane[word_at(i, Ll, cl)];
+      const uint32_t mask = (cur >> (4 * (c & 7))) & 15u;
+      int op = (int)(tab >> (4 * (mask & 7u))) & 15;
+      op += op == kOpEq && !(mask & 8u);  // a mismatch
+      buf[s] = (uint8_t)op;
+      if (op == kOpIns) {
+        i = iu;
+        cur = w_up;
+        tab = kTabIns;
+      } else {
+        L = Ll;
+        c = cl;
+        j -= 1;
+        if (op == kOpDel) {
+          cur = w_left;
+          tab = kTabDel;
+        } else {
+          i = iu;
+          cur = w_diag;
+          tab = kTabNone;
+        }
+      }
+    }
+    nsteps = s;
+    p.cost[r] = cost;
+    p.endj[r] = ej;
+  }
+  nsteps = __shfl_sync(kFull, nsteps, 0);
+  __syncwarp();  // the buffer is whole
+  uint8_t* out = p.ops + r * T;
+  if (wide16) {  // the row forward, OP_STOP-padded, 16 bytes a lane
+    for (int k = 16 * lane; k < T; k += 512) {
+      uint32_t v[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        v[q] = 0;
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          const int kk = k + 4 * q + x;
+          if (kk < nsteps) v[q] |= (uint32_t)buf[nsteps - 1 - kk] << (8 * x);
+        }
+      }
+      *reinterpret_cast<uint4*>(out + k) = make_uint4(v[0], v[1], v[2], v[3]);
+    }
+  } else {
+    for (int k = lane; k < T; k += 32) out[k] = k < nsteps ? buf[nsteps - 1 - k] : 0;
+  }
+}
+
+// tb_pair at the smallest C of kCells[K..] with 32 C >= n + 1, at most CMAX.
+template <int CMAX, int K = 0>
+__device__ __forceinline__ void tb_pair_fit(const WarpArgs& p, uint32_t* plane, uint8_t* buf,
+                                            int64_t r, int m, int n, bool late, int lane) {
+  constexpr int C = kCells[K];
+  if constexpr (C >= CMAX) {
+    tb_pair<CMAX>(p, plane, buf, r, m, n, late, lane);
+  } else {
+    if (n < 32 * C) {
+      tb_pair<C>(p, plane, buf, r, m, n, late, lane);
+    } else {
+      tb_pair_fit<CMAX, K + 1>(p, plane, buf, r, m, n, late, lane);
+    }
+  }
+}
+
+// The warps of the grid stride over the pairs; each pair runs at the fewest
+// cells a lane that hold its n + 1 columns (32 C >= N + 1 for the widest).
+template <int CMAX>
+__global__ void __launch_bounds__(32 * kWarpMaxWarps) traceback_warp_kernel(const WarpArgs p) {
+  constexpr int kRowMax = 32 * ((CMAX + 7) / 8);
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  uint32_t* plane = reinterpret_cast<uint32_t*>(smem + (int64_t)warp * p.stride);
+  uint8_t* buf = reinterpret_cast<uint8_t*>(plane + (p.M + 1) * kRowMax);
   for (int64_t r = (int64_t)blockIdx.x * (blockDim.x >> 5) + warp; r < p.B; r += p.nwarps) {
     // lengths outside [0, M] x [0, N] are refused by the wrapper; the clamps
     // only keep every access in bounds
-    const int m = min(max(p.la[r], 0), M), n = min(max(p.lb[r], 0), N);
-    const int* ra = p.ca + r * M;
-    const int* rb = p.cb + r * N;
+    const int m = min(max(p.la[r], 0), p.M), n = min(max(p.lb[r], 0), p.N);
     const bool late = p.late != nullptr && p.late[r] != 0;
-    const bool live = t0 <= n;  // the lane holds a column of [0, n]
-    int hp[C], cbv[C];          // D of the lane's last row; b's codes
-    uint32_t w0[W];
-#pragma unroll
-    for (int w = 0; w < W; ++w) w0[w] = 0;
-#pragma unroll
-    for (int c = 0; c < C; ++c) {  // row 0: D[0][j], mask "left" (none in a fit)
-      const int j = t0 + c;
-      hp[c] = (j == 0 || efb) ? 0 : wmul(j, gp);
-      cbv[c] = (j >= 1 && j <= n) ? __ldg(rb + j - 1) : kPadB;
-      w0[c / 8] |= (uint32_t)((j == 0 || efb) ? 0 : 4) << (4 * (c % 8));
-    }
-#pragma unroll
-    for (int w = 0; w < W; ++w) plane[w * 32 + lane] = w0[w];
-    // row m: the lane's least D over its columns <= n and its first (with
-    // tie_late its last) column holding it; D[m][n] from the lane of column n
-    int fmin = INT_MAX, fj = -1, dmn = 0;
-    auto take_row_m = [&]() {
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        const int j = t0 + c;
-        if (j <= n) {
-          const int v = hp[c];
-          if (v < fmin || fj < 0) {
-            fmin = v;
-            fj = j;
-          } else if (late && v == fmin) {
-            fj = j;
-          }
-        }
-        if (j == n) dmn = hp[c];
-      }
-    };
-    if (m == 0 && live) take_row_m();
-    // lane L works row s - L at step s; the lane of column n ends the pair
-    const int steps = m > 0 ? m + n / C : 0;
-    int hlast = hp[C - 1];  // D[i][t0 + C - 1] of the lane's last row
-    int hdiag = 0;          // D[i - 1][t0 - 1] for the next row i
-    int acode = (lane == 0 && m > 0) ? __ldg(ra) : kPadA;  // a[i - 1] of the next row
-    for (int s = 1; s <= steps; ++s) {
-      const int hl = __shfl_up_sync(kFull, hlast, 1);  // D[i][t0 - 1], lane L - 1's
-      const int i = s - lane;
-      if (live && i >= 1 && i <= m) {
-        const int ca = acode;
-        int h_left = hl, h_diag = hdiag;
-        uint32_t wd[W];
-#pragma unroll
-        for (int w = 0; w < W; ++w) wd[w] = 0;
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          const bool eq = ca == cbv[c];
-          const int c_diag = wadd(h_diag, eq ? 0 : mm);
-          const int c_up = wadd(hp[c], gp), c_left = wadd(h_left, gp);
-          int D = min(min(c_diag, c_up), c_left);
-          uint32_t mask = (uint32_t)(D == c_diag) | ((uint32_t)(D == c_up) << 1) |
-                          ((uint32_t)(D == c_left) << 2) | ((uint32_t)eq << 3);
-          if (c == 0 && lane == 0) {  // j = 0: "up" only
-            D = wmul(i, gp);
-            mask = 2;
-          }
-          h_diag = hp[c];
-          hp[c] = D;
-          h_left = D;
-          wd[c / 8] |= mask << (4 * (c % 8));
-        }
-        hlast = h_left;
-        uint32_t* row = plane + i * kRow + lane;
-#pragma unroll
-        for (int w = 0; w < W; ++w) row[w * 32] = wd[w];
-        if (i == m) take_row_m();
-      }
-      const int x = s - lane;  // a[i] for row i + 1, one step ahead
-      acode = (live && x >= 0 && x < m) ? __ldg(ra + x) : kPadA;
-      hdiag = hl;
-    }
-    int cost, ej;
-    if (efb) {
-      // the plain version's running fit over j = 0 .. n: D < fit, or with
-      // tie_late D == fit < 2^30, moves the end to j
-      const int init = m == 0 ? 0 : kBig;
-      const int mn = __reduce_min_sync(kFull, fmin);
-      cost = min(init, mn);
-      if (late) {
-        const int lj = __reduce_max_sync(kFull, (fj >= 0 && fmin == cost) ? fj : -1);
-        ej = cost < kBig ? max(lj, 0) : 0;
-      } else {
-        const int first = __reduce_min_sync(kFull, (fj >= 0 && fmin == mn) ? fj : INT_MAX);
-        ej = mn < init ? first : 0;
-      }
-    } else {
-      const int v = __shfl_sync(kFull, dmn, n / C);
-      cost = m + n == 0 ? 0 : min(kBig, v);
-      ej = n;
-    }
-    __syncwarp();  // every row is in the plane
-    int nsteps = 0;
-    if (lane == 0) {
-      int i = m, j = ej, prev = 0, s = 0;
-      for (; s < T; ++s) {
-        if (!(efb ? i > 0 : (i > 0 || j > 0))) break;
-        const int L = j / C, c = j - L * C;
-        const uint32_t word = plane[i * kRow + (c / 8) * 32 + L];
-        const int mask = (int)(word >> (4 * (c % 8))) & 15;
-        int op;
-        if (prev == kOpIns && (mask & 2)) {
-          op = kOpIns;
-        } else if (prev == kOpDel && (mask & 4)) {
-          op = kOpDel;
-        } else if (mask & 1) {
-          op = (mask & 8) ? kOpEq : kOpX;
-        } else {
-          op = (mask & 2) ? kOpIns : kOpDel;
-        }
-        buf[s] = (uint8_t)op;
-        i -= op != kOpDel;
-        j -= op != kOpIns;
-        prev = op;
-      }
-      nsteps = s;
-      p.cost[r] = cost;
-      p.endj[r] = ej;
-    }
-    nsteps = __shfl_sync(kFull, nsteps, 0);
-    __syncwarp();  // the buffer is whole
-    uint8_t* out = p.ops + r * T;
-    if (wide16) {  // the row forward, OP_STOP-padded, 16 bytes a lane
-      for (int k = 16 * lane; k < T; k += 512) {
-        uint32_t v[4];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          v[q] = 0;
-#pragma unroll
-          for (int x = 0; x < 4; ++x) {
-            const int kk = k + 4 * q + x;
-            if (kk < nsteps) v[q] |= (uint32_t)buf[nsteps - 1 - kk] << (8 * x);
-          }
-        }
-        *reinterpret_cast<uint4*>(out + k) = make_uint4(v[0], v[1], v[2], v[3]);
-      }
-    } else {
-      for (int k = lane; k < T; k += 32) out[k] = k < nsteps ? buf[nsteps - 1 - k] : 0;
-    }
+    tb_pair_fit<CMAX>(p, plane, buf, r, m, n, late, lane);
     __syncwarp();  // the plane and the buffer are free for the next pair
   }
 }
@@ -483,8 +534,7 @@ __global__ void __launch_bounds__(32 * kWarpMaxWarps) traceback_warp_kernel(cons
 // The cells a lane of traceback_warp_kernel: the smallest instantiated C
 // with 32 C >= lanes, or 0 when there is none.
 int warp_cells(int lanes) {
-  static const int kC[] = {1, 2, 3, 4, 5, 6, 8, 12, 16, 24, 32};
-  for (int c : kC) {
+  for (int c : kCells) {
     if (32 * c >= lanes) return c;
   }
   return 0;

@@ -704,11 +704,43 @@ def test_c2_layout(B, M, N, K, want):
     assert align._tb_layout(B, M, N, K) == want
 
 
+def _c2_walk_tables():
+    """The tie-policy tables of C2's warp-form walk (kTabNone, kTabIns,
+    kTabDel), read from csrc/traceback.cu."""
+    import re
+
+    src = (_build.CSRC / "traceback.cu").read_text()
+    return {name: int(v, 16) for name, v in
+            re.findall(r"constexpr uint32_t (kTab\w+) = 0x([0-9a-fA-F]+)u;", src)}
+
+
+def test_c2_walk_tables_are_the_tie_policy():
+    """Each table's nibble (mask & 7), with the diag made X where bit 3 is
+    clear, is the plain walk's op after an EQ/X, an INS and a DEL."""
+    tabs = _c2_walk_tables()
+    assert sorted(tabs) == ["kTabDel", "kTabIns", "kTabNone"]
+    for prev, name in ((align.OP_EQ, "kTabNone"), (align.OP_X, "kTabNone"),
+                       (align.OP_INS, "kTabIns"), (align.OP_DEL, "kTabDel")):
+        for mask in range(16):
+            if prev == align.OP_INS and mask & 2:
+                want = align.OP_INS
+            elif prev == align.OP_DEL and mask & 4:
+                want = align.OP_DEL
+            elif mask & 1:
+                want = align.OP_EQ if mask & 8 else align.OP_X
+            else:
+                want = align.OP_INS if mask & 2 else align.OP_DEL
+            op = (tabs[name] >> (4 * (mask & 7))) & 15
+            assert op + (op == align.OP_EQ and not mask & 8) == want, (prev, mask)
+
+
 def _c2_warp_model(ca, la, cb, lb, mismatch=1, gap=1, ends_free_b=False, tie_late=None,
                    C=None):
     """numpy model of C2's warp form (traceback_warp_kernel<C> in
     csrc/traceback.cu), a pair at a time as a warp runs it, the 32 lanes as
-    vectors: lane L holds columns L C .. L C + C - 1 and works row s - L at
+    vectors, at the pair's own C (the fewest cells a lane of _TB_WARP_CELLS
+    that hold its n + 1 columns, at most the launch's C): lane L holds
+    columns L C .. L C + C - 1 and works row s - L at
     step s from the shuffled edge D of lane L - 1 (its previous step's, and
     the one before as the diagonal), with a's code fetched a step ahead;
     lanes whose columns all lie past n only shuffle. The masks go four bits a
@@ -722,20 +754,23 @@ def _c2_warp_model(ca, la, cb, lb, mismatch=1, gap=1, ends_free_b=False, tie_lat
     B, M = ca.shape
     N = cb.shape[1]
     T = M + N
-    C = C or align._tb_warp_cells(M, N)
-    assert C and 32 * C >= N + 1
-    W = (C + 7) // 8
+    CMAX = C or align._tb_warp_cells(M, N)
+    assert CMAX and 32 * CMAX >= N + 1
     big, imax = 2**30, 2**31 - 1
     mm, gp = int(mismatch), int(gap)
     late_all = np.zeros(B, bool) if tie_late is None else np.asarray(tie_late, bool)
     lanes = np.arange(32)
-    t0 = lanes * C
-    cols = t0[:, None] + np.arange(C)[None, :]  # [32, C]
+    tabs = _c2_walk_tables()
     cost, endj = np.zeros(B, np.int32), np.zeros(B, np.int32)
     ops = np.zeros((B, T), np.uint8)
     for r in range(B):
         m, n, late = int(la[r]), int(lb[r]), bool(late_all[r])
         assert 0 <= m <= M and 0 <= n <= N
+        # the pair's cells a lane: the fewest that hold its n + 1 columns
+        C = min(CMAX, next(c for c in align._TB_WARP_CELLS if 32 * c >= n + 1))
+        W = (C + 7) // 8
+        t0 = lanes * C
+        cols = t0[:, None] + np.arange(C)[None, :]  # [32, C]
         live = t0 <= n
         plane = np.zeros((M + 1, W, 32), np.int64)
         written = np.zeros((M + 1, 32 * C), bool)
@@ -806,25 +841,19 @@ def _c2_warp_model(ca, la, cb, lb, mismatch=1, gap=1, ends_free_b=False, tie_lat
         else:
             c_r = 0 if m + n == 0 else min(big, int(dmn[n // C]))
             e = n
-        ii, jj, prev_op, buf = m, e, 0, []
+        ii, jj, tab, buf = m, e, tabs["kTabNone"], []
         for _ in range(T):
             if not (ii > 0 if ends_free_b else (ii > 0 or jj > 0)):
                 break
             L, c = divmod(jj, C)
             assert written[ii, jj], (r, ii, jj)
             mask = int(plane[ii, c // 8, L] >> (4 * (c % 8))) & 15
-            if prev_op == align.OP_INS and mask & 2:
-                op = align.OP_INS
-            elif prev_op == align.OP_DEL and mask & 4:
-                op = align.OP_DEL
-            elif mask & 1:
-                op = align.OP_EQ if mask & 8 else align.OP_X
-            else:
-                op = align.OP_INS if mask & 2 else align.OP_DEL
+            op = (tab >> (4 * (mask & 7))) & 15  # the kernel's tie-policy tables
+            op += op == align.OP_EQ and not mask & 8
+            tab = tabs[{align.OP_INS: "kTabIns", align.OP_DEL: "kTabDel"}.get(op, "kTabNone")]
             buf.append(op)
             ii -= op != align.OP_DEL
             jj -= op != align.OP_INS
-            prev_op = op
         nsteps = len(buf)
         for k in range(0, T, 16):  # the forward copy, 16 bytes a lane
             for kk in range(k, min(k + 16, T)):
