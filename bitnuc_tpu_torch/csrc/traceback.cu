@@ -19,11 +19,13 @@
 // at most m + n steps; the bytes are the codes, read once, and the ops,
 // written once.
 //
-// traceback_warp_kernel<C>, the unbanded form where N + 1 <= 1,024 and a
-// warp's plane fits in shared memory (ops.align._tb_warp_cells): a warp a
-// pair, rows pipelined down the warp, as K9's sw_kernel<C>. Lane L holds
-// columns j = L C .. L C + C - 1 (C the smallest of the instantiated cells
-// a lane with 32 C >= N + 1) and at step s works row i = s - L, so no lane
+// traceback_warp_kernel<CMAX>, the unbanded form where N + 1 <= 1,024 and
+// a warp's plane fits in shared memory (ops.align._tb_warp_cells): a warp a
+// pair, rows pipelined down the warp, as K9's sw_kernel<C>. Each pair runs
+// at its own C, the fewest cells a lane of kCells that hold its n + 1
+// columns (at most CMAX, the one for N + 1; a 150-base window takes C 5,
+// 31 lanes, where C 8 would leave 13 of 32 idle). Lane L holds columns
+// j = L C .. L C + C - 1 and at step s works row i = s - L, so no lane
 // computes a row outside [1, m] and no barrier is needed: one
 // __shfl_up_sync a step brings D[i][L C - 1] from lane L - 1 (made at step
 // s - 1), and the value it brought one step earlier is the diagonal
@@ -36,19 +38,25 @@
 // at plane[i][word][L]: a row is 32 words a word index, so lane L always
 // hits bank L and a row costs one conflict-free store a word (the block
 // form's byte plane put a warp's 32 stores on 4 banks). A warp's plane is
-// (M + 1) x 128 ceil(C / 8) bytes (20,608 at M 160, C 8, against the block
-// form's 36,225), beside an (M + N)-byte buffer of ops; the launch takes
-// the warps a block that keep the most warps resident an SM (occupancy
-// query; 11 warps, one block, at M 160, N 224), and the warps stride over
-// the pairs. The ends: without ends_free_b the cost is min(2^30, D[m][n])
-// (0 when m + n = 0), shuffled from the lane of column n; with it, each
-// lane folds row m's columns <= n at step m + L (the first minimum, or
-// with tie_late the last), and two warp reductions give the plain
-// version's running fit. One lane then walks the nibble plane from
-// (m, end_j), writing the ops end first into the warp's buffer, and the
-// warp writes the row forward, OP_STOP-padded, in 16-byte stores. The walk
-// stays serial a pair (m + end_j dependent shared loads); the other warps
-// of the SM cover it.
+// (M + 1) x 128 ceil(CMAX / 8) bytes (20,608 at M 160, N 224, against the
+// block form's 36,225), beside an (M + N)-byte buffer of ops; the launch
+// takes the warps a block that keep the most warps resident an SM
+// (occupancy query; 11 warps, one block, at M 160, N 224), and the warps
+// stride over the pairs. The ends: without ends_free_b the cost is
+// min(2^30, D[m][n]) (0 when m + n = 0), shuffled from the lane of column
+// n; with it, each lane folds row m's columns <= n at step m + L (the
+// first minimum, or with tie_late the last), and two warp reductions give
+// the plain version's running fit. One lane then walks the nibble plane
+// from (m, end_j), taking each op from a 32-bit table of the tie policy
+// (kTabNone, kTabIns, kTabDel: a nibble for each of the 8 tie masks) and
+// loading the words of the three cells it may move to before it decides,
+// and writes the ops end first into the warp's buffer; the warp then
+// writes the row forward, OP_STOP-padded, in 16-byte stores. The walk
+// stays serial a pair; the other warps of the SM cover it. What bounds it
+// now (NVIDIA H100, phase 7's chunk): integer issue, about 18 instructions
+// a cell (12 on the ALU pipe: the code compare, the substitution and match
+// selects, two mins, three tie compares and their selects, and the
+// packing), with the mask a quarter of the time and the walk a fifth.
 //
 // traceback_kernel<kBanded> (the first form, kept for the banded form,
 // N + 1 > 1,024 and planes past shared memory): one block a pair (a

@@ -695,11 +695,12 @@ def align_ops_codes_banded_torch(codes_a, lens_a, codes_b, lens_b, mismatch=1, g
                                       ends_free_b, off_lo, off_hi)
 
 
-# C2 keeps a pair's last three diagonals (a ring of 12 bytes a lane) and its
-# direction plane ((M + 1)(N + 1) bytes unbanded, (M + N) K banded) in
-# shared memory where both fit in _TB_SMEM_BYTES; past that the plane, and
-# past _TB_RING_SMEM_BYTES the ring too, go to a slice of device scratch a
-# block, for at most _TB_MAX_BLOCKS blocks within _TB_SCRATCH_BYTES.
+# C2's block form keeps a pair's last three diagonals (a ring of 12 bytes
+# a lane) and its direction plane ((M + 1)(N + 1) bytes unbanded, (M + N) K
+# banded) in shared memory where both fit in _TB_SMEM_BYTES; past that the
+# plane, and past _TB_RING_SMEM_BYTES the ring too, go to a slice of device
+# scratch a block, for at most _TB_MAX_BLOCKS blocks within
+# _TB_SCRATCH_BYTES.
 _TB_SMEM_BYTES = 96 * 1024
 _TB_RING_SMEM_BYTES = 192 * 1024
 _TB_SCRATCH_BYTES = 1 << 30
@@ -747,8 +748,10 @@ def _traceback_kernel(codes_a, lens_a, codes_b, lens_b, mismatch, gap, ends_free
                       tie_late, off_lo: int = 0, K: int = 0):
     """C2 on the card (``csrc/traceback.cu``): contiguous int32 CUDA codes
     [B, M] and [B, N] (anything past each length) with int32 lengths [B] in
-    [0, M] and [0, N]; K = 0 unbanded, else 2 <= K < N + 1 band lanes from
-    off_lo. Returns (cost [B], end_j [B], ops [B, M + N] uint8)."""
+    [0, M] and [0, N]; K = 0 unbanded (the warp form where _tb_warp_cells
+    allows it, else the block form), else 2 <= K < N + 1 band lanes from
+    off_lo (the block form). Returns (cost [B], end_j [B], ops [B, M + N]
+    uint8)."""
     kernels.require(codes_a, "traceback codes_a", torch.int32, 2)
     kernels.require(lens_a, "traceback lens_a", torch.int32, 1)
     kernels.require(codes_b, "traceback codes_b", torch.int32, 2)

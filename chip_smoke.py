@@ -91,15 +91,16 @@ Phases, each of which must pass:
    batch with ops.align.sw_score (K9). K8 and K9 against their plain
    versions at the first batch's shapes and at edge shapes (for K9 also
    tie-heavy rows and one cell a lane); C2 against its plain version at
-   traceback_cigars' first chunk (timed beside one plain run) and at edge
-   shapes: m or n of 0, poly-A and short repeats, planted indel drift past
-   a narrow band (walks out of the band), ends_free_b with tie_late,
-   int32-extreme costs, N + 1 = 1,025 and a band of K 1,252 (a 10-kb
-   --long --sam read's) on 4 pairs of 300 x 1,300 codes; C2 also timed
-   with its plane in device scratch; one batch against the plain
-   backend; checks against the reads' true starts and strands, Hamming
-   distances and planted exact reads, on the CIGARs, and against a host
-   full-DP fit of 256 reads.
+   traceback_cigars' first chunk (the warp form, timed beside one plain
+   run and beside the block form on the same chunk) and at edge shapes: m
+   or n of 0, poly-A and short repeats, the warp form's full rows at C 2
+   and 32, two mask words a lane (C 12) and a plane at the edge of shared
+   memory, planted indel drift past a narrow band (walks out of the band),
+   ends_free_b with tie_late, int32-extreme costs, N + 1 = 1,025 and a band
+   of K 1,252 (a 10-kb --long --sam read's) on 4 pairs of 300 x 1,300
+   codes; one batch against the plain backend; checks against the reads'
+   true starts and strands, Hamming distances and planted exact reads, on
+   the CIGARs, and against a host full-DP fit of 256 reads.
 8. Many-query search and ORF calling: PackedDB.search_batch of 256 queries
    (tc_search) and of 8, distances_batch (K6 tc_scan at 256, K5 at 8) with
    topk_batch_dispatch, against phase 2's database, PackedDB.from_fastq of a
@@ -1172,10 +1173,11 @@ def traceback_block(args, torch, dev, timer, results, index, packed, res, compar
     the first chunk of traceback_cigars (the operands _traceback_core hands
     align_ops_codes, captured as it runs), timed beside the plain version
     (one run, the first chunk's plane being tens of GB) and beside the block
-    form on the same chunk; then at edge and tie-heavy shapes, each cells-a-
-    lane case of the warp form at its widest row, with walks out of the
-    band, tie_late, int32-extreme costs and a banded shape of K 1,252 (the
-    band of a 10-kb --long --sam read) on a few shorter pairs."""
+    form on the same chunk; then at edge and tie-heavy shapes (the warp
+    form's full rows at C 2 and 32, two mask words a lane at C 12, a plane
+    at the edge of shared memory), with walks out of the band, tie_late,
+    int32-extreme costs and a banded shape of K 1,252 (the band of a 10-kb
+    --long --sam read) on a few shorter pairs."""
     from bitnuc_tpu_torch.ops import align
 
     ph = results["phases"]
@@ -1197,8 +1199,6 @@ def traceback_block(args, torch, dev, timer, results, index, packed, res, compar
     del got, want
     torch.cuda.empty_cache()
     cells, nbytes, ops_ms = tb_bound(la, lb, M, N)
-    print_passes(torch, results, "traceback", label,
-                 lambda: align.align_ops_codes_kernel(ca, la, cb, lb, 1, 1, False))
     row = timed("traceback", label, lambda: align.align_ops_codes_kernel(ca, la, cb, lb, 1, 1,
                                                                         False),
                 plain_ms, reps=5, main=True, nbytes=nbytes, ops_ms=ops_ms)
