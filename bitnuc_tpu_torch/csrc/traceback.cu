@@ -303,7 +303,10 @@ __global__ void __launch_bounds__(kMaxThreads) traceback_kernel(const Args p) {
 }
 
 constexpr unsigned kFull = 0xFFFFFFFFu;
-constexpr int kWarpMaxWarps = 16;  // warps a block of traceback_warp_kernel
+// Warps a block of traceback_warp_kernel<CMAX>: 16, or 8 from CMAX 24 on,
+// whose planes hold few warps an SM anyway, so that the widest rows get
+// up to 255 registers a thread instead of 128.
+__host__ __device__ constexpr int warp_max_warps(int cmax) { return cmax >= 24 ? 8 : 16; }
 constexpr int kWarpMaxSmem = 227 * 1024;
 
 struct WarpArgs {
@@ -523,7 +526,8 @@ __device__ __forceinline__ void tb_pair_fit(const WarpArgs& p, uint32_t* plane, 
 // The warps of the grid stride over the pairs; each pair runs at the fewest
 // cells a lane that hold its n + 1 columns (32 C >= N + 1 for the widest).
 template <int CMAX>
-__global__ void __launch_bounds__(32 * kWarpMaxWarps) traceback_warp_kernel(const WarpArgs p) {
+__global__ void __launch_bounds__(32 * warp_max_warps(CMAX))
+    traceback_warp_kernel(const WarpArgs p) {
   constexpr int kRowMax = 32 * ((CMAX + 7) / 8);
   extern __shared__ __align__(16) uint8_t smem[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -561,7 +565,7 @@ int launch_warp(WarpArgs a, cudaStream_t s) {
                                        kWarpMaxSmem);
   if (e != cudaSuccess) return (int)e;
   int best = 0, wpb = 1, per_sm = 1;
-  for (int w = 1; w <= kWarpMaxWarps && (int64_t)w * a.stride <= kWarpMaxSmem; ++w) {
+  for (int w = 1; w <= warp_max_warps(C) && (int64_t)w * a.stride <= kWarpMaxSmem; ++w) {
     int nb = 0;
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, kern, 32 * w, (size_t)w * a.stride);
     if (e != cudaSuccess) return (int)e;
