@@ -53,10 +53,11 @@
 // and writes the ops end first into the warp's buffer; the warp then
 // writes the row forward, OP_STOP-padded, in 16-byte stores. The walk
 // stays serial a pair; the other warps of the SM cover it. What bounds it
-// now (NVIDIA H100, phase 7's chunk): integer issue, about 18 instructions
-// a cell (12 on the ALU pipe: the code compare, the substitution and match
-// selects, two mins, three tie compares and their selects, and the
-// packing), with the mask a quarter of the time and the walk a fifth.
+// now (NVIDIA H100, phase 7's chunk): integer instruction throughput,
+// about 18 instructions a cell (12 on the ALU pipe: the code compare, the
+// substitution and match selects, two mins, three tie compares and their
+// selects, and the packing), with the mask a quarter of the time and the
+// walk a fifth.
 //
 // traceback_kernel<kBanded> (the first form, kept for the banded form,
 // N + 1 > 1,024 and planes past shared memory): one block a pair (a
